@@ -1,0 +1,168 @@
+"""Particle Swarm Optimization (counterpart of
+``evox_tpu/algorithms/so/pso_variants/pso.py``).
+
+The move — personal-best fold, draws, velocity/position update, clamps —
+goes through :func:`evox_tpu_torch.ops.pso_step.fused_pso_move` on every
+device: the hand-written CUDA kernel on the card, its plain PyTorch version
+on the CPU.  The global-best fold stays outside the kernel (it reads only
+the (N,) fitness and one row of the population).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .... import resolve_device
+from ....core import Algorithm, EvalFn, Parameter, State
+from ....ops.pso_step import fused_pso_move
+from ....utils import rng
+from ...validation import validate_bounds
+from .utils import min_by
+
+__all__ = ["PSO", "PallasPSO"]
+
+
+class PSO(Algorithm):
+    """Canonical inertia/cognitive/social PSO."""
+
+    # The population-sized buffers that may be carried in a narrow storage
+    # dtype between generations (the JAX package's precision map; the
+    # precision plane itself is not ported yet).
+    storage_leaves = (
+        "pop",
+        "velocity",
+        "local_best_location",
+        "local_best_fit",
+        "fit",
+    )
+
+    def __init__(
+        self,
+        pop_size: int,
+        lb,
+        ub,
+        w: float = 0.6,
+        phi_p: float = 2.5,
+        phi_g: float = 0.8,
+        dtype: torch.dtype = torch.float32,
+        device: str | torch.device | None = None,
+    ):
+        """
+        :param pop_size: population size.
+        :param lb: 1-D lower bounds of the search space.
+        :param ub: 1-D upper bounds of the search space.
+        :param w: inertia weight.
+        :param phi_p: cognitive (personal-best) weight.
+        :param phi_g: social (global-best) weight.
+        :param dtype: float32 or bfloat16 on the card (any float on the CPU).
+        :param device: ``None`` means the CUDA card; pass ``"cpu"`` for the
+            CPU.
+        """
+        self.device = resolve_device(device)
+        lb = torch.as_tensor(lb, dtype=dtype, device=self.device)
+        ub = torch.as_tensor(ub, dtype=dtype, device=self.device)
+        validate_bounds(lb, ub)
+        self.pop_size = pop_size
+        self.dim = lb.shape[0]
+        self.lb = lb
+        self.ub = ub
+        self.w = w
+        self.phi_p = phi_p
+        self.phi_g = phi_g
+        self.dtype = dtype
+
+    def setup(self, key: torch.Tensor) -> State:
+        key, (pop_seed, v_seed) = rng.split(key, 2)
+        shape = (self.pop_size, self.dim)
+        length = self.ub - self.lb
+        pop = rng.uniform(pop_seed, shape, self.dtype, self.device) * length + self.lb
+        velocity = (
+            rng.uniform(v_seed, shape, self.dtype, self.device) * 2.0 - 1.0
+        ) * length
+
+        def inf():
+            return torch.full(
+                (self.pop_size,), float("inf"), dtype=self.dtype, device=self.device
+            )
+
+        def param(v):
+            return Parameter(v, dtype=self.dtype, device=self.device)
+
+        return State(
+            key=key,
+            w=param(self.w),
+            phi_p=param(self.phi_p),
+            phi_g=param(self.phi_g),
+            pop=pop,
+            velocity=velocity,
+            fit=inf(),
+            local_best_location=pop.clone(),
+            local_best_fit=inf(),
+            global_best_location=pop[0].clone(),
+            global_best_fit=torch.tensor(
+                float("inf"), dtype=self.dtype, device=self.device
+            ),
+        )
+
+    def _draws(self, state: State):
+        """The move's random draws: ``(state, None)`` lets the kernel draw
+        them itself (``rand="hw"``).  A subclass may return ``(state, (rp,
+        rg))`` to supply them (``rand="input"``) — the parity tests inject
+        the JAX package's draws this way."""
+        return state, None
+
+    def step(self, state: State, evaluate: EvalFn) -> State:
+        # Fold the previous generation's fitness into the global best, then
+        # move the swarm (personal-best fold inside the kernel) and
+        # evaluate at the new positions.
+        global_best_location, global_best_fit = min_by(
+            [state.global_best_location[None, :], state.pop],
+            [state.global_best_fit[None], state.fit],
+        )
+        key, (seed,) = rng.split(state.key)
+        state, draws = self._draws(state)
+        pop, velocity, local_best_location, local_best_fit = fused_pso_move(
+            state.pop,
+            state.velocity,
+            state.local_best_location,
+            state.fit,
+            state.local_best_fit,
+            global_best_location,
+            self.lb,
+            self.ub,
+            state.w,
+            state.phi_p,
+            state.phi_g,
+            seed=seed,
+            rand_draws=draws,
+            rand="hw" if draws is None else "input",
+        )
+        fit = evaluate(pop)
+        return state.replace(
+            key=key,
+            pop=pop,
+            velocity=velocity,
+            fit=fit,
+            local_best_location=local_best_location,
+            local_best_fit=local_best_fit,
+            global_best_location=global_best_location,
+            global_best_fit=global_best_fit,
+        )
+
+    def init_step(self, state: State, evaluate: EvalFn) -> State:
+        # First generation: evaluate the random swarm only, and set the
+        # global-best location too (so a fitness tie in the next step cannot
+        # resolve to a stale position).
+        fit = evaluate(state.pop)
+        best = torch.argmin(fit).reshape(1)
+        return state.replace(
+            fit=fit,
+            local_best_fit=fit,
+            global_best_fit=fit.index_select(0, best)[0],
+            global_best_location=state.pop.index_select(0, best)[0],
+        )
+
+
+# The JAX package needs a separate class to put its TPU kernel behind a
+# gate; here PSO always runs the kernel, so the name is an alias.
+PallasPSO = PSO

@@ -1,0 +1,38 @@
+"""Numerical benchmark problems (counterpart of
+``evox_tpu/problems/numerical``; the basic suite only so far)."""
+
+__all__ = [
+    "ShiftAffineNumericalProblem",
+    "Ackley",
+    "Griewank",
+    "Rastrigin",
+    "Rosenbrock",
+    "Schwefel",
+    "Sphere",
+    "Ellipsoid",
+    "ackley_func",
+    "griewank_func",
+    "rastrigin_func",
+    "rosenbrock_func",
+    "schwefel_func",
+    "sphere_func",
+    "ellipsoid_func",
+]
+
+from .basic import (
+    Ackley,
+    Ellipsoid,
+    Griewank,
+    Rastrigin,
+    Rosenbrock,
+    Schwefel,
+    ShiftAffineNumericalProblem,
+    Sphere,
+    ackley_func,
+    ellipsoid_func,
+    griewank_func,
+    rastrigin_func,
+    rosenbrock_func,
+    schwefel_func,
+    sphere_func,
+)

@@ -1,0 +1,6 @@
+"""Workflow layer (counterpart of ``evox_tpu/workflows``)."""
+
+__all__ = ["StdWorkflow", "EvalMonitor"]
+
+from .eval_monitor import EvalMonitor
+from .std_workflow import StdWorkflow

@@ -1,0 +1,225 @@
+"""Evaluation monitor (counterpart of ``evox_tpu/workflows/eval_monitor.py``,
+single-objective part).
+
+Tracks the latest solution/fitness and a running top-k as State, and keeps
+the full fitness/solution history.  The JAX package streams history to the
+host with ``io_callback``; here the history is a list of detached tensors
+left on the device, moved to the CPU only inside the accessors — a copy in
+every ``pre_tell`` would wait for the card once per generation.
+
+Not ported yet: multi-objective fronts (``get_pf*``), ``plot``, auxiliary
+history, and the fused-segment ``ingest_sinks`` path.
+"""
+
+from __future__ import annotations
+
+from enum import IntEnum
+from typing import Any
+
+import torch
+
+from .. import resolve_device
+from ..core import Monitor, State
+
+__all__ = ["EvalMonitor"]
+
+
+class HistoryType(IntEnum):
+    FITNESS = 0
+    SOLUTION = 1
+
+
+class EvalMonitor(Monitor):
+    """Monitor hooked around evaluation; records offspring, fitness, top-k
+    elites and the full history.
+
+    One ``EvalMonitor`` instance serves ONE workflow: ``StdWorkflow``
+    writes its optimization direction and device onto the instance, and the
+    history lives on the instance."""
+
+    def __init__(
+        self,
+        multi_obj: bool = False,
+        full_fit_history: bool = True,
+        full_sol_history: bool = False,
+        topk: int = 1,
+    ):
+        """
+        :param multi_obj: multi-objective monitoring is not ported yet;
+            ``True`` raises :class:`NotImplementedError`.
+        :param full_fit_history: keep every generation's fitness.
+        :param full_sol_history: keep every generation's solutions.
+        :param topk: number of elite solutions tracked.
+        """
+        if multi_obj:
+            raise NotImplementedError(
+                "EvalMonitor(multi_obj=True) is not yet ported"
+            )
+        self.multi_obj = multi_obj
+        self.full_fit_history = full_fit_history
+        self.full_sol_history = full_sol_history
+        self.topk = topk
+        self.opt_direction = 1
+        self.device: torch.device | None = None
+        self.clear_history()
+
+    # -- config ------------------------------------------------------------
+    def set_config(self, **config: Any) -> "EvalMonitor":
+        for k in ("full_fit_history", "full_sol_history", "topk", "opt_direction", "device"):
+            if k in config:
+                setattr(self, k, config[k])
+        return self
+
+    # -- state -------------------------------------------------------------
+    def setup(self, key: torch.Tensor) -> State:
+        del key
+        device = resolve_device(self.device)
+        empty = torch.empty((0,), device=device)
+
+        def counter(v=0):
+            return torch.tensor(v, dtype=torch.int32, device=device)
+
+        return State(
+            latest_solution=empty,
+            latest_fitness=empty,
+            topk_solutions=empty,
+            topk_fitness=empty,
+            generation=counter(),
+            instance_id=counter(-1),
+            # Cumulative count of individuals whose fitness came back
+            # non-finite and was quarantined by the workflow.
+            num_nonfinite=counter(),
+            num_shard_quarantines=counter(),
+            num_restarts=counter(),
+            num_preemptions=counter(),
+        )
+
+    # -- hooks --------------------------------------------------------------
+    def post_ask(self, state: State, population: torch.Tensor) -> State:
+        return state.replace(latest_solution=population)
+
+    def pre_tell(self, state: State, fitness: torch.Tensor) -> State:
+        state = state.replace(
+            latest_fitness=fitness, generation=state.generation + 1
+        )
+        if fitness.ndim != 1:
+            raise ValueError(
+                f"EvalMonitor tracks single-objective (N,) fitness; got shape "
+                f"{tuple(fitness.shape)} (multi-objective is not yet ported)"
+            )
+        if fitness.shape[0] < self.topk:
+            raise ValueError(
+                f"EvalMonitor(topk={self.topk}) needs at least topk fitness "
+                f"values per generation, got a population of {fitness.shape[0]}"
+            )
+        k = self.topk
+        if state.topk_solutions.ndim <= 1:
+            # First generation: the candidates are the population alone.
+            order = torch.argsort(fitness, stable=True)[:k]
+            top_sol = state.latest_solution.index_select(0, order)
+            top_fit = fitness.index_select(0, order)
+        else:
+            # Candidates are [previous top-k; population].  A stable sort
+            # keeps the lower index on ties, like jax.lax.top_k (torch.topk
+            # promises no tie order on CUDA).  The (N, D) candidate
+            # solutions are never concatenated: only the k chosen rows are
+            # gathered, from whichever side holds them.
+            cand_fit = torch.cat([state.topk_fitness, fitness])
+            order = torch.argsort(cand_fit, stable=True)[:k]
+            n_old = state.topk_fitness.shape[0]
+            n_new = fitness.shape[0]
+            old = state.topk_solutions.index_select(0, order.clamp(max=n_old - 1))
+            new = state.latest_solution.index_select(
+                0, (order - n_old).clamp(0, n_new - 1)
+            )
+            top_sol = torch.where((order < n_old)[:, None], old, new)
+            top_fit = cand_fit.index_select(0, order)
+        state = state.replace(topk_fitness=top_fit, topk_solutions=top_sol)
+        if self.full_sol_history:
+            self._history[HistoryType.SOLUTION].append(state.latest_solution.detach())
+        if self.full_fit_history:
+            self._history[HistoryType.FITNESS].append(fitness.detach())
+        return state
+
+    def record_nonfinite(self, state: State, mask: torch.Tensor) -> State:
+        """Count quarantined individuals (non-finite fitness rows replaced
+        by the workflow's worst-case penalty) into ``num_nonfinite``."""
+        if "num_nonfinite" not in state:
+            return state
+        return state.replace(
+            num_nonfinite=state.num_nonfinite + mask.sum(dtype=torch.int32)
+        )
+
+    # -- history accessors (host side) --------------------------------------
+    def clear_history(self) -> None:
+        """Drop this monitor's history (state-side top-k and latest buffers
+        are untouched)."""
+        self._history: dict[int, list[torch.Tensor]] = {t: [] for t in HistoryType}
+
+    @property
+    def fitness_history(self) -> list[torch.Tensor]:
+        """Per-generation fitness, as CPU tensors (``fit_history`` is the
+        alias)."""
+        return [f.cpu() for f in self._history[HistoryType.FITNESS]]
+
+    fit_history = fitness_history
+
+    @property
+    def solution_history(self) -> list[torch.Tensor]:
+        """Per-generation solutions, as CPU tensors (requires
+        ``full_sol_history``; ``sol_history`` is the alias)."""
+        return [s.cpu() for s in self._history[HistoryType.SOLUTION]]
+
+    sol_history = solution_history
+
+    def get_fitness_history(self) -> list[torch.Tensor]:
+        """``fitness_history`` with the original optimization sign
+        restored."""
+        return [self.opt_direction * f for f in self.fitness_history]
+
+    def get_solution_history(self) -> list[torch.Tensor]:
+        """``solution_history`` (CPU tensors)."""
+        return self.solution_history
+
+    # -- result accessors ----------------------------------------------------
+    def get_latest_fitness(self, state: State) -> torch.Tensor:
+        """Fitness of the latest generation (original sign restored)."""
+        return self.opt_direction * state.latest_fitness
+
+    def get_latest_solution(self, state: State) -> torch.Tensor:
+        """Population of the latest generation (pre-transform solutions)."""
+        return state.latest_solution
+
+    def get_num_nonfinite(self, state: State) -> torch.Tensor:
+        """Cumulative count of individuals quarantined for non-finite
+        fitness."""
+        return state.num_nonfinite
+
+    def get_num_shard_quarantines(self, state: State) -> torch.Tensor:
+        """Cumulative count of shard-quarantine events (0: shard-granular
+        quarantine is not ported yet)."""
+        return state.num_shard_quarantines
+
+    def get_num_restarts(self, state: State) -> torch.Tensor:
+        """Cumulative count of automatic restarts."""
+        return state.num_restarts
+
+    def get_num_preemptions(self, state: State) -> torch.Tensor:
+        """Cumulative count of graceful preemptions."""
+        return state.num_preemptions
+
+    def get_topk_fitness(self, state: State) -> torch.Tensor:
+        """Best ``topk`` fitness values so far (original sign restored)."""
+        return self.opt_direction * state.topk_fitness
+
+    def get_topk_solutions(self, state: State) -> torch.Tensor:
+        """Solutions achieving the best ``topk`` fitness values so far."""
+        return state.topk_solutions
+
+    def get_best_solution(self, state: State) -> torch.Tensor:
+        """The single best solution so far."""
+        return state.topk_solutions[0]
+
+    def get_best_fitness(self, state: State) -> torch.Tensor:
+        """The single best fitness so far (original sign restored)."""
+        return self.opt_direction * state.topk_fitness[0]

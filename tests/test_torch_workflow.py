@@ -1,0 +1,170 @@
+"""The port's StdWorkflow and EvalMonitor (``evox_tpu_torch.workflows``)
+against the JAX package's, on the CPU."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from evox_tpu.algorithms import PSO as JPSO  # noqa: E402
+from evox_tpu.problems.numerical import Sphere as JSphere  # noqa: E402
+from evox_tpu.workflows import EvalMonitor as JEvalMonitor  # noqa: E402
+from evox_tpu.workflows import StdWorkflow as JWorkflow  # noqa: E402
+from evox_tpu_torch.algorithms import PSO  # noqa: E402
+from evox_tpu_torch.core import Algorithm, Problem, State  # noqa: E402
+from evox_tpu_torch.problems.numerical import Ackley, Sphere  # noqa: E402
+from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow  # noqa: E402
+
+
+def _pso(n=100, d=10, bound=32.0, **kw):
+    return PSO(n, -bound * torch.ones(d), bound * torch.ones(d), device="cpu", **kw)
+
+
+def test_quickstart_improves_more_than_tenfold():
+    mon = EvalMonitor(topk=3)
+    wf = StdWorkflow(_pso(), Ackley(), monitor=mon)
+    state = wf.init_step(wf.init(42))
+    best0 = float(mon.get_best_fitness(state.monitor))
+    for _ in range(50):
+        state = wf.step(state)
+    best = float(mon.get_best_fitness(state.monitor))
+    assert best * 10 < best0
+    top = mon.get_topk_fitness(state.monitor)
+    assert top.shape == (3,) and bool((top[:-1] <= top[1:]).all())
+    assert mon.get_topk_solutions(state.monitor).shape == (3, 10)
+    assert float(Ackley().evaluate(None, mon.get_best_solution(state.monitor)[None])[0][0]) == pytest.approx(best, rel=1e-6)
+    hist = mon.get_fitness_history()
+    assert len(hist) == 51 and all(h.device.type == "cpu" and h.shape == (100,) for h in hist)
+    assert int(state.monitor.generation) == 51
+    assert mon.get_latest_fitness(state.monitor).shape == (100,)
+
+
+def test_topk_and_tie_order_match_jax():
+    """Ties must resolve to the lower candidate index, as ``jax.lax.top_k``
+    does: previous elites first, then the population in order."""
+    fits = [
+        [3.0, 1.0, 1.0, 2.0, 5.0, 1.0],
+        [1.0, 0.5, 1.0, 3.0, 1.0, 0.5],
+        [0.5, 7.0, 0.5, 0.5, 9.0, 0.25],
+    ]
+    k = 3
+    tmon = EvalMonitor(topk=k, full_fit_history=False)
+    tmon.set_config(device="cpu")
+    jmon = JEvalMonitor(topk=k, full_fit_history=False)
+    ts, js = tmon.setup(None), jmon.setup(jax.random.key(0))
+    for g, fit in enumerate(fits):
+        sol = np.arange(len(fit) * 2, dtype=np.float32).reshape(len(fit), 2) + 100 * g
+        ts = tmon.pre_tell(tmon.post_ask(ts, torch.from_numpy(sol)), torch.tensor(fit))
+        js = jmon.pre_tell(jmon.post_ask(js, jnp.asarray(sol)), jnp.asarray(fit, jnp.float32))
+        np.testing.assert_array_equal(ts.topk_fitness.numpy(), np.asarray(js.topk_fitness))
+        np.testing.assert_array_equal(ts.topk_solutions.numpy(), np.asarray(js.topk_solutions))
+    assert int(ts.generation) == int(js.generation) == 3
+
+
+@pytest.mark.parametrize("direction", ["min", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "int32"])
+def test_quarantine_matches_jax(direction, dtype):
+    if dtype == "int32":
+        fit = np.array([3, -1, 7, 0], np.int32)
+    else:
+        fit = np.array([1.5, np.nan, -np.inf, 2.0, np.inf, -3.0], dtype)
+    jwf = JWorkflow(
+        JPSO(8, -jnp.ones(2), jnp.ones(2)), JSphere(), monitor=JEvalMonitor(),
+        opt_direction=direction,
+    )
+    twf = StdWorkflow(_pso(8, 2, 1.0), Sphere(), monitor=EvalMonitor(), opt_direction=direction)
+    jfit, jmon = jwf._quarantine(jnp.asarray(fit), jwf.monitor.setup(jax.random.key(0)))
+    tfit, tmon = twf._quarantine(torch.from_numpy(fit), twf.monitor.setup(None))
+    assert str(tfit.dtype).split(".")[-1] == dtype
+    np.testing.assert_array_equal(tfit.numpy(), np.asarray(jfit))
+    assert int(tmon.num_nonfinite) == int(jmon.num_nonfinite)
+    if dtype == "float16":  # the penalty is clamped to the dtype's range
+        assert np.isfinite(tfit.numpy()).all()
+    off = StdWorkflow(_pso(8, 2, 1.0), Sphere(), quarantine_nonfinite=False)
+    out, _ = off._quarantine(torch.from_numpy(fit), State())
+    np.testing.assert_array_equal(out.numpy(), fit)
+
+
+class NegSphere(Problem):
+    def evaluate(self, state, pop):
+        return -(pop**2).sum(dim=1), state
+
+
+def test_opt_direction_max():
+    mon = EvalMonitor()
+    wf = StdWorkflow(_pso(50, 5, 5.0), NegSphere(), monitor=mon, opt_direction="max")
+    state = wf.init_step(wf.init(1))
+    best0 = float(mon.get_best_fitness(state.monitor))
+    state = wf.run(state, 30, init=False)
+    best = float(mon.get_best_fitness(state.monitor))
+    assert best0 < best <= 0.0  # maximizing, original sign restored
+    assert float(state.monitor.topk_fitness[0]) == -best  # minimizing frame inside
+    assert all(bool((h <= 0).all()) for h in mon.get_fitness_history())
+    with pytest.raises(ValueError):
+        StdWorkflow(_pso(), Sphere(), opt_direction="up")
+
+
+class _Calls(Algorithm):
+    def __init__(self, calls, limit=None):
+        self.calls = calls
+        if limit is not None:
+            self.max_evaluations_per_step = limit
+
+    def step(self, state, evaluate):
+        for _ in range(self.calls):
+            evaluate(torch.zeros(4, 2))
+        return state
+
+
+def test_evaluation_count_contract():
+    with pytest.raises(RuntimeError, match="never called"):
+        StdWorkflow(_Calls(0), Sphere()).step(State(algorithm=State(), problem=State(), monitor=State()))
+    wf = StdWorkflow(_Calls(2), Sphere())
+    with pytest.raises(RuntimeError, match="more than its declared limit of 1"):
+        wf.step(wf.init(0))
+    wf = StdWorkflow(_Calls(2, limit=2), Sphere())
+    wf.step(wf.init(0))
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"enable_distributed": True},
+        {"mesh": object()},
+        {"quarantine_granularity": "shard"},
+        {"precision": object()},
+        {"key_impl": "rbg"},
+    ],
+)
+def test_unported_options_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        StdWorkflow(_pso(), Sphere(), **kwargs)
+
+
+def test_unported_monitor_modes_raise():
+    with pytest.raises(NotImplementedError):
+        EvalMonitor(multi_obj=True)
+    with pytest.raises(ValueError):
+        StdWorkflow(_pso(), Sphere(), quarantine_granularity="row")
+
+
+def test_run_equals_manual_loop_and_transforms_apply():
+    mon = EvalMonitor(full_sol_history=True)
+    wf = StdWorkflow(
+        _pso(20, 3, 2.0), Sphere(), monitor=mon,
+        solution_transform=lambda x: x + 1.0, fitness_transform=lambda f: 2.0 * f,
+    )
+    a = wf.run(wf.init(9), 6)
+    mon.clear_history()
+    b = wf.init_step(wf.init(9))
+    for _ in range(5):
+        b = wf.step(b)
+    for k in a.algorithm:
+        assert torch.equal(a.algorithm[k], b.algorithm[k]), k
+    sol, fit = mon.solution_history[-1], mon.fitness_history[-1]
+    assert len(mon.solution_history) == 6
+    # The monitor sees pre-transform solutions and transformed fitness.
+    torch.testing.assert_close(fit, 2.0 * ((sol + 1.0) ** 2).sum(dim=1))
