@@ -6,10 +6,12 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds every kernel of the port from ``evox_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card, drives the main path
-(PSO on Sphere at pop=100000, dim=1000, through ``StdWorkflow``; then the
-README quick start, PSO on Ackley with an ``EvalMonitor``), checks that the
-path went through the kernels, and times them.  It prints one JSON line per
+kernel against its plain PyTorch version on the card, drives the main paths
+(PSO on Sphere at pop=100000, dim=1000, through ``StdWorkflow``, then the
+README quick start, PSO on Ackley with an ``EvalMonitor``; NSGA-II on DTLZ2
+at pop=10000, d=12, m=3, then the multi-objective example with an
+``EvalMonitor(multi_obj=True)``), checks that each path went through its
+kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -207,8 +209,9 @@ def phase_draws(device) -> dict:
     return out
 
 
-def profile_steps(wf, state, steps):
-    """Device time by kernel over ``steps`` generations (torch.profiler)."""
+def profile_steps(step, state, steps):
+    """Device time by kernel over ``steps`` generations of ``step``
+    (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,7 +219,7 @@ def profile_steps(wf, state, steps):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            state = wf.step(state)
+            state = step(state)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -269,7 +272,7 @@ def phase_main_path(device) -> dict:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / MAIN_STEPS
     ms = start.elapsed_time(end) / MAIN_STEPS
-    state, prof = profile_steps(wf, state, PROFILE_STEPS)
+    state, prof = profile_steps(wf.step, state, PROFILE_STEPS)
     launches = fused_pso_move.launches
     steps = MAIN_WARMUP + MAIN_STEPS + PROFILE_STEPS
     algo = state.algorithm
@@ -392,6 +395,535 @@ def phase_timing(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 2: NSGA-II on DTLZ2 and its kernels (dominance, lex_rank, crowding,
+# the capability probe).
+# ---------------------------------------------------------------------------
+
+NSGA2_POP, NSGA2_DIM, NSGA2_OBJ = 10_000, 12, 3  # bench.py's nsga2_dtlz2
+MO_SIZES = [1, 2, 33, 1000, 20_000]
+MO_EXAMPLE_GENS = 30
+# The crowding kernel's (costs, mask) at init_step and at the last timed
+# step of the NSGA-II headline, set by that phase and timed by timing_mo.
+PATH_INPUTS: dict = {}
+# bench.py's large shapes: packed dominance at 100k rows, crowding_50k and
+# topk_50k at 50k.
+BIG_DOMINANCE, BIG_CROWDING = 100_000, 50_000
+# Lane operations a second: 132 SMs x 128 lanes x ~1.98 GHz (compare,
+# select and logic operations each count one).
+PEAK_LANE_OPS = 132 * 128 * 1.98e9
+
+
+def mo_costs(n, m, device, seed, specials=True):
+    """Quantized objectives (heavy ties) with ±inf entries and NaN rows."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    f = torch.round(torch.rand((n, m), generator=g, device=device) * 16) / 16
+    if specials and n > 8:
+        f[3, 0] = float("inf")
+        f[5, m - 1] = float("-inf")
+        f[7] = float("nan")
+        f[n - 2, 0] = float("nan")
+    return f.contiguous()
+
+
+def drift_inputs(n, m, device):
+    """bench.py's crowding_50k / topk_50k recipe (normal noise plus a
+    linear drift, quantized to 1/64), rebuilt in PyTorch."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    f = torch.randn((n, m), generator=g, device=device)
+    f = f + torch.linspace(0.0, 3.0, n, device=device)[:, None]
+    return (torch.round(f * 64) / 64).contiguous()
+
+
+def exact(got, want, what) -> float:
+    """Raise unless the values are equal (floats bit for bit, signed zeros
+    included, NaN at the same places); return the largest absolute
+    difference, NaN places left out (equal infinities differ by 0)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{list(got.shape)} vs {want.dtype}{list(want.shape)}")
+    if got.is_floating_point():
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError(f"{what}: NaN positions differ")
+        ok = ~torch.isnan(want)
+        g, w = got[ok].double(), want[ok].double()
+        diff = torch.where(g == w, 0.0, (g - w).abs())
+    else:
+        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if err != 0.0 or (got.is_floating_point() and not torch.equal(
+            torch.signbit(got[~torch.isnan(got)]), torch.signbit(want[~torch.isnan(want)]))):
+        raise AssertionError(f"{what}: values differ (max abs difference {err})")
+    return err
+
+
+def phase_compare_mo(device) -> dict:
+    """Each multi-objective kernel against its plain version on the card,
+    exactly: equal ints and bits, equal floats, NaN at the same places.
+    Sizes 1, 2, 33, 1000 and 20000 (none a multiple of the 256 tile but
+    the first), m in {2, 3}, ties, ±inf, NaN rows, masks with no, one,
+    some and all rows valid; lex_rank in int32 and float32 with k in
+    {1, n/2, n}.  Then the capability probe."""
+    import torch
+    from evox_tpu_torch.ops import crowding, dominance, probe, topk
+
+    # The largest absolute difference from the plain version, by wrapper
+    # (crowding_distance_kernel under crowding_neighbors, masked_top_k
+    # under lex_rank: each runs that kernel).
+    errs = {k: 0.0 for k in ("dominance_packed", "dominance_matrix", "peel_count",
+                             "crowding_neighbors", "lex_rank", "scale_by_two")}
+    checks = 0
+
+    def check(kernel, got, want, what):
+        nonlocal checks
+        errs[kernel] = max(errs[kernel], exact(got, want, what))
+        checks += 1
+
+    for n in MO_SIZES:
+        for m in (2, 3):
+            f = mo_costs(n, m, device, seed=n * 10 + m)
+            words = dominance.dominance_packed(f)
+            check("dominance_packed", words, dominance.dominance_packed_plain(f), f"dominance_packed n={n} m={m}")
+            check("dominance_matrix", dominance.dominance_matrix(f), dominance.dominance_matrix_plain(f),
+                  f"dominance_matrix n={n}")
+            check("dominance_matrix", dominance.dominance_matrix(f.double()),
+                  dominance.dominance_matrix_plain(f.double()), f"dominance_matrix f64 n={n}")
+            front = torch.rand(n, device=device) > 0.5
+            check("peel_count", dominance.peel_count(words), dominance.peel_count_plain(words),
+                  f"peel_count n={n}")
+            check("peel_count", dominance.peel_count(words, front), dominance.peel_count_plain(words, front),
+                  f"peel_count front n={n}")
+            masks = {
+                "none": torch.zeros(n, dtype=torch.bool, device=device),
+                "one": torch.arange(n, device=device) == n // 2,
+                "some": torch.rand(n, device=device) > 0.3,
+                "all": torch.ones(n, dtype=torch.bool, device=device),
+            }
+            for kind, mask in masks.items():
+                for g, w in zip(crowding.crowding_neighbors(f, mask), crowding.crowding_neighbors_plain(f, mask)):
+                    check("crowding_neighbors", g, w, f"crowding_neighbors n={n} m={m} mask={kind}")
+                check("crowding_neighbors", crowding.crowding_distance_kernel(f, mask),
+                      crowding.crowding_distance_plain(f, mask), f"crowding_distance n={n} m={m} mask={kind}")
+            del words
+        ranks = torch.randint(0, 40, (n,), device=device, dtype=torch.int32)
+        for v in (ranks, mo_costs(n, 1, device, seed=n)[:, 0].contiguous()):
+            check("lex_rank", topk.lex_rank(v), topk.lex_rank_plain(v), f"lex_rank n={n} {v.dtype}")
+            mask = torch.rand(n, device=device) > 0.3
+            for k in sorted({1, max(1, n // 2), n}):
+                for mk in (None, mask):
+                    for g, w in zip(topk.masked_top_k(v, k, mk), topk.masked_top_k_plain(v, k, mk)):
+                        check("lex_rank", g, w, f"masked_top_k n={n} k={k} {v.dtype}")
+        torch.cuda.empty_cache()
+    # Values up to 3e38, so the largest double to +inf.
+    x = mo_costs(8 * 128, 1, device, seed=3).reshape(8, 128) * 3e38
+    check("scale_by_two", probe.scale_by_two(x), probe.scale_by_two_plain(x), "scale_by_two")
+    torch.cuda.synchronize()
+    result = probe.run_capability_probe()
+    if not result.get("ok"):
+        raise AssertionError(f"capability probe failed: {result}")
+    return {"checks": checks, "max_abs_err": errs, "probe": result}
+
+
+def nsga2_workflow(device, pop, monitor=None):
+    import torch
+    from evox_tpu_torch.algorithms import NSGA2
+    from evox_tpu_torch.problems.numerical import DTLZ2
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    problem = DTLZ2(d=NSGA2_DIM, m=NSGA2_OBJ, device=device)
+    algo = NSGA2(pop, NSGA2_OBJ, torch.zeros(NSGA2_DIM), torch.ones(NSGA2_DIM), device=device)
+    return StdWorkflow(algo, problem, monitor=monitor), problem
+
+
+def mo_counters():
+    from evox_tpu_torch.ops import crowding, dominance, topk
+
+    return {
+        "dominance_packed": dominance.dominance_packed,
+        "peel_count": dominance.peel_count,
+        "lex_rank": topk.lex_rank,
+        "crowding_neighbors": crowding.crowding_neighbors,
+        "dominance_matrix": dominance.dominance_matrix,
+    }
+
+
+def time_draws(device, reps=5) -> dict:
+    """The three Philox draw calls of one generation, alone: host clock
+    (enqueue and launch cost) and CUDA events (device time)."""
+    import torch
+    from evox_tpu_torch.operators.crossover.sbx import sbx_draws
+    from evox_tpu_torch.operators.mutation.pm_mutation import pm_draws
+    from evox_tpu_torch.utils import rng
+
+    def draws():
+        sbx_draws(rng.key(1), (NSGA2_POP // 2, NSGA2_DIM), torch.float32, device)
+        pm_draws(rng.key(2), (NSGA2_POP, NSGA2_DIM), torch.float32, device)
+        rng.randint(3, (NSGA2_POP, 2), 0, 2 * NSGA2_POP, device)
+
+    draws()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_ms = time_ms(draws, reps, warmup=0)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return {"host_ms": host_ms, "device_ms": device_ms}
+
+
+def phase_nsga2_main_path(device) -> dict:
+    """bench.py's nsga2_dtlz2 through the port: StdWorkflow(NSGA2(10000, 3,
+    zeros(12), ones(12)), DTLZ2(d=12, m=3)), float32, no monitor; init_step,
+    warm-up, timed and profiled steps.  Every kernel of the path must
+    launch as often as the generation needs it, and IGD must fall."""
+    import torch
+    from evox_tpu_torch.metrics import igd
+    from evox_tpu_torch.operators.selection import non_dominate
+
+    counters = mo_counters()
+    wf, problem = nsga2_workflow(device, NSGA2_POP)
+    pf = problem.pf()
+    # The crowding kernel's inputs as the path gives them (the merged
+    # objectives and the boundary-front mask), kept for timing_mo.
+    seen = []
+    distance = non_dominate.crowding_distance_kernel
+
+    def recording(costs, mask=None):
+        full = torch.ones(costs.shape[0], dtype=torch.bool, device=costs.device)
+        seen[:] = [(costs, full if mask is None else mask)]
+        return distance(costs, mask)
+
+    def peels_ranked(rank_max):
+        # One peel_count for the dominate count, then one per front ranked;
+        # the survivors hold every front ranked (the last one in part).
+        return int(rank_max) + 2
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    non_dominate.crowding_distance_kernel = recording
+    try:
+        t0 = time.perf_counter()
+        state = wf.init_step(wf.init(0))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        init_launches = {k: c.launches for k, c in counters.items()}
+        PATH_INPUTS["init"] = seen[0]
+        want_init = peels_ranked(state.algorithm.rank.max())
+        if init_launches["peel_count"] != want_init:
+            raise AssertionError(f"init_step: {init_launches['peel_count']} peel_count launches for "
+                                 f"{want_init - 1} fronts")
+        igd0 = float(igd(state.algorithm.fit, pf))
+        fronts = []
+
+        rank_max = []  # each step's largest surviving rank, read after the run
+
+        def step(s):
+            before = counters["peel_count"].launches
+            s = wf.step(s)
+            fronts.append(counters["peel_count"].launches - before - 1)
+            rank_max.append(s.algorithm.rank.max())
+            return s
+
+        for _ in range(MAIN_WARMUP):
+            state = step(state)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(MAIN_STEPS):
+            state = step(state)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / MAIN_STEPS
+        ms = start.elapsed_time(end) / MAIN_STEPS
+        PATH_INPUTS["last_timed_step"] = seen[0]
+        timed_fronts = fronts[MAIN_WARMUP:]
+        state, prof = profile_steps(step, state, PROFILE_STEPS)
+    finally:
+        non_dominate.crowding_distance_kernel = distance
+    for i, (f, r) in enumerate(zip(fronts, rank_max)):
+        if f + 1 != peels_ranked(r):
+            raise AssertionError(f"step {i + 1}: {f + 1} peel_count launches for {peels_ranked(r) - 1} fronts")
+    steps = MAIN_WARMUP + MAIN_STEPS + PROFILE_STEPS
+    launches = {k: c.launches for k, c in counters.items()}
+    # Launches each step needs: one dominance_packed, one lex_rank, one
+    # crowding_neighbors, and 1 + fronts peel_counts (each step's checked
+    # above); init_step: one dominance_packed, one crowding_neighbors.
+    want = {
+        "dominance_packed": 1 + steps,
+        "lex_rank": steps,
+        "crowding_neighbors": 1 + steps,
+        "peel_count": init_launches["peel_count"] + sum(f + 1 for f in fronts),
+        "dominance_matrix": 0,
+    }
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"{k} launched {launches[k]} times, expected {v} ({steps} steps + init)")
+    algo = state.algorithm
+    igd1 = float(igd(algo.fit, pf))
+    if not igd1 < igd0:
+        raise AssertionError(f"IGD did not fall: {igd0} -> {igd1}")
+    if algo.pop.shape != (NSGA2_POP, NSGA2_DIM) or algo.fit.shape != (NSGA2_POP, NSGA2_OBJ):
+        raise AssertionError("wrong state shapes")
+    if not bool(torch.isfinite(algo.pop).all()) or not bool(torch.isfinite(algo.fit).all()):
+        raise AssertionError("non-finite population or fitness")
+    if float(algo.pop.min()) < 0.0 or float(algo.pop.max()) > 1.0 or int(algo.rank.min()) < 0:
+        raise AssertionError("population outside [0, 1] or negative rank")
+    draws = time_draws(device)
+    return {
+        "config": "NSGA2 pop=10000 d=12 m=3 DTLZ2 f32, StdWorkflow, no monitor",
+        "steps": steps, "launches": launches, "init_launches": init_launches,
+        "ms_per_gen": ms, "gen_per_s": 1e3 / ms, "host_ms_per_gen": host_ms,
+        "fronts_per_gen": {"timed_mean": sum(timed_fronts) / len(timed_fronts),
+                           "first": fronts[0], "last_timed": timed_fronts[-1],
+                           "init": init_launches["peel_count"] - 1},
+        "draws": {**draws, "share_of_host_ms": draws["host_ms"] / host_ms},
+        "setup_s": setup_s, "igd_after_init": igd0, "igd_final": igd1,
+        "crowding_valid_rows": {k: int(v[1].sum()) for k, v in PATH_INPUTS.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": prof,
+    }
+
+
+def mo_example(device, gens):
+    from evox_tpu_torch.metrics import igd
+    from evox_tpu_torch.workflows import EvalMonitor
+
+    mon = EvalMonitor(multi_obj=True)
+    wf, problem = nsga2_workflow(device, 128, monitor=mon)
+    pf = problem.pf()
+    state = wf.init_step(wf.init(0))
+    igds = {}
+    for gen in range(gens):
+        state = wf.step(state)
+        if (gen + 1) % 10 == 0:
+            igds[gen + 1] = float(igd(mon.get_latest_fitness(state.monitor), pf))
+    return mon, state, igds
+
+
+def phase_mo_example(device) -> dict:
+    """examples/03_multiobjective.py through the port on the card: NSGA-II
+    pop=128 on DTLZ2(d=12, m=3) with EvalMonitor(multi_obj=True), 30
+    generations; IGD must fall from generation 10 to 30 and the pooled
+    front must be non-empty.  Then init_step + 1 step on the card and on
+    the CPU (plain versions, the same Philox draws) must agree within rtol
+    1e-4 / atol 1e-5 (sin, cos and pow round differently on the two)."""
+    import torch
+
+    counters = mo_counters()
+    for c in counters.values():
+        c.launches = 0
+    mon, state, igds = mo_example(device, MO_EXAMPLE_GENS)
+    if not igds[30] < igds[10]:
+        raise AssertionError(f"example IGD did not fall: {igds}")
+    front = mon.get_pf_fitness()
+    if front.shape[0] == 0 or front.device.type != torch.device(device).type:
+        raise AssertionError("empty pooled front")
+    launches = {k: c.launches for k, c in counters.items()}
+    if min(launches[k] for k in ("dominance_packed", "peel_count", "lex_rank", "crowding_neighbors")) < 1:
+        raise AssertionError(f"a kernel of the example's path never launched: {launches}")
+    wf_g, _ = nsga2_workflow(device, 128)
+    wf_c, _ = nsga2_workflow("cpu", 128)
+    s_g = wf_g.step(wf_g.init_step(wf_g.init(0)))
+    s_c = wf_c.step(wf_c.init_step(wf_c.init(0)))
+    worst = 0.0
+    for k in ("pop", "fit", "dis"):
+        a, b = s_g.algorithm[k].cpu(), s_c.algorithm[k]
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        fin = torch.isfinite(b)
+        worst = max(worst, float((a[fin] - b[fin]).abs().max()))
+    if not torch.equal(s_g.algorithm.rank.cpu(), s_c.algorithm.rank):
+        raise AssertionError("card and CPU ranks differ")
+    return {"igd": igds, "pooled_front": front.shape[0], "launches": launches,
+            "cpu_vs_card_max_abs_diff": worst}
+
+
+def dominance_ops(f) -> float:
+    """Lane operations the dominance relation of ``f`` needs on this data:
+    for each ordered pair, a ``<=`` and a ``<`` per objective up to the
+    first objective that fails ``<=``, and one to combine."""
+    import torch
+
+    n, m = f.shape
+    total = 0
+    for r0 in range(0, n, 256):
+        le = f[r0 : r0 + 256, None, :] <= f[None, :, :]  # (c, n, m)
+        fails = ~le
+        first = torch.where(fails.any(-1), fails.to(torch.int8).argmax(-1) + 1, m)
+        total += int(first.sum(dtype=torch.int64))
+    return 2.0 * total + n * n
+
+
+def bound(nbytes, ops) -> dict:
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_LANE_OPS * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def sort_ops(rows, queries=0) -> float:
+    """Compares a comparison sort of ``rows`` keys needs (n·log2 n), plus a
+    binary search among them for each of ``queries`` keys: the work of a
+    rank or of sorted neighbours, whatever algorithm computes it."""
+    import math
+
+    return float((rows + queries) * math.log2(max(rows, 2)))
+
+
+def path_inputs():
+    """The main path's inputs at its last timed step: the merged 2N
+    objectives and boundary-front mask that the crowding kernel was given,
+    with the rank survivor selection computed from the same objectives
+    (checked against that mask); and the N objectives of init_step."""
+    import torch
+    from evox_tpu_torch.operators.selection import non_dominate_rank
+    from evox_tpu_torch.ops import topk
+
+    merged, mask = PATH_INPUTS["last_timed_step"]
+    rank = non_dominate_rank(merged, until_count=NSGA2_POP)
+    worst = topk.masked_top_k(rank, NSGA2_POP)[0][-1]
+    if not torch.equal(rank == worst, mask):
+        raise AssertionError("the path's boundary-front mask differs from the one its objectives give")
+    return PATH_INPUTS["init"][0], merged, rank, mask
+
+
+def phase_timing_mo(device) -> dict:
+    """Each multi-objective kernel beside its plain version and, where one
+    exists, a library call, timed with CUDA events, at the main path's
+    inputs (its last timed step, and init_step) and at bench.py's 50k
+    shapes.  Bounds: bytes (each input read once, each output written once)
+    over 3.35 TB/s, and lane operations (each compare, select or logic
+    operation one) over 132 x 128 x 1.98e9 a second, counting the work the
+    function needs (a rank or sorted neighbours: n·log2 n compares, not the
+    kernels' all-pairs loops, whose count stands beside as pairwise_ops);
+    the larger is the bound."""
+    import torch
+    from evox_tpu_torch.operators.selection import non_dominate_rank
+    from evox_tpu_torch.ops import crowding, dominance, probe, topk
+
+    out = {}
+    fit10k, merged, rank, mask = path_inputs()
+    n2 = merged.shape[0]
+
+    def pairwise(ops):
+        return {"pairwise_ops": ops, "pairwise_ms": ops / PEAK_LANE_OPS * 1e3}
+
+    def entry(name, fn, plain, b, iters=20, plain_iters=3, library=None, **extra):
+        row = {"ms": time_ms(fn, iters), "plain_ms": time_ms(plain, plain_iters, warmup=1), **b, **extra}
+        row["library_ms"] = time_ms(library, iters) if library is not None else None
+        out[name] = row
+        torch.cuda.empty_cache()
+
+    # dominance: packed words at the path's 20000 and 10000 rows, and at
+    # 100000 rows (1.25 GB of words).
+    for tag, f in (("20k", merged), ("10k", fit10k)):
+        n = f.shape[0]
+        entry(f"dominance_packed_{tag}", lambda: dominance.dominance_packed(f),
+              lambda: dominance.dominance_packed_plain(f),
+              bound(f.numel() * 4 + 4 * (-(-n // 32)) * n, dominance_ops(f)))
+    big = drift_inputs(BIG_DOMINANCE, 3, device)
+    entry("dominance_packed_100k", lambda: dominance.dominance_packed(big),
+          lambda: dominance.dominance_packed_plain(big),
+          bound(big.numel() * 4 + 4 * (-(-BIG_DOMINANCE // 32)) * BIG_DOMINANCE, dominance_ops(big)),
+          iters=3, plain_iters=1)
+    del big
+    # peel_count over the path's words with its first front.
+    words = dominance.dominance_packed(merged)
+    front = dominance.peel_count(words) == 0
+    nw = words.shape[0]
+    entry("peel_count_20k", lambda: dominance.peel_count(words, front),
+          lambda: dominance.peel_count_plain(words, front),
+          bound(words.numel() * 4 + n2 + 4 * n2, 3.0 * words.numel()))
+    del words
+    # The whole front peel of survivor selection at the path's shape: its
+    # kernels' time against the host clock (one sync per front).
+    before = dominance.peel_count.launches
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        non_dominate_rank(merged, until_count=NSGA2_POP)
+    torch.cuda.synchronize()
+    fronts = (dominance.peel_count.launches - before) // reps - 1
+    out["non_dominate_rank_20k"] = {
+        "host_ms": (time.perf_counter() - t0) * 1e3 / reps, "fronts": fronts,
+        "kernel_ms": out["dominance_packed_20k"]["ms"] + (fronts + 1) * out["peel_count_20k"]["ms"],
+    }
+    # lex_rank / masked_top_k on the path's int32 ranks (k = N), and the
+    # 50k float32 top-k of bench.py (k = 25000).
+    def argsort_inverse(v):
+        order = torch.argsort(v, stable=True)
+        r = torch.empty_like(order)
+        r.scatter_(0, order, torch.arange(v.shape[0], device=v.device))
+        return r
+
+    # The kernel compares every pair: 6 operations each for int32, 11 for
+    # float32 (its NaN rule).
+    entry("lex_rank_20k", lambda: topk.lex_rank(rank), lambda: topk.lex_rank_plain(rank),
+          bound(8 * n2, sort_ops(n2)), library=lambda: argsort_inverse(rank),
+          masked_top_k_ms=time_ms(lambda: topk.masked_top_k(rank, NSGA2_POP), 20),
+          **pairwise(6.0 * n2 * n2))
+    nb = BIG_CROWDING
+    v50 = drift_inputs(nb, 1, device)[:, 0].contiguous()
+    entry("lex_rank_50k_f32", lambda: topk.lex_rank(v50), lambda: topk.lex_rank_plain(v50),
+          bound(8 * nb, sort_ops(nb)), library=lambda: argsort_inverse(v50),
+          masked_top_k_ms=time_ms(lambda: topk.masked_top_k(v50, nb // 2), 10),
+          masked_top_k_plain_ms=time_ms(lambda: topk.masked_top_k_plain(v50, nb // 2), 10),
+          **pairwise(11.0 * nb**2))
+    # crowding: the path's merged objectives and boundary-front mask at its
+    # last timed step, all rows at init_step, and bench.py's crowding_50k
+    # (all valid).  The function sorts each column's valid rows and finds
+    # every row's place among them; the kernel tests every (row, objective,
+    # candidate) for validity and compares 6 more times per valid one.
+    ones10k = torch.ones(fit10k.shape[0], dtype=torch.bool, device=device)
+    c50 = drift_inputs(nb, 3, device)
+    ones50k = torch.ones(nb, dtype=torch.bool, device=device)
+    for tag, f, mk in (("20k_path", merged, mask), ("10k_init", fit10k, ones10k), ("50k", c50, ones50k)):
+        n, m = f.shape
+        valid = int(mk.sum())
+        entry(f"crowding_neighbors_{tag}", lambda: crowding.crowding_neighbors(f, mk),
+              lambda: crowding.crowding_neighbors_plain(f, mk),
+              bound(4 * n * m + n + 16 * n * m, m * sort_ops(valid, n)),
+              library=lambda: crowding.crowding_distance_plain(f, mk), valid_rows=valid,
+              distance_kernel_route_ms=time_ms(lambda: crowding.crowding_distance_kernel(f, mk), 20),
+              **pairwise(float(n) * m * n + 6.0 * n * m * valid))
+    del c50
+    x = torch.randn(8, 128, device=device)
+    entry("scale_by_two_probe", lambda: probe.scale_by_two(x), lambda: probe.scale_by_two_plain(x),
+          bound(8 * x.numel(), float(x.numel())), iters=100, plain_iters=100)
+    return out
+
+
+# The slice-2 kernels in the kernels line: wrapper, source, the TPU
+# kernel (or XLA route) it replaces, and its timing_mo entry.
+MO_KERNELS = [
+    ("dominance_packed", "evox_tpu_torch/csrc/dominance.cu", "evox_tpu/ops/dominance.py:37",
+     "dominance_packed_20k"),
+    ("peel_count", "evox_tpu_torch/csrc/dominance.cu",
+     "evox_tpu/operators/selection/non_dominate.py:161", "peel_count_20k"),
+    ("lex_rank", "evox_tpu_torch/csrc/topk.cu", "evox_tpu/ops/topk.py:60", "lex_rank_20k"),
+    ("crowding_neighbors", "evox_tpu_torch/csrc/crowding.cu", "evox_tpu/ops/crowding.py:42",
+     "crowding_neighbors_20k_path"),
+    ("scale_by_two", "evox_tpu_torch/csrc/probe.cu", "evox_tpu/ops/pallas_gate.py:62",
+     "scale_by_two_probe"),
+]
+
+
+def kernel_row(name, source, replaces, results, timing_key) -> dict:
+    t = results["timing_mo"][timing_key]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        # The probe is no kernel of the main path: 0 launches there.
+        "launches": results["nsga2_main_path"]["launches"].get(name, 0),
+        "max_abs_err": results["compare_mo"]["max_abs_err"][name],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -424,6 +956,10 @@ def main() -> int:
         ("main_path", phase_main_path),
         ("quickstart", phase_quickstart),
         ("timing", phase_timing),
+        ("compare_mo", phase_compare_mo),
+        ("nsga2_main_path", phase_nsga2_main_path),
+        ("mo_example", phase_mo_example),
+        ("timing_mo", phase_timing_mo),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -446,6 +982,9 @@ def main() -> int:
             "bound_by": f32["bound_by"],
             "library_ms": None,
         }
+    ] + [
+        kernel_row(name, source, replaces, results, timing_key)
+        for name, source, replaces, timing_key in MO_KERNELS
     ])
     print(f"total seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(card_line(), flush=True)

@@ -1,6 +1,7 @@
-"""Algorithm library (counterpart of ``evox_tpu/algorithms``; PSO only so
-far)."""
+"""Algorithm library (counterpart of ``evox_tpu/algorithms``; PSO and
+NSGA-II so far)."""
 
-__all__ = ["PSO", "PallasPSO"]
+__all__ = ["NSGA2", "PSO", "PallasPSO"]
 
+from .mo import NSGA2
 from .so.pso_variants import PSO, PallasPSO

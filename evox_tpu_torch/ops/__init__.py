@@ -1,6 +1,40 @@
 """Hand-written CUDA kernels and their plain PyTorch versions (counterpart
-of ``evox_tpu/ops``).  Kernels are built on first launch, never at import."""
+of ``evox_tpu/ops``).  Kernels are built on first launch, never at import.
+The capability probe is :mod:`evox_tpu_torch.ops.probe` (also a command:
+``python -m evox_tpu_torch.ops.probe``)."""
 
+from .crowding import (
+    crowding_distance_kernel,
+    crowding_distance_plain,
+    crowding_neighbors,
+    crowding_neighbors_plain,
+)
+from .dominance import (
+    dominance_matrix,
+    dominance_matrix_plain,
+    dominance_packed,
+    dominance_packed_plain,
+    peel_count,
+    peel_count_plain,
+)
 from .pso_step import fused_pso_move, fused_pso_move_plain
+from .topk import lex_rank, lex_rank_plain, masked_top_k, masked_top_k_plain
 
-__all__ = ["fused_pso_move", "fused_pso_move_plain"]
+__all__ = [
+    "crowding_distance_kernel",
+    "crowding_distance_plain",
+    "crowding_neighbors",
+    "crowding_neighbors_plain",
+    "dominance_matrix",
+    "dominance_matrix_plain",
+    "dominance_packed",
+    "dominance_packed_plain",
+    "fused_pso_move",
+    "fused_pso_move_plain",
+    "lex_rank",
+    "lex_rank_plain",
+    "masked_top_k",
+    "masked_top_k_plain",
+    "peel_count",
+    "peel_count_plain",
+]

@@ -11,6 +11,7 @@ loaded.  A failed build raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -18,14 +19,14 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load"]
+__all__ = ["SOURCES", "build", "load", "entry", "launch", "sm_count", "split"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 # Every kernel source of the port, by library name.
-SOURCES = ("pso_move",)
+SOURCES = ("pso_move", "dominance", "topk", "crowding", "probe")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -102,3 +103,42 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+@functools.cache
+def entry(name: str, fn: str, argtypes: tuple):
+    """The C function ``fn`` of ``csrc/<name>.cu`` with its ``argtypes``
+    declared (pointers and the stream as ``c_void_p``), returning ``int``."""
+    f = getattr(load(name), fn)
+    f.argtypes = list(argtypes)
+    f.restype = ctypes.c_int
+    return f
+
+
+def launch(what: str, f, device, *args) -> None:
+    """Call the C entry point ``f(*args, stream)`` on ``device``'s current
+    stream and raise if its launch failed (the entry point returns
+    ``cudaGetLastError()`` after the launch)."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = f(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``index`` (grid sizing)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split(blocks: int, span: int, device, least: int = 1) -> int:
+    """How much of a range of ``span`` items each block of a second grid
+    axis takes, so that ``blocks`` blocks along the first axis make about
+    four blocks per SM on ``device``; at least ``least`` items a block."""
+    splits = max(1, -(-4 * sm_count(device.index or 0) // max(1, blocks)))
+    return max(least, -(-max(span, 1) // splits))

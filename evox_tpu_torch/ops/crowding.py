@@ -1,0 +1,189 @@
+"""Crowding distance by per-objective lexicographic neighbours (counterpart
+of ``evox_tpu/ops/crowding.py``).
+
+For each objective, a row's crowding gap is ``(above - below) / range``,
+where ``below``/``above`` are the values of its predecessor and successor
+among the valid rows in a stable ascending sort of that objective (NaN
+last, ties by index).  :func:`crowding_neighbors` finds them: on a CUDA
+tensor with the kernel in ``csrc/crowding.cu`` (float32; other dtypes raise
+``TypeError``), on a CPU tensor with :func:`crowding_neighbors_plain`.
+:func:`crowding_distance_kernel` builds the distance from them; it equals
+:func:`crowding_distance_plain`, the sort-and-scatter formula, bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils import lexsort, nanmin
+from . import _build
+
+__all__ = [
+    "crowding_neighbors",
+    "crowding_neighbors_plain",
+    "crowding_distance_kernel",
+    "crowding_distance_plain",
+]
+
+_P = ctypes.c_void_p
+_ARGS = (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int) + (_P,) * 7
+_THREADS = 256
+
+
+def _order_keys(costs: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order the (value, row) pairs of each column like a
+    stable ascending sort: ``key(value) << 31 | row`` with NaN last, -0.0
+    equal to +0.0 (the kernel's map, with the index in 31 bits)."""
+    n = costs.shape[0]
+    u = costs.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where((u & 0x7FFFFFFF) == 0, 0, u)
+    key = torch.where(u >= 2**31, u ^ 0xFFFFFFFF, u | 2**31)
+    key = torch.where(torch.isnan(costs), 0xFFFFFFFF, key)
+    row = torch.arange(n, dtype=torch.int64, device=costs.device)[:, None]
+    return (key << 31) | row
+
+
+def crowding_neighbors_plain(
+    costs: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`crowding_neighbors`: each column's valid
+    keys sorted once, each row's neighbours found by binary search."""
+    if costs.dtype != torch.float32:
+        raise TypeError(f"crowding_neighbors takes float32 costs, got {costs.dtype}")
+    n, m = costs.shape
+    keys = _order_keys(costs)  # (n, m)
+    none = torch.iinfo(torch.int64).max
+    valid_keys = torch.where(mask[:, None], keys, none)
+    srt = torch.sort(valid_keys, dim=0).values.T.contiguous()  # (m, n)
+    num_valid = mask.sum()
+    q = keys.T.contiguous()  # (m, n)
+    lo = torch.searchsorted(srt, q, right=False)  # valid keys below each row's
+    hi = torch.searchsorted(srt, q, right=True)  # valid keys at or below
+    has_below = lo > 0
+    has_above = hi < num_valid
+    # Row indices of the neighbours (row 0 where there is none).
+    pred = torch.where(has_below, torch.gather(srt, 1, (lo - 1).clamp(min=0)) & (2**31 - 1), 0)
+    succ = torch.where(has_above, torch.gather(srt, 1, hi.clamp(max=n - 1)) & (2**31 - 1), 0)
+    cols = costs.T
+    below = torch.where(has_below, torch.gather(cols, 1, pred), float("-inf")).T
+    above = torch.where(has_above, torch.gather(cols, 1, succ), float("inf")).T
+    return (
+        below.contiguous(),
+        above.contiguous(),
+        has_below.T.to(torch.float32).contiguous(),
+        has_above.T.to(torch.float32).contiguous(),
+    )
+
+
+def crowding_neighbors(
+    costs: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-objective lexicographic neighbour values of every row among the
+    rows where ``mask`` holds: ``(below, above, has_below, has_above)``,
+    each (n, m).  A NaN neighbour gives a NaN value; a real ±inf neighbour
+    its value; a missing one -inf/+inf with its flag 0 (the flags, not the
+    values, tell a missing neighbour from a ±inf one).  Masked-out rows get
+    their neighbours among the valid rows too."""
+    if costs.ndim != 2 or mask.shape != costs.shape[:1]:
+        raise ValueError(
+            f"crowding_neighbors: costs (n, m) and mask (n,), got "
+            f"{list(costs.shape)} and {list(mask.shape)}"
+        )
+    if costs.device.type == "cpu":
+        return crowding_neighbors_plain(costs, mask)
+    what = "crowding_neighbors"
+    if costs.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {costs.device}")
+    if costs.dtype != torch.float32:
+        raise TypeError(f"{what}: the CUDA kernel takes float32, got {costs.dtype}")
+    if mask.dtype != torch.bool or mask.device != costs.device:
+        raise ValueError(f"{what}: mask must be a bool tensor on {costs.device}")
+    if not costs.is_contiguous() or not mask.is_contiguous():
+        raise ValueError(f"{what}: costs and mask must be contiguous")
+    n, m = costs.shape
+    if n >= 2**31 - _THREADS:
+        raise ValueError(f"{what}: the kernel takes n < 2^31 - {_THREADS}, got {n}")
+    dev = costs.device
+    below_idx = torch.zeros((n, m), dtype=torch.int64, device=dev)
+    above_idx = torch.full((n, m), -1, dtype=torch.int64, device=dev)  # all ones
+    below, above, has_below, has_above = (
+        torch.empty((n, m), dtype=torch.float32, device=dev) for _ in range(4)
+    )
+    j_per_block = _build.split(max(1, -(-n // _THREADS)) * m, n, dev, least=_THREADS)
+    fn = _build.entry("crowding", "crowding_neighbors", _ARGS)
+    _build.launch(
+        what, fn, dev, costs.data_ptr(), mask.data_ptr(), n, m, j_per_block,
+        below_idx.data_ptr(), above_idx.data_ptr(), below.data_ptr(), above.data_ptr(),
+        has_below.data_ptr(), has_above.data_ptr(),
+    )
+    crowding_neighbors.launches += 1
+    return below, above, has_below, has_above
+
+
+def _row_sum(d: torch.Tensor) -> torch.Tensor:
+    """Sum over the objectives in a fixed left-to-right order (both routes
+    round the same way)."""
+    out = d[:, 0]
+    for k in range(1, d.shape[1]):
+        out = out + d[:, k]
+    return out
+
+
+def crowding_distance_kernel(
+    costs: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Crowding distance from :func:`crowding_neighbors` (counterpart of
+    ``crowding_distance_pallas``): boundary rows ``inf``, masked-out rows
+    ``-inf``; equal to :func:`crowding_distance_plain` bit for bit."""
+    n, m = costs.shape
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=costs.device)
+    below, above, has_below, has_above = crowding_neighbors(costs, mask)
+    # The ends of the sorted valid column: the top end is NaN when any valid
+    # value is NaN (amax propagates it), the bottom end the smallest non-NaN
+    # value (nanmin; an all-NaN column gives NaN).
+    neg_inf = torch.full((), float("-inf"), dtype=costs.dtype, device=costs.device)
+    nan = torch.full((), float("nan"), dtype=costs.dtype, device=costs.device)
+    mx = torch.amax(torch.where(mask[:, None], costs, neg_inf), dim=0)
+    mn = nanmin(torch.where(mask[:, None], costs, nan), dim=0)
+    rng = mx - mn
+    boundary = (has_below <= 0.0) | (has_above <= 0.0)
+    gaps = torch.where(boundary, -neg_inf, (above - below) / rng)
+    gaps = torch.where(mask[:, None], gaps, neg_inf)
+    return _row_sum(gaps)
+
+
+def crowding_distance_plain(
+    costs: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """NSGA-II crowding distance by the sort-and-scatter formula of
+    ``non_dominate.py:268-302``: boundary rows ``inf``, masked-out rows
+    ``-inf``.  No host sync (the valid count stays on the device)."""
+    n, m = costs.shape
+    dev = costs.device
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    num_valid = mask.sum()
+    # Sort each objective column with invalid rows pushed to the end.
+    inverted = (~mask)[:, None].to(costs.dtype).expand(n, m)
+    order = lexsort([costs, inverted], dim=0)  # (n, m)
+    sorted_costs = torch.gather(costs, 0, order)
+    last = (num_valid - 1).remainder(n).reshape(1, 1).expand(1, m)
+    rng = torch.gather(sorted_costs, 0, last)[0] - sorted_costs[0]
+    distance = torch.zeros_like(costs)
+    if n > 2:
+        gaps = (sorted_costs[2:] - sorted_costs[:-2]) / rng
+        distance.scatter_(0, order[1:-1], gaps)
+    inf = torch.full((1, m), float("inf"), dtype=costs.dtype, device=dev)
+    distance.scatter_(0, order[:1], inf)
+    distance.scatter_(0, torch.gather(order, 0, last), inf)
+    neg_inf = torch.full((), float("-inf"), dtype=costs.dtype, device=dev)
+    distance = torch.where(mask[:, None], distance, neg_inf)
+    return _row_sum(distance)
+
+
+# Launches of the CUDA kernel (never bumped by the CPU path); reset to 0 to
+# count the launches of one run.
+crowding_neighbors.launches = 0

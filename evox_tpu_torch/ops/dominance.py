@@ -1,0 +1,193 @@
+"""Pareto dominance (counterpart of ``evox_tpu/ops/dominance.py``, and of
+the bit-packed route ``_non_dominate_rank_packed`` of
+``evox_tpu/operators/selection/non_dominate.py``).
+
+* :func:`dominance_matrix` — the (n, n) bool matrix ``A[i, j] = f_i
+  dominates f_j``;
+* :func:`dominance_packed` — the same relation as (⌈n/32⌉, n) words, bit
+  ``b`` of ``words[w, j]`` = row ``32w + b`` dominates ``j``; held in an
+  int32 tensor (PyTorch's bit-exact 32-bit type), read as uint32;
+* :func:`peel_count` — ``Σ_w popcount(words[w, j] & front_mask[w])`` for a
+  (n,) bool front, or the dominate count with ``front=None``.
+
+On a CUDA tensor each wrapper launches its kernel in ``csrc/dominance.cu``
+(float32 or float64 objectives; any other dtype raises ``TypeError``); on a
+CPU tensor it runs the plain version beside it.  There is no other path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = [
+    "dominate_relation",
+    "dominance_matrix",
+    "dominance_matrix_plain",
+    "dominance_packed",
+    "dominance_packed_plain",
+    "peel_count",
+    "peel_count_plain",
+]
+
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+_P = ctypes.c_void_p
+_DOMINANCE_ARGS = (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P, _P)
+_PEEL_ARGS = (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P)
+# Rows and columns of one block, staged in shared memory (csrc/dominance.cu);
+# also the dominator rows the plain version compares at a time.
+_TILE = 256
+
+
+def _num_words(n: int) -> int:
+    return -(-n // 32)
+
+
+def dominate_relation(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bool matrix ``A[i, j] = x_i dominates y_j`` (all objectives ``<=``,
+    at least one ``<``) by the broadcast compare of
+    ``non_dominate.py:32-37``."""
+    le = torch.all(x[:, None, :] <= y[None, :, :], dim=-1)
+    lt = torch.any(x[:, None, :] < y[None, :, :], dim=-1)
+    return le & lt
+
+
+def dominance_matrix_plain(f: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`dominance_matrix`."""
+    return dominate_relation(f, f)
+
+
+def _pack_bits(rows: torch.Tensor) -> torch.Tensor:
+    """Pack a (32, ...) bool block into int32 words (bit b = row b),
+    ``non_dominate.py:122-125``."""
+    shift = torch.arange(32, dtype=torch.int64, device=rows.device)
+    shift = shift.reshape((32,) + (1,) * (rows.ndim - 1))
+    word = torch.sum(rows.to(torch.int64) << shift, dim=0)
+    # The uint32 bits as int32 (two's complement).
+    return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+
+
+def dominance_packed_plain(f: torch.Tensor) -> torch.Tensor:
+    """Packed words by the broadcast compare, 256 dominator rows at a time
+    (the (n, n) bool matrix is never held whole).  Pad rows
+    (index ≥ n) are all-+inf and dominate nothing."""
+    n, m = f.shape
+    nw = _num_words(n)
+    fp = torch.cat([f, torch.full((nw * 32 - n, m), float("inf"), dtype=f.dtype, device=f.device)])
+    words = []
+    for r0 in range(0, nw * 32, _TILE):
+        block = fp[r0 : r0 + _TILE]  # (32 * w, m)
+        rel = dominate_relation(block, f)  # (32 * w, n)
+        words.append(_pack_bits(rel.reshape(-1, 32, n).transpose(0, 1)))
+    return torch.cat(words, dim=0) if words else torch.empty((0, n), dtype=torch.int32, device=f.device)
+
+
+def _popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Bits set in each int32 word (SWAR popcount on int64)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def peel_count_plain(words: torch.Tensor, front: torch.Tensor | None = None) -> torch.Tensor:
+    """``count[j] = Σ_w popcount(words[w, j] & mask[w])``, int32; ``mask``
+    packs ``front`` (all ones when ``front`` is None)."""
+    nw, n = words.shape
+    if front is None:
+        masked = words
+    else:
+        pad = torch.zeros((nw * 32 - n,), dtype=torch.bool, device=front.device)
+        mask = _pack_bits(torch.cat([front, pad]).reshape(nw, 32).T)  # (nw,)
+        masked = words & mask[:, None]
+    return torch.sum(_popcount32(masked), dim=0).to(torch.int32)
+
+
+def _check_f(f: torch.Tensor, what: str) -> None:
+    if f.ndim != 2:
+        raise ValueError(f"{what}: f must be (n, m), got {list(f.shape)}")
+    if f.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {f.device}")
+    if f.dtype not in _DTYPES:
+        raise TypeError(f"{what}: the CUDA kernel takes float32 or float64, got {f.dtype}")
+    if not f.is_contiguous():
+        raise ValueError(f"{what}: f must be contiguous")
+    # Too many objectives for a block's shared memory: the C entry point
+    # refuses them, and the launch raises.
+    n = f.shape[0]
+    if n >= 2**31 - _TILE:
+        raise ValueError(f"{what}: the kernel takes n < 2^31 - {_TILE} rows, got {n}")
+
+
+def _dominance(f: torch.Tensor, packed: bool, what: str) -> torch.Tensor:
+    _check_f(f, what)
+    n, m = f.shape
+    if packed:
+        out = torch.empty((_num_words(n), n), dtype=torch.int32, device=f.device)
+    else:
+        out = torch.empty((n, n), dtype=torch.bool, device=f.device)
+    fn = _build.entry("dominance", "dominance", _DOMINANCE_ARGS)
+    _build.launch(what, fn, f.device, _DTYPES[f.dtype], int(packed), f.data_ptr(), n, m, out.data_ptr())
+    return out
+
+
+def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
+    """(n, n) bool matrix ``A[i, j] = f_i dominates f_j`` (all objectives
+    ``<=``, at least one ``<``).  NaN rows dominate nothing and are
+    dominated by nothing."""
+    if f.device.type == "cpu":
+        return dominance_matrix_plain(f)
+    out = _dominance(f, packed=False, what="dominance_matrix")
+    dominance_matrix.launches += 1
+    return out
+
+
+def dominance_packed(f: torch.Tensor) -> torch.Tensor:
+    """The dominance relation as (⌈n/32⌉, n) int32 words (bit ``b`` of
+    ``words[w, j]`` = row ``32w + b`` dominates ``j``): 1/8 of the bool
+    matrix's bytes, the layout the front peel reads."""
+    if f.device.type == "cpu":
+        return dominance_packed_plain(f)
+    out = _dominance(f, packed=True, what="dominance_packed")
+    dominance_packed.launches += 1
+    return out
+
+
+def peel_count(words: torch.Tensor, front: torch.Tensor | None = None) -> torch.Tensor:
+    """``count[j] = Σ_w popcount(words[w, j] & mask[w])`` (int32), where
+    ``mask`` packs the (n,) bool ``front``; with ``front=None`` every row
+    counts (the dominate count)."""
+    if words.device.type == "cpu":
+        return peel_count_plain(words, front)
+    what = "peel_count"
+    if words.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {words.device}")
+    if words.ndim != 2 or words.dtype != torch.int32 or not words.is_contiguous():
+        raise ValueError(f"{what}: words must be a contiguous (nw, n) int32 tensor")
+    nw, n = words.shape
+    if nw != _num_words(n):
+        raise ValueError(f"{what}: {nw} words for {n} columns, expected {_num_words(n)}")
+    if front is not None:
+        if front.shape != (n,) or front.dtype != torch.bool or front.device != words.device:
+            raise ValueError(f"{what}: front must be a ({n},) bool tensor on {words.device}")
+        front = front.contiguous()
+    count = torch.zeros((n,), dtype=torch.int32, device=words.device)
+    w_per_block = _build.split(-(-n // _TILE), nw, words.device)
+    fn = _build.entry("dominance", "peel_count", _PEEL_ARGS)
+    _build.launch(
+        what, fn, words.device, words.data_ptr(),
+        None if front is None else front.data_ptr(), n, nw, w_per_block, count.data_ptr(),
+    )
+    peel_count.launches += 1
+    return count
+
+
+# Launches of each CUDA kernel (never bumped by the CPU path); reset to 0 to
+# count the launches of one run.
+dominance_matrix.launches = 0
+dominance_packed.launches = 0
+peel_count.launches = 0

@@ -24,32 +24,21 @@ kernel masks its own ragged edge.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ..utils import rng
+from . import _build
 
 __all__ = ["fused_pso_move", "fused_pso_move_plain"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_int]
-    + [ctypes.c_void_p] * 15
-    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint64, ctypes.c_int]
-    + [ctypes.c_void_p]
+    (ctypes.c_int,)
+    + (ctypes.c_void_p,) * 15
+    + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint64, ctypes.c_int)
+    + (ctypes.c_void_p,)
 )
-
-
-@functools.cache
-def _kernel():
-    """The kernel's C entry point, built on first use."""
-    from . import _build
-
-    fn = _build.load("pso_move").pso_move
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _scalars(w, phi_p, phi_g, device) -> torch.Tensor:
@@ -190,22 +179,19 @@ def fused_pso_move(
     lbl_out = torch.empty_like(pop)
     lbf_out = torch.empty((n,), dtype=dtype, device=device)
 
-    fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            _KERNEL_DTYPES[dtype],
-            pop.data_ptr(), velocity.data_ptr(), local_best_location.data_ptr(),
-            fit.data_ptr(), lbf.data_ptr(), gbl.data_ptr(),
-            lb.data_ptr(), ub.data_ptr(), scal.data_ptr(),
-            None if rp is None else rp.data_ptr(),
-            None if rg is None else rg.data_ptr(),
-            pop_out.data_ptr(), vel_out.data_ptr(), lbl_out.data_ptr(),
-            lbf_out.data_ptr(),
-            n, d, int(seed) & ((1 << 64) - 1), int(rand == "input"), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_pso_move: CUDA launch failed (cudaError {err})")
+    fn = _build.entry("pso_move", "pso_move", _ARGTYPES)
+    _build.launch(
+        "fused_pso_move", fn, device,
+        _KERNEL_DTYPES[dtype],
+        pop.data_ptr(), velocity.data_ptr(), local_best_location.data_ptr(),
+        fit.data_ptr(), lbf.data_ptr(), gbl.data_ptr(),
+        lb.data_ptr(), ub.data_ptr(), scal.data_ptr(),
+        None if rp is None else rp.data_ptr(),
+        None if rg is None else rg.data_ptr(),
+        pop_out.data_ptr(), vel_out.data_ptr(), lbl_out.data_ptr(),
+        lbf_out.data_ptr(),
+        n, d, int(seed) & ((1 << 64) - 1), int(rand == "input"),
+    )
     fused_pso_move.launches += 1
     return pop_out, vel_out, lbl_out, lbf_out
 

@@ -1,7 +1,9 @@
 """Numerical benchmark problems (counterpart of
-``evox_tpu/problems/numerical``; the basic suite only so far)."""
+``evox_tpu/problems/numerical``; the basic suite and DTLZ2 so far)."""
 
 __all__ = [
+    "DTLZ",
+    "DTLZ2",
     "ShiftAffineNumericalProblem",
     "Ackley",
     "Griewank",
@@ -36,3 +38,4 @@ from .basic import (
     schwefel_func,
     sphere_func,
 )
+from .dtlz import DTLZ, DTLZ2

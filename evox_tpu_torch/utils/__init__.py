@@ -1,5 +1,7 @@
-"""Utilities of the port: random streams and state conversion."""
+"""Utilities of the port: random streams, state conversion and tensor
+helpers."""
 
-from . import convert, rng
+from . import convert, ops, rng
+from .ops import lexsort, nanmax, nanmin
 
-__all__ = ["convert", "rng"]
+__all__ = ["convert", "ops", "rng", "lexsort", "nanmax", "nanmin"]

@@ -1,5 +1,4 @@
-"""Evaluation monitor (counterpart of ``evox_tpu/workflows/eval_monitor.py``,
-single-objective part).
+"""Evaluation monitor (counterpart of ``evox_tpu/workflows/eval_monitor.py``).
 
 Tracks the latest solution/fitness and a running top-k as State, and keeps
 the full fitness/solution history.  The JAX package streams history to the
@@ -7,12 +6,18 @@ host with ``io_callback``; here the history is a list of detached tensors
 left on the device, moved to the CPU only inside the accessors — a copy in
 every ``pre_tell`` would wait for the card once per generation.
 
-Not ported yet: multi-objective fronts (``get_pf*``), ``plot``, auxiliary
-history, and the fused-segment ``ingest_sinks`` path.
+With ``multi_obj=True`` the fitness is (N, m) and no top-k is kept; the
+approximate Pareto front is recovered from the history on demand
+(``get_pf*``), through the port's non-dominated sort (its kernels when the
+history is on the card).
+
+Not ported yet: ``plot``, auxiliary history, and the fused-segment
+``ingest_sinks`` path.
 """
 
 from __future__ import annotations
 
+import warnings
 from enum import IntEnum
 from typing import Any
 
@@ -45,16 +50,12 @@ class EvalMonitor(Monitor):
         topk: int = 1,
     ):
         """
-        :param multi_obj: multi-objective monitoring is not ported yet;
-            ``True`` raises :class:`NotImplementedError`.
+        :param multi_obj: whether the optimization is multi-objective
+            ((N, m) fitness; use ``get_pf*`` instead of the top-k).
         :param full_fit_history: keep every generation's fitness.
         :param full_sol_history: keep every generation's solutions.
         :param topk: number of elite solutions tracked.
         """
-        if multi_obj:
-            raise NotImplementedError(
-                "EvalMonitor(multi_obj=True) is not yet ported"
-            )
         self.multi_obj = multi_obj
         self.full_fit_history = full_fit_history
         self.full_sol_history = full_sol_history
@@ -65,7 +66,7 @@ class EvalMonitor(Monitor):
 
     # -- config ------------------------------------------------------------
     def set_config(self, **config: Any) -> "EvalMonitor":
-        for k in ("full_fit_history", "full_sol_history", "topk", "opt_direction", "device"):
+        for k in ("multi_obj", "full_fit_history", "full_sol_history", "topk", "opt_direction", "device"):
             if k in config:
                 setattr(self, k, config[k])
         return self
@@ -102,11 +103,12 @@ class EvalMonitor(Monitor):
         state = state.replace(
             latest_fitness=fitness, generation=state.generation + 1
         )
+        if fitness.ndim == 2:
+            # Multi-objective: no single top-k; the Pareto front is
+            # recovered from the history on demand (``get_pf*``).
+            return self._record(state, fitness)
         if fitness.ndim != 1:
-            raise ValueError(
-                f"EvalMonitor tracks single-objective (N,) fitness; got shape "
-                f"{tuple(fitness.shape)} (multi-objective is not yet ported)"
-            )
+            raise ValueError(f"Invalid fitness shape: {tuple(fitness.shape)}")
         if fitness.shape[0] < self.topk:
             raise ValueError(
                 f"EvalMonitor(topk={self.topk}) needs at least topk fitness "
@@ -135,6 +137,9 @@ class EvalMonitor(Monitor):
             top_sol = torch.where((order < n_old)[:, None], old, new)
             top_fit = cand_fit.index_select(0, order)
         state = state.replace(topk_fitness=top_fit, topk_solutions=top_sol)
+        return self._record(state, fitness)
+
+    def _record(self, state: State, fitness: torch.Tensor) -> State:
         if self.full_sol_history:
             self._history[HistoryType.SOLUTION].append(state.latest_solution.detach())
         if self.full_fit_history:
@@ -214,12 +219,72 @@ class EvalMonitor(Monitor):
 
     def get_topk_solutions(self, state: State) -> torch.Tensor:
         """Solutions achieving the best ``topk`` fitness values so far."""
+        self._assert_single("get_topk_solutions")
         return state.topk_solutions
 
     def get_best_solution(self, state: State) -> torch.Tensor:
         """The single best solution so far."""
+        self._assert_single("get_best_solution")
         return state.topk_solutions[0]
 
     def get_best_fitness(self, state: State) -> torch.Tensor:
         """The single best fitness so far (original sign restored)."""
+        self._assert_single("get_best_fitness")
         return self.opt_direction * state.topk_fitness[0]
+
+    def _assert_single(self, name: str) -> None:
+        if self.multi_obj:
+            raise ValueError(
+                f"Multi-objective optimization does not have a single best; "
+                f"use get_pf_* instead of {name}"
+            )
+
+    # -- Pareto front from history -------------------------------------------
+    def _pooled(self, kind: HistoryType) -> torch.Tensor:
+        """Every generation's rows of one history, concatenated (on the
+        device the history lives on)."""
+        return torch.cat([h.reshape(-1, h.shape[-1]) for h in self._history[kind]], dim=0)
+
+    def get_pf_fitness(self, deduplicate: bool = True) -> torch.Tensor:
+        """Approximate Pareto-front fitness over all evaluations so far
+        (requires ``full_fit_history``), on the history's device."""
+        from ..operators.selection import non_dominate_rank
+
+        if not self.multi_obj:
+            raise ValueError("get_pf_fitness is only available for multi-objective optimization.")
+        if not self.full_fit_history:
+            warnings.warn("`get_pf_fitness` requires enabling `full_fit_history`.")
+        all_fit = self._pooled(HistoryType.FITNESS)
+        if deduplicate:
+            all_fit = torch.unique(all_fit, dim=0)
+        # Only the first front is consumed: stop peeling after it.
+        rank = non_dominate_rank(all_fit, until_count=1)
+        return all_fit[rank == 0] * self.opt_direction
+
+    def get_pf(self, deduplicate: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """Approximate Pareto-front ``(solutions, fitness)`` over all
+        evaluations (requires ``full_sol_history`` and
+        ``full_fit_history``), on the history's device."""
+        from ..operators.selection import non_dominate_rank
+
+        if not self.multi_obj:
+            raise ValueError("get_pf is only available for multi-objective optimization.")
+        if not (self.full_fit_history and self.full_sol_history):
+            warnings.warn("`get_pf` requires enabling both `full_sol_history` and `full_fit_history`.")
+        all_sol = self._pooled(HistoryType.SOLUTION)
+        all_fit = self._pooled(HistoryType.FITNESS)
+        if deduplicate:
+            # The first occurrence of each distinct solution, in order.
+            _, inverse = torch.unique(all_sol, dim=0, return_inverse=True)
+            pos = torch.arange(all_sol.shape[0], device=all_sol.device)
+            first = torch.full((int(inverse.max()) + 1,), all_sol.shape[0], device=all_sol.device)
+            first = first.scatter_reduce(0, inverse, pos, reduce="amin")
+            idx = torch.sort(first).values
+            all_sol, all_fit = all_sol[idx], all_fit[idx]
+        rank = non_dominate_rank(all_fit, until_count=1)
+        return all_sol[rank == 0], all_fit[rank == 0] * self.opt_direction
+
+    def get_pf_solutions(self, deduplicate: bool = True) -> torch.Tensor:
+        """Solutions of :meth:`get_pf` (requires both full histories)."""
+        sol, _ = self.get_pf(deduplicate)
+        return sol

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: skipped where there is no CUDA card.  On a machine with
 one (no JAX needed there, hence ``--noconftest``):
@@ -63,3 +63,100 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     bad[1] = torch.empty(4, 8, device=cuda).t()  # (8, 4), not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         fused_pso_move(*bad, seed=0)
+
+
+# ---------------------------------------------------------------------------
+# The multi-objective kernels: exact agreement with their plain versions.
+# ---------------------------------------------------------------------------
+
+from evox_tpu_torch.ops import crowding, dominance, probe, topk  # noqa: E402
+
+
+def _costs(n, m, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed + n * 7 + m)
+    f = torch.round(torch.rand((n, m), generator=g, device=device) * 8) / 8
+    if n > 8:
+        f[3, 0] = float("inf")
+        f[5, m - 1] = float("-inf")
+        f[7] = float("nan")
+    return f
+
+
+def _same(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("n,m", [(1, 2), (33, 3), (1000, 2), (2049, 3)])
+def test_dominance_kernels_match_plain_versions(cuda, n, m):
+    f = _costs(n, m, cuda)
+    before = dominance.dominance_packed.launches
+    words = dominance.dominance_packed(f)
+    assert dominance.dominance_packed.launches == before + 1
+    _same(words, dominance.dominance_packed_plain(f))
+    _same(dominance.dominance_matrix(f), dominance.dominance_matrix_plain(f))
+    _same(dominance.dominance_matrix(f.double()), dominance.dominance_matrix_plain(f.double()))
+    front = torch.rand(n, device=cuda) > 0.5
+    _same(dominance.peel_count(words), dominance.peel_count_plain(words))
+    _same(dominance.peel_count(words, front), dominance.peel_count_plain(words, front))
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 2049])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_lex_rank_kernel_matches_plain_version(cuda, n, dtype):
+    if dtype == "int32":
+        v = torch.randint(0, 7, (n,), device=cuda, dtype=torch.int32)
+    else:
+        v = _costs(n, 1, cuda)[:, 0].contiguous()
+    _same(topk.lex_rank(v), topk.lex_rank_plain(v))
+    mask = torch.rand(n, device=cuda) > 0.3
+    for k in sorted({1, max(1, n // 2), n}):
+        for got, want in zip(topk.masked_top_k(v, k, mask), topk.masked_top_k_plain(v, k, mask)):
+            _same(got, want)
+
+
+@pytest.mark.parametrize("n,m", [(1, 2), (33, 3), (1000, 2), (2049, 3)])
+@pytest.mark.parametrize("mask_kind", ["all", "random", "one", "none"])
+def test_crowding_kernel_matches_plain_versions(cuda, n, m, mask_kind):
+    f = _costs(n, m, cuda)
+    mask = {
+        "all": torch.ones(n, dtype=torch.bool, device=cuda),
+        "none": torch.zeros(n, dtype=torch.bool, device=cuda),
+        "one": torch.arange(n, device=cuda) == n // 2,
+        "random": torch.rand(n, device=cuda) > 0.3,
+    }[mask_kind]
+    for got, want in zip(crowding.crowding_neighbors(f, mask), crowding.crowding_neighbors_plain(f, mask)):
+        _same(got, want)
+    _same(crowding.crowding_distance_kernel(f, mask), crowding.crowding_distance_plain(f, mask))
+
+
+def test_mo_kernels_refuse_what_they_do_not_take(cuda):
+    f = _costs(64, 3, cuda)
+    with pytest.raises(TypeError):
+        dominance.dominance_packed(f.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        dominance.dominance_packed(f.t().contiguous().t())
+    with pytest.raises(TypeError):
+        topk.lex_rank(f[:, 0].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        topk.lex_rank(f[::2, 0])
+    with pytest.raises(TypeError):
+        crowding.crowding_neighbors(f.double(), torch.ones(64, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):
+        crowding.crowding_neighbors(f, torch.ones(64, dtype=torch.bool))  # mask on the CPU
+    words = dominance.dominance_packed(f)
+    with pytest.raises(ValueError):
+        dominance.peel_count(words, torch.ones(64, dtype=torch.bool))  # front on the CPU
+    with pytest.raises(TypeError):
+        probe.scale_by_two(torch.ones(4, device=cuda, dtype=torch.float64))
+    # 120 float32 objectives overflow a block's shared memory: the C entry
+    # point refuses them.
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dominance.dominance_packed(_costs(64, 120, cuda))
+
+
+def test_capability_probe(cuda):
+    before = probe.scale_by_two.launches
+    result = probe.run_capability_probe()
+    assert result["ok"] is True and result["device_kind"] == torch.cuda.get_device_name(0)
+    assert result["elapsed_s"] > 0 and probe.scale_by_two.launches == before + 1

@@ -1,0 +1,251 @@
+"""The port's multi-objective kernels' wrappers (``evox_tpu_torch.ops.topk``,
+``ops.crowding``, ``ops.dominance``, ``ops.probe``) against the JAX
+package's Pallas kernels run in interpret mode, as
+``tests/test_pallas_kernels.py`` runs them, on the same numpy inputs.
+
+On the CPU each wrapper takes its plain PyTorch version; the CUDA kernels
+are held against those versions on the card (``chip_smoke.py``,
+``tests/test_torch_cuda.py``).  Every comparison here is exact: ranks,
+indices, packed words and counts equal; floats equal bit for bit with NaN
+at the same places (no arithmetic differs)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from evox_tpu.operators.selection.non_dominate import _pack_bits  # noqa: E402
+from evox_tpu.operators.selection.non_dominate import dominate_relation as jrelation  # noqa: E402
+from evox_tpu.ops.crowding import crowding_distance_pallas as jcrowding  # noqa: E402
+from evox_tpu.ops.crowding import crowding_neighbors as jneighbors  # noqa: E402
+from evox_tpu.ops.dominance import dominance_matrix as jdominance  # noqa: E402
+from evox_tpu.ops.topk import lex_rank as jlex_rank  # noqa: E402
+from evox_tpu.ops.topk import masked_top_k as jtop_k  # noqa: E402
+from evox_tpu_torch.ops import crowding, dominance, probe, topk  # noqa: E402
+
+
+def _bits_equal(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got.tobytes(), np.where(np.isnan(want), got, want).tobytes())
+
+
+def _costs(seed, n, m, specials=True):
+    """Quantized values (heavy ties), with ±inf and NaN rows when asked."""
+    r = np.random.default_rng(seed)
+    f = (np.round(r.uniform(0, 1, (n, m)) * 8) / 8).astype(np.float32)
+    if specials and n > 8:
+        f[3, 0] = np.inf
+        f[5, m - 1] = -np.inf
+        f[7] = np.nan
+        f[n - 2, 0] = np.nan
+    return f
+
+
+def _mask(seed, n, kind):
+    if kind == "all":
+        return np.ones(n, bool)
+    if kind == "none":
+        return np.zeros(n, bool)
+    if kind == "one":
+        m = np.zeros(n, bool)
+        m[n // 2] = True
+        return m
+    return np.random.default_rng(seed + 1).uniform(0, 1, n) > 0.35
+
+
+# ---------------------------------------------------------------------------
+# lex_rank / masked_top_k
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2, 33, 129, 256])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_lex_rank_matches_pallas(n, dtype):
+    r = np.random.default_rng(n)
+    if dtype == "int32":
+        v = r.integers(0, 7, n).astype(np.int32)
+    else:
+        v = (np.round(r.uniform(-1, 1, n) * 4) / 4).astype(np.float32)
+        v[::9] = np.nan
+        v[1::10] = np.inf
+        v[2::11] = -0.0
+    got = topk.lex_rank(torch.from_numpy(v))
+    want = jlex_rank(jnp.asarray(v), block_size=32, interpret=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(topk.lex_rank_plain(torch.from_numpy(v)).numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("n", [17, 64, 129])
+@pytest.mark.parametrize("mask_kind", ["all", "random", "one"])
+def test_masked_top_k_matches_pallas(n, mask_kind):
+    r = np.random.default_rng(n)
+    v = (np.round(r.uniform(0, 1, n) * 8) / 8).astype(np.float32)
+    v[::6] = np.nan
+    v[1::9] = np.inf
+    mask = _mask(n, n, mask_kind)
+    for k in sorted({1, 5, n // 2, n}):
+        gv, gi = topk.masked_top_k(torch.from_numpy(v), k, torch.from_numpy(mask))
+        ev, ei = jtop_k(jnp.asarray(v), k, jnp.asarray(mask), block_size=32, interpret=True)
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ei))
+        _bits_equal(gv.numpy(), ev)
+        pv, pi = topk.masked_top_k_plain(torch.from_numpy(v), k, torch.from_numpy(mask))
+        np.testing.assert_array_equal(pi.numpy(), gi.numpy())
+
+
+def test_masked_top_k_of_int_ranks_and_refusals():
+    ranks = np.random.default_rng(3).integers(0, 7, 200).astype(np.int32)
+    for k in (1, 100, 200):
+        gv, gi = topk.masked_top_k(torch.from_numpy(ranks), k)
+        ev, ei = jtop_k(jnp.asarray(ranks), k, block_size=32, interpret=True)
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ei))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(ev))
+        assert int(gv[-1]) == int(-jax.lax.top_k(-jnp.asarray(ranks), k)[0][-1])
+    with pytest.raises(ValueError, match="k must be"):
+        topk.masked_top_k(torch.arange(8.0), 0)
+    with pytest.raises(ValueError, match="k must be"):
+        topk.masked_top_k(torch.arange(8.0), 9)
+    with pytest.raises(ValueError):
+        topk.lex_rank(torch.zeros((2, 2)))
+
+
+# ---------------------------------------------------------------------------
+# crowding neighbours and distance
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,m", [(1, 2), (2, 3), (33, 3), (130, 2), (256, 3)])
+@pytest.mark.parametrize("mask_kind", ["all", "random", "one", "none"])
+def test_crowding_neighbors_match_pallas(n, m, mask_kind):
+    f = _costs(n * 10 + m, n, m)
+    mask = _mask(n, n, mask_kind)
+    got = crowding.crowding_neighbors(torch.from_numpy(f), torch.from_numpy(mask))
+    want = jneighbors(jnp.asarray(f), jnp.asarray(mask), block_size=32, interpret=True)
+    for g, w in zip(got, want):
+        assert g.shape == (n, m) and g.dtype == torch.float32
+        _bits_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("n,m", [(1, 2), (2, 3), (33, 3), (130, 2), (256, 3)])
+@pytest.mark.parametrize("mask_kind", ["all", "random", "one", "none"])
+def test_crowding_distance_kernel_route_matches_pallas_and_sort_route(n, m, mask_kind):
+    f = _costs(n * 7 + m, n, m)
+    mask = _mask(n, n, mask_kind)
+    tf, tm = torch.from_numpy(f), torch.from_numpy(mask)
+    got = crowding.crowding_distance_kernel(tf, tm)
+    want = jcrowding(jnp.asarray(f), jnp.asarray(mask), block_size=32, interpret=True)
+    _bits_equal(got.numpy(), want)
+    _bits_equal(crowding.crowding_distance_plain(tf, tm).numpy(), got.numpy())
+
+
+def test_crowding_real_inf_and_nan_cases():
+    """The cases ``tests/test_pallas_kernels.py`` pins: real ±inf
+    neighbours take the arithmetic path, NaN rows sort last."""
+    cases = [
+        [[1.0, 0.5], [2.0, np.inf], [np.inf, 0.25], [3.0, -np.inf]],
+        [[0.0], [np.nan], [2.0], [1.0]],
+        [[np.nan], [np.nan], [1.0], [0.0]],
+        [[1.0, 0.5], [np.inf, np.nan], [np.nan, 0.25], [3.0, 2.0]],
+    ]
+    for c in cases:
+        f = np.asarray(c, np.float32)
+        got = crowding.crowding_distance_kernel(torch.from_numpy(f))
+        _bits_equal(got.numpy(), jcrowding(jnp.asarray(f), block_size=2, interpret=True))
+    f = np.asarray([[0.0], [np.nan], [2.0], [np.nan], [1.0]], np.float32)
+    mask = np.asarray([True, False, True, True, True])
+    got = crowding.crowding_distance_kernel(torch.from_numpy(f), torch.from_numpy(mask))
+    _bits_equal(got.numpy(), jcrowding(jnp.asarray(f), jnp.asarray(mask), block_size=2, interpret=True))
+
+
+def test_crowding_neighbors_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        crowding.crowding_neighbors(torch.zeros((4, 2), dtype=torch.float64), torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        crowding.crowding_neighbors(torch.zeros((4, 2)), torch.ones(3, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# dominance: matrix, packed words, peel counts
+# ---------------------------------------------------------------------------
+
+
+def _jax_words(f):
+    """The packed words of ``non_dominate.py:141-156``, built with the JAX
+    package's own ``dominate_relation`` and ``_pack_bits``."""
+    n, _ = f.shape
+    nw = -(-n // 32)
+    fp = jnp.pad(jnp.asarray(f), ((0, nw * 32 - n), (0, 0)), constant_values=jnp.inf)
+    words = [
+        _pack_bits(jrelation(fp[w * 32 : w * 32 + 32], jnp.asarray(f))) for w in range(nw)
+    ]
+    return np.asarray(jnp.stack(words)).view(np.int32)
+
+
+@pytest.mark.parametrize("n,m", [(1, 2), (2, 3), (33, 3), (100, 2), (256, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_dominance_matrix_and_words_match_jax(n, m, dtype):
+    f = _costs(n + m, n, m).astype(dtype)
+    tf = torch.from_numpy(f)
+    want = np.asarray(jdominance(jnp.asarray(f), block_size=32, interpret=True))
+    np.testing.assert_array_equal(dominance.dominance_matrix(tf).numpy(), want)
+    if dtype == "float32":
+        np.testing.assert_array_equal(dominance.dominance_packed(tf).numpy(), _jax_words(f))
+    # The words unpack to the matrix.
+    words = dominance.dominance_packed(tf).numpy().view(np.uint32)
+    bits = (words[:, None, :] >> np.arange(32, dtype=np.uint32)[None, :, None]) & 1
+    np.testing.assert_array_equal(bits.reshape(-1, n)[:n].astype(bool), want)
+
+
+def test_nan_rows_dominate_nothing_and_are_dominated_by_nothing():
+    f = np.asarray([[0.0, 0.0], [np.nan, 5.0], [1.0, 1.0], [5.0, np.nan]], np.float32)
+    a = dominance.dominance_matrix(torch.from_numpy(f)).numpy()
+    assert not a[1].any() and not a[:, 1].any() and not a[3].any() and not a[:, 3].any()
+    assert a[0, 2] and not a[2, 0]
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 200])
+def test_peel_count_matches_numpy_popcount(n):
+    f = _costs(n, n, 3, specials=False)
+    words = dominance.dominance_packed(torch.from_numpy(f))
+    mat = dominance.dominance_matrix_plain(torch.from_numpy(f)).numpy()
+    np.testing.assert_array_equal(dominance.peel_count(words).numpy(), mat.sum(0))
+    front = np.random.default_rng(n).uniform(0, 1, n) > 0.5
+    got = dominance.peel_count(words, torch.from_numpy(front))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), (mat & front[:, None]).sum(0))
+
+
+def test_cpu_wrappers_count_no_launches():
+    before = (topk.lex_rank.launches, crowding.crowding_neighbors.launches,
+              dominance.dominance_packed.launches, dominance.peel_count.launches,
+              dominance.dominance_matrix.launches, probe.scale_by_two.launches)
+    f = torch.from_numpy(_costs(1, 40, 3))
+    dominance.peel_count(dominance.dominance_packed(f))
+    dominance.dominance_matrix(f)
+    crowding.crowding_neighbors(f, torch.ones(40, dtype=torch.bool))
+    topk.lex_rank(f[:, 0])
+    probe.scale_by_two(f)
+    after = (topk.lex_rank.launches, crowding.crowding_neighbors.launches,
+             dominance.dominance_packed.launches, dominance.peel_count.launches,
+             dominance.dominance_matrix.launches, probe.scale_by_two.launches)
+    assert after == before
+
+
+# ---------------------------------------------------------------------------
+# probe
+# ---------------------------------------------------------------------------
+
+
+def test_probe_plain_version_and_cpu_refusal():
+    x = torch.arange(8 * 128, dtype=torch.float32).reshape(8, 128)
+    assert torch.equal(probe.scale_by_two(x), 2 * x)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            probe.run_capability_probe()
+    with pytest.raises(RuntimeError):
+        probe.run_capability_probe("cpu")

@@ -145,8 +145,15 @@ def test_unported_options_raise(kwargs):
 
 
 def test_unported_monitor_modes_raise():
+    # The multi-objective mode is ported; what it does not have (a single
+    # best, fitness of more than two dimensions) still raises.
+    mon = EvalMonitor(multi_obj=True).set_config(device="cpu")
+    with pytest.raises(ValueError, match="single best"):
+        mon.get_best_solution(mon.setup(None))
+    with pytest.raises(ValueError):
+        mon.pre_tell(mon.setup(None), torch.zeros(4, 2, 2))
     with pytest.raises(NotImplementedError):
-        EvalMonitor(multi_obj=True)
+        StdWorkflow(_pso(), Sphere(), quarantine_granularity="shard")
     with pytest.raises(ValueError):
         StdWorkflow(_pso(), Sphere(), quarantine_granularity="row")
 
