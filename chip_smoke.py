@@ -401,7 +401,10 @@ def phase_timing(device) -> dict:
 # ---------------------------------------------------------------------------
 
 NSGA2_POP, NSGA2_DIM, NSGA2_OBJ = 10_000, 12, 3  # bench.py's nsga2_dtlz2
-MO_SIZES = [1, 2, 33, 1000, 20_000]
+MO_SIZES = [1, 2, 33, 1000, 20_000, 50_000]
+# The radix kernels' crossover: their one-block route's largest n, then the
+# multi-block route; compare_mo adds these offsets from it to MO_SIZES.
+CROSSOVER_OFFSETS = (-1, 0, 1)
 MO_EXAMPLE_GENS = 30
 # The crowding kernel's (costs, mask) at init_step and at the last timed
 # step of the NSGA-II headline, set by that phase and timed by timing_mo.
@@ -465,10 +468,10 @@ def exact(got, want, what) -> float:
 def phase_compare_mo(device) -> dict:
     """Each multi-objective kernel against its plain version on the card,
     exactly: equal ints and bits, equal floats, NaN at the same places.
-    Sizes 1, 2, 33, 1000 and 20000 (none a multiple of the 256 tile but
-    the first), m in {2, 3}, ties, ±inf, NaN rows, masks with no, one,
-    some and all rows valid; lex_rank in int32 and float32 with k in
-    {1, n/2, n}.  Then the capability probe."""
+    Sizes 1, 2, 33, 1000, 20000 and 50000, and for lex_rank and crowding
+    also the radix kernels' crossover ±1; m in {2, 3}, ties, ±inf, NaN
+    rows, masks with no, one, some and all rows valid; lex_rank in int32
+    and float32 with k in {1, n/2, n}.  Then the capability probe."""
     import torch
     from evox_tpu_torch.ops import crowding, dominance, probe, topk
 
@@ -484,20 +487,10 @@ def phase_compare_mo(device) -> dict:
         errs[kernel] = max(errs[kernel], exact(got, want, what))
         checks += 1
 
-    for n in MO_SIZES:
+    cap = topk.radix_capacity()
+    for n in MO_SIZES + [cap + d for d in CROSSOVER_OFFSETS]:
         for m in (2, 3):
             f = mo_costs(n, m, device, seed=n * 10 + m)
-            words = dominance.dominance_packed(f)
-            check("dominance_packed", words, dominance.dominance_packed_plain(f), f"dominance_packed n={n} m={m}")
-            check("dominance_matrix", dominance.dominance_matrix(f), dominance.dominance_matrix_plain(f),
-                  f"dominance_matrix n={n}")
-            check("dominance_matrix", dominance.dominance_matrix(f.double()),
-                  dominance.dominance_matrix_plain(f.double()), f"dominance_matrix f64 n={n}")
-            front = torch.rand(n, device=device) > 0.5
-            check("peel_count", dominance.peel_count(words), dominance.peel_count_plain(words),
-                  f"peel_count n={n}")
-            check("peel_count", dominance.peel_count(words, front), dominance.peel_count_plain(words, front),
-                  f"peel_count front n={n}")
             masks = {
                 "none": torch.zeros(n, dtype=torch.bool, device=device),
                 "one": torch.arange(n, device=device) == n // 2,
@@ -509,6 +502,19 @@ def phase_compare_mo(device) -> dict:
                     check("crowding_neighbors", g, w, f"crowding_neighbors n={n} m={m} mask={kind}")
                 check("crowding_neighbors", crowding.crowding_distance_kernel(f, mask),
                       crowding.crowding_distance_plain(f, mask), f"crowding_distance n={n} m={m} mask={kind}")
+            if n not in MO_SIZES:
+                continue  # the crossover sizes are the sort kernels' only
+            words = dominance.dominance_packed(f)
+            check("dominance_packed", words, dominance.dominance_packed_plain(f), f"dominance_packed n={n} m={m}")
+            check("dominance_matrix", dominance.dominance_matrix(f), dominance.dominance_matrix_plain(f),
+                  f"dominance_matrix n={n}")
+            check("dominance_matrix", dominance.dominance_matrix(f.double()),
+                  dominance.dominance_matrix_plain(f.double()), f"dominance_matrix f64 n={n}")
+            front = torch.rand(n, device=device) > 0.5
+            check("peel_count", dominance.peel_count(words), dominance.peel_count_plain(words),
+                  f"peel_count n={n}")
+            check("peel_count", dominance.peel_count(words, front), dominance.peel_count_plain(words, front),
+                  f"peel_count front n={n}")
             del words
         ranks = torch.randint(0, 40, (n,), device=device, dtype=torch.int32)
         for v in (ranks, mo_costs(n, 1, device, seed=n)[:, 0].contiguous()):
@@ -773,6 +779,86 @@ def sort_ops(rows, queries=0) -> float:
     return float((rows + queries) * math.log2(max(rows, 2)))
 
 
+def radix_passes(values) -> list[int]:
+    """Radix passes the sort kernels run on ``values`` (n,) or each column
+    of (n, m): the 8-bit digits on which the keys (``order_key``, the
+    kernels' own map) do not all agree; at least one."""
+    from evox_tpu_torch.ops.crowding import order_key
+
+    keys = order_key(values.reshape(values.shape[0], -1))
+    out = []
+    for col in keys.T:
+        digits = [(col >> (8 * p)) & 0xFF for p in range(4)]
+        out.append(max(1, sum(int(d.min() != d.max()) for d in digits)))
+    return out
+
+
+def radix_bytes(n, passes, capacity, crowding) -> int:
+    """Device-memory bytes one call of a radix kernel moves, by its design
+    (csrc/radix_sort.cuh), summed over the ``passes`` of each sorted
+    column.  Cluster route (n <= capacity; the passes stay in shared
+    memory): lex_rank reads the values, writes the order, and its second
+    kernel reads the order and writes the ranks (16n); crowding reads the
+    values and the mask twice, writes three lists, and its second kernel
+    reads them, gathers two neighbour values and writes four outputs (54n).
+    Multi-block route, per column: keys and indices written once (8n after
+    reading 4n), each pass reads the keys to count (4n), reads and writes
+    keys and indices (16n; the last pass writes 4n of ranks or order
+    instead of 8n) and moves its (digit, tile) counts four times; crowding
+    then reads the order and mask twice (10n), writes the lists (12n) and
+    finishes as on the cluster route (36n)."""
+    total = 0
+    tiles = -(-n // 5120)
+    for p in passes:
+        if n <= capacity:
+            total += 54 * n if crowding else 16 * n
+            continue
+        total += 12 * n + p * (4 * n + 16 * n + 16 * 256 * tiles) - 4 * n
+        if crowding:
+            total += (10 + 12 + 36) * n
+    return total
+
+
+def launches_per_call(fn, calls=5) -> dict:
+    """Device operations (kernels, memsets, copies), host syncs and device
+    busy time per call of ``fn``, read from torch.profiler.  One call runs
+    first inside the window and is not counted (the profiler may miss
+    events at its start); the counted calls run in a ``record_function``
+    range that ends with a synchronize, and the syncs of a range holding
+    only that synchronize are subtracted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    syncs_named = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function("baseline_range"):
+            torch.cuda.synchronize()
+        with record_function("counted_calls"):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+
+    def cpu_range(name):
+        e = next(e for e in events if e.name == name and "CUDA" not in str(getattr(e, "device_type", "")))
+        return e.time_range.start, e.time_range.end
+
+    def syncs_in(lo, hi):
+        return sum(1 for e in events if e.name in syncs_named and lo <= e.time_range.start <= hi)
+
+    t0, t1 = cpu_range("counted_calls")
+    device = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))
+              and e.time_range.start >= t0 and e.name not in ("counted_calls", "baseline_range")]
+    return {"launches": len(device) / calls,
+            "host_syncs": (syncs_in(t0, t1) - syncs_in(*cpu_range("baseline_range"))) / calls,
+            "device_ms": sum(e.time_range.elapsed_us() for e in device) / calls / 1e3,
+            "kernels": [n[:60] for n in sorted({e.name for e in device})]}
+
+
 def path_inputs():
     """The main path's inputs at its last timed step: the merged 2N
     objectives and boundary-front mask that the crowding kernel was given,
@@ -797,9 +883,11 @@ def phase_timing_mo(device) -> dict:
     shapes.  Bounds: bytes (each input read once, each output written once)
     over 3.35 TB/s, and lane operations (each compare, select or logic
     operation one) over 132 x 128 x 1.98e9 a second, counting the work the
-    function needs (a rank or sorted neighbours: n·log2 n compares, not the
-    kernels' all-pairs loops, whose count stands beside as pairwise_ops);
-    the larger is the bound."""
+    function needs (a rank or sorted neighbours: n·log2 n compares); the
+    larger is the bound.  Beside the radix kernels stand their design's own
+    figures: radix passes run (per column), bytes moved per call, and, at
+    the path's sizes, the device operations and host syncs per call read
+    from the profiler (at most two and none, or the phase fails)."""
     import torch
     from evox_tpu_torch.operators.selection import non_dominate_rank
     from evox_tpu_torch.ops import crowding, dominance, probe, topk
@@ -808,8 +896,17 @@ def phase_timing_mo(device) -> dict:
     fit10k, merged, rank, mask = path_inputs()
     n2 = merged.shape[0]
 
-    def pairwise(ops):
-        return {"pairwise_ops": ops, "pairwise_ms": ops / PEAK_LANE_OPS * 1e3}
+    cap = topk.radix_capacity()
+
+    def radix(values, crowding_kernel, fn=None):
+        passes = radix_passes(values)
+        row = {"route": "cluster" if values.shape[0] <= cap else "multi-block", "passes": passes,
+               "bytes_moved": radix_bytes(values.shape[0], passes, cap, crowding_kernel)}
+        if fn is not None:
+            row["profile"] = launches_per_call(fn)
+            if row["profile"]["launches"] > 2 or row["profile"]["host_syncs"] != 0:
+                raise AssertionError(f"radix kernel at the path's size: {row['profile']}")
+        return row
 
     def entry(name, fn, plain, b, iters=20, plain_iters=3, library=None, **extra):
         row = {"ms": time_ms(fn, iters), "plain_ms": time_ms(plain, plain_iters, warmup=1), **b, **extra}
@@ -860,24 +957,22 @@ def phase_timing_mo(device) -> dict:
         r.scatter_(0, order, torch.arange(v.shape[0], device=v.device))
         return r
 
-    # The kernel compares every pair: 6 operations each for int32, 11 for
-    # float32 (its NaN rule).
     entry("lex_rank_20k", lambda: topk.lex_rank(rank), lambda: topk.lex_rank_plain(rank),
           bound(8 * n2, sort_ops(n2)), library=lambda: argsort_inverse(rank),
           masked_top_k_ms=time_ms(lambda: topk.masked_top_k(rank, NSGA2_POP), 20),
-          **pairwise(6.0 * n2 * n2))
+          **radix(rank, False, lambda: topk.lex_rank(rank)))
     nb = BIG_CROWDING
     v50 = drift_inputs(nb, 1, device)[:, 0].contiguous()
     entry("lex_rank_50k_f32", lambda: topk.lex_rank(v50), lambda: topk.lex_rank_plain(v50),
           bound(8 * nb, sort_ops(nb)), library=lambda: argsort_inverse(v50),
           masked_top_k_ms=time_ms(lambda: topk.masked_top_k(v50, nb // 2), 10),
           masked_top_k_plain_ms=time_ms(lambda: topk.masked_top_k_plain(v50, nb // 2), 10),
-          **pairwise(11.0 * nb**2))
+          **radix(v50, False))
     # crowding: the path's merged objectives and boundary-front mask at its
     # last timed step, all rows at init_step, and bench.py's crowding_50k
     # (all valid).  The function sorts each column's valid rows and finds
-    # every row's place among them; the kernel tests every (row, objective,
-    # candidate) for validity and compares 6 more times per valid one.
+    # every row's place among them; the kernel sorts all rows of each
+    # column and scans for the valid ones beside each.
     ones10k = torch.ones(fit10k.shape[0], dtype=torch.bool, device=device)
     c50 = drift_inputs(nb, 3, device)
     ones50k = torch.ones(nb, dtype=torch.bool, device=device)
@@ -889,7 +984,7 @@ def phase_timing_mo(device) -> dict:
               bound(4 * n * m + n + 16 * n * m, m * sort_ops(valid, n)),
               library=lambda: crowding.crowding_distance_plain(f, mk), valid_rows=valid,
               distance_kernel_route_ms=time_ms(lambda: crowding.crowding_distance_kernel(f, mk), 20),
-              **pairwise(float(n) * m * n + 6.0 * n * m * valid))
+              **radix(f, True, None if tag == "50k" else lambda: crowding.crowding_neighbors(f, mk)))
     del c50
     x = torch.randn(8, 128, device=device)
     entry("scale_by_two_probe", lambda: probe.scale_by_two(x), lambda: probe.scale_by_two_plain(x),

@@ -1,4 +1,4 @@
-// Exact lexicographic rank by counting, on Hopper (sm_90a).
+// Exact lexicographic rank by a stable radix sort, on Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_rank_kernel` of evox_tpu/ops/topk.py (Pallas,
 // called through `lex_rank` and `masked_top_k`).  For every element i:
@@ -7,78 +7,86 @@
 //
 // under the strict total order of a stable ascending sort: NaN after +inf,
 // all NaNs equal to each other, -0.0 equal to +0.0, ties broken by index.
-// The ranks are therefore a permutation of 0..n-1, the stable-sort position
-// of each element.  float32 and int32 (NaN never occurs there).
+// The ranks are a permutation of 0..n-1, the stable-sort position of each
+// element.  float32 and int32.
 //
-// What bounds it on an H100: operations.  n^2 candidate compares at ~8 lane
-// operations each (n = 20000: 3.2e9, ~0.1 ms at ~3.3e13 a second) against
-// 4n bytes in and 4n bytes out.  The design: thread i keeps its element in
-// registers and walks tiles of 256 candidates staged in shared memory (read
-// as broadcasts); the TPU grid's sequential j-axis, which carried the count
-// from one step to the next, becomes a loop inside the block.  One thread
-// per element gives only ~80 blocks at n = 20000 for 132 SMs, so the
-// candidate range is split over a second grid axis and the partial counts
-// meet with integer atomicAdd (exact and independent of order).  The
-// `out[rank] = i` scatter of masked_top_k is left to the wrapper.
+// What bounds it on an H100: bytes (4n in, 4n out; a sort needs only
+// n log2 n compares).  The TPU kernel counted all n^2 pairs; here each
+// value becomes its 32-bit order key (radix_sort.cuh) and the keys are
+// sorted stably with the index as payload.  Digit passes on which every key
+// agrees are skipped on the device: the NSGA-II path's int32 ranks (0..~30
+// and the sentinel n) need two of the four.  Up to radix::kCapacity
+// elements one thread-block cluster sorts in distributed shared memory and
+// writes the order, and a second kernel over the whole card scatters
+// rank[order[p]] = p (scattered stores from a few SMs are slow); beyond,
+// the multi-block route of radix_sort.cuh, whose last pass writes the ranks.
+// The `out[rank] = i` scatter of masked_top_k is left to the wrapper.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "radix_sort.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+struct FloatSrc {
+  const float* v;
+  __device__ uint32_t key(int, int i) const { return radix::float_key(v[i]); }
+};
 
-template <typename T>
-__device__ __forceinline__ bool is_nan(T x) {
-  return x != x;
+struct IntSrc {
+  const int* v;
+  __device__ uint32_t key(int, int i) const { return radix::int_key(v[i]); }
+};
+
+// The cluster route: sorts the n elements and writes their stable order
+// (the index at each place), coalesced.
+template <typename Src>
+__global__ void __launch_bounds__(radix::kBlockThreads, 1) lex_order_cluster(Src src, int n, int* __restrict__ order) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const radix::Shared sh = radix::block_shared(smem);
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  uint32_t key[radix::kClusterItems];
+  int idx[radix::kClusterItems];
+  radix::load_block(src, 0, n, key, idx);
+  radix::cluster_sort(key, idx, n, sh, [&](int i, int pos) { *radix::place_ptr(cl, sh.idx, pos) = i; });
+  const int first = (int)cl.block_rank() * radix::block_span();
+  for (int p = threadIdx.x; p < radix::block_span() && first + p < n; p += blockDim.x) order[first + p] = sh.idx[p];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lex_rank_kernel(const T* __restrict__ v, int n, int j_per_block, int* __restrict__ rank) {
-  __shared__ T tile[kThreads];
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * kThreads + tid;
-  const int j0 = blockIdx.y * j_per_block;
-  const int j1 = min(n, j0 + j_per_block);
-  const T a = i < n ? v[i] : T(0);
-  const bool a_nan = is_nan(a);
-  int count = 0;
-  for (int t = j0; t < j1; t += kThreads) {
-    if (t + tid < j1) tile[tid] = v[t + tid];
-    __syncthreads();
-    const int len = min(kThreads, j1 - t);
-    for (int c = 0; c < len; ++c) {
-      const T b = tile[c];
-      const bool b_nan = is_nan(b);
-      const bool eq = (b == a) || (b_nan && a_nan);
-      const bool less = (b < a) || (!b_nan && a_nan) || (eq && (t + c) < i);
-      count += less ? 1 : 0;
-    }
-    __syncthreads();
-  }
-  if (i < n && count) atomicAdd(rank + i, count);
+// rank[order[p]] = p over the whole card (the stores are scattered, which
+// the cluster's few SMs would do slowly).
+__global__ void __launch_bounds__(256) rank_from_order(const int* __restrict__ order, int n, int* __restrict__ rank) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p < n) rank[order[p]] = p;
 }
 
-template <typename T>
-int launch(const void* v, int n, int j_per_block, void* rank, cudaStream_t s) {
-  if (j_per_block <= 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    dim3 grid((n + kThreads - 1) / kThreads, (n + j_per_block - 1) / j_per_block);
-    lex_rank_kernel<T><<<grid, kThreads, 0, s>>>((const T*)v, n, j_per_block, (int*)rank);
+template <typename Src>
+int launch(Src src, int n, int* rank, void* ws, cudaStream_t s) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (n <= radix::kCapacity) {
+    int* order = (int*)ws;
+    cudaError_t e = radix::launch_cluster(lex_order_cluster<Src>, radix::cluster_shape(n), 1, s, src, n, order);
+    if (e != cudaSuccess) return (int)e;
+    rank_from_order<<<(n + 255) / 256, 256, 0, s>>>(order, n, rank);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return (int)radix::mb_sort(src, radix::carve(ws, n, 1), rank, true, s);
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = int32.  `rank`
-// (n,) int32 must hold zeros.  The candidate range is split into chunks of
-// j_per_block elements, one grid row each.  Returns cudaGetLastError().
-extern "C" int lex_rank(int dtype, const void* v, int n, int j_per_block, void* rank,
-                        void* stream) {
+// Bytes of device workspace `lex_rank` needs for n elements: the order up
+// to radix::kCapacity, the multi-block sort's buffers beyond.
+extern "C" long long lex_rank_workspace(int n) {
+  return n <= radix::kCapacity ? 4LL * n : radix::work_bytes(n, 1);
+}
+
+// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = int32.  `rank`:
+// (n,) int32, every entry written.  `workspace`: lex_rank_workspace(n)
+// bytes.  Two launches up to radix::kCapacity elements.  No host
+// synchronisation.  Returns the first launch error, or cudaSuccess.
+extern "C" int lex_rank(int dtype, const void* v, int n, void* rank, void* workspace, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(v, n, j_per_block, rank, s);
-  if (dtype == 1) return launch<int>(v, n, j_per_block, rank, s);
+  if (dtype == 0) return launch(FloatSrc{(const float*)v}, n, (int*)rank, workspace, s);
+  if (dtype == 1) return launch(IntSrc{(const int*)v}, n, (int*)rank, workspace, s);
   return (int)cudaErrorInvalidValue;
 }

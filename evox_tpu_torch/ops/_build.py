@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under the package's
 ``build/`` directory (listed in ``.gitignore``) on first use and loaded
-with :mod:`ctypes`.  The library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt and a stale library is never
+with :mod:`ctypes`.  The library's file name carries a hash of the source,
+of every header under ``csrc/`` (``*.cuh``, ``*.h``) and of the flags, so an
+edited source or shared header is rebuilt and a stale library is never
 loaded.  A failed build raises; there is no fallback.
 """
 
@@ -19,7 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load", "entry", "launch", "sm_count", "split"]
+__all__ = ["SOURCES", "build", "load", "entry", "launch", "workspace", "pointer", "sm_count", "split"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -56,11 +57,12 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _library_path(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted([*csrc.glob("*.cuh"), *csrc.glob("*.h")]):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, Path]:
@@ -106,12 +108,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def entry(name: str, fn: str, argtypes: tuple):
+def entry(name: str, fn: str, argtypes: tuple, restype=ctypes.c_int):
     """The C function ``fn`` of ``csrc/<name>.cu`` with its ``argtypes``
-    declared (pointers and the stream as ``c_void_p``), returning ``int``."""
+    declared (pointers and the stream as ``c_void_p``), returning
+    ``restype`` (``int`` unless given)."""
     f = getattr(load(name), fn)
     f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+    f.restype = restype
     return f
 
 
@@ -126,6 +129,22 @@ def launch(what: str, f, device, *args) -> None:
         err = f(*args, stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+
+
+def workspace(name: str, fn: str, device, *sizes: int):
+    """Device scratch of the bytes that the C function ``fn(*sizes)`` of
+    ``csrc/<name>.cu`` asks for, as a uint8 tensor on ``device`` (``None``
+    when it asks for none).  The caller keeps it alive across the launch
+    that uses it."""
+    import torch
+
+    nbytes = entry(name, fn, (ctypes.c_int,) * len(sizes), ctypes.c_longlong)(*sizes)
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device) if nbytes else None
+
+
+def pointer(t) -> int | None:
+    """``t.data_ptr()``, or ``None`` (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 @functools.cache

@@ -5,8 +5,10 @@ For each objective, a row's crowding gap is ``(above - below) / range``,
 where ``below``/``above`` are the values of its predecessor and successor
 among the valid rows in a stable ascending sort of that objective (NaN
 last, ties by index).  :func:`crowding_neighbors` finds them: on a CUDA
-tensor with the kernel in ``csrc/crowding.cu`` (float32; other dtypes raise
-``TypeError``), on a CPU tensor with :func:`crowding_neighbors_plain`.
+tensor with the per-objective stable radix sort and valid-row scans of
+``csrc/crowding.cu`` (float32; other dtypes raise ``TypeError``; two launches
+up to :func:`~evox_tpu_torch.ops.topk.radix_capacity` rows, no host sync),
+on a CPU tensor with :func:`crowding_neighbors_plain`.
 :func:`crowding_distance_kernel` builds the distance from them; it equals
 :func:`crowding_distance_plain`, the sort-and-scatter formula, bit for bit.
 """
@@ -25,24 +27,37 @@ __all__ = [
     "crowding_neighbors_plain",
     "crowding_distance_kernel",
     "crowding_distance_plain",
+    "order_key",
 ]
 
 _P = ctypes.c_void_p
-_ARGS = (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int) + (_P,) * 7
-_THREADS = 256
+_ARGS = (_P, _P, ctypes.c_int, ctypes.c_int) + (_P,) * 6
+_LIMIT = 2**31 - 256  # as lex_rank's (csrc/radix_sort.cuh)
+
+
+def order_key(values: torch.Tensor) -> torch.Tensor:
+    """The 32-bit sort key of each float32 or int32 value that the radix
+    kernels (``csrc/radix_sort.cuh``) use, as int64 in ``[0, 2^32)``: a
+    stable ascending sort of the keys is a stable sort of the values.
+    float32: NaN maps to the top key, -0.0 to +0.0's key, a negative value
+    to its bits inverted, any other to its bits with the sign bit set;
+    int32: the sign bit flipped."""
+    u = values.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if values.dtype == torch.int32:
+        return u ^ 2**31
+    if values.dtype != torch.float32:
+        raise TypeError(f"order_key takes float32 or int32, got {values.dtype}")
+    u = torch.where((u & 0x7FFFFFFF) == 0, 0, u)
+    key = torch.where(u >= 2**31, u ^ 0xFFFFFFFF, u | 2**31)
+    return torch.where(torch.isnan(values), 0xFFFFFFFF, key)
 
 
 def _order_keys(costs: torch.Tensor) -> torch.Tensor:
     """int64 keys that order the (value, row) pairs of each column like a
-    stable ascending sort: ``key(value) << 31 | row`` with NaN last, -0.0
-    equal to +0.0 (the kernel's map, with the index in 31 bits)."""
-    n = costs.shape[0]
-    u = costs.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    u = torch.where((u & 0x7FFFFFFF) == 0, 0, u)
-    key = torch.where(u >= 2**31, u ^ 0xFFFFFFFF, u | 2**31)
-    key = torch.where(torch.isnan(costs), 0xFFFFFFFF, key)
-    row = torch.arange(n, dtype=torch.int64, device=costs.device)[:, None]
-    return (key << 31) | row
+    stable ascending sort: ``order_key(value) << 31 | row`` (the index in
+    31 bits)."""
+    row = torch.arange(costs.shape[0], dtype=torch.int64, device=costs.device)[:, None]
+    return (order_key(costs) << 31) | row
 
 
 def crowding_neighbors_plain(
@@ -103,20 +118,17 @@ def crowding_neighbors(
     if not costs.is_contiguous() or not mask.is_contiguous():
         raise ValueError(f"{what}: costs and mask must be contiguous")
     n, m = costs.shape
-    if n >= 2**31 - _THREADS:
-        raise ValueError(f"{what}: the kernel takes n < 2^31 - {_THREADS}, got {n}")
+    if n >= _LIMIT:
+        raise ValueError(f"{what}: the kernel takes n < 2^31 - 256, got {n}")
     dev = costs.device
-    below_idx = torch.zeros((n, m), dtype=torch.int64, device=dev)
-    above_idx = torch.full((n, m), -1, dtype=torch.int64, device=dev)  # all ones
     below, above, has_below, has_above = (
         torch.empty((n, m), dtype=torch.float32, device=dev) for _ in range(4)
     )
-    j_per_block = _build.split(max(1, -(-n // _THREADS)) * m, n, dev, least=_THREADS)
+    ws = _build.workspace("crowding", "crowding_workspace", dev, n, m)
     fn = _build.entry("crowding", "crowding_neighbors", _ARGS)
     _build.launch(
-        what, fn, dev, costs.data_ptr(), mask.data_ptr(), n, m, j_per_block,
-        below_idx.data_ptr(), above_idx.data_ptr(), below.data_ptr(), above.data_ptr(),
-        has_below.data_ptr(), has_above.data_ptr(),
+        what, fn, dev, costs.data_ptr(), mask.data_ptr(), n, m, _build.pointer(ws),
+        below.data_ptr(), above.data_ptr(), has_below.data_ptr(), has_above.data_ptr(),
     )
     crowding_neighbors.launches += 1
     return below, above, has_below, has_above

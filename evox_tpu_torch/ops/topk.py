@@ -1,4 +1,4 @@
-"""Exact lexicographic rank by counting, and the masked top-k built on it
+"""Exact lexicographic rank by a stable sort, and the masked top-k built on it
 (counterpart of ``evox_tpu/ops/topk.py``).
 
 :func:`lex_rank` gives each element its position under the strict
@@ -6,9 +6,11 @@
 by index): a permutation of ``0..n-1``.  :func:`masked_top_k` selects the
 ``k`` smallest elements by scattering ``out[rank] = i`` for ``rank < k``.
 
-On a CUDA tensor :func:`lex_rank` launches the kernel in
-``csrc/topk.cu`` (float32 or int32; other dtypes raise ``TypeError``); on a
-CPU tensor it runs :func:`lex_rank_plain`.  There is no other path.
+On a CUDA tensor :func:`lex_rank` launches the stable radix sort of
+``csrc/topk.cu`` (float32 or int32; other dtypes raise ``TypeError``): two
+launches up to :func:`radix_capacity` elements, the multi-block route
+beyond, no host sync either way.  On a CPU tensor it runs
+:func:`lex_rank_plain`.  There is no other path.
 """
 
 from __future__ import annotations
@@ -24,11 +26,22 @@ __all__ = [
     "lex_rank_plain",
     "masked_top_k",
     "masked_top_k_plain",
+    "radix_capacity",
 ]
 
 _DTYPES = {torch.float32: 0, torch.int32: 1}
-_ARGS = (ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
-_THREADS = 256
+_P = ctypes.c_void_p
+_ARGS = (ctypes.c_int, _P, ctypes.c_int, _P, _P, _P)
+# The kernels index elements with 32-bit ints and pad to whole warps and
+# tiles (csrc/radix_sort.cuh).
+_LIMIT = 2**31 - 256
+
+
+def radix_capacity() -> int:
+    """The most elements (rows, for crowding) that the radix kernels of
+    ``csrc/radix_sort.cuh`` sort in one thread-block cluster; larger inputs
+    take the multi-block route.  Builds the kernel library."""
+    return _build.entry("topk", "radix_block_capacity", ())()
 
 
 def _big(dtype: torch.dtype) -> float | int:
@@ -69,14 +82,14 @@ def lex_rank(values: torch.Tensor) -> torch.Tensor:
     if not values.is_contiguous():
         raise ValueError("lex_rank: values must be contiguous")
     (n,) = values.shape
-    if n >= 2**31 - _THREADS:
-        raise ValueError(f"lex_rank: the kernel takes n < 2^31 - {_THREADS}, got {n}")
-    rank = torch.zeros((n,), dtype=torch.int32, device=values.device)
-    j_per_block = _build.split(-(-n // _THREADS), n, values.device, least=_THREADS)
+    if n >= _LIMIT:
+        raise ValueError(f"lex_rank: the kernel takes n < 2^31 - 256, got {n}")
+    rank = torch.empty((n,), dtype=torch.int32, device=values.device)
+    ws = _build.workspace("topk", "lex_rank_workspace", values.device, n)
     fn = _build.entry("topk", "lex_rank", _ARGS)
     _build.launch(
         "lex_rank", fn, values.device, _DTYPES[values.dtype], values.data_ptr(), n,
-        j_per_block, rank.data_ptr(),
+        rank.data_ptr(), _build.pointer(ws),
     )
     lex_rank.launches += 1
     return rank

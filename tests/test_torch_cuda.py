@@ -101,33 +101,106 @@ def test_dominance_kernels_match_plain_versions(cuda, n, m):
     _same(dominance.peel_count(words, front), dominance.peel_count_plain(words, front))
 
 
-@pytest.mark.parametrize("n", [1, 33, 1000, 2049])
-@pytest.mark.parametrize("dtype", ["float32", "int32"])
-def test_lex_rank_kernel_matches_plain_version(cuda, n, dtype):
-    if dtype == "int32":
-        v = torch.randint(0, 7, (n,), device=cuda, dtype=torch.int32)
-    else:
-        v = _costs(n, 1, cuda)[:, 0].contiguous()
+# The radix kernels' routes (csrc/radix_sort.cuh): one thread-block cluster
+# up to radix_capacity() rows (1 block at 33, 4 at 1000, 8 from 1793 on),
+# many blocks beyond (131,073: 26 tiles of 5,120; 200,003: 40).
+SORT_SIZES = [1, 33, 1000, 2049, 20_000, 50_000, 131_073, 200_003]
+# Offsets from the crossover: the last one-block size and the first
+# multi-block size.
+CROSSOVER = [-1, 0, 1]
+
+
+def _sort_values(n, kind, device):
+    """Inputs for the sort kernels: quantized values with ±inf and NaN
+    rows, all equal, all NaN, a mix of -0.0 and +0.0 (equal keys), and
+    int32 ranks in 0..6 (the path's ties)."""
+    if kind == "int32":
+        return torch.randint(0, 7, (n,), device=device, dtype=torch.int32)
+    if kind == "equal":
+        return torch.full((n,), 0.25, device=device)
+    if kind == "nan":
+        return torch.full((n,), float("nan"), device=device)
+    if kind == "zeros":
+        v = torch.zeros(n, device=device)
+        v[torch.rand(n, device=device) > 0.5] = -0.0
+        return v
+    return _costs(n, 1, device)[:, 0].contiguous()
+
+
+def _check_lex_rank(v, device):
+    n = v.shape[0]
+    before = topk.lex_rank.launches
     _same(topk.lex_rank(v), topk.lex_rank_plain(v))
-    mask = torch.rand(n, device=cuda) > 0.3
+    assert topk.lex_rank.launches == before + 1
+    mask = torch.rand(n, device=device) > 0.3
     for k in sorted({1, max(1, n // 2), n}):
         for got, want in zip(topk.masked_top_k(v, k, mask), topk.masked_top_k_plain(v, k, mask)):
             _same(got, want)
 
 
-@pytest.mark.parametrize("n,m", [(1, 2), (33, 3), (1000, 2), (2049, 3)])
-@pytest.mark.parametrize("mask_kind", ["all", "random", "one", "none"])
-def test_crowding_kernel_matches_plain_versions(cuda, n, m, mask_kind):
-    f = _costs(n, m, cuda)
-    mask = {
-        "all": torch.ones(n, dtype=torch.bool, device=cuda),
-        "none": torch.zeros(n, dtype=torch.bool, device=cuda),
-        "one": torch.arange(n, device=cuda) == n // 2,
-        "random": torch.rand(n, device=cuda) > 0.3,
-    }[mask_kind]
+@pytest.mark.parametrize("n", SORT_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "int32", "equal", "nan", "zeros"])
+def test_lex_rank_kernel_matches_plain_version(cuda, n, dtype):
+    _check_lex_rank(_sort_values(n, dtype, cuda), cuda)
+
+
+@pytest.mark.parametrize("offset", CROSSOVER)
+@pytest.mark.parametrize("dtype", ["float32", "int32", "zeros"])
+def test_lex_rank_kernel_at_the_route_crossover(cuda, offset, dtype):
+    _check_lex_rank(_sort_values(topk.radix_capacity() + offset, dtype, cuda), cuda)
+
+
+def _mask(n, kind, device):
+    return {
+        "all": torch.ones(n, dtype=torch.bool, device=device),
+        "none": torch.zeros(n, dtype=torch.bool, device=device),
+        "one": torch.arange(n, device=device) == n // 2,
+        "random": torch.rand(n, device=device) > 0.3,
+    }[kind]
+
+
+def _check_crowding(f, mask):
+    before = crowding.crowding_neighbors.launches
     for got, want in zip(crowding.crowding_neighbors(f, mask), crowding.crowding_neighbors_plain(f, mask)):
         _same(got, want)
+    assert crowding.crowding_neighbors.launches == before + 1
     _same(crowding.crowding_distance_kernel(f, mask), crowding.crowding_distance_plain(f, mask))
+
+
+@pytest.mark.parametrize(
+    "n,m", [(1, 2), (33, 3), (1000, 2), (2049, 3), (20_000, 3), (50_000, 3), (131_073, 2), (200_003, 2)]
+)
+@pytest.mark.parametrize("mask_kind", ["all", "random", "one", "none"])
+def test_crowding_kernel_matches_plain_versions(cuda, n, m, mask_kind):
+    _check_crowding(_costs(n, m, cuda), _mask(n, mask_kind, cuda))
+
+
+@pytest.mark.parametrize("offset", CROSSOVER)
+@pytest.mark.parametrize("kind", ["costs", "equal", "nan", "zeros"])
+def test_crowding_kernel_at_the_route_crossover(cuda, offset, kind):
+    n = topk.radix_capacity() + offset
+    if kind == "costs":
+        f = _costs(n, 3, cuda)
+    else:
+        f = torch.stack([_sort_values(n, kind, cuda), _costs(n, 1, cuda)[:, 0]], 1).contiguous()
+    _check_crowding(f, _mask(n, "random", cuda))
+
+
+@pytest.mark.parametrize("n", [20_000, 200_003])
+def test_sort_kernels_make_no_host_sync(cuda, n):
+    """Neither wrapper reads anything back to the host, on either route."""
+    v = _sort_values(n, "int32", cuda)
+    f = _costs(n, 3, cuda)
+    mask = torch.rand(n, device=cuda) > 0.3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rank = topk.lex_rank(v)
+        out = crowding.crowding_neighbors(f, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(rank, topk.lex_rank_plain(v))
+    _same(out[0], crowding.crowding_neighbors_plain(f, mask)[0])
 
 
 def test_mo_kernels_refuse_what_they_do_not_take(cuda):

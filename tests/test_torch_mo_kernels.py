@@ -170,6 +170,136 @@ def test_crowding_neighbors_refuses_other_dtypes():
 
 
 # ---------------------------------------------------------------------------
+# The radix kernels' design (csrc/radix_sort.cuh), mirrored in PyTorch: the
+# order keys, a stable LSD radix sort of them, and the valid-row scans
+# reproduce the Pallas kernels (bit for bit but for the sign of a zero
+# neighbour value, below).  The kernels rest on this.
+# ---------------------------------------------------------------------------
+
+
+def _radix_order(keys):
+    """Stable order of int64 keys in ``[0, 2^32)`` as the kernels compute
+    it: 8-bit digits from the least significant; a pass runs only where
+    byte p of AND ^ OR over all keys is non-zero (else pass 0 alone); each
+    pass places an item at its digit's exclusive histogram scan plus the
+    number of earlier items (in the current order) with its digit."""
+    n = keys.shape[0]
+    order = torch.arange(n)
+    bits = (keys[:, None] >> torch.arange(32)) & 1
+    weight = 2 ** torch.arange(32, dtype=torch.int64)
+    diff = int((bits.all(0).to(torch.int64) * weight).sum()) ^ int((bits.any(0).to(torch.int64) * weight).sum())
+    passes = [p for p in range(4) if (diff >> (8 * p)) & 0xFF] or [0]
+    for p in passes:
+        d = (keys[order] >> (8 * p)) & 0xFF
+        count = torch.bincount(d, minlength=256)
+        base = torch.cumsum(count, 0) - count
+        onehot = torch.nn.functional.one_hot(d, 256)
+        earlier = (torch.cumsum(onehot, 0) - onehot).gather(1, d[:, None])[:, 0]
+        place = base[d] + earlier
+        new = torch.empty_like(order)
+        new[place] = order
+        order = new
+    return order
+
+
+def _scan_neighbors(order, valid):
+    """Rows before and after each sorted place among the valid ones (-1:
+    none): an exclusive forward scan carrying the last valid row seen, and
+    the same scan backward."""
+    n = order.shape[0]
+    at = torch.arange(n)
+    valid = valid[order]
+    last = torch.cummax(torch.where(valid, at, -1), 0).values
+    before = torch.cat([torch.tensor([-1]), last[:-1]])
+    first = torch.flip(torch.cummin(torch.flip(torch.where(valid, at, n), [0]), 0).values, [0])
+    after = torch.cat([first[1:], torch.tensor([n])])
+    pred = torch.where(before >= 0, order[before.clamp(min=0)], -1)
+    succ = torch.where(after < n, order[after.clamp(max=n - 1)], -1)
+    return pred, succ
+
+
+def _sort_values(seed, n, kind):
+    r = np.random.default_rng(seed)
+    if kind == "int_ties":
+        return r.integers(0, 7, n).astype(np.int32)
+    if kind == "int_wide":
+        return r.integers(-(2**31), 2**31, n).astype(np.int32)
+    if kind == "equal":
+        return np.full(n, 0.375, np.float32)
+    if kind == "nan":
+        return np.full(n, np.nan, np.float32)
+    if kind == "zeros":
+        return np.where(r.uniform(0, 1, n) > 0.5, -0.0, 0.0).astype(np.float32)
+    v = (np.round(r.uniform(-1, 1, n) * 4) / 4).astype(np.float32)
+    v[::9] = np.nan
+    v[1::10] = np.inf
+    v[3::10] = -np.inf
+    v[2::11] = -0.0
+    return v
+
+
+@pytest.mark.parametrize("n", [1, 2, 33, 130])
+@pytest.mark.parametrize("kind", ["mixed", "zeros", "equal", "nan", "int_ties", "int_wide"])
+def test_radix_order_reproduces_pallas_lex_rank(n, kind):
+    v = _sort_values(n * 13 + len(kind), n, kind)
+    order = _radix_order(crowding.order_key(torch.from_numpy(v)))
+    rank = torch.empty(n, dtype=torch.int64)
+    rank[order] = torch.arange(n)
+    want = jlex_rank(jnp.asarray(v), block_size=32, interpret=True)
+    np.testing.assert_array_equal(rank.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [1, 2, 33, 130])
+@pytest.mark.parametrize("kind", ["mixed", "zeros", "equal", "nan"])
+@pytest.mark.parametrize("mask_kind", ["all", "random", "one", "none"])
+def test_radix_order_and_scans_reproduce_pallas_crowding_neighbors(n, kind, mask_kind):
+    m = 2
+    f = np.stack([_sort_values(n + len(kind), n, kind), _costs(n, n, 1)[:, 0]], 1)
+    mask = _mask(n, n, mask_kind)
+    tf = torch.from_numpy(f)
+    keys = crowding.order_key(tf)
+    below, above = torch.empty(n, m), torch.empty(n, m)
+    has_below, has_above = torch.empty(n, m), torch.empty(n, m)
+    for k in range(m):
+        order = _radix_order(keys[:, k])
+        pred, succ = _scan_neighbors(order, torch.from_numpy(mask))
+        # pred/succ are per sorted place; the outputs are per row.
+        below[order, k] = torch.where(pred >= 0, tf[pred.clamp(min=0), k], float("-inf"))
+        above[order, k] = torch.where(succ >= 0, tf[succ.clamp(min=0), k], float("inf"))
+        has_below[order, k] = (pred >= 0).float()
+        has_above[order, k] = (succ >= 0).float()
+    got = (below, above, has_below, has_above)
+    # Bit for bit against the port's plain version, which reads each
+    # neighbour's value by its row as the kernels do.
+    for g, w in zip(got, crowding.crowding_neighbors_plain(tf, torch.from_numpy(mask))):
+        _bits_equal(g.numpy(), w.numpy())
+    # Against the Pallas kernel: flags bit for bit; values equal, NaN at the
+    # same places.  Its value accumulators fold candidates with max / min,
+    # so where -0.0 and +0.0 tie it may give the other zero; the sort route
+    # of non_dominate.crowding_distance reads the neighbour's own value, as
+    # the design does.
+    want = [np.asarray(w) for w in jneighbors(jnp.asarray(f), jnp.asarray(mask), block_size=32, interpret=True)]
+    for g, w in zip(got[2:], want[2:]):
+        _bits_equal(g.numpy(), w)
+    for g, w in zip(got[:2], want[:2]):
+        g = g.numpy()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_array_equal(g[~np.isnan(w)], w[~np.isnan(w)])
+
+
+def test_order_key_map():
+    """float32: NaN on top, -0.0 with +0.0, order kept; int32: the sign bit
+    flipped; other dtypes refused."""
+    f = torch.tensor([float("-inf"), -1.5, -0.0, 0.0, 1e-45, 2.0, float("inf"), float("nan")])
+    k = crowding.order_key(f).tolist()
+    assert k[2] == k[3] and k[-1] == 2**32 - 1 and k[:3] + k[4:] == sorted(k[:3] + k[4:])
+    i = torch.tensor([-(2**31), -1, 0, 2**31 - 1], dtype=torch.int32)
+    assert crowding.order_key(i).tolist() == [0, 2**31 - 1, 2**31, 2**32 - 1]
+    with pytest.raises(TypeError):
+        crowding.order_key(torch.zeros(2, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
 # dominance: matrix, packed words, peel counts
 # ---------------------------------------------------------------------------
 
