@@ -471,14 +471,16 @@ def phase_compare_mo(device) -> dict:
     Sizes 1, 2, 33, 1000, 20000 and 50000, and for lex_rank and crowding
     also the radix kernels' crossover ±1; m in {2, 3}, ties, ±inf, NaN
     rows, masks with no, one, some and all rows valid; lex_rank in int32
-    and float32 with k in {1, n/2, n}.  Then the capability probe."""
+    and float32 with k in {1, n/2, n}; the packed words in float32 and
+    float64, and the generic kernel (m = 5); peel_fronts with until_count
+    in {None, 1, n/2, n}.  Then the capability probe."""
     import torch
     from evox_tpu_torch.ops import crowding, dominance, probe, topk
 
     # The largest absolute difference from the plain version, by wrapper
     # (crowding_distance_kernel under crowding_neighbors, masked_top_k
     # under lex_rank: each runs that kernel).
-    errs = {k: 0.0 for k in ("dominance_packed", "dominance_matrix", "peel_count",
+    errs = {k: 0.0 for k in ("dominance_packed", "dominance_matrix", "peel_count", "peel_fronts",
                              "crowding_neighbors", "lex_rank", "scale_by_two")}
     checks = 0
 
@@ -506,6 +508,11 @@ def phase_compare_mo(device) -> dict:
                 continue  # the crossover sizes are the sort kernels' only
             words = dominance.dominance_packed(f)
             check("dominance_packed", words, dominance.dominance_packed_plain(f), f"dominance_packed n={n} m={m}")
+            check("dominance_packed", dominance.dominance_packed(f.double()),
+                  dominance.dominance_packed_plain(f.double()), f"dominance_packed f64 n={n} m={m}")
+            for u in (None, 1, n // 2, n):
+                check("peel_fronts", dominance.peel_fronts(words, u), dominance.peel_fronts_plain(words, u),
+                      f"peel_fronts n={n} m={m} until_count={u}")
             check("dominance_matrix", dominance.dominance_matrix(f), dominance.dominance_matrix_plain(f),
                   f"dominance_matrix n={n}")
             check("dominance_matrix", dominance.dominance_matrix(f.double()),
@@ -516,6 +523,12 @@ def phase_compare_mo(device) -> dict:
             check("peel_count", dominance.peel_count(words, front), dominance.peel_count_plain(words, front),
                   f"peel_count front n={n}")
             del words
+        if n in MO_SIZES:
+            # The generic words kernel (m outside 2-4).
+            f5 = mo_costs(n, 5, device, seed=n * 10 + 5)
+            check("dominance_packed", dominance.dominance_packed(f5), dominance.dominance_packed_plain(f5),
+                  f"dominance_packed n={n} m=5")
+            del f5
         ranks = torch.randint(0, 40, (n,), device=device, dtype=torch.int32)
         for v in (ranks, mo_costs(n, 1, device, seed=n)[:, 0].contiguous()):
             check("lex_rank", topk.lex_rank(v), topk.lex_rank_plain(v), f"lex_rank n={n} {v.dtype}")
@@ -551,6 +564,7 @@ def mo_counters():
 
     return {
         "dominance_packed": dominance.dominance_packed,
+        "peel_fronts": dominance.peel_fronts,
         "peel_count": dominance.peel_count,
         "lex_rank": topk.lex_rank,
         "crowding_neighbors": crowding.crowding_neighbors,
@@ -583,8 +597,12 @@ def phase_nsga2_main_path(device) -> dict:
     """bench.py's nsga2_dtlz2 through the port: StdWorkflow(NSGA2(10000, 3,
     zeros(12), ones(12)), DTLZ2(d=12, m=3)), float32, no monitor; init_step,
     warm-up, timed and profiled steps.  Every kernel of the path must
-    launch as often as the generation needs it, and IGD must fall."""
+    launch as often as the generation needs it (one peel_fronts a ranking,
+    no peel_count), IGD must fall, survivor selection on the last timed
+    step's inputs must make no host sync and equal the CPU route's bit for
+    bit."""
     import torch
+    from evox_tpu_torch.algorithms.mo import nsga2
     from evox_tpu_torch.metrics import igd
     from evox_tpu_torch.operators.selection import non_dominate
 
@@ -592,24 +610,30 @@ def phase_nsga2_main_path(device) -> dict:
     wf, problem = nsga2_workflow(device, NSGA2_POP)
     pf = problem.pf()
     # The crowding kernel's inputs as the path gives them (the merged
-    # objectives and the boundary-front mask), kept for timing_mo.
-    seen = []
+    # objectives and the boundary-front mask), kept for timing_mo, and the
+    # survivor selection's (merged population, merged objectives).
+    seen, merged = [], []
     distance = non_dominate.crowding_distance_kernel
+    select = nsga2.nd_environmental_selection
 
     def recording(costs, mask=None):
         full = torch.ones(costs.shape[0], dtype=torch.bool, device=costs.device)
         seen[:] = [(costs, full if mask is None else mask)]
         return distance(costs, mask)
 
-    def peels_ranked(rank_max):
-        # One peel_count for the dominate count, then one per front ranked;
-        # the survivors hold every front ranked (the last one in part).
-        return int(rank_max) + 2
+    def recording_selection(x, f, topk):
+        merged[:] = [(x, f)]
+        return select(x, f, topk)
+
+    def fronts_ranked(rank_max):
+        # The survivors hold every front ranked (the last one in part).
+        return int(rank_max) + 1
 
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
     non_dominate.crowding_distance_kernel = recording
+    nsga2.nd_environmental_selection = recording_selection
     try:
         t0 = time.perf_counter()
         state = wf.init_step(wf.init(0))
@@ -617,19 +641,13 @@ def phase_nsga2_main_path(device) -> dict:
         setup_s = time.perf_counter() - t0
         init_launches = {k: c.launches for k, c in counters.items()}
         PATH_INPUTS["init"] = seen[0]
-        want_init = peels_ranked(state.algorithm.rank.max())
-        if init_launches["peel_count"] != want_init:
-            raise AssertionError(f"init_step: {init_launches['peel_count']} peel_count launches for "
-                                 f"{want_init - 1} fronts")
+        init_fronts = fronts_ranked(state.algorithm.rank.max())
         igd0 = float(igd(state.algorithm.fit, pf))
-        fronts = []
 
         rank_max = []  # each step's largest surviving rank, read after the run
 
         def step(s):
-            before = counters["peel_count"].launches
             s = wf.step(s)
-            fronts.append(counters["peel_count"].launches - before - 1)
             rank_max.append(s.algorithm.rank.max())
             return s
 
@@ -646,28 +664,41 @@ def phase_nsga2_main_path(device) -> dict:
         host_ms = (time.perf_counter() - t0) * 1e3 / MAIN_STEPS
         ms = start.elapsed_time(end) / MAIN_STEPS
         PATH_INPUTS["last_timed_step"] = seen[0]
-        timed_fronts = fronts[MAIN_WARMUP:]
+        PATH_INPUTS["selection"] = merged[0]
         state, prof = profile_steps(step, state, PROFILE_STEPS)
     finally:
         non_dominate.crowding_distance_kernel = distance
-    for i, (f, r) in enumerate(zip(fronts, rank_max)):
-        if f + 1 != peels_ranked(r):
-            raise AssertionError(f"step {i + 1}: {f + 1} peel_count launches for {peels_ranked(r) - 1} fronts")
+        nsga2.nd_environmental_selection = select
+    fronts = [fronts_ranked(r) for r in rank_max]
+    timed_fronts = fronts[MAIN_WARMUP:MAIN_WARMUP + MAIN_STEPS]
     steps = MAIN_WARMUP + MAIN_STEPS + PROFILE_STEPS
     launches = {k: c.launches for k, c in counters.items()}
-    # Launches each step needs: one dominance_packed, one lex_rank, one
-    # crowding_neighbors, and 1 + fronts peel_counts (each step's checked
-    # above); init_step: one dominance_packed, one crowding_neighbors.
+    # Launches each step needs: one dominance_packed, one peel_fronts, one
+    # lex_rank, one crowding_neighbors; init_step: one dominance_packed, one
+    # peel_fronts, one crowding_neighbors.  The front peel runs on the card:
+    # no peel_count on the path.
     want = {
         "dominance_packed": 1 + steps,
+        "peel_fronts": 1 + steps,
+        "peel_count": 0,
         "lex_rank": steps,
         "crowding_neighbors": 1 + steps,
-        "peel_count": init_launches["peel_count"] + sum(f + 1 for f in fronts),
         "dominance_matrix": 0,
     }
     for k, v in want.items():
         if launches[k] != v:
             raise AssertionError(f"{k} launched {launches[k]} times, expected {v} ({steps} steps + init)")
+    # Survivor selection on the last timed step's inputs: device operations
+    # and host syncs per call, and bit for bit the CPU route's survivors.
+    x_m, f_m = PATH_INPUTS["selection"]
+    selection = launches_per_call(lambda: non_dominate.nd_environmental_selection(x_m, f_m, NSGA2_POP), calls=3)
+    if selection["host_syncs"] != 0:
+        raise AssertionError(f"survivor selection made host syncs: {selection}")
+    got = non_dominate.nd_environmental_selection(x_m, f_m, NSGA2_POP)
+    want_cpu = non_dominate.nd_environmental_selection(x_m.cpu(), f_m.cpu(), NSGA2_POP)
+    for name, g, w in zip(("x", "f", "rank", "dis"), got, want_cpu):
+        exact(g.cpu(), w, f"survivor selection {name}, card vs CPU")
+    per_gen = launches_per_call(lambda: wf.step(state), calls=3)
     algo = state.algorithm
     igd1 = float(igd(algo.fit, pf))
     if not igd1 < igd0:
@@ -685,10 +716,13 @@ def phase_nsga2_main_path(device) -> dict:
         "ms_per_gen": ms, "gen_per_s": 1e3 / ms, "host_ms_per_gen": host_ms,
         "fronts_per_gen": {"timed_mean": sum(timed_fronts) / len(timed_fronts),
                            "first": fronts[0], "last_timed": timed_fronts[-1],
-                           "init": init_launches["peel_count"] - 1},
+                           "init": init_fronts},
+        "selection": {"launches_per_call": selection["launches"], "host_syncs_per_gen": selection["host_syncs"],
+                      "device_ms": selection["device_ms"], "equal_to_cpu_route": True},
+        "per_gen": {k: per_gen[k] for k in ("launches", "host_syncs", "device_ms")},
         "draws": {**draws, "share_of_host_ms": draws["host_ms"] / host_ms},
         "setup_s": setup_s, "igd_after_init": igd0, "igd_final": igd1,
-        "crowding_valid_rows": {k: int(v[1].sum()) for k, v in PATH_INPUTS.items()},
+        "crowding_valid_rows": {k: int(PATH_INPUTS[k][1].sum()) for k in ("init", "last_timed_step")},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": prof,
     }
@@ -729,7 +763,7 @@ def phase_mo_example(device) -> dict:
     if front.shape[0] == 0 or front.device.type != torch.device(device).type:
         raise AssertionError("empty pooled front")
     launches = {k: c.launches for k, c in counters.items()}
-    if min(launches[k] for k in ("dominance_packed", "peel_count", "lex_rank", "crowding_neighbors")) < 1:
+    if min(launches[k] for k in ("dominance_packed", "peel_fronts", "lex_rank", "crowding_neighbors")) < 1:
         raise AssertionError(f"a kernel of the example's path never launched: {launches}")
     wf_g, _ = nsga2_workflow(device, 128)
     wf_c, _ = nsga2_workflow("cpu", 128)
@@ -819,44 +853,89 @@ def radix_bytes(n, passes, capacity, crowding) -> int:
     return total
 
 
+# Profiler windows launches_per_call takes before it gives up on one that
+# shows a device operation.
+PROFILE_ATTEMPTS = 3
+
+
 def launches_per_call(fn, calls=5) -> dict:
     """Device operations (kernels, memsets, copies), host syncs and device
     busy time per call of ``fn``, read from torch.profiler.  One call runs
     first inside the window and is not counted (the profiler may miss
-    events at its start); the counted calls run in a ``record_function``
-    range that ends with a synchronize, and the syncs of a range holding
-    only that synchronize are subtracted."""
+    events at its start); then a ``record_function`` range holding only a
+    synchronize (its syncs are subtracted), then the counted calls in a
+    range that ends with a synchronize.  Device operations are those that
+    start after the first range begins: the card's clock and the host's may
+    disagree by a few microseconds, more than the gap between the ranges.
+    A window that shows no device operation at all is taken again, and the
+    phase fails if every window is empty: each ``fn`` measured here
+    launches at least one kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     syncs_named = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        with record_function("baseline_range"):
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
             torch.cuda.synchronize()
-        with record_function("counted_calls"):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    events = prof.events()
+            with record_function("baseline_range"):
+                torch.cuda.synchronize()
+            with record_function("counted_calls"):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
 
-    def cpu_range(name):
-        e = next(e for e in events if e.name == name and "CUDA" not in str(getattr(e, "device_type", "")))
-        return e.time_range.start, e.time_range.end
+        def cpu_range(name):
+            e = next(e for e in events if e.name == name and "CUDA" not in str(getattr(e, "device_type", "")))
+            return e.time_range.start, e.time_range.end
 
-    def syncs_in(lo, hi):
-        return sum(1 for e in events if e.name in syncs_named and lo <= e.time_range.start <= hi)
+        def syncs_in(lo, hi):
+            return sum(1 for e in events if e.name in syncs_named and lo <= e.time_range.start <= hi)
 
-    t0, t1 = cpu_range("counted_calls")
-    device = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))
-              and e.time_range.start >= t0 and e.name not in ("counted_calls", "baseline_range")]
+        b0, b1 = cpu_range("baseline_range")
+        t0, t1 = cpu_range("counted_calls")
+        device = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))
+                  and e.time_range.start >= b0 and e.name not in ("counted_calls", "baseline_range")]
+        if device:
+            break
+    else:
+        raise AssertionError(f"the profiler showed no device operation in {PROFILE_ATTEMPTS} windows")
     return {"launches": len(device) / calls,
-            "host_syncs": (syncs_in(t0, t1) - syncs_in(*cpu_range("baseline_range"))) / calls,
+            "host_syncs": (syncs_in(t0, t1) - syncs_in(b0, b1)) / calls,
             "device_ms": sum(e.time_range.elapsed_us() for e in device) / calls / 1e3,
             "kernels": [n[:60] for n in sorted({e.name for e in device})]}
+
+
+def fronts_of(rank) -> int:
+    """Fronts ranked: the largest rank below the sentinel n, plus one."""
+    n = rank.shape[0]
+    ranked = rank[rank < n]
+    return int(ranked.max()) + 1 if ranked.numel() else 0
+
+
+def peel_bound(words, rank, until_count) -> dict:
+    """Bytes and operations of the front peel on this data: the words once
+    for the dominate count, then for each front whose successor is built
+    (every ranked front but the last when ``until_count`` stops the peel;
+    all of them, the last finding an empty front, when it does not) the
+    word rows holding that front's rows; the ranks written (4n) and the
+    counts (4n).  Operations: an AND, a popcount and an add per word read.
+    ``all_words_bytes`` is the cruder count that reads every word for each
+    ranked front and the dominate count ((fronts + 1) x 4·⌈n/32⌉·n + 8n)."""
+    import torch
+
+    nw, n = words.shape
+    fronts = fronts_of(rank)
+    built = fronts if until_count is None else fronts - 1
+    front_words = sum(int(torch.unique(torch.nonzero(rank == r)[:, 0] // 32).numel()) for r in range(built))
+    read = (nw + front_words) * n
+    b = bound(4 * read + 8 * n, 3.0 * read)
+    b["all_words_bytes"] = (fronts + 1) * 4 * nw * n + 8 * n
+    b["all_words_bound_ms"] = b["all_words_bytes"] / PEAK_BYTES_PER_S * 1e3
+    return b
 
 
 def path_inputs():
@@ -880,14 +959,18 @@ def phase_timing_mo(device) -> dict:
     """Each multi-objective kernel beside its plain version and, where one
     exists, a library call, timed with CUDA events, at the main path's
     inputs (its last timed step, and init_step) and at bench.py's 50k
-    shapes.  Bounds: bytes (each input read once, each output written once)
-    over 3.35 TB/s, and lane operations (each compare, select or logic
-    operation one) over 132 x 128 x 1.98e9 a second, counting the work the
-    function needs (a rank or sorted neighbours: n·log2 n compares); the
-    larger is the bound.  Beside the radix kernels stand their design's own
-    figures: radix passes run (per column), bytes moved per call, and, at
-    the path's sizes, the device operations and host syncs per call read
-    from the profiler (at most two and none, or the phase fails)."""
+    shapes (100k for the packed words).  Bounds: bytes (each input read
+    once, each output written once) over 3.35 TB/s, and lane operations
+    (each compare, select or logic operation one) over 132 x 128 x 1.98e9
+    a second, counting the work the function needs (a rank or sorted
+    neighbours: n·log2 n compares); the larger is the bound.  Each kernel
+    on the path's own inputs (every row but the 50k and 100k ones) is
+    first held exactly against its plain version.  Beside the radix
+    kernels stand their design's own figures: radix passes run (per
+    column), bytes moved per call, and, at the path's sizes, the device
+    operations and host syncs per call read from the profiler (at most two
+    and none, or the phase fails), as for the front peel; the packed words
+    and the whole ranking report theirs."""
     import torch
     from evox_tpu_torch.operators.selection import non_dominate_rank
     from evox_tpu_torch.ops import crowding, dominance, probe, topk
@@ -908,8 +991,16 @@ def phase_timing_mo(device) -> dict:
                 raise AssertionError(f"radix kernel at the path's size: {row['profile']}")
         return row
 
-    def entry(name, fn, plain, b, iters=20, plain_iters=3, library=None, **extra):
-        row = {"ms": time_ms(fn, iters), "plain_ms": time_ms(plain, plain_iters, warmup=1), **b, **extra}
+    def entry(name, fn, plain, b, iters=20, plain_iters=3, library=None, held=False, **extra):
+        row = {}
+        if held:
+            # The main path's own inputs: the kernel against its plain
+            # version, exactly, before either is timed.
+            got, want = fn(), plain()
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            row["max_abs_err"] = max(exact(g, w, f"{name} against its plain version") for g, w in pairs)
+            del got, want, pairs
+        row.update({"ms": time_ms(fn, iters), "plain_ms": time_ms(plain, plain_iters, warmup=1), **b, **extra})
         row["library_ms"] = time_ms(library, iters) if library is not None else None
         out[name] = row
         torch.cuda.empty_cache()
@@ -920,7 +1011,8 @@ def phase_timing_mo(device) -> dict:
         n = f.shape[0]
         entry(f"dominance_packed_{tag}", lambda: dominance.dominance_packed(f),
               lambda: dominance.dominance_packed_plain(f),
-              bound(f.numel() * 4 + 4 * (-(-n // 32)) * n, dominance_ops(f)))
+              bound(f.numel() * 4 + 4 * (-(-n // 32)) * n, dominance_ops(f)), held=True,
+              launches_per_call=launches_per_call(lambda: dominance.dominance_packed(f)))
     big = drift_inputs(BIG_DOMINANCE, 3, device)
     entry("dominance_packed_100k", lambda: dominance.dominance_packed(big),
           lambda: dominance.dominance_packed_plain(big),
@@ -933,21 +1025,37 @@ def phase_timing_mo(device) -> dict:
     nw = words.shape[0]
     entry("peel_count_20k", lambda: dominance.peel_count(words, front),
           lambda: dominance.peel_count_plain(words, front),
-          bound(words.numel() * 4 + n2 + 4 * n2, 3.0 * words.numel()))
+          bound(words.numel() * 4 + n2 + 4 * n2, 3.0 * words.numel()), held=True)
+    # The whole front peel of survivor selection at the path's shape (its
+    # until_count N), one cooperative kernel: at most two device operations
+    # and no host sync per call, or the phase fails.
+    peel = lambda: dominance.peel_fronts(words, NSGA2_POP)  # noqa: E731
+    entry("peel_fronts_20k", peel, lambda: dominance.peel_fronts_plain(words, NSGA2_POP),
+          peel_bound(words, rank, NSGA2_POP), held=True, fronts=fronts_of(rank),
+          launches_per_call=launches_per_call(peel))
+    row = out["peel_fronts_20k"]
+    if row["launches_per_call"]["launches"] > 2 or row["launches_per_call"]["host_syncs"] != 0:
+        raise AssertionError(f"peel_fronts at the path's size: {row['launches_per_call']}")
     del words
-    # The whole front peel of survivor selection at the path's shape: its
-    # kernels' time against the host clock (one sync per front).
-    before = dominance.peel_count.launches
+    # init_step's ranking: every front of the first population (no
+    # until_count), the most fronts the path peels in one call.
+    words = dominance.dominance_packed(fit10k)
+    rank10k = dominance.peel_fronts(words)
+    entry("peel_fronts_10k_init", lambda: dominance.peel_fronts(words), lambda: dominance.peel_fronts_plain(words),
+          peel_bound(words, rank10k, None), held=True, fronts=fronts_of(rank10k))
+    del words
+    # The whole ranking of survivor selection (words, then the peel) at the
+    # path's shape: host clock against its kernels' time.
     reps = 10
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         non_dominate_rank(merged, until_count=NSGA2_POP)
     torch.cuda.synchronize()
-    fronts = (dominance.peel_count.launches - before) // reps - 1
     out["non_dominate_rank_20k"] = {
-        "host_ms": (time.perf_counter() - t0) * 1e3 / reps, "fronts": fronts,
-        "kernel_ms": out["dominance_packed_20k"]["ms"] + (fronts + 1) * out["peel_count_20k"]["ms"],
+        "host_ms": (time.perf_counter() - t0) * 1e3 / reps, "fronts": fronts_of(rank),
+        "kernel_ms": out["dominance_packed_20k"]["ms"] + row["ms"],
+        "launches_per_call": launches_per_call(lambda: non_dominate_rank(merged, until_count=NSGA2_POP)),
     }
     # lex_rank / masked_top_k on the path's int32 ranks (k = N), and the
     # 50k float32 top-k of bench.py (k = 25000).
@@ -958,7 +1066,7 @@ def phase_timing_mo(device) -> dict:
         return r
 
     entry("lex_rank_20k", lambda: topk.lex_rank(rank), lambda: topk.lex_rank_plain(rank),
-          bound(8 * n2, sort_ops(n2)), library=lambda: argsort_inverse(rank),
+          bound(8 * n2, sort_ops(n2)), library=lambda: argsort_inverse(rank), held=True,
           masked_top_k_ms=time_ms(lambda: topk.masked_top_k(rank, NSGA2_POP), 20),
           **radix(rank, False, lambda: topk.lex_rank(rank)))
     nb = BIG_CROWDING
@@ -982,7 +1090,7 @@ def phase_timing_mo(device) -> dict:
         entry(f"crowding_neighbors_{tag}", lambda: crowding.crowding_neighbors(f, mk),
               lambda: crowding.crowding_neighbors_plain(f, mk),
               bound(4 * n * m + n + 16 * n * m, m * sort_ops(valid, n)),
-              library=lambda: crowding.crowding_distance_plain(f, mk), valid_rows=valid,
+              library=lambda: crowding.crowding_distance_plain(f, mk), valid_rows=valid, held=tag != "50k",
               distance_kernel_route_ms=time_ms(lambda: crowding.crowding_distance_kernel(f, mk), 20),
               **radix(f, True, None if tag == "50k" else lambda: crowding.crowding_neighbors(f, mk)))
     del c50
@@ -999,6 +1107,8 @@ MO_KERNELS = [
      "dominance_packed_20k"),
     ("peel_count", "evox_tpu_torch/csrc/dominance.cu",
      "evox_tpu/operators/selection/non_dominate.py:161", "peel_count_20k"),
+    ("peel_fronts", "evox_tpu_torch/csrc/dominance.cu",
+     "evox_tpu/operators/selection/non_dominate.py:86", "peel_fronts_20k"),
     ("lex_rank", "evox_tpu_torch/csrc/topk.cu", "evox_tpu/ops/topk.py:60", "lex_rank_20k"),
     ("crowding_neighbors", "evox_tpu_torch/csrc/crowding.cu", "evox_tpu/ops/crowding.py:42",
      "crowding_neighbors_20k_path"),
@@ -1013,7 +1123,10 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         # The probe is no kernel of the main path: 0 launches there.
         "launches": results["nsga2_main_path"]["launches"].get(name, 0),
-        "max_abs_err": results["compare_mo"]["max_abs_err"][name],
+        # compare_mo's sizes and the timing rows held on the path's inputs.
+        "max_abs_err": max([results["compare_mo"]["max_abs_err"][name]]
+                           + [r["max_abs_err"] for k, r in results["timing_mo"].items()
+                              if k.startswith(name + "_") and "max_abs_err" in r]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }

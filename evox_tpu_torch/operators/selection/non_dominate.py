@@ -5,14 +5,13 @@ selection (counterpart of
 On a CUDA tensor every step goes through the port's kernels: the dominance
 relation is built as bit-packed words (:func:`~evox_tpu_torch.ops.dominance.
 dominance_packed`, which replaces both the JAX package's XLA packed route
-and its opt-in dense kernel) and fronts are peeled with popcounts over them
-(:func:`~evox_tpu_torch.ops.dominance.peel_count`); the worst surviving
-rank comes from :func:`~evox_tpu_torch.ops.topk.masked_top_k`; the crowding
-distance from the neighbour kernel.  On a CPU tensor each step runs its
-plain version.  The ranks, distances and survivors are the same either way.
-
-The front peel is a Python loop that reads one number per front back to
-the host (how many rows the front holds): one device sync per front.
+and its opt-in dense kernel) and the fronts are peeled with popcounts over
+them on the card (:func:`~evox_tpu_torch.ops.dominance.peel_fronts`, the
+counterpart of JAX's ``_peel_fronts`` while loop: one cooperative launch,
+no host sync); the worst surviving rank comes from
+:func:`~evox_tpu_torch.ops.topk.masked_top_k`; the crowding distance from
+the neighbour kernel.  On a CPU tensor each step runs its plain version.
+The ranks, distances and survivors are the same either way.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ...ops.crowding import crowding_distance_kernel, crowding_distance_plain
-from ...ops.dominance import dominance_packed, dominate_relation, peel_count
+from ...ops.dominance import dominance_packed, dominate_relation, peel_fronts
 from ...ops.topk import masked_top_k
 from ...utils import lexsort
 
@@ -40,23 +39,7 @@ def non_dominate_rank(f: torch.Tensor, until_count: int | None = None) -> torch.
         rows are ranked (always after a whole front); the rows left get the
         sentinel rank ``n``, larger than any real rank.
     """
-    n = f.shape[0]
-    words = dominance_packed(f.contiguous())
-    count = peel_count(words)  # how many rows dominate each row
-    rank = torch.full((n,), n, dtype=torch.int32, device=f.device)
-    front = count == 0
-    current, assigned = 0, 0
-    while True:
-        size = int(front.sum())  # the one host sync of each front
-        if size == 0 or (until_count is not None and assigned >= until_count):
-            break
-        rank = torch.where(front, current, rank)
-        assigned += size
-        # Rows of the peeled front drop to -1 and never become a front again.
-        count = count - peel_count(words, front) - front.to(torch.int32)
-        front = count == 0
-        current += 1
-    return rank
+    return peel_fronts(dominance_packed(f.contiguous()), until_count)
 
 
 def crowding_distance(costs: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:

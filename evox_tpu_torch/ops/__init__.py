@@ -16,6 +16,8 @@ from .dominance import (
     dominance_packed_plain,
     peel_count,
     peel_count_plain,
+    peel_fronts,
+    peel_fronts_plain,
 )
 from .pso_step import fused_pso_move, fused_pso_move_plain
 from .topk import lex_rank, lex_rank_plain, masked_top_k, masked_top_k_plain
@@ -37,4 +39,6 @@ __all__ = [
     "masked_top_k_plain",
     "peel_count",
     "peel_count_plain",
+    "peel_fronts",
+    "peel_fronts_plain",
 ]

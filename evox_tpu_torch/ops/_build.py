@@ -121,12 +121,16 @@ def entry(name: str, fn: str, argtypes: tuple, restype=ctypes.c_int):
 def launch(what: str, f, device, *args) -> None:
     """Call the C entry point ``f(*args, stream)`` on ``device``'s current
     stream and raise if its launch failed (the entry point returns
-    ``cudaGetLastError()`` after the launch)."""
+    ``cudaGetLastError()`` after the launch).  The device is made current
+    around the call only when it is not already."""
     import torch
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
         err = f(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = f(*args, stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
 

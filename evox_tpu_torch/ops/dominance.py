@@ -8,11 +8,15 @@ the bit-packed route ``_non_dominate_rank_packed`` of
   ``b`` of ``words[w, j]`` = row ``32w + b`` dominates ``j``; held in an
   int32 tensor (PyTorch's bit-exact 32-bit type), read as uint32;
 * :func:`peel_count` — ``Σ_w popcount(words[w, j] & front_mask[w])`` for a
-  (n,) bool front, or the dominate count with ``front=None``.
+  (n,) bool front, or the dominate count with ``front=None``;
+* :func:`peel_fronts` — the non-domination rank of every column from the
+  words: the whole front peel (the dominate count, then one popcount of
+  each front over the words) in one cooperative kernel, with no host sync.
 
 On a CUDA tensor each wrapper launches its kernel in ``csrc/dominance.cu``
 (float32 or float64 objectives; any other dtype raises ``TypeError``); on a
-CPU tensor it runs the plain version beside it.  There is no other path.
+CPU tensor it runs the plain version beside it.  There is no other path: a
+cooperative launch the card refuses raises.
 """
 
 from __future__ import annotations
@@ -31,14 +35,17 @@ __all__ = [
     "dominance_packed_plain",
     "peel_count",
     "peel_count_plain",
+    "peel_fronts",
+    "peel_fronts_plain",
 ]
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _P = ctypes.c_void_p
 _DOMINANCE_ARGS = (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P, _P)
 _PEEL_ARGS = (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P)
-# Rows and columns of one block, staged in shared memory (csrc/dominance.cu);
-# also the dominator rows the plain version compares at a time.
+_FRONTS_ARGS = (_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P)
+# Dominator rows the plain version compares at a time; the kernels take
+# n < 2^31 - _TILE rows.
 _TILE = 256
 
 
@@ -107,6 +114,42 @@ def peel_count_plain(words: torch.Tensor, front: torch.Tensor | None = None) -> 
     return torch.sum(_popcount32(masked), dim=0).to(torch.int32)
 
 
+def peel_fronts_plain(words: torch.Tensor, until_count: int | None = None) -> torch.Tensor:
+    """Non-domination rank (int32) of each of the n columns of ``words``:
+    rank ``r`` for the r-th front peeled, the sentinel ``n`` for columns
+    left unranked.  Peeling stops at an empty front, or before the next
+    front once ``until_count`` columns are ranked (so the front crossing it
+    is ranked whole), as ``_peel_fronts`` of the JAX package.  A loop on
+    :func:`peel_count_plain` that reads each front's size back to the host."""
+    n = words.shape[1]
+    count = peel_count_plain(words)  # how many rows dominate each row
+    rank = torch.full((n,), n, dtype=torch.int32, device=words.device)
+    front = count == 0
+    current, assigned = 0, 0
+    while True:
+        size = int(front.sum())
+        if size == 0 or (until_count is not None and assigned >= until_count):
+            break
+        rank = torch.where(front, current, rank)
+        assigned += size
+        # Rows of the peeled front drop to -1 and never become a front again.
+        count = count - peel_count_plain(words, front) - front.to(torch.int32)
+        front = count == 0
+        current += 1
+    return rank
+
+
+def _check_words(words: torch.Tensor, what: str) -> tuple[int, int]:
+    if words.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {words.device}")
+    if words.ndim != 2 or words.dtype != torch.int32 or not words.is_contiguous():
+        raise ValueError(f"{what}: words must be a contiguous (nw, n) int32 tensor")
+    nw, n = words.shape
+    if nw != _num_words(n):
+        raise ValueError(f"{what}: {nw} words for {n} columns, expected {_num_words(n)}")
+    return nw, n
+
+
 def _check_f(f: torch.Tensor, what: str) -> None:
     if f.ndim != 2:
         raise ValueError(f"{what}: f must be (n, m), got {list(f.shape)}")
@@ -164,13 +207,7 @@ def peel_count(words: torch.Tensor, front: torch.Tensor | None = None) -> torch.
     if words.device.type == "cpu":
         return peel_count_plain(words, front)
     what = "peel_count"
-    if words.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {words.device}")
-    if words.ndim != 2 or words.dtype != torch.int32 or not words.is_contiguous():
-        raise ValueError(f"{what}: words must be a contiguous (nw, n) int32 tensor")
-    nw, n = words.shape
-    if nw != _num_words(n):
-        raise ValueError(f"{what}: {nw} words for {n} columns, expected {_num_words(n)}")
+    nw, n = _check_words(words, what)
     if front is not None:
         if front.shape != (n,) or front.dtype != torch.bool or front.device != words.device:
             raise ValueError(f"{what}: front must be a ({n},) bool tensor on {words.device}")
@@ -186,8 +223,33 @@ def peel_count(words: torch.Tensor, front: torch.Tensor | None = None) -> torch.
     return count
 
 
+def peel_fronts(words: torch.Tensor, until_count: int | None = None) -> torch.Tensor:
+    """Non-domination rank (int32) of each column of the (⌈n/32⌉, n)
+    ``words`` (bit ``b`` of ``words[w, j]`` = row ``32w + b`` dominates
+    ``j``): rank ``r`` for the r-th front, the sentinel ``n`` for columns
+    left unranked once ``until_count`` columns are ranked (always after a
+    whole front).  Equal to :func:`peel_fronts_plain`; on the card one
+    cooperative kernel launch that reads nothing back to the host."""
+    if words.device.type == "cpu":
+        return peel_fronts_plain(words, until_count)
+    what = "peel_fronts"
+    nw, n = _check_words(words, what)
+    rank = torch.empty((n,), dtype=torch.int32, device=words.device)
+    if n == 0:
+        return rank
+    # The kernel stops once ``assigned >= until``; any count above n never
+    # stops it, and a negative one stops it at once, as 0 does.
+    until = -1 if until_count is None else min(max(int(until_count), 0), n + 1)
+    scratch = _build.workspace("dominance", "peel_fronts_workspace", words.device, n, nw)
+    fn = _build.entry("dominance", "peel_fronts", _FRONTS_ARGS)
+    _build.launch(what, fn, words.device, words.data_ptr(), n, nw, until, rank.data_ptr(), scratch.data_ptr())
+    peel_fronts.launches += 1
+    return rank
+
+
 # Launches of each CUDA kernel (never bumped by the CPU path); reset to 0 to
 # count the launches of one run.
 dominance_matrix.launches = 0
 dominance_packed.launches = 0
 peel_count.launches = 0
+peel_fronts.launches = 0

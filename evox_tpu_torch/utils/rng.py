@@ -27,6 +27,8 @@ from typing import Sequence
 
 import torch
 
+from .. import resolve_device
+
 __all__ = [
     "key",
     "split",
@@ -148,15 +150,16 @@ def uniform(
     seed: int,
     shape: Sequence[int],
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """U[0, 1) of ``shape`` from the first Philox word of each element — the
-    same bits on every device."""
+    same bits on every device (``None``: the CUDA card, as
+    :func:`~evox_tpu_torch.resolve_device`)."""
     shape = tuple(shape)
     numel = 1
     for s in shape:
         numel *= s
-    word = philox_words(seed, numel, device)[0]
+    word = philox_words(seed, numel, resolve_device(device))[0]
     return uniform_bits(word, dtype).reshape(shape)
 
 
@@ -174,13 +177,14 @@ def randint(
     shape: Sequence[int],
     low: int,
     high: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Uniform integers in ``[low, high)`` of ``shape`` (int64) from the
-    first Philox word of each element — the same values on every device."""
+    first Philox word of each element — the same values on every device
+    (``None``: the CUDA card, as :func:`~evox_tpu_torch.resolve_device`)."""
     shape = tuple(shape)
     numel = 1
     for s in shape:
         numel *= s
-    word = philox_words(seed, numel, device)[0]
+    word = philox_words(seed, numel, resolve_device(device))[0]
     return randint_bits(word, low, high).reshape(shape)

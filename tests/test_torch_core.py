@@ -134,10 +134,10 @@ def test_philox_known_answers():
 
 @pytest.mark.parametrize("dtype,m", [(torch.float32, 24), (torch.bfloat16, 7)])
 def test_rng_uniform_bits_and_determinism(dtype, m):
-    u = rng.uniform(123, (200, 50), dtype)
+    u = rng.uniform(123, (200, 50), dtype, device="cpu")
     assert u.dtype == dtype and u.shape == (200, 50)
-    assert torch.equal(u, rng.uniform(123, (200, 50), dtype))
-    assert not torch.equal(u, rng.uniform(124, (200, 50), dtype))
+    assert torch.equal(u, rng.uniform(123, (200, 50), dtype, device="cpu"))
+    assert not torch.equal(u, rng.uniform(124, (200, 50), dtype, device="cpu"))
     x = u.double()
     assert float(x.min()) >= 0.0 and float(x.max()) < 1.0
     # Every value is k / 2^m exactly.

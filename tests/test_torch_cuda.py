@@ -101,6 +101,79 @@ def test_dominance_kernels_match_plain_versions(cuda, n, m):
     _same(dominance.peel_count(words, front), dominance.peel_count_plain(words, front))
 
 
+# The packed words: the kernel of fixed m (2, 3, 4) and the generic one
+# (any other m), float32 and float64, sizes around the word and block edges
+# (32 rows a word, 128 / 256 columns a block) and the path's 20,000.
+WORD_SIZES = [1, 31, 32, 33, 255, 256, 257, 2049, 20_000]
+
+
+@pytest.mark.parametrize("n", WORD_SIZES)
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_dominance_packed_matches_plain_version(cuda, n, m, dtype):
+    f = _costs(n, m, cuda, seed=5).to(getattr(torch, dtype))
+    before = dominance.dominance_packed.launches
+    words = dominance.dominance_packed(f)
+    assert dominance.dominance_packed.launches == before + 1
+    _same(words, dominance.dominance_packed_plain(f))
+
+
+@pytest.mark.parametrize("n", [33, 2049])
+@pytest.mark.parametrize("m", [2, 3, 5])
+@pytest.mark.parametrize("kind", ["equal", "nan", "zeros"])
+def test_dominance_packed_on_all_equal_all_nan_and_signed_zero_rows(cuda, n, m, kind):
+    """All-equal rows dominate nothing, all-NaN rows nothing, and -0.0 ties
+    +0.0 (a row of zeros of either sign dominates no other)."""
+    if kind == "equal":
+        f = torch.full((n, m), 0.375, device=cuda)
+    elif kind == "nan":
+        f = torch.full((n, m), float("nan"), device=cuda)
+    else:
+        f = torch.where(torch.rand((n, m), device=cuda) > 0.5, -0.0, 0.0)
+    for g in (f, f.double()):
+        words = dominance.dominance_packed(g)
+        _same(words, dominance.dominance_packed_plain(g))
+        assert not bool(words.any())
+        _same(dominance.peel_fronts(words), torch.zeros(n, dtype=torch.int32, device=cuda))
+
+
+def _dtlz_like(n, m, device, seed=0):
+    """Objectives of a DTLZ2-like population: points near the unit sphere's
+    positive orthant (the front) pushed outward by a random distance."""
+    g = torch.Generator(device=device).manual_seed(seed + n)
+    x = torch.rand((n, m), generator=g, device=device)
+    x = x / x.norm(dim=1, keepdim=True)
+    return (x * (1 + torch.rand((n, 1), generator=g, device=device))).contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 200, 2049, 20_000])
+@pytest.mark.parametrize("until", ["none", "one", "half", "all"])
+@pytest.mark.parametrize("data", ["random", "dtlz"])
+def test_peel_fronts_matches_plain_version(cuda, n, until, data):
+    f = _costs(n, 3, cuda, seed=9) if data == "random" else _dtlz_like(n, 3, cuda)
+    u = {"none": None, "one": 1, "half": n // 2, "all": n}[until]
+    words = dominance.dominance_packed(f)
+    before = dominance.peel_fronts.launches
+    got = dominance.peel_fronts(words, u)
+    assert dominance.peel_fronts.launches == before + 1
+    _same(got, dominance.peel_fronts_plain(words, u))
+
+
+@pytest.mark.parametrize("n", [20_000, 100_000])
+def test_peel_fronts_makes_no_host_sync(cuda, n):
+    """The whole ranking (words, then the peel) reads nothing back to the
+    host, at the path's size and at 3,125 tiles (blocks own several)."""
+    f = _dtlz_like(n, 3, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        words = dominance.dominance_packed(f)
+        rank = dominance.peel_fronts(words, n // 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(rank, dominance.peel_fronts_plain(words, n // 2))
+
+
 # The radix kernels' routes (csrc/radix_sort.cuh): one thread-block cluster
 # up to radix_capacity() rows (1 block at 33, 4 at 1000, 8 from 1793 on),
 # many blocks beyond (131,073: 26 tiles of 5,120; 200,003: 40).
@@ -220,6 +293,10 @@ def test_mo_kernels_refuse_what_they_do_not_take(cuda):
     words = dominance.dominance_packed(f)
     with pytest.raises(ValueError):
         dominance.peel_count(words, torch.ones(64, dtype=torch.bool))  # front on the CPU
+    with pytest.raises(ValueError, match="words"):
+        dominance.peel_fronts(words[:, :32])  # two words for 32 columns
+    with pytest.raises(ValueError, match="int32"):
+        dominance.peel_fronts(words.to(torch.int64))
     with pytest.raises(TypeError):
         probe.scale_by_two(torch.ones(4, device=cuda, dtype=torch.float64))
     # 120 float32 objectives overflow a block's shared memory: the C entry

@@ -17,6 +17,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from evox_tpu.operators.selection import non_dominate_rank as jrank  # noqa: E402
+from evox_tpu.operators.selection.non_dominate import _non_dominate_rank_packed  # noqa: E402
 from evox_tpu.operators.selection.non_dominate import _pack_bits  # noqa: E402
 from evox_tpu.operators.selection.non_dominate import dominate_relation as jrelation  # noqa: E402
 from evox_tpu.ops.crowding import crowding_distance_pallas as jcrowding  # noqa: E402
@@ -350,18 +352,70 @@ def test_peel_count_matches_numpy_popcount(n):
     np.testing.assert_array_equal(got.numpy(), (mat & front[:, None]).sum(0))
 
 
+# ---------------------------------------------------------------------------
+# peel_fronts: the whole front peel over the packed words
+# ---------------------------------------------------------------------------
+
+
+def _until(kind, n):
+    return {"none": None, "one": 1, "half": n // 2, "all": n}[kind]
+
+
+def _peel_costs(n):
+    """Tie-heavy objectives with ±inf entries and NaN rows (n > 8), and a
+    chain of strictly improving rows so that some fronts hold one row."""
+    f = _costs(n * 5 + 1, n, 3)
+    if n > 20:
+        f[10:20] = (np.arange(10, dtype=np.float32)[:, None] / 16 - 1.0) * np.ones(3, np.float32)
+    return f
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 200])
+@pytest.mark.parametrize("until", ["none", "one", "half", "all"])
+def test_peel_fronts_plain_matches_both_jax_routes(n, until):
+    """The plain peel on the packed words equals JAX's packed route and its
+    unpacked while loop (the route it takes below 2048 rows), rank for rank,
+    the sentinel n included."""
+    f = _peel_costs(n)
+    u = _until(until, n)
+    words = dominance.dominance_packed(torch.from_numpy(f))
+    got = dominance.peel_fronts_plain(words, u)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_non_dominate_rank_packed(jnp.asarray(f), u)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jrank(jnp.asarray(f), until_count=u)))
+    np.testing.assert_array_equal(dominance.peel_fronts(words, u).numpy(), got.numpy())
+
+
+def test_peel_fronts_until_count_edges():
+    """A count at or below 0 ranks nothing; one above n ranks every front,
+    as ``None`` does; the front crossing the count is ranked whole."""
+    f = _peel_costs(200)
+    words = dominance.dominance_packed(torch.from_numpy(f))
+    full = dominance.peel_fronts(words)
+    assert torch.equal(dominance.peel_fronts(words, 0), torch.full((200,), 200, dtype=torch.int32))
+    assert torch.equal(dominance.peel_fronts(words, -3), torch.full((200,), 200, dtype=torch.int32))
+    assert torch.equal(dominance.peel_fronts(words, 10**12), full)
+    first = int((full == 0).sum())
+    assert torch.equal(dominance.peel_fronts(words, first), torch.where(full == 0, 0, 200).to(torch.int32))
+    crossing = dominance.peel_fronts(words, first + 1)
+    assert int(crossing.max()) == 200 and torch.equal(crossing[full <= 1], full[full <= 1])
+
+
 def test_cpu_wrappers_count_no_launches():
     before = (topk.lex_rank.launches, crowding.crowding_neighbors.launches,
               dominance.dominance_packed.launches, dominance.peel_count.launches,
+              dominance.peel_fronts.launches,
               dominance.dominance_matrix.launches, probe.scale_by_two.launches)
     f = torch.from_numpy(_costs(1, 40, 3))
     dominance.peel_count(dominance.dominance_packed(f))
+    dominance.peel_fronts(dominance.dominance_packed(f), 20)
     dominance.dominance_matrix(f)
     crowding.crowding_neighbors(f, torch.ones(40, dtype=torch.bool))
     topk.lex_rank(f[:, 0])
     probe.scale_by_two(f)
     after = (topk.lex_rank.launches, crowding.crowding_neighbors.launches,
              dominance.dominance_packed.launches, dominance.peel_count.launches,
+             dominance.peel_fronts.launches,
              dominance.dominance_matrix.launches, probe.scale_by_two.launches)
     assert after == before
 

@@ -97,13 +97,13 @@ def test_tournaments_match_jax_with_its_candidates(n_round, size):
 
 
 def test_randint_range_and_balance():
-    v = rng.randint(3, (100_000,), -2, 5)
+    v = rng.randint(3, (100_000,), -2, 5, device="cpu")
     assert v.dtype == torch.int64 and int(v.min()) == -2 and int(v.max()) == 4
     counts = torch.bincount(v + 2, minlength=7).double()
     assert float((counts / 100_000 - 1 / 7).abs().max()) < 0.01
-    assert torch.equal(v, rng.randint(3, (100_000,), -2, 5))
+    assert torch.equal(v, rng.randint(3, (100_000,), -2, 5, device="cpu"))
     with pytest.raises(ValueError):
-        rng.randint(0, (3,), 2, 2)
+        rng.randint(0, (3,), 2, 2, device="cpu")
 
 
 def test_one_philox_evaluation_per_operator(monkeypatch):

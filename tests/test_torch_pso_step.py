@@ -134,5 +134,5 @@ def test_hw_draws_are_the_rng_philox_stream(dtype):
         torch.full((d,), -10.0, dtype=dtype), torch.full((d,), 10.0, dtype=dtype),
         0.0, 1.0, 0.0, seed=seed,
     )
-    assert torch.equal(vel, rng.uniform(seed, (n, d), dtype))
+    assert torch.equal(vel, rng.uniform(seed, (n, d), dtype, device="cpu"))
     assert torch.equal(lbl, torch.ones_like(z)) and torch.equal(lbf, torch.zeros(n, dtype=dtype))

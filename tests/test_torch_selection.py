@@ -74,6 +74,24 @@ def test_non_dominate_rank_until_count_matches_jax(until):
     np.testing.assert_array_equal(got.numpy(), np.asarray(jrank(jnp.asarray(f), until_count=until)))
 
 
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 200])
+@pytest.mark.parametrize("until", ["none", "one", "half", "all"])
+def test_non_dominate_rank_cpu_route_is_the_plain_peel_and_matches_jax(n, until):
+    """On a CPU tensor non_dominate_rank is the plain peel over the plain
+    words (what the card's two kernels are held to), and equals both JAX
+    routes bit for bit; ties, ±inf and NaN rows included."""
+    from evox_tpu_torch.ops import dominance
+
+    f = _front_like(n * 7 + 2, n, 3, specials=n > 8)
+    u = {"none": None, "one": 1, "half": n // 2, "all": n}[until]
+    got = non_dominate_rank(torch.from_numpy(f), until_count=u)
+    plain = dominance.peel_fronts_plain(dominance.dominance_packed_plain(torch.from_numpy(f)), u)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_non_dominate_rank_packed(jnp.asarray(f), u)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jrank(jnp.asarray(f), until_count=u)))
+
+
 @pytest.mark.parametrize("n,m", [(2, 2), (37, 3), (130, 4), (256, 2)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_crowding_distance_matches_jax(n, m, masked):
