@@ -10,8 +10,10 @@ kernel against its plain PyTorch version on the card, drives the main paths
 (PSO on Sphere at pop=100000, dim=1000, through ``StdWorkflow``, then the
 README quick start, PSO on Ackley with an ``EvalMonitor``; NSGA-II on DTLZ2
 at pop=10000, d=12, m=3, then the multi-objective example with an
-``EvalMonitor(multi_obj=True)``), checks that each path went through its
-kernels, and times them.  It prints one JSON line per
+``EvalMonitor(multi_obj=True)``; then the fused runs, ``run_segment`` and
+``run`` as replayed CUDA graphs, on the PSO headline, PSO at pop=1024 on
+Ackley and the NSGA-II headline, each against eager steps bit for bit),
+checks that each path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -245,6 +247,7 @@ def phase_main_path(device) -> dict:
     The best fitness must fall, and every step must launch the kernel."""
     import torch
     from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.ops.philox import philox_draws
     from evox_tpu_torch.ops.pso_step import fused_pso_move
     from evox_tpu_torch.problems.numerical import Sphere
     from evox_tpu_torch.workflows import StdWorkflow
@@ -255,11 +258,13 @@ def phase_main_path(device) -> dict:
     wf = StdWorkflow(PSO(n, lb, ub, device=device), Sphere())
     torch.cuda.reset_peak_memory_stats()
     fused_pso_move.launches = 0
+    philox_draws.launches = 0
     t0 = time.perf_counter()
     state = wf.init(0)
     state = wf.init_step(state)
     best0 = float(state.algorithm.global_best_fit)
     setup_s = time.perf_counter() - t0
+    setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for _ in range(MAIN_WARMUP):
         state = wf.step(state)
     torch.cuda.synchronize()
@@ -274,6 +279,10 @@ def phase_main_path(device) -> dict:
     ms = start.elapsed_time(end) / MAIN_STEPS
     state, prof = profile_steps(wf.step, state, PROFILE_STEPS)
     launches = fused_pso_move.launches
+    # The setup's two draws (positions and velocities); the steps draw in
+    # the move kernel.
+    if philox_draws.launches != 2:
+        raise AssertionError(f"philox_draws launched {philox_draws.launches} times in the setup, expected 2")
     steps = MAIN_WARMUP + MAIN_STEPS + PROFILE_STEPS
     algo = state.algorithm
     best1 = float(torch.minimum(algo.global_best_fit, algo.fit.min()))
@@ -287,9 +296,10 @@ def phase_main_path(device) -> dict:
         raise AssertionError("non-finite population or fitness")
     return {
         "config": "PSO pop=100000 dim=1000 Sphere f32, StdWorkflow, no monitor",
-        "launches": launches, "steps": steps,
+        "launches": launches, "philox_launches": philox_draws.launches, "steps": steps,
         "ms_per_gen": ms, "gen_per_s": 1e3 / ms, "host_ms_per_gen": host_ms,
         "setup_s": setup_s, "best_after_init": best0, "best_final": best1,
+        "setup_peak_mem_gb": setup_peak_gb,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": prof,
     }
@@ -368,15 +378,19 @@ def phase_timing(device) -> dict:
     smaller time, so bytes bound it."""
     import torch
     from evox_tpu_torch.ops.pso_step import fused_pso_move, fused_pso_move_plain
+    from evox_tpu_torch.utils import rng
 
     n, d = HEADLINE
     out = {}
+    # A device key, as the path's: an integer seed is copied to the card
+    # on every call, which waits for the host.
+    seed = rng.child(rng.key(99, device))
     for dtype in (torch.float32, torch.bfloat16):
         args, draws = move_inputs(n, d, dtype, seed=5, device=device)
         size = torch.tensor([], dtype=dtype).element_size()
         key = str(dtype).split(".")[-1]
         for rand in ("hw", "input"):
-            kw = dict(seed=99, rand=rand, rand_draws=draws if rand == "input" else None)
+            kw = dict(seed=seed, rand=rand, rand_draws=draws if rand == "input" else None)
             nd_arrays = 6 + (2 if rand == "input" else 0)
             nbytes = size * (nd_arrays * n * d + 3 * n + 3 * d) + 12
             flops = 16 * n * d + n
@@ -480,7 +494,7 @@ def phase_compare_mo(device) -> dict:
     # The largest absolute difference from the plain version, by wrapper
     # (crowding_distance_kernel under crowding_neighbors, masked_top_k
     # under lex_rank: each runs that kernel).
-    errs = {k: 0.0 for k in ("dominance_packed", "dominance_matrix", "peel_count", "peel_fronts",
+    errs = {k: 0.0 for k in ("dominance_packed", "dominance_matrix", "peel_fronts",
                              "crowding_neighbors", "lex_rank", "scale_by_two")}
     checks = 0
 
@@ -517,11 +531,6 @@ def phase_compare_mo(device) -> dict:
                   f"dominance_matrix n={n}")
             check("dominance_matrix", dominance.dominance_matrix(f.double()),
                   dominance.dominance_matrix_plain(f.double()), f"dominance_matrix f64 n={n}")
-            front = torch.rand(n, device=device) > 0.5
-            check("peel_count", dominance.peel_count(words), dominance.peel_count_plain(words),
-                  f"peel_count n={n}")
-            check("peel_count", dominance.peel_count(words, front), dominance.peel_count_plain(words, front),
-                  f"peel_count front n={n}")
             del words
         if n in MO_SIZES:
             # The generic words kernel (m outside 2-4).
@@ -560,15 +569,15 @@ def nsga2_workflow(device, pop, monitor=None):
 
 
 def mo_counters():
-    from evox_tpu_torch.ops import crowding, dominance, topk
+    from evox_tpu_torch.ops import crowding, dominance, philox, topk
 
     return {
         "dominance_packed": dominance.dominance_packed,
         "peel_fronts": dominance.peel_fronts,
-        "peel_count": dominance.peel_count,
         "lex_rank": topk.lex_rank,
         "crowding_neighbors": crowding.crowding_neighbors,
         "dominance_matrix": dominance.dominance_matrix,
+        "philox_draws": philox.philox_draws,
     }
 
 
@@ -580,10 +589,12 @@ def time_draws(device, reps=5) -> dict:
     from evox_tpu_torch.operators.mutation.pm_mutation import pm_draws
     from evox_tpu_torch.utils import rng
 
+    keys = [rng.key(s, device) for s in (1, 2, 3)]
+
     def draws():
-        sbx_draws(rng.key(1), (NSGA2_POP // 2, NSGA2_DIM), torch.float32, device)
-        pm_draws(rng.key(2), (NSGA2_POP, NSGA2_DIM), torch.float32, device)
-        rng.randint(3, (NSGA2_POP, 2), 0, 2 * NSGA2_POP, device)
+        sbx_draws(keys[0], (NSGA2_POP // 2, NSGA2_DIM), torch.float32, device)
+        pm_draws(keys[1], (NSGA2_POP, NSGA2_DIM), torch.float32, device)
+        rng.randint(rng.child(keys[2]), (NSGA2_POP, 2), 0, 2 * NSGA2_POP, device)
 
     draws()
     torch.cuda.synchronize()
@@ -598,7 +609,7 @@ def phase_nsga2_main_path(device) -> dict:
     zeros(12), ones(12)), DTLZ2(d=12, m=3)), float32, no monitor; init_step,
     warm-up, timed and profiled steps.  Every kernel of the path must
     launch as often as the generation needs it (one peel_fronts a ranking,
-    no peel_count), IGD must fall, survivor selection on the last timed
+    one Philox draw for each of the three operators), IGD must fall, survivor selection on the last timed
     step's inputs must make no host sync and equal the CPU route's bit for
     bit."""
     import torch
@@ -674,16 +685,16 @@ def phase_nsga2_main_path(device) -> dict:
     steps = MAIN_WARMUP + MAIN_STEPS + PROFILE_STEPS
     launches = {k: c.launches for k, c in counters.items()}
     # Launches each step needs: one dominance_packed, one peel_fronts, one
-    # lex_rank, one crowding_neighbors; init_step: one dominance_packed, one
-    # peel_fronts, one crowding_neighbors.  The front peel runs on the card:
-    # no peel_count on the path.
+    # lex_rank, one crowding_neighbors, three Philox draws (tournament, SBX,
+    # mutation); init_step: one dominance_packed, one peel_fronts, one
+    # crowding_neighbors; the setup one draw (the first population).
     want = {
         "dominance_packed": 1 + steps,
         "peel_fronts": 1 + steps,
-        "peel_count": 0,
         "lex_rank": steps,
         "crowding_neighbors": 1 + steps,
         "dominance_matrix": 0,
+        "philox_draws": 1 + 3 * steps,
     }
     for k, v in want.items():
         if launches[k] != v:
@@ -856,37 +867,56 @@ def radix_bytes(n, passes, capacity, crowding) -> int:
 # Profiler windows launches_per_call takes before it gives up on one that
 # shows a device operation.
 PROFILE_ATTEMPTS = 3
+PROFILE_PAD_S = 0.005
+PROFILE_SPARE = 8
 
 
 def launches_per_call(fn, calls=5) -> dict:
     """Device operations (kernels, memsets, copies), host syncs and device
     busy time per call of ``fn``, read from torch.profiler.  One call runs
-    first inside the window and is not counted (the profiler may miss
-    events at its start); then a ``record_function`` range holding only a
-    synchronize (its syncs are subtracted), then the counted calls in a
-    range that ends with a synchronize.  Device operations are those that
-    start after the first range begins: the card's clock and the host's may
-    disagree by a few microseconds, more than the gap between the ranges.
-    A window that shows no device operation at all is taken again, and the
-    phase fails if every window is empty: each ``fn`` measured here
-    launches at least one kernel."""
+    in the profiler's warm-up step, whose events are dropped; the recorded
+    step holds ``PROFILE_SPARE`` marker kernels (``torch.cuda._sleep``),
+    a ``record_function`` range with only a synchronize (its syncs are
+    subtracted), then the counted calls in a range that ends with a
+    synchronize.  Every device operation of the recorded step but the
+    markers belongs to the counted calls.  The markers go first because
+    the profiler can lose the first device operations of a recorded step;
+    ``PROFILE_PAD_S`` of host time around each step boundary keeps
+    operations out of the step they do not belong to, as the card's clock
+    and the host's disagree by microseconds.  A window that keeps no
+    marker (it may have lost a counted operation too) or shows no counted
+    operation is taken again, and the phase fails if every window is:
+    each ``fn`` measured here launches at least one kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     syncs_named = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(PROFILE_SPARE):
+                torch.cuda._sleep(1)
             with record_function("baseline_range"):
                 torch.cuda.synchronize()
             with record_function("counted_calls"):
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
         events = prof.events()
+        on_device = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))
+                     and e.name not in ("counted_calls", "baseline_range")
+                     and not e.name.startswith("ProfilerStep")]
+        marks = [e for e in on_device if "spin_kernel" in e.name]
+        device = [e for e in on_device if "spin_kernel" not in e.name]
 
         def cpu_range(name):
             e = next(e for e in events if e.name == name and "CUDA" not in str(getattr(e, "device_type", "")))
@@ -897,12 +927,11 @@ def launches_per_call(fn, calls=5) -> dict:
 
         b0, b1 = cpu_range("baseline_range")
         t0, t1 = cpu_range("counted_calls")
-        device = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))
-                  and e.time_range.start >= b0 and e.name not in ("counted_calls", "baseline_range")]
-        if device:
+        if marks and device:
             break
     else:
-        raise AssertionError(f"the profiler showed no device operation in {PROFILE_ATTEMPTS} windows")
+        raise AssertionError(f"the profiler showed no device operation in {PROFILE_ATTEMPTS} windows "
+                             f"(last: {len(device)} counted, {len(marks)} of {PROFILE_SPARE} markers)")
     return {"launches": len(device) / calls,
             "host_syncs": (syncs_in(t0, t1) - syncs_in(b0, b1)) / calls,
             "device_ms": sum(e.time_range.elapsed_us() for e in device) / calls / 1e3,
@@ -1019,13 +1048,7 @@ def phase_timing_mo(device) -> dict:
           bound(big.numel() * 4 + 4 * (-(-BIG_DOMINANCE // 32)) * BIG_DOMINANCE, dominance_ops(big)),
           iters=3, plain_iters=1)
     del big
-    # peel_count over the path's words with its first front.
     words = dominance.dominance_packed(merged)
-    front = dominance.peel_count(words) == 0
-    nw = words.shape[0]
-    entry("peel_count_20k", lambda: dominance.peel_count(words, front),
-          lambda: dominance.peel_count_plain(words, front),
-          bound(words.numel() * 4 + n2 + 4 * n2, 3.0 * words.numel()), held=True)
     # The whole front peel of survivor selection at the path's shape (its
     # until_count N), one cooperative kernel: at most two device operations
     # and no host sync per call, or the phase fails.
@@ -1100,13 +1123,345 @@ def phase_timing_mo(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 5: the Philox draw kernel, and fused runs as replayed CUDA graphs.
+# ---------------------------------------------------------------------------
+
+PHILOX_SIZES = [1, 3, 4, 5, 1000, 1001, 65_537, 1_000_003]
+PHILOX_BIG = 100_000_000  # the PSO headline's setup draws: 1e5 x 1e3
+# Lane operations of one Philox4x32-10 evaluation: ten rounds of two 32-bit
+# multiplies, their high halves and four XORs (the key schedule is per
+# thread); then three a word put in its final form (shift, convert, scale;
+# or multiply, shift, add).
+PHILOX_OPS, PHILOX_OPS_PER_OUT = 80, 3
+SEGMENT_GENS = 20
+
+
+def philox_bound(numel, kinds) -> dict:
+    import torch
+
+    size = sum(8 if isinstance(k, tuple) else torch.tensor([], dtype=k).element_size() for k in kinds)
+    return bound(numel * size + 16, float(numel) * (PHILOX_OPS + PHILOX_OPS_PER_OUT * len(kinds)))
+
+
+def phase_philox(device) -> dict:
+    """The draw kernel against its plain version, bit for bit: child seeds
+    of keys whose seed words span 0 to 2^64 - 1 and whose counters are 0, 5
+    and 2^40, and integer seeds (used as they are); sizes 1 to 10^6 + 3
+    that are and are not multiples of 4, and 10^8; every output kind
+    (float32, bfloat16, float64, float16, int64 ranges) in one to four
+    outputs a call.  Then timing at the main paths' shapes: the PSO
+    headline's setup draw (10^8 float32) and the three draws of an NSGA-II
+    generation."""
+    import torch
+    from evox_tpu_torch.ops import philox
+    from evox_tpu_torch.utils import rng
+
+    kinds_list = [
+        [torch.float32], [torch.bfloat16], [torch.float64], [torch.float16], [(0, 2)],
+        [torch.float32, (0, 2), torch.float32, torch.float32],
+        [torch.float32, torch.float32], [(0, 2 * NSGA2_POP)], [(-7, 2**31 - 7), torch.bfloat16],
+    ]
+    seeds = [12345, 2**63 + 3]
+    for s_ in (0, 7, 2**63, 2**64 - 1):
+        k = rng.key(s_, device)
+        for advance in (0, 5, 2**40):
+            k_adv = k.clone()
+            k_adv[1] += advance
+            seeds += [rng.child(k_adv, 0), rng.child(k_adv, 3)]
+    checks, worst = 0, 0.0
+    for seed in seeds:
+        for numel in PHILOX_SIZES:
+            for kinds in kinds_list:
+                got = philox.philox_draws(seed, numel, kinds, device)
+                want = philox.philox_draws_plain(seed, numel, kinds, device)
+                for g, w in zip(got, want):
+                    worst = max(worst, exact(g, w, f"philox_draws {kinds} numel={numel}"))
+                    checks += 1
+    for kinds in ([torch.float32], [torch.float32, (0, 2), torch.bfloat16, torch.float16]):
+        got = philox.philox_draws(seeds[-1], PHILOX_BIG, kinds, device)
+        want = philox.philox_draws_plain(seeds[-1], PHILOX_BIG, kinds, device)
+        for g, w in zip(got, want):
+            worst = max(worst, exact(g, w, f"philox_draws {kinds} numel={PHILOX_BIG}"))
+            checks += 1
+        del got, want
+        torch.cuda.empty_cache()
+
+    timing = {}
+    k = rng.key(2**63 + 1, device)
+    for tag, numel, kinds, iters in (
+        ("pso_setup_1e8_f32", PHILOX_BIG, [torch.float32], 10),
+        ("nsga2_sbx_60k", NSGA2_POP // 2 * NSGA2_DIM, [torch.float32, (0, 2), torch.float32, torch.float32], 50),
+        ("nsga2_pm_120k", NSGA2_POP * NSGA2_DIM, [torch.float32, torch.float32], 50),
+        ("nsga2_tournament_20k", NSGA2_POP * 2, [(0, NSGA2_POP)], 50),
+    ):
+        seed = rng.child(k, 1)
+        row = {"numel": numel, "outputs": len(kinds),
+               "ms": time_ms(lambda: philox.philox_draws(seed, numel, kinds, device), iters),
+               "plain_ms": time_ms(lambda: philox.philox_draws_plain(seed, numel, kinds, device), 3, warmup=1),
+               **philox_bound(numel, kinds), "library_ms": None}
+        if tag.startswith("pso"):
+            # torch.rand draws other bits (its own Philox stream), so it is no
+            # library call for this function; its time is kept beside it.
+            row["torch_rand_ms"] = time_ms(lambda: torch.rand(numel, device=device), iters)
+            row["launches_per_call"] = launches_per_call(lambda: philox.philox_draws(seed, numel, kinds, device))
+        else:
+            row["launches_per_call"] = launches_per_call(lambda: philox.philox_draws(seed, numel, kinds, device))
+        if row["launches_per_call"]["launches"] > 1 or row["launches_per_call"]["host_syncs"] != 0:
+            raise AssertionError(f"philox_draws {tag}: {row['launches_per_call']}")
+        timing[tag] = row
+        torch.cuda.empty_cache()
+    return {"checks": checks, "max_abs_err": worst, "timing": timing}
+
+
+def same_state(got, want, what) -> int:
+    """Raise unless two nests of tensors are equal leaf for leaf, bit for
+    bit (``exact``); return the number of leaves."""
+    from evox_tpu_torch.workflows import _graph
+
+    lg, sg = _graph.flatten(got)
+    lw, sw = _graph.flatten(want)
+    if sg != sw:
+        raise AssertionError(f"{what}: the state's structure differs")
+    for i, (g, w) in enumerate(zip(lg, lw)):
+        if g.device != w.device:
+            raise AssertionError(f"{what}: leaf {i} on {g.device}, expected {w.device}")
+        exact(g, w, f"{what}, leaf {i}")
+    return len(lg)
+
+
+def segment_workflow(path, device, monitor, problem=None, **kw):
+    """One of the fused paths (bench.py's pso_northstar_fused,
+    pso_small_fused, nsga2_dtlz2), with an EvalMonitor when asked."""
+    import torch
+    from evox_tpu_torch.algorithms import NSGA2, PSO
+    from evox_tpu_torch.problems.numerical import DTLZ2, Ackley, Sphere
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    if path == "nsga2_headline":
+        mon = EvalMonitor(multi_obj=True) if monitor else None
+        algo = NSGA2(NSGA2_POP, NSGA2_OBJ, torch.zeros(NSGA2_DIM), torch.ones(NSGA2_DIM), device=device)
+        return StdWorkflow(algo, problem or DTLZ2(d=NSGA2_DIM, m=NSGA2_OBJ, device=device), monitor=mon, **kw)
+    mon = EvalMonitor(full_fit_history=True) if monitor else None
+    if path == "pso_headline":
+        n, d = HEADLINE
+        algo = PSO(n, torch.full((d,), -10.0), torch.full((d,), 10.0), device=device)
+        return StdWorkflow(algo, problem or Sphere(), monitor=mon, **kw)
+    algo = PSO(1024, torch.full((100,), -32.0), torch.full((100,), 32.0), device=device)
+    return StdWorkflow(algo, problem or Ackley(), monitor=mon, **kw)
+
+
+def path_counters(path):
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+
+    if path.startswith("pso"):
+        return {"fused_pso_move": fused_pso_move}
+    return {k: v for k, v in mo_counters().items() if k != "dominance_matrix"}
+
+
+def timed(fn, gens):
+    """(event ms, host ms) per generation of one call of ``fn`` covering
+    ``gens`` generations, and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / gens, (time.perf_counter() - t0) * 1e3 / gens, out
+
+
+def segment_history_check(path, device) -> dict:
+    """With an EvalMonitor: run_segment(20) + flush_telemetry and run(20)
+    from the same state as 20 eager steps: every state leaf bit for bit,
+    and the history entries flushed equal to the stepped ones (same
+    values, same device, same count)."""
+    wf = segment_workflow(path, device, monitor=True)
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    hist = wf.monitor._history
+    h0 = {t: len(v) for t, v in hist.items()}
+    ref = s0
+    for _ in range(SEGMENT_GENS):
+        ref = wf.step(ref)
+    seg, tel = wf.run_segment(s0, SEGMENT_GENS)
+    leaves = same_state(seg, ref, f"{path}: run_segment vs eager steps")
+    if bool(tel.stopped) or int(tel.executed) != SEGMENT_GENS:
+        raise AssertionError(f"{path}: telemetry {tel.stopped} {tel.executed}")
+    wf.flush_telemetry(tel)
+    run = wf.run(s0, SEGMENT_GENS, init=False)
+    same_state(run, ref, f"{path}: run vs eager steps")
+    entries = 0
+    for t, v in hist.items():
+        stepped = v[h0[t]: h0[t] + SEGMENT_GENS]
+        for k, block in (("run_segment", 1), ("run", 2)):
+            flushed = v[h0[t] + block * SEGMENT_GENS: h0[t] + (block + 1) * SEGMENT_GENS]
+            if len(flushed) != len(stepped):
+                raise AssertionError(f"{path}: {k} history has {len(flushed)} entries, stepping {len(stepped)}")
+            for a, b in zip(flushed, stepped):
+                if a.device != b.device:
+                    raise AssertionError(f"{path}: {k} history on {a.device}, stepping on {b.device}")
+                exact(a, b, f"{path}: {k} history entry")
+                entries += 1
+    return {"leaves": leaves, "history_entries_checked": entries}
+
+
+def phase_segment(device) -> dict:
+    """run_segment and run on the card: replays of captured CUDA graphs,
+    held bit for bit against eager steps on the three target paths (with a
+    monitor: the history flushed too), then timed against eager steps on
+    the bench configurations (no monitor): CUDA events and host clock per
+    generation, device busy time from the profiler (idle share), capture
+    time, device operations and host syncs per generation, the state's
+    size and the memory a capture adds, and what copying the state once
+    costs (the copy-back a graph replayed every generation would pay).
+    ``run`` must not be slower than eager steps (by more than 10 %).  The
+    launch counters count wrapper calls: a first run_segment runs one
+    generation (warm-up on a clone) and then the captured ones through the
+    wrappers, so it must count exactly (n + 1) / n of the launches of n
+    eager steps; a replayed one counts none.  Then the early stop on PSO
+    pop=1024: a problem that turns NaN at a chosen evaluation (quarantine
+    off) stops the segment there, with the state of the eager steps up to
+    it; with no NaN the stop-guarded segment equals 20 eager steps."""
+    import torch
+
+    from evox_tpu_torch.workflows import _graph
+
+    out = {}
+    for path in ("pso_headline", "pso_small", "nsga2_headline"):
+        torch.cuda.reset_peak_memory_stats()
+        row = {"history": segment_history_check(path, device)}
+        history_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        wf = segment_workflow(path, device, monitor=False)
+        s0 = wf.step(wf.init_step(wf.init(0)))
+        for _ in range(MAIN_WARMUP):
+            ref = wf.step(s0)
+        del ref
+
+        def eager():
+            s = s0
+            for _ in range(SEGMENT_GENS):
+                s = wf.step(s)
+            return s
+
+        counters = path_counters(path)
+        for c in counters.values():
+            c.launches = 0
+        eager_ms, eager_host_ms, ref = timed(eager, SEGMENT_GENS)
+        stepped = {k: c.launches for k, c in counters.items()}
+        want_first = {k: v // SEGMENT_GENS * (SEGMENT_GENS + 1) for k, v in stepped.items()}
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        state_bytes = sum(t.numel() * t.element_size() for t in _graph.flatten(s0)[0])
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        seg, _ = wf.run_segment(s0, SEGMENT_GENS)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        capture_peak_gb = (torch.cuda.max_memory_allocated() - allocated) / 1e9
+        first = {k: c.launches for k, c in counters.items()}
+        same_state(seg, ref, f"{path}: run_segment vs eager steps (no monitor)")
+        for c in counters.values():
+            c.launches = 0
+        seg_ms, seg_host_ms, (seg, _) = timed(lambda: wf.run_segment(s0, SEGMENT_GENS), SEGMENT_GENS)
+        replayed = {k: c.launches for k, c in counters.items()}
+        same_state(seg, ref, f"{path}: replayed run_segment vs eager steps")
+        if (min(stepped.values()) < 1 or any(v % SEGMENT_GENS for v in stepped.values())
+                or first != want_first or max(replayed.values()) != 0):
+            raise AssertionError(f"{path}: launches in {SEGMENT_GENS} eager steps {stepped}, at capture "
+                                 f"{first} (want {want_first}), at replay {replayed}")
+        # Without the end-of-segment health scan, and run(): one replay of
+        # the same captured graph.
+        nometrics_ms, _, (seg, _) = timed(lambda: wf.run_segment(s0, SEGMENT_GENS, metrics=False), SEGMENT_GENS)
+        same_state(seg, ref, f"{path}: run_segment(metrics=False) vs eager steps")
+        graphs = len(wf._graphs)
+        run_ms, run_host_ms, run_state = timed(lambda: wf.run(s0, SEGMENT_GENS, init=False), SEGMENT_GENS)
+        same_state(run_state, ref, f"{path}: run vs eager steps")
+        if len(wf._graphs) != graphs or run_ms > 1.10 * eager_ms:
+            raise AssertionError(f"{path}: run {run_ms} ms/gen against {eager_ms} eager, "
+                                 f"{len(wf._graphs) - graphs} new captures")
+        # One copy of the state into buffers of its own.
+        buffers = [t.clone() for t in _graph.flatten(run_state)[0]]
+        copy_ms, _, _ = timed(lambda: [b.copy_(t) for b, t in zip(buffers, _graph.flatten(s0)[0])], 1)
+        del run_state, buffers
+        _, seg_prof = profile_steps(lambda s: wf.run_segment(s, SEGMENT_GENS)[0], s0, 1)
+        per_gen = launches_per_call(lambda: wf.step(s0), calls=3)
+        per_seg = launches_per_call(lambda: wf.run_segment(s0, SEGMENT_GENS), calls=1)
+        if per_seg["host_syncs"] != 0:
+            raise AssertionError(f"{path}: a segment made host syncs: {per_seg}")
+        row.update({
+            "eager_ms_per_gen": eager_ms, "eager_host_ms_per_gen": eager_host_ms,
+            "segment_ms_per_gen": seg_ms, "segment_host_ms_per_gen": seg_host_ms,
+            "segment_no_metrics_ms_per_gen": nometrics_ms,
+            "run_ms_per_gen": run_ms, "run_host_ms_per_gen": run_host_ms,
+            "capture_s": capture_s, "capture_peak_gb": capture_peak_gb, "state_gb": state_bytes / 1e9,
+            "state_copy_ms": copy_ms,
+            "segment_kernels_ms_per_segment": seg_prof["kernels_ms_per_gen"],
+            "eager_device_ops_per_gen": per_gen["launches"], "eager_host_syncs_per_gen": per_gen["host_syncs"],
+            "eager_device_ms_per_gen": per_gen["device_ms"],
+            "eager_idle_share": 1 - per_gen["device_ms"] / eager_ms,
+            "segment_device_ops_per_gen": per_seg["launches"] / SEGMENT_GENS,
+            "segment_host_syncs_per_gen": per_seg["host_syncs"] / SEGMENT_GENS,
+            "segment_device_ms_per_gen": per_seg["device_ms"] / SEGMENT_GENS,
+            "segment_idle_share": 1 - per_seg["device_ms"] / SEGMENT_GENS / seg_ms,
+            "launches_first_call": first, "launches_replayed_call": replayed,
+            "history_check_peak_mem_gb": history_peak_gb,
+        })
+        out[path] = row
+        del wf, s0, seg, ref
+        torch.cuda.empty_cache()
+    out["early_stop"] = segment_early_stop(device)
+    return out
+
+
+def segment_early_stop(device) -> dict:
+    import torch
+    from evox_tpu_torch.core import Problem, State
+
+    class Poisoned(Problem):
+        """Ackley whose ``at``-th evaluation (from 0) is NaN."""
+
+        def __init__(self, at):
+            from evox_tpu_torch.problems.numerical import Ackley
+
+            self.at, self.inner = at, Ackley()
+
+        def setup(self, key):
+            return State(evals=torch.zeros((), dtype=torch.int32, device=device))
+
+        def evaluate(self, state, pop):
+            fit, _ = self.inner.evaluate(State(), pop)
+            fit = torch.where(state.evals == self.at, torch.full_like(fit, float("nan")), fit)
+            return fit, state.replace(evals=state.evals + 1)
+
+    out = {}
+    # init_step and one step are evaluations 0 and 1; the segment's k-th
+    # generation (from 1) is evaluation k + 1.
+    for at, want_executed in ((7, 6), (10**6, SEGMENT_GENS)):
+        wf = segment_workflow("pso_small", device, monitor=True, problem=Poisoned(at), quarantine_nonfinite=False)
+        s0 = wf.step(wf.init_step(wf.init(0)))
+        final, tel = wf.run_segment(s0, SEGMENT_GENS, stop_on_unhealthy=True)
+        executed, stopped = int(tel.executed), bool(tel.stopped)
+        if executed != want_executed or stopped != (want_executed < SEGMENT_GENS):
+            raise AssertionError(f"early stop at evaluation {at}: executed {executed}, stopped {stopped}")
+        ref = s0
+        for _ in range(executed):
+            ref = wf.step(ref)
+        same_state(final, ref, f"early stop at evaluation {at}")
+        out[f"nan_at_{at}"] = {"executed": executed, "stopped": stopped}
+    return out
+
+
 # The slice-2 kernels in the kernels line: wrapper, source, the TPU
 # kernel (or XLA route) it replaces, and its timing_mo entry.
 MO_KERNELS = [
     ("dominance_packed", "evox_tpu_torch/csrc/dominance.cu", "evox_tpu/ops/dominance.py:37",
      "dominance_packed_20k"),
-    ("peel_count", "evox_tpu_torch/csrc/dominance.cu",
-     "evox_tpu/operators/selection/non_dominate.py:161", "peel_count_20k"),
     ("peel_fronts", "evox_tpu_torch/csrc/dominance.cu",
      "evox_tpu/operators/selection/non_dominate.py:86", "peel_fronts_20k"),
     ("lex_rank", "evox_tpu_torch/csrc/topk.cu", "evox_tpu/ops/topk.py:60", "lex_rank_20k"),
@@ -1127,6 +1482,23 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
         "max_abs_err": max([results["compare_mo"]["max_abs_err"][name]]
                            + [r["max_abs_err"] for k, r in results["timing_mo"].items()
                               if k.startswith(name + "_") and "max_abs_err" in r]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }
+
+
+def philox_row(results) -> dict:
+    t = results["philox"]["timing"]["pso_setup_1e8_f32"]
+    return {
+        "name": "philox_draws", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
+        # The JAX package draws with jax.random inside XLA programs; no
+        # Pallas kernel of it does this work.
+        "replaces": "none (the port's own kernel; the plain draws of evox_tpu_torch/utils/rng.py)",
+        # The main paths' draws: the PSO headline's setup and the NSGA-II
+        # headline's setup and generations.
+        "launches": results["main_path"]["philox_launches"]
+        + results["nsga2_main_path"]["launches"]["philox_draws"],
+        "max_abs_err": results["philox"]["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }
@@ -1168,6 +1540,8 @@ def main() -> int:
         ("nsga2_main_path", phase_nsga2_main_path),
         ("mo_example", phase_mo_example),
         ("timing_mo", phase_timing_mo),
+        ("philox", phase_philox),
+        ("segment", phase_segment),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -1193,7 +1567,7 @@ def main() -> int:
     ] + [
         kernel_row(name, source, replaces, results, timing_key)
         for name, source, replaces, timing_key in MO_KERNELS
-    ])
+    ] + [philox_row(results)])
     print(f"total seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -78,7 +78,8 @@ class NSGA2(Algorithm):
         self.crossover = crossover_op or simulated_binary
 
     def setup(self, key: torch.Tensor) -> State:
-        key, (init_seed,) = rng.split(key)
+        # The key lives on the device of the state (no host reads it).
+        key, (init_seed,) = rng.split(key.to(self.device))
         shape = (self.pop_size, self.dim)
         pop = rng.uniform(init_seed, shape, self.dtype, self.device) * (self.ub - self.lb) + self.lb
         return State(

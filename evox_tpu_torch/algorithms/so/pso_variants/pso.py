@@ -72,7 +72,8 @@ class PSO(Algorithm):
         self.dtype = dtype
 
     def setup(self, key: torch.Tensor) -> State:
-        key, (pop_seed, v_seed) = rng.split(key, 2)
+        # The key lives on the device of the state (no host reads it).
+        key, (pop_seed, v_seed) = rng.split(key.to(self.device), 2)
         shape = (self.pop_size, self.dim)
         length = self.ub - self.lb
         pop = rng.uniform(pop_seed, shape, self.dtype, self.device) * length + self.lb

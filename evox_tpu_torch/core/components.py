@@ -107,7 +107,22 @@ class Workflow(_Component):
 
 class Monitor(_Component):
     """Hook pipeline around evaluation.  All hooks are ``(state, value) ->
-    state``; the no-op base makes a bare ``Monitor()`` a zero-cost default."""
+    state``; the no-op base makes a bare ``Monitor()`` a zero-cost default.
+
+    **Fused-segment capture contract.**  A monitor that keeps history on the
+    host side of the state (``EvalMonitor``'s lists) would, inside a fused
+    multi-generation segment (``StdWorkflow.run_segment`` / ``run``, a
+    captured CUDA graph on the card), record tensors that the next replay
+    overwrites.  While a segment runs, the workflow therefore sets
+    ``_capture`` to a list; such a monitor appends ``(history_type, slot,
+    data, generation, instance_id)`` tuples to it instead of recording, and
+    receives the batched payloads back at the segment boundary through its
+    ``ingest_sinks`` hook.  Monitors that keep everything in state (this
+    base, counters-only monitors) need no change: the list stays empty.
+    """
+
+    # None outside a fused segment; a list while one runs (see above).
+    _capture: list | None = None
 
     def set_config(self, **config: Any) -> "Monitor":
         """Out-of-band configuration from the workflow (the optimization

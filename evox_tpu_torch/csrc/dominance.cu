@@ -1,7 +1,6 @@
 // Pareto dominance on Hopper (sm_90a): the dominance relation of a
-// population, as a bool matrix or as bit-packed words, the popcount
-// reduction over the packed words, and the whole non-dominated front peel in
-// one cooperative kernel.
+// population, as a bool matrix or as bit-packed words, and the whole
+// non-dominated front peel over the packed words in one cooperative kernel.
 //
 // Replaces the TPU kernel `_dominance_kernel` of evox_tpu/ops/dominance.py
 // (Pallas, called through `dominance_matrix`), and the XLA packed route
@@ -47,11 +46,6 @@
 // every column, no symmetry) and the objective loop run at run time, still
 // without an early exit.  Tensor cores and TMA do not help: the work is
 // compares.
-//
-// `peel_count` computes, for every column j,
-//   count[j] = sum_w popcount(word[w, j] & mask[w])
-// where mask packs a (n,) bool front (all ones when the front pointer is
-// null: the dominate count), bound by bytes (the words once).
 //
 // `peel_fronts` is the whole front peel of non_dominate_rank in one
 // cooperative launch, with no host sync: the dominate count (phase 0), then
@@ -339,36 +333,6 @@ int launch_matrix(const void* f, int n, int m, void* out, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// peel_count
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-peel_count_kernel(const uint32_t* __restrict__ words, const unsigned char* __restrict__ front,
-                  int n, int nw, int w_per_block, int* __restrict__ count) {
-  extern __shared__ uint32_t mask[];  // (w_per_block,)
-  const int tid = threadIdx.x;
-  const int w0 = blockIdx.y * w_per_block;
-  const int w1 = min(nw, w0 + w_per_block);
-  for (int w = w0 + tid; w < w1; w += kThreads) {
-    uint32_t word = 0xFFFFFFFFu;
-    if (front != nullptr) {
-      word = 0u;
-      for (int b = 0; b < 32; ++b) {
-        const int r = w * 32 + b;
-        if (r < n && front[r]) word |= 1u << b;
-      }
-    }
-    mask[w - w0] = word;
-  }
-  __syncthreads();
-  const int j = blockIdx.x * kThreads + tid;
-  if (j >= n || w0 >= w1) return;
-  int total = 0;
-  for (int w = w0; w < w1; ++w) total += __popc(words[(long long)w * n + j] & mask[w - w0]);
-  if (total) atomicAdd(count + j, total);
-}
-
-// ---------------------------------------------------------------------------
 // peel_fronts: the cooperative front peel.
 //
 // Scratch (int32): ctr[8] = front sizes [0..2] and list lengths [3..5] of
@@ -531,29 +495,6 @@ extern "C" int dominance(int dtype, int packed, const void* f, int n, int m, voi
   return (int)cudaErrorInvalidValue;
 }
 
-// peel_count: `count` (n,) int32 must hold zeros; `front` is a (n,) bool
-// tensor or null (all ones).  The word range is split into chunks of
-// w_per_block words, one grid row each.
-extern "C" int peel_count(const void* words, const void* front, int n, int nw,
-                          int w_per_block, void* count, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (w_per_block <= 0 || (size_t)w_per_block * 4 > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0 && nw > 0) {
-    const size_t smem = (size_t)w_per_block * 4;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(peel_count_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    dim3 grid((n + kThreads - 1) / kThreads, (nw + w_per_block - 1) / w_per_block);
-    peel_count_kernel<<<grid, kThreads, smem, s>>>(
-        (const uint32_t*)words, (const unsigned char*)front, n, nw, w_per_block, (int*)count);
-  }
-  return (int)cudaGetLastError();
-}
-
 // Bytes of scratch peel_fronts needs for n columns of nw words.
 extern "C" long long peel_fronts_workspace(int n, int nw) {
   return 4LL * (8 + n + (n & 1)) + 8LL * 3 * nw;
@@ -562,7 +503,9 @@ extern "C" long long peel_fronts_workspace(int n, int nw) {
 // peel_fronts: rank (n,) int32 of every column, from the words; `until` < 0
 // peels until a front is empty, else stops before the first front once
 // `until` rows are ranked.  `workspace` holds peel_fronts_workspace bytes,
-// uninitialised.  One cooperative launch, every block resident.
+// uninitialised.  One cooperative launch, every block resident, made with
+// cudaLaunchKernelEx and the cooperative attribute: the form a stream
+// capture records as a cooperative kernel node of a CUDA graph.
 extern "C" int peel_fronts(const void* words, int n, int nw, int until, void* rank, void* workspace,
                            void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
@@ -573,10 +516,16 @@ extern "C" int peel_fronts(const void* words, int n, int nw, int until, void* ra
   int* ctr = (int*)workspace;
   int* count = ctr + 8;
   int2* lists = (int2*)(count + n + (n & 1));
-  void* args[] = {&w, &n, &nw, &until, &r, &ctr, &count, &lists};
-  const int grid = nw < limit ? nw : limit;
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)peel_fronts_kernel, dim3(grid), dim3(kThreads),
-                                              args, 0, (cudaStream_t)stream);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nw < limit ? nw : limit);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, peel_fronts_kernel, w, n, nw, until, r, ctr, count, lists);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

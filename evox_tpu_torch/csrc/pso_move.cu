@@ -20,11 +20,14 @@
 // the plain version bit for bit.
 //
 // Draws: with rand_input != 0, rp and rg are read from tensors.  Otherwise
-// they come from Philox4x32-10 written into the kernel, keyed by the 64-bit
-// seed and countered by the element index (row * D + col): word 0 gives
-// rp, word 1 gives rg.  The high 24 bits (float32) or 7 bits (bfloat16)
-// times 2^-m keep the JAX kernel's bit choice, so the upper bound 1 is
-// strict.  evox_tpu_torch/utils/rng.py computes the same Philox in PyTorch.
+// they come from Philox4x32-10 (csrc/philox.cuh), countered by the element
+// index (row * D + col): word 0 gives rp, word 1 gives rg.  The Philox key
+// is read from the device: child `index` of the key tensor [seed, counter]
+// (or its seed word alone, when `derive` is 0), so a replayed CUDA graph
+// draws anew from the key the previous generation advanced.  The high 24
+// bits (float32) or 7 bits (bfloat16) times 2^-m keep the JAX kernel's bit
+// choice, so the upper bound 1 is strict.  evox_tpu_torch/utils/rng.py
+// computes the same Philox in PyTorch.
 //
 // What bounds it on an H100: bytes.  With in-kernel draws it reads pop,
 // velocity and local-best once and writes their updates once: 6 * N * D
@@ -42,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -83,30 +88,6 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return a < b ? a : b;
 }
 
-// Philox4x32-10; returns output words 0 and 1 for the counter (lo, hi, 0, 0).
-__device__ __forceinline__ void philox_pair(unsigned long long counter,
-                                            unsigned long long seed,
-                                            uint32_t* w0, uint32_t* w1) {
-  uint32_t c0 = (uint32_t)counter, c1 = (uint32_t)(counter >> 32), c2 = 0u, c3 = 0u;
-  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  *w0 = c0;
-  *w1 = c1;
-}
-
 template <typename L>
 __global__ void __launch_bounds__(kThreads)
 pso_move_kernel(const typename L::T* __restrict__ pop,
@@ -124,8 +105,10 @@ pso_move_kernel(const typename L::T* __restrict__ pop,
                 typename L::T* __restrict__ vel_out,
                 typename L::T* __restrict__ lbl_out,
                 typename L::T* __restrict__ lbf_out,
-                long long d, unsigned long long seed, int rand_input) {
+                long long d, const long long* __restrict__ key, int index,
+                int derive, int rand_input) {
   const long long row = blockIdx.x;
+  const uint64_t seed = rand_input ? 0ull : philox::draw_seed(key, index, derive);
   // The scalars arrive as float32 on the device (no host read of the
   // Parameter leaves); the JAX kernel casts them to the working dtype.
   const float w = L::round(scal[0]);
@@ -137,7 +120,6 @@ pso_move_kernel(const typename L::T* __restrict__ pop,
   const bool improved = f < fl;
   if (threadIdx.x == 0) L::store(lbf_out, row, improved ? f : fl);
 
-  const float scale = 1.0f / (float)(1u << L::kBits);
   for (long long col = threadIdx.x; col < d; col += kThreads) {
     const long long i = row * d + col;
     const float x = L::load(pop, i);
@@ -148,10 +130,10 @@ pso_move_kernel(const typename L::T* __restrict__ pop,
       rp = L::load(rp_in, i);
       rg = L::load(rg_in, i);
     } else {
-      uint32_t b0, b1;
-      philox_pair((unsigned long long)i, seed, &b0, &b1);
-      rp = __fmul_rn((float)(b0 >> (32 - L::kBits)), scale);
-      rg = __fmul_rn((float)(b1 >> (32 - L::kBits)), scale);
+      uint32_t words[4];
+      philox::philox4x32((unsigned long long)i, seed, words);
+      rp = philox::uniform_bits(words[0], L::kBits);
+      rg = philox::uniform_bits(words[1], L::kBits);
     }
     const float g = L::load(gbl, col);
     const float t1 = L::round(__fmul_rn(w, v));
@@ -174,7 +156,7 @@ int launch(const void* pop, const void* vel, const void* lbl, const void* fit,
            const void* lbf, const void* gbl, const void* lb, const void* ub,
            const void* scal, const void* rp, const void* rg, void* pop_out,
            void* vel_out, void* lbl_out, void* lbf_out, long long n,
-           long long d, unsigned long long seed, int rand_input,
+           long long d, const void* key, int index, int derive, int rand_input,
            cudaStream_t stream) {
   using T = typename L::T;
   if (n > 0) {
@@ -182,7 +164,8 @@ int launch(const void* pop, const void* vel, const void* lbl, const void* fit,
         (const T*)pop, (const T*)vel, (const T*)lbl, (const T*)fit,
         (const T*)lbf, (const T*)gbl, (const T*)lb, (const T*)ub,
         (const float*)scal, (const T*)rp, (const T*)rg, (T*)pop_out,
-        (T*)vel_out, (T*)lbl_out, (T*)lbf_out, d, seed, rand_input);
+        (T*)vel_out, (T*)lbl_out, (T*)lbf_out, d, (const long long*)key, index, derive,
+        rand_input);
   }
   return (int)cudaGetLastError();
 }
@@ -190,23 +173,24 @@ int launch(const void* pop, const void* vel, const void* lbl, const void* fit,
 }  // namespace
 
 // Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Every pointer is a device pointer; rp/rg may be null when rand_input == 0.
+// Every pointer is a device pointer; rp/rg may be null when rand_input == 0,
+// and key (a (2,) int64 key tensor, see csrc/philox.cuh) when it is not.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int pso_move(int dtype, const void* pop, const void* vel,
                         const void* lbl, const void* fit, const void* lbf,
                         const void* gbl, const void* lb, const void* ub,
                         const void* scal, const void* rp, const void* rg,
                         void* pop_out, void* vel_out, void* lbl_out,
-                        void* lbf_out, long long n, long long d,
-                        unsigned long long seed, int rand_input, void* stream) {
+                        void* lbf_out, long long n, long long d, const void* key,
+                        int index, int derive, int rand_input, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch<F32>(pop, vel, lbl, fit, lbf, gbl, lb, ub, scal, rp, rg,
-                       pop_out, vel_out, lbl_out, lbf_out, n, d, seed,
-                       rand_input, s);
+                       pop_out, vel_out, lbl_out, lbf_out, n, d, key, index,
+                       derive, rand_input, s);
   if (dtype == 1)
     return launch<BF16>(pop, vel, lbl, fit, lbf, gbl, lb, ub, scal, rp, rg,
-                        pop_out, vel_out, lbl_out, lbf_out, n, d, seed,
-                        rand_input, s);
+                        pop_out, vel_out, lbl_out, lbf_out, n, d, key, index,
+                        derive, rand_input, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,7 +18,7 @@ def hv(
 
     :param key: a port key (:func:`evox_tpu_torch.utils.rng.key`); the
         samples are Philox draws, the same bits on every device."""
-    _, (seed,) = rng.split(key)
+    seed = rng.child(key)
     points = torch.abs(objs - ref)
     bound = torch.amax(points, dim=0)
     max_vol = torch.prod(bound)

@@ -3,14 +3,16 @@
 
 The four per-gene draws (the spread ``mu``, the direction, and the two
 pass-through coins) come from ONE Philox evaluation: its four words are the
-four draws.  ``draws=`` supplies them from outside instead (the parity
-tests feed the JAX package's draws this way).
+four draws, made in one launch of the draw kernel on the card.  ``draws=``
+supplies them from outside instead (the parity tests feed the JAX
+package's draws this way).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...ops.philox import philox_draws
 from ...utils import rng
 
 __all__ = ["simulated_binary", "simulated_binary_half", "sbx_draws"]
@@ -19,15 +21,8 @@ __all__ = ["simulated_binary", "simulated_binary_half", "sbx_draws"]
 def sbx_draws(key: torch.Tensor, shape, dtype: torch.dtype, device) -> tuple:
     """The raw draws of one SBX call, ``(mu, direction, p1, p2)``: uniforms
     of ``shape`` and ``dtype``, ``direction`` int64 in {0, 1}."""
-    _, (seed,) = rng.split(key)
-    numel = shape[0] * shape[1]
-    w0, w1, w2, w3 = rng.philox_words(seed, numel, device)
-    return (
-        rng.uniform_bits(w0, dtype).reshape(shape),
-        rng.randint_bits(w1, 0, 2).reshape(shape),
-        rng.uniform_bits(w2, dtype).reshape(shape),
-        rng.uniform_bits(w3, dtype).reshape(shape),
-    )
+    draws = philox_draws(rng.child(key), shape[0] * shape[1], [dtype, (0, 2), dtype, dtype], device)
+    return tuple(d.reshape(shape) for d in draws)
 
 
 def _sbx_beta(draws, pro_c: float, dis_c: float) -> torch.Tensor:

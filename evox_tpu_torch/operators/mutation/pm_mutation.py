@@ -2,13 +2,15 @@
 ``evox_tpu/operators/mutation/pm_mutation.py``).
 
 Its two per-gene draws (the site coin and ``mu``) are two words of ONE
-Philox evaluation; ``draws=`` supplies them from outside instead.
+Philox evaluation, one launch of the draw kernel on the card; ``draws=``
+supplies them from outside instead.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...ops.philox import philox_draws
 from ...utils import rng
 
 __all__ = ["polynomial_mutation", "pm_draws"]
@@ -17,12 +19,8 @@ __all__ = ["polynomial_mutation", "pm_draws"]
 def pm_draws(key: torch.Tensor, shape, dtype: torch.dtype, device) -> tuple:
     """The raw draws of one mutation call, ``(site, mu)``: uniforms of
     ``shape`` and ``dtype``."""
-    _, (seed,) = rng.split(key)
-    w0, w1, _, _ = rng.philox_words(seed, shape[0] * shape[1], device)
-    return (
-        rng.uniform_bits(w0, dtype).reshape(shape),
-        rng.uniform_bits(w1, dtype).reshape(shape),
-    )
+    draws = philox_draws(rng.child(key), shape[0] * shape[1], [dtype, dtype], device)
+    return tuple(d.reshape(shape) for d in draws)
 
 
 def polynomial_mutation(

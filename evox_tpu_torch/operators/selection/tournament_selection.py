@@ -15,8 +15,7 @@ __all__ = ["tournament_selection", "tournament_selection_multifit"]
 def _candidates(key, n_round, tournament_size, num_candidates, device, parents):
     if parents is not None:
         return parents
-    _, (seed,) = rng.split(key)
-    return rng.randint(seed, (n_round, tournament_size), 0, num_candidates, device)
+    return rng.randint(rng.child(key), (n_round, tournament_size), 0, num_candidates, device)
 
 
 def tournament_selection(

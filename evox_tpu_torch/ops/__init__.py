@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels and their plain PyTorch versions (counterpart
-of ``evox_tpu/ops``).  Kernels are built on first launch, never at import.
-The capability probe is :mod:`evox_tpu_torch.ops.probe` (also a command:
-``python -m evox_tpu_torch.ops.probe``)."""
+of ``evox_tpu/ops``), and the port's own Philox draw kernel
+(:mod:`evox_tpu_torch.ops.philox`).  Kernels are built on first launch,
+never at import.  The capability probe is :mod:`evox_tpu_torch.ops.probe`
+(also a command: ``python -m evox_tpu_torch.ops.probe``)."""
 
 from .crowding import (
     crowding_distance_kernel,
@@ -14,11 +15,11 @@ from .dominance import (
     dominance_matrix_plain,
     dominance_packed,
     dominance_packed_plain,
-    peel_count,
     peel_count_plain,
     peel_fronts,
     peel_fronts_plain,
 )
+from .philox import philox_draws, philox_draws_plain
 from .pso_step import fused_pso_move, fused_pso_move_plain
 from .topk import lex_rank, lex_rank_plain, masked_top_k, masked_top_k_plain
 
@@ -37,8 +38,9 @@ __all__ = [
     "lex_rank_plain",
     "masked_top_k",
     "masked_top_k_plain",
-    "peel_count",
     "peel_count_plain",
+    "philox_draws",
+    "philox_draws_plain",
     "peel_fronts",
     "peel_fronts_plain",
 ]

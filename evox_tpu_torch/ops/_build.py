@@ -20,14 +20,14 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load", "entry", "launch", "workspace", "pointer", "sm_count", "split"]
+__all__ = ["SOURCES", "build", "load", "entry", "launch", "workspace", "pointer", "sm_count"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 # Every kernel source of the port, by library name.
-SOURCES = ("pso_move", "dominance", "topk", "crowding", "probe")
+SOURCES = ("pso_move", "philox", "dominance", "topk", "crowding", "probe")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -158,10 +158,3 @@ def sm_count(index: int) -> int:
 
     return torch.cuda.get_device_properties(index).multi_processor_count
 
-
-def split(blocks: int, span: int, device, least: int = 1) -> int:
-    """How much of a range of ``span`` items each block of a second grid
-    axis takes, so that ``blocks`` blocks along the first axis make about
-    four blocks per SM on ``device``; at least ``least`` items a block."""
-    splits = max(1, -(-4 * sm_count(device.index or 0) // max(1, blocks)))
-    return max(least, -(-max(span, 1) // splits))

@@ -7,8 +7,9 @@ the bit-packed route ``_non_dominate_rank_packed`` of
 * :func:`dominance_packed` — the same relation as (⌈n/32⌉, n) words, bit
   ``b`` of ``words[w, j]`` = row ``32w + b`` dominates ``j``; held in an
   int32 tensor (PyTorch's bit-exact 32-bit type), read as uint32;
-* :func:`peel_count` — ``Σ_w popcount(words[w, j] & front_mask[w])`` for a
-  (n,) bool front, or the dominate count with ``front=None``;
+* :func:`peel_count_plain` — ``Σ_w popcount(words[w, j] & front_mask[w])``
+  for a (n,) bool front, or the dominate count with ``front=None``: the
+  reference the front peel is built on (no kernel of its own);
 * :func:`peel_fronts` — the non-domination rank of every column from the
   words: the whole front peel (the dominate count, then one popcount of
   each front over the words) in one cooperative kernel, with no host sync.
@@ -33,7 +34,6 @@ __all__ = [
     "dominance_matrix_plain",
     "dominance_packed",
     "dominance_packed_plain",
-    "peel_count",
     "peel_count_plain",
     "peel_fronts",
     "peel_fronts_plain",
@@ -42,7 +42,6 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _P = ctypes.c_void_p
 _DOMINANCE_ARGS = (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P, _P)
-_PEEL_ARGS = (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P)
 _FRONTS_ARGS = (_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P)
 # Dominator rows the plain version compares at a time; the kernels take
 # n < 2^31 - _TILE rows.
@@ -200,29 +199,6 @@ def dominance_packed(f: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def peel_count(words: torch.Tensor, front: torch.Tensor | None = None) -> torch.Tensor:
-    """``count[j] = Σ_w popcount(words[w, j] & mask[w])`` (int32), where
-    ``mask`` packs the (n,) bool ``front``; with ``front=None`` every row
-    counts (the dominate count)."""
-    if words.device.type == "cpu":
-        return peel_count_plain(words, front)
-    what = "peel_count"
-    nw, n = _check_words(words, what)
-    if front is not None:
-        if front.shape != (n,) or front.dtype != torch.bool or front.device != words.device:
-            raise ValueError(f"{what}: front must be a ({n},) bool tensor on {words.device}")
-        front = front.contiguous()
-    count = torch.zeros((n,), dtype=torch.int32, device=words.device)
-    w_per_block = _build.split(-(-n // _TILE), nw, words.device)
-    fn = _build.entry("dominance", "peel_count", _PEEL_ARGS)
-    _build.launch(
-        what, fn, words.device, words.data_ptr(),
-        None if front is None else front.data_ptr(), n, nw, w_per_block, count.data_ptr(),
-    )
-    peel_count.launches += 1
-    return count
-
-
 def peel_fronts(words: torch.Tensor, until_count: int | None = None) -> torch.Tensor:
     """Non-domination rank (int32) of each column of the (⌈n/32⌉, n)
     ``words`` (bit ``b`` of ``words[w, j]`` = row ``32w + b`` dominates
@@ -251,5 +227,4 @@ def peel_fronts(words: torch.Tensor, until_count: int | None = None) -> torch.Te
 # count the launches of one run.
 dominance_matrix.launches = 0
 dominance_packed.launches = 0
-peel_count.launches = 0
 peel_fronts.launches = 0

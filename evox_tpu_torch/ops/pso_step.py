@@ -12,7 +12,10 @@ Draw modes, as in the JAX package:
 
 * ``rand="hw"`` — the draws are made inside the kernel by Philox4x32-10
   keyed by ``seed`` (:mod:`evox_tpu_torch.utils.rng` computes the same
-  stream in PyTorch, so the plain version gives the same bits);
+  stream in PyTorch, so the plain version gives the same bits).  The
+  kernel reads a :class:`~evox_tpu_torch.utils.rng.Seed`'s key from device
+  memory and derives the child seed itself, so a replayed CUDA graph of a
+  generation draws anew from the key the previous generation advanced;
 * ``rand="input"`` — caller-supplied ``rand_draws=(rp, rg)``; the parity
   tests use it to feed both frameworks the same numbers.
 
@@ -29,6 +32,7 @@ import torch
 
 from ..utils import rng
 from . import _build
+from .philox import seed_operands
 
 __all__ = ["fused_pso_move", "fused_pso_move_plain"]
 
@@ -36,7 +40,8 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     (ctypes.c_int,)
     + (ctypes.c_void_p,) * 15
-    + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint64, ctypes.c_int)
+    + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p)
+    + (ctypes.c_int,) * 3
     + (ctypes.c_void_p,)
 )
 
@@ -44,10 +49,15 @@ _ARGTYPES = (
 def _scalars(w, phi_p, phi_g, device) -> torch.Tensor:
     """``(w, phi_p, phi_g)`` as a float32 (3,) tensor on ``device``.  The
     scalars are usually 0-dim Parameter leaves already on the device, so
-    nothing is read back to the host."""
-    return torch.stack(
-        [torch.as_tensor(s, device=device).to(torch.float32) for s in (w, phi_p, phi_g)]
-    )
+    nothing is read back to the host; a Python number is filled in on the
+    device (no host-to-device copy, which a captured CUDA graph refuses)."""
+
+    def one(s):
+        if isinstance(s, torch.Tensor):
+            return s.to(device=device, dtype=torch.float32)
+        return torch.full((), float(s), dtype=torch.float32, device=device)
+
+    return torch.stack([one(s) for s in (w, phi_p, phi_g)])
 
 
 def fused_pso_move_plain(
@@ -122,7 +132,7 @@ def fused_pso_move(
     w,
     phi_p,
     phi_g,
-    seed: int,
+    seed,
     rand_draws: tuple[torch.Tensor, torch.Tensor] | None = None,
     rand: str = "hw",
 ):
@@ -137,7 +147,9 @@ def fused_pso_move(
     :param lb, ub: (D,) bounds (a scalar broadcasts).
     :param w, phi_p, phi_g: scalar hyperparameters (0-dim tensors on the
         population's device, or Python numbers).
-    :param seed: 64-bit integer Philox key for ``rand="hw"``.
+    :param seed: for ``rand="hw"``, a :class:`~evox_tpu_torch.utils.rng.
+        Seed` (child of a key tensor, derived on the device) or a 64-bit
+        integer Philox key.
     :param rand_draws: ``rand="input"`` only — (rp, rg) uniforms of
         ``pop``'s shape, used instead of the in-kernel draws.
     :returns: ``(pop', velocity', local_best_location', local_best_fit')``,
@@ -173,6 +185,7 @@ def fused_pso_move(
     ub = _small(ub, dtype, (d,), device, "ub")
     scal = _scalars(w, phi_p, phi_g, device)
     rp, rg = rand_draws if rand == "input" else (None, None)
+    key, index, derive = seed_operands(seed, device) if rand == "hw" else (None, 0, 0)
 
     pop_out = torch.empty_like(pop)
     vel_out = torch.empty_like(pop)
@@ -190,7 +203,7 @@ def fused_pso_move(
         None if rg is None else rg.data_ptr(),
         pop_out.data_ptr(), vel_out.data_ptr(), lbl_out.data_ptr(),
         lbf_out.data_ptr(),
-        n, d, int(seed) & ((1 << 64) - 1), int(rand == "input"),
+        n, d, _build.pointer(key), index, derive, int(rand == "input"),
     )
     fused_pso_move.launches += 1
     return pop_out, vel_out, lbl_out, lbf_out

@@ -1,0 +1,122 @@
+"""Run-health state scan (counterpart of the state scan of
+``evox_tpu/resilience/health.py``: :func:`scan_state`, ``_best_fitness_expr``,
+``_is_prng`` and ``_subtree``).
+
+:func:`scan_state` is a pure ``state -> {metric: 0-dim tensor}`` function:
+every branch is on the structure of the state, every metric stays on the
+state's device, so it reads nothing back to the host and runs inside a
+captured CUDA graph.  Metric names and leaf-path names are the JAX
+package's (``"algorithm/pop"``: the keys of the nested states, joined by
+``/``).  ``HealthProbe``/``HealthReport`` and the per-shard metrics are not
+ported yet (the latter need ``parallel/``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterator, Mapping, Sequence
+
+import torch
+
+__all__ = ["scan_state"]
+
+
+def _is_prng(leaf: Any) -> bool:
+    """Whether ``leaf`` is a typed PRNG key.  A port key is a plain int64
+    tensor (skipped as a non-floating leaf), so nothing is one."""
+    del leaf
+    return False
+
+
+def _subtree(state: Any, name: str) -> Any | None:
+    """``state[name]`` when ``state`` is a mapping that has it, else None."""
+    if isinstance(state, Mapping) and name in state:
+        return state[name]
+    return None
+
+
+def _leaves_with_path(tree: Any, prefix: tuple = ()) -> Iterator[tuple[str, Any]]:
+    """``(path, leaf)`` in the order the JAX package flattens a state: the
+    keys of each mapping in order, the items of tuples and lists by index,
+    joined with ``/``."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves_with_path(v, prefix + (str(k),))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves_with_path(v, prefix + (str(i),))
+    elif tree is not None:
+        yield "/".join(prefix), tree
+
+
+def _floating(x: Any) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+def scan_state(
+    state: Any,
+    *,
+    check_nonfinite: bool = True,
+    nonfinite_skip: Sequence[str] = (),
+    diversity: bool = False,
+    step_size: bool = False,
+    shards: int | None = None,
+) -> dict[str, Any]:
+    """Pure ``state -> {metric: 0-dim tensor}`` health scan; keys are
+    emitted only when the state supports them, so the dict is stable per
+    state structure:
+
+    * ``nonfinite`` — per-leaf-path counts (int32) of NaN/±Inf scalars
+      (floating leaves only; ``nonfinite_skip`` matches excluded);
+    * ``diversity`` — largest per-dimension std of ``algorithm.pop``;
+    * ``step_size_min`` / ``step_size_max`` — extrema of ``algorithm.sigma``;
+    * ``best_fitness`` — monitor top-k best (minimizing frame) when
+      available, else ``min(algorithm.fit)``.
+
+    :param shards: per-shard metrics; not ported yet (``parallel/`` is not
+        ported), so any value but ``None`` raises
+        :class:`NotImplementedError`.
+    """
+    if shards is not None:
+        raise NotImplementedError("scan_state(shards=...) is not yet ported (it needs parallel/)")
+    out: dict[str, Any] = {}
+    if check_nonfinite:
+        counts = {}
+        for name, leaf in _leaves_with_path(state):
+            if any(skip in name for skip in nonfinite_skip):
+                continue
+            if _is_prng(leaf) or not _floating(leaf):
+                continue
+            counts[name] = (~torch.isfinite(leaf)).sum(dtype=torch.int32)
+        out["nonfinite"] = counts
+    algo = _subtree(state, "algorithm")
+    algo = algo if algo is not None else state
+    pop = _subtree(algo, "pop")
+    if diversity and _floating(pop) and pop.ndim == 2:
+        # Largest per-dimension spread (population std, two passes, as
+        # jnp.std): below a floor means EVERY dimension collapsed.
+        centered = pop - pop.mean(dim=0)
+        out["diversity"] = torch.amax(torch.sqrt((centered * centered).mean(dim=0)))
+    sigma = _subtree(algo, "sigma")
+    if step_size and _floating(sigma):
+        out["step_size_min"] = torch.amin(sigma)
+        out["step_size_max"] = torch.amax(sigma)
+    best = _best_fitness_expr(state, algo)
+    if best is not None:
+        out["best_fitness"] = best
+    return out
+
+
+def _best_fitness_expr(state: Any, algo: Any):
+    """Best fitness in the minimizing frame: the monitor's running top-k
+    when present (monotone best-so-far), else this generation's
+    ``min(fit)``.  ``None`` when the state exposes neither (e.g.
+    multi-objective states, which have no scalar best)."""
+    mon = _subtree(state, "monitor")
+    if mon is not None:
+        topk = _subtree(mon, "topk_fitness")
+        if _floating(topk) and topk.ndim == 1 and topk.numel() > 0:
+            return topk[0]
+    fit = _subtree(algo, "fit")
+    if _floating(fit) and fit.ndim == 1 and fit.numel() > 0:
+        return torch.amin(fit)
+    return None

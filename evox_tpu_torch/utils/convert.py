@@ -39,7 +39,8 @@ def state_from_numpy(
 
     :param tree: ``{name: array | nested dict}``.  A leaf named ``key`` is a
         random-stream key of the other framework and is replaced by a port
-        key made from ``seed`` (the two frameworks' streams differ anyway).
+        key made from ``seed`` on ``device`` (the two frameworks' streams
+        differ anyway).
     :param device: where the leaves go (``None`` means the CUDA card).
     :param seed: seed of the replacement keys.
     :param params: dotted paths of the leaves to label as ``Parameter``
@@ -55,7 +56,7 @@ def state_from_numpy(
             if isinstance(value, Mapping):
                 fields[name] = build(value, path + ".")
             elif name == "key":
-                fields[name] = rng.key(seed)
+                fields[name] = rng.key(seed, device=device)
             else:
                 t = _tensor(value, device)
                 fields[name] = Parameter(t) if path in params else t

@@ -1,38 +1,52 @@
 """Random streams of the port (replaces the JAX package's PRNG keys).
 
-A key is a CPU ``int64`` tensor ``[seed, counter]``.  :func:`split` hands out
-child seeds from a host-side integer hash (splitmix64 of the seed and the
-counter) and returns the key with its counter advanced, so a key never
-forces a device sync and is checkpointed like any other leaf.
+A key is an ``int64`` tensor ``[seed, counter]`` of shape (2,) on the device
+of the state it belongs to.  :func:`split` returns the key with its counter
+advanced, and ``num`` child seeds: :class:`Seed` ``(key, i)`` stands for
+the 64-bit Philox key ``splitmix64(seed ^ splitmix64(counter + i))`` of
+the key it was split from.  No host ever reads a key: on the card the draw
+kernels (``csrc/philox.cu``, ``csrc/pso_move.cu``) read it from device
+memory and derive the child themselves, and on the CPU it is derived in
+int64 tensor operations.  So a key is checkpointed like any other leaf, and
+a step captured in a CUDA graph draws anew on each replay from the key the
+previous generation advanced.  :func:`split_keys` makes child keys
+``[child, 0]`` on the device by the same hash in tensor operations.
+PyTorch shifts int64 arithmetically, so every right shift is masked to the
+logical one; sums and products wrap modulo 2^64, as the unsigned arithmetic
+they stand for.
 
 Bulk draws come from Philox4x32-10 (Salmon et al., SC'11), counter-based:
 element ``i`` of a draw keyed by a 64-bit seed uses the counter ``(i_lo,
-i_hi, 0, 0)``.  :func:`philox4x32` is the plain-PyTorch version; the CUDA
-kernel in ``csrc/pso_move.cu`` computes the same function, so a draw is the
-same bits on the CPU and on the card.  Uniforms keep the JAX package's bit
-choice (``ops/pso_step.py::_uniform_bits``): the 24 high bits for float32,
-the 7 high bits for bfloat16, times 2^-m, so every value is exact in the
-dtype and the upper bound 1 is strict.
+i_hi, 0, 0)``.  :func:`philox4x32` is the plain-PyTorch version;
+``csrc/philox.cuh`` computes the same function on the card, so a draw is
+the same bits on the CPU and on the card.  Uniforms keep the JAX package's
+bit choice (``ops/pso_step.py::_uniform_bits``): the 24 high bits for
+float32, the 7 high bits for bfloat16, times 2^-m, so every value is exact
+in the dtype and the upper bound 1 is strict.
 
-:func:`philox_words` returns all four output words of each element, so an
-operator that needs up to four draws of one shape makes one Philox
-evaluation and takes one word per draw (:func:`uniform_bits`,
-:func:`randint_bits`) instead of one evaluation per draw: in PyTorch ops
-each evaluation is ~150 small launches.
+:func:`uniform` and :func:`randint` make one draw through
+:func:`~evox_tpu_torch.ops.philox.philox_draws`, which makes up to four
+draws of one shape from one Philox evaluation (output ``k`` from word
+``k``): an operator that needs several draws asks for all of them at once.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
 from .. import resolve_device
 
 __all__ = [
+    "Seed",
     "key",
     "split",
     "split_keys",
+    "child",
+    "check_key",
+    "seed_value",
+    "signed64",
     "philox4x32",
     "philox_words",
     "uniform_bits",
@@ -43,7 +57,6 @@ __all__ = [
 
 _M64 = (1 << 64) - 1
 _M32 = (1 << 32) - 1
-_GOLDEN = 0x9E3779B97F4A7C15
 
 # Philox4x32-10 constants (Random123's PHILOX_M4x32_* and PHILOX_W32_*).
 PHILOX_M0 = 0xD2511F53
@@ -53,49 +66,96 @@ PHILOX_W1 = 0xBB67AE85
 PHILOX_ROUNDS = 10
 
 
-def _splitmix64(x: int) -> int:
-    z = (x + _GOLDEN) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return z ^ (z >> 31)
-
-
-def _signed(x: int) -> int:
+def signed64(x: int) -> int:
     """A 64-bit unsigned value as the int64 that holds the same bits."""
     x &= _M64
     return x - (1 << 64) if x >= (1 << 63) else x
 
 
-def key(seed: int) -> torch.Tensor:
-    """A fresh key ``[seed, 0]`` (CPU int64)."""
-    return torch.tensor([_signed(int(seed)), 0], dtype=torch.int64)
+# splitmix64's constants as the int64 values with the same bits.
+_GOLDEN = signed64(0x9E3779B97F4A7C15)
+_MIX1 = signed64(0xBF58476D1CE4E5B9)
+_MIX2 = signed64(0x94D049BB133111EB)
 
 
-def _unpack(k: torch.Tensor) -> tuple[int, int]:
-    if k.dtype != torch.int64 or tuple(k.shape) != (2,) or k.device.type != "cpu":
+class Seed(NamedTuple):
+    """Child ``index`` of the key tensor ``key``: the 64-bit Philox key
+    ``splitmix64(seed ^ splitmix64(counter + index))``, derived where it is
+    used (in the draw kernel on the card)."""
+
+    key: torch.Tensor
+    index: int
+
+
+def key(seed: int, device: torch.device | str | None = None) -> torch.Tensor:
+    """A fresh key ``[seed, 0]`` (int64; ``device=None`` is the CPU, as for
+    ``torch.tensor``: a workflow makes its key on its algorithm's device)."""
+    return torch.tensor([signed64(int(seed)), 0], dtype=torch.int64, device=device)
+
+
+def check_key(k: torch.Tensor) -> torch.Tensor:
+    """``k`` when it is a key (an int64 tensor of shape (2,)); raises
+    :class:`ValueError` otherwise.  Reads no value."""
+    if not isinstance(k, torch.Tensor) or k.dtype != torch.int64 or tuple(k.shape) != (2,):
         raise ValueError(
-            f"a key is a CPU int64 tensor of shape (2,), got "
-            f"{k.dtype}{list(k.shape)} on {k.device}"
+            f"a key is an int64 tensor of shape (2,), got "
+            f"{getattr(k, 'dtype', type(k))}{list(getattr(k, 'shape', ()))}"
         )
-    seed, counter = k.tolist()
-    return seed & _M64, counter
+    return k
 
 
-def split(k: torch.Tensor, num: int = 1) -> tuple[torch.Tensor, list[int]]:
-    """Consume ``num`` child seeds (64-bit Python ints) from ``k``; returns
-    the advanced key and the seeds."""
-    seed, counter = _unpack(k)
-    children = [
-        _splitmix64(seed ^ _splitmix64(counter + i)) for i in range(num)
-    ]
-    return torch.tensor([_signed(seed), counter + num], dtype=torch.int64), children
+def _srl(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of the int64 bits of ``z``."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _splitmix64(z: torch.Tensor) -> torch.Tensor:
+    z = z + _GOLDEN
+    z = (z ^ _srl(z, 30)) * _MIX1
+    z = (z ^ _srl(z, 27)) * _MIX2
+    return z ^ _srl(z, 31)
+
+
+def _children(k: torch.Tensor, index) -> torch.Tensor:
+    """The child seeds ``splitmix64(seed ^ splitmix64(counter + index))``
+    of key ``k`` as int64 tensors (``index`` an int or an int64 tensor)."""
+    return _splitmix64(k[0] ^ _splitmix64(k[1] + index))
+
+
+def split(k: torch.Tensor, num: int = 1) -> tuple[torch.Tensor, list[Seed]]:
+    """Consume ``num`` child seeds from ``k``: returns the key with its
+    counter advanced by ``num`` (made on ``k``'s device) and the seeds
+    ``Seed(k, 0) .. Seed(k, num - 1)``."""
+    check_key(k)
+    advanced = torch.cat((k[:1], k[1:] + num))
+    return advanced, [Seed(k, i) for i in range(num)]
+
+
+def child(k: torch.Tensor, index: int = 0) -> Seed:
+    """Child seed ``index`` of ``k`` without advancing it: what
+    ``split(k)[1][index]`` gives, for a key that is consumed whole."""
+    return Seed(check_key(k), index)
 
 
 def split_keys(k: torch.Tensor, num: int) -> list[torch.Tensor]:
-    """``num`` independent child keys of ``k`` (the counterpart of
-    ``jax.random.split(key, num)``)."""
-    _, children = split(k, num)
-    return [key(c) for c in children]
+    """``num`` independent child keys ``[child_i, 0]`` of ``k``, made on
+    ``k``'s device (the counterpart of ``jax.random.split(key, num)``)."""
+    check_key(k)
+    idx = torch.arange(num, dtype=torch.int64, device=k.device)
+    keys = torch.stack((_children(k, idx), torch.zeros_like(idx)), dim=1)
+    return list(keys.unbind(0))
+
+
+def seed_value(seed, device: torch.device | str | None = None):
+    """The 64-bit Philox key of ``seed``: a 0-dim int64 tensor (same bits)
+    on ``device`` (default: the key's) for a :class:`Seed`, the integer
+    itself for an integer."""
+    if isinstance(seed, Seed):
+        k = check_key(seed.key)
+        if device is not None:
+            k = k.to(device)
+        return _children(k, int(seed.index))
+    return int(seed) & _M64
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -108,12 +168,11 @@ def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return (p_hi >> 16) + (s >> 32), s & _M32
 
 
-def philox4x32(
-    counter: Sequence[torch.Tensor], seed: int
-) -> list[torch.Tensor]:
+def philox4x32(counter: Sequence[torch.Tensor], seed) -> list[torch.Tensor]:
     """Philox4x32-10 of four int64 tensors of 32-bit counter words under the
-    64-bit ``seed`` (key words ``seed & 0xffffffff``, ``seed >> 32``);
-    returns the four output words as int64 tensors in [0, 2^32)."""
+    64-bit ``seed`` (an integer, or an int64 tensor holding its bits; key
+    words ``seed & 0xffffffff``, ``seed >> 32``); returns the four output
+    words as int64 tensors in [0, 2^32)."""
     c0, c1, c2, c3 = counter
     k0, k1 = seed & _M32, (seed >> 32) & _M32
     for r in range(PHILOX_ROUNDS):
@@ -137,17 +196,24 @@ def uniform_bits(word: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return ((word >> (32 - m)).to(torch.float32) * (2.0**-m)).to(dtype)
 
 
-def philox_words(
-    seed: int, numel: int, device: torch.device | str
-) -> list[torch.Tensor]:
-    """The four Philox output words for element counters ``0..numel-1``."""
+def philox_words(seed, numel: int, device: torch.device | str) -> list[torch.Tensor]:
+    """The four Philox output words for element counters ``0..numel-1``
+    under ``seed`` (a :class:`Seed` or an integer), in int64 tensor
+    operations: the plain version of the draw kernels."""
     idx = torch.arange(numel, dtype=torch.int64, device=device)
     zero = torch.zeros_like(idx)
-    return philox4x32((idx & _M32, idx >> 32, zero, zero), seed)
+    return philox4x32((idx & _M32, idx >> 32, zero, zero), seed_value(seed, device))
+
+
+def _numel(shape: Sequence[int]) -> int:
+    numel = 1
+    for s in shape:
+        numel *= s
+    return numel
 
 
 def uniform(
-    seed: int,
+    seed,
     shape: Sequence[int],
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
@@ -155,12 +221,11 @@ def uniform(
     """U[0, 1) of ``shape`` from the first Philox word of each element — the
     same bits on every device (``None``: the CUDA card, as
     :func:`~evox_tpu_torch.resolve_device`)."""
+    from ..ops.philox import philox_draws
+
     shape = tuple(shape)
-    numel = 1
-    for s in shape:
-        numel *= s
-    word = philox_words(seed, numel, resolve_device(device))[0]
-    return uniform_bits(word, dtype).reshape(shape)
+    (u,) = philox_draws(seed, _numel(shape), [dtype], resolve_device(device))
+    return u.reshape(shape)
 
 
 def randint_bits(word: torch.Tensor, low: int, high: int) -> torch.Tensor:
@@ -173,7 +238,7 @@ def randint_bits(word: torch.Tensor, low: int, high: int) -> torch.Tensor:
 
 
 def randint(
-    seed: int,
+    seed,
     shape: Sequence[int],
     low: int,
     high: int,
@@ -182,9 +247,8 @@ def randint(
     """Uniform integers in ``[low, high)`` of ``shape`` (int64) from the
     first Philox word of each element — the same values on every device
     (``None``: the CUDA card, as :func:`~evox_tpu_torch.resolve_device`)."""
+    from ..ops.philox import philox_draws
+
     shape = tuple(shape)
-    numel = 1
-    for s in shape:
-        numel *= s
-    word = philox_words(seed, numel, resolve_device(device))[0]
-    return randint_bits(word, low, high).reshape(shape)
+    (v,) = philox_draws(seed, _numel(shape), [(int(low), int(high))], resolve_device(device))
+    return v.reshape(shape)

@@ -1,6 +1,6 @@
 """Workflow layer (counterpart of ``evox_tpu/workflows``)."""
 
-__all__ = ["StdWorkflow", "EvalMonitor"]
+__all__ = ["StdWorkflow", "SegmentConfig", "EvalMonitor"]
 
 from .eval_monitor import EvalMonitor
-from .std_workflow import StdWorkflow
+from .std_workflow import SegmentConfig, StdWorkflow

@@ -11,8 +11,13 @@ approximate Pareto front is recovered from the history on demand
 (``get_pf*``), through the port's non-dominated sort (its kernels when the
 history is on the card).
 
-Not ported yet: ``plot``, auxiliary history, and the fused-segment
-``ingest_sinks`` path.
+Inside a fused segment (``StdWorkflow.run_segment`` / ``run``) the
+history goes through the ``Monitor._capture`` seam instead: ``_sink`` hands
+each payload to the workflow, which batches them per generation, and
+:meth:`EvalMonitor.ingest_sinks` appends them at the segment boundary, in
+the order stepping would have.
+
+Not ported yet: ``plot`` and auxiliary history.
 """
 
 from __future__ import annotations
@@ -141,10 +146,43 @@ class EvalMonitor(Monitor):
 
     def _record(self, state: State, fitness: torch.Tensor) -> State:
         if self.full_sol_history:
-            self._history[HistoryType.SOLUTION].append(state.latest_solution.detach())
+            self._sink(state.latest_solution, HistoryType.SOLUTION, state)
         if self.full_fit_history:
-            self._history[HistoryType.FITNESS].append(fitness.detach())
+            self._sink(fitness, HistoryType.FITNESS, state)
         return state
+
+    def _sink(self, data: torch.Tensor, data_type: int, state: State, slot: int = 0) -> None:
+        """Record ``data`` in the history, or, inside a fused segment
+        (``_capture`` is a list), hand it to the workflow with its site
+        identity and tags; :meth:`ingest_sinks` appends it at the
+        boundary."""
+        if self._capture is not None:
+            self._capture.append(
+                (int(data_type), slot, data.detach(), state.generation, state.instance_id)
+            )
+            return
+        self._history[int(data_type)].append(data.detach())
+
+    def ingest_sinks(self, meta, sinks, executed) -> None:
+        """Boundary flush of a fused segment's captured sink batches into
+        the history (the batched counterpart of recording every
+        generation).
+
+        :param meta: ``[(history_type, slot), ...]`` — one site descriptor
+            per sink call of the step, in program order.
+        :param sinks: ``[(data, generations, instances), ...]`` matching
+            ``meta``, each with a leading ``(n_generations,)`` axis.
+        :param executed: how many of the batched generations ran (a segment
+            may stop early on an unhealthy state); rows past it are padding
+            and are dropped.
+
+        Entries are appended per generation in site order, as stepping
+        records them, on the device the segment ran on.  Call once per
+        executed segment: ingesting the same telemetry twice duplicates
+        entries."""
+        for g in range(int(executed)):
+            for (data_type, _slot), (data, _gens, _insts) in zip(meta, sinks):
+                self._history[int(data_type)].append(data[g])
 
     def record_nonfinite(self, state: State, mask: torch.Tensor) -> State:
         """Count quarantined individuals (non-finite fitness rows replaced

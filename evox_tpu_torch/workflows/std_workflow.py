@@ -1,28 +1,84 @@
 """Standard ask-eval-tell workflow (counterpart of
 ``evox_tpu/workflows/std_workflow.py``, the single-device subset).
 
-``step(state) -> state`` runs one generation eagerly; :meth:`StdWorkflow.run`
-is a Python loop over it.  The evaluation proxy is an explicit ``evaluate``
-closure handed to ``Algorithm.step``; monitor and problem sub-states are
-carried through it.
+``step(state) -> state`` runs one generation eagerly.  The evaluation proxy
+is an explicit ``evaluate`` closure handed to ``Algorithm.step``; monitor
+and problem sub-states are carried through it.
+
+Fused multi-generation runs (:meth:`StdWorkflow.run`,
+:meth:`StdWorkflow.run_segment`) are the counterpart of JAX's compiled
+``fori_loop`` and ``lax.scan``: on the card the generations are one replay
+of a captured CUDA graph (``workflows/_graph.py``), on the CPU the same
+generation code runs eagerly in a Python loop (the plain version).  Either
+way the state equals that of the same number of :meth:`StdWorkflow.step`
+calls, bit for bit.
 
 Not ported yet, and refused with :class:`NotImplementedError` rather than
 ignored: distributed evaluation (``enable_distributed``, ``mesh``),
-shard-granular quarantine, the precision plane (``precision``) and key
-implementations (``key_impl``).  Also deferred: ``health_metrics``,
-``run_segment`` and the fused segment program.
+shard-granular quarantine, the precision plane (``precision``), key
+implementations (``key_impl``), and the segment options of the service and
+observability layers (``frozen=``/lane freeze, ``flight=True``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from ..core import Algorithm, Monitor, Problem, State, Workflow
+from ..resilience.health import _best_fitness_expr, _subtree, scan_state
 from ..utils import rng
+from . import _graph
 
-__all__ = ["StdWorkflow"]
+__all__ = ["StdWorkflow", "SegmentConfig"]
+
+
+class SegmentConfig(NamedTuple):
+    """Configuration of one fused multi-generation segment (hashable: one
+    captured graph per distinct configuration, as JAX compiles one program
+    per distinct static configuration).  The fields are the JAX package's.
+
+    ``check_nonfinite`` / ``nonfinite_skip`` / ``diversity`` / ``step_size``
+    / ``shards`` select the health metrics computed on the segment's final
+    state (:func:`~evox_tpu_torch.resilience.health.scan_state`).
+    ``diversity_floor`` / ``step_size_range`` are the early-stop thresholds;
+    with ``stop_on_unhealthy`` the generation that first produces an
+    unhealthy state is the segment's last that counts: every later one is
+    computed and its result dropped by a per-leaf select (a graph cannot
+    skip work), so the state stays frozen.  ``barrier`` is accepted and has
+    no effect (eager PyTorch fuses nothing it could pin).  ``lane_freeze``
+    and ``flight`` belong to layers not ported yet and must stay False.
+    Build one with :meth:`StdWorkflow.segment_config`."""
+
+    capture_history: bool = True
+    metrics: bool = True
+    check_nonfinite: bool = True
+    nonfinite_skip: tuple = ()
+    diversity: bool = False
+    step_size: bool = False
+    shards: int | None = None
+    diversity_floor: float | None = None
+    step_size_range: tuple | None = None
+    stop_on_unhealthy: bool = False
+    barrier: bool = True
+    lane_freeze: bool = False
+    flight: bool = False
+
+
+def _tree_where(pred: torch.Tensor, a: Any, b: Any) -> Any:
+    """``a`` where ``pred`` else ``b``, leaf by leaf (a 0-dim bool ``pred``;
+    the values of the selected operand are returned exactly)."""
+    la, spec = _graph.flatten(a)
+    lb, _ = _graph.flatten(b)
+    return _graph.unflatten(spec, [torch.where(pred, x, y) for x, y in zip(la, lb)])
+
+
+def _stack(outs: list) -> Any:
+    """Per-generation outputs stacked along a new leading axis."""
+    first, spec = _graph.flatten(outs[0])
+    columns = [_graph.flatten(o)[0] for o in outs]
+    return _graph.unflatten(spec, [torch.stack([c[i] for c in columns]) for i in range(len(first))])
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -110,13 +166,19 @@ class StdWorkflow(Workflow):
         self.fitness_transform = fitness_transform
         self.quarantine_nonfinite = quarantine_nonfinite
         self.nonfinite_penalty = float(nonfinite_penalty)
+        # Captured CUDA graphs of fused segments (``workflows/_graph.py``).
+        self._graphs = _graph.Cache()
 
     # -- state -------------------------------------------------------------
     def setup(self, key: int | torch.Tensor) -> State:
         """Build the initial workflow state from an int seed or a key
-        (:func:`evox_tpu_torch.utils.rng.key`)."""
+        (:func:`evox_tpu_torch.utils.rng.key`); the keys live on the
+        algorithm's device (where it names none, a seed's key on the CPU)."""
+        device = getattr(self.algorithm, "device", None)
         if not isinstance(key, torch.Tensor):
-            key = rng.key(key)
+            key = rng.key(key, device)
+        elif device is not None:
+            key = key.to(device)
         algo_key, prob_key, mon_key = rng.split_keys(key, 3)
         return State(
             algorithm=self.algorithm.setup(algo_key),
@@ -222,13 +284,346 @@ class StdWorkflow(Workflow):
         """Last optimization step (algorithm's ``final_step`` if overridden)."""
         return self._step(state, "final_step")
 
-    def run(self, state: State, n_steps: int, init: bool = True) -> State:
-        """Run ``n_steps`` generations: ``init_step`` (when ``init``) and then
-        ``step``, in a Python loop.  Nothing waits for the card between
-        generations."""
+    def run(self, state: State, n_steps: int, init: bool = True, unroll: int = 1) -> State:
+        """Run ``n_steps`` generations: ``init_step`` (when ``init``, eagerly)
+        followed by ``step`` as one fused segment (the counterpart of JAX's
+        ``lax.fori_loop``) — on the card, one replay of the captured CUDA
+        graph of the remaining generations that :meth:`run_segment` uses,
+        with no host sync between generations; on the CPU, the same
+        generations eagerly.  The monitor's history is flushed at the end,
+        entry for entry what stepping records.  The state equals
+        ``n_steps`` steps bit for bit.
+
+        :param unroll: accepted for the JAX signature; no effect.  A graph
+            of ``unroll`` generations replayed in turn would copy the state
+            back into its input buffers after every replay, which at large
+            populations costs most of a generation."""
+        del unroll
         if init:
             state = self.init_step(state)
             n_steps -= 1
-        for _ in range(n_steps):
-            state = self.step(state)
+        if n_steps < 1:
+            return state
+        cfg = self.segment_config(metrics=False)
+        state, telemetry = self._run_segment(state, n_steps, cfg)
+        self.flush_telemetry(telemetry)
         return state
+
+    # -- run-health surface -------------------------------------------------
+    def health_metrics(self, state: State) -> dict[str, torch.Tensor]:
+        """Snapshot of the run-health metrics (0-dim tensors on the state's
+        device; nothing is read back to the host), with the JAX package's
+        keys:
+
+        * ``nonfinite_state_values`` — count of NaN/±Inf scalars anywhere in
+          the state (floating leaves; keys and integer leaves skipped);
+        * ``pop_diversity`` — largest per-dimension std of the population
+          (when the algorithm state carries a 2-D ``pop``);
+        * ``step_size_min`` / ``step_size_max`` — extrema of the ES
+          ``sigma`` leaf (when present);
+        * ``best_fitness`` — monitor top-k best (minimizing frame) when
+          available, else ``min(state.algorithm.fit)``;
+        * ``num_nonfinite`` / ``num_shard_quarantines`` / ``num_restarts`` /
+          ``num_preemptions`` — the monitor's cumulative counters (when the
+          monitor tracks them).
+
+        Keys are present only when the state supports them, so the dict is
+        stable per workflow configuration."""
+        raw = scan_state(state, diversity=True, step_size=True)
+        out: dict[str, torch.Tensor] = {}
+        nonfinite = raw.get("nonfinite")
+        if nonfinite:
+            out["nonfinite_state_values"] = sum(nonfinite.values())
+        if "diversity" in raw:
+            out["pop_diversity"] = raw["diversity"]
+        if "step_size_min" in raw:
+            out["step_size_min"] = raw["step_size_min"]
+            out["step_size_max"] = raw["step_size_max"]
+        if "best_fitness" in raw:
+            out["best_fitness"] = raw["best_fitness"]
+        mon = _subtree(state, "monitor")
+        if mon is not None:
+            for key in ("num_nonfinite", "num_shard_quarantines", "num_restarts", "num_preemptions"):
+                if key in mon:
+                    out[key] = mon[key]
+        return out
+
+    # -- fused segments -------------------------------------------------------
+    def segment_config(
+        self,
+        *,
+        capture_history: bool = True,
+        metrics: bool = True,
+        stop_on_unhealthy: bool = False,
+        health: Any | None = None,
+        barrier: bool = True,
+        lane_freeze: bool = False,
+        flight: bool = False,
+    ) -> SegmentConfig:
+        """Build the :class:`SegmentConfig` for :meth:`run_segment` (the JAX
+        package's options).
+
+        :param capture_history: batch the monitor's history out of the
+            segment as telemetry (flushed by :meth:`flush_telemetry`).
+            ``False`` is JAX's per-generation debug mode; here it is the
+            eager loop, the monitor recording every generation itself.
+        :param metrics: the health-metric snapshot of the final state.
+        :param stop_on_unhealthy: freeze the segment when a generation
+            produces an unhealthy state (see :class:`SegmentConfig`).
+        :param health: an object with ``HealthProbe``'s detector-config
+            attributes (``check_nonfinite``, ``nonfinite_skip``,
+            ``diversity_floor``, ``step_size_range``, ``shards``); without
+            it the metric set mirrors :meth:`health_metrics` and the early
+            stop watches non-finite state only.
+        :param barrier: accepted for the JAX signature; no effect.
+        :param lane_freeze, flight: not yet ported (the service layer and
+            the flight recorder); ``True`` raises
+            :class:`NotImplementedError`.
+        """
+        if lane_freeze:
+            raise NotImplementedError("segment lane freeze (frozen=, the service layer) is not yet ported")
+        if flight:
+            raise NotImplementedError("segment flight=True (the flight recorder) is not yet ported")
+        if health is not None:
+            shards = getattr(health, "shards", None)
+            if shards is not None:
+                raise NotImplementedError("per-shard health metrics (shards=) are not yet ported")
+            step_range = getattr(health, "step_size_range", None)
+            return SegmentConfig(
+                capture_history=bool(capture_history),
+                metrics=bool(metrics),
+                check_nonfinite=bool(getattr(health, "check_nonfinite", True)),
+                nonfinite_skip=tuple(getattr(health, "nonfinite_skip", ())),
+                diversity=getattr(health, "diversity_floor", None) is not None,
+                step_size=step_range is not None,
+                diversity_floor=getattr(health, "diversity_floor", None),
+                step_size_range=None if step_range is None else tuple(step_range),
+                stop_on_unhealthy=bool(stop_on_unhealthy),
+                barrier=bool(barrier),
+            )
+        return SegmentConfig(
+            capture_history=bool(capture_history),
+            metrics=bool(metrics),
+            check_nonfinite=True,
+            diversity=True,
+            step_size=True,
+            stop_on_unhealthy=bool(stop_on_unhealthy),
+            barrier=bool(barrier),
+        )
+
+    def _capture_step(self, state: State, meta_out: list, capture: bool, which: str = "step"):
+        """One generation with the monitor's history redirected into a
+        capture list (``Monitor._capture``).  Returns the new state and the
+        captured payloads, one ``(data, generation, instance)`` triple per
+        sink site in program order, and records the site identities
+        ``(history_type, slot)`` in ``meta_out``."""
+        mon = self.monitor
+        cap: list | None = [] if capture else None
+        prev = mon._capture
+        if cap is not None:
+            mon._capture = cap
+        try:
+            new_state = self._step(state, which)
+        finally:
+            if cap is not None:
+                mon._capture = prev
+        entries = cap or []
+        meta_out[:] = [(t, slot) for (t, slot, _, _, _) in entries]
+        return new_state, tuple((data, gen, inst) for (_, _, data, gen, inst) in entries)
+
+    def _unhealthy(self, state: State, cfg: SegmentConfig) -> torch.Tensor:
+        """The early-stop predicate (a 0-dim bool tensor, never read on the
+        host).  It scans only what it reads: a captured graph keeps every
+        metric computed, used or not."""
+        raw = scan_state(
+            state,
+            check_nonfinite=cfg.check_nonfinite,
+            nonfinite_skip=cfg.nonfinite_skip,
+            diversity=cfg.diversity_floor is not None,
+            step_size=cfg.step_size_range is not None,
+            shards=cfg.shards,
+        )
+        bad = None
+        counts = raw.get("nonfinite")
+        if counts:
+            bad = sum(counts.values()) > 0
+        if "diversity" in raw:
+            low = raw["diversity"] < cfg.diversity_floor
+            bad = low if bad is None else bad | low
+        if "step_size_min" in raw:
+            lo, hi = cfg.step_size_range
+            out = ~((raw["step_size_min"] >= lo) & (raw["step_size_max"] <= hi))
+            bad = out if bad is None else bad | out
+        return bad
+
+    @staticmethod
+    def _scan_metrics(state: State, cfg: SegmentConfig) -> dict:
+        return scan_state(
+            state,
+            check_nonfinite=cfg.check_nonfinite,
+            nonfinite_skip=cfg.nonfinite_skip,
+            diversity=cfg.diversity,
+            step_size=cfg.step_size,
+            shards=cfg.shards,
+        )
+
+    def _segment_program(self, cfg: SegmentConfig, which: str = "step") -> Callable:
+        """The segment body: ``program(carry, L) -> (carry, outs, meta)``
+        runs ``L`` generations eagerly; ``carry`` is ``(state,)`` or, with
+        the early stop, ``(state, stopped, executed)``; ``outs`` holds each
+        generation's captured sinks and best fitness stacked along a
+        leading axis; ``meta`` the sink sites' identities.  On the card
+        :func:`_graph.run` captures it, on the CPU it runs as it is."""
+
+        def generation(carry: tuple, meta: list) -> tuple[tuple, dict]:
+            st = carry[0]
+            new_st, ys = self._capture_step(st, meta, cfg.capture_history, which)
+            if _graph.structure(new_st) != _graph.structure(st):
+                raise ValueError(
+                    "a fused segment needs a state whose structure, shapes and dtypes "
+                    "a generation keeps (run init_step first)"
+                )
+            out: dict[str, Any] = {"sinks": ys}
+            algo = _subtree(new_st, "algorithm")
+            best = _best_fitness_expr(new_st, algo if algo is not None else new_st)
+            if best is not None:
+                out["best_fitness"] = best
+            if not cfg.stop_on_unhealthy:
+                return (new_st,), out
+            _, stopped, executed = carry
+            # A stopped segment keeps its state and reports zeros, as JAX's
+            # cond-guarded body; the step still runs (a graph cannot skip it).
+            kept = _tree_where(stopped, st, new_st)
+            leaves, spec = _graph.flatten(out)
+            out = _tree_where(stopped, _graph.unflatten(spec, [torch.zeros_like(t) for t in leaves]), out)
+            bad = self._unhealthy(kept, cfg)
+            stopped_next = stopped if bad is None else stopped | bad
+            return (kept, stopped_next, executed + (~stopped).to(torch.int32)), out
+
+        def program(carry: tuple, length: int):
+            meta: list = []
+            outs = []
+            for _ in range(length):
+                carry, out = generation(carry, meta)
+                outs.append(out)
+            return carry, _stack(outs), list(meta)
+
+        return program
+
+    def _run_segment(self, state: State, n_steps: int, cfg: SegmentConfig):
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        leaves, _ = _graph.flatten(state)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        carry: tuple = (state,)
+        if cfg.stop_on_unhealthy:
+            carry = (
+                state,
+                torch.zeros((), dtype=torch.bool, device=device),
+                torch.zeros((), dtype=torch.int32, device=device),
+            )
+        program = self._segment_program(cfg)
+        if device.type == "cuda" and cfg.capture_history:
+            # The metrics are computed on the final state after the replay,
+            # so one capture serves every metric setting.
+            key = ("step", cfg._replace(metrics=False, diversity=False, step_size=False))
+            carry, outs, meta = _graph.run(self._graphs, key, program, carry, n_steps)
+        else:
+            # The CPU, and the per-generation debug mode: the same
+            # generations, eagerly.
+            carry, outs, meta = program(carry, n_steps)
+        final = carry[0]
+        if cfg.stop_on_unhealthy:
+            stopped, executed = carry[1], carry[2]
+        else:
+            stopped = torch.zeros((), dtype=torch.bool, device=device)
+            executed = torch.full((), n_steps, dtype=torch.int32, device=device)
+        telemetry: dict[str, Any] = {"stopped": stopped, "executed": executed, "sinks": outs["sinks"]}
+        if "best_fitness" in outs:
+            telemetry["best_fitness"] = outs["best_fitness"]
+        if cfg.metrics:
+            telemetry["metrics"] = self._scan_metrics(final, cfg)
+        # The sites' identities, fixed when the segment was captured (a CPU
+        # tensor: flushing reads it without waiting for the card).
+        telemetry["sink_meta"] = torch.tensor(meta, dtype=torch.int32).reshape(len(meta), 2)
+        return final, State(**telemetry)
+
+    def run_segment(
+        self,
+        state: State,
+        n_steps: int,
+        *,
+        capture_history: bool = True,
+        metrics: bool = True,
+        stop_on_unhealthy: bool = False,
+        health: Any | None = None,
+        barrier: bool = True,
+        frozen: Any | None = None,
+        flight: bool = False,
+    ) -> tuple[State, State]:
+        """Run ``n_steps`` generations as ONE fused segment and return
+        ``(state, telemetry)`` (the counterpart of JAX's ``lax.scan``
+        segment).
+
+        On the card the segment is one replay of a captured CUDA graph of
+        ``n_steps`` generations (captured on first use per configuration,
+        state structure and ``n_steps``; a workflow keeps its last few
+        captures, in one memory pool), with no host sync; on the CPU the
+        same generation code runs eagerly.  Quarantine and the
+        monitor's counters stay in the step; the monitor's history is
+        captured into the telemetry (``capture_history``; flush it with
+        :meth:`flush_telemetry`); the best fitness of every generation, the
+        health metrics of the final state (``metrics``) and an optional
+        early stop (``stop_on_unhealthy``) ride along.  The state equals
+        ``n_steps`` :meth:`step` calls bit for bit when the early stop is
+        off, and up to the generation that stopped it when it is on.
+
+        The telemetry is a :class:`~evox_tpu_torch.core.State`, with the
+        JAX package's keys and shapes::
+
+            stopped       bool    — the early stop tripped
+            executed      int32   — generations that counted
+            sinks         tuple   — per sink site, (data, generation,
+                                    instance) batches of leading length
+                                    n_steps
+            best_fitness  (n,)    — per-generation best (minimizing
+                                    frame), when the state exposes one
+            metrics       dict    — scan_state() of the final state
+            sink_meta     (k, 2)  — int32 (history_type, slot) of each sink
+                                    site (a CPU tensor)
+
+        :param barrier: accepted for the JAX signature; no effect.
+        :param frozen, flight: not yet ported; any other value than the
+            default raises :class:`NotImplementedError`.
+        """
+        if frozen is not None:
+            raise NotImplementedError("run_segment(frozen=...) (the service layer's lane freeze) is not yet ported")
+        cfg = self.segment_config(
+            capture_history=capture_history,
+            metrics=metrics,
+            stop_on_unhealthy=stop_on_unhealthy,
+            health=health,
+            barrier=barrier,
+            flight=flight,
+        )
+        return self._run_segment(state, int(n_steps), cfg)
+
+    def flush_telemetry(self, telemetry: Any) -> None:
+        """Boundary flush: append a fused segment's captured history to the
+        monitor (a no-op for monitors without history).  Call exactly once
+        per executed segment: flushing twice duplicates entries.  Reads the
+        number of generations executed (one wait for the card a segment)."""
+        sinks = telemetry["sinks"] if "sinks" in telemetry else ()
+        ingest = getattr(self.monitor, "ingest_sinks", None)
+        if ingest is None or not sinks:
+            return
+        ingest(self.sink_meta_pairs(telemetry), sinks, telemetry["executed"])
+
+    @staticmethod
+    def sink_meta_pairs(telemetry: Any) -> list[tuple[int, int]]:
+        """The ``(history_type, slot)`` identity of each sink site in a
+        segment's telemetry, as ``ingest_sinks`` expects it."""
+        meta = telemetry["sink_meta"]
+        if meta.ndim == 3:
+            meta = meta[0]
+        return [(int(t), int(s)) for t, s in meta.tolist()]

@@ -96,9 +96,8 @@ def test_dominance_kernels_match_plain_versions(cuda, n, m):
     _same(words, dominance.dominance_packed_plain(f))
     _same(dominance.dominance_matrix(f), dominance.dominance_matrix_plain(f))
     _same(dominance.dominance_matrix(f.double()), dominance.dominance_matrix_plain(f.double()))
-    front = torch.rand(n, device=cuda) > 0.5
-    _same(dominance.peel_count(words), dominance.peel_count_plain(words))
-    _same(dominance.peel_count(words, front), dominance.peel_count_plain(words, front))
+    _same(dominance.peel_fronts(words), dominance.peel_fronts_plain(words))
+    _same(dominance.peel_fronts(words, n // 2), dominance.peel_fronts_plain(words, n // 2))
 
 
 # The packed words: the kernel of fixed m (2, 3, 4) and the generic one
@@ -291,8 +290,8 @@ def test_mo_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         crowding.crowding_neighbors(f, torch.ones(64, dtype=torch.bool))  # mask on the CPU
     words = dominance.dominance_packed(f)
-    with pytest.raises(ValueError):
-        dominance.peel_count(words, torch.ones(64, dtype=torch.bool))  # front on the CPU
+    with pytest.raises(ValueError, match="contiguous"):
+        dominance.peel_fronts(words.t().contiguous().t())
     with pytest.raises(ValueError, match="words"):
         dominance.peel_fronts(words[:, :32])  # two words for 32 columns
     with pytest.raises(ValueError, match="int32"):
@@ -310,3 +309,170 @@ def test_capability_probe(cuda):
     result = probe.run_capability_probe()
     assert result["ok"] is True and result["device_kind"] == torch.cuda.get_device_name(0)
     assert result["elapsed_s"] > 0 and probe.scale_by_two.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The Philox draw kernel and device-resident keys
+# ---------------------------------------------------------------------------
+
+from evox_tpu_torch.ops import philox  # noqa: E402
+from evox_tpu_torch.utils import rng  # noqa: E402
+
+PHILOX_KINDS = [
+    [torch.float32], [torch.bfloat16], [torch.float64], [torch.float16], [(0, 2)], [(-9, 2**31 - 9)],
+    [torch.float32, (0, 2), torch.float32, torch.float32], [torch.bfloat16, torch.float32],
+]
+
+
+@pytest.mark.parametrize("numel", [1, 3, 4, 5, 1001, 65_537])
+@pytest.mark.parametrize("seed", [0, 2**63, 2**64 - 1])
+@pytest.mark.parametrize("counter", [0, 7, 2**40])
+def test_philox_kernel_matches_plain_version(cuda, numel, seed, counter):
+    k = torch.tensor([rng.signed64(seed), counter], dtype=torch.int64, device=cuda)
+    for s in (rng.child(k, 0), rng.child(k, 3), seed):
+        for kinds in PHILOX_KINDS:
+            before = philox.philox_draws.launches
+            got = philox.philox_draws(s, numel, kinds, cuda)
+            assert philox.philox_draws.launches == before + 1
+            for g, w in zip(got, philox.philox_draws_plain(s, numel, kinds, cuda)):
+                assert g.dtype == w.dtype and g.device == w.device and torch.equal(g, w)
+
+
+def test_philox_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError):
+        philox.philox_draws(1, 8, [torch.int32], cuda)
+    with pytest.raises(ValueError):
+        philox.philox_draws(1, 8, [torch.float32] * 5, cuda)
+    with pytest.raises(ValueError):
+        philox.philox_draws(rng.Seed(torch.zeros(3, dtype=torch.int64, device=cuda), 0), 8, [torch.float32], cuda)
+
+
+def test_draws_and_moves_on_the_card_never_run_the_plain_version(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(philox, "philox_draws_plain", refuse)
+    monkeypatch.setattr(rng, "philox_words", refuse)
+    k = rng.key(5, cuda)
+    rng.uniform(rng.child(k), (10, 3), device=cuda)
+    rng.randint(rng.child(k), (10,), 0, 4, cuda)
+    args, _ = _inputs(8, 4, torch.float32, cuda)
+    fused_pso_move(*args, seed=rng.child(k))
+    torch.cuda.synchronize()
+
+
+def test_keys_and_draws_stay_on_the_card_without_host_syncs(cuda):
+    k = rng.key(2**63 + 1, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k2, (a, b) = rng.split(k, 2)
+        keys = rng.split_keys(k2, 4)
+        u = rng.uniform(a, (100, 7), device=cuda)
+        v = rng.randint(b, (50,), 0, 9, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(x.device.type == "cuda" for x in (k2, *keys, u, v))
+    assert torch.equal(u.cpu(), rng.uniform(rng.Seed(k.cpu(), 0), (100, 7), device="cpu"))
+    assert [c.cpu().tolist() for c in keys] == [c.tolist() for c in rng.split_keys(k2.cpu(), 4)]
+
+
+# ---------------------------------------------------------------------------
+# Fused segments: replayed CUDA graphs against eager steps
+# ---------------------------------------------------------------------------
+
+from evox_tpu_torch.core import Problem, State  # noqa: E402
+from evox_tpu_torch.workflows import _graph  # noqa: E402
+
+
+def _segment_workflow(kind, device, **kw):
+    from evox_tpu_torch.algorithms import NSGA2, PSO
+    from evox_tpu_torch.problems.numerical import DTLZ2, Ackley
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    if kind == "nsga2":
+        algo = NSGA2(256, 3, torch.zeros(12), torch.ones(12), device=device)
+        return StdWorkflow(algo, DTLZ2(d=12, m=3, device=device), monitor=EvalMonitor(multi_obj=True), **kw)
+    algo = PSO(512, torch.full((20,), -32.0), torch.full((20,), 32.0), device=device)
+    return StdWorkflow(algo, kw.pop("problem", None) or Ackley(), monitor=EvalMonitor(topk=2), **kw)
+
+
+def _equal_states(a, b):
+    la, sa = _graph.flatten(a)
+    lb, sb = _graph.flatten(b)
+    assert sa == sb
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.device == y.device
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["pso", "nsga2"])
+def test_segment_and_run_replay_eager_steps_bit_for_bit(cuda, kind):
+    wf = _segment_workflow(kind, cuda)
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    ref = s0
+    for _ in range(12):
+        ref = wf.step(ref)
+    stepped = wf.monitor._history[0][-12:]
+    for _ in range(2):  # the capture, then a replay
+        seg, tel = wf.run_segment(s0, 12)
+        _equal_states(seg, ref)
+    wf.flush_telemetry(tel)
+    for x, y in zip(wf.monitor._history[0][-12:], stepped):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+    for unroll in (1, 5, 12):
+        _equal_states(wf.run(s0, 12, init=False, unroll=unroll), ref)
+    # The caller's state is never aliased by the graph's buffers.
+    leaves = {t.data_ptr() for t in _graph.flatten(seg)[0] if t.numel()}
+    assert not leaves & {t.data_ptr() for b in wf._graphs.inputs.values() for t in b if t.numel()}
+    # run and run_segment of the same length share one capture.
+    assert len(wf._graphs) == 1
+
+
+def test_capture_memory_does_not_grow_with_the_segment(cuda):
+    """A capture reuses the blocks its earlier generations freed, and a
+    workflow keeps at most MAX_GRAPHS captures."""
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    wf = StdWorkflow(PSO(4096, torch.full((256,), -5.0), torch.full((256,), 5.0), device=cuda), Sphere())
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    state_bytes = sum(t.numel() * t.element_size() for t in _graph.flatten(s0)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    wf.run_segment(s0, 24, metrics=False)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < 8 * state_bytes
+    for n in range(1, _graph.MAX_GRAPHS + 3):
+        wf.run_segment(s0, n, metrics=False)
+    assert len(wf._graphs) == _graph.MAX_GRAPHS
+
+
+def test_replayed_segment_makes_no_host_sync(cuda):
+    wf = _segment_workflow("nsga2", cuda)
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    wf.run_segment(s0, 6)  # capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, tel = wf.run_segment(s0, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(tel.executed) == 6
+
+
+class _Synchronizing(Problem):
+    """Reads the population on the host while it evaluates: a capture
+    cannot record that."""
+
+    def evaluate(self, state, pop):
+        return torch.sum(pop * pop, dim=1) + float(pop.sum()) * 0.0, state
+
+
+def test_a_failed_capture_raises(cuda):
+    wf = _segment_workflow("pso", cuda, problem=_Synchronizing())
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    with pytest.raises(RuntimeError):
+        wf.run_segment(s0, 3)

@@ -345,9 +345,9 @@ def test_peel_count_matches_numpy_popcount(n):
     f = _costs(n, n, 3, specials=False)
     words = dominance.dominance_packed(torch.from_numpy(f))
     mat = dominance.dominance_matrix_plain(torch.from_numpy(f)).numpy()
-    np.testing.assert_array_equal(dominance.peel_count(words).numpy(), mat.sum(0))
+    np.testing.assert_array_equal(dominance.peel_count_plain(words).numpy(), mat.sum(0))
     front = np.random.default_rng(n).uniform(0, 1, n) > 0.5
-    got = dominance.peel_count(words, torch.from_numpy(front))
+    got = dominance.peel_count_plain(words, torch.from_numpy(front))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), (mat & front[:, None]).sum(0))
 
@@ -403,18 +403,17 @@ def test_peel_fronts_until_count_edges():
 
 def test_cpu_wrappers_count_no_launches():
     before = (topk.lex_rank.launches, crowding.crowding_neighbors.launches,
-              dominance.dominance_packed.launches, dominance.peel_count.launches,
+              dominance.dominance_packed.launches,
               dominance.peel_fronts.launches,
               dominance.dominance_matrix.launches, probe.scale_by_two.launches)
     f = torch.from_numpy(_costs(1, 40, 3))
-    dominance.peel_count(dominance.dominance_packed(f))
     dominance.peel_fronts(dominance.dominance_packed(f), 20)
     dominance.dominance_matrix(f)
     crowding.crowding_neighbors(f, torch.ones(40, dtype=torch.bool))
     topk.lex_rank(f[:, 0])
     probe.scale_by_two(f)
     after = (topk.lex_rank.launches, crowding.crowding_neighbors.launches,
-             dominance.dominance_packed.launches, dominance.peel_count.launches,
+             dominance.dominance_packed.launches,
              dominance.peel_fronts.launches,
              dominance.dominance_matrix.launches, probe.scale_by_two.launches)
     assert after == before
