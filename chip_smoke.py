@@ -12,7 +12,10 @@ README quick start, PSO on Ackley with an ``EvalMonitor``; NSGA-II on DTLZ2
 at pop=10000, d=12, m=3, then the multi-objective example with an
 ``EvalMonitor(multi_obj=True)``; then the fused runs, ``run_segment`` and
 ``run`` as replayed CUDA graphs, on the PSO headline, PSO at pop=1024 on
-Ackley and the NSGA-II headline, each against eager steps bit for bit),
+Ackley and the NSGA-II headline, each against eager steps bit for bit;
+RVEA on DTLZ2 at pop=10000 (9870 reference vectors), eager and fused, its
+selection card against CPU; then NSGA-III at pop=10000 and RVEAa, MOEA/D
+and HypE at pop=1000, eager and fused, and DTLZ1-7 card against CPU),
 checks that each path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -22,6 +25,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -231,13 +235,18 @@ def profile_steps(step, state, steps):
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us and getattr(ev, "device_type", None) is not None and "CUDA" in str(ev.device_type):
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3 / steps
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    # Kernel names cut to 80 characters; kernels whose names share those
+    # add up (a dict keyed by the cut name kept only the last of them).
+    named = {}
+    for k, v in kernels.items():
+        named[k[:80]] = named.get(k[:80], 0.0) + v
+    top = sorted(named.items(), key=lambda kv: -kv[1])[:12]
     busy = sum(kernels.values())
     return state, {
         "steps": steps,
         "wall_ms_per_gen_profiled": wall_ms / steps,
         "device_ms_per_gen": busy if kernels else "not measured",
-        "kernels_ms_per_gen": {k[:80]: v for k, v in top},
+        "kernels_ms_per_gen": dict(top),
     }
 
 
@@ -557,17 +566,6 @@ def phase_compare_mo(device) -> dict:
     return {"checks": checks, "max_abs_err": errs, "probe": result}
 
 
-def nsga2_workflow(device, pop, monitor=None):
-    import torch
-    from evox_tpu_torch.algorithms import NSGA2
-    from evox_tpu_torch.problems.numerical import DTLZ2
-    from evox_tpu_torch.workflows import StdWorkflow
-
-    problem = DTLZ2(d=NSGA2_DIM, m=NSGA2_OBJ, device=device)
-    algo = NSGA2(pop, NSGA2_OBJ, torch.zeros(NSGA2_DIM), torch.ones(NSGA2_DIM), device=device)
-    return StdWorkflow(algo, problem, monitor=monitor), problem
-
-
 def mo_counters():
     from evox_tpu_torch.ops import crowding, dominance, philox, topk
 
@@ -618,7 +616,7 @@ def phase_nsga2_main_path(device) -> dict:
     from evox_tpu_torch.operators.selection import non_dominate
 
     counters = mo_counters()
-    wf, problem = nsga2_workflow(device, NSGA2_POP)
+    wf, problem, _ = mo_workflow("NSGA2", NSGA2_POP, device)
     pf = problem.pf()
     # The crowding kernel's inputs as the path gives them (the merged
     # objectives and the boundary-front mask), kept for timing_mo, and the
@@ -744,7 +742,7 @@ def mo_example(device, gens):
     from evox_tpu_torch.workflows import EvalMonitor
 
     mon = EvalMonitor(multi_obj=True)
-    wf, problem = nsga2_workflow(device, 128, monitor=mon)
+    wf, problem, _ = mo_workflow("NSGA2", 128, device, monitor=mon)
     pf = problem.pf()
     state = wf.init_step(wf.init(0))
     igds = {}
@@ -776,8 +774,8 @@ def phase_mo_example(device) -> dict:
     launches = {k: c.launches for k, c in counters.items()}
     if min(launches[k] for k in ("dominance_packed", "peel_fronts", "lex_rank", "crowding_neighbors")) < 1:
         raise AssertionError(f"a kernel of the example's path never launched: {launches}")
-    wf_g, _ = nsga2_workflow(device, 128)
-    wf_c, _ = nsga2_workflow("cpu", 128)
+    wf_g = mo_workflow("NSGA2", 128, device)[0]
+    wf_c = mo_workflow("NSGA2", 128, "cpu")[0]
     s_g = wf_g.step(wf_g.init_step(wf_g.init(0)))
     s_c = wf_c.step(wf_c.init_step(wf_c.init(0)))
     worst = 0.0
@@ -1457,6 +1455,489 @@ def segment_early_stop(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: RVEA on DTLZ2 at the bench width, and the rest of the
+# multi-objective family (RVEAa, NSGA-III, MOEA/D, HypE, DTLZ1-7).
+# ---------------------------------------------------------------------------
+
+RVEA_POP = 10_000  # bench.py's rvea_dtlz2: Das-Dennis keeps 9870 vectors
+# The family's widths: NSGA-III at its full width (9870 reference points),
+# the others at pop 1000 (990 Das-Dennis vectors for RVEAa and MOEA/D).
+MO_FAMILY = [("NSGA3", 10_000), ("RVEAa", 1000), ("MOEAD", 1000), ("HypE", 1000)]
+DTLZ_SUITE = ["DTLZ1", "DTLZ3", "DTLZ4", "DTLZ5", "DTLZ6", "DTLZ7"]
+DTLZ_ROWS = 10_000
+# Philox launches a generation: one a random operator (mating, SBX,
+# mutation; NSGA-III's two shuffles, RVEAa's regeneration, HypE's two
+# hypervolume estimates); the ranking kernels once a generation where the
+# step ranks the merged population.
+PATH_LAUNCHES = {
+    "RVEA": {"philox_draws": 3, "dominance_packed": 0, "peel_fronts": 0},
+    "NSGA3": {"philox_draws": 5, "dominance_packed": 1, "peel_fronts": 1},
+    "RVEAa": {"philox_draws": 4, "dominance_packed": 1, "peel_fronts": 1},
+    "MOEAD": {"philox_draws": 3, "dominance_packed": 0, "peel_fronts": 0},
+    "HypE": {"philox_draws": 5, "dominance_packed": 1, "peel_fronts": 1},
+}
+# The card's selection against the CPU's, by limits stated here and not
+# taken from what the card computes.  Each device's cosine of a (row,
+# vector) pair lies within about 8 units of 2^-24 of the exact value (the
+# three-entry norm 2, the division 1, the three-term product 3, rounding 2),
+# so the two devices' within twice that.
+COS_ABS_LIMIT = 16 * 2.0**-24
+# The APD (1 + m·theta·angle)·||obj|| of a row: the card's cosine moves the
+# angle anywhere over arccos of [c - COS_ABS_LIMIT, c + COS_ABS_LIMIT]; each
+# device's arccos errs by up to 2 units of the angle (8·2^-24 relative for
+# both), and the norm, the add and the product by 16·2^-24 of the APD for
+# both (``apd_allowance``).
+ACOS_REL, APD_REL = 8 * 2.0**-24, 16 * 2.0**-24
+# A flip between two near-equal values is accepted within this many float32
+# units in the last place beyond those limits.
+FLIP_ULP = 4
+
+
+def path_launch_counters():
+    return {k: v for k, v in mo_counters().items() if k in ("philox_draws", "dominance_packed", "peel_fronts")}
+
+
+def mo_workflow(name, pop, device, monitor=None):
+    """``StdWorkflow(name(pop, 3, zeros(12), ones(12)), DTLZ2(d=12,
+    m=3))`` on ``device``: the workflow, the problem and the algorithm."""
+    import torch
+    from evox_tpu_torch import algorithms
+    from evox_tpu_torch.problems.numerical import DTLZ2
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    problem = DTLZ2(d=NSGA2_DIM, m=NSGA2_OBJ, device=device)
+    algo = getattr(algorithms, name)(pop, NSGA2_OBJ, torch.zeros(NSGA2_DIM), torch.ones(NSGA2_DIM), device=device)
+    return StdWorkflow(algo, problem, monitor=monitor), problem, algo
+
+
+def igd_valid(fit, pf) -> float:
+    """IGD of the rows that are not empty (NaN) slots."""
+    import torch
+    from evox_tpu_torch.metrics import igd
+
+    return float(igd(fit[~torch.isnan(fit).any(dim=1)], pf))
+
+
+def fused_vs_eager(wf, s0, gens, counters, what, eager_context=contextlib.nullcontext) -> tuple[dict, object]:
+    """``gens`` eager steps from ``s0`` (timed, launches counted, inside
+    ``eager_context()``), then ``run(gens)`` (the capture, then a replay)
+    and ``run_segment(gens)``, each equal to the eager steps on every leaf
+    bit for bit (NaN rows at the same places), with no host sync in a
+    segment."""
+    import torch
+
+    for c in counters.values():
+        c.launches = 0
+
+    def eager():
+        s = s0
+        with eager_context():
+            for _ in range(gens):
+                s = wf.step(s)
+        return s
+
+    eager_ms, eager_host_ms, ref = timed(eager, gens)
+    launches = {k: c.launches for k, c in counters.items()}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fused = wf.run(s0, gens, init=False)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_peak_gb = (torch.cuda.max_memory_allocated() - allocated) / 1e9
+    leaves = same_state(fused, ref, f"{what}: run({gens}) vs {gens} eager steps (capture)")
+    run_ms, run_host_ms, fused = timed(lambda: wf.run(s0, gens, init=False), gens)
+    same_state(fused, ref, f"{what}: replayed run({gens}) vs eager steps")
+    seg_ms, _, (seg, _) = timed(lambda: wf.run_segment(s0, gens), gens)
+    same_state(seg, ref, f"{what}: run_segment({gens}) vs eager steps")
+    per_seg = launches_per_call(lambda: wf.run_segment(s0, gens, metrics=False), calls=1)
+    if per_seg["host_syncs"] != 0:
+        raise AssertionError(f"{what}: a segment made host syncs: {per_seg}")
+    del fused, seg
+    return {
+        "eager_ms_per_gen": eager_ms, "eager_host_ms_per_gen": eager_host_ms,
+        "run_ms_per_gen": run_ms, "run_host_ms_per_gen": run_host_ms,
+        "segment_ms_per_gen": seg_ms, "capture_s": capture_s, "capture_peak_gb": capture_peak_gb,
+        "segment_device_ops_per_gen": per_seg["launches"] / gens,
+        "segment_host_syncs_per_gen": per_seg["host_syncs"] / gens,
+        "segment_device_ms_per_gen": per_seg["device_ms"] / gens,
+        "segment_idle_share": 1 - per_seg["device_ms"] / gens / run_ms,
+        "leaves_equal": leaves, "launches_in_eager_steps": launches,
+    }, ref
+
+
+def check_launches(name, launches, gens, what):
+    want = {k: v * gens for k, v in PATH_LAUNCHES[name].items()}
+    if launches != want:
+        raise AssertionError(f"{name} {what}: launches {launches}, expected {want} in {gens} generations")
+
+
+def ulps(a, b):
+    """Units in the last place between float32 tensors (0-dim or not)."""
+    return (ordered_bits(a.float()) - ordered_bits(b.float())).abs()
+
+
+def ulp32(x):
+    """The float32 spacing above each value of ``x``, as float64."""
+    import torch
+
+    x = x.float()
+    return (torch.nextafter(x, torch.full_like(x, float("inf"))) - x).double()
+
+
+def apd_allowance(cos, norm, theta, m):
+    """The largest card-against-CPU APD disagreement of each row that the
+    stated limits allow, from the CPU's best cosine ``cos`` and objective
+    norm ``norm`` alone (float64)."""
+    import torch
+
+    c = cos.double()
+    span = torch.arccos(torch.clamp(c - COS_ABS_LIMIT, min=0.0)) - torch.arccos(
+        torch.clamp(c + COS_ABS_LIMIT, max=1.0))
+    angle = torch.arccos(c)
+    apd = (1.0 + m * float(theta) * angle) * norm.double()
+    return m * float(theta) * norm.double() * (span + ACOS_REL * angle) + APD_REL * apd
+
+
+def table_entries(obj, v, rows, cols):
+    """Entries of the full clipped (n, r) cosine table, as the selection
+    computes it on ``obj``'s device."""
+    from evox_tpu_torch.operators.selection import rvea_selection as rs
+
+    table = rs._cosine_similarity(obj, v).clamp_(0.0, 1.0)
+    out = table[rows.to(obj.device), cols.to(obj.device)].cpu()
+    del table
+    return out
+
+
+def selection_card_vs_cpu(x, f, v, theta) -> dict:
+    """One ``ref_vec_guided`` on the same merged inputs on the card and on
+    the CPU.  The card's selection must equal the survivors of its own APD
+    terms.  The card's best cosine of every finite row must lie within
+    ``COS_ABS_LIMIT`` of the CPU's, and its APD within ``apd_allowance``
+    of the CPU's.  Where the two devices' survivors or empty (NaN) vectors
+    differ, each difference must be a flip between near-equal values: a
+    row that the devices place in different vectors has its cosines to
+    both vectors within ``COS_ABS_LIMIT`` on the two devices, and on the
+    CPU within ``2·COS_ABS_LIMIT`` plus ``FLIP_ULP`` units of each other;
+    or two rows that both devices place in the vector have CPU APDs within
+    the sum of their allowances plus ``FLIP_ULP`` units."""
+    import torch
+    from evox_tpu_torch.operators.selection import rvea_selection as rs
+
+    nv, m = v.shape[0], f.shape[1]
+    got_x, got_f = rs.ref_vec_guided(x, f, v, theta)
+    terms_g = rs._apd_terms(f, v, theta)
+    ind_g, null_g = rs._survivor_rows(terms_g[0], terms_g[2], terms_g[3], nv)
+    nan = torch.full((), float("nan"), device=f.device)
+    exact(got_f, torch.where(null_g[:, None], nan, f[ind_g]), "card selection vs its own APD terms")
+    exact(got_x, torch.where(null_g[:, None], nan, x[ind_g]), "card selection rows vs its own APD terms")
+    fc, vc, tc = f.cpu(), v.cpu(), theta.cpu()
+    assoc_c, cos_c, vals_c, nan_c = rs._apd_terms(fc, vc, tc)
+    ind_c, null_c = rs._survivor_rows(assoc_c, vals_c, nan_c, nv)
+    assoc_g, cos_g, vals_g = (t.cpu() for t in terms_g[:3])
+    ind_g, null_g = ind_g.cpu(), null_g.cpu()
+
+    def objectives(t):
+        return torch.clamp(t - torch.nan_to_num(t, nan=float("inf")).amin(dim=0), min=1e-32)
+
+    obj_g, obj_c = objectives(f), objectives(fc)
+    finite = ~nan_c
+    cos_diff = (cos_g - cos_c).double().abs()[finite]
+    allowed = apd_allowance(cos_c, torch.linalg.vector_norm(obj_c, dim=1), tc, m)
+    apd_diff = (vals_g.double() - vals_c.double()).abs()
+    if not torch.equal(~torch.isfinite(vals_g), ~torch.isfinite(vals_c)):
+        raise AssertionError("RVEA selection: the devices' non-finite APD rows differ")
+    if cos_diff.numel() and float(cos_diff.max()) > COS_ABS_LIMIT:
+        raise AssertionError(f"RVEA selection: a card cosine differs from the CPU's by {float(cos_diff.max())}"
+                             f" > {COS_ABS_LIMIT}")
+    excess = (apd_diff - allowed)[finite]
+    if excess.numel() and float(excess.max()) > 0:
+        r = int(torch.nonzero(finite).flatten()[int(excess.argmax())])
+        raise AssertionError(f"RVEA selection: row {r}'s card APD differs from the CPU's by {float(apd_diff[r])}"
+                             f" > the allowed {float(allowed[r])}")
+
+    # Rows in different vectors: both devices' cosines to both vectors.
+    moved = torch.nonzero(assoc_g != assoc_c).flatten()
+    rows2 = moved.repeat_interleave(2)
+    cols2 = torch.stack([assoc_g[moved], assoc_c[moved]], dim=1).flatten()
+    pair_g = table_entries(obj_g, v, rows2, cols2).view(-1, 2)
+    pair_c = table_entries(obj_c, vc, rows2, cols2).view(-1, 2)
+    if pair_g.numel() and float((pair_g.double() - pair_c.double()).abs().max()) > COS_ABS_LIMIT:
+        raise AssertionError("RVEA selection: a moved row's card cosines differ from the CPU's beyond the limit")
+    tie = {}
+    for i, r in enumerate(moved.tolist()):
+        gap = float((pair_c[i, 1].double() - pair_c[i, 0].double()).abs())
+        tie[r] = (gap, gap <= 2 * COS_ABS_LIMIT + FLIP_ULP * float(ulp32(pair_c[i].max())))
+
+    differ = torch.nonzero((ind_g != ind_c) & ~null_c & ~null_g | (null_g != null_c)).flatten().tolist()
+    flips, kinds = [], {"vector": 0, "apd": 0}
+    for j in differ:
+        rows = [int(i[j]) for i, null in ((ind_g, null_g), (ind_c, null_c)) if not bool(null[j])]
+        row = {"vector": j, "card_row": None if bool(null_g[j]) else rows[0],
+               "cpu_row": None if bool(null_c[j]) else rows[-1]}
+        ok = False
+        for r in rows:
+            if r in tie:
+                row[f"row_{r}_cpu_cos_gap"] = tie[r][0]
+                ok = ok or tie[r][1]
+        if ok:
+            kinds["vector"] += 1
+        elif len(rows) == 2:
+            a, b = rows
+            gap = abs(float(vals_c[a]) - float(vals_c[b]))
+            limit = float(allowed[a] + allowed[b]) + FLIP_ULP * float(ulp32(vals_c[[a, b]].max()))
+            row.update({"cpu_apd_gap": gap, "apd_gap_limit": limit})
+            ok = gap <= limit
+            kinds["apd"] += ok
+        row["explained"] = ok
+        flips.append(row)
+        if not ok:
+            raise AssertionError(f"RVEA selection: vector {j} differs beyond a flip: {row}")
+    return {
+        "vectors": nv, "empty_vectors_card": int(null_g.sum()), "empty_vectors_cpu": int(null_c.sum()),
+        "vectors_differ": len(differ), "vector_flips": kinds["vector"], "apd_flips": kinds["apd"],
+        "rows_changing_vector": int(moved.numel()),
+        "max_cos_abs_diff": float(cos_diff.max()) if cos_diff.numel() else 0.0,
+        "cos_abs_limit": COS_ABS_LIMIT,
+        "max_apd_ulp": int(ulps(vals_g[finite], vals_c[finite]).max()) if bool(finite.any()) else 0,
+        "max_apd_share_of_allowance": float((apd_diff / allowed)[finite].max()) if bool(finite.any()) else 0.0,
+        "flips": flips[:10],
+    }
+
+
+def cosine_passes(f, v, device_ms_per_gen) -> dict:
+    """The selection's passes over its (2r, r) cosine table on the path's
+    merged objectives, timed alone with CUDA events: the matrix product
+    that writes it, the in-place clip, the row max (value and index); and
+    their share of a generation's device time."""
+    import torch
+    from evox_tpu_torch.operators.selection import rvea_selection as rs
+
+    obj = torch.clamp(f - torch.nan_to_num(f, nan=float("inf")).amin(dim=0), min=1e-32)
+    table = rs._cosine_similarity(obj, v)
+    out = {
+        "table_mb": table.numel() * table.element_size() / 1e6,
+        "product_ms": time_ms(lambda: rs._cosine_similarity(obj, v), 10),
+        "clip_ms": time_ms(lambda: table.clamp_(0.0, 1.0), 10),
+        "row_max_ms": time_ms(lambda: torch.max(table, dim=1), 10),
+    }
+    total = out["product_ms"] + out["clip_ms"] + out["row_max_ms"]
+    out["bytes_bound_ms"] = 4 * table.numel() * table.element_size() / PEAK_BYTES_PER_S * 1e3
+    out["share_of_device_ms"] = total / device_ms_per_gen
+    del table
+    return out
+
+
+def phase_rvea_main_path(device) -> dict:
+    """bench.py's rvea_dtlz2 through the port: StdWorkflow(RVEA(10000, 3,
+    zeros(12), ones(12)), DTLZ2(d=12, m=3)), float32, no monitor; 9870
+    reference vectors, 19,740 merged rows.  init_step, warm-up, timed and
+    profiled eager steps (the Philox draws launch three times a
+    generation), then run(20) and run_segment(20) bit for bit against 20
+    eager steps with no host sync in a segment; IGD of the valid rows must
+    fall; one selection on the last timed step's merged inputs on the card
+    and on the CPU (``selection_card_vs_cpu``)."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matrix products are on: the cosine tables must be full float32")
+    counters = path_launch_counters()
+    wf, problem, algo = mo_workflow("RVEA", RVEA_POP, device)
+    pf = problem.pf()
+    merged = []
+    select = algo.selection
+
+    def recording(x, f, v, theta):
+        merged[:] = [(x, f, v, theta)]
+        return select(x, f, v, theta)
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    algo.selection = recording
+    try:
+        t0 = time.perf_counter()
+        state = wf.init_step(wf.init(0))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        igd0 = igd_valid(state.algorithm.fit, pf)
+        for _ in range(MAIN_WARMUP):
+            state = wf.step(state)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(MAIN_STEPS):
+            state = wf.step(state)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / MAIN_STEPS
+        ms = start.elapsed_time(end) / MAIN_STEPS
+        inputs = merged[0]
+        state, prof = profile_steps(wf.step, state, PROFILE_STEPS)
+    finally:
+        algo.selection = select
+    steps = MAIN_WARMUP + MAIN_STEPS + PROFILE_STEPS
+    launches = {k: c.launches for k, c in counters.items()}
+    # The setup's one draw (the first population), then the steps'.
+    want = {k: v * steps + (k == "philox_draws") for k, v in PATH_LAUNCHES["RVEA"].items()}
+    if launches != want:
+        raise AssertionError(f"RVEA launches {launches}, expected {want} ({steps} steps + setup)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_gen = launches_per_call(lambda: wf.step(state), calls=3)
+    fused, ref = fused_vs_eager(wf, state, SEGMENT_GENS, counters, "RVEA")
+    check_launches("RVEA", fused.pop("launches_in_eager_steps"), SEGMENT_GENS, "eager steps")
+    algo_state = ref.algorithm
+    igd1 = igd_valid(algo_state.fit, pf)
+    if not igd1 < igd0:
+        raise AssertionError(f"RVEA IGD did not fall: {igd0} -> {igd1}")
+    n_vec = algo.pop_size
+    if algo_state.pop.shape != (n_vec, NSGA2_DIM) or algo_state.fit.shape != (n_vec, NSGA2_OBJ):
+        raise AssertionError("wrong RVEA state shapes")
+    valid = ~torch.isnan(algo_state.fit).any(dim=1)
+    if not bool(torch.isfinite(algo_state.fit[valid]).all()) or int(valid.sum()) == 0:
+        raise AssertionError("RVEA: no valid row, or a valid row that is not finite")
+    x_m, f_m, v_m, theta_m = inputs
+    selection = selection_card_vs_cpu(x_m, f_m, v_m, theta_m)
+    cosine = cosine_passes(f_m, v_m, per_gen["device_ms"])
+    return {
+        "config": f"RVEA pop={RVEA_POP} ({n_vec} vectors) d=12 m=3 DTLZ2 f32, StdWorkflow, no monitor",
+        "merged_rows": int(f_m.shape[0]), "steps": steps, "launches": launches,
+        "ms_per_gen": ms, "gen_per_s": 1e3 / ms, "host_ms_per_gen": host_ms,
+        "per_gen": {k: per_gen[k] for k in ("launches", "host_syncs", "device_ms")},
+        "idle_share": 1 - per_gen["device_ms"] / ms,
+        "fused": fused, "setup_s": setup_s, "igd_after_init": igd0, "igd_final": igd1,
+        "valid_rows_final": int(valid.sum()), "selection_card_vs_cpu": selection,
+        "cosine_passes": cosine, "peak_mem_gb": peak_gb, "profile": prof,
+    }
+
+
+# The family's algorithms that rank their merged population, by module.
+RANKING_MODULES = {"NSGA3": "nsga3", "RVEAa": "rveaa", "HypE": "hype"}
+
+
+@contextlib.contextmanager
+def recording_ranks(name, seen):
+    """While active, the ``non_dominate_rank`` that algorithm ``name``'s
+    module calls keeps the objectives and ``until_count`` of its last call
+    in ``seen`` (nothing for an algorithm that does not rank)."""
+    import importlib
+
+    if name not in RANKING_MODULES:
+        yield
+        return
+    module = importlib.import_module(f"evox_tpu_torch.algorithms.mo.{RANKING_MODULES[name]}")
+    rank = module.non_dominate_rank
+
+    def recording(f, until_count=None):
+        seen[:] = [(f, until_count)]
+        return rank(f, until_count=until_count)
+
+    module.non_dominate_rank = recording
+    try:
+        yield
+    finally:
+        module.non_dominate_rank = rank
+
+
+def ranking_on_path(name, f, until_count) -> dict:
+    """The ranking kernels on the objectives and ``until_count`` that the
+    last eager step of ``name`` gave ``non_dominate_rank``, each held
+    exactly against its plain version."""
+    import torch
+    from evox_tpu_torch.ops import dominance
+
+    f = f.contiguous()
+    words = dominance.dominance_packed(f)
+    errs = {"dominance_packed": exact(words, dominance.dominance_packed_plain(f),
+                                      f"{name}: dominance_packed on the path's objectives")}
+    rank = dominance.peel_fronts(words, until_count)
+    errs["peel_fronts"] = exact(rank, dominance.peel_fronts_plain(words, until_count),
+                                f"{name}: peel_fronts on the path's words, until_count={until_count}")
+    return {"rows": int(f.shape[0]), "until_count": until_count,
+            "inf_rows": int(torch.isinf(f).all(dim=1).sum()), "fronts_ranked": fronts_of(rank),
+            "ranked_rows": int((rank < f.shape[0]).sum()), "max_abs_err": errs}
+
+
+def phase_mo_family(device) -> dict:
+    """The rest of the family on DTLZ2(d=12, m=3): NSGA-III at pop 10000,
+    RVEAa, MOEA/D and HypE at pop 1000.  Each: init_step, warm-up, 20
+    eager steps (launches counted: the ranking kernels once a generation
+    on NSGA-III, RVEAa and HypE), run(20) and run_segment(20) bit for bit
+    against them, IGD falling; on those three, both ranking kernels held
+    exactly against their plain versions on the last eager step's merged
+    objectives and until_count (``ranking_on_path``).  Then DTLZ1 and
+    DTLZ3-7 on 10000 rows and their fronts, card against CPU (rtol 1e-5)."""
+    import torch
+    from evox_tpu_torch.problems import numerical
+
+    counters = path_launch_counters()
+    out, launches_total = {}, {k: 0 for k in counters}
+    max_err = {"dominance_packed": 0.0, "peel_fronts": 0.0}
+    for name, pop in MO_FAMILY:
+        torch.cuda.reset_peak_memory_stats()
+        wf, problem, algo = mo_workflow(name, pop, device)
+        pf = problem.pf()
+        state = wf.init_step(wf.init(0))
+        igd0 = igd_valid(state.algorithm.fit, pf)
+        for _ in range(MAIN_WARMUP):
+            state = wf.step(state)
+        seen = []
+        row, ref = fused_vs_eager(wf, state, SEGMENT_GENS, counters, name,
+                                  lambda: recording_ranks(name, seen))
+        launches = row.pop("launches_in_eager_steps")
+        check_launches(name, launches, SEGMENT_GENS, "eager steps")
+        if name in RANKING_MODULES:
+            row["ranking_on_path"] = ranking_on_path(name, *seen[0])
+            for k, e in row["ranking_on_path"]["max_abs_err"].items():
+                max_err[k] = max(max_err[k], e)
+        for k, v in launches.items():
+            launches_total[k] += v
+        igd1 = igd_valid(ref.algorithm.fit, pf)
+        if not igd1 < igd0:
+            raise AssertionError(f"{name} IGD did not fall: {igd0} -> {igd1}")
+        per_gen = launches_per_call(lambda: wf.step(state), calls=3)
+        if name == "RVEAa":
+            # The final-generation truncation, computed every generation
+            # (a torch.where keeps it only at max_gen).
+            final = ref.algorithm
+            row["truncation"] = {
+                "ms": time_ms(lambda: algo._batch_truncation(final.pop, final.fit), 10),
+                **{k: v for k, v in launches_per_call(
+                    lambda: algo._batch_truncation(final.pop, final.fit), calls=3).items() if k != "kernels"},
+            }
+        row.update({
+            "pop": algo.pop_size, "igd_after_init": igd0, "igd_final": igd1,
+            "launches_per_gen": {k: v / SEGMENT_GENS for k, v in launches.items()},
+            "eager_device_ops_per_gen": per_gen["launches"], "eager_host_syncs_per_gen": per_gen["host_syncs"],
+            "eager_device_ms_per_gen": per_gen["device_ms"],
+            "eager_idle_share": 1 - per_gen["device_ms"] / row["eager_ms_per_gen"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        })
+        out[name] = row
+        del wf, state, ref
+        torch.cuda.empty_cache()
+    suite = {}
+    for name in DTLZ_SUITE:
+        on_card = getattr(numerical, name)(device=device)
+        on_cpu = getattr(numerical, name)(device="cpu")
+        g = torch.Generator(device=device).manual_seed(len(name))
+        x = torch.rand((DTLZ_ROWS, on_card.d), generator=g, device=device)
+        got, _ = on_card.evaluate(None, x)
+        want, _ = on_cpu.evaluate(None, x.cpu())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(on_card.pf().cpu(), on_cpu.pf(), rtol=1e-5, atol=1e-7)
+        suite[name] = {"d": on_card.d, "max_abs_diff": float((got.cpu() - want).abs().max()),
+                       "pf_rows": int(on_cpu.pf().shape[0])}
+    out["dtlz_suite"] = suite
+    out["launches"] = launches_total
+    out["max_abs_err"] = max_err
+    return out
+
+
 # The slice-2 kernels in the kernels line: wrapper, source, the TPU
 # kernel (or XLA route) it replaces, and its timing_mo entry.
 MO_KERNELS = [
@@ -1476,10 +1957,14 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
     t = results["timing_mo"][timing_key]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        # The probe is no kernel of the main path: 0 launches there.
-        "launches": results["nsga2_main_path"]["launches"].get(name, 0),
-        # compare_mo's sizes and the timing rows held on the path's inputs.
-        "max_abs_err": max([results["compare_mo"]["max_abs_err"][name]]
+        # The probe is no kernel of a main path: 0 launches there.  The
+        # ranking kernels also run on NSGA-III, RVEAa and HypE.
+        "launches": results["nsga2_main_path"]["launches"].get(name, 0)
+        + results["mo_family"]["launches"].get(name, 0),
+        # compare_mo's sizes, the timing rows held on the path's inputs and
+        # the ranking on NSGA-III's, RVEAa's and HypE's paths.
+        "max_abs_err": max([results["compare_mo"]["max_abs_err"][name],
+                            results["mo_family"]["max_abs_err"].get(name, 0.0)]
                            + [r["max_abs_err"] for k, r in results["timing_mo"].items()
                               if k.startswith(name + "_") and "max_abs_err" in r]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1494,10 +1979,13 @@ def philox_row(results) -> dict:
         # The JAX package draws with jax.random inside XLA programs; no
         # Pallas kernel of it does this work.
         "replaces": "none (the port's own kernel; the plain draws of evox_tpu_torch/utils/rng.py)",
-        # The main paths' draws: the PSO headline's setup and the NSGA-II
-        # headline's setup and generations.
+        # The main paths' draws: the PSO headline's setup, the NSGA-II and
+        # RVEA headlines' setups and generations, and the eager generations
+        # of the rest of the multi-objective family.
         "launches": results["main_path"]["philox_launches"]
-        + results["nsga2_main_path"]["launches"]["philox_draws"],
+        + results["nsga2_main_path"]["launches"]["philox_draws"]
+        + results["rvea_main_path"]["launches"]["philox_draws"]
+        + results["mo_family"]["launches"]["philox_draws"],
         "max_abs_err": results["philox"]["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1542,6 +2030,8 @@ def main() -> int:
         ("timing_mo", phase_timing_mo),
         ("philox", phase_philox),
         ("segment", phase_segment),
+        ("rvea_main_path", phase_rvea_main_path),
+        ("mo_family", phase_mo_family),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)

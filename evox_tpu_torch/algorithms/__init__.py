@@ -1,7 +1,7 @@
-"""Algorithm library (counterpart of ``evox_tpu/algorithms``; PSO and
-NSGA-II so far)."""
+"""Algorithm library (counterpart of ``evox_tpu/algorithms``; PSO and the
+multi-objective family so far)."""
 
-__all__ = ["NSGA2", "PSO", "PallasPSO"]
+__all__ = ["PSO", "PallasPSO", "NSGA2", "NSGA3", "RVEA", "RVEAa", "MOEAD", "HypE"]
 
-from .mo import NSGA2
+from .mo import MOEAD, NSGA2, NSGA3, RVEA, RVEAa, HypE
 from .so.pso_variants import PSO, PallasPSO

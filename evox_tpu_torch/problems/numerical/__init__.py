@@ -1,9 +1,15 @@
 """Numerical benchmark problems (counterpart of
-``evox_tpu/problems/numerical``; the basic suite and DTLZ2 so far)."""
+``evox_tpu/problems/numerical``; the basic suite and DTLZ1-7 so far)."""
 
 __all__ = [
     "DTLZ",
+    "DTLZ1",
     "DTLZ2",
+    "DTLZ3",
+    "DTLZ4",
+    "DTLZ5",
+    "DTLZ6",
+    "DTLZ7",
     "ShiftAffineNumericalProblem",
     "Ackley",
     "Griewank",
@@ -38,4 +44,4 @@ from .basic import (
     schwefel_func,
     sphere_func,
 )
-from .dtlz import DTLZ, DTLZ2
+from .dtlz import DTLZ, DTLZ1, DTLZ2, DTLZ3, DTLZ4, DTLZ5, DTLZ6, DTLZ7

@@ -24,7 +24,8 @@ bit choice (``ops/pso_step.py::_uniform_bits``): the 24 high bits for
 float32, the 7 high bits for bfloat16, times 2^-m, so every value is exact
 in the dtype and the upper bound 1 is strict.
 
-:func:`uniform` and :func:`randint` make one draw through
+:func:`uniform`, :func:`randint`, :func:`randint_below` and
+:func:`permutation` make one draw through
 :func:`~evox_tpu_torch.ops.philox.philox_draws`, which makes up to four
 draws of one shape from one Philox evaluation (output ``k`` from word
 ``k``): an operator that needs several draws asks for all of them at once.
@@ -53,6 +54,8 @@ __all__ = [
     "uniform",
     "randint_bits",
     "randint",
+    "randint_below",
+    "permutation",
 ]
 
 _M64 = (1 << 64) - 1
@@ -252,3 +255,34 @@ def randint(
     shape = tuple(shape)
     (v,) = philox_draws(seed, _numel(shape), [(int(low), int(high))], resolve_device(device))
     return v.reshape(shape)
+
+
+def _words31(seed, shape: Sequence[int], device) -> torch.Tensor:
+    """31-bit words (int64 in [0, 2^31)) of ``shape``, one Philox draw."""
+    from ..ops.philox import philox_draws
+
+    shape = tuple(shape)
+    (w,) = philox_draws(seed, _numel(shape), [(0, 1 << 31)], resolve_device(device))
+    return w.reshape(shape)
+
+
+def randint_below(
+    seed,
+    shape: Sequence[int],
+    span: torch.Tensor,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """Uniform integers in ``[0, span)`` (int64) for a ``span`` held in a
+    0-dim tensor on the device (1 <= span <= 2^31): 31-bit words mapped by
+    the multiply-shift ``(word * span) >> 31``, so no host reads the bound
+    and a captured graph draws with the span of each replay."""
+    return (_words31(seed, shape, device) * span.to(torch.int64)) >> 31
+
+
+def permutation(seed, shape, device: torch.device | str | None = None) -> torch.Tensor:
+    """Random permutations of ``0 .. shape[-1] - 1`` along the last axis
+    (int64 of ``shape``; an int ``shape`` is one permutation): the stable
+    argsort of one draw of 31-bit words, ties broken by index (the
+    counterpart of ``jax.random.permutation``)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return torch.argsort(_words31(seed, shape, device), dim=-1, stable=True)

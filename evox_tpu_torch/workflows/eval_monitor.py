@@ -39,6 +39,22 @@ class HistoryType(IntEnum):
     SOLUTION = 1
 
 
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
+         torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def _total_order(f: torch.Tensor) -> torch.Tensor:
+    """Integers that order like the floats of ``f`` in IEEE total order
+    (-NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN): the bits with the
+    magnitude bits flipped where the sign is set.  Ascending, this is the
+    order of ``jax.lax.top_k(-f)``; an integer ``f`` is its own key."""
+    if f.dtype not in _BITS:
+        return f
+    b = f.view(_BITS[f.dtype])
+    width = b.element_size() * 8
+    return b ^ ((b >> (width - 1)) & ((1 << (width - 1)) - 1))
+
+
 class EvalMonitor(Monitor):
     """Monitor hooked around evaluation; records offspring, fitness, top-k
     elites and the full history.
@@ -122,17 +138,18 @@ class EvalMonitor(Monitor):
         k = self.topk
         if state.topk_solutions.ndim <= 1:
             # First generation: the candidates are the population alone.
-            order = torch.argsort(fitness, stable=True)[:k]
+            order = torch.argsort(_total_order(fitness), stable=True)[:k]
             top_sol = state.latest_solution.index_select(0, order)
             top_fit = fitness.index_select(0, order)
         else:
             # Candidates are [previous top-k; population].  A stable sort
-            # keeps the lower index on ties, like jax.lax.top_k (torch.topk
-            # promises no tie order on CUDA).  The (N, D) candidate
-            # solutions are never concatenated: only the k chosen rows are
-            # gathered, from whichever side holds them.
+            # of the total-order key keeps the lower index on ties, like
+            # jax.lax.top_k(-f) (torch.topk promises no tie order on
+            # CUDA).  The (N, D) candidate solutions are never
+            # concatenated: only the k chosen rows are gathered, from
+            # whichever side holds them.
             cand_fit = torch.cat([state.topk_fitness, fitness])
-            order = torch.argsort(cand_fit, stable=True)[:k]
+            order = torch.argsort(_total_order(cand_fit), stable=True)[:k]
             n_old = state.topk_fitness.shape[0]
             n_new = fitness.shape[0]
             old = state.topk_solutions.index_select(0, order.clamp(max=n_old - 1))

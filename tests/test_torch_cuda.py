@@ -476,3 +476,50 @@ def test_a_failed_capture_raises(cuda):
     s0 = wf.step(wf.init_step(wf.init(0)))
     with pytest.raises(RuntimeError):
         wf.run_segment(s0, 3)
+
+
+# ---------------------------------------------------------------------------
+# The multi-objective family on the card
+# ---------------------------------------------------------------------------
+
+
+def _mo_workflow(kind, device):
+    from evox_tpu_torch.algorithms import NSGA3, RVEA
+    from evox_tpu_torch.problems.numerical import DTLZ2
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    cls = {"rvea": RVEA, "nsga3": NSGA3}[kind]
+    algo = cls(300, 3, torch.zeros(12), torch.ones(12), device=device)
+    return StdWorkflow(algo, DTLZ2(d=12, m=3, device=device), monitor=EvalMonitor(multi_obj=True))
+
+
+@pytest.mark.parametrize("kind", ["rvea", "nsga3"])
+def test_mo_run_replays_20_eager_steps_bit_for_bit(cuda, kind):
+    wf = _mo_workflow(kind, cuda)
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    ref = s0
+    for _ in range(20):
+        ref = wf.step(ref)
+    _equal_states(wf.run(s0, 20, init=False), ref)
+    seg, _ = wf.run_segment(s0, 20)
+    _equal_states(seg, ref)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wf.run_segment(s0, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("shape", [1, 1000, 65_537, (990, 99)])
+def test_permutation_and_bounded_draws_on_the_card_equal_their_cpu_bits(cuda, shape):
+    from evox_tpu_torch.utils import rng
+
+    key = rng.key(5)
+    got = rng.permutation(rng.child(key.to(cuda)), shape, cuda)
+    want = rng.permutation(rng.child(key), shape, "cpu")
+    assert torch.equal(got.cpu(), want)
+    n = got.numel()
+    span = torch.tensor(n // 3 + 1)
+    assert torch.equal(rng.randint_below(rng.child(key.to(cuda)), (n,), span.to(cuda), cuda).cpu(),
+                       rng.randint_below(rng.child(key), (n,), span, "cpu"))

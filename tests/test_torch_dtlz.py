@@ -122,3 +122,36 @@ def test_nanmin_nanmax_match_jax(dim):
         np.testing.assert_array_equal(got.numpy(), want)
         kept = port(torch.from_numpy(a), dim=0, keepdim=True)
         assert kept.shape == (1, 5)
+
+
+# DTLZ1 and DTLZ3-7: rtol 1e-5 for the objectives and fronts (float32
+# sin/cos/pow may differ in the last bits), bounds exactly.
+from evox_tpu.problems import numerical as jnumerical  # noqa: E402
+from evox_tpu_torch.problems import numerical  # noqa: E402
+
+SUITE = ["DTLZ1", "DTLZ3", "DTLZ4", "DTLZ5", "DTLZ6", "DTLZ7"]
+
+
+@pytest.mark.parametrize("name", SUITE)
+@pytest.mark.parametrize("n,d,m", [(64, 12, 3), (33, 8, 2), (40, 10, 4)])
+def test_dtlz_suite_matches_jax(name, n, d, m):
+    x = np.random.default_rng(n + d + m).uniform(0, 1, (n, d)).astype(np.float32)
+    x[0] = 0.0
+    x[1] = 1.0
+    x[2] = 0.5
+    got, _ = getattr(numerical, name)(d=d, m=m, device="cpu").evaluate(None, torch.from_numpy(x))
+    want, _ = getattr(jnumerical, name)(d=d, m=m).evaluate(None, jnp.asarray(x))
+    assert got.shape == (n, m) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", SUITE)
+@pytest.mark.parametrize("m,ref_num", [(2, 100), (3, 100), (3, 1000)])
+def test_dtlz_suite_pf_and_bounds_match_jax(name, m, ref_num):
+    p = getattr(numerical, name)(m=m, ref_num=ref_num, device="cpu")
+    jp = getattr(jnumerical, name)(m=m, ref_num=ref_num)
+    got, want = p.pf(), np.asarray(jp.pf())
+    assert tuple(got.shape) == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(p.lb.numpy(), np.asarray(jp.lb))
+    np.testing.assert_array_equal(p.ub.numpy(), np.asarray(jp.ub))

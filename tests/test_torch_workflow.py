@@ -64,6 +64,69 @@ def test_topk_and_tie_order_match_jax():
     assert int(ts.generation) == int(js.generation) == 3
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("fits", [
+    [[0.0, -0.0, 1.0, -0.0], [-0.0, 0.0, -0.0, 2.0]],
+    [[1.0, 2.0, -float("nan"), 3.0], [float("nan"), -float("nan"), 0.5, -float("inf")]],
+], ids=["signed_zeros", "negative_nan"])
+def test_topk_orders_signed_zeros_and_nan_as_jax(fits, dtype):
+    """The top-k ranks by IEEE total order, as ``jax.lax.top_k(-f)``: -0
+    before +0, a negative NaN before everything and a positive NaN after
+    everything, ties to the lower index; carried over a second generation
+    (the quarantine is off, so the NaN reach the monitor)."""
+    k = 2
+    tmon = EvalMonitor(topk=k, full_fit_history=False).set_config(device="cpu")
+    jmon = JEvalMonitor(topk=k, full_fit_history=False)
+    ts, js = tmon.setup(None), jmon.setup(jax.random.key(0))
+    for g, fit in enumerate(fits):
+        fit = np.asarray(fit, dtype=dtype)
+        sol = np.arange(8, dtype=np.float32).reshape(4, 2) + 10 * g
+        ts = tmon.pre_tell(tmon.post_ask(ts, torch.from_numpy(sol)), torch.from_numpy(fit))
+        js = jmon.pre_tell(jmon.post_ask(js, jnp.asarray(sol)), jnp.asarray(fit))
+        bits = np.int16 if dtype == "float16" else np.int32
+        np.testing.assert_array_equal(ts.topk_fitness.numpy().view(bits), np.asarray(js.topk_fitness).view(bits))
+        np.testing.assert_array_equal(ts.topk_solutions.numpy(), np.asarray(js.topk_solutions))
+
+
+def test_topk_of_signed_zeros_and_nan_through_the_workflow():
+    """The same two generations through StdWorkflow with
+    quarantine_nonfinite=False: the tracked elites equal JAX's."""
+
+    class Replay(Problem):
+        def __init__(self, fits):
+            self.fits = fits
+
+        def setup(self, key):
+            return State(i=torch.zeros((), dtype=torch.int64))
+
+        def evaluate(self, state, pop):
+            return self.fits[state.i], state.replace(i=state.i + 1)
+
+    class Fixed(Algorithm):
+        device = torch.device("cpu")
+
+        def setup(self, key):
+            return State(pop=torch.arange(8, dtype=torch.float32).reshape(4, 2))
+
+        def step(self, state, evaluate):
+            evaluate(state.pop)
+            return state
+
+    nan = float("nan")
+    fits = torch.tensor([[1.0, 2.0, -nan, 3.0], [0.0, -0.0, -nan, 0.5], [-0.0, 1.0, nan, -0.0]])
+    mon = EvalMonitor(topk=2, full_fit_history=False)
+    wf = StdWorkflow(Fixed(), Replay(fits), monitor=mon, quarantine_nonfinite=False)
+    state = wf.init(0)
+    jmon = JEvalMonitor(topk=2, full_fit_history=False)
+    js = jmon.setup(jax.random.key(0))
+    for g in range(3):
+        state = wf.step(state)
+        js = jmon.pre_tell(jmon.post_ask(js, jnp.arange(8, dtype=jnp.float32).reshape(4, 2)),
+                           jnp.asarray(fits[g].numpy()))
+        np.testing.assert_array_equal(state.monitor.topk_fitness.numpy().view(np.int32),
+                                      np.asarray(js.topk_fitness).view(np.int32))
+
+
 @pytest.mark.parametrize("direction", ["min", "max"])
 @pytest.mark.parametrize("dtype", ["float32", "float16", "int32"])
 def test_quarantine_matches_jax(direction, dtype):
