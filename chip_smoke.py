@@ -15,8 +15,11 @@ at pop=10000, d=12, m=3, then the multi-objective example with an
 Ackley and the NSGA-II headline, each against eager steps bit for bit;
 RVEA on DTLZ2 at pop=10000 (9870 reference vectors), eager and fused, its
 selection card against CPU; then NSGA-III at pop=10000 and RVEAa, MOEA/D
-and HypE at pop=1000, eager and fused, and DTLZ1-7 card against CPU),
-checks that each path went through its kernels, and times them.  It prints one JSON line per
+and HypE at pop=1000, eager and fused, and DTLZ1-7 card against CPU; then
+the whole CEC2022 suite against its float64 oracle and the CPU, DE on
+CEC2022 f5 at pop=10000, dim=20, and ODE, JaDE, SHADE, SaDE and CoDE at the
+same width, eager and fused), checks that each path went through its
+kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -1117,7 +1120,7 @@ def phase_timing_mo(device) -> dict:
     del c50
     x = torch.randn(8, 128, device=device)
     entry("scale_by_two_probe", lambda: probe.scale_by_two(x), lambda: probe.scale_by_two_plain(x),
-          bound(8 * x.numel(), float(x.numel())), iters=100, plain_iters=100)
+          bound(8 * x.numel(), float(x.numel())), iters=100, plain_iters=100, library=lambda: x * 2)
     return out
 
 
@@ -1142,15 +1145,32 @@ def philox_bound(numel, kinds) -> dict:
     return bound(numel * size + 16, float(numel) * (PHILOX_OPS + PHILOX_OPS_PER_OUT * len(kinds)))
 
 
+def de_philox_layouts():
+    """(numel, kinds) of the draws de_cec makes at its width: the first
+    population, the index table of DE/rand/1 (3 x pop), the binary
+    crossover's uniforms and forced dimensions, the exponential
+    crossover's start dimensions and uniforms, the p-best pick (top 5 %)."""
+    import torch
+
+    return [
+        (DE_POP * DE_DIM, [torch.float32]),
+        (3 * DE_POP, [(0, DE_POP)]),
+        (DE_POP * DE_DIM, [torch.float32, (0, DE_DIM)]),
+        (DE_POP, [(0, DE_DIM), torch.float32]),
+        (DE_POP, [(0, DE_POP // 20)]),
+    ]
+
+
 def phase_philox(device) -> dict:
     """The draw kernel against its plain version, bit for bit: child seeds
     of keys whose seed words span 0 to 2^64 - 1 and whose counters are 0, 5
     and 2^40, and integer seeds (used as they are); sizes 1 to 10^6 + 3
     that are and are not multiples of 4, and 10^8; every output kind
     (float32, bfloat16, float64, float16, int64 ranges) in one to four
-    outputs a call.  Then timing at the main paths' shapes: the PSO
-    headline's setup draw (10^8 float32) and the three draws of an NSGA-II
-    generation."""
+    outputs a call; the DE family's layouts at de_cec's width
+    (``de_philox_layouts``).  Then timing at the main paths' shapes: the
+    PSO headline's setup draw (10^8 float32), the three draws of an NSGA-II
+    generation, and de_cec's binary crossover and index table."""
     import torch
     from evox_tpu_torch.ops import philox
     from evox_tpu_torch.utils import rng
@@ -1160,12 +1180,13 @@ def phase_philox(device) -> dict:
         [torch.float32, (0, 2), torch.float32, torch.float32],
         [torch.float32, torch.float32], [(0, 2 * NSGA2_POP)], [(-7, 2**31 - 7), torch.bfloat16],
     ]
-    seeds = [12345, 2**63 + 3]
+    seeds, keys = [12345, 2**63 + 3], []
     for s_ in (0, 7, 2**63, 2**64 - 1):
         k = rng.key(s_, device)
         for advance in (0, 5, 2**40):
             k_adv = k.clone()
             k_adv[1] += advance
+            keys.append(k_adv)
             seeds += [rng.child(k_adv, 0), rng.child(k_adv, 3)]
     checks, worst = 0, 0.0
     for seed in seeds:
@@ -1184,6 +1205,18 @@ def phase_philox(device) -> dict:
             checks += 1
         del got, want
         torch.cuda.empty_cache()
+    # The DE family's layouts at de_cec's width (the population, the index
+    # table, both crossovers, the p-best pick), from the seeds its
+    # operators use: rng.as_seed(child, 0..3) of each key above.
+    for k_adv in keys:
+        for offset in range(4):
+            seed = rng.as_seed(rng.child(k_adv, 1), offset)
+            for numel, kinds in de_philox_layouts():
+                got = philox.philox_draws(seed, numel, kinds, device)
+                want = philox.philox_draws_plain(seed, numel, kinds, device)
+                for g, w in zip(got, want):
+                    worst = max(worst, exact(g, w, f"philox_draws {kinds} numel={numel} (DE)"))
+                    checks += 1
 
     timing = {}
     k = rng.key(2**63 + 1, device)
@@ -1192,6 +1225,8 @@ def phase_philox(device) -> dict:
         ("nsga2_sbx_60k", NSGA2_POP // 2 * NSGA2_DIM, [torch.float32, (0, 2), torch.float32, torch.float32], 50),
         ("nsga2_pm_120k", NSGA2_POP * NSGA2_DIM, [torch.float32, torch.float32], 50),
         ("nsga2_tournament_20k", NSGA2_POP * 2, [(0, NSGA2_POP)], 50),
+        ("de_cec_bin_cx_200k", DE_POP * DE_DIM, [torch.float32, (0, DE_DIM)], 50),
+        ("de_cec_table_30k", 3 * DE_POP, [(0, DE_POP)], 50),
     ):
         seed = rng.child(k, 1)
         row = {"numel": numel, "outputs": len(kinds),
@@ -1938,6 +1973,260 @@ def phase_mo_family(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: the CEC2022 suite and the DE family.
+# ---------------------------------------------------------------------------
+
+DE_POP, DE_DIM, DE_FN = 10_000, 20, 5  # bench.py's de_cec: DE(10_000, ±100 in dim 20), CEC2022(5, 20)
+# The rest of the family at de_cec's width (bench.py has no config for
+# them).
+DE_FAMILY = ["ODE", "JaDE", "SHADE", "SaDE", "CoDE"]
+# Philox launches a generation, one a random operator: DE and ODE the index
+# table and the crossover; JaDE the F/CR normals, the table, the p-best
+# pick and the crossover; SHADE the memory permutation, the normals, the
+# difference table, the p-best pick and the crossover; SaDE the
+# strategies, the CR normals, the F normals, the table, the p-best pick and
+# both crossovers; CoDE the parameter ids and, for each of its three
+# strategies, the table and the binary crossover (none for the arithmetic
+# one).
+DE_PHILOX = {"DE": 2, "ODE": 2, "JaDE": 4, "SHADE": 5, "SaDE": 7, "CoDE": 6}
+CEC_ROWS = 10_000
+# The card's float32 CEC2022 against the CPU's: the CPU tests' tolerance
+# against JAX (tests/test_torch_cec2022.py): the rotation is summed in
+# another order and F1/F3/F5 are ill-conditioned (sines of arguments up to
+# ~400, Zakharov's fourth power of a cancelling sum).
+CEC_RTOL = 2e-4
+CEC_GOLDEN_RTOL = 1e-8  # the JAX package's own oracle limit (tests/test_cec2022.py)
+
+
+def cec_pairs():
+    return [(fn, d) for d in (2, 10, 20) for fn in range(1, 13) if not (fn in (6, 7, 8) and d == 2)]
+
+
+def de_workflow(name, device):
+    """``StdWorkflow(name(DE_POP, full(20, -100), full(20, 100)),
+    CEC2022(5, 20))`` on ``device``."""
+    import torch
+    from evox_tpu_torch import algorithms
+    from evox_tpu_torch.problems.numerical import CEC2022
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    lb, ub = torch.full((DE_DIM,), -100.0), torch.full((DE_DIM,), 100.0)
+    return StdWorkflow(getattr(algorithms, name)(DE_POP, lb, ub, device=device),
+                       CEC2022(DE_FN, DE_DIM, device=device))
+
+
+def phase_cec2022_suite(device) -> dict:
+    """Every defined (function, D) pair on the card: in float64 on the
+    oracle's probe points (tests/cec2022_golden.json, read in place) at
+    rtol 1e-8; in float32 on 10,000 seeded rows in [-100, 100]^D plus every
+    shift point (each composition component's, exactly on it) against the
+    CPU at CEC_RTOL; the rotation must give the same bits when the process
+    allows TF32 (it takes its product in float64).  Then device ms and
+    device operations per evaluation at (10000, 20) for each function."""
+    import torch
+    from evox_tpu_torch.problems.numerical import CEC2022
+
+    with open(os.path.join(ROOT, "tests", "cec2022_golden.json")) as f:
+        golden = json.load(f)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matrix products are on at the start of the CEC2022 phase")
+    out, worst64, worst32 = {}, 0.0, 0.0
+    for fn, d in cec_pairs():
+        x64 = torch.tensor(golden["inputs"][str(d)], dtype=torch.float64, device=device)
+        got64, _ = CEC2022(fn, d, dtype=torch.float64, device=device).evaluate(None, x64)
+        want64 = torch.tensor(golden["golden"][f"{fn}_{d}"], dtype=torch.float64)
+        rel64 = float(((got64.cpu() - want64).abs() / want64.abs()).max())
+        if not rel64 <= CEC_GOLDEN_RTOL:
+            raise AssertionError(f"CEC2022 f{fn} D={d} float64: {rel64} from the oracle")
+        on_card = CEC2022(fn, d, device=device)
+        g = torch.Generator(device=device).manual_seed(100 * fn + d)
+        x = torch.cat([torch.rand((CEC_ROWS, d), generator=g, device=device) * 200 - 100,
+                       on_card.shift.reshape(-1, d)])
+        got, _ = on_card.evaluate(None, x)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_tf32, _ = on_card.evaluate(None, x)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        exact(got_tf32, got, f"CEC2022 f{fn} D={d} with TF32 allowed by the process")
+        want, _ = CEC2022(fn, d, device="cpu").evaluate(None, x.cpu())
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"CEC2022 f{fn} D={d}: a value that is not finite")
+        rel = float(((got.cpu() - want).abs() / want.abs()).max())
+        if not rel <= CEC_RTOL:
+            raise AssertionError(f"CEC2022 f{fn} D={d} float32 card vs CPU: rtol {rel} > {CEC_RTOL}")
+        worst64, worst32 = max(worst64, rel64), max(worst32, rel)
+        row = {"float64_max_rel_vs_oracle": rel64, "float32_max_rel_vs_cpu": rel, "rows": int(x.shape[0])}
+        if d == DE_DIM:
+            xt = x[:CEC_ROWS].contiguous()
+            row["ms_per_eval_10000x20"] = time_ms(lambda: on_card.evaluate(None, xt), 20)
+            prof = launches_per_call(lambda: on_card.evaluate(None, xt), calls=3)
+            row["device_ops_per_eval"] = prof["launches"]
+            row["device_ms_per_eval"] = prof["device_ms"]
+            row["host_syncs_per_eval"] = prof["host_syncs"]
+            if prof["host_syncs"] != 0:
+                raise AssertionError(f"CEC2022 f{fn}: an evaluation made host syncs: {prof}")
+        out[f"f{fn}_D{d}"] = row
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matrix products were left on")
+    return {"pairs": len(out), "float64_max_rel_vs_oracle": worst64, "float32_max_rel_vs_cpu": worst32,
+            "float32_rtol": CEC_RTOL, "functions": out}
+
+
+# The modules through which the DE family reaches philox_draws: utils.rng
+# imports it from ops.philox where it draws, the DE operators bind it.
+PHILOX_CALLERS = ["evox_tpu_torch.ops.philox", "evox_tpu_torch.operators.crossover.differential_evolution",
+                  "evox_tpu_torch.operators.selection.find_pbest"]
+
+
+@contextlib.contextmanager
+def recording_draws(seen):
+    """While active, every philox_draws call made through PHILOX_CALLERS
+    appends (seed, numel, kinds, outputs) to ``seen``, with the seed's key
+    and the outputs copied."""
+    import importlib
+
+    import torch
+    from evox_tpu_torch.ops.philox import philox_draws
+    from evox_tpu_torch.utils import rng
+
+    modules = [importlib.import_module(m) for m in PHILOX_CALLERS]
+
+    def recording(seed, numel, kinds, device):
+        out = philox_draws(seed, numel, kinds, device)
+        if isinstance(seed, rng.Seed):
+            kept = rng.Seed(seed.key.clone(), seed.index)
+        else:
+            kept = seed.clone() if isinstance(seed, torch.Tensor) else seed
+        seen.append((kept, numel, list(kinds), [o.clone() for o in out]))
+        return out
+
+    # The wrapper counts its launches on the name ``philox_draws`` of its
+    # own module, which is ``recording`` while this is active: the recorded
+    # step's launches land here and not in the path's count.
+    recording.launches = 0
+    for m in modules:
+        m.philox_draws = recording
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.philox_draws = philox_draws
+
+
+def draws_on_path(name, seen) -> dict:
+    """Each draw that one eager step of ``name`` made (``recording_draws``)
+    replayed through philox_draws_plain on the same seed, bit for bit."""
+    from evox_tpu_torch.ops import philox
+
+    if not seen:
+        raise AssertionError(f"{name}: the recorded step made no draw")
+    worst, layouts = 0.0, set()
+    for seed, numel, kinds, got in seen:
+        want = philox.philox_draws_plain(seed, numel, kinds, got[0].device)
+        for g, w in zip(got, want):
+            worst = max(worst, exact(g, w, f"{name}: philox_draws {kinds} numel={numel} on the path"))
+        layouts.add(f"{numel}:" + ",".join(str(k).replace("torch.", "").replace(" ", "") for k in kinds))
+    return {"calls": len(seen), "layouts": sorted(layouts), "max_abs_err": worst}
+
+
+def de_path(name, device, timed_eager) -> tuple[dict, object]:
+    """One DE-family path at de_cec's width: init_step, warm-up, (for the
+    main path, timed and profiled eager steps), then 20 eager steps against
+    run(20) and run_segment(20) bit for bit (``fused_vs_eager``, no host
+    sync in a segment); Philox launches a generation checked, and the draws
+    of one eager step replayed through the plain version bit for bit
+    (``recording_draws``); the best fitness must fall from init_step to the last step; the population
+    stays finite and in the box."""
+    import torch
+    from evox_tpu_torch.ops.philox import philox_draws
+
+    counters = {"philox_draws": philox_draws}
+    torch.cuda.reset_peak_memory_stats()
+    wf = de_workflow(name, device)
+    philox_draws.launches = 0
+    t0 = time.perf_counter()
+    state = wf.init_step(wf.init(0))
+    best0 = float(state.algorithm.fit.min())
+    torch.cuda.synchronize()
+    row = {"setup_s": time.perf_counter() - t0}
+    for _ in range(MAIN_WARMUP):
+        state = wf.step(state)
+    steps = MAIN_WARMUP
+    if timed_eager:
+        def eager(s=state):
+            for _ in range(MAIN_STEPS):
+                s = wf.step(s)
+            return s
+
+        ms, host_ms, state = timed(eager, MAIN_STEPS)
+        state, prof = profile_steps(wf.step, state, PROFILE_STEPS)
+        steps += MAIN_STEPS + PROFILE_STEPS
+        row.update({"ms_per_gen": ms, "gen_per_s": 1e3 / ms, "host_ms_per_gen": host_ms, "profile": prof})
+    # The setup's one draw (the first population), then the steps'.
+    want = 1 + DE_PHILOX[name] * steps
+    if philox_draws.launches != want:
+        raise AssertionError(f"{name}: philox_draws launched {philox_draws.launches} times, expected {want}")
+    launches = philox_draws.launches
+    seen = []
+    with recording_draws(seen):
+        wf.step(state)
+    on_path = draws_on_path(name, seen)
+    if on_path["calls"] != DE_PHILOX[name]:
+        raise AssertionError(f"{name}: {on_path['calls']} draws recorded in one step")
+    del seen
+    per_gen = launches_per_call(lambda: wf.step(state), calls=3)
+    fused, ref = fused_vs_eager(wf, state, SEGMENT_GENS, counters, name)
+    eager_launches = fused.pop("launches_in_eager_steps")["philox_draws"]
+    if eager_launches != DE_PHILOX[name] * SEGMENT_GENS:
+        raise AssertionError(f"{name}: {eager_launches} Philox launches in {SEGMENT_GENS} eager steps")
+    algo = ref.algorithm
+    best1 = float(algo.fit.min())
+    if not best1 < best0:
+        raise AssertionError(f"{name}: the best fitness did not fall: {best0} -> {best1}")
+    if algo.pop.shape != (DE_POP, DE_DIM) or algo.fit.shape != (DE_POP,):
+        raise AssertionError(f"{name}: wrong state shapes")
+    if not (bool(torch.isfinite(algo.pop).all()) and bool(torch.isfinite(algo.fit).all())):
+        raise AssertionError(f"{name}: a population or fitness value that is not finite")
+    if float(algo.pop.min()) < -100.0 or float(algo.pop.max()) > 100.0:
+        raise AssertionError(f"{name}: the population left the box")
+    eager_ms = row.get("ms_per_gen", fused["eager_ms_per_gen"])
+    row.update({
+        "config": f"{name} pop={DE_POP} dim={DE_DIM} CEC2022 f{DE_FN} f32, StdWorkflow, no monitor",
+        "steps": steps, "launches": {"philox_draws": launches + eager_launches},
+        "philox_per_gen": DE_PHILOX[name], "philox_on_path_vs_plain": on_path,
+        "eager_device_ops_per_gen": per_gen["launches"], "eager_host_syncs_per_gen": per_gen["host_syncs"],
+        "eager_device_ms_per_gen": per_gen["device_ms"],
+        "eager_idle_share": 1 - per_gen["device_ms"] / eager_ms,
+        "fused": fused, "best_after_init": best0, "best_final": best1,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    del wf, state, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_de_main_path(device) -> dict:
+    """bench.py's de_cec through the port at full width:
+    StdWorkflow(DE(10000, full(20, -100), full(20, 100)), CEC2022(5, 20)),
+    float32, no monitor (``de_path``, with timed and profiled eager
+    steps)."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matrix products are on: the CEC2022 rotation must be full float32")
+    return de_path("DE", device, timed_eager=True)
+
+
+def phase_de_family(device) -> dict:
+    """ODE, JaDE, SHADE, SaDE and CoDE at de_cec's width on CEC2022(5, 20)
+    (``de_path``: eager against run(20) and run_segment(20) bit for bit)."""
+    out = {name: de_path(name, device, timed_eager=False) for name in DE_FAMILY}
+    out["launches"] = {"philox_draws": sum(out[n]["launches"]["philox_draws"] for n in DE_FAMILY)}
+    return out
+
+
 # The slice-2 kernels in the kernels line: wrapper, source, the TPU
 # kernel (or XLA route) it replaces, and its timing_mo entry.
 MO_KERNELS = [
@@ -1979,13 +2268,16 @@ def philox_row(results) -> dict:
         # The JAX package draws with jax.random inside XLA programs; no
         # Pallas kernel of it does this work.
         "replaces": "none (the port's own kernel; the plain draws of evox_tpu_torch/utils/rng.py)",
-        # The main paths' draws: the PSO headline's setup, the NSGA-II and
-        # RVEA headlines' setups and generations, and the eager generations
-        # of the rest of the multi-objective family.
+        # The main paths' draws: the PSO headline's setup, the NSGA-II,
+        # RVEA and de_cec headlines' setups and generations, and the eager
+        # generations of the rest of the multi-objective family and of the
+        # DE family (with their setups).
         "launches": results["main_path"]["philox_launches"]
         + results["nsga2_main_path"]["launches"]["philox_draws"]
         + results["rvea_main_path"]["launches"]["philox_draws"]
-        + results["mo_family"]["launches"]["philox_draws"],
+        + results["mo_family"]["launches"]["philox_draws"]
+        + results["de_main_path"]["launches"]["philox_draws"]
+        + results["de_family"]["launches"]["philox_draws"],
         "max_abs_err": results["philox"]["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2032,6 +2324,9 @@ def main() -> int:
         ("segment", phase_segment),
         ("rvea_main_path", phase_rvea_main_path),
         ("mo_family", phase_mo_family),
+        ("cec2022_suite", phase_cec2022_suite),
+        ("de_main_path", phase_de_main_path),
+        ("de_family", phase_de_family),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)

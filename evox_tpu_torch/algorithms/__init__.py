@@ -1,7 +1,10 @@
-"""Algorithm library (counterpart of ``evox_tpu/algorithms``; PSO and the
-multi-objective family so far)."""
+"""Algorithm library (counterpart of ``evox_tpu/algorithms``; PSO, the DE
+family and the multi-objective family so far)."""
 
-__all__ = ["PSO", "PallasPSO", "NSGA2", "NSGA3", "RVEA", "RVEAa", "MOEAD", "HypE"]
+__all__ = [
+    "PSO", "PallasPSO", "DE", "ODE", "JaDE", "SaDE", "SHADE", "CoDE",
+    "NSGA2", "NSGA3", "RVEA", "RVEAa", "MOEAD", "HypE",
+]
 
 from .mo import MOEAD, NSGA2, NSGA3, RVEA, RVEAa, HypE
-from .so.pso_variants import PSO, PallasPSO
+from .so import DE, ODE, SHADE, CoDE, JaDE, PSO, PallasPSO, SaDE

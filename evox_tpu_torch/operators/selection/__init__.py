@@ -1,6 +1,6 @@
 """Selection operators (counterpart of ``evox_tpu/operators/selection``):
-non-dominated sorting, crowding distance, RVEA reference-vector selection
-and tournaments (the p-best pick is not ported yet)."""
+non-dominated sorting, crowding distance, RVEA reference-vector selection,
+tournaments and the p-best pick."""
 
 __all__ = [
     "crowding_distance",
@@ -8,6 +8,7 @@ __all__ = [
     "nd_environmental_selection",
     "non_dominate_rank",
     "ref_vec_guided",
+    "select_rand_pbest",
     "tournament_selection",
     "tournament_selection_multifit",
 ]
@@ -18,5 +19,6 @@ from .non_dominate import (
     nd_environmental_selection,
     non_dominate_rank,
 )
+from .find_pbest import select_rand_pbest
 from .rvea_selection import ref_vec_guided
 from .tournament_selection import tournament_selection, tournament_selection_multifit

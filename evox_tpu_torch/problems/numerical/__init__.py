@@ -1,7 +1,9 @@
 """Numerical benchmark problems (counterpart of
-``evox_tpu/problems/numerical``; the basic suite and DTLZ1-7 so far)."""
+``evox_tpu/problems/numerical``; the basic suite, CEC2022 and DTLZ1-7
+so far)."""
 
 __all__ = [
+    "CEC2022",
     "DTLZ",
     "DTLZ1",
     "DTLZ2",
@@ -44,4 +46,5 @@ from .basic import (
     schwefel_func,
     sphere_func,
 )
+from .cec2022 import CEC2022
 from .dtlz import DTLZ, DTLZ1, DTLZ2, DTLZ3, DTLZ4, DTLZ5, DTLZ6, DTLZ7

@@ -2,6 +2,6 @@
 helpers."""
 
 from . import convert, ops, rng
-from .ops import lexsort, nanmax, nanmin
+from .ops import lexsort, nanmax, nanmedian, nanmin
 
-__all__ = ["convert", "ops", "rng", "lexsort", "nanmax", "nanmin"]
+__all__ = ["convert", "ops", "rng", "lexsort", "nanmax", "nanmedian", "nanmin"]

@@ -1,7 +1,7 @@
 """Small tensor helpers (counterpart of ``evox_tpu/utils/ops.py``, the part
-the multi-objective path needs): a stable multi-key argsort and NaN-ignoring
-reductions, none of which PyTorch provides under the JAX package's
-semantics."""
+the multi-objective and DE paths need): a stable multi-key argsort and
+NaN-ignoring reductions, none of which PyTorch provides under the JAX
+package's semantics."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["lexsort", "nanmin", "nanmax"]
+__all__ = ["lexsort", "nanmin", "nanmax", "nanmedian"]
 
 
 def lexsort(keys: Sequence[torch.Tensor] | torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -49,3 +49,16 @@ def nanmin(a: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
 def nanmax(a: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     """NaN-ignoring maximum (= ``jnp.nanmax``)."""
     return _nan_reduce(a, dim, keepdim, float("-inf"), torch.amax)
+
+
+def nanmedian(a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """NaN-ignoring median along ``dim`` as ``jnp.nanmedian`` computes it:
+    the mean ``(lo + hi) * 0.5`` of the two middle values of the valid
+    entries (the same value twice for an odd count), NaN for a slice with
+    none.  ``torch.nanmedian`` returns the lower middle value instead."""
+    s = torch.sort(a, dim=dim).values  # NaN last
+    count = torch.sum(~torch.isnan(a), dim=dim, keepdim=True)
+    lo = torch.clamp(torch.div(count - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.clamp(torch.minimum(torch.div(count, 2, rounding_mode="floor"), count - 1), min=0)
+    mid = (torch.take_along_dim(s, lo, dim=dim) + torch.take_along_dim(s, hi, dim=dim)) * 0.5
+    return mid.squeeze(dim)

@@ -24,15 +24,21 @@ bit choice (``ops/pso_step.py::_uniform_bits``): the 24 high bits for
 float32, the 7 high bits for bfloat16, times 2^-m, so every value is exact
 in the dtype and the upper bound 1 is strict.
 
-:func:`uniform`, :func:`randint`, :func:`randint_below` and
-:func:`permutation` make one draw through
+:func:`uniform`, :func:`normal`, :func:`categorical`, :func:`randint`,
+:func:`randint_below` and :func:`permutation` make one draw through
 :func:`~evox_tpu_torch.ops.philox.philox_draws`, which makes up to four
 draws of one shape from one Philox evaluation (output ``k`` from word
 ``k``): an operator that needs several draws asks for all of them at once.
+Normals and Gumbel-max categories are maps over those uniforms, built as
+``jax.random.normal`` and ``jax.random.categorical`` build theirs
+(:func:`normal_from_uniform`, :func:`gumbel_from_uniform`), so a test that
+feeds both the same uniforms gets the same values up to the last bits of
+``erfinv`` and ``log``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence
 
 import torch
@@ -45,6 +51,7 @@ __all__ = [
     "split",
     "split_keys",
     "child",
+    "as_seed",
     "check_key",
     "seed_value",
     "signed64",
@@ -52,6 +59,10 @@ __all__ = [
     "philox_words",
     "uniform_bits",
     "uniform",
+    "normal_from_uniform",
+    "normal",
+    "gumbel_from_uniform",
+    "categorical",
     "randint_bits",
     "randint",
     "randint_below",
@@ -138,6 +149,17 @@ def child(k: torch.Tensor, index: int = 0) -> Seed:
     """Child seed ``index`` of ``k`` without advancing it: what
     ``split(k)[1][index]`` gives, for a key that is consumed whole."""
     return Seed(check_key(k), index)
+
+
+def as_seed(seed, offset: int = 0) -> Seed:
+    """The seed ``offset`` places after ``seed``: child ``offset`` of a key
+    tensor, or ``Seed(key, index + offset)`` of a :class:`Seed`.  An
+    operator that launches the draw kernel k times draws from ``seed`` ..
+    ``seed + k - 1``, so a caller hands consecutive operators seeds at
+    least that far apart (see the DE family)."""
+    if isinstance(seed, torch.Tensor):
+        return child(seed, offset)
+    return Seed(check_key(seed.key), seed.index + offset)
 
 
 def split_keys(k: torch.Tensor, num: int) -> list[torch.Tensor]:
@@ -229,6 +251,53 @@ def uniform(
     shape = tuple(shape)
     (u,) = philox_draws(seed, _numel(shape), [dtype], resolve_device(device))
     return u.reshape(shape)
+
+
+def normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard normals from uniforms in [0, 1), as ``jax.random.normal``
+    makes them: ``v = max(lo, u * (1 - lo) + lo)`` with ``lo`` the value of
+    the dtype next above -1 (both in the dtype), then ``sqrt(2) *
+    erfinv(v)``."""
+    lo_t = torch.nextafter(torch.tensor(-1.0, dtype=u.dtype), torch.tensor(0.0, dtype=u.dtype))
+    lo, span = float(lo_t), float(torch.tensor(1.0, dtype=u.dtype) - lo_t)
+    v = torch.clamp(u * span + lo, min=lo)
+    return torch.erfinv(v) * math.sqrt(2.0)
+
+
+def normal(
+    seed,
+    shape: Sequence[int],
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """N(0, 1) of ``shape``: :func:`normal_from_uniform` of one
+    :func:`uniform` draw (one launch of the draw kernel on the card)."""
+    return normal_from_uniform(uniform(seed, shape, dtype, device))
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel values from uniforms in [0, 1), as
+    ``jax.random.gumbel`` makes them: ``-log(-log(v))`` of ``v = max(tiny,
+    u * (1 - tiny) + tiny)`` (``tiny`` the dtype's smallest normal)."""
+    tiny = torch.finfo(u.dtype).tiny
+    span = float(torch.tensor(1.0, dtype=u.dtype) - torch.tensor(tiny, dtype=u.dtype))
+    v = torch.clamp(u * span + tiny, min=tiny)
+    return -torch.log(-torch.log(v))
+
+
+def categorical(
+    seed,
+    logits: torch.Tensor,
+    shape: Sequence[int],
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """Categories of ``shape`` (int64) drawn from the last axis of
+    ``logits`` (1-D, on the device), by the Gumbel-max construction of
+    ``jax.random.categorical``: the first index of the largest
+    ``gumbel + logits`` over a draw of ``(*shape, k)`` uniforms."""
+    shape = tuple(shape)
+    u = uniform(seed, shape + (logits.shape[-1],), logits.dtype, device)
+    return torch.argmax(gumbel_from_uniform(u) + logits, dim=-1)
 
 
 def randint_bits(word: torch.Tensor, low: int, high: int) -> torch.Tensor:

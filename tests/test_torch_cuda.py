@@ -523,3 +523,91 @@ def test_permutation_and_bounded_draws_on_the_card_equal_their_cpu_bits(cuda, sh
     span = torch.tensor(n // 3 + 1)
     assert torch.equal(rng.randint_below(rng.child(key.to(cuda)), (n,), span.to(cuda), cuda).cpu(),
                        rng.randint_below(rng.child(key), (n,), span, "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# CEC2022 and the DE family on the card
+# ---------------------------------------------------------------------------
+
+DE_FAMILY = ["DE", "ODE", "JaDE", "SHADE", "SaDE", "CoDE"]
+
+
+def _de_workflow(name, device, pop=500, **kw):
+    from evox_tpu_torch import algorithms
+    from evox_tpu_torch.problems.numerical import CEC2022
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    algo = getattr(algorithms, name)(pop, torch.full((20,), -100.0), torch.full((20,), 100.0), device=device, **kw)
+    return StdWorkflow(algo, CEC2022(5, 20, device=device))
+
+
+@pytest.mark.parametrize("name", DE_FAMILY + ["DE-best"])
+def test_de_family_run_replays_20_eager_steps_bit_for_bit(cuda, name):
+    kw = dict(base_vector="best", num_difference_vectors=2, differential_weight=[0.5, 0.3]) if name == "DE-best" else {}
+    wf = _de_workflow(name.split("-")[0], cuda, **kw)
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    ref = s0
+    for _ in range(20):
+        ref = wf.step(ref)
+    _equal_states(wf.run(s0, 20, init=False), ref)
+    seg, _ = wf.run_segment(s0, 20)
+    _equal_states(seg, ref)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wf.run_segment(s0, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(ref.algorithm.fit.min()) < float(s0.algorithm.fit.min())
+
+
+def test_de_steps_on_the_card_never_run_the_plain_draws(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(philox, "philox_draws_plain", refuse)
+    for name in DE_FAMILY:
+        wf = _de_workflow(name, cuda, pop=64)
+        wf.step(wf.init_step(wf.init(1)))
+    torch.cuda.synchronize()
+
+
+def _cec_pairs():
+    return [(fn, d) for d in (2, 10, 20) for fn in range(1, 13) if not (fn in (6, 7, 8) and d == 2)]
+
+
+@pytest.mark.parametrize("fn,d", _cec_pairs())
+def test_cec2022_on_the_card_matches_the_cpu_and_the_oracle(cuda, fn, d):
+    import json
+    import os
+
+    from evox_tpu_torch.problems.numerical import CEC2022
+
+    with open(os.path.join(os.path.dirname(__file__), "cec2022_golden.json")) as f:
+        data = json.load(f)
+    x64 = torch.tensor(data["inputs"][str(d)], dtype=torch.float64, device=cuda)
+    got64, _ = CEC2022(fn, d, dtype=torch.float64, device=cuda).evaluate(None, x64)
+    torch.testing.assert_close(got64.cpu(), torch.tensor(data["golden"][f"{fn}_{d}"], dtype=torch.float64),
+                               rtol=1e-8, atol=0)
+    g = torch.Generator(device=cuda).manual_seed(fn * 100 + d)
+    on_card = CEC2022(fn, d, device=cuda)
+    x = torch.cat([torch.rand((2000, d), generator=g, device=cuda) * 200 - 100,
+                   on_card.shift.reshape(-1, d)])
+    got, _ = on_card.evaluate(None, x)
+    want, _ = CEC2022(fn, d, device="cpu").evaluate(None, x.cpu())
+    # The CEC2022 float32 tolerance of tests/test_torch_cec2022.py.
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=0)
+
+
+def test_normal_and_categorical_draws_on_the_card_match_the_cpu(cuda):
+    from evox_tpu_torch.utils import rng
+
+    key = rng.key(11)
+    got = rng.normal(rng.child(key.to(cuda)), (100_000,), device=cuda).cpu()
+    want = rng.normal(rng.child(key), (100_000,), device="cpu")
+    # The same uniforms; the two devices' erfinv differ in the last places.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    logits = torch.log(torch.tensor([0.1, 0.2, 0.3, 0.4]))
+    c_card = rng.categorical(rng.child(key.to(cuda), 1), logits.to(cuda), (50_000,), cuda).cpu()
+    c_cpu = rng.categorical(rng.child(key, 1), logits, (50_000,), "cpu")
+    assert int((c_card != c_cpu).sum()) <= 2
