@@ -18,7 +18,11 @@ selection card against CPU; then NSGA-III at pop=10000 and RVEAa, MOEA/D
 and HypE at pop=1000, eager and fused, and DTLZ1-7 card against CPU; then
 the whole CEC2022 suite against its float64 oracle and the CPU, DE on
 CEC2022 f5 at pop=10000, dim=20, and ODE, JaDE, SHADE, SaDE and CoDE at the
-same width, eager and fused), checks that each path went through its
+same width, eager and fused; then CMA-ES at pop=64 and OpenES at
+pop=8192 on CEC2022 f1, dim=20, the covariance's decomposition on the card
+against float64 on the CPU, the other ten ES algorithms, OpenES's
+auxiliary history through a segment, and CMA-ES at dim=1000 with its
+decomposition cadence), checks that each path went through its
 kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -1119,8 +1123,13 @@ def phase_timing_mo(device) -> dict:
               **radix(f, True, None if tag == "50k" else lambda: crowding.crowding_neighbors(f, mk)))
     del c50
     x = torch.randn(8, 128, device=device)
+    # Beside the event times, the profiler's device time a call of the
+    # kernel and of ``x * 2``: whether a gap between the two is the
+    # kernel's or the wrapper's.
     entry("scale_by_two_probe", lambda: probe.scale_by_two(x), lambda: probe.scale_by_two_plain(x),
-          bound(8 * x.numel(), float(x.numel())), iters=100, plain_iters=100, library=lambda: x * 2)
+          bound(8 * x.numel(), float(x.numel())), iters=100, plain_iters=100, library=lambda: x * 2,
+          device_profile=launches_per_call(lambda: probe.scale_by_two(x), calls=20),
+          library_device_profile=launches_per_call(lambda: x * 2, calls=20))
     return out
 
 
@@ -2227,6 +2236,303 @@ def phase_de_family(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the ES family (cmaes_cec and openes_cec at bench width).
+# ---------------------------------------------------------------------------
+
+ES_DIM, ES_FN = 20, 1  # bench.py's cmaes_cec and openes_cec: CEC2022(1, 20)
+CMAES_POP = 64  # bench.py's cmaes_cec: CMAES(zeros(20), 5.0, pop_size=64)
+OPENES_POP = 8192  # bench.py's openes_cec: OpenES(8192, zeros(20), 0.05, 1.0, optimizer="adam")
+CADENCE_DIM = 1000  # CMAES(zeros(1000), 1.0): pop 24, decomp_per_iter 8
+CADENCE_GENS = 16
+# The other ten at openes_cec's width (pop 8192, D = 20, CEC2022 f1; ESMC
+# 8193, an odd size), XNES and SeparableNES at cmaes_cec's pop 64;
+# bench.py has no config for them.  The variants that step by the raw
+# gradient estimate (GuidedES, PersistentES, NoiseReuseES, ESMC) diverge
+# on f1, whose fitness starts near 1e13, with their default rate, so they
+# run with Adam at rate 0.5.
+ES_FAMILY = {
+    "XNES": lambda c, d: ("XNES", (c, d["eye"]), dict(pop_size=CMAES_POP)),
+    "SeparableNES": lambda c, d: ("SeparableNES", (c, d["ones"]), dict(pop_size=CMAES_POP)),
+    "SNES": lambda c, d: ("SNES", (OPENES_POP, c), {}),
+    "DES": lambda c, d: ("DES", (OPENES_POP, c), {}),
+    "ARS": lambda c, d: ("ARS", (OPENES_POP, c), {}),
+    "ASEBO": lambda c, d: ("ASEBO", (OPENES_POP, c), {}),
+    "GuidedES": lambda c, d: ("GuidedES", (OPENES_POP, c), dict(optimizer="adam", lr=0.5)),
+    "PersistentES": lambda c, d: ("PersistentES", (OPENES_POP, c), dict(optimizer="adam", lr=0.5)),
+    "NoiseReuseES": lambda c, d: ("NoiseReuseES", (OPENES_POP, c), dict(optimizer="adam", lr=0.5)),
+    "ESMC": lambda c, d: ("ESMC", (OPENES_POP + 1, c), dict(optimizer="adam", lr=0.5)),
+}
+# Philox launches: one a draw; every algorithm draws once a generation but
+# GuidedES (twice, and once at setup for its first gradient subspace).
+ES_PHILOX = {"GuidedES": 2}
+ES_SETUP_PHILOX = {"GuidedES": 1}
+# cuSOLVER syevjBatched calls (ops.linalg.eigh on the card) a generation:
+# CMA-ES decomposes its covariance, ASEBO takes its SVD from the Gram
+# matrix's eigenvectors.
+ES_EIGH = {"CMAES": 1, "ASEBO": 1}
+# The card's decomposition of a cmaes_cec step's C against a float64 CPU
+# eigh of the same C (symmetrised, eigenvalues clipped at 1e-8, as the
+# step does): eigenvalues within EIGVAL_RTOL of the largest, A A^T and
+# C^{-1/2} within these relative Frobenius errors.  cuSOLVER's Jacobi
+# sweeps stop at float32's machine accuracy: the probe measured 2.3e-6 on
+# eigenvalues and 2.9e-6 on the reconstruction of a (20, 20) matrix of
+# condition ~10; C^{-1/2} adds a factor of up to sqrt(cond(C)).
+EIGVAL_RTOL = 1e-5
+RECON_RTOL = 1e-5
+INVSQRT_RTOL = 1e-4
+
+
+def es_workflow(name, device, monitor=None):
+    """One ES path: cmaes_cec (``CMAES``), openes_cec (``OpenES``) or a
+    member of ES_FAMILY, on CEC2022(1, 20), float32."""
+    import torch
+    from evox_tpu_torch import algorithms
+    from evox_tpu_torch.problems.numerical import CEC2022
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    c = torch.zeros(ES_DIM)
+    if name == "CMAES":
+        algo = algorithms.CMAES(c, 5.0, pop_size=CMAES_POP, device=device)
+    elif name == "OpenES":
+        algo = algorithms.OpenES(OPENES_POP, c, 0.05, 1.0, optimizer="adam", device=device)
+    else:
+        cls, args, kw = ES_FAMILY[name](c, {"eye": torch.eye(ES_DIM), "ones": torch.ones(ES_DIM)})
+        algo = getattr(algorithms, cls)(*args, device=device, **kw)
+    return StdWorkflow(algo, CEC2022(ES_FN, ES_DIM, device=device), monitor=monitor)
+
+
+def decomposition_vs_cpu(state) -> dict:
+    """The card's decomposition of one cmaes_cec step's C (``A`` and
+    ``C^{-1/2}`` of the state, and ``ops.linalg.eigh`` of the symmetrised C
+    called again) against ``torch.linalg.eigh`` of the same C in float64
+    on the CPU."""
+    import torch
+    from evox_tpu_torch.ops import linalg
+
+    C = state.C
+    C_sym = (C + C.T) / 2
+    w_card, _ = linalg.eigh(C_sym)
+    C64 = C_sym.double().cpu()
+    w64, B64 = torch.linalg.eigh(C64)
+    w64 = torch.clamp(w64, min=1e-8)
+    eig_err = float((w_card.double().cpu().clamp(min=1e-8) - w64).abs().max() / w64.abs().max())
+    A = state.A.double().cpu()
+    recon_err = float(torch.linalg.norm(A @ A.T - C64) / torch.linalg.norm(C64))
+    inv64 = (B64 * (1.0 / torch.sqrt(w64))) @ B64.T
+    inv_err = float(torch.linalg.norm(state.C_invsqrt.double().cpu() - inv64) / torch.linalg.norm(inv64))
+    cond = float(w64.max() / w64.min())
+    row = {"eigval_max_rel": eig_err, "recon_rel_fro": recon_err, "c_invsqrt_rel_fro": inv_err,
+           "condition": cond, "eigval_rtol": EIGVAL_RTOL, "recon_rtol": RECON_RTOL, "invsqrt_rtol": INVSQRT_RTOL}
+    if not (eig_err <= EIGVAL_RTOL and recon_err <= RECON_RTOL and inv_err <= INVSQRT_RTOL):
+        raise AssertionError(f"cmaes_cec: the card's decomposition against float64 on the CPU: {row}")
+    return row
+
+
+def es_path(name, device, timed_eager) -> dict:
+    """One ES path at its width: init_step, warm-up, (for the main paths,
+    timed and profiled eager steps), then 20 eager steps against run(20)
+    and run_segment(20) bit for bit (``fused_vs_eager``, no host sync in a
+    segment); Philox launches and cuSOLVER eigh calls a generation
+    checked, the draws of one eager step replayed through the plain version
+    bit for bit (``recording_draws``); the best fitness falls from
+    init_step to the last step and every leaf stays finite."""
+    import torch
+    from evox_tpu_torch.ops import linalg
+    from evox_tpu_torch.ops.philox import philox_draws
+    from evox_tpu_torch.workflows import _graph
+
+    counters = {"philox_draws": philox_draws, "eigh": linalg.eigh}
+    per_gen = {"philox_draws": ES_PHILOX.get(name, 1), "eigh": ES_EIGH.get(name, 0)}
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    wf = es_workflow(name, device)
+    t0 = time.perf_counter()
+    state = wf.init_step(wf.init(0))
+    best0 = float(state.algorithm.fit.min())
+    torch.cuda.synchronize()
+    a = wf.algorithm
+    row = {"config": f"{name} pop={a.pop_size} dim={a.dim} CEC2022 f{ES_FN} f32, StdWorkflow, no monitor",
+           "setup_s": time.perf_counter() - t0}
+    for _ in range(MAIN_WARMUP):
+        state = wf.step(state)
+    steps = 1 + MAIN_WARMUP  # init_step is a generation of the ES family
+    if timed_eager:
+        def eager(s=state):
+            for _ in range(MAIN_STEPS):
+                s = wf.step(s)
+            return s
+
+        ms, host_ms, state = timed(eager, MAIN_STEPS)
+        state, prof = profile_steps(wf.step, state, PROFILE_STEPS)
+        steps += MAIN_STEPS + PROFILE_STEPS
+        row.update({"ms_per_gen": ms, "gen_per_s": 1e3 / ms, "host_ms_per_gen": host_ms, "profile": prof})
+    setup = {"philox_draws": ES_SETUP_PHILOX.get(name, 0), "eigh": 0}
+    for k, c in counters.items():
+        want = setup[k] + per_gen[k] * steps
+        if c.launches != want:
+            raise AssertionError(f"{name}: {k} launched {c.launches} times, expected {want}")
+    launches = {k: c.launches for k, c in counters.items()}
+    seen = []
+    with recording_draws(seen):
+        wf.step(state)
+    on_path = draws_on_path(name, seen)
+    if on_path["calls"] != per_gen["philox_draws"]:
+        raise AssertionError(f"{name}: {on_path['calls']} draws recorded in one step")
+    del seen
+    eager_prof = launches_per_call(lambda: wf.step(state), calls=3)
+    fused, ref = fused_vs_eager(wf, state, SEGMENT_GENS, counters, name)
+    eager_launches = fused.pop("launches_in_eager_steps")
+    for k in counters:
+        if eager_launches[k] != per_gen[k] * SEGMENT_GENS:
+            raise AssertionError(f"{name}: {eager_launches[k]} {k} launches in {SEGMENT_GENS} eager steps")
+    algo = ref.algorithm
+    best1 = float(algo.fit.min())
+    if not best1 < best0:
+        raise AssertionError(f"{name}: the best fitness did not fall: {best0} -> {best1}")
+    leaves, _ = _graph.flatten(algo)
+    if not all(bool(torch.isfinite(x).all()) for x in leaves if x.is_floating_point()):
+        raise AssertionError(f"{name}: a state value that is not finite")
+    eager_ms = row.get("ms_per_gen", fused["eager_ms_per_gen"])
+    row.update({
+        "steps": steps, "launches": {k: launches[k] + eager_launches[k] for k in counters},
+        "per_gen": per_gen, "philox_on_path_vs_plain": on_path,
+        "eager_device_ops_per_gen": eager_prof["launches"], "eager_host_syncs_per_gen": eager_prof["host_syncs"],
+        "eager_device_ms_per_gen": eager_prof["device_ms"],
+        "eager_idle_share": 1 - eager_prof["device_ms"] / eager_ms,
+        "fused": fused, "best_after_init": best0, "best_final": best1,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    if name == "CMAES":
+        row["sigma_final"] = float(algo.sigma)
+        row["decomposition_vs_cpu"] = decomposition_vs_cpu(algo)
+        C = ((algo.C + algo.C.T) / 2).contiguous()
+        row["eigh_ms_20"] = time_ms(lambda: linalg.eigh(C), 50)
+        row["eigh_profile_20"] = launches_per_call(lambda: linalg.eigh(C), calls=5)
+        row["torch_linalg_eigh_ms_20"] = time_ms(lambda: torch.linalg.eigh(C), 50)
+    del wf, state, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_cmaes_main_path(device) -> dict:
+    """bench.py's cmaes_cec through the port at full width:
+    StdWorkflow(CMAES(zeros(20), 5.0, pop_size=64), CEC2022(1, 20)),
+    float32, no monitor (``es_path`` with timed and profiled eager steps,
+    and the decomposition against float64 on the CPU)."""
+    return es_path("CMAES", device, timed_eager=True)
+
+
+def phase_openes_main_path(device) -> dict:
+    """bench.py's openes_cec at full width: StdWorkflow(OpenES(8192,
+    zeros(20), 0.05, 1.0, optimizer="adam"), CEC2022(1, 20))."""
+    return es_path("OpenES", device, timed_eager=True)
+
+
+def aux_history_check(device) -> dict:
+    """OpenES at openes_cec's width with EvalMonitor(full_pop_history=True):
+    20 eager steps, then run_segment(20) + flush_telemetry from the same
+    state: the auxiliary history key by key, generation by generation, and
+    the fitness history, equal bit for bit, on the card."""
+    from evox_tpu_torch.workflows import EvalMonitor
+
+    mon = EvalMonitor(full_pop_history=True)
+    wf = es_workflow("OpenES", device, monitor=mon)
+    s0 = wf.step(wf.init_step(wf.init(1)))
+    n0 = {k: len(v) for k, v in mon._history.items()}
+    ref = s0
+    for _ in range(SEGMENT_GENS):
+        ref = wf.step(ref)
+    seg, tel = wf.run_segment(s0, SEGMENT_GENS)
+    same_state(seg, ref, "OpenES with full_pop_history: run_segment vs eager steps")
+    wf.flush_telemetry(tel)
+    entries = 0
+    aux = mon.aux_history
+    if list(aux) != ["center"]:
+        raise AssertionError(f"OpenES auxiliary keys {list(aux)}")
+    for key, hist in list(aux.items()) + [("fitness", mon.fitness_history)]:
+        start = n0[2] if key != "fitness" else n0[0]
+        stepped, flushed = hist[start: start + SEGMENT_GENS], hist[start + SEGMENT_GENS:]
+        if len(stepped) != SEGMENT_GENS or len(flushed) != SEGMENT_GENS:
+            raise AssertionError(f"OpenES {key} history: {len(stepped)} stepped, {len(flushed)} flushed")
+        for a, b in zip(flushed, stepped):
+            exact(a, b, f"OpenES {key} history entry")
+            entries += 1
+    if not bool((aux["center"][-1] == ref.algorithm.center.cpu()).all()):
+        raise AssertionError("OpenES: the last auxiliary record is not the last center")
+    return {"keys": list(aux), "entries_checked": entries}
+
+
+def phase_es_family(device) -> dict:
+    """XNES, SeparableNES, SNES, DES, ARS, ASEBO, GuidedES, PersistentES,
+    NoiseReuseES and ESMC (``es_path``: eager against run(20) and
+    run_segment(20) bit for bit, the best fitness falling), then OpenES's
+    auxiliary history eager against a segment (``aux_history_check``)."""
+    out = {name: es_path(name, device, timed_eager=False) for name in ES_FAMILY}
+    out["aux_history"] = aux_history_check(device)
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in ES_FAMILY) for k in ("philox_draws", "eigh")}
+    return out
+
+
+def phase_cmaes_cadence(device) -> dict:
+    """CMAES(zeros(1000), 1.0) (pop 24, decomp_per_iter 8) on Sphere: the
+    decomposition cadence as a torch.where, 16 eager steps, then run(16),
+    which raises NotImplementedError (no eigensolver that a CUDA graph can
+    hold covers n = 1000 on this card: ``ops.linalg``).  The (1000, 1000)
+    eigh's own time, the host syncs of an eager generation, and what the
+    where cadence costs a generation (eager ms/gen against the same steps
+    with the decomposition skipped)."""
+    import torch
+    from evox_tpu_torch.algorithms import CMAES
+    from evox_tpu_torch.ops import linalg
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    algo = CMAES(torch.zeros(CADENCE_DIM), 1.0, device=device)
+    if algo.decomp_per_iter != 8 or algo.pop_size != 24:
+        raise AssertionError(f"CMAES(zeros(1000)): pop {algo.pop_size}, decomp_per_iter {algo.decomp_per_iter}")
+    wf = StdWorkflow(algo, Sphere())
+    state = wf.init_step(wf.init(0))
+    for _ in range(2):
+        state = wf.step(state)
+
+    def eager(s=state):
+        for _ in range(CADENCE_GENS):
+            s = wf.step(s)
+        return s
+
+    ms, host_ms, ref = timed(eager, CADENCE_GENS)
+    prof = launches_per_call(lambda: wf.step(state), calls=2)
+    # Timing only: the same steps with the decomposition skipped (an
+    # instance attribute over the static method; the where keeps the
+    # cached factors at every generation but the due ones).
+    algo.decompose = lambda C: (C, C)
+    try:
+        skipped_ms, _, _ = timed(eager, CADENCE_GENS)
+    finally:
+        del algo.decompose
+    C = ((ref.algorithm.C + ref.algorithm.C.T) / 2).contiguous()
+    eigh_ms = time_ms(lambda: linalg.eigh(C), 5)
+    try:
+        wf.run(state, CADENCE_GENS, init=False)
+        fused = "captured"
+    except NotImplementedError as e:
+        fused = f"NotImplementedError: {str(e)[:160]}"
+    else:
+        raise AssertionError("CMAES d=1000: run() captured an eigh that the card cannot capture")
+    if not (bool(torch.isfinite(ref.algorithm.A).all()) and bool(torch.isfinite(ref.algorithm.sigma))):
+        raise AssertionError("CMAES d=1000: a value that is not finite")
+    return {
+        "config": f"CMAES(zeros({CADENCE_DIM}), 1.0) pop {algo.pop_size} decomp_per_iter {algo.decomp_per_iter}, "
+                  f"Sphere, f32", "eager_ms_per_gen": ms, "eager_host_ms_per_gen": host_ms,
+        "eager_ms_per_gen_without_eigh": skipped_ms, "where_cadence_cost_ms_per_gen": ms - skipped_ms,
+        "eigh_ms_1000": eigh_ms, "decompositions_per_gen": 1, "decompositions_needed_per_gen": 1 / 8,
+        "eager_device_ops_per_gen": prof["launches"], "eager_host_syncs_per_gen": prof["host_syncs"],
+        "run": fused,
+    }
+
+
 # The slice-2 kernels in the kernels line: wrapper, source, the TPU
 # kernel (or XLA route) it replaces, and its timing_mo entry.
 MO_KERNELS = [
@@ -2269,15 +2575,19 @@ def philox_row(results) -> dict:
         # Pallas kernel of it does this work.
         "replaces": "none (the port's own kernel; the plain draws of evox_tpu_torch/utils/rng.py)",
         # The main paths' draws: the PSO headline's setup, the NSGA-II,
-        # RVEA and de_cec headlines' setups and generations, and the eager
-        # generations of the rest of the multi-objective family and of the
-        # DE family (with their setups).
+        # RVEA, de_cec, cmaes_cec and openes_cec headlines' setups and
+        # generations, and the eager generations of the rest of the
+        # multi-objective family and of the DE and ES families (with their
+        # setups).
         "launches": results["main_path"]["philox_launches"]
         + results["nsga2_main_path"]["launches"]["philox_draws"]
         + results["rvea_main_path"]["launches"]["philox_draws"]
         + results["mo_family"]["launches"]["philox_draws"]
         + results["de_main_path"]["launches"]["philox_draws"]
-        + results["de_family"]["launches"]["philox_draws"],
+        + results["de_family"]["launches"]["philox_draws"]
+        + results["cmaes_main_path"]["launches"]["philox_draws"]
+        + results["openes_main_path"]["launches"]["philox_draws"]
+        + results["es_family"]["launches"]["philox_draws"],
         "max_abs_err": results["philox"]["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2327,6 +2637,10 @@ def main() -> int:
         ("cec2022_suite", phase_cec2022_suite),
         ("de_main_path", phase_de_main_path),
         ("de_family", phase_de_family),
+        ("cmaes_main_path", phase_cmaes_main_path),
+        ("openes_main_path", phase_openes_main_path),
+        ("es_family", phase_es_family),
+        ("cmaes_cadence", phase_cmaes_cadence),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)

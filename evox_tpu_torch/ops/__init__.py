@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels and their plain PyTorch versions (counterpart
-of ``evox_tpu/ops``), and the port's own Philox draw kernel
-(:mod:`evox_tpu_torch.ops.philox`).  Kernels are built on first launch,
-never at import.  The capability probe is :mod:`evox_tpu_torch.ops.probe`
+of ``evox_tpu/ops``), the port's own Philox draw kernel
+(:mod:`evox_tpu_torch.ops.philox`), and the ES family's factorisations on
+routes a CUDA graph can hold (:mod:`evox_tpu_torch.ops.linalg`).  Kernels
+are built on first launch, never at import.  The capability probe is :mod:`evox_tpu_torch.ops.probe`
 (also a command: ``python -m evox_tpu_torch.ops.probe``)."""
 
 from .crowding import (

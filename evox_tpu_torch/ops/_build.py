@@ -27,7 +27,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 # Every kernel source of the port, by library name.
-SOURCES = ("pso_move", "philox", "dominance", "topk", "crowding", "probe")
+SOURCES = ("pso_move", "philox", "dominance", "topk", "crowding", "probe", "linalg")
+
+# Libraries a source links beyond the CUDA runtime (``linalg.cu`` binds
+# cuSOLVER), found at run time through the toolkit's ``lib64``.
+LINK = {"linalg": ("-lcusolver",)}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,11 +61,19 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _link_flags(name: str, nvcc: str) -> tuple[str, ...]:
+    libs = LINK.get(name, ())
+    if not libs:
+        return ()
+    lib64 = Path(nvcc).resolve().parent.parent / "lib64"
+    return (*libs, "-Xlinker", f"-rpath={lib64}")
+
+
 def _library_path(name: str, csrc: Path = CSRC) -> Path:
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in sorted([*csrc.glob("*.cuh"), *csrc.glob("*.h")]):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -76,7 +88,8 @@ def build(names=SOURCES) -> dict[str, Path]:
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        nvcc = _nvcc()
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *_link_flags(name, nvcc)]
         procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

@@ -11,13 +11,17 @@ approximate Pareto front is recovered from the history on demand
 (``get_pf*``), through the port's non-dominated sort (its kernels when the
 history is on the card).
 
+With ``full_pop_history=True`` the per-step auxiliary values of the
+algorithm (``Algorithm.record_step``: the ES family's mean or center and
+step size) are kept too, one history per key (``auxiliary_history``).
+
 Inside a fused segment (``StdWorkflow.run_segment`` / ``run``) the
 history goes through the ``Monitor._capture`` seam instead: ``_sink`` hands
 each payload to the workflow, which batches them per generation, and
 :meth:`EvalMonitor.ingest_sinks` appends them at the segment boundary, in
 the order stepping would have.
 
-Not ported yet: ``plot`` and auxiliary history.
+Not ported yet: ``plot``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ __all__ = ["EvalMonitor"]
 class HistoryType(IntEnum):
     FITNESS = 0
     SOLUTION = 1
+    AUXILIARY = 2
 
 
 _BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
@@ -68,6 +73,7 @@ class EvalMonitor(Monitor):
         multi_obj: bool = False,
         full_fit_history: bool = True,
         full_sol_history: bool = False,
+        full_pop_history: bool = False,
         topk: int = 1,
     ):
         """
@@ -75,13 +81,18 @@ class EvalMonitor(Monitor):
             ((N, m) fitness; use ``get_pf*`` instead of the top-k).
         :param full_fit_history: keep every generation's fitness.
         :param full_sol_history: keep every generation's solutions.
+        :param full_pop_history: keep the auxiliary records that the
+            workflow feeds through ``record_auxiliary``.
         :param topk: number of elite solutions tracked.
         """
         self.multi_obj = multi_obj
         self.full_fit_history = full_fit_history
         self.full_sol_history = full_sol_history
+        self.full_pop_history = full_pop_history
         self.topk = topk
         self.opt_direction = 1
+        # The auxiliary keys in slot order, taken from the first record.
+        self.aux_keys: list[str] = []
         self.device: torch.device | None = None
         self.clear_history()
 
@@ -178,7 +189,15 @@ class EvalMonitor(Monitor):
                 (int(data_type), slot, data.detach(), state.generation, state.instance_id)
             )
             return
-        self._history[int(data_type)].append(data.detach())
+        self._append(int(data_type), slot, data.detach())
+
+    def _append(self, data_type: int, slot: int, data: torch.Tensor) -> None:
+        """One history entry; an auxiliary one keeps its slot (its key's
+        place in ``aux_keys``)."""
+        if data_type == HistoryType.AUXILIARY:
+            self._history[data_type].append((slot, data))
+        else:
+            self._history[data_type].append(data)
 
     def ingest_sinks(self, meta, sinks, executed) -> None:
         """Boundary flush of a fused segment's captured sink batches into
@@ -198,8 +217,25 @@ class EvalMonitor(Monitor):
         executed segment: ingesting the same telemetry twice duplicates
         entries."""
         for g in range(int(executed)):
-            for (data_type, _slot), (data, _gens, _insts) in zip(meta, sinks):
-                self._history[int(data_type)].append(data[g])
+            for (data_type, slot), (data, _gens, _insts) in zip(meta, sinks):
+                self._append(int(data_type), int(slot), data[g])
+
+    def record_history(self, state: State) -> State:
+        """Record the latest solution and fitness in the history by hand
+        (the automatic path does this inside :meth:`pre_tell`)."""
+        return self._record(state, state.latest_fitness)
+
+    def record_auxiliary(self, state: State, aux: dict[str, Any]) -> State:
+        """Record the algorithm's per-step auxiliary values (one history per
+        key) when ``full_pop_history`` is on.  The keys and their slot order
+        are taken from the first record (``record_step`` returns the same
+        keys every generation)."""
+        if self.full_pop_history:
+            if not self.aux_keys:
+                self.aux_keys = list(aux.keys())
+            for slot, k in enumerate(self.aux_keys):
+                self._sink(aux[k], HistoryType.AUXILIARY, state, slot=slot)
+        return state
 
     def record_nonfinite(self, state: State, mask: torch.Tensor) -> State:
         """Count quarantined individuals (non-finite fitness rows replaced
@@ -214,7 +250,7 @@ class EvalMonitor(Monitor):
     def clear_history(self) -> None:
         """Drop this monitor's history (state-side top-k and latest buffers
         are untouched)."""
-        self._history: dict[int, list[torch.Tensor]] = {t: [] for t in HistoryType}
+        self._history: dict[int, list] = {t: [] for t in HistoryType}
 
     @property
     def fitness_history(self) -> list[torch.Tensor]:
@@ -231,6 +267,16 @@ class EvalMonitor(Monitor):
         return [s.cpu() for s in self._history[HistoryType.SOLUTION]]
 
     sol_history = solution_history
+
+    @property
+    def auxiliary_history(self) -> dict[str, list[torch.Tensor]]:
+        """Per-key lists of per-generation auxiliary records (from
+        ``Algorithm.record_step``), as CPU tensors; ``aux_history`` is the
+        alias."""
+        raw = self._history[HistoryType.AUXILIARY]
+        return {k: [d.cpu() for s, d in raw if s == slot] for slot, k in enumerate(self.aux_keys)}
+
+    aux_history = auxiliary_history
 
     def get_fitness_history(self) -> list[torch.Tensor]:
         """``fitness_history`` with the original optimization sign

@@ -611,3 +611,168 @@ def test_normal_and_categorical_draws_on_the_card_match_the_cpu(cuda):
     c_card = rng.categorical(rng.child(key.to(cuda), 1), logits.to(cuda), (50_000,), cuda).cpu()
     c_cpu = rng.categorical(rng.child(key, 1), logits, (50_000,), "cpu")
     assert int((c_card != c_cpu).sum()) <= 2
+
+
+# ---------------------------------------------------------------------------
+# The ES family and its factorisations on the card
+# ---------------------------------------------------------------------------
+
+ES_FAMILY = ["CMAES", "OpenES", "XNES", "SeparableNES", "SNES", "DES", "ARS", "ASEBO", "GuidedES",
+             "PersistentES", "NoiseReuseES", "ESMC"]
+
+
+def _es_algo(name, device, d=20, pop=256):
+    from evox_tpu_torch import algorithms
+
+    c = torch.zeros(d) + 1.0
+    if name == "CMAES":
+        return algorithms.CMAES(c, 5.0, pop_size=64, device=device)
+    if name == "OpenES":
+        return algorithms.OpenES(pop, c, 0.05, 1.0, optimizer="adam", device=device)
+    if name == "XNES":
+        return algorithms.XNES(c, torch.eye(d), pop_size=64, device=device)
+    if name == "SeparableNES":
+        return algorithms.SeparableNES(c, torch.ones(d), pop_size=64, device=device)
+    if name == "ESMC":
+        return algorithms.ESMC(pop + 1, c, device=device)
+    return getattr(algorithms, name)(pop, c, device=device)
+
+
+@pytest.mark.parametrize("name", ES_FAMILY)
+def test_es_family_run_replays_20_eager_steps_bit_for_bit(cuda, name):
+    from evox_tpu_torch.problems.numerical import CEC2022
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    wf = StdWorkflow(_es_algo(name, cuda), CEC2022(1, 20, device=cuda), monitor=EvalMonitor(full_pop_history=True))
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    ref = s0
+    for _ in range(20):
+        ref = wf.step(ref)
+    _equal_states(wf.run(s0, 20, init=False), ref)
+    seg, _ = wf.run_segment(s0, 20)
+    _equal_states(seg, ref)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wf.run_segment(s0, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(wf.monitor.get_best_fitness(ref.monitor)) < float(s0.algorithm.fit.min()) or name == "ESMC"
+
+
+def test_es_steps_on_the_card_never_run_the_plain_draws(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(philox, "philox_draws_plain", refuse)
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    for name in ES_FAMILY:
+        wf = StdWorkflow(_es_algo(name, cuda, pop=16), Sphere())
+        wf.step(wf.init_step(wf.init(1)))
+    torch.cuda.synchronize()
+
+
+def _spd64(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn(n, n, generator=g, dtype=torch.float64))
+    return (q * torch.logspace(0, 3, n, dtype=torch.float64)) @ q.T
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 20, 32])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_card_eigh_matches_a_float64_cpu_eigh(cuda, n, dtype):
+    from evox_tpu_torch.ops import linalg
+
+    C64 = _spd64(n, n)
+    C = C64.to(getattr(torch, dtype))
+    before = linalg.eigh.launches
+    w, v = linalg.eigh(C.to(cuda))
+    assert linalg.eigh.launches == before + 1
+    w64 = torch.linalg.eigvalsh(C.double())
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    assert float((w.cpu().double() - w64).abs().max() / w64.abs().max()) <= tol
+    V = v.cpu().double()
+    assert float(((V * w.cpu().double()) @ V.T - C.double()).norm() / C.double().norm()) <= tol
+    assert float((V.T @ V - torch.eye(n, dtype=torch.float64)).abs().max()) <= tol
+
+
+def test_card_eigh_captures_without_a_host_sync_and_replays_its_bits(cuda):
+    from evox_tpu_torch.ops import linalg
+
+    C = _spd64(20, 3).float().to(cuda)
+    w, v = linalg.eigh(C)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w2, v2 = linalg.eigh(C)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        wg, vg = linalg.eigh(C)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in ((w, w2), (v, v2), (w, wg), (v, vg)):
+        assert torch.equal(a, b)
+    nan = C.clone()
+    nan[3, 4] = float("nan")
+    assert bool(torch.isnan(linalg.eigh(nan)[1]).all())
+
+
+@pytest.mark.parametrize("n", [33, 1000])
+def test_card_eigh_beyond_the_batched_route_is_eager_only(cuda, n):
+    from evox_tpu_torch.ops import linalg
+
+    C = _spd64(n, n).float().to(cuda)
+    w, _ = linalg.eigh(C)
+    assert float((w.cpu().double() - torch.linalg.eigvalsh(C.cpu().double())).abs().max()) <= 1e-5 * 1e3
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(NotImplementedError, match="cannot run inside a CUDA graph"):
+        with torch.cuda.graph(g):
+            linalg.eigh(C)
+
+
+def test_cmaes_run_beyond_the_batched_route_raises(cuda):
+    from evox_tpu_torch.algorithms import CMAES
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    wf = StdWorkflow(CMAES(torch.zeros(40), 1.0, device=cuda), Sphere())
+    s = wf.step(wf.init_step(wf.init(0)))
+    with pytest.raises(NotImplementedError):
+        wf.run(s, 4, init=False)
+
+
+@pytest.mark.parametrize("m,n,k", [(20, 20, 5), (8, 20, 3), (20, 8, 8)])
+def test_card_svd_projectors_match_the_cpu(cuda, m, n, k):
+    from evox_tpu_torch.ops import linalg
+
+    g = torch.Generator().manual_seed(m * n)
+    U, _ = torch.linalg.qr(torch.randn(m, m, generator=g, dtype=torch.float64))
+    V, _ = torch.linalg.qr(torch.randn(n, n, generator=g, dtype=torch.float64))
+    s = torch.logspace(1, -0.3, min(m, n), dtype=torch.float64)
+    X = ((U[:, : len(s)] * s) @ V[:, : len(s)].T).float()
+    vt = linalg.svd_vh(X.to(cuda)).cpu().double()
+    want = torch.linalg.svd(X.double(), full_matrices=False).Vh
+    assert vt.shape == want.shape
+    P, Pw = vt[:k].T @ vt[:k], want[:k].T @ want[:k]
+    assert float((P - Pw).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("scale", [0.1, 1.0, 10.0])
+def test_card_expm_matches_the_cpu_and_captures(cuda, scale):
+    from evox_tpu_torch.ops import linalg
+
+    A = torch.randn(20, 20, generator=torch.Generator().manual_seed(int(scale * 10))) * scale / 20
+    want = linalg.expm(A.double()).float()
+    Ac = A.to(cuda)
+    got = linalg.expm(Ac)
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-5
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        cap = linalg.expm(Ac)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cap, got)

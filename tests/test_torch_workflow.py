@@ -238,3 +238,90 @@ def test_run_equals_manual_loop_and_transforms_apply():
     assert len(mon.solution_history) == 6
     # The monitor sees pre-transform solutions and transformed fitness.
     torch.testing.assert_close(fit, 2.0 * ((sol + 1.0) ** 2).sum(dim=1))
+
+
+# ---------------------------------------------------------------------------
+# The monitor's auxiliary history (full_pop_history, record_auxiliary)
+# ---------------------------------------------------------------------------
+
+
+def _es_pair(full_pop_history=True, **mon_kw):
+    from evox_tpu.algorithms import OpenES as JOpenES
+    from evox_tpu_torch.algorithms import OpenES
+    from test_torch_rvea import Injected
+
+    center = np.ones(6, np.float32)
+    jalgo = JOpenES(16, jnp.asarray(center), 0.05, 0.1, optimizer="adam")
+    algo = type("InjectedOpenES", (Injected, OpenES), {})(16, torch.from_numpy(center), 0.05, 0.1,
+                                                            optimizer="adam", device="cpu")
+    jmon = JEvalMonitor(full_pop_history=full_pop_history, **mon_kw)
+    mon = EvalMonitor(full_pop_history=full_pop_history, **mon_kw)
+    return JWorkflow(jalgo, JSphere(), monitor=jmon), StdWorkflow(algo, Sphere(), monitor=mon), algo
+
+
+def test_auxiliary_history_matches_jax():
+    """OpenES's ``record_step`` (its center) recorded every generation with
+    ``full_pop_history=True``: the same keys, one entry a generation, and
+    the values of JAX's run (JAX's draws injected, its state carried
+    across each generation; the center moves by a product over the
+    population: within 1e-5 of its magnitude, as in
+    tests/test_torch_es.py)."""
+    from evox_tpu_torch.utils.convert import state_from_numpy
+    from test_torch_nsga2 import to_numpy
+
+    jwf, wf, algo = _es_pair()
+    js = jwf.init_step(jwf.init(jax.random.key(2)))
+    ts = wf.init_step(state_from_numpy(to_numpy(jwf.init(jax.random.key(2))), device="cpu"))
+    for _ in range(4):
+        _, noise_key = jax.random.split(js.algorithm.key)
+        algo.next_draws = [torch.from_numpy(np.asarray(jax.random.normal(noise_key, (8, 6))))]
+        ts = wf.step(state_from_numpy(to_numpy(js), device="cpu"))
+        js = jwf.step(js)
+    jaux, aux = jwf.monitor.auxiliary_history, wf.monitor.aux_history
+    assert list(aux) == list(jaux) == ["center"] == wf.monitor.aux_keys
+    assert len(aux["center"]) == len(jaux["center"]) == 5
+    # The init step ran each side's own draws: the four carried steps are
+    # compared.
+    for got, want in zip(aux["center"][1:], jaux["center"][1:]):
+        assert got.device.type == "cpu" and tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+    assert len(wf.monitor.fitness_history) == len(jwf.monitor.fitness_history) == 5
+
+
+def test_auxiliary_history_is_off_by_default_and_record_history_appends():
+    jwf, wf, _ = _es_pair(full_pop_history=False, full_sol_history=True)
+    ts = wf.step(wf.init_step(wf.init(0)))
+    js = jwf.step(jwf.init_step(jwf.init(jax.random.key(0))))
+    assert wf.monitor.aux_history == {} == jwf.monitor.auxiliary_history
+    assert wf.monitor.aux_keys == [] == jwf.monitor.aux_keys
+    ts = ts.replace(monitor=wf.monitor.record_history(ts.monitor))
+    jwf.monitor.record_history(js.monitor)
+    for mon in (wf.monitor, jwf.monitor):
+        assert len(mon.fitness_history) == len(mon.solution_history) == 3
+    torch.testing.assert_close(wf.monitor.fitness_history[-1], wf.monitor.fitness_history[-2], rtol=0, atol=0)
+    torch.testing.assert_close(wf.monitor.solution_history[-1], ts.monitor.latest_solution, rtol=0, atol=0)
+
+
+def test_auxiliary_history_through_a_fused_segment():
+    """``run_segment`` and ``run`` hand the auxiliary records to the
+    workflow (``_sink(..., slot=)``), and the boundary flush appends them
+    key by key, generation by generation, as stepping records them; the
+    fitness history keeps its own order beside them."""
+    _, wf, _ = _es_pair()
+    mon = wf.monitor
+    s0 = wf.step(wf.init_step(wf.init(4)))
+    n0 = len(mon.aux_history["center"])
+    s = s0
+    for _ in range(7):
+        s = wf.step(s)
+    seg, tel = wf.run_segment(s0, 7)
+    assert StdWorkflow.sink_meta_pairs(tel) == [(0, 0), (2, 0)]
+    wf.flush_telemetry(tel)
+    wf.run(s0, 7, init=False)
+    aux, fit = mon.aux_history["center"], mon.fitness_history
+    assert len(aux) == n0 + 21 and len(fit) == n0 + 21
+    for block in (1, 2):
+        for g in range(7):
+            for hist in (aux, fit):
+                torch.testing.assert_close(hist[n0 + 7 * block + g], hist[n0 + g], rtol=0, atol=0)
+    torch.testing.assert_close(aux[-1], s.algorithm.center, rtol=0, atol=0)
