@@ -22,8 +22,14 @@ same width, eager and fused; then CMA-ES at pop=64 and OpenES at
 pop=8192 on CEC2022 f1, dim=20, the covariance's decomposition on the card
 against float64 on the CPU, the other ten ES algorithms, OpenES's
 auxiliary history through a segment, and CMA-ES at dim=1000 with its
-decomposition cadence), checks that each path went through its
-kernels, and times them.  It prints one JSON line per
+decomposition cadence; then CSO, CLPSO, SL-PSO (GS, US), FS-PSO and
+DMS-PSO-EL at the PSO headline's width, eager and fused; then 8 vmapped
+instances of PSO at pop=1024, dim=100 on Ackley through the batched PSO
+move and Philox launches, eager and as a replayed CUDA graph, each instance
+against its solo run, with an unordered EvalMonitor; then 4 vmapped
+instances each of NSGA-II, CMA-ES and DE through the sequential and
+batched rules of the other kernels), checks that each path went through
+its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -1342,9 +1348,12 @@ def segment_history_check(path, device) -> dict:
             flushed = v[h0[t] + block * SEGMENT_GENS: h0[t] + (block + 1) * SEGMENT_GENS]
             if len(flushed) != len(stepped):
                 raise AssertionError(f"{path}: {k} history has {len(flushed)} entries, stepping {len(stepped)}")
-            for a, b in zip(flushed, stepped):
+            for (ga, ia, sa, a), (gb, ib, sb, b) in zip(flushed, stepped):
                 if a.device != b.device:
                     raise AssertionError(f"{path}: {k} history on {a.device}, stepping on {b.device}")
+                if (int(ga), int(ia), sa) != (int(gb), int(ib), sb):
+                    raise AssertionError(f"{path}: {k} history tags {(int(ga), int(ia), sa)}, "
+                                         f"stepping {(int(gb), int(ib), sb)}")
                 exact(a, b, f"{path}: {k} history entry")
                 entries += 1
     return {"leaves": leaves, "history_entries_checked": entries}
@@ -2535,6 +2544,600 @@ def phase_cmaes_cadence(device) -> dict:
 
 # The slice-2 kernels in the kernels line: wrapper, source, the TPU
 # kernel (or XLA route) it replaces, and its timing_mo entry.
+# ---------------------------------------------------------------------------
+# Slice 9: the other PSO variants at the PSO headline's width; vmapped
+# workflow instances (bench.py's vmapped_instances) and the other batching
+# rules.
+# ---------------------------------------------------------------------------
+
+VARIANTS = ["CSO", "CLPSO", "SLPSOGS", "SLPSOUS", "FSPSO", "DMSPSOEL"]
+# DMS-PSO-EL at the headline's 100,000 particles: 9000 dynamic swarms of 10
+# and a following swarm of 10,000.  Regrouping every 5 iterations and a
+# max_iteration of 20 put the regroups (iterations 5, 10, 15) and the
+# switch to strategy 2 (int(0.9 * 20) = 18) inside the 20 timed
+# generations, which start at iteration 2.
+DMS_SHAPE = dict(dynamic_sub_swarm_size=10, dynamic_sub_swarms_num=9000, following_sub_swarm_size=10_000)
+DMS_REGROUP, DMS_MAX_ITERATION = 5, 20
+# Philox launches: two at setup (positions, velocities), two a generation
+# (CSO: the pairing and the three uniforms; CLPSO: the coefficients and the
+# tournament; SL-PSO: the demonstrator draw and three uniforms; FS-PSO: four
+# uniforms and the tournament; DMS-PSO-EL: the regroup's permutation and
+# two uniforms, every generation, whichever branch it keeps).
+VARIANT_SETUP_PHILOX, VARIANT_PHILOX = 2, 2
+# The (N, D) float32 arrays a generation must read and write at least once:
+# the positions and velocities, and the personal/local bests where the
+# variant keeps them (CLPSO, FS-PSO, DMS-PSO-EL).
+VARIANT_ARRAYS = {"CSO": 4, "CLPSO": 6, "SLPSOGS": 4, "SLPSOUS": 4, "FSPSO": 6, "DMSPSOEL": 6}
+# FS-PSO mutates each gene of a refilled particle with this probability:
+# one gene a particle at D = 1000.  Its default, 0.01, mutates ten, and the
+# best fitness the swarm has seen then never falls (on the card, 22
+# generations: 29437.6 throughout while the population's best rose to
+# 32705.8; on the CPU at pop 10000 the same from generation 5 to 60).
+FSPSO_MUTATE_RATE = 1 / HEADLINE[1]
+VMAP_INSTANCES = 8
+VMAP_PSO = (1024, 100)  # bench.py's vmapped_instances: 8 x PSO(1024, ±32 in dim 100) on Ackley
+VMAP_MONITOR_GENS = 10
+FAMILY_INSTANCES = 4
+FAMILY_CHECK_GENS = 3
+FAMILY_NSGA2_POP, FAMILY_DE_POP = 1000, 1000
+# Each vmapped CMA-ES step against the solo steps from the same states,
+# relative to each leaf's largest magnitude: the batched covariance
+# products (bmm against gemm) round in another order, and cuSOLVER's Jacobi
+# sweeps over a batch of 4 stop at other points than over one matrix.  The
+# eigen factor A is compared as A A^T: inside a near-degenerate eigenspace
+# (cmaes_cec's C starts at the identity) the eigenvectors are not
+# determined, and a solo run may pick others and then draw other samples,
+# so runs of several generations are not compared.  The limit lies between
+# what sound batching gives over FAMILY_CMAES_SEEDS and what a planted
+# fault gives (``rolled_eigh``: each instance handed its neighbour's
+# decomposition); both are in the phase's row.
+FAMILY_BATCHED_RTOL = 1e-4
+FAMILY_CMAES_SEEDS = (1, 2, 3, 4, 5)
+
+
+def best_seen(algo) -> float:
+    """The best fitness a PSO variant's state holds: the current fitness
+    and the personal, local and global bests it keeps (a variant whose
+    moved particles may land worse, FS-PSO's elites, keeps the best in its
+    global best)."""
+    import torch
+
+    leaves = [algo[k] for k in ("fit", "personal_best_fit", "local_best_fit", "global_best_fit") if k in algo]
+    return float(torch.cat([t.reshape(-1) for t in leaves]).min())
+
+
+def variant_workflow(name, device):
+    """``StdWorkflow(name(100000, ±10 in dim 1000), Sphere())``, float32,
+    no monitor (DMS-PSO-EL as DMS_SHAPE)."""
+    import torch
+    from evox_tpu_torch import algorithms
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    n, d = HEADLINE
+    lb, ub = torch.full((d,), -10.0), torch.full((d,), 10.0)
+    if name == "DMSPSOEL":
+        algo = algorithms.DMSPSOEL(lb, ub, **DMS_SHAPE, regrouped_iteration_num=DMS_REGROUP,
+                                   max_iteration=DMS_MAX_ITERATION, device=device)
+    else:
+        kw = {"mutate_rate": FSPSO_MUTATE_RATE} if name == "FSPSO" else {}
+        algo = getattr(algorithms, name)(n, lb, ub, device=device, **kw)
+    return StdWorkflow(algo, Sphere())
+
+
+def dms_branches(wf, state) -> dict:
+    """DMS-PSO-EL's parts at full width, each timed alone on ``state``: the
+    regroup's gather (run every generation, by the identity when it does
+    not fire), strategy 1's and strategy 2's velocities (both computed
+    every generation; one is kept)."""
+    import torch
+    from evox_tpu_torch.utils import rng
+
+    algo, st = wf.algorithm, state.algorithm
+    n, d = HEADLINE
+    (u0, u1) = (torch.rand((n, d), device=st.pop.device) for _ in range(2))
+    perm = rng.permutation(rng.child(rng.key(3, st.pop.device)), algo._dyn, st.pop.device)
+    fire = torch.ones((), dtype=torch.bool, device=st.pop.device)
+    pb, pbf = st.personal_best_location, st.personal_best_fit
+    out = {
+        "regroup_gather_ms": time_ms(lambda: algo._regroup(st, perm, fire), 5),
+        "strategy1_velocity_ms": time_ms(lambda: algo._velocity_1(st, pb, u0, u1), 5),
+        "strategy2_velocity_ms": time_ms(lambda: algo._velocity_2(st, pb, pbf, u0, u1), 5),
+        "select_ms": time_ms(lambda: torch.where(fire, u0, u1), 5),
+    }
+    # What computing both strategies costs a generation over computing the
+    # one it keeps: the other's velocity and the select between them.
+    out["two_branch_cost_ms"] = (min(out["strategy1_velocity_ms"], out["strategy2_velocity_ms"])
+                                 + out["select_ms"])
+    return out
+
+
+def variant_path(name, device) -> dict:
+    """One PSO variant at the headline's width: setup and init_step (two
+    Philox launches), one warm-up generation, the device operations and
+    host syncs of an eager generation, then 20 eager steps against run(20)
+    and run_segment(20) bit for bit (``fused_vs_eager``: no host sync in a
+    segment), two Philox launches a generation, the best fitness falling;
+    ms/gen beside the bytes bound of VARIANT_ARRAYS."""
+    import torch
+    from evox_tpu_torch.ops.philox import philox_draws
+
+    counters = {"philox_draws": philox_draws}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    philox_draws.launches = 0
+    wf = variant_workflow(name, device)
+    t0 = time.perf_counter()
+    state = wf.init_step(wf.init(0))
+    best0 = best_seen(state.algorithm)
+    setup_s = time.perf_counter() - t0
+    setup_launches = philox_draws.launches
+    if setup_launches != VARIANT_SETUP_PHILOX:
+        raise AssertionError(f"{name}: {setup_launches} Philox launches at setup")
+    s0 = wf.step(state)
+    del state
+    per_gen = launches_per_call(lambda: wf.step(s0), calls=2)
+    fused, ref = fused_vs_eager(wf, s0, SEGMENT_GENS, counters, name)
+    eager_launches = fused.pop("launches_in_eager_steps")["philox_draws"]
+    if eager_launches != VARIANT_PHILOX * SEGMENT_GENS:
+        raise AssertionError(f"{name}: {eager_launches} Philox launches in {SEGMENT_GENS} eager steps")
+    algo = ref.algorithm
+    best1 = best_seen(algo)
+    if not best1 < best0:
+        raise AssertionError(f"{name}: the best fitness did not fall: {best0} -> {best1}")
+    if not bool(torch.isfinite(algo.pop).all()) or float(algo.pop.abs().max()) > 10.0:
+        raise AssertionError(f"{name}: the population left the box or is not finite")
+    n, d = HEADLINE
+    b = bound(VARIANT_ARRAYS[name] * n * d * 4, 0.0)
+    row = {
+        "config": f"{name} pop={wf.algorithm.pop_size} dim={d} Sphere f32, StdWorkflow, no monitor",
+        "setup_s": setup_s, "philox_per_gen": VARIANT_PHILOX,
+        "launches": {"philox_draws": setup_launches + eager_launches},
+        "eager_device_ops_per_gen": per_gen["launches"], "eager_host_syncs_per_gen": per_gen["host_syncs"],
+        "eager_device_ms_per_gen": per_gen["device_ms"],
+        "eager_idle_share": 1 - per_gen["device_ms"] / fused["eager_ms_per_gen"],
+        "fused": fused, "best_after_init": best0, "best_final": best1,
+        "min_fit_final": float(algo.fit.min()),
+        "state_arrays_bound_ms": b["bound_ms"], "bound_share_of_run": b["bound_ms"] / fused["run_ms_per_gen"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if name == "DMSPSOEL":
+        # Iterations 2 .. 21 ran: regroups at 5, 10, 15, strategy 2 from 18.
+        if int(s0.algorithm.iteration) != 2 or int(algo.iteration) != 2 + SEGMENT_GENS:
+            raise AssertionError(f"DMSPSOEL: iterations {int(s0.algorithm.iteration)} .. {int(algo.iteration)}")
+        row["iterations"] = [2, 1 + SEGMENT_GENS]
+        row["branches"] = dms_branches(wf, ref)
+    del wf, s0, ref, algo
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_pso_variants(device) -> dict:
+    """CSO, CLPSO, SLPSOGS, SLPSOUS, FSPSO and DMSPSOEL at the PSO
+    headline's width (``variant_path``), each freed before the next."""
+    out = {name: variant_path(name, device) for name in VARIANTS}
+    out["launches"] = {"philox_draws": sum(out[n]["launches"]["philox_draws"] for n in VARIANTS)}
+    return out
+
+
+def vmapped_pso_workflow(device, monitor=None):
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    n, d = VMAP_PSO
+    return StdWorkflow(PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device), Ackley(),
+                       monitor=monitor)
+
+
+def instance(state, b):
+    """Instance ``b`` of a vmapped state."""
+    from evox_tpu_torch.workflows import _graph
+
+    leaves, spec = _graph.flatten(state)
+    return _graph.unflatten(spec, [x[b] for x in leaves])
+
+
+def vmapped_graph(step, states, gens):
+    """``gens`` vmapped generations as one replay of a captured CUDA graph
+    (the port's capture machinery, ``workflows/_graph.py``), the
+    counterpart of ``jax.jit(jax.vmap(wf.step))`` in a loop; returns the
+    runner (each call a replay, after the first call's capture)."""
+    from evox_tpu_torch.workflows import _graph
+
+    cache = _graph.Cache()
+
+    def program(carry, n):
+        s = carry[0]
+        for _ in range(n):
+            s = step(s)
+        return (s,), {}, None
+
+    return lambda: _graph.run(cache, "vmapped_step", program, (states,), gens)[0][0]
+
+
+def batched_kernels_vs_plain(states, device) -> dict:
+    """The batched PSO move and Philox draw on the card against their plain
+    versions at the path's shape (8 x (1024, 100) and 8 streams of the
+    setup's 102,400 draws), exact, and timed with their bounds.  Launches
+    made here are not the path's."""
+    import torch
+    from evox_tpu_torch.ops import philox, pso_step
+    from evox_tpu_torch.utils import rng
+
+    a = states.algorithm
+    b, (n, d) = VMAP_INSTANCES, VMAP_PSO
+    scal = torch.stack([a.w, a.phi_p, a.phi_g], 1).float()
+    lb, ub = torch.full((d,), -32.0, device=device), torch.full((d,), 32.0, device=device)
+    args = (a.pop, a.velocity, a.local_best_location, a.fit, a.local_best_fit, a.global_best_location,
+            lb, ub, scal, a.key)
+    got = pso_step.fused_pso_move_batched(*args, index=0)
+    want = pso_step.fused_pso_move_batched_plain(*args, 0)
+    move_err = max(exact(g, w, "fused_pso_move_batched vs plain") for g, w in zip(got, want))
+    move_bound = bound(4 * (6 * b * n * d + 3 * b * n + 4 * b * d + 3 * b) + 16 * b, 0.0)
+    keys = a.key
+    kinds = [torch.float32]
+    got = philox.philox_draws_batched(keys, 0, n * d, kinds)
+    want = philox.philox_draws_batched_plain(keys, 0, n * d, kinds)
+    draw_err = max(exact(g, w, "philox_draws_batched vs plain") for g, w in zip(got, want))
+    del got, want
+    # Launch-bound at this size: the event time of back-to-back calls is
+    # the wrappers' host time; the profiler gives the kernel's own.
+    return {
+        "fused_pso_move_batched": {
+            "max_abs_err": move_err, "shape": [b, n, d],
+            "ms": time_ms(lambda: pso_step.fused_pso_move_batched(*args), 50),
+            "device_ms": launches_per_call(lambda: pso_step.fused_pso_move_batched(*args), calls=20)["device_ms"],
+            "plain_ms": time_ms(lambda: pso_step.fused_pso_move_batched_plain(*args), 5),
+            # Eight solo launches of the same work, the route it replaces.
+            "solo_launches_ms": time_ms(lambda: [pso_step.fused_pso_move(
+                *(x[i] for x in args[:6]), lb, ub, *scal[i], seed=rng.Seed(args[9][i], 0))
+                for i in range(b)], 20),
+            **{k: move_bound[k] for k in ("bound_ms", "bound_by")}, "library_ms": None,
+        },
+        "philox_draws_batched": {
+            "max_abs_err": draw_err, "streams": b, "numel": n * d,
+            "ms": time_ms(lambda: philox.philox_draws_batched(keys, 0, n * d, kinds), 50),
+            "device_ms": launches_per_call(lambda: philox.philox_draws_batched(keys, 0, n * d, kinds),
+                                           calls=20)["device_ms"],
+            "plain_ms": time_ms(lambda: philox.philox_draws_batched_plain(keys, 0, n * d, kinds), 5),
+            **{k: philox_bound(b * n * d, kinds)[k] for k in ("bound_ms", "bound_by")}, "library_ms": None,
+        },
+    }
+
+
+def vmap_counters():
+    from evox_tpu_torch.ops import philox, pso_step
+
+    return {"fused_pso_move": pso_step.fused_pso_move, "fused_pso_move_batched": pso_step.fused_pso_move_batched,
+            "philox_draws": philox.philox_draws, "philox_draws_batched": philox.philox_draws_batched}
+
+
+def phase_vmapped_instances(device) -> dict:
+    """bench.py's vmapped_instances at full width: 8 x PSO(1024, ±32 in dim
+    100) on Ackley, ``torch.func.vmap`` over ``init`` (with instance ids),
+    ``init_step`` and ``step``.  The batched routes: 2 Philox launches at
+    setup for all 8 instances (not 16) and 1 PSO move launch a generation
+    (not 8).  Every instance equal to its solo run from the same key, bit
+    for bit, after the eager vmapped steps; the vmapped step captured in a
+    CUDA graph (the port's ``_graph`` machinery) and replayed equal to the
+    eager vmapped steps; eager and replayed ms/gen, device operations and
+    host syncs a generation.  Then an ``EvalMonitor(ordered=False,
+    num_instances=8)`` run: its history grouped by instance and equal to
+    the solo runs'.  Last, the batched kernels against their plain
+    versions."""
+    import torch
+    from torch.func import vmap
+    from evox_tpu_torch.utils import rng
+    from evox_tpu_torch.workflows import EvalMonitor
+
+    b = VMAP_INSTANCES
+    counters = vmap_counters()
+    wf = vmapped_pso_workflow(device)
+    keys = torch.stack(rng.split_keys(rng.key(0, device), b))
+    ids = torch.arange(b, device=device)
+    for c in counters.values():
+        c.launches = 0
+    states = vmap(wf.init)(keys, ids)
+    setup = {k: c.launches for k, c in counters.items()}
+    if setup != {"fused_pso_move": 0, "fused_pso_move_batched": 0, "philox_draws": 0, "philox_draws_batched": 2}:
+        raise AssertionError(f"vmapped setup launches {setup}")
+    states = vmap(wf.init_step)(states)
+    step = vmap(wf.step)
+    for _ in range(MAIN_WARMUP):
+        states = step(states)
+    s0 = states
+    for c in counters.values():
+        c.launches = 0
+
+    def eager(s=s0):
+        for _ in range(SEGMENT_GENS):
+            s = step(s)
+        return s
+
+    eager_ms, eager_host_ms, ref = timed(eager, SEGMENT_GENS)
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {"fused_pso_move": 0, "fused_pso_move_batched": SEGMENT_GENS, "philox_draws": 0,
+            "philox_draws_batched": 0}
+    if launches != want:
+        raise AssertionError(f"vmapped steps launched {launches}, expected {want}")
+    per_gen = launches_per_call(lambda: step(s0), calls=3)
+    # Each instance against its solo run (the same key and id, the same
+    # generations), every leaf bit for bit.
+    leaves = 0
+    for i in range(b):
+        solo = wf.init_step(wf.init(keys[i], i))
+        for _ in range(MAIN_WARMUP + SEGMENT_GENS):
+            solo = wf.step(solo)
+        leaves += same_state(instance(ref, i), solo, f"vmapped_instances: instance {i} vs its solo run")
+    del solo
+    # The vmapped step in a CUDA graph: the capture (one warm-up generation
+    # on a clone, then 20), then replays.
+    for c in counters.values():
+        c.launches = 0
+    replay = vmapped_graph(step, s0, SEGMENT_GENS)
+    t0 = time.perf_counter()
+    got = replay()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_launches = {k: c.launches for k, c in counters.items()}
+    same_state(got, ref, "vmapped_instances: graph capture vs eager vmapped steps")
+    graph_ms, graph_host_ms, got = timed(replay, SEGMENT_GENS)
+    same_state(got, ref, "vmapped_instances: graph replay vs eager vmapped steps")
+    per_replay = launches_per_call(replay, calls=1)
+    if per_replay["host_syncs"] != 0:
+        raise AssertionError(f"vmapped_instances: a replay made host syncs: {per_replay}")
+    del got
+
+    # The unordered monitor under vmap.
+    mon = EvalMonitor(ordered=False, num_instances=b, full_fit_history=True)
+    wfm = vmapped_pso_workflow(device, mon)
+    sm = vmap(wfm.init_step)(vmap(wfm.init)(keys, ids))
+    stepm = vmap(wfm.step)
+    for _ in range(VMAP_MONITOR_GENS):
+        sm = stepm(sm)
+    hist = mon.fitness_history
+    if len(hist) != VMAP_MONITOR_GENS + 1 or tuple(hist[0].shape) != (b, VMAP_PSO[0]):
+        raise AssertionError(f"vmapped monitor history: {len(hist)} entries of {tuple(hist[0].shape)}")
+    entries = 0
+    for i in range(b):
+        smon = EvalMonitor(full_fit_history=True)
+        swf = vmapped_pso_workflow(device, smon)
+        s = swf.init_step(swf.init(keys[i], i))
+        for _ in range(VMAP_MONITOR_GENS):
+            s = swf.step(s)
+        for g, h in enumerate(smon.fitness_history):
+            exact(hist[g][i], h, f"vmapped monitor history: instance {i} generation {g}")
+            entries += 1
+        exact(sm.monitor.topk_fitness[i].cpu(), s.monitor.topk_fitness.cpu(), f"vmapped top-k, instance {i}")
+    del sm, s, wfm, swf
+    kernels = batched_kernels_vs_plain(s0, device)
+    n, d = VMAP_PSO
+    row = {
+        "config": f"{b} x PSO pop={n} dim={d} Ackley f32, torch.func.vmap over StdWorkflow init/init_step/step",
+        "setup_launches": setup, "launches": {k: setup[k] + launches[k] for k in counters},
+        "eager_ms_per_gen": eager_ms, "eager_host_ms_per_gen": eager_host_ms,
+        "eager_device_ops_per_gen": per_gen["launches"], "eager_host_syncs_per_gen": per_gen["host_syncs"],
+        "eager_device_ms_per_gen": per_gen["device_ms"], "eager_idle_share": 1 - per_gen["device_ms"] / eager_ms,
+        "graph_ms_per_gen": graph_ms, "graph_host_ms_per_gen": graph_host_ms, "capture_s": capture_s,
+        "capture_launches": capture_launches,
+        "graph_device_ops_per_gen": per_replay["launches"] / SEGMENT_GENS,
+        "graph_host_syncs_per_gen": per_replay["host_syncs"] / SEGMENT_GENS,
+        "graph_device_ms_per_gen": per_replay["device_ms"] / SEGMENT_GENS,
+        "graph_idle_share": 1 - per_replay["device_ms"] / SEGMENT_GENS / graph_ms,
+        "instances_equal_solo": b, "leaves_checked": leaves, "monitor_entries_checked": entries,
+        "kernels": kernels,
+        "max_abs_err": {k: v["max_abs_err"] for k, v in kernels.items()},
+    }
+    del wf, states, s0, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def leaf_errors(what, got, want, rtol, gram=()) -> dict:
+    """One instance's state ``got`` against ``want`` (``what`` names it): bit for bit when
+    ``rtol`` is 0 (raises at the first difference), else each floating
+    leaf's largest difference over ``want``'s largest finite magnitude (at
+    least 1; inf where NaN places differ, and integer leaves exact).  A
+    leaf named in ``gram`` is compared as ``X X^T``, which does not depend
+    on the basis an eigensolver picks inside a (near-)degenerate
+    eigenspace.  Returns the errors by leaf."""
+    import torch
+    from evox_tpu_torch.workflows import _graph
+
+    if rtol == 0:
+        same_state(got, want, f"{what} vs its solo run")
+        return {}
+    if _graph.structure(got) != _graph.structure(want):
+        raise AssertionError(f"{what}: structure")
+    errs = {}
+    for k in want.algorithm:
+        x, y = got.algorithm[k], want.algorithm[k]
+        if not x.is_floating_point():
+            errs[k] = 0.0 if torch.equal(x, y) else float("inf")
+            continue
+        x64, y64 = x.double(), y.double()
+        if k in gram:
+            x64, y64 = x64 @ x64.mT, y64 @ y64.mT
+        if not torch.equal(torch.isnan(x64), torch.isnan(y64)):
+            errs[k] = float("inf")
+            continue
+        finite = y64[torch.isfinite(y64)]
+        scale = max(1.0, float(finite.abs().max())) if finite.numel() else 1.0
+        errs[k] = float(((x64 - y64).abs().nan_to_num(0.0)).max()) / scale if x.numel() else 0.0
+    return errs
+
+
+def family_case(name, make, counters, per_gen, rtol, device, seeds=(1,), control=None, gram=()) -> dict:
+    """FAMILY_INSTANCES instances of one workflow under ``torch.func.vmap``,
+    for each of ``seeds``, FAMILY_CHECK_GENS vmapped generations after
+    ``init_step``.  With ``rtol`` 0 each instance equals its solo run from
+    its key bit for bit.  Otherwise every vmapped ``init_step`` and step is
+    held against each instance's solo step from the same input state,
+    within ``rtol`` of each leaf's scale (``leaf_errors``; ``gram`` leaves
+    as ``X X^T``): a solo run of many generations may part from the
+    vmapped one by a legitimate choice of eigenvectors.  With ``control``
+    (a context manager that plants a batching fault) the first seed's
+    vmapped generations run again under it, and the same comparison must
+    find them beyond ``rtol``.  Then 20 eager vmapped steps of the first
+    seed (timed; each kernel's launches a generation as ``per_gen``)
+    against their CUDA-graph capture and replay, bit for bit."""
+    import torch
+    from torch.func import vmap
+    from evox_tpu_torch.utils import rng
+
+    b = FAMILY_INSTANCES
+    wf = make()
+    step = vmap(wf.step)
+
+    def worse(worst, errs):
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+
+    def vmapped_run(keys, stepwise):
+        """The vmapped state after the check generations, and the worst
+        error by leaf of its steps against solo steps (``stepwise``)."""
+        worst: dict = {}
+        s = vmap(wf.init)(keys)
+        for gen in range(FAMILY_CHECK_GENS + 1):
+            nxt = vmap(wf.init_step)(s) if gen == 0 else step(s)
+            if stepwise:
+                for i in range(b):
+                    one = instance(s, i)
+                    want = wf.init_step(one) if gen == 0 else wf.step(one)
+                    what = f"vmapped_family {name}: instance {i}, generation {gen}"
+                    worse(worst, leaf_errors(what, instance(nxt, i), want, rtol, gram))
+            s = nxt
+        return s, worst
+
+    by_seed, s = {}, None
+    for seed in seeds:
+        keys = torch.stack(rng.split_keys(rng.key(seed, device), b))
+        got, by_seed[seed] = vmapped_run(keys, stepwise=rtol > 0)
+        if rtol == 0:
+            for i in range(b):
+                solo = wf.init_step(wf.init(keys[i]))
+                for _ in range(FAMILY_CHECK_GENS):
+                    solo = wf.step(solo)
+                leaf_errors(f"vmapped_family {name}: instance {i}", instance(got, i), solo, 0)
+        if s is None:
+            s, first_keys = got, keys
+        del got
+    worst: dict = {}
+    for errs in by_seed.values():
+        worse(worst, errs)
+    if any(v > rtol for v in worst.values()):
+        raise AssertionError(f"vmapped_family {name}: instances off their solo steps by {by_seed}")
+    planted = None
+    if control is not None:
+        with control():
+            _, planted = vmapped_run(first_keys, stepwise=True)
+        if max(planted.values()) <= rtol:
+            raise AssertionError(f"vmapped_family {name}: the planted fault stays within {rtol}: {planted}")
+    s0 = s
+    for c in counters.values():
+        c.launches = 0
+
+    def eager(s=s0):
+        for _ in range(SEGMENT_GENS):
+            s = step(s)
+        return s
+
+    eager_ms, eager_host_ms, ref = timed(eager, SEGMENT_GENS)
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: v * SEGMENT_GENS for k, v in per_gen.items()}
+    if launches != want:
+        raise AssertionError(f"vmapped_family {name}: launches {launches}, expected {want}")
+    ops = launches_per_call(lambda: step(s0), calls=2)
+    replay = vmapped_graph(step, s0, SEGMENT_GENS)
+    same_state(replay(), ref, f"vmapped_family {name}: graph capture vs eager vmapped steps")
+    graph_ms, graph_host_ms, got = timed(replay, SEGMENT_GENS)
+    same_state(got, ref, f"vmapped_family {name}: graph replay vs eager vmapped steps")
+    per_replay = launches_per_call(replay, calls=1)
+    if per_replay["host_syncs"] != 0:
+        raise AssertionError(f"vmapped_family {name}: a replay made host syncs: {per_replay}")
+    row = {
+        "instances": b, "solo_check_gens": FAMILY_CHECK_GENS, "seeds": list(seeds),
+        "instances_vs_solo": "runs bit for bit" if rtol == 0 else f"steps within {rtol} of each leaf's scale",
+        "rel_err_vs_solo_by_leaf": worst, "launches": launches,
+        "eager_ms_per_gen": eager_ms, "eager_host_ms_per_gen": eager_host_ms,
+        "eager_device_ops_per_gen": ops["launches"], "eager_host_syncs_per_gen": ops["host_syncs"],
+        "graph_ms_per_gen": graph_ms, "graph_device_ops_per_gen": per_replay["launches"] / SEGMENT_GENS,
+        "graph_device_ms_per_gen": per_replay["device_ms"] / SEGMENT_GENS,
+        "graph_idle_share": 1 - per_replay["device_ms"] / SEGMENT_GENS / graph_ms,
+    }
+    if rtol:
+        row["rel_err_vs_solo_by_seed"] = by_seed
+    if planted is not None:
+        row["planted_fault_rel_err_by_leaf"] = planted
+    del wf, s, s0, ref, got
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def rolled_eigh():
+    """A planted batching fault for ``family_case``'s control: the batched
+    eigh hands instance b the eigenvalues and eigenvectors of instance
+    b - 1 (mod B), as a rule that mixed up the instances would.  A solo
+    call (a batch of one) is unchanged."""
+    from evox_tpu_torch.ops import linalg
+
+    real = linalg._op
+
+    def rolled(C, solo):
+        w, V = real(C, solo)
+        return (w, V) if solo else (w.roll(1, 0), V.roll(1, 0))
+
+    linalg._op = rolled
+    try:
+        yield
+    finally:
+        linalg._op = real
+
+
+def phase_vmapped_family(device) -> dict:
+    """The other batching rules on the card: 4 x NSGA-II at pop 1000 on
+    DTLZ2 (the sequential rule of the dominance, peel, rank and crowding
+    kernels: one launch an instance), 4 x cmaes_cec (the batched eigh: one
+    cuSOLVER call for the 4 covariances) and 4 x DE at pop 1000, dim 20 on
+    CEC2022 f5 (the batched Philox draws), each eager and captured
+    (``family_case``)."""
+    from evox_tpu_torch.ops import crowding, dominance, linalg, philox, topk
+
+    b = FAMILY_INSTANCES
+    seq = {"dominance_packed": dominance.dominance_packed, "peel_fronts": dominance.peel_fronts,
+           "lex_rank": topk.lex_rank, "crowding_neighbors": crowding.crowding_neighbors}
+    draws = {"philox_draws": philox.philox_draws, "philox_draws_batched": philox.philox_draws_batched}
+    out = {
+        "NSGA2": family_case(
+            "NSGA2", lambda: mo_workflow("NSGA2", FAMILY_NSGA2_POP, device)[0], {**seq, **draws},
+            {**{k: b for k in seq}, "philox_draws": 0, "philox_draws_batched": 3}, 0, device),
+        "CMAES": family_case(
+            "CMAES", lambda: es_workflow("CMAES", device),
+            {"eigh": linalg.eigh, "eigh_batched": linalg.eigh_batched, **draws},
+            {"eigh": 0, "eigh_batched": 1, "philox_draws": 0, "philox_draws_batched": 1},
+            FAMILY_BATCHED_RTOL, device, seeds=FAMILY_CMAES_SEEDS, control=rolled_eigh, gram=("A",)),
+        "DE": family_case("DE", lambda: family_de_workflow(device), draws,
+                          {"philox_draws": 0, "philox_draws_batched": 2}, 0, device),
+    }
+    out["launches"] = {k: sum(out[n]["launches"].get(k, 0) for n in ("NSGA2", "CMAES", "DE"))
+                       for k in ("dominance_packed", "peel_fronts", "lex_rank", "crowding_neighbors",
+                                 "philox_draws_batched", "eigh_batched")}
+    return out
+
+
+def family_de_workflow(device):
+    import torch
+    from evox_tpu_torch.algorithms import DE
+    from evox_tpu_torch.problems.numerical import CEC2022
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    lb, ub = torch.full((DE_DIM,), -100.0), torch.full((DE_DIM,), 100.0)
+    return StdWorkflow(DE(FAMILY_DE_POP, lb, ub, device=device), CEC2022(DE_FN, DE_DIM, device=device))
+
+
 MO_KERNELS = [
     ("dominance_packed", "evox_tpu_torch/csrc/dominance.cu", "evox_tpu/ops/dominance.py:37",
      "dominance_packed_20k"),
@@ -2555,7 +3158,8 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
         # The probe is no kernel of a main path: 0 launches there.  The
         # ranking kernels also run on NSGA-III, RVEAa and HypE.
         "launches": results["nsga2_main_path"]["launches"].get(name, 0)
-        + results["mo_family"]["launches"].get(name, 0),
+        + results["mo_family"]["launches"].get(name, 0)
+        + results["vmapped_family"]["launches"].get(name, 0),
         # compare_mo's sizes, the timing rows held on the path's inputs and
         # the ranking on NSGA-III's, RVEAa's and HypE's paths.
         "max_abs_err": max([results["compare_mo"]["max_abs_err"][name],
@@ -2587,11 +3191,34 @@ def philox_row(results) -> dict:
         + results["de_family"]["launches"]["philox_draws"]
         + results["cmaes_main_path"]["launches"]["philox_draws"]
         + results["openes_main_path"]["launches"]["philox_draws"]
-        + results["es_family"]["launches"]["philox_draws"],
+        + results["es_family"]["launches"]["philox_draws"]
+        + results["pso_variants"]["launches"]["philox_draws"],
         "max_abs_err": results["philox"]["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }
+
+
+def batched_rows(results) -> list[dict]:
+    """The batched routes of the PSO move and the Philox draws (one launch
+    over a vmapped batch of instances), timed in ``vmapped_instances``."""
+    t = results["vmapped_instances"]["kernels"]
+    launches = results["vmapped_instances"]["launches"]
+    return [
+        {"name": "fused_pso_move_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/pso_move.cu",
+         # The TPU kernel under jax.vmap (the batch folded into its grid).
+         "replaces": "evox_tpu/ops/pso_step.py:77",
+         "launches": launches["fused_pso_move_batched"],
+         **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS}},
+        {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
+         "replaces": "none (the port's own kernel, batched over vmapped instances)",
+         "launches": launches["philox_draws_batched"]
+         + results["vmapped_family"]["launches"]["philox_draws_batched"],
+         **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS}},
+    ]
+
+
+KERNEL_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def main() -> int:
@@ -2641,6 +3268,9 @@ def main() -> int:
         ("openes_main_path", phase_openes_main_path),
         ("es_family", phase_es_family),
         ("cmaes_cadence", phase_cmaes_cadence),
+        ("pso_variants", phase_pso_variants),
+        ("vmapped_instances", phase_vmapped_instances),
+        ("vmapped_family", phase_vmapped_family),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -2666,7 +3296,7 @@ def main() -> int:
     ] + [
         kernel_row(name, source, replaces, results, timing_key)
         for name, source, replaces, timing_key in MO_KERNELS
-    ] + [philox_row(results)])
+    ] + [philox_row(results)] + batched_rows(results))
     print(f"total seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""Algorithm library (counterpart of ``evox_tpu/algorithms``; PSO, the DE
-family, the ES family and the multi-objective family so far)."""
+"""Algorithm library (counterpart of ``evox_tpu/algorithms``; the PSO, DE
+and ES families and the multi-objective family)."""
 
 __all__ = [
-    "PSO", "PallasPSO", "DE", "ODE", "JaDE", "SaDE", "SHADE", "CoDE",
+    "PSO", "PallasPSO", "CLPSO", "CSO", "DMSPSOEL", "FSPSO", "SLPSOGS", "SLPSOUS",
+    "DE", "ODE", "JaDE", "SaDE", "SHADE", "CoDE",
     "CMAES", "OpenES", "XNES", "SeparableNES", "SNES", "DES", "ARS", "ASEBO",
     "GuidedES", "PersistentES", "NoiseReuseES", "ESMC",
     "NSGA2", "NSGA3", "RVEA", "RVEAa", "MOEAD", "HypE",
@@ -10,6 +11,12 @@ __all__ = [
 
 from .mo import MOEAD, NSGA2, NSGA3, RVEA, RVEAa, HypE
 from .so import (
+    CLPSO,
+    CSO,
+    DMSPSOEL,
+    FSPSO,
+    SLPSOGS,
+    SLPSOUS,
     ARS,
     ASEBO,
     CMAES,

@@ -1,8 +1,8 @@
-"""Single-objective algorithms (PSO, the DE family and the ES family so
-far)."""
+"""Single-objective algorithms (the PSO, DE and ES families)."""
 
 __all__ = [
-    "PSO", "PallasPSO", "DE", "ODE", "JaDE", "SaDE", "SHADE", "CoDE",
+    "PSO", "PallasPSO", "CLPSO", "CSO", "DMSPSOEL", "FSPSO", "SLPSOGS", "SLPSOUS",
+    "DE", "ODE", "JaDE", "SaDE", "SHADE", "CoDE",
     "CMAES", "OpenES", "XNES", "SeparableNES", "SNES", "DES", "ARS", "ASEBO",
     "GuidedES", "PersistentES", "NoiseReuseES", "ESMC",
 ]
@@ -22,4 +22,4 @@ from .es_variants import (
     PersistentES,
     SeparableNES,
 )
-from .pso_variants import PSO, PallasPSO
+from .pso_variants import CLPSO, CSO, DMSPSOEL, FSPSO, PSO, SLPSOGS, SLPSOUS, PallasPSO

@@ -17,7 +17,7 @@ from .... import resolve_device
 from ....core import Algorithm, EvalFn, Parameter, State
 from ....operators.crossover import DE_binary_crossover
 from ....utils import rng
-from ...validation import validate_bounds
+from ...validation import bounds
 
 __all__ = ["DE", "init_population"]
 
@@ -31,13 +31,6 @@ def init_population(seed, pop_size, lb, ub, mean=None, stdev=None) -> torch.Tens
         pop = mean + stdev * rng.normal(seed, shape, lb.dtype, lb.device)
         return torch.clamp(pop, lb, ub)
     return rng.uniform(seed, shape, lb.dtype, lb.device) * (ub - lb) + lb
-
-
-def bounds(lb, ub, dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
-    lb = torch.as_tensor(lb, dtype=dtype, device=device)
-    ub = torch.as_tensor(ub, dtype=dtype, device=device)
-    validate_bounds(lb, ub)
-    return lb, ub
 
 
 def improve(state: State, new_pop, new_fit, strict: bool = True, **extra) -> State:

@@ -16,8 +16,8 @@ from .... import resolve_device
 from ....core import Algorithm, EvalFn, Parameter, State
 from ....ops.pso_step import fused_pso_move
 from ....utils import rng
-from ...validation import validate_bounds
-from .utils import min_by
+from ...validation import bounds
+from .utils import init_swarm, min_by
 
 __all__ = ["PSO", "PallasPSO"]
 
@@ -59,13 +59,9 @@ class PSO(Algorithm):
             CPU.
         """
         self.device = resolve_device(device)
-        lb = torch.as_tensor(lb, dtype=dtype, device=self.device)
-        ub = torch.as_tensor(ub, dtype=dtype, device=self.device)
-        validate_bounds(lb, ub)
+        self.lb, self.ub = bounds(lb, ub, dtype, self.device)
         self.pop_size = pop_size
-        self.dim = lb.shape[0]
-        self.lb = lb
-        self.ub = ub
+        self.dim = self.lb.shape[0]
         self.w = w
         self.phi_p = phi_p
         self.phi_g = phi_g
@@ -73,13 +69,7 @@ class PSO(Algorithm):
 
     def setup(self, key: torch.Tensor) -> State:
         # The key lives on the device of the state (no host reads it).
-        key, (pop_seed, v_seed) = rng.split(key.to(self.device), 2)
-        shape = (self.pop_size, self.dim)
-        length = self.ub - self.lb
-        pop = rng.uniform(pop_seed, shape, self.dtype, self.device) * length + self.lb
-        velocity = (
-            rng.uniform(v_seed, shape, self.dtype, self.device) * 2.0 - 1.0
-        ) * length
+        key, pop, velocity = init_swarm(key, self.pop_size, self.lb, self.ub)
 
         def inf():
             return torch.full(

@@ -1,5 +1,6 @@
 """Shared helpers for PSO variants (counterpart of
-``evox_tpu/algorithms/so/pso_variants/utils.py``)."""
+``evox_tpu/algorithms/so/pso_variants/utils.py``), and the swarm set-up
+they share."""
 
 from __future__ import annotations
 
@@ -7,7 +8,9 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["min_by", "max_by"]
+from ....utils import rng
+
+__all__ = ["min_by", "max_by", "random_select_from_mask", "init_swarm"]
 
 
 def _select_by(
@@ -44,3 +47,40 @@ def max_by(
     """The value/key at the overall maximum of ``keys`` (first occurrence on
     ties)."""
     return _select_by(values, keys, torch.argmax)
+
+
+def random_select_from_mask(seed, mask: torch.Tensor, gumbel: torch.Tensor | None = None) -> torch.Tensor:
+    """For each row of the boolean ``mask``, one True column chosen
+    uniformly at random (int64); a row with no True entry gives 0.  The
+    Gumbel-max over the mask, as the JAX package builds it: the first
+    index of the largest ``where(mask, g, -inf)`` for standard Gumbel
+    values ``g`` of ``mask``'s shape, made from one Philox uniform draw
+    (:func:`~evox_tpu_torch.utils.rng.gumbel_from_uniform`), or ``gumbel``
+    when given (the tests share JAX's)."""
+    if gumbel is None:
+        u = rng.uniform(seed, mask.shape, torch.float32, mask.device)
+        gumbel = rng.gumbel_from_uniform(u)
+    scores = torch.where(mask, gumbel, float("-inf"))
+    return torch.argmax(scores, dim=-1)
+
+
+def init_swarm(key, pop_size: int, lb, ub, mean=None, stdev=None, normal_velocity: bool = False):
+    """``(key, pop, velocity)`` of a new swarm in the dtype and on the
+    device of ``lb``, as the JAX variants make it from ``split(key, 3)``:
+    positions uniform in ``[lb, ub]`` (or, given ``mean`` and ``stdev``,
+    ``mean + stdev * N(0, 1)`` clipped to the box) and velocities
+    ``(2 U - 1) (ub - lb)`` (or ``stdev * N(0, 1)`` with
+    ``normal_velocity``).  One draw launch each."""
+    key, (pop_seed, v_seed) = rng.split(key.to(lb.device), 2)
+    shape = (pop_size, lb.shape[0])
+    dtype, device = lb.dtype, lb.device
+    length = ub - lb
+    if mean is not None and stdev is not None:
+        pop = torch.clamp(mean + stdev * rng.normal(pop_seed, shape, dtype, device), lb, ub)
+    else:
+        pop = rng.uniform(pop_seed, shape, dtype, device) * length + lb
+    if normal_velocity and mean is not None and stdev is not None:
+        velocity = stdev * rng.normal(v_seed, shape, dtype, device)
+    else:
+        velocity = (rng.uniform(v_seed, shape, dtype, device) * 2 - 1) * length
+    return key, pop, velocity

@@ -3,7 +3,9 @@
 
 from __future__ import annotations
 
-__all__ = ["validate_bounds"]
+import torch
+
+__all__ = ["validate_bounds", "bounds"]
 
 
 def validate_bounds(lb, ub) -> None:
@@ -15,3 +17,12 @@ def validate_bounds(lb, ub) -> None:
             f"lb and ub must be 1-D arrays of identical shape, got "
             f"lb.shape={tuple(lb.shape)}, ub.shape={tuple(ub.shape)}"
         )
+
+
+def bounds(lb, ub, dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lb`` and ``ub`` as validated 1-D tensors of ``dtype`` on
+    ``device``."""
+    lb = torch.as_tensor(lb, dtype=dtype, device=device)
+    ub = torch.as_tensor(ub, dtype=dtype, device=device)
+    validate_bounds(lb, ub)
+    return lb, ub

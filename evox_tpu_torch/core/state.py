@@ -8,6 +8,10 @@ component method is a function ``state -> state``.  Leaves are tensors.
   expose exactly the tunable subtree.
 * :class:`Mutable` labels evolving state; every non-``Parameter`` leaf is
   mutable, so the wrapper is accepted for parity and adds no behaviour.
+
+A ``State`` is a ``torch.utils._pytree`` node (its values are the children,
+its keys and hyperparameter labels the context), so ``torch.func.vmap``
+maps over stacked states as ``jax.vmap`` maps over JAX's.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator, Mapping
 
 import torch
+import torch.utils._pytree as pytree
 
 __all__ = [
     "Parameter",
@@ -128,6 +133,25 @@ class State(Mapping):
     def param_keys(self) -> frozenset[str]:
         """Names of the fields labeled as HPO-tunable ``Parameter``s."""
         return self._param_keys
+
+
+def _flatten(state: State) -> tuple[list, tuple]:
+    return list(state._data.values()), (tuple(state._data), state._param_keys)
+
+
+def _unflatten(values, context: tuple) -> State:
+    keys, params = context
+    return State(_param_keys=params, **dict(zip(keys, values)))
+
+
+pytree.register_pytree_node(
+    State,
+    _flatten,
+    _unflatten,
+    serialized_type_name="evox_tpu_torch.core.state.State",
+    flatten_with_keys_fn=lambda s: ([(pytree.MappingKey(k), v) for k, v in s._data.items()],
+                                    (tuple(s._data), s._param_keys)),
+)
 
 
 def _short(v: Any) -> str:

@@ -67,34 +67,42 @@ __device__ __forceinline__ void store(const Outputs& o, int k, long long i, uint
   }
 }
 
+// blockIdx.y is the stream: stream b reads key b and writes row b of each
+// (batch, numel) output, its Philox counter the element's index i within
+// the stream, so stream b draws what a launch of one stream keyed by key b
+// draws.
 __global__ void __launch_bounds__(kThreads)
 philox_draw_kernel(const long long* __restrict__ key, int index, int derive, long long numel,
                    Outputs out) {
-  const uint64_t seed = philox::draw_seed(key, index, derive);
+  const long long b = blockIdx.y;
+  const uint64_t seed = philox::draw_seed(key + 2 * b, index, derive);
+  const long long base = b * numel;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < numel; i += stride) {
     uint32_t words[4];
     philox::philox4x32((unsigned long long)i, seed, words);
 #pragma unroll
     for (int k = 0; k < kMaxOut; ++k)
-      if (k < out.count) store(out, k, i, words[k]);
+      if (k < out.count) store(out, k, base + i, words[k]);
   }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  `key` is a device pointer to a (2,)
-// int64 key; out0..out3 are device pointers to `numel` elements each, of
-// the types kind0..kind3 (see above; only the first `count` are read);
-// low/span give each int64 output its range.  `blocks` is the grid size
-// (the wrapper sizes it by the card's SMs).  Returns cudaGetLastError()
-// after the launch (0 on success).
-extern "C" int philox_draw(const void* key, int index, int derive, long long numel, int count,
+// Plain C entry point for ctypes.  `key` is a device pointer to `batch`
+// (2,) int64 keys, one a stream (batch 1: the draws of one key); out0..out3
+// are device pointers to batch x `numel` elements each, of the types
+// kind0..kind3 (see above; only the first `count` are read); low/span give
+// each int64 output its range.  `blocks` is the grid's size for the whole
+// batch (the wrapper sizes it by the card's SMs), shared out among the
+// streams.  Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int philox_draw(const void* key, int batch, int index, int derive, long long numel, int count,
                            int kind0, int kind1, int kind2, int kind3, long long low0,
                            long long low1, long long low2, long long low3, long long span0,
                            long long span1, long long span2, long long span3, void* out0,
                            void* out1, void* out2, void* out3, int blocks, void* stream) {
-  if (count < 1 || count > kMaxOut || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (count < 1 || count > kMaxOut || blocks < 1 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   Outputs o;
   o.count = count;
   const int kinds[kMaxOut] = {kind0, kind1, kind2, kind3};
@@ -111,8 +119,9 @@ extern "C" int philox_draw(const void* key, int index, int derive, long long num
       return (int)cudaErrorInvalidValue;
   }
   if (numel > 0) {
-    long long want = (numel + kThreads - 1) / kThreads;
-    const int grid = want < blocks ? (int)want : blocks;
+    const long long want = (numel + kThreads - 1) / kThreads;
+    const int per_stream = blocks / batch > 0 ? blocks / batch : 1;
+    const dim3 grid(want < per_stream ? (unsigned int)want : (unsigned int)per_stream, (unsigned int)batch);
     philox_draw_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const long long*)key, index, derive, numel, o);
   }

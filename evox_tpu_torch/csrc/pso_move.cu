@@ -24,7 +24,14 @@
 // index (row * D + col): word 0 gives rp, word 1 gives rg.  The Philox key
 // is read from the device: child `index` of the key tensor [seed, counter]
 // (or its seed word alone, when `derive` is 0), so a replayed CUDA graph
-// draws anew from the key the previous generation advanced.  The high 24
+// draws anew from the key the previous generation advanced.
+//
+// Instances: one launch moves a batch of B independent swarms (a vmapped
+// workflow), laid out as (B, N, D) arrays, (B, N) fitness, a (B, D) global
+// best, (B, 3) scalars, B keys, and bounds shared or (B, D).  Instance b
+// reads key b and counts its Philox counters from 0 (row * D + col within
+// the instance), so it draws, and moves, exactly what a launch of that
+// instance alone does.  One instance (B = 1) is the unbatched call.  The high 24
 // bits (float32) or 7 bits (bfloat16) times 2^-m keep the JAX kernel's bit
 // choice, so the upper bound 1 is strict.  evox_tpu_torch/utils/rng.py
 // computes the same Philox in PyTorch.
@@ -105,15 +112,21 @@ pso_move_kernel(const typename L::T* __restrict__ pop,
                 typename L::T* __restrict__ vel_out,
                 typename L::T* __restrict__ lbl_out,
                 typename L::T* __restrict__ lbf_out,
-                long long d, const long long* __restrict__ key, int index,
-                int derive, int rand_input) {
+                long long n, long long d, long long bound_stride,
+                const long long* __restrict__ key, int index, int derive, int rand_input) {
+  // One block a row of the whole batch: row `local` of instance b.
   const long long row = blockIdx.x;
-  const uint64_t seed = rand_input ? 0ull : philox::draw_seed(key, index, derive);
+  const long long b = row / n;
+  const long long local = row - b * n;
+  const uint64_t seed = rand_input ? 0ull : philox::draw_seed(key + 2 * b, index, derive);
   // The scalars arrive as float32 on the device (no host read of the
   // Parameter leaves); the JAX kernel casts them to the working dtype.
-  const float w = L::round(scal[0]);
-  const float phi_p = L::round(scal[1]);
-  const float phi_g = L::round(scal[2]);
+  const float w = L::round(scal[3 * b]);
+  const float phi_p = L::round(scal[3 * b + 1]);
+  const float phi_g = L::round(scal[3 * b + 2]);
+  gbl += b * d;
+  lb += b * bound_stride;
+  ub += b * bound_stride;
 
   const float f = L::load(fit, row);
   const float fl = L::load(lbf, row);
@@ -131,7 +144,7 @@ pso_move_kernel(const typename L::T* __restrict__ pop,
       rg = L::load(rg_in, i);
     } else {
       uint32_t words[4];
-      philox::philox4x32((unsigned long long)i, seed, words);
+      philox::philox4x32((unsigned long long)(local * d + col), seed, words);
       rp = philox::uniform_bits(words[0], L::kBits);
       rg = philox::uniform_bits(words[1], L::kBits);
     }
@@ -155,17 +168,17 @@ template <typename L>
 int launch(const void* pop, const void* vel, const void* lbl, const void* fit,
            const void* lbf, const void* gbl, const void* lb, const void* ub,
            const void* scal, const void* rp, const void* rg, void* pop_out,
-           void* vel_out, void* lbl_out, void* lbf_out, long long n,
-           long long d, const void* key, int index, int derive, int rand_input,
-           cudaStream_t stream) {
+           void* vel_out, void* lbl_out, void* lbf_out, long long batch, long long n,
+           long long d, long long bound_stride, const void* key, int index, int derive,
+           int rand_input, cudaStream_t stream) {
   using T = typename L::T;
-  if (n > 0) {
-    pso_move_kernel<L><<<(unsigned int)n, kThreads, 0, stream>>>(
+  if (batch * n > 0) {
+    pso_move_kernel<L><<<(unsigned int)(batch * n), kThreads, 0, stream>>>(
         (const T*)pop, (const T*)vel, (const T*)lbl, (const T*)fit,
         (const T*)lbf, (const T*)gbl, (const T*)lb, (const T*)ub,
         (const float*)scal, (const T*)rp, (const T*)rg, (T*)pop_out,
-        (T*)vel_out, (T*)lbl_out, (T*)lbf_out, d, (const long long*)key, index, derive,
-        rand_input);
+        (T*)vel_out, (T*)lbl_out, (T*)lbf_out, n, d, bound_stride, (const long long*)key, index,
+        derive, rand_input);
   }
   return (int)cudaGetLastError();
 }
@@ -173,24 +186,30 @@ int launch(const void* pop, const void* vel, const void* lbl, const void* fit,
 }  // namespace
 
 // Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Every pointer is a device pointer; rp/rg may be null when rand_input == 0,
-// and key (a (2,) int64 key tensor, see csrc/philox.cuh) when it is not.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Every pointer is a device pointer to `batch` instances' operands (see
+// above): pop/vel/lbl/rp/rg/outputs (batch, n, d), fit/lbf (batch, n), gbl
+// (batch, d), scal (batch, 3) float32, key (batch, 2) int64 (see
+// csrc/philox.cuh), lb/ub (batch, d) with bound_stride d or one (d,) row
+// shared with bound_stride 0.  rp/rg may be null when rand_input == 0, and
+// key when it is not.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int pso_move(int dtype, const void* pop, const void* vel,
                         const void* lbl, const void* fit, const void* lbf,
                         const void* gbl, const void* lb, const void* ub,
                         const void* scal, const void* rp, const void* rg,
                         void* pop_out, void* vel_out, void* lbl_out,
-                        void* lbf_out, long long n, long long d, const void* key,
-                        int index, int derive, int rand_input, void* stream) {
+                        void* lbf_out, long long batch, long long n, long long d,
+                        long long bound_stride, const void* key, int index, int derive,
+                        int rand_input, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (batch < 0 || n < 0 || batch * n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<F32>(pop, vel, lbl, fit, lbf, gbl, lb, ub, scal, rp, rg,
-                       pop_out, vel_out, lbl_out, lbf_out, n, d, key, index,
-                       derive, rand_input, s);
+                       pop_out, vel_out, lbl_out, lbf_out, batch, n, d, bound_stride,
+                       key, index, derive, rand_input, s);
   if (dtype == 1)
     return launch<BF16>(pop, vel, lbl, fit, lbf, gbl, lb, ub, scal, rp, rg,
-                        pop_out, vel_out, lbl_out, lbf_out, n, d, key, index,
-                        derive, rand_input, s);
+                        pop_out, vel_out, lbl_out, lbf_out, batch, n, d, bound_stride,
+                        key, index, derive, rand_input, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from ..utils import lexsort, nanmin
+from ..utils.vmap_ops import register_vmap_op
 from . import _build
 
 __all__ = [
@@ -92,20 +93,8 @@ def crowding_neighbors_plain(
     )
 
 
-def crowding_neighbors(
-    costs: torch.Tensor, mask: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-objective lexicographic neighbour values of every row among the
-    rows where ``mask`` holds: ``(below, above, has_below, has_above)``,
-    each (n, m).  A NaN neighbour gives a NaN value; a real ±inf neighbour
-    its value; a missing one -inf/+inf with its flag 0 (the flags, not the
-    values, tell a missing neighbour from a ±inf one).  Masked-out rows get
-    their neighbours among the valid rows too."""
-    if costs.ndim != 2 or mask.shape != costs.shape[:1]:
-        raise ValueError(
-            f"crowding_neighbors: costs (n, m) and mask (n,), got "
-            f"{list(costs.shape)} and {list(mask.shape)}"
-        )
+@register_vmap_op(name="crowding_neighbors")
+def _neighbors_op(costs: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     if costs.device.type == "cpu":
         return crowding_neighbors_plain(costs, mask)
     what = "crowding_neighbors"
@@ -132,6 +121,25 @@ def crowding_neighbors(
     )
     crowding_neighbors.launches += 1
     return below, above, has_below, has_above
+
+
+def crowding_neighbors(
+    costs: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-objective lexicographic neighbour values of every row among the
+    rows where ``mask`` holds: ``(below, above, has_below, has_above)``,
+    each (n, m).  A NaN neighbour gives a NaN value; a real ±inf neighbour
+    its value; a missing one -inf/+inf with its flag 0 (the flags, not the
+    values, tell a missing neighbour from a ±inf one).  Masked-out rows get
+    their neighbours among the valid rows too.  An operator with the
+    sequential batching rule: under ``torch.func.vmap``, one launch an
+    instance."""
+    if costs.ndim != 2 or mask.shape != costs.shape[:1]:
+        raise ValueError(
+            f"crowding_neighbors: costs (n, m) and mask (n,), got "
+            f"{list(costs.shape)} and {list(mask.shape)}"
+        )
+    return _neighbors_op(costs, mask)
 
 
 def _row_sum(d: torch.Tensor) -> torch.Tensor:

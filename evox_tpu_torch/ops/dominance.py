@@ -17,7 +17,9 @@ the bit-packed route ``_non_dominate_rank_packed`` of
 On a CUDA tensor each wrapper launches its kernel in ``csrc/dominance.cu``
 (float32 or float64 objectives; any other dtype raises ``TypeError``); on a
 CPU tensor it runs the plain version beside it.  There is no other path: a
-cooperative launch the card refuses raises.
+cooperative launch the card refuses raises.  Each is an operator with the
+sequential batching rule (:mod:`evox_tpu_torch.utils.vmap_ops`): under
+``torch.func.vmap``, one launch an instance.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import ctypes
 
 import torch
 
+from ..utils.vmap_ops import register_vmap_op
 from . import _build
 
 __all__ = [
@@ -177,10 +180,8 @@ def _dominance(f: torch.Tensor, packed: bool, what: str) -> torch.Tensor:
     return out
 
 
-def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
-    """(n, n) bool matrix ``A[i, j] = f_i dominates f_j`` (all objectives
-    ``<=``, at least one ``<``).  NaN rows dominate nothing and are
-    dominated by nothing."""
+@register_vmap_op(name="dominance_matrix")
+def _matrix_op(f: torch.Tensor) -> torch.Tensor:
     if f.device.type == "cpu":
         return dominance_matrix_plain(f)
     out = _dominance(f, packed=False, what="dominance_matrix")
@@ -188,15 +189,43 @@ def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dominance_packed(f: torch.Tensor) -> torch.Tensor:
-    """The dominance relation as (⌈n/32⌉, n) int32 words (bit ``b`` of
-    ``words[w, j]`` = row ``32w + b`` dominates ``j``): 1/8 of the bool
-    matrix's bytes, the layout the front peel reads."""
+def dominance_matrix(f: torch.Tensor) -> torch.Tensor:
+    """(n, n) bool matrix ``A[i, j] = f_i dominates f_j`` (all objectives
+    ``<=``, at least one ``<``).  NaN rows dominate nothing and are
+    dominated by nothing."""
+    return _matrix_op(f)
+
+
+@register_vmap_op(name="dominance_packed")
+def _packed_op(f: torch.Tensor) -> torch.Tensor:
     if f.device.type == "cpu":
         return dominance_packed_plain(f)
     out = _dominance(f, packed=True, what="dominance_packed")
     dominance_packed.launches += 1
     return out
+
+
+def dominance_packed(f: torch.Tensor) -> torch.Tensor:
+    """The dominance relation as (⌈n/32⌉, n) int32 words (bit ``b`` of
+    ``words[w, j]`` = row ``32w + b`` dominates ``j``): 1/8 of the bool
+    matrix's bytes, the layout the front peel reads."""
+    return _packed_op(f)
+
+
+@register_vmap_op(name="peel_fronts")
+def _peel_op(words: torch.Tensor, until: int) -> torch.Tensor:
+    if words.device.type == "cpu":
+        return peel_fronts_plain(words, None if until < 0 else until)
+    what = "peel_fronts"
+    nw, n = _check_words(words, what)
+    rank = torch.empty((n,), dtype=torch.int32, device=words.device)
+    if n == 0:
+        return rank
+    scratch = _build.workspace("dominance", "peel_fronts_workspace", words.device, n, nw)
+    fn = _build.entry("dominance", "peel_fronts", _FRONTS_ARGS)
+    _build.launch(what, fn, words.device, words.data_ptr(), n, nw, until, rank.data_ptr(), scratch.data_ptr())
+    peel_fronts.launches += 1
+    return rank
 
 
 def peel_fronts(words: torch.Tensor, until_count: int | None = None) -> torch.Tensor:
@@ -206,21 +235,12 @@ def peel_fronts(words: torch.Tensor, until_count: int | None = None) -> torch.Te
     left unranked once ``until_count`` columns are ranked (always after a
     whole front).  Equal to :func:`peel_fronts_plain`; on the card one
     cooperative kernel launch that reads nothing back to the host."""
-    if words.device.type == "cpu":
-        return peel_fronts_plain(words, until_count)
-    what = "peel_fronts"
-    nw, n = _check_words(words, what)
-    rank = torch.empty((n,), dtype=torch.int32, device=words.device)
-    if n == 0:
-        return rank
     # The kernel stops once ``assigned >= until``; any count above n never
-    # stops it, and a negative one stops it at once, as 0 does.
+    # stops it, and a negative one stops it at once, as 0 does.  -1 is no
+    # limit.
+    n = words.shape[-1]
     until = -1 if until_count is None else min(max(int(until_count), 0), n + 1)
-    scratch = _build.workspace("dominance", "peel_fronts_workspace", words.device, n, nw)
-    fn = _build.entry("dominance", "peel_fronts", _FRONTS_ARGS)
-    _build.launch(what, fn, words.device, words.data_ptr(), n, nw, until, rank.data_ptr(), scratch.data_ptr())
-    peel_fronts.launches += 1
-    return rank
+    return _peel_op(words, until)
 
 
 # Launches of each CUDA kernel (never bumped by the CPU path); reset to 0 to

@@ -24,7 +24,11 @@ graph cannot hold a host sync.  On the H100 (torch 2.11, CUDA 12.8):
   ``jax._src.scipy.linalg.expm`` (Padé degree chosen by ``torch.where``,
   16 masked squarings).
 
-On the CPU every function is the plain PyTorch call.
+On the CPU every function is the plain PyTorch call.  :func:`eigh` and
+:func:`eigh_batched` call one operator (:mod:`evox_tpu_torch.utils.
+vmap_ops`) on a stack of matrices (one, for :func:`eigh`) whose batching
+rule merges the instances' matrices of a ``torch.func.vmap`` into one
+``syevjBatched`` call.
 """
 
 from __future__ import annotations
@@ -34,9 +38,10 @@ import functools
 
 import torch
 
+from ..utils.vmap_ops import register_vmap_op
 from . import _build
 
-__all__ = ["BATCHED_MAX_N", "eigh", "svd_vh", "qr", "cholesky", "solve", "expm"]
+__all__ = ["BATCHED_MAX_N", "eigh", "eigh_batched", "svd_vh", "qr", "cholesky", "solve", "expm"]
 
 # The largest n of cuSOLVER's batched Jacobi eigensolver.
 BATCHED_MAX_N = 32
@@ -56,14 +61,14 @@ def _refuse_capture(what: str, n: int) -> None:
 
 
 @functools.cache
-def _workspace_bytes(n: int, dtype: torch.dtype, index: int) -> int:
-    """cuSOLVER's workspace for one n x n matrix, asked once (on the first,
-    eager call: a fused segment's warm-up generation)."""
+def _workspace_bytes(n: int, batch: int, dtype: torch.dtype, index: int) -> int:
+    """cuSOLVER's workspace for ``batch`` n x n matrices, asked once (on the
+    first, eager call: a fused segment's warm-up generation)."""
     fn = _build.entry("linalg", "eigh_batched_workspace", _WORKSPACE_ARGTYPES, ctypes.c_longlong)
-    A = torch.empty((n, n), dtype=dtype, device=f"cuda:{index}")
-    w = torch.empty((n,), dtype=dtype, device=A.device)
+    A = torch.empty((batch, n, n), dtype=dtype, device=f"cuda:{index}")
+    w = torch.empty((batch, n), dtype=dtype, device=A.device)
     with torch.cuda.device(index):
-        nbytes = fn(n, 1, int(dtype == torch.float64), A.data_ptr(), w.data_ptr())
+        nbytes = fn(n, batch, int(dtype == torch.float64), A.data_ptr(), w.data_ptr())
     if nbytes < 0:
         raise RuntimeError(f"eigh: cuSOLVER refused the workspace query for n={n} ({nbytes})")
     return nbytes
@@ -98,36 +103,73 @@ def eigh(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     n = _check_square(C, "eigh")
     device = C.device
     if device.type == "cpu":
-        return _nan_unless_finite(torch.linalg.eigh, C)
+        return _nan_unless_finite(_solo, C)
     if device.type != "cuda":
         raise ValueError(f"eigh: no route for device {device}")
     if n > BATCHED_MAX_N:
         _refuse_capture("eigh", n)
         return _nan_unless_finite(torch.linalg.eigh, C)
-    return _nan_unless_finite(_eigh_batched, C)
+    return _nan_unless_finite(_solo, C)
 
 
-def _eigh_batched(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One cuSOLVER ``syevjBatched`` call on the card (n <= 32)."""
-    n = C.shape[0]
+def _jacobi(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One cuSOLVER ``syevjBatched`` call on the card over the (B, n, n)
+    stack ``C`` (n <= 32): ``(eigenvalues (B, n), eigenvectors (B, n, n))``."""
+    batch, n = C.shape[0], C.shape[-1]
     device = C.device
     A = C.clone(memory_format=torch.contiguous_format)  # overwritten by the eigenvectors
-    w = torch.empty((n,), dtype=C.dtype, device=device)
-    info = torch.empty((1,), dtype=torch.int32, device=device)
+    w = torch.empty((batch, n), dtype=C.dtype, device=device)
+    info = torch.empty((batch,), dtype=torch.int32, device=device)
     index = device.index if device.index is not None else torch.cuda.current_device()
-    work = torch.empty((max(_workspace_bytes(n, C.dtype, index), 8),), dtype=torch.uint8, device=device)
+    work = torch.empty((max(_workspace_bytes(n, batch, C.dtype, index), 8),), dtype=torch.uint8, device=device)
     fn = _build.entry("linalg", "eigh_batched", _EIGH_ARGTYPES)
     _build.launch("eigh", fn, device, A.data_ptr(), w.data_ptr(), work.data_ptr(), work.numel(),
-                  info.data_ptr(), n, 1, int(C.dtype == torch.float64))
-    eigh.launches += 1
+                  info.data_ptr(), n, batch, int(C.dtype == torch.float64))
     # Column-major eigenvectors: the transpose of the row-major buffer, the
     # layout torch.linalg.eigh returns too.
     return w, A.mT
 
 
-# Calls of the cuSOLVER route (never bumped on the CPU or above
-# BATCHED_MAX_N); reset it to 0 to count the decompositions of one run.
+def _merge_rule(info, in_dims, C, solo):
+    # The level's V stacks of B matrices become one (V * B, n, n) stack for
+    # cuSOLVER (B is 1 for a vmap of the solo entry point).
+    C = C.movedim(in_dims[0], 0)
+    v, b, n = C.shape[:3]
+    w, V = _op(C.reshape(v * b, n, n), 0)
+    return (w.reshape(v, b, n), V.reshape(v, b, n, n)), (0, 0)
+
+
+@register_vmap_op(vmap_fn=_merge_rule, name="eigh")
+def _op(C: torch.Tensor, solo: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if C.device.type == "cpu":
+        return torch.linalg.eigh(C)
+    w, V = _jacobi(C)
+    # A solo call is a batch of one matrix; a vmap merges into a batch.
+    (eigh if solo else eigh_batched).launches += 1
+    return w, V
+
+
+def _solo(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    w, V = _op(C[None], 1)
+    return w[0], V[0]
+
+
+def eigh_batched(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`eigh` of each matrix of the (B, n, n) stack ``C``, n <= 32 on
+    the card, in one cuSOLVER ``syevjBatched`` call (the route of
+    :func:`eigh` under ``torch.func.vmap``); the plain
+    ``torch.linalg.eigh`` of the stack on the CPU.  No non-finite check:
+    :func:`eigh` makes it per matrix before the batch is formed."""
+    if C.ndim != 3 or C.shape[1] != C.shape[2] or C.shape[1] > BATCHED_MAX_N:
+        raise ValueError(f"eigh_batched: a (B, n, n) stack with n <= {BATCHED_MAX_N}, got {tuple(C.shape)}")
+    return _op(C, 0)
+
+
+# Calls of the cuSOLVER route by each entry (never bumped on the CPU or
+# above BATCHED_MAX_N); reset them to 0 to count the decompositions of one
+# run.
 eigh.launches = 0
+eigh_batched.launches = 0
 
 
 def svd_vh(X: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,12 @@ kernel or the call raises.
 
 A seed is a :class:`~evox_tpu_torch.utils.rng.Seed` (child ``index`` of a
 key tensor) or a plain integer, the 64-bit Philox key itself.
+
+:func:`philox_draws_batched` draws B streams, one a key of a (B, 2) stack,
+in one launch.  Both entry points call one ``torch.library`` operator (a
+solo draw is a stack of one key) whose batching rule
+(:mod:`evox_tpu_torch.utils.vmap_ops`) merges the keys of a
+``torch.func.vmap`` into that stack.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ from typing import Sequence, Union
 
 import torch
 
+from ..utils.vmap_ops import register_vmap_op
 from . import _build
 
-__all__ = ["philox_draws", "philox_draws_plain", "seed_operands"]
+__all__ = ["philox_draws", "philox_draws_plain", "philox_draws_batched", "philox_draws_batched_plain",
+           "seed_operands"]
 
 # A draw's kind: a float dtype (a uniform) or ``(low, high)`` (int64).
 Kind = Union[torch.dtype, tuple]
@@ -35,7 +43,7 @@ _INT_KIND = 4
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _ARGTYPES = (
-    (_P, ctypes.c_int, ctypes.c_int, _LL, ctypes.c_int)
+    (_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _LL, ctypes.c_int)
     + (ctypes.c_int,) * 4 + (_LL,) * 8 + (_P,) * 4 + (ctypes.c_int, _P)
 )
 # Resident blocks a SM for the grid-stride loop.
@@ -88,46 +96,130 @@ def seed_operands(seed, device: torch.device) -> tuple[torch.Tensor, int, int]:
     return k.to(device), 0, 0
 
 
-def philox_draws(seed, numel: int, kinds: Sequence[Kind], device) -> list[torch.Tensor]:
-    """Up to four draws of ``numel`` elements from one Philox evaluation per
-    element: ``kinds[k]`` is a float dtype (a uniform in [0, 1)) or ``(low,
-    high)`` (int64 in ``[low, high)``), drawn from word ``k``.  Returns flat
-    tensors on ``device``."""
-    device = torch.device(device)
-    numel = int(numel)
-    if device.type == "cpu":
-        return philox_draws_plain(seed, numel, kinds, device)
-    if device.type != "cuda":
-        raise ValueError(f"philox_draws: no kernel for device {device}")
-    kinds = _check_kinds(kinds)
-    if not 0 <= numel < 2**62:
-        raise ValueError(f"philox_draws: numel must be in [0, 2^62), got {numel}")
-    key, index, derive = seed_operands(seed, device)
-    outs, codes, lows, spans = [], [], [], []
+def _codes(kinds: list) -> tuple[list[int], list[int], list[int]]:
+    """The kernel's ``(kind codes, lows, spans)`` of checked ``kinds``."""
+    codes, lows, spans = [], [], []
     for k in kinds:
         if isinstance(k, tuple):
             low, high = (int(v) for v in k)
-            outs.append(torch.empty((numel,), dtype=torch.int64, device=device))
             codes.append(_INT_KIND)
             lows.append(low)
             spans.append(high - low)
         else:
-            outs.append(torch.empty((numel,), dtype=k, device=device))
             codes.append(_FLOAT_KINDS[k])
             lows.append(0)
             spans.append(1)
-    pad = 4 - len(kinds)
+    return codes, lows, spans
+
+
+def _kinds(codes, lows, spans) -> list:
+    """The inverse of :func:`_codes`."""
+    dtypes = {v: k for k, v in _FLOAT_KINDS.items()}
+    return [(lo, lo + sp) if c == _INT_KIND else dtypes[c] for c, lo, sp in zip(codes, lows, spans)]
+
+
+def _check_numel(numel: int) -> int:
+    numel = int(numel)
+    if not 0 <= numel < 2**62:
+        raise ValueError(f"philox_draws: numel must be in [0, 2^62), got {numel}")
+    return numel
+
+
+def philox_draws_batched_plain(keys: torch.Tensor, index: int, numel: int, kinds: Sequence[Kind],
+                               derive: int = 1) -> list[torch.Tensor]:
+    """The batched kernel's draws in plain PyTorch: for each of the B keys
+    of ``keys`` (B, 2), :func:`philox_draws_plain` of child ``index`` of
+    that key (or of its seed word, ``derive`` 0), stacked into (B, numel)
+    tensors."""
+    from ..utils import rng
+
+    rows = [
+        philox_draws_plain(rng.Seed(k, index) if derive else int(k[0]) & (2**64 - 1), numel, kinds, keys.device)
+        for k in keys.unbind(0)
+    ]
+    return [torch.stack(col) for col in zip(*rows)]
+
+
+def _launch(keys: torch.Tensor, index: int, derive: int, numel: int, codes, lows, spans):
+    """One launch of ``csrc/philox.cu`` drawing one stream of ``numel``
+    elements for each of the B keys of ``keys`` (B, 2); returns the (B,
+    numel) outputs."""
+    device = keys.device
+    if device.type != "cuda":
+        raise ValueError(f"philox_draws: no kernel for device {device}")
+    batch = keys.shape[0]
+    if not 1 <= batch < 65536:
+        raise ValueError(f"philox_draws: the kernel takes 1 to 65535 streams a launch, got {batch}")
+    if batch * numel >= 2**62:
+        raise ValueError(f"philox_draws: batch * numel must be < 2^62, got {batch} x {numel}")
+    keys = keys.contiguous()
+    dtypes = _kinds(codes, lows, spans)
+    outs = [torch.empty((batch, numel), dtype=torch.int64 if isinstance(k, tuple) else k, device=device)
+            for k in dtypes]
+    pad = 4 - len(codes)
     ptrs = [t.data_ptr() for t in outs] + [None] * pad
     blocks = _BLOCKS_PER_SM * _build.sm_count(device.index if device.index is not None else torch.cuda.current_device())
     fn = _build.entry("philox", "philox_draw", _ARGTYPES)
     _build.launch(
-        "philox_draws", fn, device, key.data_ptr(), index, derive, numel, len(kinds),
-        *(codes + [0] * pad), *(lows + [0] * pad), *(spans + [1] * pad), *ptrs, blocks,
+        "philox_draws", fn, device, keys.data_ptr(), batch, index, derive, numel, len(codes),
+        *(list(codes) + [0] * pad), *(list(lows) + [0] * pad), *(list(spans) + [1] * pad), *ptrs, blocks,
     )
-    philox_draws.launches += 1
     return outs
 
 
-# Launches of the CUDA kernel (never bumped by the CPU path); reset it to 0
-# to count the launches of one run.
+def _merge_rule(info, in_dims, keys, index, derive, numel, codes, lows, spans, solo):
+    # Only ``keys`` is a tensor, so it is batched here: the level's V
+    # stacks of B keys become one (V * B, 2) stack (B is 1 for a vmap of
+    # the solo entry point).
+    k = keys.movedim(in_dims[0], 0)
+    v, b = k.shape[:2]
+    outs = _op(k.reshape(v * b, 2), index, derive, numel, codes, lows, spans, 0)
+    return [o.reshape(v, b, numel) for o in outs], [0] * len(outs)
+
+
+@register_vmap_op(vmap_fn=_merge_rule, name="philox_draws")
+def _op(keys: torch.Tensor, index: int, derive: int, numel: int, codes: list[int],
+        lows: list[int], spans: list[int], solo: int) -> list[torch.Tensor]:
+    if keys.device.type == "cpu":
+        return philox_draws_batched_plain(keys, index, numel, _kinds(codes, lows, spans), derive)
+    outs = _launch(keys, index, derive, numel, codes, lows, spans)
+    # A solo call is a launch of one stream; a vmap merges into a batch.
+    (philox_draws if solo else philox_draws_batched).launches += 1
+    return outs
+
+
+def philox_draws(seed, numel: int, kinds: Sequence[Kind], device) -> list[torch.Tensor]:
+    """Up to four draws of ``numel`` elements from one Philox evaluation per
+    element: ``kinds[k]`` is a float dtype (a uniform in [0, 1)) or ``(low,
+    high)`` (int64 in ``[low, high)``), drawn from word ``k``.  Returns flat
+    tensors on ``device``.  The call is the batched operator on one key;
+    under ``torch.func.vmap`` over the seed's key its rule merges the
+    instances' keys, and one launch draws every instance's stream, each
+    what a solo call with that instance's key draws."""
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"philox_draws: no kernel for device {device}")
+    codes, lows, spans = _codes(_check_kinds(kinds))
+    key, index, derive = seed_operands(seed, device)
+    return [o[0] for o in _op(key[None], index, derive, _check_numel(numel), codes, lows, spans, 1)]
+
+
+def philox_draws_batched(keys: torch.Tensor, index: int, numel: int, kinds: Sequence[Kind],
+                         derive: int = 1) -> list[torch.Tensor]:
+    """The batched route: for each of the B keys of ``keys`` (B, 2) on the
+    card, the draws of child ``index`` of that key (``derive`` 1) or of its
+    seed word (``derive`` 0), as (B, numel) tensors, in one launch.  Row
+    ``b`` equals ``philox_draws(Seed(keys[b], index), ...)`` bit for bit
+    (the Philox counter is the element's index within its stream).  On a
+    CPU tensor, :func:`philox_draws_batched_plain`."""
+    if keys.ndim != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64:
+        raise ValueError(f"philox_draws_batched: keys must be (B, 2) int64, got {keys.dtype}{list(keys.shape)}")
+    codes, lows, spans = _codes(_check_kinds(kinds))
+    return _op(keys, int(index), int(derive), _check_numel(numel), codes, lows, spans, 0)
+
+
+# Launches of the CUDA kernel by each entry point: a solo call, and a
+# batched call or a vmap of either (never bumped by the CPU path); reset
+# them to 0 to count the launches of one run.
 philox_draws.launches = 0
+philox_draws_batched.launches = 0

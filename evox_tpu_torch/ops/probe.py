@@ -22,6 +22,7 @@ import time
 import torch
 
 from .. import resolve_device
+from ..utils.vmap_ops import register_vmap_op
 from . import _build
 
 __all__ = ["run_capability_probe", "scale_by_two", "scale_by_two_plain"]
@@ -34,9 +35,8 @@ def scale_by_two_plain(x: torch.Tensor) -> torch.Tensor:
     return 2 * x
 
 
-def scale_by_two(x: torch.Tensor) -> torch.Tensor:
-    """``2 * x`` for a float32 tensor: the probe kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+@register_vmap_op(name="scale_by_two")
+def _scale_op(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return scale_by_two_plain(x)
     if x.device.type != "cuda":
@@ -50,6 +50,12 @@ def scale_by_two(x: torch.Tensor) -> torch.Tensor:
     _build.launch("scale_by_two", fn, x.device, x.data_ptr(), out.data_ptr(), x.numel())
     scale_by_two.launches += 1
     return out
+
+
+def scale_by_two(x: torch.Tensor) -> torch.Tensor:
+    """``2 * x`` for a float32 tensor: the probe kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    return _scale_op(x)
 
 
 scale_by_two.launches = 0

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from ..utils.vmap_ops import register_vmap_op
 from . import _build
 
 __all__ = [
@@ -68,11 +69,8 @@ def lex_rank_plain(values: torch.Tensor) -> torch.Tensor:
     return rank
 
 
-def lex_rank(values: torch.Tensor) -> torch.Tensor:
-    """Exact rank (int32) of every element under the strict lexicographic
-    ``(value, index)`` order — the stable-sort position of each element."""
-    if values.ndim != 1:
-        raise ValueError(f"lex_rank: values must be (n,), got {list(values.shape)}")
+@register_vmap_op(name="lex_rank")
+def _lex_rank_op(values: torch.Tensor) -> torch.Tensor:
     if values.device.type == "cpu":
         return lex_rank_plain(values)
     if values.device.type != "cuda":
@@ -93,6 +91,16 @@ def lex_rank(values: torch.Tensor) -> torch.Tensor:
     )
     lex_rank.launches += 1
     return rank
+
+
+def lex_rank(values: torch.Tensor) -> torch.Tensor:
+    """Exact rank (int32) of every element under the strict lexicographic
+    ``(value, index)`` order — the stable-sort position of each element.
+    An operator with the sequential batching rule: under
+    ``torch.func.vmap``, one launch an instance."""
+    if values.ndim != 1:
+        raise ValueError(f"lex_rank: values must be (n,), got {list(values.shape)}")
+    return _lex_rank_op(values)
 
 
 def masked_top_k_plain(
@@ -122,9 +130,9 @@ def masked_top_k(
     # distinct slots; every element ranked >= k goes to the spare slot k,
     # which is dropped.
     slot = torch.where(rank < k, rank, k).to(torch.int64)
-    idx = torch.zeros((k + 1,), dtype=torch.int64, device=values.device)
-    idx.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=values.device))
-    idx = idx[:k]
+    idx = torch.zeros((k + 1,), dtype=torch.int64, device=values.device).scatter(
+        0, slot, torch.arange(n, dtype=torch.int64, device=values.device)
+    )[:k]
     return values[idx], idx
 
 

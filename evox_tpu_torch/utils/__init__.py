@@ -1,7 +1,31 @@
-"""Utilities of the port: random streams, state conversion and tensor
-helpers."""
+"""Utilities of the port: random streams, state conversion, tensor helpers,
+the parameters <-> vector adapter and operators with batching rules."""
 
-from . import convert, ops, rng
-from .ops import lexsort, nanmax, nanmedian, nanmin
+from . import convert, ops, rng, vmap_ops
+from .ops import (
+    clamp,
+    clamp_float,
+    clamp_int,
+    clip,
+    lexsort,
+    maximum,
+    maximum_float,
+    maximum_int,
+    minimum,
+    minimum_float,
+    minimum_int,
+    nanmax,
+    nanmedian,
+    nanmin,
+    randint,
+    switch,
+)
+from .params_vector import ParamsAndVector
+from .vmap_ops import host_op, register_vmap_op
 
-__all__ = ["convert", "ops", "rng", "lexsort", "nanmax", "nanmedian", "nanmin"]
+__all__ = [
+    "convert", "ops", "rng", "vmap_ops",
+    "clamp", "clamp_float", "clamp_int", "clip", "lexsort", "maximum", "maximum_float", "maximum_int",
+    "minimum", "minimum_float", "minimum_int", "nanmax", "nanmedian", "nanmin", "randint", "switch",
+    "ParamsAndVector", "host_op", "register_vmap_op",
+]

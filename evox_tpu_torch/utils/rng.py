@@ -51,6 +51,7 @@ __all__ = [
     "split",
     "split_keys",
     "child",
+    "child_seeds",
     "as_seed",
     "check_key",
     "seed_value",
@@ -130,10 +131,11 @@ def _splitmix64(z: torch.Tensor) -> torch.Tensor:
     return z ^ _srl(z, 31)
 
 
-def _children(k: torch.Tensor, index) -> torch.Tensor:
+def child_seeds(k: torch.Tensor, index) -> torch.Tensor:
     """The child seeds ``splitmix64(seed ^ splitmix64(counter + index))``
-    of key ``k`` as int64 tensors (``index`` an int or an int64 tensor)."""
-    return _splitmix64(k[0] ^ _splitmix64(k[1] + index))
+    of the key ``k`` (2,), or of each key of a stack (..., 2), as int64
+    tensors (``index`` an int or an int64 tensor)."""
+    return _splitmix64(k[..., 0] ^ _splitmix64(k[..., 1] + index))
 
 
 def split(k: torch.Tensor, num: int = 1) -> tuple[torch.Tensor, list[Seed]]:
@@ -167,7 +169,7 @@ def split_keys(k: torch.Tensor, num: int) -> list[torch.Tensor]:
     ``k``'s device (the counterpart of ``jax.random.split(key, num)``)."""
     check_key(k)
     idx = torch.arange(num, dtype=torch.int64, device=k.device)
-    keys = torch.stack((_children(k, idx), torch.zeros_like(idx)), dim=1)
+    keys = torch.stack((child_seeds(k, idx), torch.zeros_like(idx)), dim=1)
     return list(keys.unbind(0))
 
 
@@ -179,7 +181,7 @@ def seed_value(seed, device: torch.device | str | None = None):
         k = check_key(seed.key)
         if device is not None:
             k = k.to(device)
-        return _children(k, int(seed.index))
+        return child_seeds(k, int(seed.index))
     return int(seed) & _M64
 
 

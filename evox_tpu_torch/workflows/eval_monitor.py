@@ -15,6 +15,16 @@ With ``full_pop_history=True`` the per-step auxiliary values of the
 algorithm (``Algorithm.record_step``: the ES family's mean or center and
 step size) are kept too, one history per key (``auxiliary_history``).
 
+Each history entry is tagged with its ``(generation, instance)``, as the
+JAX package's are.  Outside a segment an entry is recorded through a host
+operator (:func:`~evox_tpu_torch.utils.vmap_ops.host_op`), so under
+``torch.func.vmap`` each instance records its own entry and no batched
+tensor escapes.  With ``ordered=False`` and ``num_instances=N`` (a workflow
+vmapped over N instances, set up with ``instance_id``) the accessors sort
+the entries by their tags and stack each generation's N entries, as JAX's
+unordered callbacks are regrouped; ``ordered=True`` (the default) returns
+them as recorded and, like JAX's ordered callbacks, refuses vmap.
+
 Inside a fused segment (``StdWorkflow.run_segment`` / ``run``) the
 history goes through the ``Monitor._capture`` seam instead: ``_sink`` hands
 each payload to the workflow, which batches them per generation, and
@@ -28,12 +38,14 @@ from __future__ import annotations
 
 import warnings
 from enum import IntEnum
+from functools import partial
 from typing import Any
 
 import torch
 
 from .. import resolve_device
 from ..core import Monitor, State
+from ..utils.vmap_ops import host_op, register_vmap_op
 
 __all__ = ["EvalMonitor"]
 
@@ -48,6 +60,21 @@ _BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
          torch.float16: torch.int16, torch.bfloat16: torch.int16}
 
 
+def _total_order_bits(f: torch.Tensor) -> torch.Tensor:
+    b = f.view(_BITS[f.dtype])
+    width = b.element_size() * 8
+    return b ^ ((b >> (width - 1)) & ((1 << (width - 1)) - 1))
+
+
+# An operator, so that vmap hands it the instances' stacked physical tensor:
+# reinterpreting a dtype is a view, which functorch batches only in recent
+# PyTorch releases (2.11 has no rule and no fallback for it).  The key is
+# elementwise, so the stack's key is each instance's.
+@register_vmap_op(vmap_fn=lambda info, in_dims, f: (_total_order_bits(f), in_dims[0]), name="total_order")
+def _total_order_op(f: torch.Tensor) -> torch.Tensor:
+    return _total_order_bits(f)
+
+
 def _total_order(f: torch.Tensor) -> torch.Tensor:
     """Integers that order like the floats of ``f`` in IEEE total order
     (-NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN): the bits with the
@@ -55,9 +82,7 @@ def _total_order(f: torch.Tensor) -> torch.Tensor:
     order of ``jax.lax.top_k(-f)``; an integer ``f`` is its own key."""
     if f.dtype not in _BITS:
         return f
-    b = f.view(_BITS[f.dtype])
-    width = b.element_size() * 8
-    return b ^ ((b >> (width - 1)) & ((1 << (width - 1)) - 1))
+    return _total_order_op(f)
 
 
 class EvalMonitor(Monitor):
@@ -75,6 +100,8 @@ class EvalMonitor(Monitor):
         full_sol_history: bool = False,
         full_pop_history: bool = False,
         topk: int = 1,
+        ordered: bool = True,
+        num_instances: int | None = None,
     ):
         """
         :param multi_obj: whether the optimization is multi-objective
@@ -84,12 +111,22 @@ class EvalMonitor(Monitor):
         :param full_pop_history: keep the auxiliary records that the
             workflow feeds through ``record_auxiliary``.
         :param topk: number of elite solutions tracked.
+        :param ordered: record the history in program order and refuse
+            vmap; set False when the workflow is vmapped over instances.
+        :param num_instances: with ``ordered=False`` under a vmapped
+            workflow, the instance count: each history entry the accessors
+            return carries a leading ``(num_instances,)`` axis.
         """
         self.multi_obj = multi_obj
         self.full_fit_history = full_fit_history
         self.full_sol_history = full_sol_history
         self.full_pop_history = full_pop_history
         self.topk = topk
+        self.ordered = ordered
+        self.num_instances = num_instances
+        # The host operators of the sink sites, by (history type, slot,
+        # ordered).
+        self._host_sinks: dict[tuple, Any] = {}
         self.opt_direction = 1
         # The auxiliary keys in slot order, taken from the first record.
         self.aux_keys: list[str] = []
@@ -98,7 +135,8 @@ class EvalMonitor(Monitor):
 
     # -- config ------------------------------------------------------------
     def set_config(self, **config: Any) -> "EvalMonitor":
-        for k in ("multi_obj", "full_fit_history", "full_sol_history", "topk", "opt_direction", "device"):
+        for k in ("multi_obj", "full_fit_history", "full_sol_history", "topk", "opt_direction", "device",
+                  "ordered", "num_instances"):
             if k in config:
                 setattr(self, k, config[k])
         return self
@@ -189,15 +227,19 @@ class EvalMonitor(Monitor):
                 (int(data_type), slot, data.detach(), state.generation, state.instance_id)
             )
             return
-        self._append(int(data_type), slot, data.detach())
+        site = (int(data_type), int(slot), self.ordered)
+        sink = self._host_sinks.get(site)
+        if sink is None:
+            sink = self._host_sinks[site] = host_op(partial(self._append, *site[:2]), ordered=self.ordered)
+        sink(data.detach(), state.generation, state.instance_id)
 
-    def _append(self, data_type: int, slot: int, data: torch.Tensor) -> None:
-        """One history entry; an auxiliary one keeps its slot (its key's
-        place in ``aux_keys``)."""
-        if data_type == HistoryType.AUXILIARY:
-            self._history[data_type].append((slot, data))
-        else:
-            self._history[data_type].append(data)
+    def _append(self, data_type: int, slot: int, data: torch.Tensor, generation: torch.Tensor,
+                instance: torch.Tensor) -> None:
+        """One history entry ``(generation, instance, slot, data)``, left on
+        its device: the tags are read only by the accessors that sort by
+        them.  An auxiliary entry's slot is its key's place in
+        ``aux_keys``."""
+        self._history[data_type].append((generation, instance, slot, data))
 
     def ingest_sinks(self, meta, sinks, executed) -> None:
         """Boundary flush of a fused segment's captured sink batches into
@@ -217,8 +259,8 @@ class EvalMonitor(Monitor):
         executed segment: ingesting the same telemetry twice duplicates
         entries."""
         for g in range(int(executed)):
-            for (data_type, slot), (data, _gens, _insts) in zip(meta, sinks):
-                self._append(int(data_type), int(slot), data[g])
+            for (data_type, slot), (data, gens, insts) in zip(meta, sinks):
+                self._append(int(data_type), int(slot), data[g], gens[g], insts[g])
 
     def record_history(self, state: State) -> State:
         """Record the latest solution and fitness in the history by hand
@@ -252,11 +294,44 @@ class EvalMonitor(Monitor):
         are untouched)."""
         self._history: dict[int, list] = {t: [] for t in HistoryType}
 
+    def _grouped(self, entries: list) -> list[torch.Tensor]:
+        """The data of ``(generation, instance, slot, data)`` entries as CPU
+        tensors.
+
+        ``ordered=True``: in the order they were recorded.
+
+        ``ordered=False``: sorted by their ``(generation, instance)`` tags
+        (stably: entries without an instance id, -1, keep their order within
+        a generation), then, with ``num_instances=N``, each generation's N
+        per-instance entries stacked into one (N, ...) tensor.  A reused
+        monitor must be ``clear_history()``-ed between runs: duplicate tags
+        raise rather than mis-group."""
+        if self.ordered:
+            return [d.cpu() for (_, _, _, d) in entries]
+        tags = [(int(g), int(i)) for (g, i, _, _) in entries]
+        tagged = [t for t in tags if t[1] != -1]
+        if len(set(tagged)) != len(tagged):
+            raise RuntimeError(
+                "duplicate (generation, instance) history tags: this monitor recorded more than one run; "
+                "call clear_history() (or use a fresh monitor) between unordered/vmapped runs"
+            )
+        order = sorted(range(len(entries)), key=lambda j: tags[j])
+        data = [entries[j][3].cpu() for j in order]
+        n = self.num_instances
+        if not n or n <= 1:
+            return data
+        if len(data) % n:
+            raise RuntimeError(
+                f"history has {len(data)} entries, not a multiple of num_instances={n}: was the "
+                f"workflow vmapped over {n} instances?"
+            )
+        return [torch.stack(data[i : i + n]) for i in range(0, len(data), n)]
+
     @property
     def fitness_history(self) -> list[torch.Tensor]:
         """Per-generation fitness, as CPU tensors (``fit_history`` is the
         alias)."""
-        return [f.cpu() for f in self._history[HistoryType.FITNESS]]
+        return self._grouped(self._history[HistoryType.FITNESS])
 
     fit_history = fitness_history
 
@@ -264,7 +339,7 @@ class EvalMonitor(Monitor):
     def solution_history(self) -> list[torch.Tensor]:
         """Per-generation solutions, as CPU tensors (requires
         ``full_sol_history``; ``sol_history`` is the alias)."""
-        return [s.cpu() for s in self._history[HistoryType.SOLUTION]]
+        return self._grouped(self._history[HistoryType.SOLUTION])
 
     sol_history = solution_history
 
@@ -274,7 +349,7 @@ class EvalMonitor(Monitor):
         ``Algorithm.record_step``), as CPU tensors; ``aux_history`` is the
         alias."""
         raw = self._history[HistoryType.AUXILIARY]
-        return {k: [d.cpu() for s, d in raw if s == slot] for slot, k in enumerate(self.aux_keys)}
+        return {k: self._grouped([e for e in raw if e[2] == slot]) for slot, k in enumerate(self.aux_keys)}
 
     aux_history = auxiliary_history
 
@@ -344,7 +419,7 @@ class EvalMonitor(Monitor):
     def _pooled(self, kind: HistoryType) -> torch.Tensor:
         """Every generation's rows of one history, concatenated (on the
         device the history lives on)."""
-        return torch.cat([h.reshape(-1, h.shape[-1]) for h in self._history[kind]], dim=0)
+        return torch.cat([d.reshape(-1, d.shape[-1]) for (_, _, _, d) in self._history[kind]], dim=0)
 
     def get_pf_fitness(self, deduplicate: bool = True) -> torch.Tensor:
         """Approximate Pareto-front fitness over all evaluations so far

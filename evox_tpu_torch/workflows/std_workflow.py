@@ -13,8 +13,13 @@ generation code runs eagerly in a Python loop (the plain version).  Either
 way the state equals that of the same number of :meth:`StdWorkflow.step`
 calls, bit for bit.
 
+``torch.func.vmap`` maps ``setup`` (``instance_id`` labels each instance),
+``init_step`` and ``step`` over stacked instances; the kernels batch
+through their operators' rules (:mod:`evox_tpu_torch.utils.vmap_ops`).
+
 Not ported yet, and refused with :class:`NotImplementedError` rather than
-ignored: distributed evaluation (``enable_distributed``, ``mesh``),
+ignored: ``run``/``run_segment`` under ``torch.func.vmap``; distributed
+evaluation (``enable_distributed``, ``mesh``),
 shard-granular quarantine, the precision plane (``precision``), key
 implementations (``key_impl``), and the segment options of the service and
 observability layers (``frozen=``/lane freeze, ``flight=True``).
@@ -170,20 +175,36 @@ class StdWorkflow(Workflow):
         self._graphs = _graph.Cache()
 
     # -- state -------------------------------------------------------------
-    def setup(self, key: int | torch.Tensor) -> State:
+    def setup(self, key: int | torch.Tensor, instance_id: int | torch.Tensor | None = None) -> State:
         """Build the initial workflow state from an int seed or a key
         (:func:`evox_tpu_torch.utils.rng.key`); the keys live on the
-        algorithm's device (where it names none, a seed's key on the CPU)."""
+        algorithm's device (where it names none, a seed's key on the CPU).
+
+        :param instance_id: optional integer label of this workflow
+            instance, stored in the monitor state (its ``instance_id``
+            leaf) and attached to every history entry.  Pass it when
+            vmapping over instances, so that the history is grouped by
+            instance whatever order it was recorded in::
+
+                states = torch.func.vmap(wf.init)(keys, torch.arange(n))
+                states = torch.func.vmap(wf.init_step)(states)
+                step = torch.func.vmap(wf.step)
+        """
         device = getattr(self.algorithm, "device", None)
         if not isinstance(key, torch.Tensor):
             key = rng.key(key, device)
         elif device is not None:
             key = key.to(device)
         algo_key, prob_key, mon_key = rng.split_keys(key, 3)
+        mon_state = self.monitor.setup(mon_key)
+        if instance_id is not None and "instance_id" in mon_state:
+            mon_state = mon_state.replace(
+                instance_id=torch.as_tensor(instance_id).to(device=mon_state.instance_id.device, dtype=torch.int32)
+            )
         return State(
             algorithm=self.algorithm.setup(algo_key),
             problem=self.problem.setup(prob_key),
-            monitor=self.monitor.setup(mon_key),
+            monitor=mon_state,
         )
 
     init = setup  # convenience alias
@@ -513,6 +534,13 @@ class StdWorkflow(Workflow):
     def _run_segment(self, state: State, n_steps: int, cfg: SegmentConfig):
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        if torch._C._functorch.peek_interpreter_stack() is not None:
+            # A graph's static buffers would hold the transform's batched
+            # tensors, and the telemetry is read on the host.
+            raise NotImplementedError(
+                "StdWorkflow.run / run_segment under torch.func.vmap (JAX's vmapped segment) is not yet "
+                "ported: vmap the step, and capture the vmapped step in a CUDA graph"
+            )
         leaves, _ = _graph.flatten(state)
         device = leaves[0].device if leaves else torch.device("cpu")
         carry: tuple = (state,)

@@ -10,7 +10,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from evox_tpu_torch.ops.pso_step import fused_pso_move, fused_pso_move_plain  # noqa: E402
+from evox_tpu_torch.ops.pso_step import (  # noqa: E402
+    fused_pso_move,
+    fused_pso_move_batched,
+    fused_pso_move_batched_plain,
+    fused_pso_move_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -361,6 +366,23 @@ def test_draws_and_moves_on_the_card_never_run_the_plain_version(cuda, monkeypat
     torch.cuda.synchronize()
 
 
+def test_randint_with_number_bounds_draws_where_the_key_lies_without_host_syncs(cuda):
+    from evox_tpu_torch.utils import ops as tops
+
+    k = rng.key(11, cuda)
+    low = torch.tensor(-3, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tops.randint(k, (300, 4), -3, 40)
+        by_tensor = tops.randint(k, (300, 4), low, 40)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.device.type == "cuda" and got.dtype == torch.int64 and by_tensor.device.type == "cuda"
+    assert torch.equal(got, by_tensor)
+    assert torch.equal(got.cpu(), tops.randint(k.cpu(), (300, 4), -3, 40))
+
+
 def test_keys_and_draws_stay_on_the_card_without_host_syncs(cuda):
     k = rng.key(2**63 + 1, cuda)
     torch.cuda.synchronize()
@@ -418,7 +440,9 @@ def test_segment_and_run_replay_eager_steps_bit_for_bit(cuda, kind):
         seg, tel = wf.run_segment(s0, 12)
         _equal_states(seg, ref)
     wf.flush_telemetry(tel)
-    for x, y in zip(wf.monitor._history[0][-12:], stepped):
+    # Entries are (generation, instance, slot, data).
+    for (gx, ix, sx, x), (gy, iy, sy, y) in zip(wf.monitor._history[0][-12:], stepped):
+        assert (int(gx), int(ix), sx) == (int(gy), int(iy), sy)
         torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
     for unroll in (1, 5, 12):
         _equal_states(wf.run(s0, 12, init=False, unroll=unroll), ref)
@@ -776,3 +800,122 @@ def test_card_expm_matches_the_cpu_and_captures(cuda, scale):
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(cap, got)
+
+
+# ---------------------------------------------------------------------------
+# Batched routes: vmapped instances in one launch
+# ---------------------------------------------------------------------------
+
+
+def _batched_move_inputs(b, n, d, dtype, device):
+    g = torch.Generator(device=device).manual_seed(b * 131 + n)
+    u = lambda *s: torch.rand(s, generator=g, device=device)  # noqa: E731
+    fit = u(b, n)
+    fit[:, ::5] = float("nan")
+    arrays = [(u(b, n, d) * 8 - 4).to(dtype), (u(b, n, d) - 0.5).to(dtype), u(b, n, d).to(dtype),
+              fit.to(dtype), u(b, n).to(dtype), u(b, d).to(dtype)]
+    scal = torch.stack([u(b) * 0.9, u(b) * 2.5, u(b)], 1)
+    keys = torch.stack([torch.tensor([rng.signed64(s * 0x9E3779B97F4A7C15 + 1), 3 * s], device=device)
+                        for s in range(b)])
+    return arrays, scal, keys, (u(b, n, d).to(dtype), u(b, n, d).to(dtype))
+
+
+@pytest.mark.parametrize("rand", ["hw", "input"])
+@pytest.mark.parametrize("per_instance_bounds", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,d", [(1, 30, 5), (3, 100, 37), (8, 1024, 100)])
+def test_batched_pso_move_kernel_matches_plain_and_solo_launches(cuda, b, n, d, dtype, per_instance_bounds, rand):
+    """One batched launch equals the plain batched version and B solo
+    launches, 0 ulp, NaN at the same places."""
+    dt = getattr(torch, dtype)
+    arrays, scal, keys, draws = _batched_move_inputs(b, n, d, dt, cuda)
+    if per_instance_bounds:
+        lb = (-torch.rand(b, d, device=cuda) - 1).to(dt)
+        ub = (torch.rand(b, d, device=cuda) + 1).to(dt)
+    else:
+        lb, ub = torch.full((d,), -2.0, dtype=dt, device=cuda), torch.full((d,), 2.0, dtype=dt, device=cuda)
+    kw = dict(index=2, rand_draws=draws if rand == "input" else None)
+    before = fused_pso_move_batched.launches
+    got = fused_pso_move_batched(*arrays, lb, ub, scal, keys, **kw)
+    assert fused_pso_move_batched.launches == before + 1
+    want = fused_pso_move_batched_plain(*arrays, lb, ub, scal, keys, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    for i in range(b):
+        solo = fused_pso_move(
+            *(a[i] for a in arrays), lb[i] if per_instance_bounds else lb, ub[i] if per_instance_bounds else ub,
+            *scal[i], seed=rng.Seed(keys[i], 2), rand=rand,
+            rand_draws=tuple(r[i] for r in draws) if rand == "input" else None)
+        for g, s in zip(got, solo):
+            torch.testing.assert_close(g[i], s, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("numel", [1, 5, 1001, 65_537, 102_400])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_batched_philox_kernel_matches_plain_and_solo_launches(cuda, b, numel):
+    keys = torch.stack([torch.tensor([rng.signed64(2**64 - 1 - 7 * s), 2**40 + s], device=cuda)
+                        for s in range(b)])
+    for derive in (1, 0):
+        for kinds in PHILOX_KINDS:
+            before = philox.philox_draws_batched.launches
+            got = philox.philox_draws_batched(keys, 3, numel, kinds, derive=derive)
+            assert philox.philox_draws_batched.launches == before + 1
+            want = philox.philox_draws_batched_plain(keys, 3, numel, kinds, derive=derive)
+            for g, w in zip(got, want):
+                assert g.shape == (b, numel) and g.dtype == w.dtype and torch.equal(g, w)
+            for i in range(b):
+                seed = rng.Seed(keys[i], 3) if derive else int(keys[i, 0]) & (2**64 - 1)
+                for g, s in zip(got, philox.philox_draws(seed, numel, kinds, cuda)):
+                    assert torch.equal(g[i], s)
+
+
+def test_vmapped_pso_generation_is_one_batched_launch_equal_to_solo_runs(cuda):
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    wf = StdWorkflow(PSO(256, torch.full((20,), -32.0), torch.full((20,), 32.0), device=cuda), Ackley())
+    keys = torch.stack(rng.split_keys(rng.key(4, cuda), 3))
+    vmap = torch.func.vmap
+    before = (fused_pso_move.launches, fused_pso_move_batched.launches, philox.philox_draws_batched.launches)
+    states = vmap(wf.init_step)(vmap(wf.init)(keys))
+    step = vmap(wf.step)
+    for _ in range(4):
+        states = step(states)
+    after = (fused_pso_move.launches, fused_pso_move_batched.launches, philox.philox_draws_batched.launches)
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (0, 4, 2)
+    for i in range(3):
+        solo = wf.init_step(wf.init(keys[i]))
+        for _ in range(4):
+            solo = wf.step(solo)
+        for k in solo.algorithm:
+            torch.testing.assert_close(states.algorithm[k][i], solo.algorithm[k], rtol=0, atol=0, equal_nan=True)
+
+
+def test_vmapped_eigh_is_one_cusolver_call(cuda):
+    from evox_tpu_torch.ops import linalg
+
+    C = torch.stack([_spd64(20, s) for s in range(4)]).float().to(cuda)
+    before = (linalg.eigh.launches, linalg.eigh_batched.launches)
+    w, v = torch.func.vmap(linalg.eigh)(C)
+    assert (linalg.eigh.launches - before[0], linalg.eigh_batched.launches - before[1]) == (0, 1)
+    for i in range(4):
+        ws, _ = linalg.eigh(C[i])
+        w64 = torch.linalg.eigvalsh(C[i].cpu().double())
+        assert float((w[i].cpu().double() - w64).abs().max() / w64.abs().max()) <= 1e-5
+        assert float((w[i] - ws).abs().max() / ws.abs().max()) <= 1e-5
+        V = v[i].cpu().double()
+        rec = (V * w[i].cpu().double()) @ V.T - C[i].cpu().double()
+        assert float(rec.norm() / C[i].cpu().double().norm()) <= 1e-5
+
+
+def test_batched_pso_move_refuses_operands_of_other_instance_counts(cuda):
+    arrays, scal, keys, _ = _batched_move_inputs(3, 16, 8, torch.float32, cuda)
+    lb, ub = torch.full((8,), -2.0, device=cuda), torch.full((8,), 2.0, device=cuda)
+    with pytest.raises(ValueError, match="global_best_location"):
+        fused_pso_move_batched(*arrays[:5], arrays[5][0], lb, ub, scal, keys)
+    with pytest.raises(ValueError, match="key"):
+        fused_pso_move_batched(*arrays, lb, ub, scal, keys[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_pso_move_batched(arrays[0].transpose(1, 2).contiguous().transpose(1, 2), *arrays[1:], lb, ub,
+                               scal, keys)

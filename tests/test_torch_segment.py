@@ -227,7 +227,9 @@ def test_segment_and_run_equal_steps_and_history(kind):
         ref = wf_a.monitor._history
         for t in ref:
             assert len(hist[t]) == len(ref[t])
-            for x, y in zip(hist[t], ref[t]):
+            # Entries are (generation, instance, slot, data).
+            for (gx, ix, sx, x), (gy, iy, sy, y) in zip(hist[t], ref[t]):
+                assert (int(gx), int(ix), sx) == (int(gy), int(iy), sy)
                 assert x.device == y.device and torch.equal(x, y)
 
 
