@@ -28,7 +28,12 @@ instances of PSO at pop=1024, dim=100 on Ackley through the batched PSO
 move and Philox launches, eager and as a replayed CUDA graph, each instance
 against its solo run, with an unordered EvalMonitor; then 4 vmapped
 instances each of NSGA-II, CMA-ES and DE through the sequential and
-batched rules of the other kernels), checks that each path went through
+batched rules of the other kernels; then neuroevolution at the bench
+width, OpenES at pop=2048 on cart-pole episodes of 200 steps with an MLP
+4-32-32-1, eager (each rollout a replayed CUDA graph) and as run(20), the
+rollout card against CPU; then pendulum, the hopper through BraxProblem,
+PointMass through MujocoProblem and a supervised regression, eager and
+fused), checks that each path went through
 its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -922,19 +927,23 @@ def launches_per_call(fn, calls=5) -> dict:
                 torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
             prof.step()
-        events = prof.events()
-        on_device = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))
-                     and e.name not in ("counted_calls", "baseline_range")
-                     and not e.name.startswith("ProfilerStep")]
-        marks = [e for e in on_device if "spin_kernel" in e.name]
-        device = [e for e in on_device if "spin_kernel" not in e.name]
+        # The profiler's raw events (what prof.events() would wrap, less
+        # its hidden ones), read without building its Python event tree,
+        # which is slow for steps of thousands of device operations.
+        events = [(e.name(), "CUDA" in str(e.device_type()), e.start_ns(), e.end_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if not getattr(e, "is_hidden_event", lambda: False)()]
+        on_device = [e for e in events if e[1] and e[0] not in ("counted_calls", "baseline_range")
+                     and not e[0].startswith("ProfilerStep")]
+        marks = [e for e in on_device if "spin_kernel" in e[0]]
+        device = [e for e in on_device if "spin_kernel" not in e[0]]
 
         def cpu_range(name):
-            e = next(e for e in events if e.name == name and "CUDA" not in str(getattr(e, "device_type", "")))
-            return e.time_range.start, e.time_range.end
+            e = next(e for e in events if e[0] == name and not e[1])
+            return e[2], e[3]
 
         def syncs_in(lo, hi):
-            return sum(1 for e in events if e.name in syncs_named and lo <= e.time_range.start <= hi)
+            return sum(1 for e in events if e[0] in syncs_named and lo <= e[2] <= hi)
 
         b0, b1 = cpu_range("baseline_range")
         t0, t1 = cpu_range("counted_calls")
@@ -945,8 +954,8 @@ def launches_per_call(fn, calls=5) -> dict:
                              f"(last: {len(device)} counted, {len(marks)} of {PROFILE_SPARE} markers)")
     return {"launches": len(device) / calls,
             "host_syncs": (syncs_in(t0, t1) - syncs_in(b0, b1)) / calls,
-            "device_ms": sum(e.time_range.elapsed_us() for e in device) / calls / 1e3,
-            "kernels": [n[:60] for n in sorted({e.name for e in device})]}
+            "device_ms": sum(e[3] - e[2] for e in device) / calls / 1e6,
+            "kernels": [n[:60] for n in sorted({e[0] for e in device})]}
 
 
 def fronts_of(rank) -> int:
@@ -1204,14 +1213,20 @@ def phase_philox(device) -> dict:
             keys.append(k_adv)
             seeds += [rng.child(k_adv, 0), rng.child(k_adv, 3)]
     checks, worst = 0, 0.0
+    # The plain version is elementwise in the element's counter, so its draw
+    # of n elements is the first n of a longer one: one plain draw of the
+    # largest size serves every size, and each output's draws at every size
+    # are held against it in one comparison.
+    top = max(PHILOX_SIZES)
     for seed in seeds:
-        for numel in PHILOX_SIZES:
-            for kinds in kinds_list:
-                got = philox.philox_draws(seed, numel, kinds, device)
-                want = philox.philox_draws_plain(seed, numel, kinds, device)
-                for g, w in zip(got, want):
-                    worst = max(worst, exact(g, w, f"philox_draws {kinds} numel={numel}"))
-                    checks += 1
+        for kinds in kinds_list:
+            want = philox.philox_draws_plain(seed, top, kinds, device)
+            got = [philox.philox_draws(seed, numel, kinds, device) for numel in PHILOX_SIZES]
+            for k, w in enumerate(want):
+                worst = max(worst, exact(torch.cat([g[k] for g in got]),
+                                         torch.cat([w[:numel] for numel in PHILOX_SIZES]),
+                                         f"philox_draws {kinds} output {k}, numel {PHILOX_SIZES}"))
+                checks += len(PHILOX_SIZES)
     for kinds in ([torch.float32], [torch.float32, (0, 2), torch.bfloat16, torch.float16]):
         got = philox.philox_draws(seeds[-1], PHILOX_BIG, kinds, device)
         want = philox.philox_draws_plain(seeds[-1], PHILOX_BIG, kinds, device)
@@ -1265,10 +1280,10 @@ def phase_philox(device) -> dict:
 def same_state(got, want, what) -> int:
     """Raise unless two nests of tensors are equal leaf for leaf, bit for
     bit (``exact``); return the number of leaves."""
-    from evox_tpu_torch.workflows import _graph
+    from evox_tpu_torch.utils import graph
 
-    lg, sg = _graph.flatten(got)
-    lw, sw = _graph.flatten(want)
+    lg, sg = graph.flatten(got)
+    lw, sw = graph.flatten(want)
     if sg != sw:
         raise AssertionError(f"{what}: the state's structure differs")
     for i, (g, w) in enumerate(zip(lg, lw)):
@@ -1378,7 +1393,7 @@ def phase_segment(device) -> dict:
     it; with no NaN the stop-guarded segment equals 20 eager steps."""
     import torch
 
-    from evox_tpu_torch.workflows import _graph
+    from evox_tpu_torch.utils import graph
 
     out = {}
     for path in ("pso_headline", "pso_small", "nsga2_headline"):
@@ -1407,7 +1422,7 @@ def phase_segment(device) -> dict:
         for c in counters.values():
             c.launches = 0
         torch.cuda.synchronize()
-        state_bytes = sum(t.numel() * t.element_size() for t in _graph.flatten(s0)[0])
+        state_bytes = sum(t.numel() * t.element_size() for t in graph.flatten(s0)[0])
         allocated = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1437,8 +1452,8 @@ def phase_segment(device) -> dict:
             raise AssertionError(f"{path}: run {run_ms} ms/gen against {eager_ms} eager, "
                                  f"{len(wf._graphs) - graphs} new captures")
         # One copy of the state into buffers of its own.
-        buffers = [t.clone() for t in _graph.flatten(run_state)[0]]
-        copy_ms, _, _ = timed(lambda: [b.copy_(t) for b, t in zip(buffers, _graph.flatten(s0)[0])], 1)
+        buffers = [t.clone() for t in graph.flatten(run_state)[0]]
+        copy_ms, _, _ = timed(lambda: [b.copy_(t) for b, t in zip(buffers, graph.flatten(s0)[0])], 1)
         del run_state, buffers
         _, seg_prof = profile_steps(lambda s: wf.run_segment(s, SEGMENT_GENS)[0], s0, 1)
         per_gen = launches_per_call(lambda: wf.step(s0), calls=3)
@@ -1572,12 +1587,15 @@ def igd_valid(fit, pf) -> float:
     return float(igd(fit[~torch.isnan(fit).any(dim=1)], pf))
 
 
-def fused_vs_eager(wf, s0, gens, counters, what, eager_context=contextlib.nullcontext) -> tuple[dict, object]:
+def fused_vs_eager(wf, s0, gens, counters, what, eager_context=contextlib.nullcontext,
+                   profile_gens=None) -> tuple[dict, object]:
     """``gens`` eager steps from ``s0`` (timed, launches counted, inside
     ``eager_context()``), then ``run(gens)`` (the capture, then a replay)
     and ``run_segment(gens)``, each equal to the eager steps on every leaf
     bit for bit (NaN rows at the same places), with no host sync in a
-    segment."""
+    segment: the profiled segment is ``run_segment(profile_gens)`` (by
+    default ``gens``; fewer, a capture of its own, where a generation is
+    thousands of device operations that the profiler is slow to read)."""
     import torch
 
     for c in counters.values():
@@ -1605,20 +1623,24 @@ def fused_vs_eager(wf, s0, gens, counters, what, eager_context=contextlib.nullco
     same_state(fused, ref, f"{what}: replayed run({gens}) vs eager steps")
     seg_ms, _, (seg, _) = timed(lambda: wf.run_segment(s0, gens), gens)
     same_state(seg, ref, f"{what}: run_segment({gens}) vs eager steps")
-    per_seg = launches_per_call(lambda: wf.run_segment(s0, gens, metrics=False), calls=1)
+    pg = profile_gens or gens
+    per_seg = launches_per_call(lambda: wf.run_segment(s0, pg, metrics=False), calls=1)
     if per_seg["host_syncs"] != 0:
         raise AssertionError(f"{what}: a segment made host syncs: {per_seg}")
     del fused, seg
-    return {
+    row = {
         "eager_ms_per_gen": eager_ms, "eager_host_ms_per_gen": eager_host_ms,
         "run_ms_per_gen": run_ms, "run_host_ms_per_gen": run_host_ms,
         "segment_ms_per_gen": seg_ms, "capture_s": capture_s, "capture_peak_gb": capture_peak_gb,
-        "segment_device_ops_per_gen": per_seg["launches"] / gens,
-        "segment_host_syncs_per_gen": per_seg["host_syncs"] / gens,
-        "segment_device_ms_per_gen": per_seg["device_ms"] / gens,
-        "segment_idle_share": 1 - per_seg["device_ms"] / gens / run_ms,
+        "segment_device_ops_per_gen": per_seg["launches"] / pg,
+        "segment_host_syncs_per_gen": per_seg["host_syncs"] / pg,
+        "segment_device_ms_per_gen": per_seg["device_ms"] / pg,
+        "segment_idle_share": 1 - per_seg["device_ms"] / pg / run_ms,
         "leaves_equal": leaves, "launches_in_eager_steps": launches,
-    }, ref
+    }
+    if pg != gens:
+        row["profiled_segment_gens"] = pg
+    return row, ref
 
 
 def check_launches(name, launches, gens, what):
@@ -2092,61 +2114,52 @@ def phase_cec2022_suite(device) -> dict:
             "float32_rtol": CEC_RTOL, "functions": out}
 
 
-# The modules through which the DE family reaches philox_draws: utils.rng
-# imports it from ops.philox where it draws, the DE operators bind it.
-PHILOX_CALLERS = ["evox_tpu_torch.ops.philox", "evox_tpu_torch.operators.crossover.differential_evolution",
-                  "evox_tpu_torch.operators.selection.find_pbest"]
-
-
 @contextlib.contextmanager
 def recording_draws(seen):
-    """While active, every philox_draws call made through PHILOX_CALLERS
-    appends (seed, numel, kinds, outputs) to ``seen``, with the seed's key
-    and the outputs copied."""
-    import importlib
+    """While active, every launch of the Philox kernel (``ops.philox``'s
+    ``_launch``: the solo route, and the batched one a vmap's rule takes)
+    appends (keys, index, derive, numel, kinds, solo, outputs) to
+    ``seen``, with the keys and outputs copied.  The entry points'
+    ``.launches`` are restored on exit: a recorded step is not counted on
+    the path."""
+    from evox_tpu_torch.ops import philox
 
-    import torch
-    from evox_tpu_torch.ops.philox import philox_draws
-    from evox_tpu_torch.utils import rng
+    launch = philox._launch
+    counts = philox.philox_draws.launches, philox.philox_draws_batched.launches
 
-    modules = [importlib.import_module(m) for m in PHILOX_CALLERS]
-
-    def recording(seed, numel, kinds, device):
-        out = philox_draws(seed, numel, kinds, device)
-        if isinstance(seed, rng.Seed):
-            kept = rng.Seed(seed.key.clone(), seed.index)
-        else:
-            kept = seed.clone() if isinstance(seed, torch.Tensor) else seed
-        seen.append((kept, numel, list(kinds), [o.clone() for o in out]))
+    def recording(keys, index, derive, numel, codes, lows, spans, solo):
+        out = launch(keys, index, derive, numel, codes, lows, spans, solo)
+        seen.append((keys.clone(), index, derive, numel, philox._kinds(codes, lows, spans), solo,
+                     [o.clone() for o in out]))
         return out
 
-    # The wrapper counts its launches on the name ``philox_draws`` of its
-    # own module, which is ``recording`` while this is active: the recorded
-    # step's launches land here and not in the path's count.
-    recording.launches = 0
-    for m in modules:
-        m.philox_draws = recording
+    philox._launch = recording
     try:
         yield
     finally:
-        for m in modules:
-            m.philox_draws = philox_draws
+        philox._launch = launch
+        philox.philox_draws.launches, philox.philox_draws_batched.launches = counts
 
 
 def draws_on_path(name, seen) -> dict:
-    """Each draw that one eager step of ``name`` made (``recording_draws``)
-    replayed through philox_draws_plain on the same seed, bit for bit."""
+    """Each launch that one eager step of ``name`` made (``recording_draws``)
+    replayed through philox_draws_batched_plain on the same keys, bit for
+    bit; the launches by route, and the layouts (streams x elements:
+    kinds)."""
     from evox_tpu_torch.ops import philox
 
     if not seen:
         raise AssertionError(f"{name}: the recorded step made no draw")
     worst, layouts = 0.0, set()
-    for seed, numel, kinds, got in seen:
-        want = philox.philox_draws_plain(seed, numel, kinds, got[0].device)
+    routes = {"philox_draws": 0, "philox_draws_batched": 0}
+    for keys, index, derive, numel, kinds, solo, got in seen:
+        want = philox.philox_draws_batched_plain(keys, index, numel, kinds, derive)
         for g, w in zip(got, want):
-            worst = max(worst, exact(g, w, f"{name}: philox_draws {kinds} numel={numel} on the path"))
-        layouts.add(f"{numel}:" + ",".join(str(k).replace("torch.", "").replace(" ", "") for k in kinds))
-    return {"calls": len(seen), "layouts": sorted(layouts), "max_abs_err": worst}
+            worst = max(worst, exact(g, w, f"{name}: philox {keys.shape[0]} x {numel} {kinds} on the path"))
+        routes["philox_draws" if solo else "philox_draws_batched"] += 1
+        layouts.add(f"{keys.shape[0]}x{numel}:" + ",".join(str(k).replace("torch.", "").replace(" ", "")
+                                                        for k in kinds))
+    return {"calls": len(seen), "launches": routes, "layouts": sorted(layouts), "max_abs_err": worst}
 
 
 def de_path(name, device, timed_eager) -> tuple[dict, object]:
@@ -2349,7 +2362,7 @@ def es_path(name, device, timed_eager) -> dict:
     import torch
     from evox_tpu_torch.ops import linalg
     from evox_tpu_torch.ops.philox import philox_draws
-    from evox_tpu_torch.workflows import _graph
+    from evox_tpu_torch.utils import graph
 
     counters = {"philox_draws": philox_draws, "eigh": linalg.eigh}
     per_gen = {"philox_draws": ES_PHILOX.get(name, 1), "eigh": ES_EIGH.get(name, 0)}
@@ -2400,7 +2413,7 @@ def es_path(name, device, timed_eager) -> dict:
     best1 = float(algo.fit.min())
     if not best1 < best0:
         raise AssertionError(f"{name}: the best fitness did not fall: {best0} -> {best1}")
-    leaves, _ = _graph.flatten(algo)
+    leaves, _ = graph.flatten(algo)
     if not all(bool(torch.isfinite(x).all()) for x in leaves if x.is_floating_point()):
         raise AssertionError(f"{name}: a state value that is not finite")
     eager_ms = row.get("ms_per_gen", fused["eager_ms_per_gen"])
@@ -2733,20 +2746,20 @@ def vmapped_pso_workflow(device, monitor=None):
 
 def instance(state, b):
     """Instance ``b`` of a vmapped state."""
-    from evox_tpu_torch.workflows import _graph
+    from evox_tpu_torch.utils import graph
 
-    leaves, spec = _graph.flatten(state)
-    return _graph.unflatten(spec, [x[b] for x in leaves])
+    leaves, spec = graph.flatten(state)
+    return graph.unflatten(spec, [x[b] for x in leaves])
 
 
 def vmapped_graph(step, states, gens):
     """``gens`` vmapped generations as one replay of a captured CUDA graph
-    (the port's capture machinery, ``workflows/_graph.py``), the
+    (the port's capture machinery, ``utils/graph.py``), the
     counterpart of ``jax.jit(jax.vmap(wf.step))`` in a loop; returns the
     runner (each call a replay, after the first call's capture)."""
-    from evox_tpu_torch.workflows import _graph
+    from evox_tpu_torch.utils import graph
 
-    cache = _graph.Cache()
+    cache = graph.Cache()
 
     def program(carry, n):
         s = carry[0]
@@ -2754,7 +2767,7 @@ def vmapped_graph(step, states, gens):
             s = step(s)
         return (s,), {}, None
 
-    return lambda: _graph.run(cache, "vmapped_step", program, (states,), gens)[0][0]
+    return lambda: graph.run(cache, "vmapped_step", program, (states,), gens)[0][0]
 
 
 def batched_kernels_vs_plain(states, device) -> dict:
@@ -2821,7 +2834,7 @@ def phase_vmapped_instances(device) -> dict:
     setup for all 8 instances (not 16) and 1 PSO move launch a generation
     (not 8).  Every instance equal to its solo run from the same key, bit
     for bit, after the eager vmapped steps; the vmapped step captured in a
-    CUDA graph (the port's ``_graph`` machinery) and replayed equal to the
+    CUDA graph (the port's ``utils/graph.py`` machinery) and replayed equal to the
     eager vmapped steps; eager and replayed ms/gen, device operations and
     host syncs a generation.  Then an ``EvalMonitor(ordered=False,
     num_instances=8)`` run: its history grouped by instance and equal to
@@ -2944,12 +2957,12 @@ def leaf_errors(what, got, want, rtol, gram=()) -> dict:
     on the basis an eigensolver picks inside a (near-)degenerate
     eigenspace.  Returns the errors by leaf."""
     import torch
-    from evox_tpu_torch.workflows import _graph
+    from evox_tpu_torch.utils import graph
 
     if rtol == 0:
         same_state(got, want, f"{what} vs its solo run")
         return {}
-    if _graph.structure(got) != _graph.structure(want):
+    if graph.structure(got) != graph.structure(want):
         raise AssertionError(f"{what}: structure")
     errs = {}
     for k in want.algorithm:
@@ -3138,6 +3151,374 @@ def family_de_workflow(device):
     return StdWorkflow(DE(FAMILY_DE_POP, lb, ub, device=device), CEC2022(DE_FN, DE_DIM, device=device))
 
 
+# -- neuroevolution -------------------------------------------------------------
+
+# bench.py's neuroevolution (bench.py:1041-1058): OpenES(pop 2048, lr 0.02,
+# sigma 0.05, adam) evolves MLPPolicy((4, 32, 32, 1)), 1,249 parameters, on
+# cartpole() with max_episode_length=200, one episode, maximize_reward=False
+# with opt_direction="max".
+NE_POP, NE_STEPS, NE_LAYERS = 2048, 200, (4, 32, 32, 1)
+# Philox launches a generation: OpenES's normals (solo) and the episodes'
+# resets (one batched launch under the rollout's vmap).
+NE_PHILOX = {"philox_draws": 1, "philox_draws_batched": 1}
+# Card vs CPU from the same initial states and parameters: the states of
+# every episode along the first NE_CHECK_STEPS steps within NE_STEP_RTOL of
+# each leaf's largest magnitude (the CPU tests measured the port against
+# JAX at 2.5e-7 over 50 cart-pole steps: sin, cos and the products differ
+# in the last bits), and the 200-step returns equal on at least
+# NE_EQUAL_SHARE of the individuals (an episode that passes within an ulp
+# of |x| = 2.4 or |theta| = 12 degrees may end a step apart).
+NE_CHECK_STEPS = 50
+# A generation is ~10k device operations, which take torch.profiler
+# seconds to collect: one eager step is profiled by kernel, and the
+# profiled segment is one generation (a capture of its own).
+NE_PROFILE_STEPS = 1
+NE_PROFILE_GENS = 1
+NE_STEP_RTOL = 1e-4
+NE_EQUAL_SHARE = 0.99
+# neuroevolution_family: the family's other problems, 1024 individuals,
+# eager and as run(NE_FAMILY_GENS); the supervised problem's synthetic
+# regression (no file): 16384 examples of 64 features, batches of 256,
+# 4 a generation.
+NE_FAMILY_POP = 1024
+NE_FAMILY_GENS = 5
+NE_SL_DATA = (16_384, 64)
+
+
+def ne_openes(center, device, lr=0.02, sigma=0.05, pop=NE_POP):
+    from evox_tpu_torch.algorithms import OpenES
+
+    return OpenES(pop, center, lr, sigma, optimizer="adam", device=device)
+
+
+def neuroevolution_workflow(device):
+    """bench.py's neuroevolution config through the port at full width, with
+    an EvalMonitor; returns the workflow and its ParamsAndVector."""
+    from evox_tpu_torch.problems.neuroevolution import MLPPolicy, RolloutProblem, cartpole
+    from evox_tpu_torch.utils import ParamsAndVector, rng
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    policy = MLPPolicy(NE_LAYERS)
+    params0 = policy.init(rng.key(1))
+    adapter = ParamsAndVector(params0)
+    problem = RolloutProblem(policy, cartpole(), max_episode_length=NE_STEPS, maximize_reward=False)
+    wf = StdWorkflow(ne_openes(adapter.to_vector(params0), device), problem, monitor=EvalMonitor(),
+                     opt_direction="max", solution_transform=adapter.batched_to_params)
+    return wf, adapter
+
+
+def fixed_rollout(problem, resets, device):
+    """A copy of the rollout ``problem`` whose episodes start from
+    ``resets`` (moved to ``device``) instead of its keys' draws."""
+    import torch.utils._pytree as pytree
+    from evox_tpu_torch.problems.neuroevolution import RolloutProblem
+
+    class Fixed(RolloutProblem):
+        def _resets(self, episode_keys):
+            return pytree.tree_map(lambda x: x.to(device), resets)
+
+    return Fixed(problem.policy, problem.env, problem.max_episode_length, problem.num_episodes,
+                 maximize_reward=problem.maximize_reward)
+
+
+def rollout_card_vs_cpu(wf, adapter, pop_vec) -> dict:
+    """The population ``pop_vec`` (vectors on the card) rolled out on the
+    card (the captured loop) and on the CPU (eager) from the same initial
+    states: every episode's state along the first NE_CHECK_STEPS steps
+    within NE_STEP_RTOL, and the returns equal on NE_EQUAL_SHARE of
+    them."""
+    import torch
+    import torch.utils._pytree as pytree
+    from evox_tpu_torch.utils import rng
+
+    prob = wf.problem
+    device = pop_vec.device
+    keys = torch.stack(rng.split_keys(rng.key(11, device), prob.num_episodes))
+    resets = prob._resets(keys)
+    card_fit, _ = fixed_rollout(prob, resets, device).evaluate(prob.setup(keys[0]), adapter.batched_to_params(pop_vec))
+    cpu = torch.device("cpu")
+    cpu_fit, _ = fixed_rollout(prob, resets, cpu).evaluate(
+        prob.setup(keys[0].cpu()), adapter.batched_to_params(pop_vec.cpu()))
+    card_fit = card_fit.cpu()
+    equal = float((card_fit == cpu_fit).float().mean())
+    # The first steps, episode by episode, eagerly on both devices.
+    n = pop_vec.shape[0]
+
+    def carry(dev):
+        params = {k: v.contiguous() for k, v in adapter.batched_to_params(pop_vec.to(dev)).items()}
+        s0, obs0 = pytree.tree_map(lambda x: x.to(dev).expand(n, *x.shape[1:]).contiguous(), resets)
+        return params, s0, obs0, torch.zeros(n, device=dev), torch.zeros(n, dtype=torch.bool, device=dev)
+
+    step = torch.func.vmap(prob._episode_step)
+    (pc, sc, oc, tc, dc), (pp, sp, op, tp, dp) = carry(device), carry(cpu)
+    worst = 0.0
+    for _ in range(NE_CHECK_STEPS):
+        sc, oc, tc, dc = step(pc, sc, oc, tc, dc)
+        sp, op, tp, dp = step(pp, sp, op, tp, dp)
+        for a, b in zip(pytree.tree_leaves((sc, oc, tc)), pytree.tree_leaves((sp, op, tp))):
+            worst = max(worst, float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30)))
+    row = {"step_rel_err_first_50": worst, "step_rtol": NE_STEP_RTOL, "returns_equal_share": equal,
+           "returns_equal_limit": NE_EQUAL_SHARE,
+           "returns_max_abs_diff": float((card_fit - cpu_fit).abs().max()),
+           "cpu_returns_min_max": [float(cpu_fit.abs().min()), float(cpu_fit.abs().max())],
+           "done_equal_after_50": bool(torch.equal(dc.cpu(), dp))}
+    if not (worst <= NE_STEP_RTOL and equal >= NE_EQUAL_SHARE and row["done_equal_after_50"]):
+        raise AssertionError(f"neuroevolution: the rollout on the card against the CPU: {row}")
+    return row
+
+
+def ne_counters():
+    from evox_tpu_torch.ops.philox import philox_draws, philox_draws_batched
+
+    return {"philox_draws": philox_draws, "philox_draws_batched": philox_draws_batched}
+
+
+def ne_check_launches(counters, per_gen, gens, what):
+    for k, c in counters.items():
+        want = per_gen[k] * gens
+        if c.launches != want:
+            raise AssertionError(f"{what}: {k} launched {c.launches} times in {gens} generations, expected {want}")
+
+
+def uncaptured_rollout_ms(wf, state) -> float:
+    """Host ms of one evaluation whose loop is NOT captured (the eager
+    PyTorch launches, functorch's host cost included), at the problem's
+    width: the cost the rollout's graph removes."""
+    import torch
+    from evox_tpu_torch.problems.neuroevolution import rollout
+
+    pop = wf.solution_transform(state.monitor.latest_solution)
+    real = rollout._captures
+    rollout._captures = lambda device: False
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit, _ = wf.problem.evaluate(state.problem, pop)
+        torch.cuda.synchronize()
+    finally:
+        rollout._captures = real
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_neuroevolution_main_path(device) -> dict:
+    """bench.py's neuroevolution at full width (``neuroevolution_workflow``):
+    init_step (its evaluation captures the rollout's graph), warm-up,
+    timed and profiled eager steps (each replays the rollout's graph), the
+    uncaptured rollout's host time, Philox launches a generation, the
+    draws of one eager step (OpenES's normals and the episodes' batched
+    resets) replayed through the plain version bit for bit
+    (``recording_draws``), then 20 eager steps against run(20) and
+    run_segment(20) bit for bit
+    (``fused_vs_eager``: no host sync in a segment), the population's mean
+    return rising and the best return not falling (at pop 2048 some
+    individual reaches the 200-step ceiling in the first generation), and
+    the first generation's rollout card against CPU
+    (``rollout_card_vs_cpu``)."""
+    import torch
+
+    counters = ne_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wf, adapter = neuroevolution_workflow(device)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    state = wf.init(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = wf.init_step(state)
+    torch.cuda.synchronize()
+    first_gen_s = time.perf_counter() - t0
+    mean0 = float(-state.algorithm.fit.mean())
+    best0 = float(wf.monitor.get_best_fitness(state.monitor))
+    # The first generation's population, whose returns spread over the
+    # whole range (later ones reach the 200-step ceiling): the card vs CPU
+    # comparison rolls it out again.
+    first_pop = state.monitor.latest_solution
+    for _ in range(MAIN_WARMUP):
+        state = wf.step(state)
+
+    def eager(s=state):
+        for _ in range(MAIN_STEPS):
+            s = wf.step(s)
+        return s
+
+    ms, host_ms, state = timed(eager, MAIN_STEPS)
+    state, prof = profile_steps(wf.step, state, NE_PROFILE_STEPS)
+    steps = 1 + MAIN_WARMUP + MAIN_STEPS + NE_PROFILE_STEPS
+    ne_check_launches(counters, NE_PHILOX, steps, "neuroevolution")
+    launches = {k: c.launches for k, c in counters.items()}
+    # One captured rollout, replayed by every eager evaluation (none on the
+    # CPU of a rehearsal).
+    graphs = len(wf.problem._graphs)
+    if graphs != (device.type == "cuda"):
+        raise AssertionError(f"neuroevolution: {graphs} rollout graphs captured, expected 1")
+    seen = []
+    with recording_draws(seen):
+        wf.step(state)
+    on_path = draws_on_path("neuroevolution", seen)
+    if on_path["launches"] != NE_PHILOX:
+        raise AssertionError(f"neuroevolution: one eager step launched {on_path['launches']}, expected {NE_PHILOX}")
+    del seen
+    eager_prof = launches_per_call(lambda: wf.step(state), calls=1)
+    uncaptured_ms = uncaptured_rollout_ms(wf, state)
+    fused, ref = fused_vs_eager(wf, state, SEGMENT_GENS, counters, "neuroevolution", profile_gens=NE_PROFILE_GENS)
+    eager_launches = fused.pop("launches_in_eager_steps")
+    for k in counters:
+        if eager_launches[k] != NE_PHILOX[k] * SEGMENT_GENS:
+            raise AssertionError(f"neuroevolution: {eager_launches[k]} {k} launches in {SEGMENT_GENS} eager steps")
+    mean1 = float(-ref.algorithm.fit.mean())
+    best1 = float(wf.monitor.get_best_fitness(ref.monitor))
+    if not (mean1 > mean0 and best1 >= best0):
+        raise AssertionError(f"neuroevolution: mean return {mean0} -> {mean1}, best {best0} -> {best1}")
+    if not bool(torch.isfinite(ref.algorithm.center).all()):
+        raise AssertionError("neuroevolution: the center is not finite")
+    card_vs_cpu = rollout_card_vs_cpu(wf, adapter, first_pop)
+    env_steps = NE_POP * NE_STEPS * wf.problem.num_episodes
+    row = {
+        "config": f"OpenES pop={NE_POP} lr=0.02 sigma=0.05 adam, MLPPolicy{NE_LAYERS} "
+                  f"({adapter.vector_size} parameters), cartpole T={NE_STEPS}, 1 episode, "
+                  "maximize_reward=False + opt_direction=max, EvalMonitor",
+        "setup_s": setup_s, "first_generation_s": first_gen_s,
+        "ms_per_gen": ms, "host_ms_per_gen": host_ms, "gen_per_s": 1e3 / ms,
+        "env_steps_per_s_eager": env_steps * 1e3 / ms,
+        "env_steps_per_s_fused": env_steps * 1e3 / fused["run_ms_per_gen"],
+        "eager_device_ops_per_gen": eager_prof["launches"], "eager_host_syncs_per_gen": eager_prof["host_syncs"],
+        "eager_device_ms_per_gen": eager_prof["device_ms"],
+        "eager_idle_share": 1 - eager_prof["device_ms"] / ms,
+        "uncaptured_rollout_host_ms": uncaptured_ms,
+        "philox_per_gen": NE_PHILOX, "launches": {k: launches[k] + eager_launches[k] for k in counters},
+        "philox_on_path_vs_plain": on_path, "profile": prof, "fused": fused,
+        "mean_return_after_init": mean0, "mean_return_final": mean1,
+        "best_return_after_init": best0, "best_return_final": best1,
+        "card_vs_cpu": card_vs_cpu,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    del wf, state, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def ne_family_workflows(device):
+    """The family's other problems: for each, a function that makes its
+    workflow, and its Philox launches a generation."""
+    import torch
+    from evox_tpu_torch.problems import neuroevolution as ne
+    from evox_tpu_torch.utils import ParamsAndVector, rng
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    def rollout_case(policy, make_problem, opt_direction, lr=0.02, sigma=0.05):
+        def build():
+            params0 = policy.init(rng.key(1))
+            adapter = ParamsAndVector(params0)
+            algo = ne_openes(adapter.to_vector(params0), device, lr, sigma, NE_FAMILY_POP)
+            return StdWorkflow(algo, make_problem(), monitor=EvalMonitor(), opt_direction=opt_direction,
+                               solution_transform=adapter.batched_to_params)
+        return build
+
+    def supervised():
+        g = torch.Generator().manual_seed(0)
+        n, d = NE_SL_DATA
+        x = torch.randn(n, d, generator=g)
+        y = torch.tanh(x @ torch.randn(d, 1, generator=g) / d**0.5)
+        policy = ne.MLPPolicy((d, 32, 1))
+        params0 = policy.init(rng.key(1))
+        adapter = ParamsAndVector(params0)
+        prob = ne.SupervisedLearningProblem(policy.apply, x, y, criterion=lambda p, t: ((p - t) ** 2).mean(),
+                                            batch_size=256, n_batch_per_eval=4, device=device)
+        algo = ne_openes(adapter.to_vector(params0), device, 0.01, 0.02, NE_FAMILY_POP)
+        return StdWorkflow(algo, prob, monitor=EvalMonitor(), solution_transform=adapter.batched_to_params)
+
+    ne.minibrax.activate()
+    ne.miniplayground.activate()
+    rollout_gen = {"philox_draws": 1, "philox_draws_batched": 1}
+    return {
+        # The problem-side direction convention (maximize_reward=True).
+        "pendulum": (rollout_case(ne.MLPPolicy((3, 16, 1)), lambda: ne.RolloutProblem(
+            ne.MLPPolicy((3, 16, 1)), ne.pendulum(), 200), "min", 0.05, 0.1), rollout_gen),
+        "brax_hopper": (rollout_case(ne.MLPPolicy((5, 16, 1)), lambda: ne.BraxProblem(
+            ne.MLPPolicy((5, 16, 1)), "hopper", 100, maximize_reward=False, device=device), "max"),
+            rollout_gen),
+        "mujoco_pointmass": (rollout_case(ne.MLPPolicy((4, 16, 2)), lambda: ne.MujocoProblem(
+            ne.MLPPolicy((4, 16, 2)), "PointMass", 100, maximize_reward=False, device=device), "max"),
+            rollout_gen),
+        "supervised": (supervised, {"philox_draws": 1, "philox_draws_batched": 0}),
+    }
+
+
+def phase_neuroevolution_family(device) -> dict:
+    """Pendulum through RolloutProblem, the hopper through BraxProblem on the
+    port's minibrax, PointMass through MujocoProblem on miniplayground
+    (1024 individuals; T = 200, 100, 100) and SupervisedLearningProblem on
+    its device-resident path (a synthetic regression made from the seed),
+    each with OpenES and an EvalMonitor: init_step, the draws of one eager
+    step replayed through the plain version bit for bit
+    (``recording_draws``), then NE_FAMILY_GENS eager steps against
+    run(NE_FAMILY_GENS) and run_segment bit for bit (the device operations
+    of a generation and no host sync in a profiled one-generation
+    segment), Philox launches a generation, finite fitness; then
+    BraxProblem.visualize (HTML) once."""
+    import torch
+
+    counters = ne_counters()
+    out = {}
+    hopper = None
+    for name, (build, per_gen) in ne_family_workflows(device).items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wf = build()
+        for c in counters.values():
+            c.launches = 0
+        state = wf.init_step(wf.init(0))
+        s0 = wf.step(state)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        ne_check_launches(counters, per_gen, 2, name)
+        setup_launches = {k: c.launches for k, c in counters.items()}
+        seen = []
+        with recording_draws(seen):
+            wf.step(s0)
+        on_path = draws_on_path(name, seen)
+        if on_path["launches"] != per_gen:
+            raise AssertionError(f"{name}: one eager step launched {on_path['launches']}, expected {per_gen}")
+        del seen
+        fused, ref = fused_vs_eager(wf, s0, NE_FAMILY_GENS, counters, name, profile_gens=NE_PROFILE_GENS)
+        eager_launches = fused.pop("launches_in_eager_steps")
+        for k in counters:
+            if eager_launches[k] != per_gen[k] * NE_FAMILY_GENS:
+                raise AssertionError(f"{name}: {eager_launches[k]} {k} launches in {NE_FAMILY_GENS} eager steps")
+        fit = ref.algorithm.fit
+        if not bool(torch.isfinite(fit).all()):
+            raise AssertionError(f"{name}: fitness that is not finite")
+        out[name] = {
+            "setup_and_2_gens_s": setup_s, "fused": fused, "philox_per_gen": per_gen, "philox_on_path_vs_plain": on_path,
+            "launches": {k: setup_launches[k] + eager_launches[k] for k in counters},
+            "best_fitness": float(wf.monitor.get_best_fitness(ref.monitor)),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        if name == "brax_hopper":
+            hopper = (wf, ref)
+        del state, s0
+    wf, ref = hopper
+    t0 = time.perf_counter()
+    adapter = wf.solution_transform.__self__
+    html = wf.problem.visualize(ref.problem, adapter.to_params(ref.algorithm.center))
+    if "<html" not in html:
+        raise AssertionError("brax_hopper: visualize did not render an HTML document")
+    data = json.loads(html.split("const data = ", 1)[1].split(";\n", 1)[0])
+    frames = len(data["frames"])
+    if not 2 <= frames <= wf.problem.max_episode_length + 1:
+        raise AssertionError(f"brax_hopper: visualize rendered {frames} frames")
+    out["brax_hopper"]["visualize_html"] = {"seconds": time.perf_counter() - t0, "bytes": len(html),
+                                            "frames": frames}
+    del wf, ref, hopper
+    torch.cuda.empty_cache()
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in out if n != "launches") for k in counters}
+    return out
+
+
 MO_KERNELS = [
     ("dominance_packed", "evox_tpu_torch/csrc/dominance.cu", "evox_tpu/ops/dominance.py:37",
      "dominance_packed_20k"),
@@ -3171,6 +3552,19 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
     }
 
 
+def on_path_err(results, route) -> float:
+    """The largest error of the recorded draws (``draws_on_path``) that
+    took ``route``, over every phase's paths."""
+    worst = 0.0
+    for v in results.values():
+        if isinstance(v, dict):
+            rec = v.get("philox_on_path_vs_plain")
+            if rec is not None and rec["launches"][route]:
+                worst = max(worst, rec["max_abs_err"])
+            worst = max(worst, on_path_err(v, route))
+    return worst
+
+
 def philox_row(results) -> dict:
     t = results["philox"]["timing"]["pso_setup_1e8_f32"]
     return {
@@ -3179,10 +3573,10 @@ def philox_row(results) -> dict:
         # Pallas kernel of it does this work.
         "replaces": "none (the port's own kernel; the plain draws of evox_tpu_torch/utils/rng.py)",
         # The main paths' draws: the PSO headline's setup, the NSGA-II,
-        # RVEA, de_cec, cmaes_cec and openes_cec headlines' setups and
-        # generations, and the eager generations of the rest of the
-        # multi-objective family and of the DE and ES families (with their
-        # setups).
+        # RVEA, de_cec, cmaes_cec, openes_cec and neuroevolution headlines'
+        # setups and generations, and the eager generations of the rest of
+        # the multi-objective family, of the DE, ES and PSO families and of
+        # the neuroevolution family (with their setups).
         "launches": results["main_path"]["philox_launches"]
         + results["nsga2_main_path"]["launches"]["philox_draws"]
         + results["rvea_main_path"]["launches"]["philox_draws"]
@@ -3192,8 +3586,11 @@ def philox_row(results) -> dict:
         + results["cmaes_main_path"]["launches"]["philox_draws"]
         + results["openes_main_path"]["launches"]["philox_draws"]
         + results["es_family"]["launches"]["philox_draws"]
-        + results["pso_variants"]["launches"]["philox_draws"],
-        "max_abs_err": results["philox"]["max_abs_err"],
+        + results["pso_variants"]["launches"]["philox_draws"]
+        + results["neuroevolution_main_path"]["launches"]["philox_draws"]
+        + results["neuroevolution_family"]["launches"]["philox_draws"],
+        # The philox phase's sizes, and every recorded draw of the paths.
+        "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }
@@ -3212,9 +3609,16 @@ def batched_rows(results) -> list[dict]:
          **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS}},
         {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
          "replaces": "none (the port's own kernel, batched over vmapped instances)",
+         # With the rollouts' resets (one launch for the episodes a
+         # generation).
          "launches": launches["philox_draws_batched"]
-         + results["vmapped_family"]["launches"]["philox_draws_batched"],
-         **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS}},
+         + results["vmapped_family"]["launches"]["philox_draws_batched"]
+         + results["neuroevolution_main_path"]["launches"]["philox_draws_batched"]
+         + results["neuroevolution_family"]["launches"]["philox_draws_batched"],
+         **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
+         # The timed batch, and the rollouts' recorded resets.
+         "max_abs_err": max(t["philox_draws_batched"]["max_abs_err"],
+                            on_path_err(results, "philox_draws_batched"))},
     ]
 
 
@@ -3271,6 +3675,8 @@ def main() -> int:
         ("pso_variants", phase_pso_variants),
         ("vmapped_instances", phase_vmapped_instances),
         ("vmapped_family", phase_vmapped_family),
+        ("neuroevolution_main_path", phase_neuroevolution_main_path),
+        ("neuroevolution_family", phase_neuroevolution_family),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)

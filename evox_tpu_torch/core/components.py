@@ -81,6 +81,12 @@ class Problem(_Component):
     problems.  Stateless problems return ``state`` unchanged.
     """
 
+    #: Whether ``evaluate`` can run inside a captured CUDA graph (a fused
+    #: segment on the card).  A problem that must call the host on every
+    #: evaluation says False, and ``StdWorkflow.run``/``run_segment`` on
+    #: the card refuse it before running anything.
+    capturable: bool = True
+
     def evaluate(
         self, state: State, pop: torch.Tensor
     ) -> tuple[torch.Tensor, State]:

@@ -140,10 +140,11 @@ def philox_draws_batched_plain(keys: torch.Tensor, index: int, numel: int, kinds
     return [torch.stack(col) for col in zip(*rows)]
 
 
-def _launch(keys: torch.Tensor, index: int, derive: int, numel: int, codes, lows, spans):
+def _launch(keys: torch.Tensor, index: int, derive: int, numel: int, codes, lows, spans, solo: int):
     """One launch of ``csrc/philox.cu`` drawing one stream of ``numel``
     elements for each of the B keys of ``keys`` (B, 2); returns the (B,
-    numel) outputs."""
+    numel) outputs and counts the launch on the solo entry point's
+    ``.launches`` (``solo``) or the batched one's."""
     device = keys.device
     if device.type != "cuda":
         raise ValueError(f"philox_draws: no kernel for device {device}")
@@ -164,6 +165,8 @@ def _launch(keys: torch.Tensor, index: int, derive: int, numel: int, codes, lows
         "philox_draws", fn, device, keys.data_ptr(), batch, index, derive, numel, len(codes),
         *(list(codes) + [0] * pad), *(list(lows) + [0] * pad), *(list(spans) + [1] * pad), *ptrs, blocks,
     )
+    # A solo call is a launch of one stream; a vmap merges into a batch.
+    (philox_draws if solo else philox_draws_batched).launches += 1
     return outs
 
 
@@ -182,10 +185,7 @@ def _op(keys: torch.Tensor, index: int, derive: int, numel: int, codes: list[int
         lows: list[int], spans: list[int], solo: int) -> list[torch.Tensor]:
     if keys.device.type == "cpu":
         return philox_draws_batched_plain(keys, index, numel, _kinds(codes, lows, spans), derive)
-    outs = _launch(keys, index, derive, numel, codes, lows, spans)
-    # A solo call is a launch of one stream; a vmap merges into a batch.
-    (philox_draws if solo else philox_draws_batched).launches += 1
-    return outs
+    return _launch(keys, index, derive, numel, codes, lows, spans, solo)
 
 
 def philox_draws(seed, numel: int, kinds: Sequence[Kind], device) -> list[torch.Tensor]:

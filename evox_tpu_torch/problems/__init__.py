@@ -1,6 +1,6 @@
-"""Problem library (counterpart of ``evox_tpu/problems``; numerical only so
-far)."""
+"""Problem library (counterpart of ``evox_tpu/problems``: numerical and
+neuroevolution so far)."""
 
-__all__ = ["numerical"]
+__all__ = ["neuroevolution", "numerical"]
 
-from . import numerical
+from . import neuroevolution, numerical

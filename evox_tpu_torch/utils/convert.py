@@ -1,9 +1,11 @@
-"""Carry a state across from numpy.
+"""Carry a state or model parameters across from numpy.
 
 :func:`state_from_numpy` turns a nested dict of numpy arrays (for example
 one written out from a JAX package ``State``) into the port's
-:class:`~evox_tpu_torch.core.State`.  The port never sees JAX: a caller that
-holds a JAX state converts its leaves to numpy first.
+:class:`~evox_tpu_torch.core.State`; :func:`params_from_numpy` turns a
+parameter tree (for example the JAX package's ``MLPPolicy.init`` output,
+``{"w0": ..., "b0": ...}``) into the same tree of tensors.  The port never
+sees JAX: a caller that holds JAX arrays converts them to numpy first.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from .. import resolve_device
 from ..core import Parameter, State
 from . import rng
 
-__all__ = ["state_from_numpy"]
+__all__ = ["params_from_numpy", "state_from_numpy"]
 
 
 def _tensor(x: Any, device: torch.device) -> torch.Tensor:
@@ -63,3 +65,19 @@ def state_from_numpy(
         return State(**fields)
 
     return build(tree, "")
+
+
+def params_from_numpy(tree: Any, device: str | torch.device | None = None) -> Any:
+    """A parameter tree of numpy arrays (nested dicts, lists and tuples) as
+    the same tree of tensors on ``device`` (``None`` means the CUDA card),
+    values and dtypes unchanged."""
+    device = resolve_device(device)
+
+    def build(node: Any) -> Any:
+        if isinstance(node, Mapping):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return _tensor(node, device)
+
+    return build(tree)

@@ -59,14 +59,16 @@ def _flatten(t: Any, leaves: list) -> Any:
         return ("S", tuple(t.keys()), t.param_keys, tuple(_flatten(v, leaves) for v in t.values()))
     if isinstance(t, Mapping):
         return ("D", tuple(t.keys()), tuple(_flatten(v, leaves) for v in t.values()))
+    if isinstance(t, tuple) and hasattr(t, "_fields"):  # a NamedTuple keeps its type
+        return ("N", type(t), tuple(_flatten(v, leaves) for v in t))
     if isinstance(t, (tuple, list)):
         return ("t" if isinstance(t, tuple) else "l", tuple(_flatten(v, leaves) for v in t))
     return ("C", t)
 
 
 def flatten(tree: Any) -> tuple[list[torch.Tensor], Any]:
-    """The tensor leaves of a nest of ``State``/dict/tuple/list, in order,
-    and a hashable description of everything else."""
+    """The tensor leaves of a nest of ``State``/dict/NamedTuple/tuple/list,
+    in order, and a hashable description of everything else."""
     leaves: list[torch.Tensor] = []
     return leaves, _flatten(tree, leaves)
 
@@ -79,6 +81,8 @@ def _unflatten(s: Any, it) -> Any:
         return State(_param_keys=s[2], **dict(zip(s[1], (_unflatten(c, it) for c in s[3]))))
     if kind == "D":
         return dict(zip(s[1], (_unflatten(c, it) for c in s[2])))
+    if kind == "N":
+        return s[1](*(_unflatten(c, it) for c in s[2]))
     if kind in ("t", "l"):
         items = [_unflatten(c, it) for c in s[1]]
         return tuple(items) if kind == "t" else items

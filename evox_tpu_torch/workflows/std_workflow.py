@@ -8,7 +8,7 @@ and problem sub-states are carried through it.
 Fused multi-generation runs (:meth:`StdWorkflow.run`,
 :meth:`StdWorkflow.run_segment`) are the counterpart of JAX's compiled
 ``fori_loop`` and ``lax.scan``: on the card the generations are one replay
-of a captured CUDA graph (``workflows/_graph.py``), on the CPU the same
+of a captured CUDA graph (``utils/graph.py``), on the CPU the same
 generation code runs eagerly in a Python loop (the plain version).  Either
 way the state equals that of the same number of :meth:`StdWorkflow.step`
 calls, bit for bit.
@@ -34,7 +34,7 @@ import torch
 from ..core import Algorithm, Monitor, Problem, State, Workflow
 from ..resilience.health import _best_fitness_expr, _subtree, scan_state
 from ..utils import rng
-from . import _graph
+from ..utils import graph
 
 __all__ = ["StdWorkflow", "SegmentConfig"]
 
@@ -74,16 +74,16 @@ class SegmentConfig(NamedTuple):
 def _tree_where(pred: torch.Tensor, a: Any, b: Any) -> Any:
     """``a`` where ``pred`` else ``b``, leaf by leaf (a 0-dim bool ``pred``;
     the values of the selected operand are returned exactly)."""
-    la, spec = _graph.flatten(a)
-    lb, _ = _graph.flatten(b)
-    return _graph.unflatten(spec, [torch.where(pred, x, y) for x, y in zip(la, lb)])
+    la, spec = graph.flatten(a)
+    lb, _ = graph.flatten(b)
+    return graph.unflatten(spec, [torch.where(pred, x, y) for x, y in zip(la, lb)])
 
 
 def _stack(outs: list) -> Any:
     """Per-generation outputs stacked along a new leading axis."""
-    first, spec = _graph.flatten(outs[0])
-    columns = [_graph.flatten(o)[0] for o in outs]
-    return _graph.unflatten(spec, [torch.stack([c[i] for c in columns]) for i in range(len(first))])
+    first, spec = graph.flatten(outs[0])
+    columns = [graph.flatten(o)[0] for o in outs]
+    return graph.unflatten(spec, [torch.stack([c[i] for c in columns]) for i in range(len(first))])
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -171,8 +171,8 @@ class StdWorkflow(Workflow):
         self.fitness_transform = fitness_transform
         self.quarantine_nonfinite = quarantine_nonfinite
         self.nonfinite_penalty = float(nonfinite_penalty)
-        # Captured CUDA graphs of fused segments (``workflows/_graph.py``).
-        self._graphs = _graph.Cache()
+        # Captured CUDA graphs of fused segments (``utils/graph.py``).
+        self._graphs = graph.Cache()
 
     # -- state -------------------------------------------------------------
     def setup(self, key: int | torch.Tensor, instance_id: int | torch.Tensor | None = None) -> State:
@@ -494,12 +494,12 @@ class StdWorkflow(Workflow):
         the early stop, ``(state, stopped, executed)``; ``outs`` holds each
         generation's captured sinks and best fitness stacked along a
         leading axis; ``meta`` the sink sites' identities.  On the card
-        :func:`_graph.run` captures it, on the CPU it runs as it is."""
+        :func:`graph.run` captures it, on the CPU it runs as it is."""
 
         def generation(carry: tuple, meta: list) -> tuple[tuple, dict]:
             st = carry[0]
             new_st, ys = self._capture_step(st, meta, cfg.capture_history, which)
-            if _graph.structure(new_st) != _graph.structure(st):
+            if graph.structure(new_st) != graph.structure(st):
                 raise ValueError(
                     "a fused segment needs a state whose structure, shapes and dtypes "
                     "a generation keeps (run init_step first)"
@@ -515,8 +515,8 @@ class StdWorkflow(Workflow):
             # A stopped segment keeps its state and reports zeros, as JAX's
             # cond-guarded body; the step still runs (a graph cannot skip it).
             kept = _tree_where(stopped, st, new_st)
-            leaves, spec = _graph.flatten(out)
-            out = _tree_where(stopped, _graph.unflatten(spec, [torch.zeros_like(t) for t in leaves]), out)
+            leaves, spec = graph.flatten(out)
+            out = _tree_where(stopped, graph.unflatten(spec, [torch.zeros_like(t) for t in leaves]), out)
             bad = self._unhealthy(kept, cfg)
             stopped_next = stopped if bad is None else stopped | bad
             return (kept, stopped_next, executed + (~stopped).to(torch.int32)), out
@@ -541,7 +541,7 @@ class StdWorkflow(Workflow):
                 "StdWorkflow.run / run_segment under torch.func.vmap (JAX's vmapped segment) is not yet "
                 "ported: vmap the step, and capture the vmapped step in a CUDA graph"
             )
-        leaves, _ = _graph.flatten(state)
+        leaves, _ = graph.flatten(state)
         device = leaves[0].device if leaves else torch.device("cpu")
         carry: tuple = (state,)
         if cfg.stop_on_unhealthy:
@@ -552,10 +552,15 @@ class StdWorkflow(Workflow):
             )
         program = self._segment_program(cfg)
         if device.type == "cuda" and cfg.capture_history:
+            if not self.problem.capturable:
+                raise NotImplementedError(
+                    f"StdWorkflow.run / run_segment on the card with {type(self.problem).__name__}, "
+                    "whose evaluation calls the host (a CUDA graph cannot): step the workflow eagerly"
+                )
             # The metrics are computed on the final state after the replay,
             # so one capture serves every metric setting.
             key = ("step", cfg._replace(metrics=False, diversity=False, step_size=False))
-            carry, outs, meta = _graph.run(self._graphs, key, program, carry, n_steps)
+            carry, outs, meta = graph.run(self._graphs, key, program, carry, n_steps)
         else:
             # The CPU, and the per-generation debug mode: the same
             # generations, eagerly.

@@ -404,7 +404,7 @@ def test_keys_and_draws_stay_on_the_card_without_host_syncs(cuda):
 # ---------------------------------------------------------------------------
 
 from evox_tpu_torch.core import Problem, State  # noqa: E402
-from evox_tpu_torch.workflows import _graph  # noqa: E402
+from evox_tpu_torch.utils import graph  # noqa: E402
 
 
 def _segment_workflow(kind, device, **kw):
@@ -420,8 +420,8 @@ def _segment_workflow(kind, device, **kw):
 
 
 def _equal_states(a, b):
-    la, sa = _graph.flatten(a)
-    lb, sb = _graph.flatten(b)
+    la, sa = graph.flatten(a)
+    lb, sb = graph.flatten(b)
     assert sa == sb
     for x, y in zip(la, lb):
         assert x.dtype == y.dtype and x.device == y.device
@@ -447,7 +447,7 @@ def test_segment_and_run_replay_eager_steps_bit_for_bit(cuda, kind):
     for unroll in (1, 5, 12):
         _equal_states(wf.run(s0, 12, init=False, unroll=unroll), ref)
     # The caller's state is never aliased by the graph's buffers.
-    leaves = {t.data_ptr() for t in _graph.flatten(seg)[0] if t.numel()}
+    leaves = {t.data_ptr() for t in graph.flatten(seg)[0] if t.numel()}
     assert not leaves & {t.data_ptr() for b in wf._graphs.inputs.values() for t in b if t.numel()}
     # run and run_segment of the same length share one capture.
     assert len(wf._graphs) == 1
@@ -462,16 +462,16 @@ def test_capture_memory_does_not_grow_with_the_segment(cuda):
 
     wf = StdWorkflow(PSO(4096, torch.full((256,), -5.0), torch.full((256,), 5.0), device=cuda), Sphere())
     s0 = wf.step(wf.init_step(wf.init(0)))
-    state_bytes = sum(t.numel() * t.element_size() for t in _graph.flatten(s0)[0])
+    state_bytes = sum(t.numel() * t.element_size() for t in graph.flatten(s0)[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     wf.run_segment(s0, 24, metrics=False)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - before < 8 * state_bytes
-    for n in range(1, _graph.MAX_GRAPHS + 3):
+    for n in range(1, graph.MAX_GRAPHS + 3):
         wf.run_segment(s0, n, metrics=False)
-    assert len(wf._graphs) == _graph.MAX_GRAPHS
+    assert len(wf._graphs) == graph.MAX_GRAPHS
 
 
 def test_replayed_segment_makes_no_host_sync(cuda):
@@ -919,3 +919,215 @@ def test_batched_pso_move_refuses_operands_of_other_instance_counts(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused_pso_move_batched(arrays[0].transpose(1, 2).contiguous().transpose(1, 2), *arrays[1:], lb, ub,
                                scal, keys)
+
+
+# ---------------------------------------------------------------------------
+# Neuroevolution: the captured rollout
+# ---------------------------------------------------------------------------
+
+
+def _fixed_rollout(env_name, sizes, steps, resets, **kw):
+    """A RolloutProblem whose episodes start from ``resets`` (CPU tensors,
+    copied to the card once), on the device of the keys it is given."""
+    import torch.utils._pytree as pytree
+    from evox_tpu_torch.problems import neuroevolution as ne
+
+    by_device = {"cpu": resets, "cuda": pytree.tree_map(lambda x: x.cuda(), resets)}
+
+    class Fixed(ne.RolloutProblem):
+        def _resets(self, episode_keys):
+            return by_device[episode_keys.device.type]
+
+    return Fixed(ne.MLPPolicy(sizes), getattr(ne, env_name)(), steps, **kw)
+
+
+@pytest.mark.parametrize("env_name,sizes", [("cartpole", (4, 8, 1)), ("pendulum", (3, 8, 1))])
+def test_rollout_replays_one_captured_loop_and_matches_the_cpu(cuda, env_name, sizes):
+    """Evaluations on the card replay one captured graph of the loop (no
+    host sync once captured) and give the CPU's fitness from the same
+    initial states and parameters: cart-pole's returns equal on 95 % of
+    the individuals (an episode that passes within an ulp of a threshold
+    may end a step apart), pendulum's within 1e-4."""
+    from evox_tpu_torch.problems import neuroevolution as ne
+    from evox_tpu_torch.utils import rng
+
+    env = getattr(ne, env_name)()
+    resets = torch.func.vmap(env.reset)(torch.stack(rng.split_keys(rng.key(3), 2)))
+    prob = _fixed_rollout(env_name, sizes, 50, resets, num_episodes=2)
+    pop = ne.stack_model_params(ne.MLPPolicy(sizes).init, rng.key(4), 64)
+    card_pop = {k: v.to(cuda) for k, v in pop.items()}
+    state = prob.setup(rng.key(5, cuda))
+    first, _ = prob.evaluate(state, card_pop)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, _ = prob.evaluate(state, card_pop)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(prob._graphs) == 1
+    torch.testing.assert_close(again, first, rtol=0, atol=0)
+    cpu, _ = prob.evaluate(prob.setup(rng.key(5)), pop)
+    if env_name == "cartpole":
+        assert float((first.cpu() == cpu).float().mean()) >= 0.95
+    else:
+        assert float(((first.cpu() - cpu).abs() / cpu.abs().max()).max()) <= 1e-4
+
+
+def _ne_workflow(device, problem=None, monitor=True):
+    from evox_tpu_torch.algorithms import OpenES
+    from evox_tpu_torch.problems import neuroevolution as ne
+    from evox_tpu_torch.utils import ParamsAndVector, rng
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    policy = ne.MLPPolicy((4, 8, 1))
+    params0 = policy.init(rng.key(1))
+    adapter = ParamsAndVector(params0)
+    problem = problem or ne.RolloutProblem(policy, ne.cartpole(), 50, maximize_reward=False)
+    return StdWorkflow(OpenES(64, adapter.to_vector(params0), 0.02, 0.05, optimizer="adam", device=device),
+                       problem, monitor=EvalMonitor() if monitor else None, opt_direction="max",
+                       solution_transform=adapter.batched_to_params)
+
+
+def test_neuroevolution_run_replays_eager_steps_bit_for_bit(cuda):
+    """OpenES on cart-pole: 5 eager steps (each rollout a replay of the
+    problem's graph) equal run(5) and run_segment(5) (the rollouts captured
+    inline with the generations) bit for bit, and neither an eager step nor
+    a segment syncs the host."""
+    wf = _ne_workflow(cuda)
+    s0 = wf.init_step(wf.init(0))
+    ref = s0
+    for _ in range(5):
+        ref = wf.step(ref)
+    _equal_states(wf.run(s0, 5, init=False), ref)
+    seg, _ = wf.run_segment(s0, 5)
+    _equal_states(seg, ref)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wf.step(s0)
+        wf.run_segment(s0, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_neuroevolution_steps_on_the_card_never_run_the_plain_draws(cuda, monkeypatch):
+    """OpenES's normals and the episodes' resets on the card launch the
+    kernel (the policy's first weights are drawn on the CPU, from a CPU
+    key)."""
+    real = philox.philox_draws_batched_plain
+
+    def refuse_on_the_card(keys, *a, **k):
+        if keys.is_cuda:
+            raise AssertionError("the plain version ran on a CUDA tensor")
+        return real(keys, *a, **k)
+
+    monkeypatch.setattr(philox, "philox_draws_batched_plain", refuse_on_the_card)
+    wf = _ne_workflow(cuda)
+    wf.step(wf.init_step(wf.init(1)))
+    torch.cuda.synchronize()
+
+
+def test_rollout_under_vmap_on_the_card_matches_solo_evaluations(cuda):
+    """Under ``torch.func.vmap`` over problem instances the loop runs
+    eagerly on the card (no capture of batched tensors): each instance's
+    fitness within 1e-5 of its solo evaluation (the products of another
+    batch shape may be summed in another order)."""
+    from evox_tpu_torch.problems import neuroevolution as ne
+    from evox_tpu_torch.utils import rng
+
+    policy = ne.MLPPolicy((3, 8, 1))
+    prob = ne.RolloutProblem(policy, ne.pendulum(), 30, num_episodes=2)
+    pop = ne.stack_model_params(policy.init, rng.key(8, cuda), 6)
+    pop2 = {k: v.reshape((2, 3) + v.shape[1:]) for k, v in pop.items()}
+    keys = torch.stack(rng.split_keys(rng.key(9, cuda), 2))
+    fit, _ = torch.func.vmap(prob.evaluate)(torch.func.vmap(prob.setup)(keys), pop2)
+    assert len(prob._graphs) == 0
+    for i in range(2):
+        solo, _ = prob.evaluate(prob.setup(keys[i]), {k: v[i] for k, v in pop2.items()})
+        assert float(((fit[i] - solo).abs() / solo.abs().max()).max()) <= 1e-5
+
+
+def test_supervised_device_resident_run_equals_eager_steps_on_the_card(cuda):
+    from evox_tpu_torch.algorithms import OpenES
+    from evox_tpu_torch.problems import neuroevolution as ne
+    from evox_tpu_torch.utils import ParamsAndVector
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(512, 8, generator=g)
+    y = x @ torch.randn(8, 1, generator=g)
+    prob = ne.SupervisedLearningProblem(lambda p, v: v @ p["w"], x, y, criterion=lambda p, t: ((p - t) ** 2).mean(),
+                                        batch_size=64, n_batch_per_eval=3, device=cuda)
+    adapter = ParamsAndVector({"w": torch.zeros(8, 1)})
+    wf = StdWorkflow(OpenES(32, torch.zeros(8), 0.1, 0.1, device=cuda), prob,
+                     solution_transform=adapter.batched_to_params)
+    s0 = wf.init_step(wf.init(0))
+    ref = s0
+    for _ in range(6):
+        ref = wf.step(ref)
+    _equal_states(wf.run(s0, 6, init=False), ref)
+    assert int(ref.problem.batch_cursor) == (3 * 7) % 8
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wf.run_segment(s0, 6)
+        wf.step(s0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(ref.algorithm.fit.min()) < float(s0.algorithm.fit.min())
+
+
+def test_streaming_supervised_refuses_a_segment_on_the_card_before_pulling(cuda):
+    """A streaming problem steps eagerly on the card; ``run``/``run_segment``
+    raise NotImplementedError before any batch is pulled, so the next
+    eager evaluation gets the next batch in source order."""
+    import numpy as np
+    from evox_tpu_torch.algorithms import OpenES
+    from evox_tpu_torch.problems import neuroevolution as ne
+    from evox_tpu_torch.utils import ParamsAndVector
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    batches = [(np.ones((4, 1), np.float32), np.full((4, 1), float(k), np.float32)) for k in range(3)]
+    prob = ne.SupervisedLearningProblem(lambda p, v: v @ p["w"], criterion=lambda p, t: ((p - t) ** 2).mean(),
+                                        data_source=batches, device=cuda)
+    adapter = ParamsAndVector({"w": torch.zeros(1, 1)})
+    wf = StdWorkflow(OpenES(4, torch.zeros(1), 0.1, 1e-6, device=cuda), prob,
+                     solution_transform=adapter.batched_to_params)
+    s = wf.init_step(wf.init(0))  # batch 0
+    for run in (lambda: wf.run(s, 3, init=False), lambda: wf.run_segment(s, 3)):
+        with pytest.raises(NotImplementedError, match="host"):
+            run()
+    s = wf.step(s)  # batch 1: loss ~1 (w ~ 0)
+    assert 0.9 < float(s.algorithm.fit.min()) < 1.1
+
+
+def test_brax_and_mujoco_problems_run_fused_on_the_card(cuda, monkeypatch):
+    """The adapters over the port's engines on the card (their default
+    device): 3 eager steps of OpenES equal run(3) bit for bit."""
+    import sys
+
+    from evox_tpu_torch.algorithms import OpenES
+    from evox_tpu_torch.problems import neuroevolution as ne
+    from evox_tpu_torch.utils import ParamsAndVector, rng
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    mb, mp = ne.minibrax, ne.miniplayground
+    for name, mod in (("brax", mb), ("brax.envs", mb.envs), ("brax.io", mb.io), ("brax.io.html", mb.io.html),
+                      ("brax.io.image", mb.io.image), ("mujoco_playground", mp),
+                      ("mujoco_playground.registry", mp.registry)):
+        monkeypatch.setitem(sys.modules, name, mod)
+    cases = [(ne.BraxProblem(ne.MLPPolicy((5, 8, 1)), "hopper", 30, maximize_reward=False), (5, 8, 1)),
+             (ne.MujocoProblem(ne.MLPPolicy((4, 8, 2)), "PointMass", 30, maximize_reward=False), (4, 8, 2))]
+    for prob, sizes in cases:
+        engine = prob._brax_env if isinstance(prob, ne.BraxProblem) else prob._mjx_env._env
+        assert engine.sys.mass.device.type == "cuda"
+        params0 = ne.MLPPolicy(sizes).init(rng.key(1))
+        adapter = ParamsAndVector(params0)
+        wf = StdWorkflow(OpenES(32, adapter.to_vector(params0), 0.02, 0.05, optimizer="adam", device=cuda), prob,
+                         opt_direction="max", solution_transform=adapter.batched_to_params)
+        s0 = wf.init_step(wf.init(0))
+        ref = s0
+        for _ in range(3):
+            ref = wf.step(ref)
+        _equal_states(wf.run(s0, 3, init=False), ref)
+        assert bool(torch.isfinite(ref.algorithm.fit).all())

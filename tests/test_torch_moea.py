@@ -31,7 +31,8 @@ from evox_tpu_torch.metrics import igd  # noqa: E402
 from evox_tpu_torch.ops import dominance  # noqa: E402
 from evox_tpu_torch.problems.numerical import DTLZ2  # noqa: E402
 from evox_tpu_torch.utils.convert import state_from_numpy  # noqa: E402
-from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow, _graph  # noqa: E402
+from evox_tpu_torch.utils import graph  # noqa: E402
+from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow  # noqa: E402
 from test_torch_nsga2 import t, to_numpy  # noqa: E402
 from test_torch_rvea import Injected, sbx_pm_draws  # noqa: E402
 
@@ -362,8 +363,8 @@ def test_mo_eager_steps_equal_run_and_keep_a_front(name):
     assert sol.shape[1] == D and fit.shape[1] == M and fit.shape[0] > 0
     assert mon.get_pf_fitness().shape[1] == M
     fused = wf.run(s1, 3, init=False)
-    la, sa = _graph.flatten(fused)
-    lb, sb = _graph.flatten(state)
+    la, sa = graph.flatten(fused)
+    lb, sb = graph.flatten(state)
     assert sa == sb
     for a, b in zip(la, lb):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
@@ -410,5 +411,5 @@ def test_state_from_numpy_carries_each_mo_state(jcls, cls, params):
     js = jax.jit(jwf.init_step)(jwf.init(jax.random.key(0)))
     ts = state_from_numpy(to_numpy(js), device="cpu", params=params)
     own = wf.init_step(wf.init(0))
-    assert _graph.structure(ts.algorithm) == _graph.structure(own.algorithm)
+    assert graph.structure(ts.algorithm) == graph.structure(own.algorithm)
     _fit_ok(wf.step(ts).algorithm.fit)

@@ -37,7 +37,8 @@ from evox_tpu_torch.algorithms.so.pso_variants.utils import random_select_from_m
 from evox_tpu_torch.problems.numerical import Sphere  # noqa: E402
 from evox_tpu_torch.utils import rng  # noqa: E402
 from evox_tpu_torch.utils.convert import state_from_numpy  # noqa: E402
-from evox_tpu_torch.workflows import StdWorkflow, _graph  # noqa: E402
+from evox_tpu_torch.utils import graph  # noqa: E402
+from evox_tpu_torch.workflows import StdWorkflow  # noqa: E402
 from test_torch_de import JaxEvaluated, jeval  # noqa: E402
 from test_torch_nsga2 import t, to_numpy  # noqa: E402
 from test_torch_rvea import Injected  # noqa: E402
@@ -297,18 +298,18 @@ def test_eager_fused_and_vmapped(name):
     step = torch.func.vmap(wf.step)
     for _ in range(4):
         vs = step(vs)
-    leaves, spec = _graph.flatten(vs)
+    leaves, spec = graph.flatten(vs)
     for b in range(3):
         solo = wf.init_step(wf.init(keys[b]))
         for _ in range(4):
             solo = wf.step(solo)
-        _equal(_graph.unflatten(spec, [x[b] for x in leaves]), solo)
+        _equal(graph.unflatten(spec, [x[b] for x in leaves]), solo)
     assert not torch.equal(vs.algorithm.fit[0], vs.algorithm.fit[1])
 
 
 def _equal(a, b):
-    la, sa = _graph.flatten(a)
-    lb, sb = _graph.flatten(b)
+    la, sa = graph.flatten(a)
+    lb, sb = graph.flatten(b)
     assert sa == sb
     for x, y in zip(la, lb):
         torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)

@@ -33,7 +33,8 @@ from evox_tpu_torch.core import Problem, State  # noqa: E402
 from evox_tpu_torch.problems.numerical import DTLZ2, Sphere  # noqa: E402
 from evox_tpu_torch.resilience import scan_state  # noqa: E402
 from evox_tpu_torch.utils.convert import state_from_numpy  # noqa: E402
-from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow, _graph  # noqa: E402
+from evox_tpu_torch.utils import graph  # noqa: E402
+from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow  # noqa: E402
 
 N, D, M = 16, 5, 3
 
@@ -196,8 +197,8 @@ def test_stop_on_unhealthy_matches_jax(at):
 
 
 def _same_state(a, b):
-    la, sa = _graph.flatten(a)
-    lb, sb = _graph.flatten(b)
+    la, sa = graph.flatten(a)
+    lb, sb = graph.flatten(b)
     assert sa == sb
     for x, y in zip(la, lb):
         assert x.dtype == y.dtype and x.shape == y.shape and x.device == y.device
@@ -280,11 +281,11 @@ def test_health_config_sets_the_early_stop_floors():
 def test_graph_tree_roundtrip():
     tree = (State(a=torch.ones(2), b={"c": torch.zeros(3), "d": None}, _param_keys=frozenset({"a"})),
             [torch.arange(3), 7])
-    leaves, spec = _graph.flatten(tree)
+    leaves, spec = graph.flatten(tree)
     assert len(leaves) == 3
-    back = _graph.unflatten(spec, leaves)
+    back = graph.unflatten(spec, leaves)
     assert back[0].param_keys == frozenset({"a"}) and back[1][1] == 7 and back[0].b["d"] is None
-    assert _graph.structure(back) == _graph.structure(tree)
+    assert graph.structure(back) == graph.structure(tree)
 
 
 @pytest.mark.parametrize("kind", ["pso", "nsga2"])
@@ -344,10 +345,10 @@ def test_graph_cache_keeps_the_last_captures():
         def __init__(self, struct):
             self.struct = struct
 
-    cache = _graph.Cache()
-    for struct, n in [("a", 1)] + [("b", n) for n in range(_graph.MAX_GRAPHS)]:
+    cache = graph.Cache()
+    for struct, n in [("a", 1)] + [("b", n) for n in range(graph.MAX_GRAPHS)]:
         cache.inputs.setdefault(struct, [torch.zeros(1)])  # as run() makes them
         cache._add(("k", struct, n), Fake(struct))
-    assert len(cache) == _graph.MAX_GRAPHS
+    assert len(cache) == graph.MAX_GRAPHS
     assert all(c.struct == "b" for c in cache.graphs.values())
     assert list(cache.inputs) == ["b"]

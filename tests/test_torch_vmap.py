@@ -30,7 +30,8 @@ from evox_tpu_torch.ops import linalg, philox, pso_step  # noqa: E402
 from evox_tpu_torch.problems.numerical import DTLZ2, Ackley, Sphere  # noqa: E402
 from evox_tpu_torch.utils import ParamsAndVector, host_op, register_vmap_op, rng  # noqa: E402
 from evox_tpu_torch.utils import ops as tops  # noqa: E402
-from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow, _graph  # noqa: E402
+from evox_tpu_torch.utils import graph  # noqa: E402
+from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow  # noqa: E402
 
 # Leaves of a vmapped generation that takes a batched matrix product or
 # factorisation, relative to the leaf's scale: the float32 roundings of a
@@ -376,13 +377,13 @@ def _scale(t):
 
 
 def _instance(state, i):
-    leaves, spec = _graph.flatten(state)
-    return _graph.unflatten(spec, [x[i] for x in leaves])
+    leaves, spec = graph.flatten(state)
+    return graph.unflatten(spec, [x[i] for x in leaves])
 
 
 def _same(got, want, rtol, what):
-    lg, sg = _graph.flatten(got)
-    lw, sw = _graph.flatten(want)
+    lg, sg = graph.flatten(got)
+    lw, sw = graph.flatten(want)
     assert sg == sw, what
     for x, y in zip(lg, lw):
         assert x.shape == y.shape and x.dtype == y.dtype, what
