@@ -33,7 +33,11 @@ width, OpenES at pop=2048 on cart-pole episodes of 200 steps with an MLP
 4-32-32-1, eager (each rollout a replayed CUDA graph) and as run(20), the
 rollout card against CPU; then pendulum, the hopper through BraxProblem,
 PointMass through MujocoProblem and a supervised regression, eager and
-fused), checks that each path went through
+fused; then the precision plane: the PSO headline and the NSGA-II headline
+under PrecisionPolicy() (bfloat16 storage, float32 compute) with the rbg
+key stream, eager and fused, with bench.py's accuracy gates, the PSO
+headline in bfloat16 on the kernel's bfloat16 route, and the rbg twins of
+both PSO headlines against their default twins), checks that each path went through
 its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -3519,6 +3523,398 @@ def phase_neuroevolution_family(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the precision plane.  bench.py's pso_northstar_policy and
+# nsga2_dtlz2_policy (PrecisionPolicy() and key_impl="rbg"), with their
+# accuracy gates; pso_northstar_bf16 (the first path on the bf16 route of
+# the PSO kernel); pso_northstar_rbg and pso_northstar_bf16_rbg, a named
+# key stream on the same kernels.
+# ---------------------------------------------------------------------------
+
+# bench.py's _policy_quality_so (bench.py:463-475, 497-507): PSO pop 2048,
+# dim 128, 100 fused generations, final best fitness within 1.25x (+1e-6);
+# _policy_quality_igd (bench.py:478-492, 561-572): NSGA-II pop 256, 50
+# generations, final IGD within 1.15x (+1e-9), both against float32.
+POLICY_SO = dict(pop=2048, dim=128, gens=100, tol_factor=1.25, eps=1e-6)
+POLICY_MO = dict(pop=256, gens=50, tol_factor=1.15, eps=1e-9)
+TWIN_GENS = 3
+TWINS = {"pso_northstar_rbg": "float32", "pso_northstar_bf16_rbg": "bfloat16"}
+# PSO's mapped (N, D) leaves, carried in bfloat16 under the policy.
+PSO_STORAGE_ARRAYS = ("pop", "velocity", "local_best_location")
+
+
+def accuracy_bound(ref, tol_factor, eps) -> float:
+    """bench.py's accuracy_bound: ``ref + (tol_factor - 1)·|ref| + eps``."""
+    return ref + (tol_factor - 1.0) * abs(ref) + eps
+
+
+def policy_quality(make_ref, make_policy, final_metric, label, gens, tol_factor, eps) -> dict:
+    """bench.py's _policy_quality: the float32 reference and the policy's
+    workflow, each from seed 0 through init_step and ``run(gens,
+    init=False)``; fails when the policy's final metric (lower is better)
+    exceeds ``accuracy_bound`` of the reference's."""
+    def run_final(wf):
+        st = wf.init_step(wf.init(0))
+        return float(final_metric(wf.run(st, gens, init=False)))
+
+    ref, pol = run_final(make_ref()), run_final(make_policy())
+    quality = {"metric": label, "gens": gens, "ref": ref, "policy": pol, "tol_factor": tol_factor,
+               "bound": accuracy_bound(ref, tol_factor, eps)}
+    if not pol <= quality["bound"]:
+        raise AssertionError(f"precision accuracy gate failed: {quality}")
+    return quality
+
+
+def pso_workflow(device, n, d, dtype=None, **kw):
+    """``StdWorkflow(PSO(n, ±10 in dim d, dtype), Sphere(), **kw)``."""
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    dtype = dtype or torch.float32
+    lb = torch.full((d,), -10.0, dtype=dtype)
+    return StdWorkflow(PSO(n, lb, -lb, dtype=dtype, device=device), Sphere(), **kw)
+
+
+def nsga2_workflow(device, pop, **kw):
+    import torch
+    from evox_tpu_torch.algorithms import NSGA2
+    from evox_tpu_torch.problems.numerical import DTLZ2
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    algo = NSGA2(pop, NSGA2_OBJ, torch.zeros(NSGA2_DIM), torch.ones(NSGA2_DIM), device=device)
+    return StdWorkflow(algo, DTLZ2(d=NSGA2_DIM, m=NSGA2_OBJ, device=device), **kw)
+
+
+def reset_move_counters():
+    from evox_tpu_torch.ops.philox import philox_draws
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+
+    fused_pso_move.launches = philox_draws.launches = 0
+    fused_pso_move.routes = {k: 0 for k in fused_pso_move.routes}
+
+
+@contextlib.contextmanager
+def counting_routes(out: dict):
+    """The launches of the PSO kernel by dtype route inside the block."""
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+
+    before = dict(fused_pso_move.routes)
+    yield
+    out.update({k: v - before[k] for k, v in fused_pso_move.routes.items()})
+
+
+def storage_dtypes(state, names) -> dict:
+    return {k: str(state.algorithm[k].dtype).split(".")[-1] for k in names}
+
+
+def state_gb(state) -> float:
+    from evox_tpu_torch.utils import graph
+
+    return sum(t.numel() * t.element_size() for t in graph.flatten(state)[0]) / 1e9
+
+
+def expect(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: {got}, expected {want}")
+
+
+def policy_path(wf, counters, what, philox_per_gen, eager_context=None) -> tuple[dict, object]:
+    """Setup (its Philox launches counted), init_step and one step, the
+    eager steady state's peak memory over 3 more steps, then
+    ``fused_vs_eager`` over SEGMENT_GENS generations (run(20) and
+    run_segment(20) bit for bit against eager steps, no host sync in a
+    segment) and eager steps profiled (device operations, host syncs, idle
+    share, device time by kernel); last, the draws of a setup and of one
+    eager step recorded (``recording_draws``), as many as the path's
+    setup and ``philox_per_gen`` launch, and replayed through the plain
+    version bit for bit."""
+    import torch
+    from evox_tpu_torch.ops.philox import philox_draws
+
+    torch.cuda.empty_cache()
+    reset_move_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    s0 = wf.init(0)
+    torch.cuda.synchronize()
+    setup = {"seconds": time.perf_counter() - t0, "philox_draws": philox_draws.launches}
+    s1 = wf.step(wf.init_step(s0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s = s1
+    for _ in range(MAIN_WARMUP):
+        s = wf.step(s)
+    torch.cuda.synchronize()
+    eager_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del s
+    row, ref = fused_vs_eager(wf, s1, SEGMENT_GENS, counters, what,
+                              eager_context=eager_context or contextlib.nullcontext)
+    per_gen = launches_per_call(lambda: wf.step(s1), calls=3)
+    if per_gen["host_syncs"] != 0:
+        raise AssertionError(f"{what}: an eager step made host syncs: {per_gen}")
+    _, prof = profile_steps(wf.step, s1, PROFILE_STEPS)
+    seen = []
+    with recording_draws(seen):
+        wf.init(0)
+    expect(len(seen), setup["philox_draws"], f"{what}: draws recorded in a setup")
+    with recording_draws(seen):
+        wf.step(s1)
+    expect(len(seen) - setup["philox_draws"], philox_per_gen, f"{what}: draws recorded in one step")
+    on_path = draws_on_path(what, seen)
+    del seen
+    row.update({
+        "philox_per_gen": philox_per_gen, "philox_on_path_vs_plain": on_path,
+        "eager_kernels_ms_per_gen": prof["kernels_ms_per_gen"],
+        "setup": setup, "state_gb": state_gb(s1), "eager_peak_mem_gb": eager_peak_gb,
+        "eager_device_ops_per_gen": per_gen["launches"], "eager_host_syncs_per_gen": per_gen["host_syncs"],
+        "eager_device_ms_per_gen": per_gen["device_ms"],
+        "eager_idle_share": 1 - per_gen["device_ms"] / row["eager_ms_per_gen"],
+    })
+    return row, (s0, s1, ref)
+
+
+def phase_pso_policy_main_path(device) -> dict:
+    """bench.py's pso_northstar_policy: StdWorkflow(PSO(100000, ±10 in dim
+    1000), Sphere(), precision=PrecisionPolicy(), key_impl="rbg").  The
+    carried pop, velocity and local best are bfloat16 (the state between
+    generations and a segment's carried state), the keys are rbg's; eager
+    steps, run(20) and run_segment(20) bit for bit against them, every
+    step's move on the kernel's float32 route (the compute form); the
+    rbg-keyed draws of a setup replayed through the plain version and the
+    move of one step held against its plain version (``move_vs_plain``),
+    bit for bit; then bench.py's accuracy gate."""
+    import torch
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+    from evox_tpu_torch.precision import PrecisionPolicy, key_impl_name
+
+    n, d = HEADLINE
+    wf = pso_workflow(device, n, d, precision=PrecisionPolicy(), key_impl="rbg")
+    routes = {}
+    row, (s0, s1, ref) = policy_path(wf, {"fused_pso_move": fused_pso_move}, "pso_northstar_policy", 0,
+                                     lambda: counting_routes(routes))
+    expect(key_impl_name(s0.algorithm.key), "rbg", "pso_northstar_policy: key impl")
+    for st, when in ((s0, "setup"), (s1, "after a step"), (ref, "after 20 eager steps")):
+        expect(storage_dtypes(st, PSO_STORAGE_ARRAYS), {k: "bfloat16" for k in PSO_STORAGE_ARRAYS},
+               f"pso_northstar_policy: carried dtypes {when}")
+    expect(row["launches_in_eager_steps"], {"fused_pso_move": SEGMENT_GENS}, "pso_northstar_policy: launches")
+    expect(routes, {"float32": SEGMENT_GENS, "bfloat16": 0}, "pso_northstar_policy: kernel routes")
+    expect(row["setup"]["philox_draws"], 2, "pso_northstar_policy: setup draws")
+    best0 = float(s1.algorithm.global_best_fit)
+    best1 = float(torch.minimum(ref.algorithm.global_best_fit, ref.algorithm.fit.float().min()))
+    if not best1 < best0 or not bool(torch.isfinite(ref.algorithm.pop).all()):
+        raise AssertionError(f"pso_northstar_policy: best fitness {best0} -> {best1}")
+    move = move_vs_plain(wf, ref, "pso_northstar_policy")
+    expect(move["dtype"], "float32", "pso_northstar_policy: the compared move's route")
+    storage_gb = sum(ref.algorithm[k].numel() * ref.algorithm[k].element_size() for k in PSO_STORAGE_ARRAYS) / 1e9
+    q = POLICY_SO
+    quality = policy_quality(
+        lambda: pso_workflow(device, q["pop"], q["dim"]),
+        lambda: pso_workflow(device, q["pop"], q["dim"], precision=PrecisionPolicy(), key_impl="rbg"),
+        lambda st: st.algorithm.fit.float().min(), "final best fitness", q["gens"], q["tol_factor"], q["eps"])
+    return {"config": "PSO pop=100000 dim=1000 Sphere, PrecisionPolicy() (bfloat16 storage, float32 compute), "
+                      "key_impl=rbg", **row, "routes_in_eager_steps": routes, "move_vs_plain": move,
+            "carried_storage_arrays_gb": storage_gb, "best_after_first_step": best0, "best_final": best1,
+            "quality": quality}
+
+
+def phase_nsga2_policy_main_path(device) -> dict:
+    """bench.py's nsga2_dtlz2_policy: NSGA2(10000, m=3, d=12) on DTLZ2 under
+    PrecisionPolicy() and key_impl="rbg".  pop, fit and dis carried in
+    bfloat16; eager steps, run(20) and run_segment(20) bit for bit; each
+    ranking kernel once a generation as on the float32 headline, on its
+    float32 route (the survivor selection's merged objectives recorded in
+    the eager steps); the rbg-keyed draws of a setup and of one step
+    replayed through the plain version bit for bit; IGD falling; then
+    bench.py's IGD gate."""
+    import torch
+    from evox_tpu_torch.algorithms.mo import nsga2
+    from evox_tpu_torch.metrics import igd
+    from evox_tpu_torch.precision import PrecisionPolicy, key_impl_name
+    from evox_tpu_torch.problems.numerical import DTLZ2
+
+    counters = {k: v for k, v in mo_counters().items() if k != "dominance_matrix"}
+    wf = nsga2_workflow(device, NSGA2_POP, precision=PrecisionPolicy(), key_impl="rbg")
+    select, merged = nsga2.nd_environmental_selection, set()
+
+    @contextlib.contextmanager
+    def recording_merged():
+        def recording(x, f, topk):
+            merged.add((str(x.dtype), str(f.dtype)))
+            return select(x, f, topk)
+
+        nsga2.nd_environmental_selection = recording
+        try:
+            yield
+        finally:
+            nsga2.nd_environmental_selection = select
+
+    row, (s0, s1, ref) = policy_path(wf, counters, "nsga2_dtlz2_policy", 3, recording_merged)
+    expect(key_impl_name(s0.algorithm.key), "rbg", "nsga2_dtlz2_policy: key impl")
+    for st, when in ((s0, "setup"), (ref, "after 20 eager steps")):
+        expect(storage_dtypes(st, ("pop", "fit", "dis", "rank")),
+               {"pop": "bfloat16", "fit": "bfloat16", "dis": "bfloat16", "rank": "int32"},
+               f"nsga2_dtlz2_policy: carried dtypes {when}")
+    per_gen = {"dominance_packed": 1, "peel_fronts": 1, "lex_rank": 1, "crowding_neighbors": 1, "philox_draws": 3}
+    expect(row["launches_in_eager_steps"], {k: v * SEGMENT_GENS for k, v in per_gen.items()},
+           "nsga2_dtlz2_policy: launches in the eager steps")
+    expect(merged, {("torch.float32", "torch.float32")}, "nsga2_dtlz2_policy: the ranking kernels' input dtypes")
+    pf = DTLZ2(d=NSGA2_DIM, m=NSGA2_OBJ, device=device).pf()
+    igd0, igd1 = float(igd(s1.algorithm.fit.float(), pf)), float(igd(ref.algorithm.fit.float(), pf))
+    if not igd1 < igd0:
+        raise AssertionError(f"nsga2_dtlz2_policy: IGD did not fall: {igd0} -> {igd1}")
+    q = POLICY_MO
+    quality = policy_quality(
+        lambda: nsga2_workflow(device, q["pop"]),
+        lambda: nsga2_workflow(device, q["pop"], precision=PrecisionPolicy(), key_impl="rbg"),
+        lambda st: igd(st.algorithm.fit.float(), pf), "igd", q["gens"], q["tol_factor"], q["eps"])
+    return {"config": "NSGA2 pop=10000 d=12 m=3 DTLZ2, PrecisionPolicy(), key_impl=rbg", **row,
+            "launches": row["launches_in_eager_steps"], "merged_dtypes": sorted(merged),
+            "igd_after_first_step": igd0, "igd_final": igd1, "quality": quality}
+
+
+def move_operands(algo, st) -> dict:
+    """The operands of the move ``PSO.step`` launches from state ``st``."""
+    from evox_tpu_torch.algorithms.so.pso_variants.utils import min_by
+    from evox_tpu_torch.utils import rng
+
+    gbl, _ = min_by([st.global_best_location[None, :], st.pop], [st.global_best_fit[None], st.fit])
+    _, (seed,) = rng.split(st.key)
+    return dict(pop=st.pop, velocity=st.velocity, local_best_location=st.local_best_location, fit=st.fit,
+                local_best_fit=st.local_best_fit, global_best_location=gbl, lb=algo.lb, ub=algo.ub,
+                w=st.w, phi_p=st.phi_p, phi_g=st.phi_g, seed=seed)
+
+
+def move_vs_plain(wf, state, what) -> dict:
+    """The move of the step after ``state``, formed as PSO.step forms it
+    (from the compute form under a policy, with the state's own key), on
+    the card against fused_pso_move_plain, 0 ulp, and equal in the
+    carried dtype to what the step makes.  The PSO kernel's counts are
+    restored: launches made to compare are not the path's."""
+    from evox_tpu_torch.ops.pso_step import fused_pso_move, fused_pso_move_plain
+
+    counts = fused_pso_move.launches, dict(fused_pso_move.routes)
+    algo = state.algorithm
+    if wf.precision is not None:
+        algo = wf.precision.promote(algo, wf._precision_leaf_map)
+    ops = move_operands(wf.algorithm, algo)
+    got = fused_pso_move(**ops)
+    want = fused_pso_move_plain(**ops)
+    names = ("pop", "velocity", "local_best_location", "local_best_fit")
+    errs = {name: compare(g, w) for name, g, w in zip(names, got, want)}
+    if any(e["max_ulp"] for e in errs.values()):
+        raise AssertionError(f"{what}: the move against its plain version: {errs}")
+    stepped = wf.step(state).algorithm
+    for name, g in zip(names, got):
+        exact(g.to(stepped[name].dtype), stepped[name], f"{what}: the compared move against the step's {name}")
+    fused_pso_move.launches, fused_pso_move.routes = counts
+    return {"dtype": str(ops["pop"].dtype).split(".")[-1], "errors": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
+
+
+def phase_pso_bf16_main_path(device) -> dict:
+    """bench.py's pso_northstar_bf16: StdWorkflow(PSO(100000, ±10 in dim
+    1000, dtype=bfloat16), Sphere()): every step's move on the kernel's
+    bfloat16 route; eager steps, run(20) and run_segment(20) bit for bit;
+    then the move of the step after them, formed as PSO.step forms it,
+    against fused_pso_move_plain on the card, 0 ulp, and equal to what the
+    step makes (``move_vs_plain``)."""
+    import torch
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+
+    n, d = HEADLINE
+    wf = pso_workflow(device, n, d, dtype=torch.bfloat16)
+    routes = {}
+    row, (_, s1, ref) = policy_path(wf, {"fused_pso_move": fused_pso_move}, "pso_northstar_bf16", 0,
+                                    lambda: counting_routes(routes))
+    expect(storage_dtypes(ref, PSO_STORAGE_ARRAYS + ("fit", "global_best_fit")),
+           {k: "bfloat16" for k in PSO_STORAGE_ARRAYS + ("fit", "global_best_fit")}, "pso_northstar_bf16: dtypes")
+    expect(row["launches_in_eager_steps"], {"fused_pso_move": SEGMENT_GENS}, "pso_northstar_bf16: launches")
+    expect(routes, {"float32": 0, "bfloat16": SEGMENT_GENS}, "pso_northstar_bf16: kernel routes")
+    best0 = float(s1.algorithm.global_best_fit)
+    best1 = float(torch.minimum(ref.algorithm.global_best_fit, ref.algorithm.fit.min()))
+    if not best1 < best0:
+        raise AssertionError(f"pso_northstar_bf16: best fitness {best0} -> {best1}")
+    move = move_vs_plain(wf, ref, "pso_northstar_bf16")
+    expect(move["dtype"], "bfloat16", "pso_northstar_bf16: the compared move's route")
+    return {"config": "PSO pop=100000 dim=1000 Sphere bfloat16, StdWorkflow, no monitor", **row,
+            "routes_in_eager_steps": routes, "move_vs_plain": move,
+            "best_after_first_step": best0, "best_final": best1}
+
+
+def phase_key_impl_twins(device) -> dict:
+    """bench.py's pso_northstar_rbg and pso_northstar_bf16_rbg against their
+    default twins, TWIN_GENS generations each: the rbg stream differs from
+    the default's (setup's swarm and the last state), the kernels and their
+    launches (by route) are the twin's, the rbg run's draws (recorded in a
+    second run) and the move of the step after it equal their plain
+    versions bit for bit, and EVOX_TPU_KEY_IMPL=rbg gives the state
+    key_impl="rbg" gives, bit for bit.  Not timed apart: every name draws
+    with the same Philox kernels."""
+    import torch
+    from evox_tpu_torch.ops.philox import philox_draws
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+    from evox_tpu_torch.precision import key_impl_name
+
+    n, d = HEADLINE
+    out = {}
+
+    def drive(wf):
+        reset_move_counters()
+        s0 = wf.init(0)
+        s = wf.init_step(s0)
+        for _ in range(TWIN_GENS):
+            s = wf.step(s)
+        torch.cuda.synchronize()
+        counts = {"fused_pso_move": fused_pso_move.launches, "routes": dict(fused_pso_move.routes),
+                  "philox_draws": philox_draws.launches}
+        return s0.algorithm.pop, s, counts
+
+    for name, dtype_name in TWINS.items():
+        dtype = getattr(torch, dtype_name)
+        pop0, base, base_counts = drive(pso_workflow(device, n, d, dtype))
+        twin_wf = pso_workflow(device, n, d, dtype, key_impl="rbg")
+        rpop0, twin, counts = drive(twin_wf)
+        expect(key_impl_name(twin.algorithm.key), "rbg", f"{name}: key impl")
+        if torch.equal(pop0, rpop0) or torch.equal(base.algorithm.pop, twin.algorithm.pop):
+            raise AssertionError(f"{name}: the rbg stream equals the default's")
+        expect(counts, base_counts, f"{name}: launches against the default twin")
+        expect(counts["fused_pso_move"], TWIN_GENS, f"{name}: launches")
+        del pop0, rpop0, base
+        # The rbg run again with its draws recorded (not counted): the same
+        # state, as many draws as the run launched, each equal to the plain
+        # version's; then the rbg-keyed move of the step after it.
+        seen = []
+        with recording_draws(seen):
+            _, again, _ = drive(twin_wf)
+        same_state(again, twin, f"{name}: the recorded run against the counted one")
+        expect(len(seen), counts["philox_draws"], f"{name}: draws recorded")
+        on_path = draws_on_path(name, seen)
+        del seen, again
+        move = move_vs_plain(twin_wf, twin, name)
+        expect(move["dtype"], dtype_name, f"{name}: the compared move's route")
+        saved = os.environ.get("EVOX_TPU_KEY_IMPL")
+        os.environ["EVOX_TPU_KEY_IMPL"] = "rbg"
+        try:
+            env_wf = pso_workflow(device, n, d, dtype)
+        finally:
+            if saved is None:
+                del os.environ["EVOX_TPU_KEY_IMPL"]
+            else:
+                os.environ["EVOX_TPU_KEY_IMPL"] = saved
+        expect(env_wf.key_impl, "rbg", f"{name}: EVOX_TPU_KEY_IMPL resolved")
+        _, from_env, env_counts = drive(env_wf)
+        leaves = same_state(from_env, twin, f"{name}: EVOX_TPU_KEY_IMPL=rbg against key_impl='rbg'")
+        out[name] = {"gens": TWIN_GENS, "launches": counts, "default_twin_launches": base_counts,
+                     "env_equal_leaves": leaves, "env_launches": env_counts,
+                     "philox_on_path_vs_plain": on_path, "move_vs_plain": move}
+        del twin, from_env
+        torch.cuda.empty_cache()
+    return out
+
+
 MO_KERNELS = [
     ("dominance_packed", "evox_tpu_torch/csrc/dominance.cu", "evox_tpu/ops/dominance.py:37",
      "dominance_packed_20k"),
@@ -3540,7 +3936,8 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
         # ranking kernels also run on NSGA-III, RVEAa and HypE.
         "launches": results["nsga2_main_path"]["launches"].get(name, 0)
         + results["mo_family"]["launches"].get(name, 0)
-        + results["vmapped_family"]["launches"].get(name, 0),
+        + results["vmapped_family"]["launches"].get(name, 0)
+        + results["nsga2_policy_main_path"]["launches"].get(name, 0),
         # compare_mo's sizes, the timing rows held on the path's inputs and
         # the ranking on NSGA-III's, RVEAa's and HypE's paths.
         "max_abs_err": max([results["compare_mo"]["max_abs_err"][name],
@@ -3588,7 +3985,14 @@ def philox_row(results) -> dict:
         + results["es_family"]["launches"]["philox_draws"]
         + results["pso_variants"]["launches"]["philox_draws"]
         + results["neuroevolution_main_path"]["launches"]["philox_draws"]
-        + results["neuroevolution_family"]["launches"]["philox_draws"],
+        + results["neuroevolution_family"]["launches"]["philox_draws"]
+        # The precision plane's paths: their setups, NSGA-II's generations
+        # and the key-impl twins' setups.
+        + sum(results[p]["setup"]["philox_draws"]
+              for p in ("pso_policy_main_path", "nsga2_policy_main_path", "pso_bf16_main_path"))
+        + results["nsga2_policy_main_path"]["launches"]["philox_draws"]
+        + sum(results["key_impl_twins"][t][k]["philox_draws"] for t in TWINS
+              for k in ("launches", "default_twin_launches", "env_launches")),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -3677,6 +4081,10 @@ def main() -> int:
         ("vmapped_family", phase_vmapped_family),
         ("neuroevolution_main_path", phase_neuroevolution_main_path),
         ("neuroevolution_family", phase_neuroevolution_family),
+        ("pso_policy_main_path", phase_pso_policy_main_path),
+        ("nsga2_policy_main_path", phase_nsga2_policy_main_path),
+        ("pso_bf16_main_path", phase_pso_bf16_main_path),
+        ("key_impl_twins", phase_key_impl_twins),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -3685,14 +4093,32 @@ def main() -> int:
 
     main_path, timing = results["main_path"], results["timing"]
     f32 = timing["float32_hw"]
+    # The move's launches by route: the PSO headline (float32), the
+    # policy's compute form (float32), pso_northstar_bf16 (bfloat16) and
+    # the key-impl twins' three runs each (both routes).
+    routes = {"float32": main_path["launches"], "bfloat16": 0}
+    for phase in ("pso_policy_main_path", "pso_bf16_main_path"):
+        for k, v in results[phase]["routes_in_eager_steps"].items():
+            routes[k] += v
+    for twin in TWINS:
+        for counts in ("launches", "default_twin_launches", "env_launches"):
+            for k, v in results["key_impl_twins"][twin][counts]["routes"].items():
+                routes[k] += v
     emit("kernels", [
         {
             "name": "fused_pso_move",
             "route": "cuda",
             "source": "evox_tpu_torch/csrc/pso_move.cu",
             "replaces": "evox_tpu/ops/pso_step.py:77",
-            "launches": main_path["launches"],
-            "max_abs_err": results["compare"]["max_abs_err"],
+            "launches": sum(routes.values()),
+            "launches_by_route": routes,
+            # The bfloat16 route at the headline's shape (``timing``).
+            "bfloat16_route": {k: timing["bfloat16_hw"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            # compare's shapes, and the moves held on the precision paths.
+            "max_abs_err": max([results["compare"]["max_abs_err"]]
+                               + [results[p]["move_vs_plain"]["max_abs_err"]
+                                  for p in ("pso_policy_main_path", "pso_bf16_main_path")]
+                               + [results["key_impl_twins"][t]["move_vs_plain"]["max_abs_err"] for t in TWINS]),
             "ms": f32["ms"],
             "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"],

@@ -22,9 +22,12 @@ from .core import (
     Problem,
     State,
     Workflow,
+    compile,
     get_params,
+    jit,
     set_params,
     use_state,
+    vmap,
 )
 
 __version__ = "0.1.0"
@@ -37,10 +40,13 @@ __all__ = [
     "Problem",
     "State",
     "Workflow",
+    "compile",
     "get_params",
+    "jit",
     "resolve_device",
     "set_params",
     "use_state",
+    "vmap",
 ]
 
 

@@ -26,8 +26,7 @@ class PSO(Algorithm):
     """Canonical inertia/cognitive/social PSO."""
 
     # The population-sized buffers that may be carried in a narrow storage
-    # dtype between generations (the JAX package's precision map; the
-    # precision plane itself is not ported yet).
+    # dtype between generations (the map a PrecisionPolicy applies).
     storage_leaves = (
         "pop",
         "velocity",
@@ -98,8 +97,9 @@ class PSO(Algorithm):
     def _draws(self, state: State):
         """The move's random draws: ``(state, None)`` lets the kernel draw
         them itself (``rand="hw"``).  A subclass may return ``(state, (rp,
-        rg))`` to supply them (``rand="input"``) — the parity tests inject
-        the JAX package's draws this way."""
+        rg))`` to supply them (``rand="input"``), with the state's key
+        advanced past what it drew — the parity tests inject the JAX
+        package's draws this way."""
         return state, None
 
     def step(self, state: State, evaluate: EvalFn) -> State:
@@ -110,8 +110,8 @@ class PSO(Algorithm):
             [state.global_best_location[None, :], state.pop],
             [state.global_best_fit[None], state.fit],
         )
-        key, (seed,) = rng.split(state.key)
         state, draws = self._draws(state)
+        key, (seed,) = rng.split(state.key)
         pop, velocity, local_best_location, local_best_fit = fused_pso_move(
             state.pop,
             state.velocity,
@@ -154,6 +154,39 @@ class PSO(Algorithm):
         )
 
 
-# The JAX package needs a separate class to put its TPU kernel behind a
-# gate; here PSO always runs the kernel, so the name is an alias.
-PallasPSO = PSO
+class PallasPSO(PSO):
+    """PSO with the reference's choice of where the move's draws are made
+    (counterpart of ``evox_tpu/algorithms/so/pso_variants/pallas_pso.py``).
+
+    :class:`PSO` already runs the fused move kernel on every step, so this
+    class adds only ``rand``: ``"hw"`` (default) draws inside the kernel,
+    the same states as :class:`PSO`; ``"input"`` makes two
+    :func:`~evox_tpu_torch.utils.rng.uniform` draws of the population's
+    shape and dtype outside it, from the state's key, and hands them to the
+    kernel (two more (N, D) arrays to read).  The JAX class's lane padding
+    is a constraint of the TPU compiler and has no counterpart here."""
+
+    def __init__(
+        self,
+        pop_size: int,
+        lb,
+        ub,
+        w: float = 0.6,
+        phi_p: float = 2.5,
+        phi_g: float = 0.8,
+        dtype: torch.dtype = torch.float32,
+        rand: str = "hw",
+        device: str | torch.device | None = None,
+    ):
+        super().__init__(pop_size, lb, ub, w, phi_p, phi_g, dtype=dtype, device=device)
+        if rand not in ("hw", "input"):
+            raise ValueError(f"rand must be 'hw' or 'input', got {rand!r}")
+        self.rand = rand
+
+    def _draws(self, state: State):
+        if self.rand == "hw":
+            return state, None
+        key, (rp_seed, rg_seed) = rng.split(state.key, 2)
+        shape, dtype, device = state.pop.shape, state.pop.dtype, state.pop.device
+        draws = (rng.uniform(rp_seed, shape, dtype, device), rng.uniform(rg_seed, shape, dtype, device))
+        return state.replace(key=key), draws

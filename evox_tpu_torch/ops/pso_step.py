@@ -204,7 +204,11 @@ def _op(
         return fused_pso_move_batched_plain(pop, vel, lbl, fit, lbf, gbl, lb, ub, scal, key, index, derive, draws)
     outs = _launch(pop, vel, lbl, fit, lbf, gbl, lb, ub, scal, key, index, derive, rp, rg)
     # A solo call is a launch of one instance; a vmap merges into a batch.
-    (fused_pso_move if solo else fused_pso_move_batched).launches += 1
+    if solo:
+        fused_pso_move.launches += 1
+        fused_pso_move.routes[str(pop.dtype).split(".")[-1]] += 1
+    else:
+        fused_pso_move_batched.launches += 1
     return outs
 
 
@@ -334,6 +338,8 @@ def fused_pso_move_batched(
 
 # Launches of the CUDA kernel by each entry point: a solo call, and a
 # batched call or a vmap of either (never bumped by the CPU path); reset
-# them to 0 to count the launches of one run.
+# them to 0 to count the launches of one run.  ``fused_pso_move.routes``
+# splits the solo launches by the kernel's dtype route.
 fused_pso_move.launches = 0
 fused_pso_move_batched.launches = 0
+fused_pso_move.routes = {"float32": 0, "bfloat16": 0}

@@ -25,8 +25,9 @@ __all__ = ["params_from_numpy", "state_from_numpy"]
 def _tensor(x: Any, device: torch.device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
-        # numpy has no native bfloat16: carry the bits through int16.
-        bits = np.ascontiguousarray(a).view(np.int16)
+        # numpy has no native bfloat16: carry the bits through int16
+        # (``ascontiguousarray`` makes a 0-dim array 1-dim: keep the shape).
+        bits = np.ascontiguousarray(a).view(np.int16).reshape(a.shape)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
@@ -40,8 +41,9 @@ def state_from_numpy(
     """Build a port ``State`` from a nested dict of numpy arrays.
 
     :param tree: ``{name: array | nested dict}``.  A leaf named ``key`` is a
-        random-stream key of the other framework and is replaced by a port
-        key made from ``seed`` on ``device`` (the two frameworks' streams
+        random-stream key of the other framework, of any shape (a JAX
+        ``rbg`` key's data is (4,) uint32), and is replaced by a port key
+        made from ``seed`` on ``device`` (the two frameworks' streams
         differ anyway).
     :param device: where the leaves go (``None`` means the CUDA card).
     :param seed: seed of the replacement keys.

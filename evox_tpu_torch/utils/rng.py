@@ -10,7 +10,15 @@ memory and derive the child themselves, and on the CPU it is derived in
 int64 tensor operations.  So a key is checkpointed like any other leaf, and
 a step captured in a CUDA graph draws anew on each replay from the key the
 previous generation advanced.  :func:`split_keys` makes child keys
-``[child, 0]`` on the device by the same hash in tensor operations.
+``[child, tag]`` on the device by the same hash in tensor operations.
+
+Named streams: the top byte of the counter word is a stream tag, the
+index of a key implementation name in :data:`IMPL_TAGS`
+(``threefry2x32`` 0, ``rbg`` 1, ``unsafe_rbg`` 2; see
+:mod:`evox_tpu_torch.precision.prng`).  Every key carries its tag into
+the child seeds (the hash reads the whole counter word) and into the child
+keys of :func:`split_keys`, so keys of different tags draw different
+streams from one generator; tag 0 is the plain key ``[seed, counter]``.
 PyTorch shifts int64 arithmetically, so every right shift is masked to the
 logical one; sums and products wrap modulo 2^64, as the unsigned arithmetic
 they stand for.
@@ -47,7 +55,10 @@ from .. import resolve_device
 
 __all__ = [
     "Seed",
+    "IMPL_TAGS",
     "key",
+    "impl_tag",
+    "fold_in",
     "split",
     "split_keys",
     "child",
@@ -102,10 +113,24 @@ class Seed(NamedTuple):
     index: int
 
 
-def key(seed: int, device: torch.device | str | None = None) -> torch.Tensor:
-    """A fresh key ``[seed, 0]`` (int64; ``device=None`` is the CPU, as for
-    ``torch.tensor``: a workflow makes its key on its algorithm's device)."""
-    return torch.tensor([signed64(int(seed)), 0], dtype=torch.int64, device=device)
+# The stream tag of each key implementation name: the top byte of a key's
+# counter word.
+IMPL_TAGS = {"threefry2x32": 0, "rbg": 1, "unsafe_rbg": 2}
+_TAG_SHIFT = 56
+_TAG_MASK = signed64(0xFF << _TAG_SHIFT)
+
+
+def key(
+    seed: int, device: torch.device | str | None = None, impl: str = "threefry2x32"
+) -> torch.Tensor:
+    """A fresh key ``[seed, tag << 56]`` of the stream family ``impl``
+    (int64; ``[seed, 0]`` for the default; ``device=None`` is the CPU, as
+    for ``torch.tensor``: a workflow makes its key on its algorithm's
+    device)."""
+    if impl not in IMPL_TAGS:
+        raise ValueError(f"unknown key impl {impl!r}; expected one of {tuple(IMPL_TAGS)}")
+    tag = signed64(IMPL_TAGS[impl] << _TAG_SHIFT)
+    return torch.tensor([signed64(int(seed)), tag], dtype=torch.int64, device=device)
 
 
 def check_key(k: torch.Tensor) -> torch.Tensor:
@@ -122,6 +147,12 @@ def check_key(k: torch.Tensor) -> torch.Tensor:
 def _srl(z: torch.Tensor, s: int) -> torch.Tensor:
     """Logical right shift of the int64 bits of ``z``."""
     return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def impl_tag(k: torch.Tensor) -> torch.Tensor:
+    """The stream tag of the key ``k`` (2,), or of each key of a stack
+    (..., 2): int64 tensors, read on the device."""
+    return _srl(k[..., 1], _TAG_SHIFT)
 
 
 def _splitmix64(z: torch.Tensor) -> torch.Tensor:
@@ -165,12 +196,22 @@ def as_seed(seed, offset: int = 0) -> Seed:
 
 
 def split_keys(k: torch.Tensor, num: int) -> list[torch.Tensor]:
-    """``num`` independent child keys ``[child_i, 0]`` of ``k``, made on
-    ``k``'s device (the counterpart of ``jax.random.split(key, num)``)."""
+    """``num`` independent child keys ``[child_i, tag]`` of ``k`` (``tag``
+    the top byte of ``k``'s counter word, so a child draws from its
+    parent's stream family), made on ``k``'s device (the counterpart of
+    ``jax.random.split(key, num)``)."""
     check_key(k)
     idx = torch.arange(num, dtype=torch.int64, device=k.device)
-    keys = torch.stack((child_seeds(k, idx), torch.zeros_like(idx)), dim=1)
+    keys = torch.stack((child_seeds(k, idx), (k[1] & _TAG_MASK).expand(num)), dim=1)
     return list(keys.unbind(0))
+
+
+def fold_in(k: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """The key ``[child, tag]`` of ``k`` for the int64 word ``data`` (a
+    tensor, read on the device): child ``data`` of ``k``, the counterpart
+    of ``jax.random.fold_in``."""
+    check_key(k)
+    return torch.stack((child_seeds(k, data), k[1] & _TAG_MASK))
 
 
 def seed_value(seed, device: torch.device | str | None = None):

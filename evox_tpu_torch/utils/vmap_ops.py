@@ -27,11 +27,21 @@ from __future__ import annotations
 import itertools
 import re
 import weakref
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
-__all__ = ["register_vmap_op", "sequential_rule", "host_op"]
+__all__ = ["register_vmap_op", "sequential_rule", "host_op", "VmapInfo"]
+
+
+class VmapInfo(NamedTuple):
+    """Batching metadata of a rule: the fields of the ``info`` that
+    ``torch.library.register_vmap`` hands a rule (torch's own
+    ``VmapInfo``), with the JAX package's default ``randomness``."""
+
+    batch_size: int
+    randomness: str = "different"
+
 
 NAMESPACE = "evox_tpu_torch"
 

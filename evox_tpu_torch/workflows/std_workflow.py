@@ -17,16 +17,23 @@ calls, bit for bit.
 ``init_step`` and ``step`` over stacked instances; the kernels batch
 through their operators' rules (:mod:`evox_tpu_torch.utils.vmap_ops`).
 
+The precision plane (:mod:`evox_tpu_torch.precision`): under
+``precision=PrecisionPolicy()`` the algorithm's declared leaves are carried
+in the storage dtype between generations (so a fused segment's captured
+graph keeps one dtype per leaf) and promoted to the compute dtype for each
+generation's math, at the one seam in :meth:`StdWorkflow._step`;
+``key_impl`` names the stream family of the workflow's keys.
+
 Not ported yet, and refused with :class:`NotImplementedError` rather than
 ignored: ``run``/``run_segment`` under ``torch.func.vmap``; distributed
 evaluation (``enable_distributed``, ``mesh``),
-shard-granular quarantine, the precision plane (``precision``), key
-implementations (``key_impl``), and the segment options of the service and
+shard-granular quarantine, and the segment options of the service and
 observability layers (``frozen=``/lane freeze, ``flight=True``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -130,10 +137,19 @@ class StdWorkflow(Workflow):
             to ``Monitor.record_nonfinite``.
         :param nonfinite_penalty: magnitude of the penalty (sign follows
             ``opt_direction``; clamped to the fitness dtype's finite range).
-        :param enable_distributed, mesh, precision, key_impl: not yet
-            ported; any value but the default raises
-            :class:`NotImplementedError`.  ``pop_axis`` only names the mesh
-            axis and is ignored.
+        :param precision: a :class:`~evox_tpu_torch.precision.PrecisionPolicy`:
+            the algorithm's ``storage_leaves`` are carried in its storage
+            dtype between generations and promoted to its compute dtype
+            within each.  An algorithm that declares none raises
+            ``TypeError`` here.
+        :param key_impl: the stream family of the workflow's keys
+            (:data:`~evox_tpu_torch.precision.KEY_IMPLS`; resolved once,
+            here, also from ``EVOX_TPU_KEY_IMPL``).  ``setup`` builds an int
+            seed's key in it and re-seeds a key of another family.  Without
+            it (and the variable) a key is used as it is given.
+        :param enable_distributed, mesh: not yet ported; any value but the
+            default raises :class:`NotImplementedError`.  ``pop_axis`` only
+            names the mesh axis and is ignored.
         :param quarantine_granularity: ``"individual"``; ``"shard"`` is not
             yet ported.
         """
@@ -153,14 +169,21 @@ class StdWorkflow(Workflow):
             raise _not_ported("mesh=...")
         if quarantine_granularity == "shard":
             raise _not_ported("quarantine_granularity='shard'")
-        if precision is not None:
-            raise _not_ported("precision=...")
-        if key_impl is not None:
-            raise _not_ported("key_impl=...")
         del pop_axis
         self.opt_direction = 1 if opt_direction == "min" else -1
         self.algorithm = algorithm
         self.problem = problem
+        # The numerics plane: audit the policy against the algorithm's
+        # declaration now (an undeclared algorithm fails here), and resolve
+        # the key impl once, from the argument or the environment.
+        self.precision = precision
+        if precision is not None:
+            precision.leaf_map(algorithm)
+        if key_impl is not None or os.environ.get("EVOX_TPU_KEY_IMPL"):
+            from ..precision import resolve_key_impl
+
+            key_impl = resolve_key_impl(key_impl)
+        self.key_impl = key_impl
         self.monitor = monitor if monitor is not None else Monitor()
         if monitor is not None:
             monitor.set_config(
@@ -179,6 +202,10 @@ class StdWorkflow(Workflow):
         """Build the initial workflow state from an int seed or a key
         (:func:`evox_tpu_torch.utils.rng.key`); the keys live on the
         algorithm's device (where it names none, a seed's key on the CPU).
+        An int seed's key is of the workflow's ``key_impl``, and a key of
+        another family is re-seeded on the device
+        (:func:`~evox_tpu_torch.precision.coerce_key`).  The state is
+        returned in its storage form (:meth:`apply_precision`).
 
         :param instance_id: optional integer label of this workflow
             instance, stored in the monitor state (its ``instance_id``
@@ -190,24 +217,59 @@ class StdWorkflow(Workflow):
                 states = torch.func.vmap(wf.init_step)(states)
                 step = torch.func.vmap(wf.step)
         """
-        device = getattr(self.algorithm, "device", None)
-        if not isinstance(key, torch.Tensor):
-            key = rng.key(key, device)
-        elif device is not None:
-            key = key.to(device)
-        algo_key, prob_key, mon_key = rng.split_keys(key, 3)
+        algo_key, prob_key, mon_key = rng.split_keys(self._setup_key(key), 3)
         mon_state = self.monitor.setup(mon_key)
         if instance_id is not None and "instance_id" in mon_state:
             mon_state = mon_state.replace(
                 instance_id=torch.as_tensor(instance_id).to(device=mon_state.instance_id.device, dtype=torch.int32)
             )
-        return State(
-            algorithm=self.algorithm.setup(algo_key),
-            problem=self.problem.setup(prob_key),
-            monitor=mon_state,
+        return self.apply_precision(
+            State(
+                algorithm=self.algorithm.setup(algo_key),
+                problem=self.problem.setup(prob_key),
+                monitor=mon_state,
+            )
         )
 
+    def _setup_key(self, key: int | torch.Tensor) -> torch.Tensor:
+        """The workflow's key from ``setup``'s argument, on the algorithm's
+        device and of the workflow's ``key_impl`` (tensor operations on a
+        given key: no host sync)."""
+        device = getattr(self.algorithm, "device", None)
+        if self.key_impl is not None or not isinstance(key, torch.Tensor):
+            from ..precision import coerce_key
+
+            return coerce_key(key, self.key_impl, device)
+        return key if device is None else key.to(device)
+
+    @property
+    def _precision_leaf_map(self) -> dict | None:
+        """The policy's per-leaf dtype map for the current algorithm
+        (computed on use, never cached)."""
+        if self.precision is None:
+            return None
+        return self.precision.leaf_map(self.algorithm)
+
+    def apply_precision(self, state: State) -> State:
+        """The storage form of a workflow state under this workflow's
+        policy (the state itself without one): the mapped algorithm leaves
+        demoted to their storage dtype.  The map is validated against the
+        state's real leaf names here (``ValueError`` on a misnamed one)."""
+        if self.precision is None:
+            return state
+        leaf_map = self._precision_leaf_map
+        self.precision.validate_state(state.algorithm, leaf_map)
+        return state.replace(algorithm=self.precision.demote(state.algorithm, leaf_map))
+
     init = setup  # convenience alias
+
+    def get_submodule(self, target: str) -> Any:
+        """Dotted-path component lookup: ``"algorithm"``, ``"problem"``,
+        ``"monitor"``, or an attribute path below one of them."""
+        obj = self
+        for part in target.split("."):
+            obj = getattr(obj, part)
+        return obj
 
     # -- evaluation pipeline ----------------------------------------------
     def _make_evaluate(self, carrier: dict) -> Callable:
@@ -268,6 +330,18 @@ class StdWorkflow(Workflow):
 
     # -- stepping ----------------------------------------------------------
     def _step(self, state: State, which: str) -> State:
+        # The precision seam: the mapped leaves are promoted to the compute
+        # dtype for this generation's math and demoted on the way out, so
+        # evaluation, the monitor and the best folds see the compute dtype
+        # and everything carried between generations the storage form.
+        if self.precision is None:
+            return self._step_inner(state, which)
+        leaf_map = self._precision_leaf_map
+        state = state.replace(algorithm=self.precision.promote(state.algorithm, leaf_map))
+        state = self._step_inner(state, which)
+        return state.replace(algorithm=self.precision.demote(state.algorithm, leaf_map))
+
+    def _step_inner(self, state: State, which: str) -> State:
         carrier = {
             "problem": state.problem,
             "monitor": state.monitor,

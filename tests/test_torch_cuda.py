@@ -1131,3 +1131,112 @@ def test_brax_and_mujoco_problems_run_fused_on_the_card(cuda, monkeypatch):
             ref = wf.step(ref)
         _equal_states(wf.run(s0, 3, init=False), ref)
         assert bool(torch.isfinite(ref.algorithm.fit).all())
+
+
+# ---------------------------------------------------------------------------
+# The precision plane on the card
+# ---------------------------------------------------------------------------
+
+
+def test_bf16_pso_step_takes_the_bf16_route_equal_to_its_plain_version(cuda):
+    """A ``PSO(dtype=bfloat16)`` step launches the kernel's bfloat16 route,
+    and that move equals ``fused_pso_move_plain`` on the same operands bit
+    for bit."""
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.algorithms.so.pso_variants.utils import min_by
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    lb = torch.full((96,), -10.0, dtype=torch.bfloat16)
+    wf = StdWorkflow(PSO(3000, lb, -lb, dtype=torch.bfloat16, device=cuda), Sphere())
+    ws = wf.step(wf.init_step(wf.init(0)))
+    st = ws.algorithm
+    gbl, _ = min_by([st.global_best_location[None, :], st.pop], [st.global_best_fit[None], st.fit])
+    _, (seed,) = rng.split(st.key)
+    ops = (st.pop, st.velocity, st.local_best_location, st.fit, st.local_best_fit, gbl, wf.algorithm.lb,
+           wf.algorithm.ub, st.w, st.phi_p, st.phi_g, seed)
+    routes = dict(fused_pso_move.routes)
+    got = fused_pso_move(*ops)
+    assert fused_pso_move.routes["bfloat16"] == routes["bfloat16"] + 1
+    assert fused_pso_move.routes["float32"] == routes["float32"]
+    for g, w in zip(got, fused_pso_move_plain(*ops)):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    stepped = wf.step(ws).algorithm
+    for g, name in zip(got, ("pop", "velocity", "local_best_location", "local_best_fit")):
+        assert torch.equal(g.view(torch.int16), stepped[name].view(torch.int16)), name
+
+
+def test_run_under_the_policy_replays_eager_steps_bit_for_bit(cuda):
+    """``run(3)`` under ``PrecisionPolicy()`` and ``rbg`` on the card equals
+    3 eager steps bit for bit, carries the storage dtype, and its replay
+    (``run_segment``) makes no host sync; the move runs on the float32
+    route."""
+    from evox_tpu_torch.precision import PrecisionPolicy
+
+    wf = _segment_workflow("pso", cuda, precision=PrecisionPolicy(), key_impl="rbg")
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    assert s0.algorithm.pop.dtype == torch.bfloat16
+    routes = dict(fused_pso_move.routes)
+    ref = s0
+    for _ in range(3):
+        ref = wf.step(ref)
+    assert fused_pso_move.routes["float32"] == routes["float32"] + 3
+    assert fused_pso_move.routes["bfloat16"] == routes["bfloat16"]
+    _equal_states(wf.run(s0, 3, init=False), ref)  # capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed, _ = wf.run_segment(s0, 3)  # a replay of run's capture
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _equal_states(replayed, ref)
+    assert replayed.algorithm.velocity.dtype == torch.bfloat16
+
+
+def test_setup_under_key_impl_makes_no_host_sync(cuda):
+    """The key path of ``setup`` (re-seeding a key of another family, or
+    passing one of the workflow's) and the storage form's casts run on the
+    card without a host sync."""
+    from evox_tpu_torch.precision import PrecisionPolicy, coerce_key, key_impl_name, make_key
+
+    wf = _segment_workflow("pso", cuda, precision=PrecisionPolicy(), key_impl="rbg")
+    wide = wf.init(0)
+    wide = wide.replace(algorithm=PrecisionPolicy().promote(wide.algorithm, wf._precision_leaf_map))
+    keys = [rng.key(3, cuda), make_key(3, "rbg", cuda), make_key(3, "unsafe_rbg", cuda)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [wf._setup_key(k) for k in keys]
+        low = wf.apply_precision(wide)
+        children = rng.split_keys(got[0], 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(k.device.type == "cuda" and key_impl_name(k) == "rbg" for k in got + children)
+    assert torch.equal(got[1], keys[1])
+    assert [k.cpu().tolist() for k in got] == [coerce_key(k.cpu(), "rbg").tolist() for k in keys]
+    assert low.algorithm.pop.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("impl", ["threefry2x32", "rbg", "unsafe_rbg"])
+def test_tagged_keys_draw_on_the_card_what_the_cpu_plain_version_draws(cuda, impl):
+    """A key of each stream family (its tag in the counter word's top byte)
+    and its children (``split_keys`` carries the tag) draw on the card, by
+    the solo and the batched kernel, the bits that the plain version draws
+    from the same keys on the CPU."""
+    from evox_tpu_torch.precision import make_key
+
+    key = make_key(7, impl)
+    kids = torch.stack(rng.split_keys(key, 3))
+    kids_card = torch.stack(rng.split_keys(key.to(cuda), 3))
+    assert torch.equal(kids_card.cpu(), kids)
+    for kinds in PHILOX_KINDS:
+        for k, numel in ((key, 5), (key, 65_537), (kids[1], 1001)):
+            got = philox.philox_draws(rng.child(k.to(cuda), 2), numel, kinds, cuda)
+            want = philox.philox_draws_plain(rng.child(k, 2), numel, kinds, "cpu")
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+        got = philox.philox_draws_batched(kids_card, 2, 4099, kinds, derive=1)
+        want = philox.philox_draws_batched_plain(kids, 2, 4099, kinds, derive=1)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g.cpu(), w)

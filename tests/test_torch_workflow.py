@@ -15,6 +15,7 @@ from evox_tpu.workflows import EvalMonitor as JEvalMonitor  # noqa: E402
 from evox_tpu.workflows import StdWorkflow as JWorkflow  # noqa: E402
 from evox_tpu_torch.algorithms import PSO  # noqa: E402
 from evox_tpu_torch.core import Algorithm, Problem, State  # noqa: E402
+from evox_tpu_torch.precision import PrecisionPolicy  # noqa: E402
 from evox_tpu_torch.problems.numerical import Ackley, Sphere  # noqa: E402
 from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow  # noqa: E402
 
@@ -198,13 +199,23 @@ def test_evaluation_count_contract():
         {"enable_distributed": True},
         {"mesh": object()},
         {"quarantine_granularity": "shard"},
-        {"precision": object()},
-        {"key_impl": "rbg"},
+        {"key_impl": "nope"},
+        {"precision": PrecisionPolicy()},
     ],
 )
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        StdWorkflow(_pso(), Sphere(), **kwargs)
+    algo = _pso()
+    error, match = NotImplementedError, "not yet ported"
+    # The precision plane is ported: it refuses what the JAX package
+    # refuses, an unknown key impl and a policy on an algorithm that
+    # declares no storage leaves.
+    if "key_impl" in kwargs:
+        error, match = ValueError, "unknown PRNG key impl"
+    if "precision" in kwargs:
+        algo.storage_leaves = None
+        error, match = TypeError, "declares no `storage_leaves`"
+    with pytest.raises(error, match=match):
+        StdWorkflow(algo, Sphere(), **kwargs)
 
 
 def test_unported_monitor_modes_raise():
