@@ -37,8 +37,15 @@ fused; then the precision plane: the PSO headline and the NSGA-II headline
 under PrecisionPolicy() (bfloat16 storage, float32 compute) with the rbg
 key stream, eager and fused, with bench.py's accuracy gates, the PSO
 headline in bfloat16 on the kernel's bfloat16 route, and the rbg twins of
-both PSO headlines against their default twins), checks that each path went through
-its kernels, and times them.  It prints one JSON line per
+both PSO headlines against their default twins; then the HPO nest
+(``hpo_main_path``: bench.py's hpo_ladder, PSO(64) over 64 candidates of
+OpenES(1024) on Sphere at dim 32, 32 inner generations an evaluation, each
+evaluation a replayed CUDA graph of the vmapped batch, eager outer steps
+and run(20); ``hpo_quickstart``: the README's DE(16) over
+HPOProblemWrapper(iterations=25, num_instances=16) of PSO(30) at dim 8,
+with a (w, phi_p, phi_g) row a candidate in the batched move, then with
+num_repeats=3 under both aggregations); every candidate against its solo
+run), checks that each path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -404,9 +411,12 @@ def phase_timing(device) -> dict:
     """Kernel and plain version at the headline shape, both dtypes and draw
     modes, timed with CUDA events; each (N, D) array is 200-400 MB, far
     beyond the 50 MB L2, so every launch reads from device memory.  The
-    bound counts each input byte read once and each output byte written
-    once; float operations (16 per element) over 67 TFLOP/s give a far
-    smaller time, so bytes bound it."""
+    bound is the larger of the bytes (each input read once, each output
+    written once) over the memory rate and the operations: the float
+    operations (16 per element) over 67 TFLOP/s, plus, where the kernel
+    draws (``rand="hw"``), one Philox4x32-10 evaluation an element with two
+    of its words put in final form over the lane rate (its two uniforms
+    come from one evaluation)."""
     import torch
     from evox_tpu_torch.ops.pso_step import fused_pso_move, fused_pso_move_plain
     from evox_tpu_torch.utils import rng
@@ -425,12 +435,13 @@ def phase_timing(device) -> dict:
             nd_arrays = 6 + (2 if rand == "input" else 0)
             nbytes = size * (nd_arrays * n * d + 3 * n + 3 * d) + 12
             flops = 16 * n * d + n
+            draw_ops = n * d * (PHILOX_OPS + 2 * PHILOX_OPS_PER_OUT) if rand == "hw" else 0
             bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            ops_ms = flops / PEAK_F32_FLOPS * 1e3
+            ops_ms = flops / PEAK_F32_FLOPS * 1e3 + draw_ops / PEAK_LANE_OPS * 1e3
             out[f"{key}_{rand}"] = {
                 "ms": time_ms(lambda: fused_pso_move(**args, **kw), 20),
                 "plain_ms": time_ms(lambda: fused_pso_move_plain(**args, **kw), 3, warmup=1),
-                "bytes": nbytes, "bytes_ms": bytes_ms, "flop_ms": ops_ms,
+                "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "draw_ops": draw_ops,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             }
@@ -3289,18 +3300,18 @@ def uncaptured_rollout_ms(wf, state) -> float:
     PyTorch launches, functorch's host cost included), at the problem's
     width: the cost the rollout's graph removes."""
     import torch
-    from evox_tpu_torch.problems.neuroevolution import rollout
+    from evox_tpu_torch.utils import graph
 
     pop = wf.solution_transform(state.monitor.latest_solution)
-    real = rollout._captures
-    rollout._captures = lambda device: False
+    real = graph.replays
+    graph.replays = lambda device: False
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fit, _ = wf.problem.evaluate(state.problem, pop)
         torch.cuda.synchronize()
     finally:
-        rollout._captures = real
+        graph.replays = real
     return (time.perf_counter() - t0) * 1e3
 
 
@@ -3915,6 +3926,346 @@ def phase_key_impl_twins(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the HPO nest (bench.py's hpo_ladder, the README's HPO quick
+# start).
+# ---------------------------------------------------------------------------
+
+# bench.py's hpo_ladder (bench.py:1295-1313): PSO(64) over OpenES(1024,
+# zeros(32), lr 0.05, sigma 0.1) on Sphere, 32 inner generations.
+HPO_LADDER = dict(candidates=64, inner_pop=1024, dim=32, iterations=32)
+# The README's HPO quick start (README.md:150-166): DE(16) over PSO(30, ±10
+# in dim 8) on Sphere, HPOProblemWrapper(iterations=25, num_instances=16).
+HPO_QUICKSTART = dict(candidates=16, inner_pop=30, dim=8, iterations=25)
+HPO_GENS = 20
+HPO_REPEATS, HPO_REPEAT_GENS = 3, 5
+
+
+def ladder_transform(x):
+    return {"algorithm.lr": x[:, 0].clamp(1e-3, 0.5), "algorithm.noise_stdev": x[:, 1].clamp(1e-3, 0.5)}
+
+
+def quickstart_transform(x):
+    return {"algorithm.w": x[:, 0], "algorithm.phi_p": x[:, 1], "algorithm.phi_g": x[:, 2]}
+
+
+def hpo_ladder_workflow(device):
+    import torch
+    from evox_tpu_torch.algorithms import PSO, OpenES
+    from evox_tpu_torch.hpo import HPOFitnessMonitor, NestedProblem
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    c = HPO_LADDER
+    inner = StdWorkflow(OpenES(c["inner_pop"], torch.zeros(c["dim"]), learning_rate=0.05, noise_stdev=0.1,
+                               device=device), Sphere(), monitor=HPOFitnessMonitor())
+    nested = NestedProblem(inner, iterations=c["iterations"], num_candidates=c["candidates"])
+    return StdWorkflow(PSO(c["candidates"], lb=1e-3 * torch.ones(2), ub=0.5 * torch.ones(2), device=device), nested,
+                       solution_transform=ladder_transform)
+
+
+def hpo_quickstart_workflow(device, **kw):
+    import torch
+    from evox_tpu_torch.algorithms import DE, PSO
+    from evox_tpu_torch.problems.hpo_wrapper import HPOFitnessMonitor, HPOProblemWrapper
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    c = HPO_QUICKSTART
+    d = c["dim"]
+    inner = StdWorkflow(PSO(c["inner_pop"], -10 * torch.ones(d), 10 * torch.ones(d), device=device), Sphere(),
+                        monitor=HPOFitnessMonitor())
+    hpo = HPOProblemWrapper(iterations=c["iterations"], num_instances=c["candidates"], workflow=inner, **kw)
+    return StdWorkflow(DE(c["candidates"], lb=torch.zeros(3), ub=torch.tensor([1.0, 4.0, 4.0]), device=device), hpo,
+                       solution_transform=quickstart_transform)
+
+
+@contextlib.contextmanager
+def uncaptured_nests():
+    """While active, a nest's evaluation runs its batch eagerly instead of
+    replaying its captured graph (the functorch host cost the graph
+    removes, and every wrapper called, so launches are counted and
+    recorded)."""
+    from evox_tpu_torch.utils import graph
+
+    real = graph.replays
+    graph.replays = lambda device: False
+    try:
+        yield
+    finally:
+        graph.replays = real
+
+
+@contextlib.contextmanager
+def recording_batched_moves(seen):
+    """While active, every launch of the batched PSO move (``ops.pso_step``'s
+    ``_launch`` called with more than one instance) appends its operands
+    and outputs, copied, to ``seen``."""
+    from evox_tpu_torch.ops import pso_step
+
+    launch = pso_step._launch
+
+    def recording(*args):
+        out = launch(*args)
+        if args[0].shape[0] > 1:
+            seen.append(([a.clone() if hasattr(a, "clone") else a for a in args], [o.clone() for o in out]))
+        return out
+
+    pso_step._launch = recording
+    try:
+        yield
+    finally:
+        pso_step._launch = launch
+
+
+def batched_moves_vs_plain(seen, what) -> dict:
+    """Each recorded batched move against fused_pso_move_batched_plain on the
+    card on the same operands, bit for bit; the rows of its scalars."""
+    from evox_tpu_torch.ops import pso_step
+
+    if not seen:
+        raise AssertionError(f"{what}: no batched move recorded")
+    worst, distinct = 0.0, []
+    for args, out in seen:
+        want = pso_step.fused_pso_move_batched_plain(*args[:12])
+        names = ("pop", "velocity", "local_best_location", "local_best_fit")
+        worst = max([worst] + [exact(g, w, f"{what}: the batched move's {n}") for n, g, w in zip(names, out, want)])
+        scal = args[8]
+        distinct.append(len({tuple(r) for r in scal.tolist()}))
+    return {"moves": len(seen), "instances": int(seen[0][0][0].shape[0]), "distinct_scalar_rows": min(distinct),
+            "max_abs_err": worst}
+
+
+def hpo_counters():
+    from evox_tpu_torch.ops import philox, pso_step
+
+    return {"fused_pso_move": pso_step.fused_pso_move, "fused_pso_move_batched": pso_step.fused_pso_move_batched,
+            "philox_draws": philox.philox_draws, "philox_draws_batched": philox.philox_draws_batched}
+
+
+def counts(counters) -> dict:
+    return {k: c.launches for k, c in counters.items()}
+
+
+def candidates_vs_solo(wf, state, keys, what) -> dict:
+    """The evaluation of the outer population of ``state`` (a replayed
+    nest): each candidate equal to its solo inner run (the inner workflow
+    stepped eagerly from ``keys[i]`` with candidate i's hyper-parameters),
+    fitness and best-fitness series, bit for bit."""
+    import torch
+    from evox_tpu_torch.core import set_params
+
+    nested, inner = wf.problem, wf.problem.workflow
+    hp = wf.solution_transform(state.algorithm.pop)
+    fit, st = nested.evaluate(state.problem, hp)
+    tel = st.telemetry if "telemetry" in st else None
+    for i in range(nested.num_candidates):
+        ws = inner.init_step(set_params(inner.setup(keys[i]), {k: v[i] for k, v in hp.items()}))
+        series = []
+        for _ in range(nested.iterations - 2):
+            ws = inner.step(ws)
+            series.append(torch.amin(ws.algorithm.fit))
+        ws = inner.final_step(ws)
+        exact(fit[i], inner.monitor.tell_fitness(ws.monitor), f"{what}: candidate {i} against its solo run")
+        if tel is not None:
+            exact(tel.best_fitness[i], torch.stack(series), f"{what}: candidate {i}'s series against its solo run")
+    return {"candidates": nested.num_candidates, "telemetry_checked": tel is not None}
+
+
+def hpo_path(wf, what, predicted, recorded_setup, recorded_step) -> tuple[dict, object]:
+    """One HPO path, timed as bench.py times hpo_ladder: setup, init_step
+    (its evaluation captures the nest's graph: capture time and pool), one
+    warm step, then ``fused_vs_eager`` over HPO_GENS outer generations
+    (eager steps, each nest a replayed graph, against run(HPO_GENS) and
+    run_segment(HPO_GENS), bit for bit; no host sync in a segment), an
+    eager step profiled (device operations, host syncs, idle share), one
+    evaluation uncaptured (its host ms and its launches, against
+    ``predicted``), the draws of a setup and of one uncaptured outer step
+    recorded and replayed through the plain version bit for bit (as many
+    as ``recorded_setup`` and ``recorded_step`` by route), and the outer
+    best fitness falling."""
+    import torch
+
+    counters = hpo_counters()
+    nested = wf.problem
+    c = {"candidates": nested.num_candidates, "iterations": nested.iterations}
+    torch.cuda.empty_cache()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    s0 = wf.init(0)
+    torch.cuda.synchronize()
+    setup = {"seconds": time.perf_counter() - t0, "launches": counts(counters)}
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    s = wf.init_step(s0)
+    torch.cuda.synchronize()
+    capture = {"seconds": time.perf_counter() - t0,
+               "allocated_gb": (torch.cuda.memory_allocated() - allocated) / 1e9,
+               "pool_reserved_gb": (torch.cuda.memory_reserved() - reserved) / 1e9,
+               "graphs": len(nested._graphs)}
+    if capture["graphs"] != (wf.algorithm.device.type == "cuda"):
+        raise AssertionError(f"{what}: {capture['graphs']} nest graphs captured")
+    # The best of the first evaluation (the outer population as drawn).
+    best0 = float(s.algorithm.fit.min())
+    s1 = wf.step(s)
+    torch.cuda.synchronize()
+    path = counts(counters)
+    fused, ref = fused_vs_eager(wf, s1, HPO_GENS, counters, what, profile_gens=1)
+    eager_launches = fused.pop("launches_in_eager_steps")
+    launches = {k: path[k] + eager_launches[k] for k in counters}
+    eager_prof = launches_per_call(lambda: wf.step(s1), calls=1)
+    if eager_prof["host_syncs"] != 0:
+        raise AssertionError(f"{what}: an eager outer step made host syncs: {eager_prof}")
+    # One evaluation uncaptured: its host time and its launches.
+    hp = wf.solution_transform(s1.algorithm.pop)
+    with uncaptured_nests():
+        before = counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nested.evaluate(s1.problem, hp)
+        torch.cuda.synchronize()
+        uncaptured_ms = (time.perf_counter() - t0) * 1e3
+        per_eval = {k: v - before[k] for k, v in counts(counters).items()}
+    expect(per_eval, predicted, f"{what}: launches of one uncaptured evaluation")
+    seen = []
+    with recording_draws(seen):
+        wf.init(0)
+    setup_routes = {"philox_draws": sum(1 for e in seen if e[5]), "philox_draws_batched": sum(1 for e in seen if not e[5])}
+    expect(setup_routes, recorded_setup, f"{what}: draws recorded in a setup")
+    n_setup = len(seen)
+    with uncaptured_nests(), recording_draws(seen):
+        wf.step(s1)
+    step_routes = {"philox_draws": sum(1 for e in seen[n_setup:] if e[5]),
+                   "philox_draws_batched": sum(1 for e in seen[n_setup:] if not e[5])}
+    expect(step_routes, recorded_step, f"{what}: draws recorded in one uncaptured outer step")
+    on_path = draws_on_path(what, seen)
+    del seen
+    best1 = float(torch.minimum(ref.algorithm.fit.min(),
+                                getattr(ref.algorithm, "global_best_fit", ref.algorithm.fit.min())))
+    if not best1 < best0 or not bool(torch.isfinite(ref.algorithm.fit).all()):
+        raise AssertionError(f"{what}: the outer best fitness {best0} -> {best1}")
+    inner_gens = c["candidates"] * c["iterations"]
+    row = {
+        "setup": setup, "nest_capture": capture,
+        "eager_ms_per_outer_gen": fused["eager_ms_per_gen"], "run_ms_per_outer_gen": fused["run_ms_per_gen"],
+        "inner_gens_per_s_eager": inner_gens * 1e3 / fused["eager_ms_per_gen"],
+        "inner_gens_per_s_run": inner_gens * 1e3 / fused["run_ms_per_gen"],
+        "eager_device_ops_per_outer_gen": eager_prof["launches"],
+        "eager_host_syncs_per_outer_gen": eager_prof["host_syncs"],
+        "eager_device_ms_per_outer_gen": eager_prof["device_ms"],
+        "eager_idle_share": 1 - eager_prof["device_ms"] / fused["eager_ms_per_gen"],
+        "fused": fused, "uncaptured_nest_host_ms": uncaptured_ms, "launches_per_evaluation": per_eval,
+        "launches": launches, "philox_on_path_vs_plain": on_path,
+        "best_after_init_step": best0, "best_final": best1,
+    }
+    return row, (s0, s1, ref)
+
+
+def phase_hpo_main_path(device) -> dict:
+    """bench.py's hpo_ladder at full width (``hpo_ladder_workflow``,
+    ``hpo_path``): 64 candidates x OpenES(1024, d = 32) x 32 inner
+    generations an outer evaluation, the outer PSO(64).  An evaluation
+    launches 32 batched Philox draws (OpenES's normals, all 64 candidates in
+    one launch a generation) and no move; an outer step 1 solo move.  Then
+    the outer move of the step after the timed ones against
+    fused_pso_move_plain, 0 ulp (``move_vs_plain``), and every candidate of
+    an evaluation against its solo inner run from ``rng.fold_in(key,
+    uid)``, bit for bit."""
+    import torch
+    from evox_tpu_torch.utils import rng
+
+    c = HPO_LADDER
+    wf = hpo_ladder_workflow(device)
+    predicted = {"fused_pso_move": 0, "fused_pso_move_batched": 0, "philox_draws": 0,
+                 "philox_draws_batched": c["iterations"]}
+    row, (s0, _, ref) = hpo_path(wf, "hpo_ladder", predicted,
+                                 {"philox_draws": 2, "philox_draws_batched": 0},
+                                 {"philox_draws": 0, "philox_draws_batched": c["iterations"]})
+    move = move_vs_plain(wf, ref, "hpo_ladder")
+    prob_key = rng.split_keys(wf._setup_key(0), 3)[1]
+    keys = [rng.fold_in(prob_key, uid) for uid in ref.problem.uids]
+    solo = candidates_vs_solo(wf, ref, keys, "hpo_ladder")
+    del s0, ref
+    torch.cuda.empty_cache()
+    return {"config": f"PSO({c['candidates']}) over NestedProblem(OpenES({c['inner_pop']}, zeros({c['dim']}), "
+                      f"lr 0.05, sigma 0.1), Sphere, HPOFitnessMonitor, iterations={c['iterations']}), prng=uid, "
+                      "telemetry on", **row, "move_vs_plain": move, "candidates_vs_solo": solo}
+
+
+def phase_hpo_quickstart(device) -> dict:
+    """The README's HPO quick start at its own width
+    (``hpo_quickstart_workflow``, ``hpo_path``): DE(16) tuning w, phi_p and
+    phi_g of 16 PSO(30, dim 8) candidates, 25 inner generations.  An
+    evaluation launches 24 batched moves (one a generation after the
+    first), each with a different (w, phi_p, phi_g) row a candidate, held
+    against fused_pso_move_batched_plain bit for bit; an outer step 2 solo
+    Philox draws (DE).  Every candidate against its solo run from
+    ``split_keys(key, 16)[i]``, bit for bit.  Then num_repeats=3 under
+    each aggregation (the repeat operator on the card): eager steps
+    against run(HPO_REPEAT_GENS), bit for bit, and the replayed nest
+    against the uncaptured one."""
+    import torch
+    from evox_tpu_torch.utils import rng
+
+    c = HPO_QUICKSTART
+    wf = hpo_quickstart_workflow(device)
+    predicted = {"fused_pso_move": 0, "fused_pso_move_batched": c["iterations"] - 1, "philox_draws": 0,
+                 "philox_draws_batched": 0}
+    row, (s0, s1, ref) = hpo_path(wf, "hpo_quickstart", predicted,
+                                  {"philox_draws": 1, "philox_draws_batched": 2},
+                                  {"philox_draws": 2, "philox_draws_batched": 0})
+    seen = []
+    hp = wf.solution_transform(ref.algorithm.pop)
+    with uncaptured_nests(), recording_batched_moves(seen):
+        wf.problem.evaluate(ref.problem, hp)
+    moves = batched_moves_vs_plain(seen, "hpo_quickstart")
+    expect(moves["moves"], c["iterations"] - 1, "hpo_quickstart: batched moves recorded in one evaluation")
+    # Each launch's scalars are the candidates' (w, phi_p, phi_g) rows, and
+    # the rows differ.
+    rows = torch.stack([hp["algorithm.w"], hp["algorithm.phi_p"], hp["algorithm.phi_g"]], 1).float()
+    for args, _ in seen:
+        exact(args[8], rows, "hpo_quickstart: the batched move's scalars against the candidates' rows")
+    expect(moves["distinct_scalar_rows"], len({tuple(r) for r in rows.tolist()}), "hpo_quickstart: distinct rows")
+    if moves["distinct_scalar_rows"] < 2:
+        raise AssertionError("hpo_quickstart: every candidate moved with the same scalars")
+    del seen
+    prob_key = rng.split_keys(wf._setup_key(0), 3)[1]
+    solo = candidates_vs_solo(wf, ref, rng.split_keys(prob_key, c["candidates"]), "hpo_quickstart")
+    repeats = {}
+    for aggregation in ("per_generation", "final"):
+        what = f"hpo_quickstart repeats={HPO_REPEATS} {aggregation}"
+        rwf = hpo_quickstart_workflow(device, num_repeats=HPO_REPEATS, aggregation=aggregation)
+        rs = rwf.step(rwf.init_step(rwf.init(0)))
+        eager_ms, _, rref = timed(lambda: _steps(rwf, rs, HPO_REPEAT_GENS), HPO_REPEAT_GENS)
+        leaves = same_state(rwf.run(rs, HPO_REPEAT_GENS, init=False), rref,
+                            f"{what}: run({HPO_REPEAT_GENS}) (the capture) vs eager steps")
+        run_ms, _, fused = timed(lambda: rwf.run(rs, HPO_REPEAT_GENS, init=False), HPO_REPEAT_GENS)
+        same_state(fused, rref, f"{what}: replayed run({HPO_REPEAT_GENS}) vs eager steps")
+        rhp = rwf.solution_transform(rref.algorithm.pop)
+        fit, st = rwf.problem.evaluate(rref.problem, rhp)
+        with uncaptured_nests():
+            efit, _ = rwf.problem.evaluate(rref.problem, rhp)
+        exact(fit, efit, f"{what}: the replayed nest against the uncaptured one")
+        if not bool(torch.isfinite(fit).all()):
+            raise AssertionError(f"{what}: non-finite fitness")
+        repeats[aggregation] = {"eager_ms_per_outer_gen": eager_ms, "run_ms_per_outer_gen": run_ms,
+                                "leaves_equal": leaves, "best": float(fit.min())}
+        del rwf, rs, rref, fused
+    del s0, s1, ref
+    torch.cuda.empty_cache()
+    return {"config": f"DE({c['candidates']}) over HPOProblemWrapper(iterations={c['iterations']}, "
+                      f"num_instances={c['candidates']}) of PSO({c['inner_pop']}, ±10 in dim {c['dim']}), Sphere, "
+                      "HPOFitnessMonitor", **row, "batched_moves_vs_plain": moves, "candidates_vs_solo": solo,
+            "repeats": repeats}
+
+
+def _steps(wf, s, n):
+    for _ in range(n):
+        s = wf.step(s)
+    return s
+
+
 MO_KERNELS = [
     ("dominance_packed", "evox_tpu_torch/csrc/dominance.cu", "evox_tpu/ops/dominance.py:37",
      "dominance_packed_20k"),
@@ -3992,7 +4343,10 @@ def philox_row(results) -> dict:
               for p in ("pso_policy_main_path", "nsga2_policy_main_path", "pso_bf16_main_path"))
         + results["nsga2_policy_main_path"]["launches"]["philox_draws"]
         + sum(results["key_impl_twins"][t][k]["philox_draws"] for t in TWINS
-              for k in ("launches", "default_twin_launches", "env_launches")),
+              for k in ("launches", "default_twin_launches", "env_launches"))
+        # The HPO paths' outer setups and DE's generations.
+        + results["hpo_main_path"]["launches"]["philox_draws"]
+        + results["hpo_quickstart"]["launches"]["philox_draws"],
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4009,8 +4363,13 @@ def batched_rows(results) -> list[dict]:
         {"name": "fused_pso_move_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/pso_move.cu",
          # The TPU kernel under jax.vmap (the batch folded into its grid).
          "replaces": "evox_tpu/ops/pso_step.py:77",
-         "launches": launches["fused_pso_move_batched"],
-         **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS}},
+         # With the README HPO quick start's inner PSO (a row of scalars a
+         # candidate).
+         "launches": launches["fused_pso_move_batched"] + results["hpo_quickstart"]["launches"]["fused_pso_move_batched"],
+         **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS},
+         # The timed batch, and the HPO path's recorded moves.
+         "max_abs_err": max(t["fused_pso_move_batched"]["max_abs_err"],
+                            results["hpo_quickstart"]["batched_moves_vs_plain"]["max_abs_err"])},
         {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
          "replaces": "none (the port's own kernel, batched over vmapped instances)",
          # With the rollouts' resets (one launch for the episodes a
@@ -4018,7 +4377,11 @@ def batched_rows(results) -> list[dict]:
          "launches": launches["philox_draws_batched"]
          + results["vmapped_family"]["launches"]["philox_draws_batched"]
          + results["neuroevolution_main_path"]["launches"]["philox_draws_batched"]
-         + results["neuroevolution_family"]["launches"]["philox_draws_batched"],
+         + results["neuroevolution_family"]["launches"]["philox_draws_batched"]
+         # The HPO paths: OpenES's normals for all candidates (hpo_ladder),
+         # the inner PSO's setups (the quick start).
+         + results["hpo_main_path"]["launches"]["philox_draws_batched"]
+         + results["hpo_quickstart"]["launches"]["philox_draws_batched"],
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, and the rollouts' recorded resets.
          "max_abs_err": max(t["philox_draws_batched"]["max_abs_err"],
@@ -4085,6 +4448,8 @@ def main() -> int:
         ("nsga2_policy_main_path", phase_nsga2_policy_main_path),
         ("pso_bf16_main_path", phase_pso_bf16_main_path),
         ("key_impl_twins", phase_key_impl_twins),
+        ("hpo_main_path", phase_hpo_main_path),
+        ("hpo_quickstart", phase_hpo_quickstart),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -4104,6 +4469,8 @@ def main() -> int:
         for counts in ("launches", "default_twin_launches", "env_launches"):
             for k, v in results["key_impl_twins"][twin][counts]["routes"].items():
                 routes[k] += v
+    # hpo_ladder's outer PSO (float32).
+    routes["float32"] += results["hpo_main_path"]["launches"]["fused_pso_move"]
     emit("kernels", [
         {
             "name": "fused_pso_move",
@@ -4118,7 +4485,8 @@ def main() -> int:
             "max_abs_err": max([results["compare"]["max_abs_err"]]
                                + [results[p]["move_vs_plain"]["max_abs_err"]
                                   for p in ("pso_policy_main_path", "pso_bf16_main_path")]
-                               + [results["key_impl_twins"][t]["move_vs_plain"]["max_abs_err"] for t in TWINS]),
+                               + [results["key_impl_twins"][t]["move_vs_plain"]["max_abs_err"] for t in TWINS]
+                               + [results["hpo_main_path"]["move_vs_plain"]["max_abs_err"]]),
             "ms": f32["ms"],
             "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"],

@@ -33,6 +33,7 @@ from .core import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "hpo",
     "Algorithm",
     "Monitor",
     "Mutable",
@@ -63,3 +64,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "CUDA card by default; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+# Subpackages a user reaches from the top level (the JAX package imports
+# all of its own; the port's others are imported where they are used).
+from . import hpo  # noqa: E402

@@ -35,6 +35,11 @@ class NSGA2(Algorithm):
     """Tensorized NSGA-II for multi-objective optimization."""
 
     storage_leaves = ("pop", "fit", "dis")
+    # The compute dtypes each CUDA kernel of a step takes (StdWorkflow
+    # refuses any other at setup, on the card, before a launch): the
+    # crowding distance's neighbours of the objectives, the tournament's
+    # rank of (-distance, rank).
+    kernel_dtypes = {"crowding_neighbors": (torch.float32,), "lex_rank": (torch.float32,)}
 
     def __init__(
         self,

@@ -2,7 +2,16 @@
 ``evox_tpu/algorithms/so/es_variants/open_es.py``): mirrored Gaussian
 sampling around a center, the fitness-weighted noise average as the
 gradient estimate, plain SGD or Adam on the center.  A generation is one
-draw, one (pop, dim) product and elementwise operations."""
+draw and elementwise operations.
+
+The gradient ``noise.T @ fit`` is summed over the population in a fixed
+pairwise order (:func:`_pairwise_row_sum`), not by a matrix product: a
+product under ``torch.func.vmap`` is a batched one (``bmm``), which adds
+the terms in another order than the solo matrix-vector product, whereas
+elementwise additions round each element alike however many instances
+are stacked.  So a vmapped instance (a candidate of an HPO nest) equals
+its solo run bit for bit.  Against JAX's product it agrees within a
+reduction's rounding."""
 
 from __future__ import annotations
 
@@ -14,6 +23,17 @@ from ....core import EvalFn, State
 from .base import CenterES
 
 __all__ = ["OpenES"]
+
+
+def _pairwise_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the rows of ``x`` (N, D), halving the rows by pairwise
+    additions (an odd row is carried to the next level), so that the
+    order of the additions depends on N alone."""
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        head = x[:half] + x[half : 2 * half]
+        x = torch.cat([head, x[2 * half :]]) if x.shape[0] % 2 else head
+    return x[0]
 
 
 class OpenES(CenterES):
@@ -65,5 +85,5 @@ class OpenES(CenterES):
             key, (noise,) = self._normals(state, [(self.pop_size, self.dim)])
         pop = state.center + state.noise_stdev * noise
         fit = evaluate(pop)
-        grad = noise.T @ fit / self.pop_size / state.noise_stdev
+        grad = _pairwise_row_sum(noise * fit[:, None]) / self.pop_size / state.noise_stdev
         return state.replace(key=key, fit=fit, **self._opt_update(state, grad))

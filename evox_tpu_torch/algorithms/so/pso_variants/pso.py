@@ -34,6 +34,9 @@ class PSO(Algorithm):
         "local_best_fit",
         "fit",
     )
+    # The compute dtypes each CUDA kernel of a step takes (StdWorkflow
+    # refuses any other at setup, on the card, before a launch).
+    kernel_dtypes = {"fused_pso_move": (torch.float32, torch.bfloat16)}
 
     def __init__(
         self,

@@ -1,6 +1,13 @@
-"""Problem library (counterpart of ``evox_tpu/problems``: numerical and
-neuroevolution so far)."""
+"""Problem library (counterpart of ``evox_tpu/problems``)."""
 
-__all__ = ["neuroevolution", "numerical"]
+__all__ = [
+    "HPOFitnessMonitor",
+    "HPOMonitor",
+    "HPOProblemWrapper",
+    "hpo_wrapper",
+    "neuroevolution",
+    "numerical",
+]
 
-from . import neuroevolution, numerical
+from . import hpo_wrapper, neuroevolution, numerical
+from .hpo_wrapper import HPOFitnessMonitor, HPOMonitor, HPOProblemWrapper

@@ -49,16 +49,6 @@ from .envs import Env
 __all__ = ["RolloutProblem"]
 
 
-def _captures(device: torch.device) -> bool:
-    """Whether an evaluation on ``device`` replays its captured loop: on
-    the card, outside a capture and outside functorch transforms."""
-    return (
-        device.type == "cuda"
-        and not torch.cuda.is_current_stream_capturing()
-        and torch._C._functorch.peek_interpreter_stack() is None
-    )
-
-
 class RolloutProblem(Problem):
     """Evaluates a population of policy parameters by environment rollouts.
 
@@ -162,7 +152,7 @@ class RolloutProblem(Problem):
             torch.zeros((pop * episodes,), dtype=torch.float32, device=device),
             torch.zeros((pop * episodes,), dtype=torch.bool, device=device),
         )
-        if _captures(device):
+        if graph.replays(device):
             (total,), _, _ = graph.run(self._graphs, "rollout", self._rollout, carry, self.max_episode_length)
         else:
             (total,), _, _ = self._rollout(carry, self.max_episode_length)

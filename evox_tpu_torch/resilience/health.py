@@ -20,11 +20,22 @@ import torch
 __all__ = ["scan_state"]
 
 
-def _is_prng(leaf: Any) -> bool:
-    """Whether ``leaf`` is a typed PRNG key.  A port key is a plain int64
-    tensor (skipped as a non-floating leaf), so nothing is one."""
-    del leaf
-    return False
+def _is_prng(leaf: Any, name: str | None = None) -> bool:
+    """Whether ``leaf`` is a PRNG key.  JAX's keys carry a key dtype; a port
+    key is a plain int64 tensor whose last axis holds its two words, so it
+    is told apart by where it sits: a leaf whose path (as
+    :func:`_leaves_with_path` names it) ends in ``key``, the name every
+    component of the port gives its key (``utils.convert.state_from_numpy``
+    reads keys the same way).  Without a path nothing is one (a key is
+    skipped as a non-floating leaf all the same)."""
+    return (
+        name is not None
+        and name.rsplit("/", 1)[-1] == "key"
+        and isinstance(leaf, torch.Tensor)
+        and leaf.dtype == torch.int64
+        and leaf.ndim >= 1
+        and leaf.shape[-1] == 2
+    )
 
 
 def _subtree(state: Any, name: str) -> Any | None:

@@ -37,7 +37,7 @@ import torch
 
 from ..core import State
 
-__all__ = ["Cache", "flatten", "unflatten", "structure", "run"]
+__all__ = ["Cache", "flatten", "unflatten", "structure", "replays", "run"]
 
 # Captures a cache keeps (each holds its outputs, one state's worth, in the
 # shared pool); the least recently used one is dropped beyond it.
@@ -102,6 +102,19 @@ def structure(tree: Any) -> tuple:
 
 
 # -- captured segments ---------------------------------------------------------
+
+
+def replays(device: torch.device) -> bool:
+    """Whether work on ``device`` that keeps a graph of its own (a rollout's
+    loop, an HPO nest's batch) replays it: on the card, outside a capture
+    (where the enclosing capture takes the work inline) and outside
+    functorch transforms (whose batched tensors a graph's static buffers
+    cannot hold; the work runs eagerly there)."""
+    return (
+        device.type == "cuda"
+        and not torch.cuda.is_current_stream_capturing()
+        and torch._C._functorch.peek_interpreter_stack() is None
+    )
 
 
 class _Captured:

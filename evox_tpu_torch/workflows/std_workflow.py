@@ -43,7 +43,7 @@ from ..resilience.health import _best_fitness_expr, _subtree, scan_state
 from ..utils import rng
 from ..utils import graph
 
-__all__ = ["StdWorkflow", "SegmentConfig"]
+__all__ = ["StdWorkflow", "SegmentConfig", "check_kernel_dtypes"]
 
 
 class SegmentConfig(NamedTuple):
@@ -91,6 +91,28 @@ def _stack(outs: list) -> Any:
     first, spec = graph.flatten(outs[0])
     columns = [graph.flatten(o)[0] for o in outs]
     return graph.unflatten(spec, [torch.stack([c[i] for c in columns]) for i in range(len(first))])
+
+
+def check_kernel_dtypes(algorithm: Algorithm, device: torch.device, dtype: torch.dtype | None) -> None:
+    """Refuse, before anything runs, an algorithm whose step would hand a
+    CUDA kernel a compute dtype it does not take: on a CUDA ``device``, each
+    kernel the algorithm declares in ``kernel_dtypes`` (``{kernel name:
+    dtypes}``) must take ``dtype``.  Raises :class:`TypeError` naming the
+    kernels and the dtypes they take.  The CPU runs every dtype (the plain
+    versions), so nothing is refused there."""
+    table = getattr(algorithm, "kernel_dtypes", None)
+    if device.type != "cuda" or dtype is None or not table:
+        return
+    refusing = {name: dtypes for name, dtypes in table.items() if dtype not in dtypes}
+    if refusing:
+        kernels = "; ".join(
+            f"{name} takes {' or '.join(str(d).split('.')[-1] for d in dtypes)}" for name, dtypes in refusing.items()
+        )
+        raise TypeError(
+            f"{type(algorithm).__name__} on {device} computes in {str(dtype).split('.')[-1]}, which its CUDA "
+            f"kernels refuse ({kernels}); compute in a dtype they take or run on the CPU (device='cpu'): "
+            f"a {str(dtype).split('.')[-1]} kernel route is not ported"
+        )
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -205,7 +227,10 @@ class StdWorkflow(Workflow):
         An int seed's key is of the workflow's ``key_impl``, and a key of
         another family is re-seeded on the device
         (:func:`~evox_tpu_torch.precision.coerce_key`).  The state is
-        returned in its storage form (:meth:`apply_precision`).
+        returned in its storage form (:meth:`apply_precision`).  On the card,
+        a compute dtype (the policy's, else the algorithm's ``dtype``) that
+        one of the algorithm's kernels refuses raises :class:`TypeError`
+        here, before anything runs (:func:`check_kernel_dtypes`).
 
         :param instance_id: optional integer label of this workflow
             instance, stored in the monitor state (its ``instance_id``
@@ -217,7 +242,12 @@ class StdWorkflow(Workflow):
                 states = torch.func.vmap(wf.init_step)(states)
                 step = torch.func.vmap(wf.step)
         """
-        algo_key, prob_key, mon_key = rng.split_keys(self._setup_key(key), 3)
+        key = self._setup_key(key)
+        # The state lands on the key's device: refuse a compute dtype the
+        # algorithm's kernels there would refuse, before any launch.
+        compute = self.precision.compute_dtype if self.precision is not None else getattr(self.algorithm, "dtype", None)
+        check_kernel_dtypes(self.algorithm, key.device, compute)
+        algo_key, prob_key, mon_key = rng.split_keys(key, 3)
         mon_state = self.monitor.setup(mon_key)
         if instance_id is not None and "instance_id" in mon_state:
             mon_state = mon_state.replace(

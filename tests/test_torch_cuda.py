@@ -1240,3 +1240,171 @@ def test_tagged_keys_draw_on_the_card_what_the_cpu_plain_version_draws(cuda, imp
         want = philox.philox_draws_batched_plain(kids, 2, 4099, kinds, derive=1)
         for g, w in zip(got, want):
             assert g.shape == w.shape and torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# The HPO nest on the card, and the float64 refusal
+# ---------------------------------------------------------------------------
+
+
+def _hpo_ladder(device, candidates=8, inner_pop=64, dim=8, iterations=6, **kw):
+    """bench.py's hpo_ladder at a small width: PSO over OpenES candidates."""
+    from evox_tpu_torch.algorithms import PSO, OpenES
+    from evox_tpu_torch.hpo import HPOFitnessMonitor, NestedProblem
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    dev = {} if device is None else {"device": device}
+    inner = StdWorkflow(OpenES(inner_pop, torch.zeros(dim), learning_rate=0.05, noise_stdev=0.1, **dev), Sphere(),
+                        monitor=HPOFitnessMonitor())
+    nested = NestedProblem(inner, iterations=iterations, num_candidates=candidates, **kw)
+    outer = StdWorkflow(PSO(candidates, lb=1e-3 * torch.ones(2), ub=0.5 * torch.ones(2), **dev), nested,
+                        solution_transform=lambda x: {"algorithm.lr": x[:, 0].clamp(1e-3, 0.5),
+                                                      "algorithm.noise_stdev": x[:, 1].clamp(1e-3, 0.5)})
+    return outer, nested, inner
+
+
+def test_hpo_entry_points_run_on_the_card_by_default(cuda):
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.hpo_wrapper import HPOFitnessMonitor, HPOProblemWrapper
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    outer, nested, _ = _hpo_ladder(None)
+    state = outer.init_step(outer.init(0))
+    leaves = graph.flatten(state)[0]
+    assert all(x.device.type == "cuda" for x in leaves)
+    assert state.problem.uids.dtype == torch.int64
+    inner = StdWorkflow(PSO(10, -torch.ones(3), torch.ones(3)), Sphere(), monitor=HPOFitnessMonitor())
+    hpo = HPOProblemWrapper(iterations=4, num_instances=3, workflow=inner)
+    s = hpo.setup(rng.key(0, cuda))
+    fit, _ = hpo.evaluate(s, hpo.get_init_params(s))
+    assert fit.device.type == "cuda" and torch.isfinite(fit).all()
+
+
+@pytest.mark.parametrize("repeats,aggregation", [(1, "per_generation"), (3, "per_generation"), (3, "final")])
+def test_replayed_nest_equals_the_eager_nest_and_makes_no_host_sync(cuda, repeats, aggregation):
+    """An evaluation replays its captured batch: equal bit for bit to the
+    same batch run eagerly (uncaptured), and a replay makes no host sync."""
+    _, nested, _ = _hpo_ladder(cuda, num_repeats=repeats, aggregation=aggregation)
+    state = nested.setup(rng.key(2, cuda))
+    hp = {"algorithm.lr": torch.linspace(0.01, 0.4, 8, device=cuda),
+          "algorithm.noise_stdev": torch.linspace(0.3, 0.02, 8, device=cuda)}
+    fit, s1 = nested.evaluate(state, hp)  # the capture
+    assert len(nested._graphs) == 1
+    real = graph.replays
+    graph.replays = lambda device: False
+    try:
+        eager_fit, eager = nested.evaluate(state, hp)
+    finally:
+        graph.replays = real
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay_fit, s2 = nested.evaluate(state, hp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for got in (fit, replay_fit):
+        assert torch.equal(got, eager_fit)
+    _equal_states(s1.telemetry, eager.telemetry)
+    _equal_states(s2.telemetry, eager.telemetry)
+    assert len(nested._graphs) == 1
+
+
+def test_outer_run_equals_eager_outer_steps_with_replayed_nests(cuda):
+    """Eager outer steps (each nest a replayed graph) equal the outer
+    ``run(n)`` (the nests captured inline), bit for bit; a candidate equals
+    its solo inner run from ``fold_in(key, uid)``."""
+    from evox_tpu_torch.core import set_params
+
+    outer, nested, inner = _hpo_ladder(cuda)
+    s1 = outer.step(outer.init_step(outer.init(0)))
+    ref = s1
+    for _ in range(3):
+        ref = outer.step(ref)
+    _equal_states(outer.run(s1, 3, init=False), ref)
+    # Candidate 5 of the last evaluation, solo.
+    hp = outer.solution_transform(ref.algorithm.pop)
+    fit, _ = nested.evaluate(ref.problem, hp)
+    # The outer setup hands the nest the second of three keys.
+    prob_key = rng.split_keys(outer._setup_key(0), 3)[1]
+    uid = ref.problem.uids[5]
+    ws = set_params(inner.setup(rng.fold_in(prob_key, uid)), {k: v[5] for k, v in hp.items()})
+    ws = inner.init_step(ws)
+    for _ in range(nested.iterations - 2):
+        ws = inner.step(ws)
+    ws = inner.final_step(ws)
+    assert torch.equal(fit[5], ws.monitor.best_fitness)
+
+
+def test_batched_move_with_per_candidate_scalars_equals_the_cpu_plain_version(cuda):
+    """The README quick start's inner PSO under a vmapped nest: the batched
+    move launched with a different (w, phi_p, phi_g) row per candidate
+    equals fused_pso_move_batched_plain on the CPU on the same operands, bit
+    for bit."""
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.ops import pso_step
+    from evox_tpu_torch.problems.hpo_wrapper import HPOFitnessMonitor, HPOProblemWrapper
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    inner = StdWorkflow(PSO(30, -10 * torch.ones(8), 10 * torch.ones(8), device=cuda), Sphere(),
+                        monitor=HPOFitnessMonitor())
+    hpo = HPOProblemWrapper(iterations=5, num_instances=16, workflow=inner)
+    state = hpo.setup(rng.key(1, cuda))
+    g = torch.Generator().manual_seed(0)
+    scal = (torch.rand(16, 3, generator=g) * torch.tensor([1.0, 4.0, 4.0])).to(cuda)
+    hp = {"algorithm.w": scal[:, 0], "algorithm.phi_p": scal[:, 1], "algorithm.phi_g": scal[:, 2]}
+    seen = []
+    launch = pso_step._launch
+
+    def recording(*args):
+        out = launch(*args)
+        seen.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args], [o.clone() for o in out]))
+        return out
+
+    pso_step._launch, real = recording, graph.replays
+    graph.replays = lambda device: False
+    before = pso_step.fused_pso_move_batched.launches
+    try:
+        hpo.evaluate(state, hp)
+    finally:
+        pso_step._launch, graph.replays = launch, real
+    # One a middle generation (3) and one for the final step.
+    assert len(seen) == 4 == pso_step.fused_pso_move_batched.launches - before
+    for args, out in seen:
+        pop, vel, lbl, fit, lbf, gbl, lb, ub, s, key, index, derive, rp, rg = args
+        assert s.shape == (16, 3) and len({tuple(r) for r in s.tolist()}) == 16
+        assert torch.equal(s, scal)
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args[:12]]
+        want = pso_step.fused_pso_move_batched_plain(*cpu)
+        for got, w in zip(out, want):
+            assert torch.equal(got.cpu(), w)
+
+
+@pytest.mark.parametrize("kind", ["pso", "nsga2"])
+def test_float64_compute_is_refused_at_setup_before_any_launch(cuda, kind):
+    from evox_tpu_torch.algorithms import NSGA2, PSO
+    from evox_tpu_torch.ops import crowding
+    from evox_tpu_torch.precision import PrecisionPolicy
+    from evox_tpu_torch.problems.numerical import DTLZ2, Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    if kind == "pso":
+        wf = StdWorkflow(PSO(64, -torch.ones(4), torch.ones(4), device=cuda), Sphere(),
+                         precision=PrecisionPolicy(compute="float64"))
+        message = r"PSO on cuda(:0)? computes in float64.*fused_pso_move takes float32 or bfloat16"
+    else:
+        wf = StdWorkflow(NSGA2(64, 3, torch.zeros(6), torch.ones(6), device=cuda), DTLZ2(d=6, m=3, device=cuda),
+                         precision=PrecisionPolicy(compute="float64"))
+        message = r"NSGA2 on cuda(:0)? computes in float64.*crowding_neighbors takes float32"
+    counters = (philox.philox_draws, philox.philox_draws_batched, fused_pso_move, fused_pso_move_batched,
+                crowding.crowding_neighbors)
+    before = [c.launches for c in counters]
+    with pytest.raises(TypeError, match=message):
+        wf.init(0)
+    assert [c.launches for c in counters] == before
+    # A PSO of dtype float64 without a policy: the same refusal.
+    if kind == "pso":
+        with pytest.raises(TypeError, match="fused_pso_move takes float32 or bfloat16"):
+            StdWorkflow(PSO(64, -torch.ones(4), torch.ones(4), dtype=torch.float64, device=cuda), Sphere()).init(0)

@@ -9,8 +9,9 @@ generation is elementwise, gathers or sorts.  Where it takes a matrix
 product or a factorisation, the batched call sums in another order than
 the solo one (a batched product, ``bmm``, against a matrix-vector one) and
 the instances agree within ``BATCHED_RTOL`` of each leaf's scale
-(``_scale``): OpenES's and the NES family's gradient ``noise.T @ fit``,
-CMA-ES's covariance update and its eigendecomposition, RVEAa's products.
+(``_scale``): the NES family's gradient ``noise.T @ fit``, CMA-ES's
+covariance update and its eigendecomposition, RVEAa's products.  OpenES
+sums its gradient in a fixed pairwise order, so it is held bit for bit.
 """
 
 import random
@@ -348,7 +349,7 @@ ALGORITHMS = {
     "SaDE": (lambda: algorithms.SaDE(20, _LB, _UB, **_CPU), False),
     "CoDE": (lambda: algorithms.CoDE(20, _LB, _UB, **_CPU), False),
     "CMAES": (lambda: algorithms.CMAES(_C, 1.0, pop_size=16, **_CPU), True),
-    "OpenES": (lambda: algorithms.OpenES(16, _C, 0.05, 0.1, **_CPU), True),
+    "OpenES": (lambda: algorithms.OpenES(16, _C, 0.05, 0.1, **_CPU), False),
     "XNES": (lambda: algorithms.XNES(_C, torch.eye(D), pop_size=16, **_CPU), True),
     "SeparableNES": (lambda: algorithms.SeparableNES(_C, torch.ones(D), pop_size=16, **_CPU), True),
     "SNES": (lambda: algorithms.SNES(16, _C, **_CPU), True),
