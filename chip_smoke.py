@@ -65,7 +65,14 @@ from pathlib import Path
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HEADLINE = (100_000, 1000)  # bench.py's pso_northstar: pop=100k, dim=1000
-COMPARE_SHAPES = [(100, 37), (64, 128), (30, 5), (64, 384), HEADLINE]
+ROWS_SHAPE = (99_900, 1001)  # the headline's size with vectors of one element: the row layout
+# (N, D, offset): the kernel's vector widths (float32 4 at D = 128, 384,
+# 100, 1000, 1 at D = 37, 5; bfloat16 8, 4 at D = 100, 2 at D = 998, 1),
+# its row layout (float32 D = 998, 1001, bfloat16 D = 1001) and, with
+# offset 1, a contiguous view one row into a buffer, whose base is not
+# 16-byte aligned (width 1).
+COMPARE_SHAPES = [(100, 37, 0), (64, 128, 0), (30, 5, 0), (64, 384, 0), (64, 1001, 0), (40, 998, 0),
+                  (1024, 100, 0), (100, 37, 1), (*HEADLINE, 0)]
 MAIN_WARMUP, MAIN_STEPS, PROFILE_STEPS = 3, 20, 3
 QUICKSTART_GENS = 50
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -117,9 +124,11 @@ def compare(got, want) -> dict:
     }
 
 
-def move_inputs(n, d, dtype, seed, device):
+def move_inputs(n, d, dtype, seed, device, offset=0):
     """Inputs of one fused move, with NaN fitness rows, NaN and +inf
-    personal bests, NaN positions and values beyond the bounds ±2."""
+    personal bests, NaN positions and values beyond the bounds ±2.  With
+    ``offset``, each (n, d) array is a view ``offset`` rows into an (n +
+    offset, d) buffer."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -127,7 +136,15 @@ def move_inputs(n, d, dtype, seed, device):
     def u(*shape):
         return torch.rand(shape, generator=g, device=device)
 
-    pop = (u(n, d) * 8 - 4).to(dtype)
+    def to(x):
+        x = x.to(dtype)
+        if offset:
+            buf = torch.empty((n + offset, d), dtype=dtype, device=device)
+            buf[offset:] = x
+            x = buf[offset:]
+        return x
+
+    pop = to(u(n, d) * 8 - 4)
     pop.view(-1)[:: max(1, (n * d) // 7)] = float("nan")
     fit = u(n)
     fit[::7] = float("nan")
@@ -136,8 +153,8 @@ def move_inputs(n, d, dtype, seed, device):
     lbf[2::11] = float("nan")
     return dict(
         pop=pop,
-        velocity=(u(n, d) * 6 - 3).to(dtype),
-        local_best_location=(u(n, d) * 4 - 2).to(dtype),
+        velocity=to(u(n, d) * 6 - 3),
+        local_best_location=to(u(n, d) * 4 - 2),
         fit=fit.to(dtype),
         local_best_fit=lbf.to(dtype),
         global_best_location=(u(d) * 4 - 2).to(dtype),
@@ -146,20 +163,22 @@ def move_inputs(n, d, dtype, seed, device):
         w=torch.tensor(0.6, dtype=dtype, device=device),
         phi_p=torch.tensor(2.5, dtype=dtype, device=device),
         phi_g=torch.tensor(0.8, dtype=dtype, device=device),
-    ), (u(n, d).to(dtype), u(n, d).to(dtype))
+    ), (to(u(n, d)), to(u(n, d)))
 
 
 def phase_compare(device) -> dict:
-    """Kernel against plain version, both draw modes, float32 and bfloat16:
-    float32 must agree exactly (0 ulp; -0 == +0, NaN at the same places),
-    bfloat16 within 1 ulp."""
+    """Kernel against plain version at every vector width, both draw modes,
+    float32 and bfloat16: both must agree exactly (0 ulp; -0 == +0, NaN at
+    the same places)."""
     import torch
     from evox_tpu_torch.ops.pso_step import fused_pso_move, fused_pso_move_plain
 
     rows, worst = [], 0.0
-    for dtype, limit in ((torch.float32, 0), (torch.bfloat16, 1)):
-        for n, d in COMPARE_SHAPES:
-            args, draws = move_inputs(n, d, dtype, seed=n * 7919 + d, device=device)
+    for dtype, limit in ((torch.float32, 0), (torch.bfloat16, 0)):
+        for n, d, offset in COMPARE_SHAPES:
+            args, draws = move_inputs(n, d, dtype, seed=n * 7919 + d, device=device, offset=offset)
+            if offset and args["pop"].data_ptr() % 16 == 0:
+                raise AssertionError("the offset view's base is 16-byte aligned")
             for rand in ("input", "hw"):
                 kw = dict(seed=0x1234_5678_9ABC_DEF0 + n, rand=rand,
                           rand_draws=draws if rand == "input" else None)
@@ -176,14 +195,19 @@ def phase_compare(device) -> dict:
                             f"{c['max_ulp']} ulp > {limit}"
                         )
                     worst = max(worst, c["max_abs_err"])
-                    rows.append({"dtype": str(dtype).split(".")[-1], "shape": [n, d],
+                    rows.append({"dtype": str(dtype).split(".")[-1], "shape": [n, d], "offset": offset,
                                  "rand": rand, "out": name, **c})
                 del got, want
             del args, draws
             torch.cuda.empty_cache()
+    by_shape = {}
+    for r in rows:
+        k = f"{r['dtype']} {r['shape'][0]}x{r['shape'][1]}" + (f"+{r['offset']}" if r["offset"] else "")
+        by_shape[k] = max(by_shape.get(k, 0), r["max_ulp"])
     return {"checks": len(rows), "max_abs_err": worst,
             "max_ulp_f32": max(r["max_ulp"] for r in rows if r["dtype"] == "float32"),
-            "max_ulp_bf16": max(r["max_ulp"] for r in rows if r["dtype"] == "bfloat16")}
+            "max_ulp_bf16": max(r["max_ulp"] for r in rows if r["dtype"] == "bfloat16"),
+            "max_ulp_by_shape": by_shape}
 
 
 def phase_draws(device) -> dict:
@@ -410,15 +434,19 @@ def time_ms(fn, iters, warmup=2):
 def phase_timing(device) -> dict:
     """Kernel and plain version at the headline shape, both dtypes and draw
     modes, timed with CUDA events; each (N, D) array is 200-400 MB, far
-    beyond the 50 MB L2, so every launch reads from device memory.  The
-    bound is the larger of the bytes (each input read once, each output
-    written once) over the memory rate and the operations: the float
-    operations (16 per element) over 67 TFLOP/s, plus, where the kernel
-    draws (``rand="hw"``), one Philox4x32-10 evaluation an element with two
-    of its words put in final form over the lane rate (its two uniforms
-    come from one evaluation)."""
+    beyond the 50 MB L2, so every launch reads from device memory.  Then
+    the in-kernel-draw route of both dtypes at (99900, 1001), whose vectors
+    are one element wide, the kernel's row layout (``ROWS_SHAPE``), and the
+    batched route at vmapped_instances' shape.  Each bound is
+    :func:`move_bound` of the inputs timed."""
     import torch
-    from evox_tpu_torch.ops.pso_step import fused_pso_move, fused_pso_move_plain
+    from evox_tpu_torch.ops.pso_step import (
+        _launch_plan,
+        fused_pso_move,
+        fused_pso_move_batched,
+        fused_pso_move_batched_plain,
+        fused_pso_move_plain,
+    )
     from evox_tpu_torch.utils import rng
 
     n, d = HEADLINE
@@ -430,25 +458,92 @@ def phase_timing(device) -> dict:
         args, draws = move_inputs(n, d, dtype, seed=5, device=device)
         size = torch.tensor([], dtype=dtype).element_size()
         key = str(dtype).split(".")[-1]
+        kept = kept_rows(args["fit"], args["local_best_fit"])
         for rand in ("hw", "input"):
             kw = dict(seed=seed, rand=rand, rand_draws=draws if rand == "input" else None)
-            nd_arrays = 6 + (2 if rand == "input" else 0)
-            nbytes = size * (nd_arrays * n * d + 3 * n + 3 * d) + 12
-            flops = 16 * n * d + n
-            draw_ops = n * d * (PHILOX_OPS + 2 * PHILOX_OPS_PER_OUT) if rand == "hw" else 0
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            ops_ms = flops / PEAK_F32_FLOPS * 1e3 + draw_ops / PEAK_LANE_OPS * 1e3
             out[f"{key}_{rand}"] = {
                 "ms": time_ms(lambda: fused_pso_move(**args, **kw), 20),
                 "plain_ms": time_ms(lambda: fused_pso_move_plain(**args, **kw), 3, warmup=1),
-                "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "draw_ops": draw_ops,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "kept_rows": kept, **move_bound(1, n, d, size, kept, rand),
             }
             torch.cuda.empty_cache()
         del args, draws
         torch.cuda.empty_cache()
+    n, d = ROWS_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        args, _ = move_inputs(n, d, dtype, seed=5, device=device)
+        size = torch.tensor([], dtype=dtype).element_size()
+        kept = kept_rows(args["fit"], args["local_best_fit"])
+        if not _launch_plan(1, n, d, dtype, [args["pop"].data_ptr()], 1, lambda *_: 1).rows:
+            raise AssertionError(f"fused_pso_move: ({n}, {d}) {dtype} does not take the row layout")
+        out[f"{str(dtype).split('.')[-1]}_hw_rows"] = {
+            "shape": [n, d],
+            "ms": time_ms(lambda: fused_pso_move(**args, seed=seed), 20),
+            "plain_ms": time_ms(lambda: fused_pso_move_plain(**args, seed=seed), 3, warmup=1),
+            "kept_rows": kept, **move_bound(1, n, d, size, kept, "hw"),
+        }
+        del args
+        torch.cuda.empty_cache()
+    # The batched route at vmapped_instances' shape, launch-bound: the
+    # profiler's device time is the kernel's own.
+    b, (n, d) = VMAP_INSTANCES, VMAP_PSO
+    keys = torch.stack([rng.key(99 + i, device) for i in range(b)])
+    for dtype in (torch.float32, torch.bfloat16):
+        args = batched_move_args(b, n, d, dtype, device) + (keys,)
+        key = str(dtype).split(".")[-1]
+        kept = kept_rows(args[3], args[4])
+        out[f"batched_{key}_hw"] = {
+            "shape": [b, n, d],
+            "ms": time_ms(lambda: fused_pso_move_batched(*args), 50),
+            "device_ms": launches_per_call(lambda: fused_pso_move_batched(*args), calls=20)["device_ms"],
+            "plain_ms": time_ms(lambda: fused_pso_move_batched_plain(*args), 5),
+            "kept_rows": kept, **move_bound(b, n, d, torch.tensor([], dtype=dtype).element_size(), kept, "hw"),
+        }
     return out
+
+
+def batched_move_args(b, n, d, dtype, device):
+    """The operands of a batched move but its keys: ``b`` instances of
+    ``move_inputs`` (each its own seed) stacked, bounds shared, the
+    scalars a (b, 3) float32 row each."""
+    import torch
+
+    inst = [move_inputs(n, d, dtype, seed=7 + i, device=device)[0] for i in range(b)]
+    stack = [torch.stack([x[k] for x in inst]) for k in
+             ("pop", "velocity", "local_best_location", "fit", "local_best_fit", "global_best_location")]
+    scal = torch.stack([torch.stack([x[k].float() for k in ("w", "phi_p", "phi_g")]) for x in inst])
+    return (*stack, inst[0]["lb"], inst[0]["ub"], scal)
+
+
+def kept_rows(fit, local_best_fit) -> int:
+    """Rows whose local best the move reads: those the fold does not
+    improve.  An improved row's local best becomes its position, and the
+    kernel does not read it."""
+    return int((~(fit.float() < local_best_fit.float())).sum())
+
+
+def move_bound(b, n, d, size, kept, rand) -> dict:
+    """The bound of a move of ``b`` instances of (``n``, ``d``), elements of
+    ``size`` bytes, whose fold keeps the local best of ``kept`` rows: the
+    larger of the bytes over the memory rate and the operations.  Bytes,
+    each once: position and velocity read, the three (b, n, d) outputs
+    written, the local best of the kept rows read, with ``rand="input"``
+    the two draws; fitness and local best fitness read and the new one
+    written, the global best, bounds shared by the instances, the float32
+    scalars and, with ``rand="hw"``, the int64 keys.  Operations: the float
+    operations (16 an element and the fold's compare a row) over the
+    float32 rate, plus, with ``rand="hw"``, one Philox4x32-10 evaluation an
+    element with two of its words put in final form over the lane rate (its
+    two uniforms come from one evaluation)."""
+    elements = b * n * d
+    arrays = 5 + (2 if rand == "input" else 0)
+    nbytes = size * (arrays * elements + kept * d + 3 * b * n + b * d + 2 * d) + 12 * b
+    nbytes += 16 * b if rand == "hw" else 0
+    draw_ops = elements * (PHILOX_OPS + 2 * PHILOX_OPS_PER_OUT) if rand == "hw" else 0
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (16 * elements + b * n) / PEAK_F32_FLOPS * 1e3 + draw_ops / PEAK_LANE_OPS * 1e3
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "draw_ops": draw_ops,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -2803,7 +2898,7 @@ def batched_kernels_vs_plain(states, device) -> dict:
     got = pso_step.fused_pso_move_batched(*args, index=0)
     want = pso_step.fused_pso_move_batched_plain(*args, 0)
     move_err = max(exact(g, w, "fused_pso_move_batched vs plain") for g, w in zip(got, want))
-    move_bound = bound(4 * (6 * b * n * d + 3 * b * n + 4 * b * d + 3 * b) + 16 * b, 0.0)
+    kept = kept_rows(a.fit, a.local_best_fit)
     keys = a.key
     kinds = [torch.float32]
     got = philox.philox_draws_batched(keys, 0, n * d, kinds)
@@ -2822,7 +2917,7 @@ def batched_kernels_vs_plain(states, device) -> dict:
             "solo_launches_ms": time_ms(lambda: [pso_step.fused_pso_move(
                 *(x[i] for x in args[:6]), lb, ub, *scal[i], seed=rng.Seed(args[9][i], 0))
                 for i in range(b)], 20),
-            **{k: move_bound[k] for k in ("bound_ms", "bound_by")}, "library_ms": None,
+            **{k: move_bound(b, n, d, 4, kept, "hw")[k] for k in ("bound_ms", "bound_by")}, "library_ms": None,
         },
         "philox_draws_batched": {
             "max_abs_err": draw_err, "streams": b, "numel": n * d,
@@ -4392,6 +4487,71 @@ def batched_rows(results) -> list[dict]:
 KERNEL_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
+# Instruction classes of the PSO move's SASS, by opcode prefix (the first
+# that matches).
+SASS_CLASSES = [
+    ("IMAD.WIDE", "IMAD.WIDE"), ("IMAD.HI", "IMAD.HI"), ("IMAD", "IMAD"), ("LOP3", "LOP3"), ("IADD3", "IADD3"),
+    ("VIADD", "VIADD"), ("SHF", "SHF"), ("I2F", "I2F"), ("F2F", "F2F"), ("FMUL/FADD", ("FMUL", "FADD")),
+    ("FMNMX/FSETP/FSEL", ("FMNMX", "FSETP", "FSEL")), ("HMUL2/HADD2/HFMA2", ("HMUL2", "HADD2", "HFMA2")),
+    ("HMNMX2", "HMNMX2"), ("LDGSTS", "LDGSTS"), ("LDG", "LDG"), ("LDS", "LDS"), ("STG", "STG"),
+    ("BRA/BSSY/BSYNC", ("BRA", "BSSY", "BSYNC")),
+]
+
+
+def sass_counts(lib) -> dict:
+    """Instructions an element of each 32-bit route of the PSO move, by
+    class (``SASS_CLASSES``): the static count of the main loop's body
+    (from the backward branch of largest span, the rarely taken change of
+    instance included) over the vector width, read from ``cuobjdump
+    -sass`` of the built library.  The row layout's routes are ``rows``.
+    Fails unless every route of the kernel is found, each with a loop."""
+    import re
+    from collections import Counter
+
+    from evox_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).resolve().parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)(.*);", line)
+        if m and name:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for name, ins in funcs.items():
+        m = re.search(r"pso_move_(kernel|rows)INS_\d(BF16|F32)E(?:Li(\d+)E)?([jm]?)(?:Lb([01]))?", name)
+        if not m or m.group(4) == "m":
+            continue
+        span = (0, -1)
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and t and int(t.group(1), 16) < addr and addr - int(t.group(1), 16) > span[1] - span[0]:
+                span = (int(t.group(1), 16), addr)
+        counts = Counter()
+        for addr, op, _ in ins:
+            if span[0] <= addr <= span[1]:
+                counts[next((c for c, pre in SASS_CLASSES if op.startswith(pre)), "other")] += 1
+        vec = int(m.group(3) or 1)
+        layout = "rows" if m.group(1) == "rows" else f"v{vec}"
+        draws = {"1": " input", "0": " hw"}.get(m.group(5), "")
+        route = f"{'float32' if m.group(2) == 'F32' else 'bfloat16'} {layout}{draws}"
+        if not counts:
+            raise AssertionError(f"cuobjdump -sass of {lib}: no loop in {name}")
+        out[route] = {"per_element": round(sum(counts.values()) / vec, 2),
+                      **{c: round(counts[c] / vec, 2) for c, _ in SASS_CLASSES + [("other", "")] if counts[c]}}
+    want = {f"{dtype} {layout} {draws}" for dtype, widths in (("float32", (1, 2, 4)), ("bfloat16", (1, 2, 4, 8)))
+            for layout in [f"v{v}" for v in widths] + ["rows"] for draws in ("hw", "input")}
+    if set(out) != want:
+        raise AssertionError(f"cuobjdump -sass of {lib}: pso_move routes {sorted(out)}, expected {sorted(want)}")
+    return dict(sorted(out.items()))
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -4415,7 +4575,8 @@ def main() -> int:
                if "registers" in ln or "spill" in ln]
         for name, path in libs.items()
     }
-    emit("build", {"seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    emit("build", {"seconds": time.perf_counter() - t0, "ptxas": ptxas,
+                   "pso_move_sass_per_element": sass_counts(libs["pso_move"])})
 
     results = {}
     for name, phase in (

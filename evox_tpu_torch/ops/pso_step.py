@@ -34,6 +34,8 @@ solo move is an instance axis of 1) whose batching rule
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,9 +51,99 @@ _ARGTYPES = (
     + (ctypes.c_void_p,) * 15
     + (ctypes.c_longlong,) * 4
     + (ctypes.c_void_p,)
-    + (ctypes.c_int,) * 3
+    + (ctypes.c_int,) * 7
+    + (ctypes.c_ulonglong, ctypes.c_int) * 2
     + (ctypes.c_void_p,)
 )
+# The kernel's block, and the widest vector a thread loads (bytes).
+_THREADS = 256
+_VECTOR_BYTES = 16
+
+
+class LaunchPlan(NamedTuple):
+    """How ``csrc/pso_move.cu`` covers B*N*D elements: ``vec`` elements a
+    vector, ``blocks`` blocks of the grid-stride loop, 64-bit indices when
+    ``wide``, and ``x // d`` and ``x // n`` as multiply-high constants
+    (:func:`_div`); or, with ``rows``, a block a row of B*N, an element a
+    thread."""
+
+    vec: int
+    blocks: int
+    wide: bool
+    rows: bool
+    d_magic: int
+    d_shift: int
+    n_magic: int
+    n_shift: int
+
+
+def _divisor(d: int, bits: int) -> tuple[int, int]:
+    """``(m, l)`` with ``x // d == _div(x, m, l, bits)`` for every ``0 <= x
+    < 2**bits``: ``l = ceil(log2 d)``, ``m = ceil(2**(bits + l) / d)``, which
+    fits in ``bits + 1`` bits.  The rounding error of ``m / 2**(bits + l)``
+    is below ``2**l / (d * 2**(bits + l))``, too small to move any quotient."""
+    shift = (d - 1).bit_length()
+    return -(-(1 << (bits + shift)) // d), shift
+
+
+def _div(x: int, magic: int, shift: int, bits: int) -> int:
+    """The kernel's division: the high word of ``(2x) * magic`` in a
+    (bits + 1)-bit word, shifted right by ``shift``."""
+    return (((x << 1) * magic) >> (bits + 1)) >> shift
+
+
+def _launch_plan(batch, n, d, dtype, ptrs, sms, blocks_per_sm, rand_input=False) -> LaunchPlan:
+    """The launch of B = ``batch`` instances of (``n``, ``d``) in ``dtype``.
+
+    The vector is the widest of 8, 4, 2, 1 elements that fits 16 bytes,
+    divides ``d`` (a vector never crosses a row) and to whose bytes every
+    pointer of ``ptrs`` (the operands read or written a vector at a time) is
+    aligned.  Where the kernel draws, the grid is ``sms`` times
+    ``blocks_per_sm(vec, wide)`` (the blocks of that route an SM holds), so
+    a thread derives its instance's key once for many vectors; with
+    ``rand_input`` there is no key, and the grid has a thread a vector (the
+    card's block scheduler then keeps more loads in flight: PERF.md, float32
+    1.01 ms against 1.08 on the H100).  Either is fewer where there are
+    fewer vectors, and at most what keeps the grid-stride loop's 32-bit
+    stride below 2^31.  Where :func:`_rows_layout` takes the row layout, a
+    block a row.  Indices are 32-bit below 2^31 elements."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    vec = next(v for v in (8, 4, 2, 1)
+               if v * size <= _VECTOR_BYTES and d % v == 0 and all(p % (v * size) == 0 for p in ptrs))
+    total = batch * n * d
+    wide = total >= 2**31
+    if total == 0:
+        return LaunchPlan(vec, 0, wide, False, 0, 0, 0, 0)
+    if _rows_layout(dtype, vec, d):
+        return LaunchPlan(vec, batch * n, wide, True, 0, 0, 0, 0)
+    bits = 63 if wide else 31
+    vectors = total // vec
+    limit = 2**31 - 1 if wide else 2**31 // (_THREADS * vec)
+    blocks = min(-(-vectors // _THREADS), limit if rand_input else sms * blocks_per_sm(vec, wide))
+    return LaunchPlan(vec, blocks, wide, False, *_divisor(d, bits), *_divisor(n, bits))
+
+
+def _rows_layout(dtype, vec: int, d: int) -> bool:
+    """Whether the kernel takes its row layout (a block a row, an element a
+    thread) over vectors of ``vec``: for rows of a block's width or more
+    whose vectors hold fewer than 4 float32 or 2 bfloat16 elements.  There
+    a row's fitness, instance and key, read once a block, cost less than
+    once a vector, and the vectors are too narrow to keep enough bytes in
+    flight (PERF.md: at D = 1001 float32 0.91 ms against 1.20 on
+    the H100; at D = 101, 1.68 against 1.22)."""
+    return d >= _THREADS and vec < (4 if dtype == torch.float32 else 2)
+
+
+@functools.cache
+def _blocks_per_sm(device_index: int, dtype_code: int, vec: int, wide: bool) -> int:
+    """Blocks of one in-kernel-draw route of the kernel an SM of the card
+    holds."""
+    fn = _build.entry("pso_move", "pso_move_blocks_per_sm", (ctypes.c_int,) * 3)
+    with torch.cuda.device(device_index):
+        blocks = fn(dtype_code, vec, int(wide))
+    if blocks < 1:
+        raise RuntimeError(f"fused_pso_move: no resident block for the route {dtype_code, vec, wide}")
+    return blocks
 
 
 def _scalars(w, phi_p, phi_g, device) -> torch.Tensor:
@@ -145,15 +237,22 @@ def _launch(pop, vel, lbl, fit, lbf, gbl, lb, ub, scal, key, index, derive, rp, 
     key = None if key is None else key.to(device).contiguous()
     bound_stride = d if per_instance_bounds else 0
     outs = [torch.empty_like(big[0]) for _ in range(3)] + [torch.empty_like(small[0])]
+    code, rand_input = _KERNEL_DTYPES[dtype], rp is not None
+    index_of = device.index if device.index is not None else torch.cuda.current_device()
+    plan = _launch_plan(
+        batch, n, d, dtype, [t.data_ptr() for t in big + outs[:3] + small[2:]], _build.sm_count(index_of),
+        lambda vec, wide: _blocks_per_sm(index_of, code, vec, wide), rand_input,
+    )
     fn = _build.entry("pso_move", "pso_move", _ARGTYPES)
     ptr = _build.pointer
     _build.launch(
-        "fused_pso_move", fn, device, _KERNEL_DTYPES[dtype],
+        "fused_pso_move", fn, device, code,
         *(t.data_ptr() for t in big[:3]), *(t.data_ptr() for t in small[:3]),
         small[3].data_ptr(), small[4].data_ptr(), scal.data_ptr(),
-        ptr(big[3] if rp is not None else None), ptr(big[4] if rp is not None else None),
+        ptr(big[3] if rand_input else None), ptr(big[4] if rand_input else None),
         *(t.data_ptr() for t in outs), batch, n, d, bound_stride, ptr(key), index, derive,
-        int(rp is not None),
+        int(rand_input), plan.vec, plan.blocks, int(plan.wide), int(plan.rows), plan.d_magic, plan.d_shift,
+        plan.n_magic, plan.n_shift,
     )
     return tuple(outs)
 

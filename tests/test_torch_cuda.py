@@ -42,9 +42,24 @@ def _inputs(n, d, dtype, device):
     return args + scal, (u(n, d).to(dtype), u(n, d).to(dtype))
 
 
+def _same_bits(got, want):
+    """Equal values with equal signs (signed zeros included), NaN at the
+    same places."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        nan = torch.isnan(w)
+        assert torch.equal(torch.signbit(g[~nan]), torch.signbit(w[~nan]))
+
+
+# The kernel's vector widths: float32 4 (D = 128, 384, 100, 1000), 2 (D =
+# 2, 6), 1 (D = 37, 5); bfloat16 8 (D = 128, 384, 1000), 4 (D = 100, 4), 2
+# (D = 2, 6, 998), 1; and its row layout (float32 D = 998, 1001; bfloat16
+# D = 1001).
 @pytest.mark.parametrize("rand", ["input", "hw"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,d", [(100, 37), (64, 128), (30, 5), (64, 384)])
+@pytest.mark.parametrize("n,d", [(100, 37), (64, 128), (30, 5), (64, 384), (64, 1000), (64, 1001), (1024, 100),
+                                 (33, 2), (17, 4), (9, 6), (40, 998)])
 def test_kernel_matches_plain_version(cuda, n, d, dtype, rand):
     """Exact agreement (values equal, NaN at the same places): the kernel
     rounds like the plain version, operator by operator, without FMA."""
@@ -55,9 +70,93 @@ def test_kernel_matches_plain_version(cuda, n, d, dtype, rand):
     want = fused_pso_move_plain(*args, **kw)
     torch.cuda.synchronize()
     assert fused_pso_move.launches == before + 1
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("rand", ["input", "hw"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_version_on_a_misaligned_view(cuda, dtype, rand):
+    """Contiguous (N, 37) views one row into (N + 1, 37) buffers: their
+    bases are not aligned to a vector, and the kernel takes width 1."""
+    n, d = 100, 37
+    args, draws = _inputs(n, d, getattr(torch, dtype), cuda)
+
+    def shifted(t):
+        buf = torch.empty((n + 1, d), dtype=t.dtype, device=cuda)
+        buf[1:] = t
+        return buf[1:]
+
+    args[:3] = [shifted(t) for t in args[:3]]
+    draws = tuple(shifted(t) for t in draws)
+    assert args[0].is_contiguous() and args[0].data_ptr() % 16 != 0
+    kw = dict(seed=78, rand=rand, rand_draws=draws if rand == "input" else None)
+    _same_bits(fused_pso_move(*args, **kw), fused_pso_move_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("rand", ["input", "hw"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d", [(4096, 64), (300, 1001)])
+def test_kernel_matches_plain_version_on_any_bits(cuda, n, d, dtype, rand):
+    """Operands of random bit patterns (subnormals, infinities, NaN,
+    signed zeros, overflowing products) and local bests a few units in the
+    last place from the positions (cancelling differences), on the vector
+    and the row layouts: the packed bfloat16 arithmetic and the clamps give
+    the plain version's bits."""
+    dt = getattr(torch, dtype)
+    itype, bits = (torch.int32, 32) if dt == torch.float32 else (torch.int16, 16)
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def any_bits(*shape):
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+        return torch.randint(lo, hi, shape, generator=g, device=cuda, dtype=torch.int64).to(itype).view(dt)
+
+    x = any_bits(n, d)
+    near = (x.view(itype).to(torch.int64) + torch.randint(-3, 4, (n, d), generator=g, device=cuda)).to(itype).view(dt)
+    l = torch.where(torch.rand((n, d), generator=g, device=cuda) < 0.5, near, any_bits(n, d))
+    v = any_bits(n, d)
+    v[::7] = torch.tensor([0.0, -0.0], dtype=dt, device=cuda)[torch.randint(0, 2, (d,), generator=g, device=cuda)]
+    fit, lbf = any_bits(n), any_bits(n)
+
+    def pick(*values):
+        return torch.tensor(values, dtype=dt, device=cuda)[torch.randint(0, len(values), (d,), generator=g,
+                                                                          device=cuda)]
+
+    lb, ub = pick(-1.0, -0.0, 0.0, -float("inf")), pick(2.0, -0.0, 0.0, float("inf"))
+    args = [x, v, l, fit, lbf, any_bits(d), lb, ub]
+    draws = tuple(torch.rand((n, d), generator=g, device=cuda).to(dt) for _ in range(2))
+    for w, phi_p, phi_g in ((0.6, 2.5, 0.8), (-1e30, 3e38, 1e-40)):
+        kw = dict(seed=79, rand=rand, rand_draws=draws if rand == "input" else None)
+        got = fused_pso_move(*args, w, phi_p, phi_g, **kw)
+        want = fused_pso_move_plain(*args, w, phi_p, phi_g, **kw)
+        _same_bits(got, want)
+
+
+@pytest.mark.parametrize("rand", ["input", "hw"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,d", [(2, 64, 1000), (3, 50, 37), (2, 40, 1001)])
+def test_kernel_64_bit_index_route_matches_plain(cuda, monkeypatch, b, n, d, dtype, rand):
+    """The kernel's 64-bit index route, which the plan takes from 2^31
+    elements, on small operands: the plan forced wide (its divisions by D
+    and N for 63-bit numerators) on the ring, register and row routes."""
+    from evox_tpu_torch.ops import pso_step
+
+    plan = pso_step._launch_plan
+
+    def wide(batch, n_, d_, dt, ptrs, sms, blocks_per_sm, rand_input=False):
+        p = plan(batch, n_, d_, dt, ptrs, sms, lambda vec, _: blocks_per_sm(vec, True), rand_input)
+        if p.rows:
+            return p._replace(wide=True)
+        (dm, ds), (nm, ns) = pso_step._divisor(d_, 63), pso_step._divisor(n_, 63)
+        return p._replace(wide=True, d_magic=dm, d_shift=ds, n_magic=nm, n_shift=ns)
+
+    monkeypatch.setattr(pso_step, "_launch_plan", wide)
+    dt = getattr(torch, dtype)
+    arrays, scal, keys, draws = _batched_move_inputs(b, n, d, dt, cuda)
+    lb, ub = torch.full((d,), -2.0, dtype=dt, device=cuda), torch.full((d,), 2.0, dtype=dt, device=cuda)
+    kw = dict(index=1, rand_draws=draws if rand == "input" else None)
+    got = fused_pso_move_batched(*arrays, lb, ub, scal, keys, **kw)
+    want = fused_pso_move_batched_plain(*arrays, lb, ub, scal, keys, **kw)
+    _same_bits(got, want)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -823,7 +922,7 @@ def _batched_move_inputs(b, n, d, dtype, device):
 @pytest.mark.parametrize("rand", ["hw", "input"])
 @pytest.mark.parametrize("per_instance_bounds", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,n,d", [(1, 30, 5), (3, 100, 37), (8, 1024, 100)])
+@pytest.mark.parametrize("b,n,d", [(1, 30, 5), (3, 100, 37), (8, 1024, 100), (2, 64, 1000), (3, 33, 1001)])
 def test_batched_pso_move_kernel_matches_plain_and_solo_launches(cuda, b, n, d, dtype, per_instance_bounds, rand):
     """One batched launch equals the plain batched version and B solo
     launches, 0 ulp, NaN at the same places."""

@@ -136,3 +136,167 @@ def test_hw_draws_are_the_rng_philox_stream(dtype):
     )
     assert torch.equal(vel, rng.uniform(seed, (n, d), dtype, device="cpu"))
     assert torch.equal(lbl, torch.ones_like(z)) and torch.equal(lbf, torch.zeros(n, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launch plan (``_launch_plan``), computed on the host.
+# ---------------------------------------------------------------------------
+
+from evox_tpu_torch.ops.pso_step import _div, _divisor, _launch_plan, _rows_layout  # noqa: E402
+
+PLAN_DIMS = [1, 2, 3, 4, 5, 8, 37, 100, 128, 1000, 1001, 1024]
+SMS, PER_SM = 132, 3
+
+
+def _plan(batch, n, d, dtype, ptrs, per_sm=PER_SM):
+    return _launch_plan(batch, n, d, dtype, ptrs, SMS, lambda vec, wide: per_sm)
+
+
+def _widest(d, size, offset):
+    """The widest vector of at most 16 bytes dividing ``d`` whose bytes
+    divide the pointers' ``offset`` from an aligned base."""
+    v = 16 // size
+    while d % v or offset % (v * size):
+        v //= 2
+    return v
+
+
+@pytest.mark.parametrize("base", ["aligned", "row_of_odd_d", "row_of_d_2"])
+@pytest.mark.parametrize("d", PLAN_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_vector_width(dtype, d, base):
+    """16-byte vectors (4 float32, 8 bfloat16) where D and every base allow
+    it, else the widest of 8, 4, 2, 1 that they allow: a vector never
+    crosses a row, and a row of a buffer with odd D (or D = 2) is aligned
+    only to its element (to 2 elements)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    n = 6
+    fresh = [torch.empty((n, d), dtype=dtype) for _ in range(3)]
+    ptrs = [t.data_ptr() for t in fresh]
+    assert all(p % 16 == 0 for p in ptrs)
+    offset = 0
+    if base != "aligned":
+        width = 37 if base == "row_of_odd_d" else 2
+        buf = torch.empty((n * d + 1, width), dtype=dtype)
+        view = buf.view(-1)[width : width + n * d].view(n, d)  # row 1 onwards of the buffer
+        assert view.is_contiguous()
+        offset = view.data_ptr() - buf.data_ptr()
+        ptrs.append(view.data_ptr())
+    plan = _plan(1, n, d, dtype, ptrs)
+    assert plan.vec == _widest(d, size, offset)
+    assert d % plan.vec == 0 and plan.vec * size <= 16
+    if base == "aligned" and d % (16 // size) == 0:
+        assert plan.vec * size == 16
+    if base == "row_of_odd_d":
+        assert plan.vec == 1
+
+
+@pytest.mark.parametrize("batch,n,d,dtype,per_sm,blocks", [
+    (1, 100_000, 1000, torch.float32, 3, SMS * 3),  # the headline: every SM full
+    (1, 100_000, 1000, torch.bfloat16, 2, SMS * 2),
+    (8, 1024, 100, torch.float32, 3, SMS * 3),  # 204,800 vectors of 4
+    (8, 1024, 100, torch.float32, 8, 800),  # fewer vectors than the card holds
+    (8, 1024, 100, torch.bfloat16, 8, 800),  # width 4 at D = 100
+    (1, 30, 5, torch.float32, 3, 1),
+    (16, 30, 8, torch.float32, 3, 4),  # 960 vectors of 4
+    (0, 30, 8, torch.float32, 3, 0),  # nothing to launch
+])
+def test_launch_plan_grid(batch, n, d, dtype, per_sm, blocks):
+    """The grid is the SMs times the blocks an SM holds, or one block per
+    256 vectors where that is fewer."""
+    plan = _plan(batch, n, d, dtype, [0], per_sm)
+    assert plan.blocks == blocks
+    assert not plan.wide and not plan.rows
+
+
+@pytest.mark.parametrize("batch,n,d,dtype,blocks", [
+    (1, 100_000, 1000, torch.float32, 97_657),  # the headline: 25,000,000 vectors of 4
+    (1, 100_000, 1000, torch.bfloat16, 48_829),  # 12,500,000 vectors of 8
+    (8, 1024, 100, torch.float32, 800),
+    (1, 30, 5, torch.float32, 1),
+    (1, 2**31 - 1, 1, torch.float32, 2**23),  # the largest 32-bit route: its stride is 2^31
+    (1, 2**28 - 1, 8, torch.bfloat16, 2**20),
+    (1, 2**20, 2**12, torch.float32, 2**22),  # 2^32 elements: 64-bit indices
+    (0, 30, 8, torch.float32, 0),
+])
+def test_launch_plan_grid_of_the_input_routes(batch, n, d, dtype, blocks):
+    """With the draws read from tensors there is no key to derive, and the
+    grid has a thread a vector, whatever the blocks an SM holds; on the
+    32-bit route its stride stays at or below 2^31, so an index plus the
+    stride cannot wrap."""
+    plan = _launch_plan(batch, n, d, dtype, [0], SMS, lambda vec, wide: PER_SM, rand_input=True)
+    assert plan.blocks == blocks and not plan.rows
+    if batch:
+        assert plan.blocks * 256 * plan.vec >= batch * n * d or plan.blocks == 2**31 // (256 * plan.vec)
+    if not plan.wide:
+        assert plan.blocks * 256 * plan.vec <= 2**31
+
+
+@pytest.mark.parametrize("d,dtype,rows", [
+    (1001, torch.float32, True), (998, torch.float32, True), (1000, torch.float32, False),
+    (258, torch.float32, True), (254, torch.float32, False), (101, torch.float32, False),
+    (1001, torch.bfloat16, True), (998, torch.bfloat16, False), (1004, torch.bfloat16, False),
+    (1000, torch.bfloat16, False), (37, torch.bfloat16, False),
+])
+def test_launch_plan_row_layout(d, dtype, rows):
+    """Rows of a block's width or more whose vectors hold fewer than 4
+    float32 or 2 bfloat16 elements take the row layout: a block a row of
+    the batch, whatever the blocks an SM holds."""
+    batch, n = 3, 50
+    plan = _plan(batch, n, d, dtype, [0])
+    assert plan.rows == rows == _rows_layout(dtype, plan.vec, d)
+    if rows:
+        assert plan.blocks == batch * n
+    misaligned = _plan(batch, n, 1024, dtype, [0, 4])  # a base 4 bytes off
+    assert misaligned.vec == (1 if dtype == torch.float32 else 2) and misaligned.rows == (dtype == torch.float32)
+
+
+@pytest.mark.parametrize("batch,n,d,wide", [
+    (1, 100_000, 1000, False), (8, 1024, 100, False), (1, 2**31 - 1, 1, False), (1, 1, 2**31 - 1, False),
+    (2, 2**30, 1, True), (3, 2**29, 5, True), (1, 3, 2**40 + 1, True),
+])
+def test_launch_plan_index_width(batch, n, d, wide):
+    """32-bit indices below 2^31 elements, 64-bit from there."""
+    plan = _plan(batch, n, d, torch.float32, [0])
+    assert plan.wide == wide == (batch * n * d >= 2**31)
+    bits = 63 if wide else 31
+    if plan.rows:
+        assert d >= 256 and plan.vec < 4 and plan.blocks == batch * n
+    else:
+        assert (plan.d_magic, plan.d_shift) == _divisor(d, bits)
+        assert (plan.n_magic, plan.n_shift) == _divisor(n, bits)
+
+
+def _edges(divisor, count, bits):
+    """0, the divisor's neighbours, multiples of it and their neighbours,
+    the last of ``count`` and the largest numerator the route admits."""
+    xs = {0, 1, divisor - 1, divisor, divisor + 1, count - 1, 2**bits - 1}
+    for k in (2, 3, 7, 1000, (count - 1) // divisor, (2**bits - 1) // divisor):
+        xs |= {k * divisor - 1, k * divisor, k * divisor + 1}
+    return sorted(x for x in xs if 0 <= x < 2**bits)
+
+
+@pytest.mark.parametrize("batch,n,d", [(1, 100_000, 1000), (8, 1024, 100), (3, 100, 37), (2, 64, 1000),
+                                       (1, 1, 1), (3, 2**29, 5)])
+def test_fast_division_is_floor_division_at_the_edges(batch, n, d):
+    """The kernel's row (x // D) and instance (row // N), as multiply-high
+    and shift, equal ``//`` at 0, D - 1, D, multiples of D, B·N·D - 1 and
+    the largest index the route admits (2^31 - 1 on the 32-bit one); the
+    constants fit the kernel's 32- or 64-bit words."""
+    plan = _plan(batch, n, d, torch.float32, [0])
+    assert not plan.rows
+    bits = 63 if plan.wide else 31
+    assert plan.d_magic < 2 ** (bits + 1) and plan.n_magic < 2 ** (bits + 1)
+    for x in _edges(d, batch * n * d, bits):
+        assert _div(x, plan.d_magic, plan.d_shift, bits) == x // d, x
+    for row in _edges(n, batch * n, bits):
+        assert _div(row, plan.n_magic, plan.n_shift, bits) == row // n, row
+
+
+@pytest.mark.parametrize("divisor", [1, 2, 3, 5, 7, 37, 100, 1000, 1001, 1024, 100_000, 2**31 - 1])
+def test_fast_division_on_random_numerators(divisor):
+    r = np.random.default_rng(divisor)
+    for bits in (31, 63):
+        m, s = _divisor(divisor, bits)
+        for x in r.integers(0, 2**bits, 2000, dtype=np.uint64).tolist():
+            assert _div(x, m, s, bits) == x // divisor
