@@ -624,7 +624,8 @@ def phase_compare_mo(device) -> dict:
     rows, masks with no, one, some and all rows valid; lex_rank in int32
     and float32 with k in {1, n/2, n}; the packed words in float32 and
     float64, and the generic kernel (m = 5); peel_fronts with until_count
-    in {None, 1, n/2, n}.  Then the capability probe."""
+    in {None, 1, n/2, n}, and its design's own cases (``peel_cases``,
+    ``captured_peel``).  Then the capability probe."""
     import torch
     from evox_tpu_torch.ops import crowding, dominance, probe, topk
 
@@ -684,6 +685,12 @@ def phase_compare_mo(device) -> dict:
                     for g, w in zip(topk.masked_top_k(v, k, mk), topk.masked_top_k_plain(v, k, mk)):
                         check("lex_rank", g, w, f"masked_top_k n={n} k={k} {v.dtype}")
         torch.cuda.empty_cache()
+    for what, words, u in peel_cases(device):
+        check("peel_fronts", dominance.peel_fronts(words, u), dominance.peel_fronts_plain(words, u), what)
+    for u in (None, NSGA2_POP):
+        for k, (got, want) in enumerate(captured_peel(device, u)):
+            check("peel_fronts", got, want, f"peel_fronts captured, replay {k}, until_count={u}")
+    torch.cuda.empty_cache()
     # Values up to 3e38, so the largest double to +inf.
     x = mo_costs(8 * 128, 1, device, seed=3).reshape(8, 128) * 3e38
     check("scale_by_two", probe.scale_by_two(x), probe.scale_by_two_plain(x), "scale_by_two")
@@ -692,6 +699,67 @@ def phase_compare_mo(device) -> dict:
     if not result.get("ok"):
         raise AssertionError(f"capability probe failed: {result}")
     return {"checks": checks, "max_abs_err": errs, "probe": result}
+
+
+# The front peel's design cases (csrc/dominance.cu): n not a
+# multiple of 32 (a partial last tile) nor of 4 (loads of 2 words: 130,
+# 20,002; of one: 31, 33, 127, 129, 4095, 4097, 20,001), a multiple of 4
+# but not of 32 (132, 20,004); a total order of PEEL_TOTAL_ORDER rows.
+PEEL_EDGE_SIZES = [31, 33, 127, 129, 130, 132, 4095, 4097, 20_001, 20_002, 20_004]
+PEEL_TOTAL_ORDER = 4096
+
+
+def peel_cases(device):
+    """(what, words, until_count) of the peel's design cases: every load
+    width and partial tiles, with until_count None, 0, n / 2, n and n + 1;
+    every column in front 0 (20,000 points on a line); a total order (a
+    front a row: a barrier a front); NaN rows."""
+    import torch
+    from evox_tpu_torch.ops import dominance
+
+    for n in PEEL_EDGE_SIZES:
+        words = dominance.dominance_packed(mo_costs(n, 3, device, seed=n + 17))
+        for u in (None, 0, n // 2, n, n + 1):
+            yield f"peel_fronts n={n} until_count={u}", words, u
+    x = torch.linspace(0, 1, 2 * NSGA2_POP, device=device)
+    words = dominance.dominance_packed(torch.stack([x, 1 - x], 1))
+    for u in (None, NSGA2_POP):
+        yield f"peel_fronts one front of {2 * NSGA2_POP} until_count={u}", words, u
+    g = torch.Generator(device=device).manual_seed(4)
+    order = torch.randperm(PEEL_TOTAL_ORDER, generator=g, device=device).float()
+    words = dominance.dominance_packed(torch.stack([order, 2 * order], 1))
+    for u in (None, PEEL_TOTAL_ORDER // 2):
+        yield f"peel_fronts total order of {PEEL_TOTAL_ORDER} until_count={u}", words, u
+    for n in (33, 2049, 2 * NSGA2_POP):
+        f = mo_costs(n, 3, device, seed=n + 5)
+        f[::7, 1] = float("nan")
+        f[::13] = float("nan")
+        words = dominance.dominance_packed(f)
+        for u in (None, n // 2):
+            yield f"peel_fronts NaN rows n={n} until_count={u}", words, u
+
+
+def captured_peel(device, until_count):
+    """A peel at the NSGA-II path's 20,000 columns captured in a CUDA graph
+    and replayed on the words of two other inputs copied into its buffer:
+    each replay's ranks and the plain version's on those words."""
+    import torch
+    from evox_tpu_torch.ops import dominance
+
+    n = 2 * NSGA2_POP
+    words = dominance.dominance_packed(mo_costs(n, 3, device, seed=1))
+    dominance.peel_fronts(words, until_count)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rank = dominance.peel_fronts(words, until_count)
+    out = []
+    for seed in (2, 3):
+        words.copy_(dominance.dominance_packed(drift_inputs(n, 3, device) * seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        out.append((rank.clone(), dominance.peel_fronts_plain(words, until_count)))
+    return out
 
 
 def mo_counters():
@@ -1185,7 +1253,7 @@ def phase_timing_mo(device) -> dict:
     peel = lambda: dominance.peel_fronts(words, NSGA2_POP)  # noqa: E731
     entry("peel_fronts_20k", peel, lambda: dominance.peel_fronts_plain(words, NSGA2_POP),
           peel_bound(words, rank, NSGA2_POP), held=True, fronts=fronts_of(rank),
-          launches_per_call=launches_per_call(peel))
+          launches_per_call=launches_per_call(peel, calls=20))
     row = out["peel_fronts_20k"]
     if row["launches_per_call"]["launches"] > 2 or row["launches_per_call"]["host_syncs"] != 0:
         raise AssertionError(f"peel_fronts at the path's size: {row['launches_per_call']}")
@@ -1195,7 +1263,8 @@ def phase_timing_mo(device) -> dict:
     words = dominance.dominance_packed(fit10k)
     rank10k = dominance.peel_fronts(words)
     entry("peel_fronts_10k_init", lambda: dominance.peel_fronts(words), lambda: dominance.peel_fronts_plain(words),
-          peel_bound(words, rank10k, None), held=True, fronts=fronts_of(rank10k))
+          peel_bound(words, rank10k, None), held=True, fronts=fronts_of(rank10k),
+          launches_per_call=launches_per_call(lambda: dominance.peel_fronts(words), calls=20))
     del words
     # The whole ranking of survivor selection (words, then the peel) at the
     # path's shape: host clock against its kernels' time.
@@ -1358,6 +1427,10 @@ def phase_philox(device) -> dict:
                     worst = max(worst, exact(g, w, f"philox_draws {kinds} numel={numel} (DE)"))
                     checks += 1
 
+    c, w = philox_design_checks(device)
+    checks += c
+    worst = max(worst, w)
+
     timing = {}
     k = rng.key(2**63 + 1, device)
     for tag, numel, kinds, iters in (
@@ -1384,7 +1457,99 @@ def phase_philox(device) -> dict:
             raise AssertionError(f"philox_draws {tag}: {row['launches_per_call']}")
         timing[tag] = row
         torch.cuda.empty_cache()
+    # hpo_ladder's batched draw: OpenES's normals of 64 candidates, 16,384
+    # a candidate, one launch an inner generation.
+    b, numel = HPO_LADDER["candidates"], HPO_LADDER["inner_pop"] // 2 * HPO_LADDER["dim"]
+    keys = torch.stack([rng.key(s_, device) for s_ in range(b)])
+    kinds = [torch.float32]
+    draw = lambda: philox.philox_draws_batched(keys, 0, numel, kinds)  # noqa: E731
+    worst = max(worst, max(exact(g, w, f"philox_draws_batched {b} x {numel}")
+                           for g, w in zip(draw(), philox.philox_draws_batched_plain(keys, 0, numel, kinds))))
+    timing["hpo_ladder_batched_64x16384_f32"] = {
+        "streams": b, "numel": numel, "ms": time_ms(draw, 50),
+        "plain_ms": time_ms(lambda: philox.philox_draws_batched_plain(keys, 0, numel, kinds), 3, warmup=1),
+        "launches_per_call": launches_per_call(draw, calls=20), **philox_bound(b * numel, kinds), "library_ms": None,
+    }
     return {"checks": checks, "max_abs_err": worst, "timing": timing}
+
+
+# The draw kernel's design cases (csrc/philox.cu), held
+# against the plain version: every size to two vectors and one, sizes
+# around each boundary of the host's launch plan, no element, 1 and 4,096
+# streams, and 2^19 + 1 bfloat16 draws for 4,095 and 4,097 streams (each
+# side of 2^31 elements in all: the 32- and 64-bit index routes; ~4.3 GB).
+PHILOX_DESIGN_KINDS = [["float32"], ["float32", (0, 2), "bfloat16", "float64"]]
+PHILOX_WIDE = (2**19 + 1, (4095, 4097))
+
+
+def philox_plan_sizes(batch, count):
+    """numel values around each boundary of the draw kernel's launch plan
+    for ``batch`` streams of ``count`` outputs on this card: where the
+    scalar route ends, where the one-pass grid ends, and the third and
+    fourth passes of the resident grid."""
+    import torch
+    from evox_tpu_torch.ops import _build, philox
+
+    index = torch.cuda.current_device()
+    sms = _build.sm_count(index)
+    resident = sms * philox._blocks_per_sm(index, count, False, philox._VEC)
+    per_pass = max(1, resident // batch) * philox._THREADS * philox._VEC
+    centers = [philox._SCALAR_BLOCKS * sms * philox._THREADS // batch,
+               philox._ONE_PASS_WAVES * resident * philox._THREADS * philox._VEC // batch,
+               3 * per_pass, 4 * per_pass]
+    return sorted({c + d for c in centers for d in (-1, 0, 1) if c + d > 0})
+
+
+def philox_design_checks(device) -> tuple[int, float]:
+    """The draw kernel's design cases (above), each output of each call
+    against the plain version bit for bit: (checks, largest difference)."""
+    import torch
+    from evox_tpu_torch.ops import philox
+    from evox_tpu_torch.utils import rng
+
+    checks, worst = 0, 0.0
+
+    def keys_of(b, seed):
+        g = torch.Generator().manual_seed(seed + b)
+        return torch.randint(-(2**63), 2**63 - 1, (b, 2), generator=g, dtype=torch.int64).to(device)
+
+    def held(keys, numel, kinds, what, rows=None):
+        nonlocal checks, worst
+        got = philox.philox_draws_batched(keys, 1, numel, kinds)
+        sel = keys if rows is None else keys[rows]
+        for g, w in zip(got, philox.philox_draws_batched_plain(sel, 1, numel, kinds)):
+            worst = max(worst, exact(g if rows is None else g[rows], w, what))
+            checks += 1
+
+    kinds_list = [[getattr(torch, k) if isinstance(k, str) else k for k in kinds] for kinds in PHILOX_DESIGN_KINDS]
+    for kinds in kinds_list:
+        for b in (1, 3):
+            for numel in range(0, 2 * philox._VEC + 2):
+                held(keys_of(b, 1), numel, kinds, f"philox_draws {b} x {numel} {kinds}")
+            for numel in philox_plan_sizes(b, len(kinds)):
+                held(keys_of(b, 2), numel, kinds, f"philox_draws {b} x {numel} {kinds} (plan boundary)")
+        for b in (8, 64):
+            for numel in philox_plan_sizes(b, len(kinds)):
+                held(keys_of(b, 3), numel, kinds, f"philox_draws {b} x {numel} {kinds} (plan boundary)")
+        # 4,096 streams: the rows at both ends and every 97th against the
+        # plain version (each stream is the same code on its own key).
+        rows = sorted({0, 1, 2, 3, 4093, 4094, 4095, *range(0, 4096, 97)})
+        for numel in (1, 7, 1000):
+            held(keys_of(4096, 4), numel, kinds, f"philox_draws 4096 x {numel} {kinds}", rows)
+        torch.cuda.empty_cache()
+    # A solo draw of no element launches nothing.
+    before = philox.philox_draws.launches
+    if any(g.numel() for g in philox.philox_draws(rng.child(rng.key(1, device)), 0, kinds_list[-1], device)) \
+            or philox.philox_draws.launches != before:
+        raise AssertionError("philox_draws of no element: elements drawn or a kernel launched")
+    numel, batches = PHILOX_WIDE
+    for b in batches:
+        # The rows at both ends, the middle one and those around flat
+        # element 2^31 (rows 4095 and 4096 of 2^19 + 1).
+        rows = sorted({0, 1, b // 2, b - 2, b - 1} | ({4094, 4095, 4096} & set(range(b))))
+        held(keys_of(b, 5), numel, [torch.bfloat16], f"philox_draws {b} x {numel} bfloat16 (index route)", rows)
+        torch.cuda.empty_cache()
+    return checks, worst
 
 
 def same_state(got, want, what) -> int:
@@ -2905,6 +3070,12 @@ def batched_kernels_vs_plain(states, device) -> dict:
     want = philox.philox_draws_batched_plain(keys, 0, n * d, kinds)
     draw_err = max(exact(g, w, "philox_draws_batched vs plain") for g, w in zip(got, want))
     del got, want
+    # hpo_ladder's shape: 64 streams of 16,384 (OpenES's normals).
+    hb, hn = HPO_LADDER["candidates"], HPO_LADDER["inner_pop"] // 2 * HPO_LADDER["dim"]
+    hkeys = torch.stack([rng.key(s_, device) for s_ in range(hb)])
+    hpo_err = max(exact(g, w, "philox_draws_batched (64, 16384) vs plain")
+                  for g, w in zip(philox.philox_draws_batched(hkeys, 0, hn, kinds),
+                                  philox.philox_draws_batched_plain(hkeys, 0, hn, kinds)))
     # Launch-bound at this size: the event time of back-to-back calls is
     # the wrappers' host time; the profiler gives the kernel's own.
     return {
@@ -2920,12 +3091,17 @@ def batched_kernels_vs_plain(states, device) -> dict:
             **{k: move_bound(b, n, d, 4, kept, "hw")[k] for k in ("bound_ms", "bound_by")}, "library_ms": None,
         },
         "philox_draws_batched": {
-            "max_abs_err": draw_err, "streams": b, "numel": n * d,
+            "max_abs_err": max(draw_err, hpo_err), "streams": b, "numel": n * d,
             "ms": time_ms(lambda: philox.philox_draws_batched(keys, 0, n * d, kinds), 50),
             "device_ms": launches_per_call(lambda: philox.philox_draws_batched(keys, 0, n * d, kinds),
                                            calls=20)["device_ms"],
             "plain_ms": time_ms(lambda: philox.philox_draws_batched_plain(keys, 0, n * d, kinds), 5),
             **{k: philox_bound(b * n * d, kinds)[k] for k in ("bound_ms", "bound_by")}, "library_ms": None,
+            "hpo_ladder_shape": {
+                "max_abs_err": hpo_err, "streams": hb, "numel": hn,
+                "device_ms": launches_per_call(lambda: philox.philox_draws_batched(hkeys, 0, hn, kinds),
+                                               calls=20)["device_ms"],
+                **{k: philox_bound(hb * hn, kinds)[k] for k in ("bound_ms", "bound_by")}},
         },
     }
 
@@ -4392,6 +4568,8 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
                               if k.startswith(name + "_") and "max_abs_err" in r]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        # The profiler's device time of a call, where the row was profiled.
+        **({"device_ms": t["launches_per_call"]["device_ms"]} if "launches_per_call" in t else {}),
     }
 
 

@@ -49,17 +49,36 @@
 //
 // `peel_fronts` is the whole front peel of non_dominate_rank in one
 // cooperative launch, with no host sync: the dominate count (phase 0), then
-// for each front the popcount of the previous front's rows over the words,
-// a grid-wide barrier (`grid.sync()`) between fronts.  A block owns whole
-// 32-column tiles (tile t is also mask word t), so it writes its own ranks
-// and counts without atomics; a front is kept as a list of its non-zero mask
-// words (tile, word) that the owners append to, so a block reads only the
-// word rows of the front's members, split over its eight warps.  Bound by
-// bytes: (fronts + 1) reads of the words at most, most of them from the
-// 50 MB L2 right after dominance_packed wrote them.  The dominate count
-// stays inside this kernel rather than in dominance_packed's epilogue: an
-// epilogue would need the counts zeroed first (a fill launch) and atomics
-// across the blocks of a column, and dominance_packed keeps one job.
+// for each front the popcount of its rows over the words, one grid-wide
+// barrier (`grid.sync()`) a front.  What bounds it on an H100: bytes, the
+// words read once for the count (50 MB at the NSGA-II path's 20,000 columns,
+// much of it in the 50 MB L2 right after dominance_packed wrote it) and then
+// the word rows holding each front's rows; and, at many fronts, the chain of
+// barriers.  The design:
+//   * the G = SMs blocks (one an SM; 256 threads, 1024 from 256 word rows
+//     on, where a front's word rows need more loads in flight than a small
+//     peel's barriers cost) split the tiles of 32
+//     columns evenly (sizes differ by one), planned on the host
+//     (ops/dominance.py `_peel_plan`); a lane reads 4 adjacent columns of a
+//     word row (16 bytes; 8 or 4 where n is not a multiple of 4), the
+//     block's thread rows take every R-th word row, eight loads in flight;
+//   * a block keeps its columns' counts in shared memory and ranks them
+//     itself; a front is published as dense mask words, one a tile, written
+//     by the tile's owner into one of two buffers: nothing is zeroed, no
+//     counter is shared, and phase 0 writes front 0's ranks, so a call whose
+//     first front reaches `until` (the NSGA-II path) ends after one barrier;
+//   * later fronts read only the word rows of their non-zero mask words
+//     (compacted in order into a list in shared memory) and skip column
+//     vectors already ranked; where the block's columns of every word row
+//     fit in shared memory (up to about 13,000 columns on 132 SMs:
+//     init_step's 10,000), phase 0 keeps them there and later fronts read
+//     no device memory but the mask words;
+//   * the thread rows' sums meet in shared memory in a fixed order, no
+//     atomics.
+// The dominate count stays inside this kernel rather than in
+// dominance_packed's epilogue: that would need the counts zeroed first (a
+// fill launch) and atomics across the blocks of a column.  Its times are
+// PERF.md's kernel table, row 4.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -335,146 +354,331 @@ int launch_matrix(const void* f, int n, int m, void* out, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 // peel_fronts: the cooperative front peel.
 //
-// Scratch (int32): ctr[8] = front sizes [0..2] and list lengths [3..5] of
-// three rotating fronts, count[n] (rows dominating each row; -1 once
-// ranked), then three lists of up to nw (tile, mask word) pairs.  Front k
-// lives in slot k % 3: iteration k reads slot k % 3, appends front k + 1 to
-// slot (k + 1) % 3 and clears slot (k + 2) % 3, whose last reader finished
-// before the previous barrier.  Everything a block reads that another block
-// wrote goes through L2 (`__ldcg`, atomics), never a stale L1 line.
+// Block b owns the 32-column tiles [b * nw / G, (b + 1) * nw / G) of the G
+// blocks (tile t is also mask word t: rows 32t .. 32t + 31).  Its columns'
+// counts (rows still unranked that dominate the column; -1 once ranked) live
+// in its shared memory, and only it writes their ranks.  A front is
+// published as its dense mask words: the owner of tile t writes word t of
+// buffer k & 1 for front k, zero or not, so no buffer is ever cleared and
+// no counter is shared.  Front k is read in iteration k, after the barrier
+// that ends iteration k - 1, and its buffer is next written in iteration
+// k + 1, after the barrier that ends iteration k: two buffers and one
+// barrier a front.  Mask words other blocks wrote are read through L2
+// (`__ldcg`), never a stale L1 line.
 // ---------------------------------------------------------------------------
 
-constexpr int kListChunk = 1024;  // list entries staged in shared memory at a time
+// A block has T threads (the plan's: 256, or 1024 for many word rows) and
+// stages a front's mask words T at a time.
+constexpr int kPeelLoads = 8;  // loads a thread has in flight in phase 0
 
-__device__ __forceinline__ int sum_partials(const int (*part)[32], int lane) {
-  int total = 0;
+// V adjacent words of a word row (16, 8 or 4 bytes).
+template <int V> __device__ __forceinline__ void load_words(const uint32_t* p, uint32_t (&x)[V]);
+template <> __device__ __forceinline__ void load_words<4>(const uint32_t* p, uint32_t (&x)[4]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  x[0] = u.x;
+  x[1] = u.y;
+  x[2] = u.z;
+  x[3] = u.w;
+}
+template <> __device__ __forceinline__ void load_words<2>(const uint32_t* p, uint32_t (&x)[2]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  x[0] = u.x;
+  x[1] = u.y;
+}
+template <> __device__ __forceinline__ void load_words<1>(const uint32_t* p, uint32_t (&x)[1]) { x[0] = __ldg(p); }
+
+// V words to and from the block's slice in shared memory (16-byte aligned
+// for V = 4).
+template <int V> __device__ __forceinline__ void store_slice(uint32_t* p, const uint32_t (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(x[0], x[1], x[2], x[3]);
+  } else {
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) total += part[w][lane];
+    for (int e = 0; e < V; ++e) p[e] = x[e];
+  }
+}
+template <int V> __device__ __forceinline__ void load_slice(const uint32_t* p, uint32_t (&x)[V]) {
+  if constexpr (V == 4) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = u.z;
+    x[3] = u.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = p[e];
+  }
+}
+
+// The block's sum of v, in every thread (two barriers; `red` free after).
+template <int T>
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  v = __reduce_add_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int total = __reduce_add_sync(kFull, lane < T / 32 ? red[lane] : 0);
+  __syncthreads();
   return total;
 }
 
-__global__ void __launch_bounds__(kThreads)
-peel_fronts_kernel(const uint32_t* __restrict__ words, int n, int nw, int until, int* __restrict__ rank,
-                   int* ctr, int* count, int2* lists) {
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  __shared__ int2 chunk[kListChunk];
-  __shared__ int part[kWarps][32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (blockIdx.x == 0 && tid < 6) ctr[tid] = 0;
-  grid.sync();
+// Columns of a block, at most (shared memory is sized for every block).
+__host__ __device__ __forceinline__ int peel_capacity(int nw, int blocks) {
+  return 32 * ((nw + blocks - 1) / blocks);
+}
 
-  // Phase 0: the dominate count and front 0.
-  int bsize = 0;  // rows of the next front in this block's tiles (thread 0)
-  for (int t = blockIdx.x; t < nw; t += gridDim.x) {
-    const int j = t * 32 + lane;
-    int s = 0;
-    if (j < n) {
-#pragma unroll 4
-      for (int w = warp; w < nw; w += kWarps) s += __popc(__ldg(words + (size_t)w * n + j));
-    }
-    part[warp][lane] = s;
-    __syncthreads();
-    if (warp == 0) {
-      const int c = sum_partials(part, lane);
-      if (j < n) {
-        count[j] = c;
-        rank[j] = n;
-      }
-      const uint32_t word = __ballot_sync(kFull, j < n && c == 0);
-      if (lane == 0 && word) {
-        lists[atomicAdd(ctr + 3, 1)] = make_int2(t, (int)word);
-        bsize += __popc(word);
-      }
-    }
-    __syncthreads();
+// Shared memory of a block without the word slice, and with it: the
+// block's columns of every word row (4 * capacity * nw bytes), kept when it
+// fits so that later fronts read their words from shared memory.
+__host__ __device__ __forceinline__ size_t peel_smem_base(int nw, int blocks, int threads) {
+  const int staged = nw < threads ? nw : threads;
+  return sizeof(int) * (2 * (size_t)peel_capacity(nw, blocks) + 3 * (size_t)(threads / 32) + 4 * (size_t)threads) +
+         sizeof(uint2) * (size_t)staged;
+}
+
+__host__ __device__ __forceinline__ size_t peel_slice(int nw, int blocks) {
+  return sizeof(uint32_t) * (size_t)peel_capacity(nw, blocks) * (size_t)nw;
+}
+
+__host__ __device__ __forceinline__ bool peel_cached(int nw, int blocks, int threads) {
+  return peel_smem_base(nw, blocks, threads) + peel_slice(nw, blocks) <= (size_t)kMaxSmem;
+}
+
+__host__ __device__ __forceinline__ size_t peel_smem(int nw, int blocks, int threads) {
+  return peel_smem_base(nw, blocks, threads) + (peel_cached(nw, blocks, threads) ? peel_slice(nw, blocks) : 0);
+}
+
+// The non-zero mask words of cur[0 .. len) (len <= T, a word a thread) as
+// (index, word) pairs in `list`, in order; returns their number and sets
+// *size to the words' popcount.  The offsets are a block scan (`scan`:
+// 2 * T / 32 ints).  Two barriers; `list` is complete after.
+template <int T>
+__device__ __forceinline__ int stage_front(const uint32_t* cur, int len, uint2* list, int* scan, int* size) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t m = (int)threadIdx.x < len ? __ldcg(cur + threadIdx.x) : 0u;
+  const uint32_t ballot = __ballot_sync(kFull, m != 0u);
+  const int bits = __reduce_add_sync(kFull, __popc(m));
+  if (lane == 0) {
+    scan[warp] = __popc(ballot);
+    scan[T / 32 + warp] = bits;
   }
-  if (tid == 0 && bsize) atomicAdd(ctr, bsize);
-  grid.sync();
+  __syncthreads();
+  int off = __popc(ballot & ((1u << lane) - 1u)), total = 0, total_bits = 0;
+#pragma unroll
+  for (int w = 0; w < T / 32; ++w) {
+    const int c = scan[w];
+    off += w < warp ? c : 0;
+    total += c;
+    total_bits += scan[T / 32 + w];
+  }
+  if (m) list[off] = make_uint2(threadIdx.x, m);
+  __syncthreads();
+  *size = total_bits;
+  return total;
+}
 
-  int assigned = 0;
-  for (int k = 0;; ++k) {
-    const int cur = k % 3, nxt = (k + 1) % 3;
-    const int size = __ldcg(ctr + cur);
-    if (size == 0 || (until >= 0 && assigned >= until)) break;
-    assigned += size;
-    // Front k is the last one ranked: front k + 1 is never looked at.
-    const bool last = until >= 0 && assigned >= until;
-    const int len = __ldcg(ctr + 3 + cur);
-    const int2* list = lists + (size_t)cur * nw;
-    int2* next = lists + (size_t)nxt * nw;
-    bsize = 0;
-    for (int t = blockIdx.x; t < nw; t += gridDim.x) {
-      const int j = t * 32 + lane;
-      const int c = j < n ? count[j] : -1;
-      const bool in_front = c == 0;  // a row of front k
-      if (last) {
-        if (warp == 0 && in_front) rank[j] = k;
-        continue;
-      }
-      // Rows still unranked (c > 0) take the front's popcount; a ranked row
-      // or a row of front k is dominated by no row of front k.
-      int sub = 0;
-      if (__syncthreads_or(c > 0)) {
-        int s = 0;
-        for (int c0 = 0; c0 < len; c0 += kListChunk) {
-          const int cn = min(kListChunk, len - c0);
-          for (int i = tid; i < cn; i += kThreads) chunk[i] = __ldcg(list + c0 + i);
-          __syncthreads();
-          if (j < n) {
-#pragma unroll 4
-            for (int i = warp; i < cn; i += kWarps) {
-              const int2 e = chunk[i];
-              s += __popc(__ldg(words + (size_t)e.x * n + j) & (uint32_t)e.y);
-            }
-          }
-          __syncthreads();
-        }
-        part[warp][lane] = s;
-        __syncthreads();
-        if (warp == 0) sub = sum_partials(part, lane);
-      }
-      if (warp == 0) {
-        // The front itself drops to -1 and never becomes a front again.
-        const int nc = c - sub - (in_front ? 1 : 0);
-        if (j < n) {
-          if (in_front) rank[j] = k;
-          count[j] = nc;
-        }
-        const uint32_t word = __ballot_sync(kFull, j < n && nc == 0);
-        if (lane == 0 && word) {
-          next[atomicAdd(ctr + 3 + nxt, 1)] = make_int2(t, (int)word);
-          bsize += __popc(word);
-        }
-      }
-      __syncthreads();  // `part` and `chunk` are free again
-    }
-    if (last) break;
-    if (tid == 0 && bsize) atomicAdd(ctr + nxt, bsize);
-    if (blockIdx.x == 0 && tid == 0) {
-      const int z = (k + 2) % 3;
-      ctr[z] = 0;
-      ctr[3 + z] = 0;
-    }
-    grid.sync();
+// Publish the front the block's counts hold (count 0) for its tiles: the
+// tiles' mask words into `out`, rank `front` for its columns (and, from
+// phase 0, the sentinel n for every other column).
+template <int T>
+__device__ __forceinline__ void publish(const int* count, int t0, int t1, int n, int front, bool first,
+                                        int* rank, uint32_t* out) {
+  const int lane = threadIdx.x & 31;
+  for (int t = t0 + (threadIdx.x >> 5); t < t1; t += T / 32) {
+    const int j = t * 32 + lane;
+    const bool in = j < n && count[j - t0 * 32] == 0;
+    const uint32_t m = __ballot_sync(kFull, in);
+    if (lane == 0) out[t] = m;
+    if (in || (first && j < n)) rank[j] = in ? front : n;
   }
 }
 
-// Blocks of peel_fronts_kernel that fit on the card at once, per device.
-int peel_grid_limit() {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return -(int)e;
-  if (dev < 64 && cached[dev] > 0) return cached[dev];
-  int coop = 0, sms = 0, per_sm = 0;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess) return -(int)e;
-  if (!coop) return -(int)cudaErrorNotSupported;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return -(int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, peel_fronts_kernel, kThreads, 0);
-  if (e != cudaSuccess) return -(int)e;
-  if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
-  if (dev < 64) cached[dev] = per_sm * sms;
-  return per_sm * sms;
+// The block's column sums into dst[0 .. ncols): with one thread row each
+// thread added its own columns' sums into dst already; with more, each
+// thread's sums (one vector of V columns) meet in `part` and are added up
+// row by row, in a fixed order.  Ends with a barrier.
+template <int V, int T>
+__device__ __forceinline__ void reduce_rows(const int (&tot)[V], int* dst, int* part, int rows, int r, int q0,
+                                            int ncols, bool active) {
+  if (rows > 1) {
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) part[r * ncols + q0 * V + e] = tot[e];
+    }
+    __syncthreads();
+    for (int x = threadIdx.x; x < ncols; x += T) {
+      int sum = 0;
+      for (int i = 0; i < rows; ++i) sum += part[i * ncols + x];
+      dst[x] = sum;
+    }
+  }
+  __syncthreads();
+}
+
+// Grid: G blocks of T, all resident (a cooperative launch).  A
+// block reads its columns V at a time: its nq = columns / V vectors over
+// `span` threads, R = T / span thread rows taking word rows
+// r, r + R, ...; the rows' sums meet in shared memory (`reduce_rows`).
+template <int V, int T>
+__global__ void __launch_bounds__(T)
+peel_fronts_kernel(const uint32_t* __restrict__ words, int n, int nw, int until, int* __restrict__ rank,
+                   uint32_t* masks) {
+  extern __shared__ __align__(16) unsigned char peel_shared[];
+  const int tid = threadIdx.x;
+  const int t0 = (int)((long long)blockIdx.x * nw / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * nw / gridDim.x);
+  const int c0 = t0 * 32;
+  const int ncols = min(t1 * 32, n) - c0;
+  if (until == 0) {  // no front is ranked
+    for (int x = tid; x < ncols; x += T) rank[c0 + x] = n;
+    return;
+  }
+  const int cap = peel_capacity(nw, gridDim.x);
+  const bool cached = peel_cached(nw, gridDim.x, T);
+  // [nw][cap] when cached: the block's columns of every word row.
+  uint32_t* slice = reinterpret_cast<uint32_t*>(peel_shared);
+  int* count = reinterpret_cast<int*>(peel_shared + (cached ? peel_slice(nw, gridDim.x) : 0));  // [cap]
+  int* sub = count + cap;                             // [cap]: the front's popcounts
+  int* scan = sub + cap;                              // [2 * T / 32]
+  int* red = scan + 2 * (T / 32);                     // [T / 32]
+  int* part = red + T / 32;                           // [T * V]: the thread rows' sums
+  uint2* list = reinterpret_cast<uint2*>(part + 4 * T);  // [min(nw, T)]: a front's words
+  const int nq = ncols / V;
+  const int span = min(nq, T);
+  // Thread rows: as many as the block holds, but no more than give each
+  // kPeelLoads word rows (fewer partial sums to add up at small n).
+  const int rows = min(T / span, max(1, (nw + kPeelLoads - 1) / kPeelLoads));
+  const int r = tid / span, q0 = tid % span;
+  const bool active = r < rows;
+  const uint32_t* base = words + c0;
+
+  // Phase 0: the dominate count (every word row), then front 0.
+  for (int x = tid; x < ncols; x += T) count[x] = sub[x] = 0;
+  __syncthreads();
+  int tot[V] = {};
+  if (active) {
+    for (int q = q0; q < nq; q += span) {
+      int acc[V] = {};
+      const uint32_t* col = base + q * V;
+      for (int w = r; w < nw; w += kPeelLoads * rows) {
+        uint32_t x[kPeelLoads][V];
+#pragma unroll
+        for (int u = 0; u < kPeelLoads; ++u) {
+          const int wu = w + u * rows;
+          if (wu < nw) {
+            load_words<V>(col + (size_t)wu * n, x[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) x[u][e] = 0u;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kPeelLoads; ++u) {
+          if (cached && w + u * rows < nw) store_slice<V>(slice + (w + u * rows) * cap + q * V, x[u]);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] += __popc(x[u][e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        tot[e] += acc[e];
+        if (rows == 1) count[q * V + e] = acc[e];
+      }
+    }
+  }
+  reduce_rows<V, T>(tot, count, part, rows, r, q0, ncols, active);
+  publish<T>(count, t0, t1, n, 0, true, rank, masks);
+
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const bool staged = nw <= T;  // the whole front's list in shared memory at once
+  int assigned = 0;
+  for (int k = 0;; ++k) {
+    grid.sync();
+    const uint32_t* cur = masks + (size_t)(k & 1) * nw;
+    uint32_t* next = masks + (size_t)((k + 1) & 1) * nw;
+    int size, len = 0;
+    if (staged) {
+      len = stage_front<T>(cur, nw, list, scan, &size);
+    } else {
+      int s = 0;
+      for (int w = tid; w < nw; w += T) s += __popc(__ldcg(cur + w));
+      size = block_sum<T>(s, red);
+    }
+    if (size == 0) break;  // front k's rows (its ranks are written)
+    assigned += size;
+    if (until > 0 && assigned >= until) break;  // front k + 1 is never looked at
+    // Front k's popcount over the block's columns that are still unranked,
+    // from the word rows of its non-zero mask words; a vector whose columns
+    // are all ranked (or in front k) is skipped.
+#pragma unroll
+    for (int e = 0; e < V; ++e) tot[e] = 0;
+    for (int w0 = 0; w0 < nw; w0 += T) {
+      if (!staged) {
+        int ignored;
+        len = stage_front<T>(cur + w0, min(T, nw - w0), list, scan, &ignored);
+      }
+      if (!active) continue;
+      for (int q = q0; q < nq; q += span) {
+        bool open = false;
+#pragma unroll
+        for (int e = 0; e < V; ++e) open |= count[q * V + e] > 0;
+        if (!open) continue;
+        int acc[V] = {};
+        const uint32_t* col = base + (size_t)w0 * n + q * V;
+#pragma unroll 8
+        for (int i = r; i < len; i += rows) {
+          const uint2 entry = list[i];
+          uint32_t x[V];
+          if (cached) {
+            load_slice<V>(slice + (w0 + entry.x) * cap + q * V, x);
+          } else {
+            load_words<V>(col + (size_t)entry.x * n, x);
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] += __popc(x[e] & entry.y);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          tot[e] += acc[e];
+          if (rows == 1) sub[q * V + e] += acc[e];
+        }
+      }
+    }
+    reduce_rows<V, T>(tot, sub, part, rows, r, q0, ncols, active);
+    // Front k drops to -1 (ranked) and never becomes a front again; a
+    // column whose count reaches 0 is in front k + 1.
+    for (int x = tid; x < ncols; x += T) {
+      const int c = count[x];
+      count[x] = c > 0 ? c - sub[x] : -1;
+      sub[x] = 0;
+    }
+    __syncthreads();
+    publish<T>(count, t0, t1, n, k + 1, false, rank, next);
+  }
+}
+
+using PeelKernel = void (*)(const uint32_t*, int, int, int, int*, uint32_t*);
+
+template <int T>
+PeelKernel peel_kernel_of_threads(int vec) {
+  switch (vec) {
+    case 4: return peel_fronts_kernel<4, T>;
+    case 2: return peel_fronts_kernel<2, T>;
+    case 1: return peel_fronts_kernel<1, T>;
+    default: return nullptr;
+  }
+}
+
+PeelKernel peel_kernel_of(int vec, int threads) {
+  return threads == 256 ? peel_kernel_of_threads<256>(vec)
+         : threads == 1024 ? peel_kernel_of_threads<1024>(vec) : nullptr;
+}
+
+// Lets the kernel take `smem` bytes of dynamic shared memory.
+cudaError_t peel_allow_smem(PeelKernel kernel, size_t smem) {
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -495,37 +699,57 @@ extern "C" int dominance(int dtype, int packed, const void* f, int n, int m, voi
   return (int)cudaErrorInvalidValue;
 }
 
-// Bytes of scratch peel_fronts needs for n columns of nw words.
+// Bytes of scratch peel_fronts needs for n columns of nw words: two
+// buffers of nw front mask words.
 extern "C" long long peel_fronts_workspace(int n, int nw) {
-  return 4LL * (8 + n + (n & 1)) + 8LL * 3 * nw;
+  (void)n;
+  return 8LL * nw;
+}
+
+// Blocks of peel_fronts' kernel for `vec` words a load and `threads`
+// threads a block (256 or 1024) that one SM holds at once, with the shared
+// memory of a grid of `blocks` over nw words; 0 when none fits, -1 for no
+// such kernel or an error.
+extern "C" int peel_blocks_per_sm(int vec, int nw, int blocks, int threads) {
+  const PeelKernel kernel = peel_kernel_of(vec, threads);
+  if (kernel == nullptr || nw < 1 || blocks < 1) return -1;
+  const size_t smem = peel_smem(nw, blocks, threads);
+  if (smem > (size_t)kMaxSmem) return 0;
+  if (peel_allow_smem(kernel, smem) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) != cudaSuccess) return -1;
+  return per_sm;
 }
 
 // peel_fronts: rank (n,) int32 of every column, from the words; `until` < 0
 // peels until a front is empty, else stops before the first front once
 // `until` rows are ranked.  `workspace` holds peel_fronts_workspace bytes,
-// uninitialised.  One cooperative launch, every block resident, made with
+// uninitialised.  The launch plan (ops/dominance.py `_peel_plan`): `vec`
+// words a load (n a multiple of it, `words` aligned to its bytes) and
+// `blocks` blocks of `threads` (256 or 1024), every one resident.  One cooperative launch made with
 // cudaLaunchKernelEx and the cooperative attribute: the form a stream
 // capture records as a cooperative kernel node of a CUDA graph.
-extern "C" int peel_fronts(const void* words, int n, int nw, int until, void* rank, void* workspace,
-                           void* stream) {
+extern "C" int peel_fronts(const void* words, int n, int nw, int until, void* rank, void* workspace, int vec,
+                           int blocks, int threads, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const int limit = peel_grid_limit();
-  if (limit < 0) return -limit;
-  const uint32_t* w = (const uint32_t*)words;
-  int* r = (int*)rank;
-  int* ctr = (int*)workspace;
-  int* count = ctr + 8;
-  int2* lists = (int2*)(count + n + (n & 1));
+  const PeelKernel kernel = peel_kernel_of(vec, threads);
+  if (kernel == nullptr || nw != (n + 31) / 32 || n % vec != 0 || (uintptr_t)words % (4 * vec) != 0 ||
+      blocks < 1 || blocks > nw)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = peel_smem(nw, blocks, threads);
+  cudaError_t e = peel_allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nw < limit ? nw : limit);
-  cfg.blockDim = dim3(kThreads);
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, peel_fronts_kernel, w, n, nw, until, r, ctr, count, lists);
+  e = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)words, n, nw, until, (int*)rank, (uint32_t*)workspace);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

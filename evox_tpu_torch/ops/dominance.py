@@ -25,6 +25,8 @@ sequential batching rule (:mod:`evox_tpu_torch.utils.vmap_ops`): under
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,10 +47,58 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _P = ctypes.c_void_p
 _DOMINANCE_ARGS = (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P, _P)
-_FRONTS_ARGS = (_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P)
+_FRONTS_ARGS = (_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
 # Dominator rows the plain version compares at a time; the kernels take
 # n < 2^31 - _TILE rows.
 _TILE = 256
+# The peel's blocks have 1024 threads from this many word rows on, else
+# 256: a front's word rows then need the loads in flight of a wide block,
+# and a small peel is bound by its barriers, cheaper in small blocks.
+_PEEL_WIDE_WORDS = 256
+
+
+class PeelPlan(NamedTuple):
+    """The front peel's launch: ``vec`` adjacent words a load, ``blocks``
+    blocks of ``threads`` (all resident: one cooperative launch)."""
+
+    vec: int
+    blocks: int
+    threads: int
+
+
+def _peel_tiles(nw: int, blocks: int) -> list[tuple[int, int]]:
+    """The 32-column tiles ``[t0, t1)`` each block of the peel owns: the
+    ``nw`` tiles split evenly (sizes differ by at most one), as the kernel
+    computes them (``b * nw // blocks``)."""
+    return [(b * nw // blocks, (b + 1) * nw // blocks) for b in range(blocks)]
+
+
+def _peel_plan(n: int, ptr: int, sms: int, blocks_per_sm) -> PeelPlan:
+    """The launch of the front peel over n columns whose words start at
+    address ``ptr``, on a card of ``sms`` SMs.  The load is the widest of 4,
+    2, 1 words (16, 8, 4 bytes) that divides n (a load never crosses a word
+    row) and to whose bytes ``ptr`` is aligned.  The grid is one block an
+    SM, at most one a tile, of 1024 threads from ``_PEEL_WIDE_WORDS`` word
+    rows on, else 256: resident at once if one block (with the shared
+    memory of that grid) fits on an SM, ``blocks_per_sm(vec, blocks,
+    threads)``; else it raises."""
+    nw = _num_words(n)
+    vec = next(v for v in (4, 2, 1) if n % v == 0 and ptr % (4 * v) == 0)
+    blocks = min(nw, sms)
+    threads = 1024 if nw >= _PEEL_WIDE_WORDS else 256
+    if blocks_per_sm(vec, blocks, threads) < 1:
+        raise RuntimeError(f"peel_fronts: no block of {blocks} fits on an SM for {n} columns")
+    return PeelPlan(vec, blocks, threads)
+
+
+@functools.cache
+def _peel_blocks_per_sm(device_index: int, vec: int, nw: int, blocks: int, threads: int) -> int:
+    fn = _build.entry("dominance", "peel_blocks_per_sm", (ctypes.c_int,) * 4)
+    with torch.cuda.device(device_index):
+        per_sm = fn(vec, nw, blocks, threads)
+    if per_sm < 0:
+        raise RuntimeError(f"peel_fronts: the card refused the occupancy query for {vec, nw, blocks, threads}")
+    return per_sm
 
 
 def _num_words(n: int) -> int:
@@ -222,8 +272,12 @@ def _peel_op(words: torch.Tensor, until: int) -> torch.Tensor:
     if n == 0:
         return rank
     scratch = _build.workspace("dominance", "peel_fronts_workspace", words.device, n, nw)
+    index = words.device.index if words.device.index is not None else torch.cuda.current_device()
+    plan = _peel_plan(n, words.data_ptr(), _build.sm_count(index),
+                      lambda vec, blocks, threads: _peel_blocks_per_sm(index, vec, nw, blocks, threads))
     fn = _build.entry("dominance", "peel_fronts", _FRONTS_ARGS)
-    _build.launch(what, fn, words.device, words.data_ptr(), n, nw, until, rank.data_ptr(), scratch.data_ptr())
+    _build.launch(what, fn, words.device, words.data_ptr(), n, nw, until, rank.data_ptr(), scratch.data_ptr(),
+                  plan.vec, plan.blocks, plan.threads)
     peel_fronts.launches += 1
     return rank
 

@@ -25,7 +25,8 @@ solo draw is a stack of one key) whose batching rule
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Union
+import functools
+from typing import NamedTuple, Sequence, Union
 
 import torch
 
@@ -44,10 +45,95 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _ARGTYPES = (
     (_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _LL, ctypes.c_int)
-    + (ctypes.c_int,) * 4 + (_LL,) * 8 + (_P,) * 4 + (ctypes.c_int, _P)
+    + (ctypes.c_int,) * 4 + (_LL,) * 8 + (_P,) * 4 + (ctypes.c_int,) * 4 + (_P,)
 )
-# Resident blocks a SM for the grid-stride loop.
-_BLOCKS_PER_SM = 8
+# The kernel's largest block (threads) and the elements a thread makes at
+# once on its vector route (a vector, aligned in the flat (batch, numel)
+# output).
+_THREADS = 256
+_VEC = 4
+# A thread an element (no vector) where the whole draw fits in this many
+# blocks an SM: a small draw is latency-bound, and one chain a thread ends
+# sooner than four.
+_SCALAR_BLOCKS = 3
+# A grid of one vector a thread is taken where it needs at most this many
+# waves of the resident blocks; its blocks hold at most _ONE_PASS_BLOCK
+# threads.
+_ONE_PASS_WAVES = 2
+_ONE_PASS_BLOCK = 128
+
+
+class LaunchPlan(NamedTuple):
+    """The kernel's grid for one call: ``vec`` elements a thread,
+    ``blocks`` blocks of ``threads`` a stream (grid row), each thread taking
+    up to ``passes`` vectors a grid-stride apart, 64-bit indices when
+    ``wide``."""
+
+    vec: int
+    threads: int
+    blocks: int
+    passes: int
+    wide: bool
+
+
+def _stream_vectors(batch: int, numel: int, vec: int = _VEC) -> int:
+    """The most vectors of ``vec`` elements one stream's elements touch:
+    stream ``b`` covers flat elements ``b * numel ..`` and the vectors are
+    aligned in the flat output, so a stream that starts ``s`` elements into
+    a vector touches ``ceil((s + numel) / vec)`` of them (``s`` is ``b *
+    numel mod vec``, periodic in ``b``)."""
+    if numel == 0:
+        return 0
+    return max(-(-((b * numel) % vec + numel) // vec) for b in range(min(batch, vec)))
+
+
+def _launch_plan(batch: int, numel: int, sms: int, blocks_per_sm) -> LaunchPlan:
+    """The launch of ``batch`` streams of ``numel`` draws on a card of
+    ``sms`` SMs that holds ``blocks_per_sm(wide, vec)`` of the kernel's
+    blocks of ``_THREADS``.  A thread makes one element where the whole draw
+    fits in ``_SCALAR_BLOCKS`` blocks an SM, else a vector of ``_VEC``.
+    Where a vector a thread fits in ``_ONE_PASS_WAVES`` waves of the
+    resident blocks, one pass: blocks no wider than a stream's vectors, and
+    narrower (down to a warp) until a stream's blocks reach every SM.  Else
+    a stream takes its share of the resident blocks (at least one), and its
+    vectors are cut into the fewest passes those blocks can make and then
+    spread evenly over them: whole passes (the last one short by less than
+    a block a pass), so no stream's tail makes a serial pass of a few
+    threads.  Indices are 32-bit below 2^31 elements in all (every index
+    the kernel forms is then below 2^31 + _VEC)."""
+    wide = batch * numel >= 2**31
+    vec = 1 if batch * numel <= _SCALAR_BLOCKS * sms * _THREADS else _VEC
+    vectors = _stream_vectors(batch, numel, vec)
+    if vectors == 0:
+        return LaunchPlan(vec, _THREADS, 0, 0, wide)
+    resident = sms * blocks_per_sm(wide, vec)
+    if vectors * batch <= _ONE_PASS_WAVES * resident * _THREADS:
+        threads = _one_pass_threads(vectors, batch, sms)
+        return LaunchPlan(vec, threads, -(-vectors // threads), 1, wide)
+    share = max(1, resident // batch)
+    passes = -(-vectors // (share * _THREADS))
+    threads = -(-vectors // passes)
+    return LaunchPlan(vec, _THREADS, -(-threads // _THREADS), passes, wide)
+
+
+def _one_pass_threads(vectors: int, batch: int, sms: int) -> int:
+    """The block of a one-pass grid: at most ``_ONE_PASS_BLOCK`` threads,
+    and narrower (down to a warp) until a stream's blocks reach every
+    SM."""
+    spread = -(-sms // batch)  # blocks a stream needs to reach every SM
+    return max(32, min(_ONE_PASS_BLOCK, 32 * (vectors // (32 * spread))))
+
+
+@functools.cache
+def _blocks_per_sm(device_index: int, count: int, wide: bool, vec: int) -> int:
+    """Blocks of the kernel for ``count`` outputs and ``vec`` elements a
+    thread that an SM of the card holds."""
+    fn = _build.entry("philox", "philox_blocks_per_sm", (ctypes.c_int,) * 3)
+    with torch.cuda.device(device_index):
+        blocks = fn(count, int(wide), vec)
+    if blocks < 1:
+        raise RuntimeError(f"philox_draws: no resident block for {count} outputs (wide={wide}, vec={vec})")
+    return blocks
 
 
 def _check_kinds(kinds: Sequence[Kind]) -> list:
@@ -157,13 +243,18 @@ def _launch(keys: torch.Tensor, index: int, derive: int, numel: int, codes, lows
     dtypes = _kinds(codes, lows, spans)
     outs = [torch.empty((batch, numel), dtype=torch.int64 if isinstance(k, tuple) else k, device=device)
             for k in dtypes]
+    if numel == 0:
+        return outs  # nothing to draw: no launch
     pad = 4 - len(codes)
     ptrs = [t.data_ptr() for t in outs] + [None] * pad
-    blocks = _BLOCKS_PER_SM * _build.sm_count(device.index if device.index is not None else torch.cuda.current_device())
+    index_of = device.index if device.index is not None else torch.cuda.current_device()
+    plan = _launch_plan(batch, numel, _build.sm_count(index_of),
+                        lambda wide, vec: _blocks_per_sm(index_of, len(codes), wide, vec))
     fn = _build.entry("philox", "philox_draw", _ARGTYPES)
     _build.launch(
         "philox_draws", fn, device, keys.data_ptr(), batch, index, derive, numel, len(codes),
-        *(list(codes) + [0] * pad), *(list(lows) + [0] * pad), *(list(spans) + [1] * pad), *ptrs, blocks,
+        *(list(codes) + [0] * pad), *(list(lows) + [0] * pad), *(list(spans) + [1] * pad), *ptrs,
+        plan.vec, plan.threads, plan.blocks, int(plan.wide),
     )
     # A solo call is a launch of one stream; a vmap merges into a batch.
     (philox_draws if solo else philox_draws_batched).launches += 1

@@ -1507,3 +1507,158 @@ def test_float64_compute_is_refused_at_setup_before_any_launch(cuda, kind):
     if kind == "pso":
         with pytest.raises(TypeError, match="fused_pso_move takes float32 or bfloat16"):
             StdWorkflow(PSO(64, -torch.ones(4), torch.ones(4), dtype=torch.float64, device=cuda), Sphere()).init(0)
+
+
+# ---------------------------------------------------------------------------
+# The front peel and the Philox draws as redesigned for Hopper: the cases
+# their designs make (load widths and partial tiles, the early stops, one
+# front a row, one barrier a front, whole passes, vectors at the streams'
+# ends, the 32- and 64-bit index routes).
+# ---------------------------------------------------------------------------
+
+from evox_tpu_torch.ops import _build  # noqa: E402
+
+# n not a multiple of 32 (a partial last tile) nor of 4 (loads of 2 words:
+# 130, 20,002; of one: 31, 33, 127, 129, 4095, 4097, 20,001), a multiple of 4
+# but not of 32 (132, 20,004).
+PEEL_EDGE_SIZES = [31, 33, 127, 129, 130, 132, 4095, 4097, 20_001, 20_002, 20_004]
+
+
+@pytest.mark.parametrize("n", PEEL_EDGE_SIZES)
+@pytest.mark.parametrize("until", ["none", "zero", "half", "n", "n+1"])
+def test_peel_fronts_at_every_load_width_and_stop(cuda, n, until):
+    words = dominance.dominance_packed(_dtlz_like(n, 3, cuda, seed=3))
+    u = {"none": None, "zero": 0, "half": n // 2, "n": n, "n+1": n + 1}[until]
+    before = dominance.peel_fronts.launches
+    got = dominance.peel_fronts(words, u)
+    assert dominance.peel_fronts.launches == before + 1
+    _same(got, dominance.peel_fronts_plain(words, u))
+
+
+@pytest.mark.parametrize("n", [33, 2048, 20_000])
+def test_peel_fronts_with_every_column_in_front_0(cuda, n):
+    x = torch.linspace(0, 1, n, device=cuda)
+    words = dominance.dominance_packed(torch.stack([x, 1 - x], 1))
+    assert not bool(words.any())
+    for u in (None, n // 2):
+        got = dominance.peel_fronts(words, u)
+        _same(got, torch.zeros(n, dtype=torch.int32, device=cuda))
+        _same(got, dominance.peel_fronts_plain(words, u))
+
+
+@pytest.mark.parametrize("until", [None, 2048])
+def test_peel_fronts_peels_a_total_order_one_front_a_row(cuda, until):
+    """4096 fronts of one row each: a barrier a front."""
+    n = 4096
+    g = torch.Generator(device=cuda).manual_seed(4)
+    order = torch.randperm(n, generator=g, device=cuda)
+    f = torch.stack([order.float(), 2 * order.float()], 1)
+    words = dominance.dominance_packed(f)
+    got = dominance.peel_fronts(words, until)
+    _same(got, dominance.peel_fronts_plain(words, until))
+    want = order.to(torch.int32) if until is None else torch.where(order < until, order, n).to(torch.int32)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("n", [33, 2049, 20_000])
+def test_peel_fronts_with_nan_rows(cuda, n):
+    f = _dtlz_like(n, 3, cuda, seed=11)
+    f[::7, 1] = float("nan")
+    f[::13] = float("nan")
+    words = dominance.dominance_packed(f)
+    for u in (None, n // 2):
+        _same(dominance.peel_fronts(words, u), dominance.peel_fronts_plain(words, u))
+
+
+@pytest.mark.parametrize("until", [None, 10_000])
+def test_peel_fronts_captured_and_replayed(cuda, until):
+    """A captured peel replays on the words it reads at replay time."""
+    n = 20_000
+    words = dominance.dominance_packed(_dtlz_like(n, 3, cuda, seed=1))
+    dominance.peel_fronts(words, until)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rank = dominance.peel_fronts(words, until)
+    for seed in (1, 2):
+        words.copy_(dominance.dominance_packed(_dtlz_like(n, 3, cuda, seed=seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        _same(rank, dominance.peel_fronts_plain(words, until))
+
+
+def _philox_keys(b, device, seed=0):
+    g = torch.Generator().manual_seed(seed + b)
+    k = torch.randint(-(2**63), 2**63 - 1, (b, 2), generator=g, dtype=torch.int64)
+    return k.to(device)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_philox_kernel_at_every_size_up_to_two_vectors_and_one(cuda, b):
+    keys = _philox_keys(b, cuda)
+    for numel in range(1, 2 * philox._VEC + 2):
+        for kinds in PHILOX_KINDS:
+            got = philox.philox_draws_batched(keys, 1, numel, kinds)
+            want = philox.philox_draws_batched_plain(keys, 1, numel, kinds)
+            for g, w in zip(got, want):
+                assert g.shape == (b, numel) and torch.equal(g, w)
+            if b == 1:
+                for g, w in zip(philox.philox_draws(rng.Seed(keys[0], 1), numel, kinds, cuda), want):
+                    assert torch.equal(g, w[0])
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("kinds", [[torch.float32], [torch.float32, (0, 2), torch.bfloat16, torch.float64]],
+                         ids=["one", "four"])
+def test_philox_kernel_around_each_pass_boundary(cuda, b, kinds):
+    """Sizes around the first three multiples of what a stream's share of
+    the resident blocks draws in one pass (where the plan's passes a thread
+    or its grid change), each held against the plain version."""
+    index = torch.cuda.current_device()
+    sms = _build.sm_count(index)
+    share = max(1, sms * philox._blocks_per_sm(index, len(kinds), False, philox._VEC) // b)
+    per_pass = share * philox._THREADS * philox._VEC
+    keys = _philox_keys(b, cuda, seed=1)
+    for numel in (per_pass - 1, per_pass, per_pass + 1, 2 * per_pass + 3, 3 * per_pass - 1, 3 * per_pass + 1):
+        got = philox.philox_draws_batched(keys, 2, numel, kinds)
+        for g, w in zip(got, philox.philox_draws_batched_plain(keys, 2, numel, kinds)):
+            assert torch.equal(g, w)
+
+
+def test_philox_draws_of_no_element_launch_nothing(cuda):
+    kinds = [torch.float32, (0, 2)]
+    before = philox.philox_draws.launches, philox.philox_draws_batched.launches
+    for g in philox.philox_draws(rng.child(rng.key(1, cuda)), 0, kinds, cuda):
+        assert g.shape == (0,) and g.device.type == "cuda"
+    for g in philox.philox_draws_batched(_philox_keys(3, cuda), 0, 0, kinds):
+        assert g.shape == (3, 0)
+    assert (philox.philox_draws.launches, philox.philox_draws_batched.launches) == before
+
+
+@pytest.mark.parametrize("b", [1, 4096])
+@pytest.mark.parametrize("numel", [1, 7, 1000])
+def test_batched_philox_kernel_at_one_and_4096_streams(cuda, b, numel):
+    keys = _philox_keys(b, cuda, seed=2)
+    kinds = [torch.float32, (0, 2), torch.bfloat16, torch.float64]
+    got = philox.philox_draws_batched(keys, 0, numel, kinds)
+    for g, w in zip(got, philox.philox_draws_batched_plain(keys, 0, numel, kinds)):
+        assert g.shape == (b, numel) and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b", [4095, 4097])
+def test_batched_philox_kernel_on_each_side_of_2_31_elements(cuda, b):
+    """4095 and 4097 streams of 2^19 + 1 bfloat16 draws (~4.3 GB): the
+    32-bit index route below 2^31 elements in all, the 64-bit one above;
+    the rows around flat element 2^31 against the plain version."""
+    numel = 2**19 + 1
+    index = torch.cuda.current_device()
+    plan = philox._launch_plan(b, numel, _build.sm_count(index),
+                               lambda wide, vec: philox._blocks_per_sm(index, 1, wide, vec))
+    assert plan.wide == (b > 4096)
+    keys = _philox_keys(b, cuda, seed=3)
+    (got,) = philox.philox_draws_batched(keys, 0, numel, [torch.bfloat16])
+    rows = [0, 1, b // 2, 4094, b - 2, b - 1]
+    (want,) = philox.philox_draws_batched_plain(keys[rows], 0, numel, [torch.bfloat16])
+    assert torch.equal(got[rows], want)
+    del got
+    torch.cuda.empty_cache()

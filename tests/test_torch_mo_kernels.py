@@ -401,6 +401,115 @@ def test_peel_fronts_until_count_edges():
     assert int(crossing.max()) == 200 and torch.equal(crossing[full <= 1], full[full <= 1])
 
 
+# The peel kernel's host plan and its algorithm: the CUDA kernel itself is
+# held against peel_fronts_plain on the card (tests/test_torch_cuda.py).
+
+
+@pytest.mark.parametrize("n,ptr,vec", [(20_000, 0, 4), (20_000, 8, 2), (20_000, 4, 1), (20_002, 0, 2),
+                                       (20_001, 0, 1), (132, 0, 4), (130, 16, 2), (33, 0, 1), (1, 0, 1)])
+def test_peel_plan_load_width(n, ptr, vec):
+    """The widest load (4, 2, 1 words) that divides n and to whose bytes
+    the words are aligned."""
+    assert dominance._peel_plan(n, ptr, 132, lambda v, b, t: 1).vec == vec
+
+
+@pytest.mark.parametrize("n", [1, 33, 2049, 4224, 4225, 20_000, 100_000])
+@pytest.mark.parametrize("sms,per_sm", [(132, 1), (132, 2), (8, 1)])
+def test_peel_plan_grid_is_resident_and_splits_the_tiles_evenly(n, sms, per_sm):
+    nw = -(-n // 32)
+    plan = dominance._peel_plan(n, 0, sms, lambda v, b, t: per_sm)
+    assert plan.blocks == min(nw, sms) <= sms * per_sm
+    assert plan.threads == (1024 if nw >= dominance._PEEL_WIDE_WORDS else 256)
+    tiles = dominance._peel_tiles(nw, plan.blocks)
+    assert tiles[0][0] == 0 and tiles[-1][1] == nw
+    assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+    sizes = [t1 - t0 for t0, t1 in tiles]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def test_peel_plan_refuses_a_grid_that_does_not_fit():
+    with pytest.raises(RuntimeError):
+        dominance._peel_plan(20_000, 0, 132, lambda v, b, t: 0)
+
+
+def _peel_model(words, until, blocks, seed=0):
+    """The kernel's algorithm on the host: blocks own whole tiles and
+    publish each front as dense mask words into one of two buffers that
+    start as garbage and are never cleared; phase 0 writes front 0's ranks
+    and the sentinel; each iteration starts with a grid barrier, reads the
+    front's size from its words and stops at an empty front or once
+    ``until`` rows are ranked.  Returns the ranks and the barriers."""
+    nw, n = words.shape
+    u = -1 if until is None else min(max(until, 0), n + 1)
+    rank = np.full(n, -7, np.int64)
+    if u == 0:
+        rank[:] = n
+        return rank, 0
+    w = words.numpy().view(np.uint32)
+    dom = ((w[:, None, :] >> np.arange(32, dtype=np.uint32)[None, :, None]) & 1).reshape(nw * 32, n)[:n]
+    count = dom.sum(0).astype(np.int64)
+    masks = np.random.default_rng(seed).integers(0, 2**32, (2, nw), dtype=np.uint64).astype(np.uint32)
+    tiles = dominance._peel_tiles(nw, blocks)
+
+    def publish(buf, front, first):
+        for t0, t1 in tiles:
+            for t in range(t0, t1):
+                j = np.arange(32 * t, min(32 * t + 32, n))
+                flags = count[j] == 0
+                masks[buf, t] = int(np.sum(flags.astype(np.uint64) << (j - 32 * t).astype(np.uint64)))
+                rank[j[flags]] = front
+                if first:
+                    rank[j[~flags]] = n
+
+    publish(0, 0, True)
+    barriers = assigned = k = 0
+    while True:
+        barriers += 1
+        cur = masks[k & 1]
+        front = ((cur[:, None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(-1)[:n].astype(bool)
+        size = int(front.sum())
+        if size == 0:
+            break
+        assigned += size
+        if u > 0 and assigned >= u:
+            break
+        count = np.where(count > 0, count - dom[front].sum(0), -1)
+        publish((k + 1) & 1, k + 1, False)
+        k += 1
+    return rank, barriers
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 200])
+@pytest.mark.parametrize("until", ["none", "zero", "one", "half", "all", "over"])
+@pytest.mark.parametrize("blocks", [1, 2, 5])
+def test_peel_kernel_algorithm_matches_the_plain_peel(n, until, blocks):
+    """Ranks equal the plain peel's, every column written; a barrier a
+    front, and one only when front 0 reaches ``until``."""
+    words = dominance.dominance_packed(torch.from_numpy(_peel_costs(n)))
+    u = {"none": None, "zero": 0, "one": 1, "half": n // 2, "all": n, "over": n + 1}[until]
+    blocks = min(blocks, -(-n // 32))
+    rank, barriers = _peel_model(words, u, blocks)
+    want = dominance.peel_fronts_plain(words, u)
+    np.testing.assert_array_equal(rank, want.numpy())
+    fronts = int(want[want < n].max()) + 1 if bool((want < n).any()) else 0
+    first = int((want == 0).sum())
+    if u == 0:
+        assert barriers == 0
+    elif u is not None and first >= u:
+        assert barriers == 1
+    else:
+        assert barriers <= fronts + 1
+
+
+def test_peel_kernel_algorithm_peels_a_total_order_a_barrier_a_front():
+    n = 64
+    order = np.random.default_rng(1).permutation(n).astype(np.float32)
+    words = dominance.dominance_packed(torch.from_numpy(np.stack([order, order], 1)))
+    rank, barriers = _peel_model(words, None, 2)
+    np.testing.assert_array_equal(rank, order.astype(np.int64))
+    assert barriers == n + 1
+
+
 def test_cpu_wrappers_count_no_launches():
     before = (topk.lex_rank.launches, crowding.crowding_neighbors.launches,
               dominance.dominance_packed.launches,

@@ -237,3 +237,118 @@ def test_keys_go_where_the_state_goes():
     with pytest.raises(RuntimeError):
         # No card here: the default device of a key-bearing state is CUDA.
         state_from_numpy({"key": np.zeros(2, np.uint32)})
+
+
+# -- the draw kernel's launch plan (``ops/philox.py``), computed on the host --
+
+SMS = 132
+THREADS, VEC = philox._THREADS, philox._VEC
+
+
+def _walk(batch, numel, plan):
+    """The elements the kernel stores, by its own index arithmetic: stream
+    b's vectors ``v < vectors`` of ``plan.vec`` elements (thread ``t`` of
+    the stream's ``blocks * threads`` takes v = t, t + stride, ...), vector
+    v covering flat elements ``vec * (first + v) ..``, each stored where its
+    stream index ``i`` lies in [0, numel).  Returns the (flat element,
+    stream, counter) triples and each thread's pass count."""
+    stored, passes = [], {}
+    vec, stride = plan.vec, plan.blocks * plan.threads
+    for b in range(batch):
+        lo = b * numel
+        first = lo // vec
+        vectors = (lo + numel + vec - 1) // vec - first
+        for t in range(stride):
+            for v in range(t, vectors, stride):
+                passes[b, t] = passes.get((b, t), 0) + 1
+                f0 = (first + v) * vec
+                stored += [(f0 + e, b, f0 + e - lo) for e in range(vec) if 0 <= f0 + e - lo < numel]
+    return stored, passes
+
+
+def _plan(batch, numel, per_sm, sms=SMS, waves=None, monkeypatch=None):
+    return philox._launch_plan(batch, numel, sms, lambda wide, vec: per_sm)
+
+
+@pytest.mark.parametrize("batch,numel", [(1, 1), (1, 9), (3, 5), (3, 7), (4, 6), (5, 1030), (2, 4099), (7, 3),
+                                         (2, 3000)])
+@pytest.mark.parametrize("per_sm", [1, 4])
+@pytest.mark.parametrize("waves", [0, 2])
+@pytest.mark.parametrize("scalar", [0, 2])
+def test_draw_plan_stores_every_element_once_with_its_counter(monkeypatch, batch, numel, per_sm, waves, scalar):
+    """On a small card (2 SMs, so that streams take several passes), on
+    either route (a thread an element or a vector of 4) and either grid
+    (one pass or passes over the resident blocks)."""
+    monkeypatch.setattr(philox, "_ONE_PASS_WAVES", waves)
+    monkeypatch.setattr(philox, "_SCALAR_BLOCKS", scalar)
+    plan = philox._launch_plan(batch, numel, 2, lambda wide, vec: per_sm)
+    stored, passes = _walk(batch, numel, plan)
+    assert sorted(f for f, _, _ in stored) == list(range(batch * numel))
+    assert all(f == b * numel + i for f, b, i in stored)
+    assert max(passes.values()) <= plan.passes
+
+
+SHAPES = [(1, 1), (1, 4), (3, 5), (7, 1), (8, 102_400), (64, 16_384), (1, 100_000_000), (1, 20_000),
+          (1, 200_003), (4096, 7), (4097, 2**19 + 1), (2048, 4), (13, 2**20 + 3)]
+
+
+@pytest.mark.parametrize("batch,numel", SHAPES)
+@pytest.mark.parametrize("per_sm", [1, 4, 8])
+def test_draw_plan_makes_whole_passes_on_the_resident_blocks(batch, numel, per_sm):
+    """Where one pass of a vector a thread would need more than
+    ``_ONE_PASS_WAVES`` waves, each stream's vectors take the fewest passes
+    its share of the resident blocks can make, spread so that no pass is
+    left empty and the last is short by less than a block a pass; the grid
+    is then no larger than the card holds, unless a block a stream is
+    already more.  Else one pass, on at most ``_ONE_PASS_WAVES`` waves."""
+    plan = _plan(batch, numel, per_sm)
+    vectors = philox._stream_vectors(batch, numel, plan.vec)
+    resident = SMS * per_sm
+    threads = plan.blocks * plan.threads
+    assert threads * plan.passes >= vectors > threads * (plan.passes - 1)
+    if plan.passes == 1 and vectors * batch <= philox._ONE_PASS_WAVES * resident * THREADS:
+        assert plan.blocks * plan.threads * batch <= max(philox._ONE_PASS_WAVES * resident * THREADS, 32 * batch)
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= philox._ONE_PASS_BLOCK
+        return
+    share = max(1, resident // batch)
+    assert plan.threads == THREADS and plan.blocks <= share
+    assert plan.passes == -(-vectors // (share * THREADS))
+    assert threads * plan.passes - vectors < plan.passes * (THREADS + 1)
+    assert plan.blocks * batch <= max(resident, batch)
+
+
+@pytest.mark.parametrize("batch,numel", SHAPES)
+def test_draw_plan_spreads_a_small_draw_over_the_sms(batch, numel):
+    """A draw that fits in ``_SCALAR_BLOCKS`` blocks an SM takes a thread
+    an element; a one-pass grid reaches every SM where the draw has that
+    many warps."""
+    plan = _plan(batch, numel, 4)
+    assert plan.vec == (1 if batch * numel <= philox._SCALAR_BLOCKS * SMS * THREADS else VEC)
+    if plan.passes == 1 and batch * -(-numel // plan.vec) >= 32 * SMS:
+        assert plan.blocks * batch >= SMS or plan.threads == THREADS
+
+
+@pytest.mark.parametrize("batch,numel", [(1, 2**31 - 1), (1, 2**31), (4095, 2**19 + 1), (4097, 2**19 + 1),
+                                         (2, 2**30), (2, 2**30 - 1), (65535, 32768), (1, 2**40)])
+def test_draw_plan_keeps_indices_32_bit_below_2_31_elements(batch, numel):
+    """The 32-bit route where batch x numel < 2^31: every index the kernel
+    forms there (the last stream's end rounded up to a vector) fits in 32
+    unsigned bits, and every element's flat index in 31."""
+    plan = _plan(batch, numel, 4)
+    assert plan.wide == (batch * numel >= 2**31)
+    if not plan.wide:
+        assert batch * numel + VEC - 1 < 2**32 and batch * numel - 1 < 2**31
+
+
+@pytest.mark.parametrize("numel", range(0, 13))
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("vec", [1, 4])
+def test_stream_vectors_is_the_most_any_stream_touches(batch, numel, vec):
+    most = max(((b + 1) * numel + vec - 1) // vec - (b * numel) // vec for b in range(batch))
+    assert philox._stream_vectors(batch, numel, vec) == most
+
+
+def test_draw_plan_of_no_element_launches_nothing():
+    assert _plan(3, 0, 4).blocks == 0
+    for g in philox.philox_draws(1, 0, [torch.float32, (0, 3)], "cpu"):
+        assert g.shape == (0,)
