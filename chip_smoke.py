@@ -45,7 +45,18 @@ and run(20); ``hpo_quickstart``: the README's DE(16) over
 HPOProblemWrapper(iterations=25, num_instances=16) of PSO(30) at dim 8,
 with a (w, phi_p, phi_g) row a candidate in the batched move, then with
 num_repeats=3 under both aggregations); every candidate against its solo
-run), checks that each path went through its kernels, and times them.  It prints one JSON line per
+run); then population-sharded evaluation over a one-rank NCCL group
+(``distributed_main_path``: bench.py's distributed_8dev, PSO(8192) at dim
+256 with ``enable_distributed=True``, the PSO headline through
+``ShardedProblem`` and the NSGA-II headline with ``enable_distributed=True``,
+eager and as run(20), whose captured graph holds the all-gather, each
+against its unsharded twin bit for bit, the all-gather's device time from
+the profiler, shard quarantine) and the checkpoint plane
+(``checkpoint_main_path``: save, verify and load of the PSO headline's
+state and pso_northstar_bf16's, seconds and GB/s, a resume after 10 of 20
+generations against the uninterrupted run, the precision guards, the async
+writer's cost to the generations it overlaps), checks that each path went
+through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -4531,6 +4542,362 @@ def phase_hpo_quickstart(device) -> dict:
             "repeats": repeats}
 
 
+# -- population-sharded evaluation and the checkpoint plane ----------------------
+
+DIST_8DEV = (8192, 256)  # bench.py's distributed_8dev on one device: PSO(8192 x 1, ±10 in dim 256), Sphere
+CKPT_GENS = 20  # the resumed run: CKPT_GENS // 2 generations, a checkpoint, the rest
+ASYNC_GENS = 20
+DIST_PROFILE_GENS = 3
+
+
+def device_ops(step, state, steps) -> tuple[object, dict]:
+    """Every device operation of ``steps`` calls of ``step`` by name: calls
+    and device ms per call (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state = step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state = step(state)
+        torch.cuda.synchronize()
+    ops: dict = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us and "CUDA" in str(getattr(ev, "device_type", "")):
+            calls, ms = ops.get(ev.key, (0.0, 0.0))
+            ops[ev.key] = (calls + ev.count / steps, ms + dev_us / 1e3 / steps)
+    return state, ops
+
+
+def collective_ops(sharded: dict, unsharded: dict) -> dict:
+    """The device operations a sharded generation adds to its unsharded
+    twin's, by name and whole calls a generation (the profiler can lose
+    the first operation of a window: a fraction of a call is not counted),
+    with their device ms a generation.  A name ``nccl:...`` is the
+    collective's annotation, whose device time is that of the operations
+    it spans."""
+    out = {}
+    for name, (calls, ms) in sharded.items():
+        twin_calls, twin_ms = unsharded.get(name, (0.0, 0.0))
+        if calls - twin_calls > 0.99:
+            out[name[:80]] = {"calls_per_gen": calls - twin_calls,
+                              "device_ms_per_gen": ms * (calls - twin_calls) / calls}
+    return out
+
+
+def dist_counters(kind):
+    """The launch counters of a sharded run's kernels."""
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+
+    if kind == "pso":  # a PSO generation draws in the move kernel
+        return {"fused_pso_move": fused_pso_move}
+    return {k: v for k, v in mo_counters().items() if k != "dominance_matrix"}
+
+
+def sharded_twins(name, device, mesh):
+    """(sharded workflow, unsharded twin, kind) of one run of the phase."""
+    from evox_tpu_torch.parallel import ShardedProblem
+    from evox_tpu_torch.problems.numerical import Sphere
+
+    if name == "distributed_8dev":
+        n, d = DIST_8DEV
+        return (pso_workflow(device, n, d, enable_distributed=True, mesh=mesh), pso_workflow(device, n, d), "pso")
+    if name == "pso_headline_sharded":
+        import torch
+        from evox_tpu_torch.algorithms import PSO
+        from evox_tpu_torch.workflows import StdWorkflow
+
+        n, d = HEADLINE
+        lb = torch.full((d,), -10.0)
+        wf = StdWorkflow(PSO(n, lb, -lb, device=device), ShardedProblem(Sphere(), mesh))
+        return wf, pso_workflow(device, n, d), "pso"
+    return (nsga2_workflow(device, NSGA2_POP, enable_distributed=True, mesh=mesh),
+            nsga2_workflow(device, NSGA2_POP), "nsga2")
+
+
+def sharded_run(name, device, mesh) -> dict:
+    """One run of ``phase_distributed_main_path``: the sharded workflow's
+    eager steps, run(20) and run_segment(20) (``fused_vs_eager``, which
+    sets the launch counters to 0 just before the eager steps and reads
+    them after), the same for its unsharded twin, the two held bit for bit;
+    one eager generation of each profiled (the collective's device
+    operations: what the sharded one adds), their host syncs a
+    generation."""
+    import torch
+
+    wf, twin, kind = sharded_twins(name, device, mesh)
+    counters = dist_counters(kind)
+    s0 = wf.step(wf.init_step(wf.init(0)))
+    t0 = twin.step(twin.init_step(twin.init(0)))
+    same_state(s0, t0, f"{name}: sharded vs unsharded after init_step + 1 step")
+    row, ref = fused_vs_eager(wf, s0, SEGMENT_GENS, counters, f"{name} (sharded)")
+    twin_row, twin_ref = fused_vs_eager(twin, t0, SEGMENT_GENS, counters, f"{name} (unsharded)")
+    leaves = same_state(ref, twin_ref, f"{name}: {SEGMENT_GENS} sharded eager steps vs unsharded")
+    if row["launches_in_eager_steps"] != twin_row["launches_in_eager_steps"]:
+        raise AssertionError(f"{name}: kernel launches {row['launches_in_eager_steps']} sharded, "
+                             f"{twin_row['launches_in_eager_steps']} unsharded")
+    if min(row["launches_in_eager_steps"].values()) < 1:
+        raise AssertionError(f"{name}: a kernel of the path was not launched: {row['launches_in_eager_steps']}")
+    _, ops = device_ops(wf.step, ref, DIST_PROFILE_GENS)
+    _, twin_ops = device_ops(twin.step, twin_ref, DIST_PROFILE_GENS)
+    # The collective's annotation spans its device operations.
+    annotation = {k[:80]: {"calls_per_gen": c, "device_ms_per_gen": ms}
+                  for k, (c, ms) in ops.items() if k.startswith("nccl:")}
+    if not annotation:
+        raise AssertionError(f"{name}: the profiler shows no device time of the all-gather")
+    syncs = launches_per_call(lambda: wf.step(s0), calls=3)["host_syncs"]
+    twin_syncs = launches_per_call(lambda: twin.step(t0), calls=3)["host_syncs"]
+    best = ref.algorithm.fit.min() if kind == "pso" else None
+    out = {
+        "sharded": row, "unsharded": twin_row, "leaves_equal": leaves,
+        "launches": row["launches_in_eager_steps"],
+        "eager_ms_per_gen": row["eager_ms_per_gen"], "unsharded_eager_ms_per_gen": twin_row["eager_ms_per_gen"],
+        "run_ms_per_gen": row["run_ms_per_gen"], "unsharded_run_ms_per_gen": twin_row["run_ms_per_gen"],
+        "all_gather_annotation": annotation,
+        "all_gather_device_ms_per_gen": sum(v["device_ms_per_gen"] for v in annotation.values()),
+        "device_ops_added_per_gen": collective_ops(ops, twin_ops),
+        "host_syncs_per_gen": syncs, "unsharded_host_syncs_per_gen": twin_syncs,
+        "state_gb": state_gb(ref),
+    }
+    if best is not None:
+        out["best_final"] = float(best)
+    del wf, twin, s0, t0, ref, twin_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def quarantine_on_one_rank(device, mesh) -> dict:
+    """Shard quarantine with one condemned shard on the one-rank mesh: one
+    NaN row at one evaluation condemns the shard, every row of it takes the
+    penalty, the monitor counts one event."""
+    import torch
+    from evox_tpu_torch.core import Problem, State
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import EvalMonitor
+
+    class OneNaN(Problem):
+        """Sphere with row 17 NaN at the third evaluation (counted on the
+        host: the steps run eagerly, and a sharded evaluation keeps no
+        state of the problem it wraps but its key)."""
+
+        calls = 0
+
+        def evaluate(self, state, pop):
+            fit, _ = Sphere().evaluate(State(), pop)
+            self.calls += 1
+            if self.calls == 3:
+                fit = torch.where(torch.arange(fit.shape[0], device=fit.device) == 17,
+                                  torch.full_like(fit, float("nan")), fit)
+            return fit, state
+
+    n, d = DIST_8DEV
+    mon = EvalMonitor()
+    wf = pso_workflow(device, n, d, monitor=mon, enable_distributed=True, mesh=mesh, quarantine_granularity="shard")
+    wf.problem.problem = OneNaN()
+    s = wf.step(wf.init_step(wf.init(0)))
+    before = int(mon.get_num_shard_quarantines(s.monitor))
+    s = wf.step(s)  # the third evaluation
+    events = int(mon.get_num_shard_quarantines(s.monitor))
+    penalized = int(mon.get_num_nonfinite(s.monitor))
+    if (before, events, penalized) != (0, 1, n) or not bool((s.algorithm.fit == 1e30).all()):
+        raise AssertionError(f"shard quarantine: events {before} -> {events}, penalized {penalized} of {n}")
+    return {"shard_events": events, "rows_penalized": penalized}
+
+
+def phase_distributed_main_path(device) -> dict:
+    """Population-sharded evaluation over a one-rank NCCL group
+    (``make_pop_mesh()`` sets it up): bench.py's distributed_8dev
+    (``StdWorkflow(PSO(8192, ±10 in dim 256), Sphere(),
+    enable_distributed=True)``, the whole configuration on one device; its
+    ``scaling`` ladder's first rung is the same run), the PSO headline
+    through ``ShardedProblem`` and the NSGA-II headline with
+    ``enable_distributed=True``, each eager and as run(20) (a captured
+    graph that holds the NCCL all-gather) against its unsharded twin bit
+    for bit; the sharded Sphere fitness at the headline against the
+    unsharded; shard quarantine; and the all-gather alone at the headline's
+    fitness shape.  Destroys the group at the end."""
+    import torch
+    import torch.distributed as dist
+    from evox_tpu_torch.core import State
+    from evox_tpu_torch.parallel import ALL_GATHER, ShardedProblem, all_gather_rows, make_pop_mesh
+    from evox_tpu_torch.problems.numerical import Sphere
+
+    mesh = make_pop_mesh()
+    out = {"card": card_line(), "collective": f"torch.distributed.{ALL_GATHER.__name__}", "mesh": repr(mesh),
+           "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+    n, d = HEADLINE
+    g = torch.Generator(device=device).manual_seed(5)
+    pop = torch.rand((n, d), generator=g, device=device) * 20 - 10
+    sharded_fit, _ = ShardedProblem(Sphere(), mesh).evaluate(State(), pop)
+    plain_fit, _ = Sphere().evaluate(State(), pop)
+    out["sphere_fitness_max_abs_err"] = exact(sharded_fit, plain_fit, "sharded Sphere vs unsharded")
+    del pop
+    out["all_gather_ms_headline_fitness"] = time_ms(lambda: all_gather_rows(plain_fit, mesh), 50)
+    out["quarantine"] = quarantine_on_one_rank(device, mesh)
+    for name in ("distributed_8dev", "pso_headline_sharded", "nsga2_headline_distributed"):
+        out[name] = sharded_run(name, device, mesh)
+    launches: dict = {}
+    for name in ("distributed_8dev", "pso_headline_sharded", "nsga2_headline_distributed"):
+        for k, v in out[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    dist.destroy_process_group()
+    return out
+
+
+def file_system_of(path) -> str:
+    """The type of the file system ``path`` lives on (the mount of the
+    longest matching prefix in /proc/self/mounts)."""
+    best, kind = "", "unknown"
+    try:
+        lines = Path("/proc/self/mounts").read_text().splitlines()
+    except OSError:
+        return kind
+    for line in lines:
+        parts = line.split()
+        if len(parts) > 2 and str(path).startswith(parts[1]) and len(parts[1]) > len(best):
+            best, kind = parts[1], parts[2]
+    return kind
+
+
+def timed_io(fn) -> tuple[float, object]:
+    t0 = time.perf_counter()
+    res = fn()
+    return time.perf_counter() - t0, res
+
+
+def checkpoint_case(wf, state, path, metadata, template_seed=1, **load_kw) -> tuple[dict, object]:
+    """save_state (durable), verify_checkpoint, load_state of ``state``,
+    timed; the loaded state equal to ``state`` bit for bit."""
+    import torch
+    from evox_tpu_torch.utils import load_state, save_state, verify_checkpoint
+
+    gb = state_gb(state)
+    torch.cuda.synchronize()
+    save_s, written = timed_io(lambda: save_state(path, state, generation=CKPT_GENS // 2, metadata=metadata,
+                                                  durable=True))
+    verify_s, manifest = timed_io(lambda: verify_checkpoint(written))
+    template = wf.init(template_seed)
+    load_s, loaded = timed_io(lambda: load_state(written, template, verify=False, **load_kw))
+    torch.cuda.synchronize()
+    same_state(loaded, state, f"{path.name}: loaded vs saved")
+    return {
+        "state_gb": gb, "archive_gb": written.stat().st_size / 1e9, "leaves": manifest["n_leaves"],
+        "save_s": save_s, "save_gb_per_s": gb / save_s, "verify_s": verify_s, "verify_gb_per_s": gb / verify_s,
+        "load_s": load_s, "load_gb_per_s": gb / load_s,
+    }, loaded
+
+
+def async_writer_cost(wf, state, path) -> dict:
+    """ms a generation of ASYNC_GENS eager steps with no write, then with an
+    AsyncCheckpointWriter write of the state submitted just before them,
+    twice: the first write allocates the writer's pinned host buffers, the
+    second reuses them (whether each was still in flight when the
+    generations ended is reported); and each write's seconds."""
+    import torch
+    from evox_tpu_torch.utils import AsyncCheckpointWriter
+
+    def gens(s):
+        for _ in range(ASYNC_GENS):
+            s = wf.step(s)
+        return s
+
+    idle_ms, idle_host_ms, _ = timed(lambda: gens(state), ASYNC_GENS)
+    row = {"gens": ASYNC_GENS, "ms_per_gen_no_write": idle_ms, "host_ms_per_gen_no_write": idle_host_ms}
+    writer = AsyncCheckpointWriter(durable=True)
+    for write in ("first_write", "second_write"):
+        t0 = time.perf_counter()
+        writer.submit(path, state, generation=CKPT_GENS // 2)
+        busy_ms, busy_host_ms, _ = timed(lambda: gens(state), ASYNC_GENS)
+        in_flight = not writer.barrier(timeout=0)
+        if not writer.barrier(timeout=600) or writer.pop_errors():
+            raise AssertionError(f"the async checkpoint write ({write}) failed")
+        row[write] = {"ms_per_gen_write_in_flight": busy_ms, "host_ms_per_gen_write_in_flight": busy_host_ms,
+                      "write_s": time.perf_counter() - t0, "write_in_flight_after_the_gens": in_flight}
+    writer.close()
+    torch.cuda.synchronize()
+    return row
+
+
+def phase_checkpoint_main_path(device) -> dict:
+    """The checkpoint plane on the card, in a temporary directory removed
+    afterwards: save_state (durable), verify_checkpoint and load_state of
+    the PSO headline's state after 10 generations (seconds and GB/s each),
+    a resume from the loaded state to 20 generations equal to the
+    uninterrupted 20-generation run bit for bit; the same for
+    pso_northstar_bf16's state (PSO in bfloat16: ``__bf16__/`` entries),
+    whose float32 template is refused; the PSO headline under
+    PrecisionPolicy() (bfloat16 storage) saved with its policy's tag, whose
+    load under no policy (float32) ``check_precision`` refuses; and the
+    async writer's cost to the generations it overlaps."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.precision import PrecisionPolicy, precision_tag
+    from evox_tpu_torch.utils import CheckpointError, load_state
+
+    n, d = HEADLINE
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    out = {"card": card_line(), "directory_fs": file_system_of(root)}
+    try:
+        wf = pso_workflow(device, n, d)
+        s = wf.init_step(wf.init(0))
+        for _ in range(CKPT_GENS // 2 - 1):
+            s = wf.step(s)
+        ref = s
+        for _ in range(CKPT_GENS - CKPT_GENS // 2):
+            ref = wf.step(ref)
+        row, loaded = checkpoint_case(wf, s, root / "pso_headline.npz", {"precision": precision_tag(None)},
+                                      precision=None, key_impl=None)
+        for _ in range(CKPT_GENS - CKPT_GENS // 2):
+            loaded = wf.step(loaded)
+        row["resume_leaves_equal"] = same_state(loaded, ref, f"resume after {CKPT_GENS // 2} vs {CKPT_GENS} "
+                                                             "uninterrupted generations")
+        row["async_writer"] = async_writer_cost(wf, s, root / "pso_headline_async.npz")
+        out["pso_headline"] = row
+        del wf, s, ref, loaded
+        (root / "pso_headline.npz").unlink()
+        (root / "pso_headline_async.npz").unlink()
+        torch.cuda.empty_cache()
+
+        wf = pso_workflow(device, n, d, dtype=torch.bfloat16)
+        s = wf.step(wf.init_step(wf.init(0)))
+        row, _ = checkpoint_case(wf, s, root / "pso_bf16.npz", None)
+        try:
+            load_state(root / "pso_bf16.npz", pso_workflow(device, n, d).init(1))
+        except CheckpointError as e:
+            row["float32_template_refused"] = str(e)[:200]
+        else:
+            raise AssertionError("a bfloat16 archive loaded into a float32 template")
+        out["pso_northstar_bf16"] = row
+        del wf, s
+        (root / "pso_bf16.npz").unlink()
+        torch.cuda.empty_cache()
+
+        policy = PrecisionPolicy()
+        wf = pso_workflow(device, n, d, precision=policy)
+        s = wf.step(wf.init_step(wf.init(0)))
+        row, _ = checkpoint_case(wf, s, root / "pso_policy.npz", {"precision": precision_tag(policy)},
+                                 precision=policy)
+        try:
+            load_state(root / "pso_policy.npz", wf.init(1), precision=None)
+        except CheckpointError as e:
+            row["float32_policy_refused"] = str(e)[:200]
+        else:
+            raise AssertionError("check_precision let a bfloat16-storage archive load under float32")
+        out["pso_policy_bf16_storage"] = row
+        del wf, s
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -4559,7 +4926,9 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
         "launches": results["nsga2_main_path"]["launches"].get(name, 0)
         + results["mo_family"]["launches"].get(name, 0)
         + results["vmapped_family"]["launches"].get(name, 0)
-        + results["nsga2_policy_main_path"]["launches"].get(name, 0),
+        + results["nsga2_policy_main_path"]["launches"].get(name, 0)
+        # The NSGA-II headline with enable_distributed=True.
+        + results["distributed_main_path"]["launches"].get(name, 0),
         # compare_mo's sizes, the timing rows held on the path's inputs and
         # the ranking on NSGA-III's, RVEAa's and HypE's paths.
         "max_abs_err": max([results["compare_mo"]["max_abs_err"][name],
@@ -4619,7 +4988,9 @@ def philox_row(results) -> dict:
               for k in ("launches", "default_twin_launches", "env_launches"))
         # The HPO paths' outer setups and DE's generations.
         + results["hpo_main_path"]["launches"]["philox_draws"]
-        + results["hpo_quickstart"]["launches"]["philox_draws"],
+        + results["hpo_quickstart"]["launches"]["philox_draws"]
+        # The sharded runs' generations (NSGA-II's draws).
+        + results["distributed_main_path"]["launches"]["philox_draws"],
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4789,6 +5160,8 @@ def main() -> int:
         ("key_impl_twins", phase_key_impl_twins),
         ("hpo_main_path", phase_hpo_main_path),
         ("hpo_quickstart", phase_hpo_quickstart),
+        ("distributed_main_path", phase_distributed_main_path),
+        ("checkpoint_main_path", phase_checkpoint_main_path),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -4808,8 +5181,10 @@ def main() -> int:
         for counts in ("launches", "default_twin_launches", "env_launches"):
             for k, v in results["key_impl_twins"][twin][counts]["routes"].items():
                 routes[k] += v
-    # hpo_ladder's outer PSO (float32).
+    # hpo_ladder's outer PSO (float32), and the sharded PSO runs'
+    # (distributed_8dev, the headline through ShardedProblem).
     routes["float32"] += results["hpo_main_path"]["launches"]["fused_pso_move"]
+    routes["float32"] += results["distributed_main_path"]["launches"]["fused_pso_move"]
     emit("kernels", [
         {
             "name": "fused_pso_move",

@@ -33,7 +33,19 @@ from .core import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "NOT_PORTED",
+    "algorithms",
+    "core",
     "hpo",
+    "metrics",
+    "operators",
+    "ops",
+    "parallel",
+    "precision",
+    "problems",
+    "resilience",
+    "utils",
+    "workflows",
     "Algorithm",
     "Monitor",
     "Mutable",
@@ -66,6 +78,31 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-# Subpackages a user reaches from the top level (the JAX package imports
-# all of its own; the port's others are imported where they are used).
-from . import hpo  # noqa: E402
+# Subpackages of the JAX package that are not ported yet: reaching one from
+# here raises ImportError by name.
+NOT_PORTED = ("control", "obs", "service", "vis_tools")
+
+# Every ported subpackage, as the JAX package imports all of its own.  None
+# builds a kernel when imported (kernels are built on their first launch).
+from . import (  # noqa: E402
+    algorithms,
+    core,
+    hpo,
+    metrics,
+    operators,
+    ops,
+    parallel,
+    precision,
+    problems,
+    resilience,
+    utils,
+    workflows,
+)
+
+
+def __getattr__(name: str):
+    if name in NOT_PORTED:
+        raise ImportError(
+            f"evox_tpu_torch.{name} is not ported yet (the JAX package's evox_tpu.{name}; ROADMAP Queue 1)"
+        )
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

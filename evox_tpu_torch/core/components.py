@@ -172,7 +172,7 @@ class Monitor(_Component):
         self, state: State, shard_mask: torch.Tensor
     ) -> State:
         """Hook: per-shard boolean mask of shards whose entire row block was
-        quarantined (shard-granular quarantine; not ported yet)."""
+        quarantined (``StdWorkflow(quarantine_granularity="shard")``)."""
         del shard_mask
         return state
 

@@ -46,6 +46,7 @@ from typing import Any, Callable, Literal, Mapping
 import torch
 
 from ..core import Problem, State, Workflow, get_params, set_params
+from ..parallel import iter_problem_chain
 from ..utils import graph, rng
 from .monitor import _REPEAT_LEVEL, _REPEAT_WIRING, HPOMonitor, _reduce_axis
 
@@ -69,23 +70,10 @@ def candidate_series(problem_state: Any) -> dict[int, Any]:
     return {int(u): series[i] for i, u in enumerate(uids)}
 
 
-def _iter_problem_chain(problem):
-    """``problem`` and every problem it wraps (wrappers keep their inner
-    problem under ``.problem``), cycle-safe: the walk of the JAX package's
-    ``parallel.iter_problem_chain``, kept here until ``parallel/`` is
-    ported."""
-    seen: set[int] = set()
-    p = problem
-    while p is not None and id(p) not in seen:
-        seen.add(id(p))
-        yield p
-        p = getattr(p, "problem", None)
-
-
 def find_nested(problem: Any) -> "NestedProblem | None":
     """The :class:`NestedProblem` inside a problem wrapper chain, or
     ``None``."""
-    for p in _iter_problem_chain(problem):
+    for p in iter_problem_chain(problem):
         if getattr(p, "hpo_nested", False):
             return p
     return None

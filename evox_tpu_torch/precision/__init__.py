@@ -11,14 +11,15 @@ mixed-precision storage policies and named key streams.
   Philox generator (:mod:`~evox_tpu_torch.precision.prng`), so every name
   draws at the same speed; the same seed draws different streams under
   different names.
-
-The checkpoint-manifest guard (``check_precision``) comes with the
-checkpoint layer and is not exported yet.
+* :func:`check_precision` — the checkpoint-manifest guard
+  ``utils.load_state(precision=)`` calls: an archive never loads across a
+  precision boundary.
 """
 
 from .policy import (
     DEFAULT_PRECISION_TAG,
     PrecisionPolicy,
+    check_precision,
     precision_identity,
     precision_tag,
 )
@@ -35,6 +36,7 @@ __all__ = [
     "PrecisionPolicy",
     "precision_identity",
     "precision_tag",
+    "check_precision",
     "DEFAULT_PRECISION_TAG",
     "KEY_IMPLS",
     "make_key",

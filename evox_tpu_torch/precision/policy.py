@@ -33,6 +33,7 @@ __all__ = [
     "PrecisionPolicy",
     "precision_identity",
     "precision_tag",
+    "check_precision",
     "DEFAULT_PRECISION_TAG",
 ]
 
@@ -206,3 +207,26 @@ def precision_identity(policy: PrecisionPolicy | None) -> tuple:
 def precision_tag(policy: PrecisionPolicy | None) -> str:
     """The policy's manifest tag, total over ``None``."""
     return DEFAULT_PRECISION_TAG if policy is None else policy.tag()
+
+
+def check_precision(manifest_tag: str | None, policy: PrecisionPolicy | None, *, context: str = "checkpoint") -> None:
+    """The manifest guard: refuse to load a checkpoint across a precision
+    boundary.  ``manifest_tag`` is the archive's ``precision`` entry
+    (``None`` for an archive without one: full precision, what a
+    policy-less writer produced); ``policy`` is what the loading run is
+    configured with.  Raises
+    :class:`~evox_tpu_torch.utils.checkpoint.CheckpointError` on any
+    mismatch: a bfloat16 archive would otherwise load cleanly into a
+    float32 run under the same-kind dtype cast, and the other way round."""
+    from ..utils.checkpoint import CheckpointError
+
+    recorded = manifest_tag if manifest_tag else DEFAULT_PRECISION_TAG
+    expected = precision_tag(policy)
+    if recorded != expected:
+        raise CheckpointError(
+            f"{context}: precision policy mismatch — the archive was "
+            f"written under [{recorded}] but this run is configured for "
+            f"[{expected}]. A checkpoint never crosses a precision "
+            f"boundary silently: load it with the matching "
+            f"PrecisionPolicy, or re-seed the run."
+        )

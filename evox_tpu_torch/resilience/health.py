@@ -7,8 +7,7 @@ every branch is on the structure of the state, every metric stays on the
 state's device, so it reads nothing back to the host and runs inside a
 captured CUDA graph.  Metric names and leaf-path names are the JAX
 package's (``"algorithm/pop"``: the keys of the nested states, joined by
-``/``).  ``HealthProbe``/``HealthReport`` and the per-shard metrics are not
-ported yet (the latter need ``parallel/``).
+``/``).  ``HealthProbe``/``HealthReport`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -81,14 +80,16 @@ def scan_state(
     * ``diversity`` — largest per-dimension std of ``algorithm.pop``;
     * ``step_size_min`` / ``step_size_max`` — extrema of ``algorithm.sigma``;
     * ``best_fitness`` — monitor top-k best (minimizing frame) when
-      available, else ``min(algorithm.fit)``.
-
-    :param shards: per-shard metrics; not ported yet (``parallel/`` is not
-        ported), so any value but ``None`` raises
-        :class:`NotImplementedError`.
+      available, else ``min(algorithm.fit)``;
+    * ``shard_nonfinite`` / ``shard_rows`` / ``shard_diversity`` — with
+      ``shards=N > 1``, the non-finite rows of ``algorithm.fit`` and the
+      rows of each shard (int32 ``(N,)``), and, with ``diversity``, the
+      largest per-dimension spread of each shard's rows of
+      ``algorithm.pop`` (``inf`` for a shard with no rows).  Shards are the
+      contiguous row blocks of
+      :func:`~evox_tpu_torch.parallel.shard_row_ids`, ragged tails
+      included.
     """
-    if shards is not None:
-        raise NotImplementedError("scan_state(shards=...) is not yet ported (it needs parallel/)")
     out: dict[str, Any] = {}
     if check_nonfinite:
         counts = {}
@@ -107,6 +108,33 @@ def scan_state(
         # jnp.std): below a floor means EVERY dimension collapsed.
         centered = pop - pop.mean(dim=0)
         out["diversity"] = torch.amax(torch.sqrt((centered * centered).mean(dim=0)))
+    fit = _subtree(algo, "fit")
+    if shards and shards > 1 and _floating(fit) and fit.ndim in (1, 2):
+        # Per shard: a shard whose count equals its rows is dead.
+        from ..parallel import shard_row_ids
+
+        ids = shard_row_ids(fit.shape[0], shards, fit.device)
+        row_bad = ~torch.isfinite(fit)
+        if fit.ndim == 2:
+            row_bad = row_bad.any(dim=-1)
+        zeros = torch.zeros((shards,), dtype=torch.int32, device=fit.device)
+        out["shard_nonfinite"] = zeros.index_add(0, ids, row_bad.to(torch.int32))
+        out["shard_rows"] = zeros.index_add(0, ids, torch.ones_like(ids, dtype=torch.int32))
+    if diversity and shards and shards > 1 and _floating(pop) and pop.ndim == 2:
+        from ..parallel import shard_row_ids
+
+        ids = shard_row_ids(pop.shape[0], shards, pop.device)
+        zeros = torch.zeros((shards,) + tuple(pop.shape[1:]), dtype=pop.dtype, device=pop.device)
+        n_s = torch.zeros((shards,), dtype=pop.dtype, device=pop.device).index_add(
+            0, ids, torch.ones((pop.shape[0],), dtype=pop.dtype, device=pop.device)
+        )
+        denom = torch.clamp(n_s, min=1.0)[:, None]
+        mean = zeros.index_add(0, ids, pop) / denom
+        # Two passes (centered), as the whole-population spread.
+        centered = pop - mean[ids]
+        var = zeros.index_add(0, ids, centered * centered) / denom
+        spread = torch.amax(torch.sqrt(var), dim=-1)
+        out["shard_diversity"] = torch.where(n_s > 0, spread, torch.full_like(spread, float("inf")))
     sigma = _subtree(algo, "sigma")
     if step_size and _floating(sigma):
         out["step_size_min"] = torch.amin(sigma)

@@ -288,6 +288,17 @@ class EvalMonitor(Monitor):
             num_nonfinite=state.num_nonfinite + mask.sum(dtype=torch.int32)
         )
 
+    def record_shard_quarantine(self, state: State, shard_mask: torch.Tensor) -> State:
+        """Count shard-quarantine events (whole mesh shards penalized by the
+        workflow's shard-granular quarantine) into
+        ``num_shard_quarantines``: each ``True`` of the per-shard mask is
+        one event."""
+        if "num_shard_quarantines" not in state:
+            return state
+        return state.replace(
+            num_shard_quarantines=state.num_shard_quarantines + shard_mask.sum(dtype=torch.int32)
+        )
+
     # -- history accessors (host side) --------------------------------------
     def clear_history(self) -> None:
         """Drop this monitor's history (state-side top-k and latest buffers

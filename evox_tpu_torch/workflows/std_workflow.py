@@ -24,11 +24,20 @@ graph keeps one dtype per leaf) and promoted to the compute dtype for each
 generation's math, at the one seam in :meth:`StdWorkflow._step`;
 ``key_impl`` names the stream family of the workflow's keys.
 
+Distributed evaluation (``enable_distributed=True``, ``mesh=``): the
+problem is wrapped in a :class:`~evox_tpu_torch.parallel.ShardedProblem`
+over a :class:`~evox_tpu_torch.parallel.PopMesh` of ranks (a one-rank NCCL
+group on one card when no process group exists): every rank steps the
+same replicated algorithm state, evaluates its row block, and one
+all-gather returns the whole fitness.  On the card the all-gather is
+captured with the generations of a fused segment into its CUDA graph.
+``quarantine_granularity="shard"`` condemns every row of a shard that
+produced a non-finite row.
+
 Not ported yet, and refused with :class:`NotImplementedError` rather than
-ignored: ``run``/``run_segment`` under ``torch.func.vmap``; distributed
-evaluation (``enable_distributed``, ``mesh``),
-shard-granular quarantine, and the segment options of the service and
-observability layers (``frozen=``/lane freeze, ``flight=True``).
+ignored: ``run``/``run_segment`` under ``torch.func.vmap``, and the segment
+options of the service and observability layers (``frozen=``/lane freeze,
+``flight=True``).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..core import Algorithm, Monitor, Problem, State, Workflow
+from ..parallel import ShardedProblem, find_sharded, iter_problem_chain, make_pop_mesh, shard_row_ids
 from ..resilience.health import _best_fitness_expr, _subtree, scan_state
 from ..utils import rng
 from ..utils import graph
@@ -115,10 +125,6 @@ def check_kernel_dtypes(algorithm: Algorithm, device: torch.device, dtype: torch
         )
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"StdWorkflow({what}) is not yet ported")
-
-
 class StdWorkflow(Workflow):
     """Composes one Algorithm + one Problem + optional Monitor + optional
     solution/fitness transforms into a single steppable object.
@@ -169,11 +175,20 @@ class StdWorkflow(Workflow):
             here, also from ``EVOX_TPU_KEY_IMPL``).  ``setup`` builds an int
             seed's key in it and re-seeds a key of another family.  Without
             it (and the variable) a key is used as it is given.
-        :param enable_distributed, mesh: not yet ported; any value but the
-            default raises :class:`NotImplementedError`.  ``pop_axis`` only
-            names the mesh axis and is ignored.
-        :param quarantine_granularity: ``"individual"``; ``"shard"`` is not
-            yet ported.
+        :param enable_distributed: shard evaluation over ``pop_axis`` of
+            ``mesh`` (the problem is wrapped in a
+            :class:`~evox_tpu_torch.parallel.ShardedProblem` unless its
+            wrapper chain already holds one); ``pop_size`` must divide the
+            axis unless that problem pads.
+        :param mesh: the :class:`~evox_tpu_torch.parallel.PopMesh` to shard
+            over; by default :func:`~evox_tpu_torch.parallel.make_pop_mesh`
+            over every rank (a one-rank group when none is set up, on the
+            algorithm's device).  Stored only when ``enable_distributed``:
+            an unsharded workflow is not mesh-bound.
+        :param quarantine_granularity: ``"individual"`` penalizes exactly the
+            non-finite rows; ``"shard"`` (sharded evaluation only) condemns
+            every row of a shard that produced one, reported to
+            ``Monitor.record_shard_quarantine``.
         """
         if opt_direction not in ("min", "max"):
             raise ValueError(
@@ -185,16 +200,47 @@ class StdWorkflow(Workflow):
                 f"quarantine_granularity must be 'individual' or 'shard', "
                 f"got {quarantine_granularity!r}"
             )
-        if enable_distributed:
-            raise _not_ported("enable_distributed=True")
-        if mesh is not None:
-            raise _not_ported("mesh=...")
-        if quarantine_granularity == "shard":
-            raise _not_ported("quarantine_granularity='shard'")
-        del pop_axis
         self.opt_direction = 1 if opt_direction == "min" else -1
         self.algorithm = algorithm
         self.problem = problem
+        self.enable_distributed = bool(enable_distributed)
+        if enable_distributed and mesh is None:
+            mesh = make_pop_mesh(axis_name=pop_axis, device=getattr(algorithm, "device", None))
+        # Only a distributed workflow is mesh-bound (the elastic layer's
+        # workflow_mesh reads this).
+        self.mesh = mesh if enable_distributed else None
+        self.pop_axis = pop_axis
+        if enable_distributed:
+            n_shards = mesh.shape[pop_axis]
+            pop_size = getattr(algorithm, "pop_size", None)
+            # The chain walk keeps a wrapper around an existing
+            # ShardedProblem from being sharded twice.
+            existing = find_sharded(self.problem)
+            pads = existing is not None and existing.pad
+            if pop_size is not None and pop_size % n_shards != 0 and not pads:
+                raise ValueError(
+                    f"Distributed evaluation shards the population over the "
+                    f"'{pop_axis}' mesh axis; pop_size={pop_size} must be "
+                    f"divisible by the {n_shards} devices on that axis "
+                    f"(or wrap the problem in ShardedProblem(pad=True) to "
+                    f"pad and mask instead)."
+                )
+            if existing is None:
+                self.problem = ShardedProblem(self.problem, mesh, pop_axis)
+        sharded = find_sharded(self.problem)
+        for p in iter_problem_chain(self.problem):
+            if hasattr(p, "in_sharded_program"):
+                p.in_sharded_program = sharded is not None
+        self.quarantine_granularity = quarantine_granularity
+        # Shards of the evaluation the workflow runs through, for the
+        # shard-granular quarantine and the per-shard health metrics.
+        self._n_shards = int(sharded.mesh.shape[sharded.axis_name]) if sharded is not None else None
+        if quarantine_granularity == "shard" and self._n_shards is None:
+            raise ValueError(
+                "quarantine_granularity='shard' needs a sharded evaluation: "
+                "pass enable_distributed=True (or wrap the problem in "
+                "ShardedProblem) so rows map to mesh shards"
+            )
         # The numerics plane: audit the policy against the algorithm's
         # declaration now (an undeclared algorithm fails here), and resolve
         # the key impl once, from the argument or the environment.
@@ -344,14 +390,28 @@ class StdWorkflow(Workflow):
         monitor still receives its all-clear mask."""
         if not self.quarantine_nonfinite:
             return fit, mon
+        shard_mode = self.quarantine_granularity == "shard"
         if not fit.is_floating_point():
             mask = torch.zeros((fit.shape[0],), dtype=torch.bool, device=fit.device)
-            return fit, self.monitor.record_nonfinite(mon, mask)
+            mon = self.monitor.record_nonfinite(mon, mask)
+            if shard_mode:
+                shards = torch.zeros((self._n_shards,), dtype=torch.bool, device=fit.device)
+                mon = self.monitor.record_shard_quarantine(mon, shards)
+            return fit, mon
         # Clamp the penalty into the dtype's finite range: 1e30 would itself
         # round to inf in float16 fitness, defeating the quarantine.
         penalty = min(self.nonfinite_penalty, float(torch.finfo(fit.dtype).max))
         bad = ~torch.isfinite(fit)
         row_bad = bad if fit.ndim == 1 else bad.any(dim=-1)
+        if shard_mode:
+            # Any bad row condemns every row its shard evaluated: the
+            # finite-looking rows of a broken device must not survive
+            # selection.  The row -> shard map is the parallel layer's.
+            ids = shard_row_ids(row_bad.shape[0], self._n_shards, fit.device)
+            counts = torch.zeros((self._n_shards,), dtype=torch.int32, device=fit.device)
+            shard_bad = counts.index_add(0, ids, row_bad.to(torch.int32)) > 0
+            mon = self.monitor.record_shard_quarantine(mon, shard_bad)
+            row_bad = shard_bad[ids]
         mon = self.monitor.record_nonfinite(mon, row_bad)
         # Demote the whole individual, not just its non-finite components.
         row_mask = row_bad if fit.ndim == 1 else row_bad[:, None]
@@ -510,9 +570,6 @@ class StdWorkflow(Workflow):
         if flight:
             raise NotImplementedError("segment flight=True (the flight recorder) is not yet ported")
         if health is not None:
-            shards = getattr(health, "shards", None)
-            if shards is not None:
-                raise NotImplementedError("per-shard health metrics (shards=) are not yet ported")
             step_range = getattr(health, "step_size_range", None)
             return SegmentConfig(
                 capture_history=bool(capture_history),
@@ -521,6 +578,7 @@ class StdWorkflow(Workflow):
                 nonfinite_skip=tuple(getattr(health, "nonfinite_skip", ())),
                 diversity=getattr(health, "diversity_floor", None) is not None,
                 step_size=step_range is not None,
+                shards=getattr(health, "shards", None),
                 diversity_floor=getattr(health, "diversity_floor", None),
                 step_size_range=None if step_range is None else tuple(step_range),
                 stop_on_unhealthy=bool(stop_on_unhealthy),
@@ -532,6 +590,7 @@ class StdWorkflow(Workflow):
             check_nonfinite=True,
             diversity=True,
             step_size=True,
+            shards=self._n_shards,
             stop_on_unhealthy=bool(stop_on_unhealthy),
             barrier=bool(barrier),
         )
@@ -579,6 +638,14 @@ class StdWorkflow(Workflow):
             lo, hi = cfg.step_size_range
             out = ~((raw["step_size_min"] >= lo) & (raw["step_size_max"] <= hi))
             bad = out if bad is None else bad | out
+        if "shard_nonfinite" in raw:
+            # A shard whose every row is non-finite is dead.
+            rows = raw["shard_rows"]
+            dead = ((rows > 0) & (raw["shard_nonfinite"] == rows)).any()
+            bad = dead if bad is None else bad | dead
+        if cfg.diversity_floor is not None and "shard_diversity" in raw:
+            low = (raw["shard_diversity"] < cfg.diversity_floor).any()
+            bad = low if bad is None else bad | low
         return bad
 
     @staticmethod
@@ -662,8 +729,10 @@ class StdWorkflow(Workflow):
                     "whose evaluation calls the host (a CUDA graph cannot): step the workflow eagerly"
                 )
             # The metrics are computed on the final state after the replay,
-            # so one capture serves every metric setting.
-            key = ("step", cfg._replace(metrics=False, diversity=False, step_size=False))
+            # so one capture serves every metric setting (the shards count
+            # only in the early stop's predicate, inside the graph).
+            shards = cfg.shards if cfg.stop_on_unhealthy else None
+            key = ("step", cfg._replace(metrics=False, diversity=False, step_size=False, shards=shards))
             carry, outs, meta = graph.run(self._graphs, key, program, carry, n_steps)
         else:
             # The CPU, and the per-generation debug mode: the same

@@ -1662,3 +1662,61 @@ def test_batched_philox_kernel_on_each_side_of_2_31_elements(cuda, b):
     assert torch.equal(got[rows], want)
     del got
     torch.cuda.empty_cache()
+
+
+# -- sharded evaluation and the checkpoint store on the card ------------------
+
+
+def _same_state(a, b):
+    from evox_tpu_torch.utils import graph
+
+    la, sa = graph.flatten(a)
+    lb, sb = graph.flatten(b)
+    assert sa == sb
+    for x, y in zip(la, lb):
+        assert x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _dist_pso(cuda, **kw):
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    algo = PSO(1024, torch.full((64,), -10.0), torch.full((64,), 10.0), device=cuda)
+    return StdWorkflow(algo, Sphere(), monitor=EvalMonitor(), **kw)
+
+
+def test_distributed_workflow_on_a_one_rank_nccl_mesh(cuda):
+    """enable_distributed on one card (a one-rank NCCL group): eager steps
+    and run(5), whose captured graph holds the all-gather, equal the
+    unsharded workflow's bit for bit."""
+    from evox_tpu_torch.parallel import ShardedProblem
+
+    wf, ref = _dist_pso(cuda, enable_distributed=True), _dist_pso(cuda)
+    assert isinstance(wf.problem, ShardedProblem) and wf.mesh.device.type == "cuda"
+    s, r = wf.init_step(wf.init(0)), ref.init_step(ref.init(0))
+    for _ in range(3):
+        s, r = wf.step(s), ref.step(r)
+    _same_state(s, r)
+    _same_state(wf.run(s, 5, init=False), ref.run(r, 5, init=False))
+    seg, _ = wf.run_segment(s, 5)
+    _same_state(seg, ref.run(r, 5, init=False))
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """save_state copies each card leaf to the host; load_state puts it back
+    on its template leaf's device; the async writer's copy runs on a side
+    stream after the submitting stream's work."""
+    from evox_tpu_torch.utils import AsyncCheckpointWriter, load_state, save_state, verify_checkpoint
+
+    wf = _dist_pso(cuda)
+    s = wf.step(wf.init_step(wf.init(1)))
+    path = save_state(tmp_path / "s.npz", s, durable=True)
+    verify_checkpoint(path)
+    _same_state(load_state(path, wf.init(2)), s)
+    writer = AsyncCheckpointWriter()
+    writer.submit(tmp_path / "a.npz", s)
+    s2 = wf.step(s)
+    assert writer.close(timeout=120) and not writer.pop_errors()
+    _same_state(load_state(tmp_path / "a.npz", wf.init(2)), s)
+    assert s2.algorithm.pop.device.type == "cuda"

@@ -245,13 +245,14 @@ def test_segment_refusals_and_not_ported_options():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         wf.run_segment(s, 2, frozen=torch.tensor(False))
 
+    # The per-shard metrics are ported (parallel/): a probe's shards reach
+    # the segment's metrics, and scan_state takes shards=.
     class Probe:
         shards = 4
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        wf.run_segment(s, 2, health=Probe())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        scan_state(s, shards=2)
+    _, tel = wf.run_segment(s, 2, health=Probe())
+    assert tel.metrics["shard_rows"].sum() == s.algorithm.fit.shape[0]
+    assert scan_state(s, shards=2)["shard_nonfinite"].tolist() == [0, 0]
     with pytest.raises(ValueError):
         wf.run_segment(s, 0)
     # barrier is accepted and changes nothing.

@@ -19,6 +19,15 @@ from evox_tpu_torch.precision import PrecisionPolicy  # noqa: E402
 from evox_tpu_torch.problems.numerical import Ackley, Sphere  # noqa: E402
 from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_process_group_left():
+    """Tests here may set up a one-rank gloo group (``make_pop_mesh``):
+    destroy it with the module, so no later test file in this process finds
+    one."""
+    yield
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
 
 def _pso(n=100, d=10, bound=32.0, **kw):
     return PSO(n, -bound * torch.ones(d), bound * torch.ones(d), device="cpu", **kw)
@@ -214,6 +223,16 @@ def test_unported_options_raise(kwargs):
     if "precision" in kwargs:
         algo.storage_leaves = None
         error, match = TypeError, "declares no `storage_leaves`"
+    # Distributed evaluation is ported: enable_distributed builds a sharded
+    # workflow (a one-rank mesh here), a mesh without it is not stored, and
+    # shard-granular quarantine without a sharded evaluation is refused as
+    # the JAX package refuses it.
+    if "quarantine_granularity" in kwargs:
+        error, match = ValueError, "needs a sharded evaluation"
+    if "enable_distributed" in kwargs or "mesh" in kwargs:
+        wf = StdWorkflow(algo, Sphere(), **kwargs)
+        assert (wf.mesh is not None) == bool(kwargs.get("enable_distributed"))
+        return
     with pytest.raises(error, match=match):
         StdWorkflow(algo, Sphere(), **kwargs)
 
@@ -226,7 +245,7 @@ def test_unported_monitor_modes_raise():
         mon.get_best_solution(mon.setup(None))
     with pytest.raises(ValueError):
         mon.pre_tell(mon.setup(None), torch.zeros(4, 2, 2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs a sharded evaluation"):
         StdWorkflow(_pso(), Sphere(), quarantine_granularity="shard")
     with pytest.raises(ValueError):
         StdWorkflow(_pso(), Sphere(), quarantine_granularity="row")
