@@ -55,8 +55,17 @@ the profiler, shard quarantine) and the checkpoint plane
 (``checkpoint_main_path``: save, verify and load of the PSO headline's
 state and pso_northstar_bf16's, seconds and GB/s, a resume after 10 of 20
 generations against the uninterrupted run, the precision guards, the async
-writer's cost to the generations it overlaps), checks that each path went
-through its kernels, and times them.  It prints one JSON line per
+writer's cost to the generations it overlaps), then the resilient runner
+(``resilient_main_path``: bench.py's pso_small_resilient, PSO(1024) at dim
+100 on Ackley under ``ResilientRunner(checkpoint_every=25, fused=True)``
+for 100 generations, against run(100) and eager steps bit for bit, with
+its host syncs a segment, and the PSO headline under the runner with a
+health probe and rollback, 1.2 GB checkpoints; ``resilient_recovery``:
+kill and resume, a torn checkpoint, NaN/Inf rows in the captured
+segments, a retried backend error, a watchdog trip, a real SIGTERM, each
+bit-equal to the uninterrupted run; ``neuroevolution_resilient``;
+``resilient_quickstart``: the README's runner quick start run twice),
+checks that each path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -4898,6 +4907,401 @@ def phase_checkpoint_main_path(device) -> dict:
     return out
 
 
+# -- the resilient runner (ResilientRunner over fused segments) -------------------
+
+RESILIENT_SMALL = (1024, 100)  # bench.py's pso_small_resilient: PSO(1024, ±32 in dim 100), Ackley
+RESILIENT_GENS, RESILIENT_EVERY = 100, 25
+HEADLINE_RUNNER_GENS, HEADLINE_RUNNER_EVERY = 50, 25
+RECOVERY_GENS = 60
+NE_RESILIENT_GENS, NE_RESILIENT_EVERY = 30, 10
+QUICKSTART_RUNNER = (64, 16, 100, 25)  # README: PSO(64, ±32 in dim 16), Ackley, 100 generations, every 25
+FAST_RETRY = dict(backoff_base=0.001, backoff_factor=1.0)
+
+
+def small_resilient_workflow(device, problem=None, monitor=None):
+    """bench.py's pso_small_resilient workflow (no monitor, as there)."""
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    n, d = RESILIENT_SMALL
+    algo = PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device)
+    return StdWorkflow(algo, problem if problem is not None else Ackley(), monitor=monitor)
+
+
+def runner_stats(runner) -> dict:
+    s = runner.stats
+    return {
+        "segments": s.segments_run, "chunks": s.chunk_sizes, "retries": s.retries,
+        "watchdog_timeouts": s.watchdog_timeouts, "cpu_fallbacks": s.cpu_fallbacks,
+        "checkpoints_written": s.checkpoints_written, "checkpoint_block_s": s.checkpoint_block_seconds,
+        "resumed_from": s.resumed_from_generation, "restarts": [e.to_manifest() for e in s.restarts],
+        "skips": [(Path(k.path).name, k.quarantined) for k in s.checkpoint_skips],
+        "segment_timings": [t._asdict() for t in s.segment_timings],
+    }
+
+
+def no_cpu_fallback(runner, what):
+    if runner.stats.cpu_fallbacks != 0:
+        raise AssertionError(f"{what}: {runner.stats.cpu_fallbacks} CPU fallbacks")
+
+
+def thread_syncs(fn) -> tuple[object, dict]:
+    """``fn()`` and the host syncs it made, by thread: under
+    ``torch.cuda.set_sync_debug_mode("warn")`` every synchronizing CUDA
+    call (a copy to the host, a stream or device synchronize) warns in the
+    thread that made it, so the calling thread's count leaves out the
+    checkpoint writer's thread."""
+    import threading
+    import warnings
+
+    import torch
+
+    me = threading.get_ident()
+    seen: list[int] = []
+
+    def show(message, *args, **kwargs):
+        if "synchronizing CUDA operation" in str(message):
+            seen.append(threading.get_ident())
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, {"calling_thread": seen.count(me), "other_threads": len(seen) - seen.count(me)}
+
+
+def quiet_run(runner, state, n, **kw):
+    """``runner.run`` with its warnings (the supervisor's retry and restart
+    lines) kept out of the log."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return runner.run(state, n, **kw)
+
+
+def phase_resilient_main_path(device) -> dict:
+    """pso_small_resilient (bench.py:247) through ResilientRunner(fused=True)
+    on the card, in a temporary directory: the counted (cold) run captures
+    the segments of 25 and 24 generations; a warm fresh run is timed and
+    one more profiled (host syncs of the calling thread: one a segment,
+    plus one read of the key's stream family); the final state equals
+    run(100) and 100 eager steps bit for bit.  Then the PSO headline (100k
+    x 1000, Sphere) under the runner with a HealthProbe and
+    RollbackToCheckpoint, 50 generations, checkpoint_every=25,
+    keep_checkpoints=2 (1.2 GB archives), equal to run(50) bit for bit,
+    with the share of the wall time the checkpoint writer blocked the
+    loop."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.ops.philox import philox_draws
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+    from evox_tpu_torch.resilience import HealthProbe, ResilientRunner, RollbackToCheckpoint
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_runner_"))
+    out = {"card": card_line(), "directory_fs": file_system_of(root)}
+    try:
+        wf = small_resilient_workflow(device)
+        reset_move_counters()
+        runner = ResilientRunner(wf, root / "small", checkpoint_every=RESILIENT_EVERY)
+        cold = runner.run(wf.init(0), RESILIENT_GENS, fresh=True)
+        torch.cuda.synchronize()
+        launches = {"fused_pso_move": fused_pso_move.launches, "philox_draws": philox_draws.launches}
+        # A warm-up generation and the captured ones of the segments of 25
+        # and 24 (init_step moves nothing; the two replays of 25 launch
+        # nothing).
+        expect(launches["fused_pso_move"], 26 + 25, "pso_small_resilient: PSO moves of the cold run")
+        no_cpu_fallback(runner, "pso_small_resilient")
+        cold_stats = runner_stats(runner)
+
+        s0 = wf.init(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = ResilientRunner(wf, root / "small", checkpoint_every=RESILIENT_EVERY)
+        final = warm.run(s0, RESILIENT_GENS, fresh=True)
+        torch.cuda.synchronize()
+        runner_ms = (time.perf_counter() - t0) * 1e3 / RESILIENT_GENS
+        if any(t.compile_seconds for t in warm.stats.segment_timings):
+            raise AssertionError("the warm runner captured a segment again")
+        same_state(final, cold, "pso_small_resilient: warm vs cold runner")
+        timed(lambda: wf.run(wf.init(0), RESILIENT_GENS), RESILIENT_GENS)  # its capture of 99
+        run_ms, run_host_ms, ref = timed(lambda: wf.run(wf.init(0), RESILIENT_GENS), RESILIENT_GENS)
+        same_state(final, ref, "pso_small_resilient: runner vs run(100)")
+        eager_ms, eager_host_ms, eager = timed(lambda: _steps(wf, wf.init_step(wf.init(0)), RESILIENT_GENS - 1),
+                                               RESILIENT_GENS)
+        same_state(final, eager, "pso_small_resilient: runner vs 100 eager steps")
+
+        prof_runner = ResilientRunner(wf, root / "small", checkpoint_every=RESILIENT_EVERY)
+        s0 = wf.init(0)
+        _, syncs = thread_syncs(lambda: prof_runner.run(s0, RESILIENT_GENS, fresh=True))
+        want = prof_runner.stats.segments_run + 1
+        if syncs["calling_thread"] != want:
+            raise AssertionError(f"pso_small_resilient: host syncs {syncs} of the calling thread, expected {want} "
+                                 f"(one a segment and one read of the key's stream family)")
+        out["pso_small_resilient"] = {
+            "config": "PSO(1024, ±32 in dim 100), Ackley, ResilientRunner(checkpoint_every=25, fused=True), "
+                      "100 generations",
+            "launches": launches, "cold_run": cold_stats, "warm_run": runner_stats(warm),
+            "ms_per_gen": {"runner_wall": runner_ms, "run_event": run_ms, "run_host": run_host_ms,
+                           "eager_event": eager_ms, "eager_host": eager_host_ms},
+            "host_syncs": syncs, "host_syncs_per_segment": syncs["calling_thread"] / prof_runner.stats.segments_run,
+        }
+        del wf, cold, final, ref, eager
+        torch.cuda.empty_cache()
+
+        n, d = HEADLINE
+        wf = pso_workflow(device, n, d)
+        reset_move_counters()
+        s0 = wf.init(0)
+        runner = ResilientRunner(wf, root / "headline", checkpoint_every=HEADLINE_RUNNER_EVERY, keep_checkpoints=2,
+                                 health=HealthProbe(), restart=RollbackToCheckpoint())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.run(s0, HEADLINE_RUNNER_GENS, fresh=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        head_launches = {"fused_pso_move": fused_pso_move.launches, "philox_draws": philox_draws.launches}
+        no_cpu_fallback(runner, "headline runner")
+        if runner.stats.restarts or runner.stats.unhealthy_probes:
+            raise AssertionError(f"headline runner: {runner.stats.unhealthy_probes} unhealthy verdicts")
+        files = sorted(p.name for p in (root / "headline").iterdir())
+        expect(files, ["ckpt_00000026.npz", "ckpt_00000050.npz"], "headline runner: kept checkpoints")
+        archive_gb = (root / "headline" / "ckpt_00000050.npz").stat().st_size / 1e9
+        del s0
+        ref = wf.run(wf.init(0), HEADLINE_RUNNER_GENS)
+        same_state(final, ref, "headline runner vs run(50)")
+        out["pso_headline_runner"] = {
+            "config": "PSO(100k, ±10 in dim 1000), Sphere, ResilientRunner(checkpoint_every=25, keep_checkpoints=2, "
+                      "health=HealthProbe(), restart=RollbackToCheckpoint()), 50 generations",
+            "launches": head_launches, "stats": runner_stats(runner), "wall_s": wall,
+            "checkpoint_block_share": runner.stats.checkpoint_block_seconds / wall,
+            "archive_gb": archive_gb, "health_checks": runner.stats.health_checks,
+        }
+        del wf, final, ref, runner
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: out["pso_small_resilient"]["launches"][k] + out["pso_headline_runner"]["launches"][k]
+                       for k in ("fused_pso_move", "philox_draws")}
+    return out
+
+
+def phase_resilient_recovery(device) -> dict:
+    """The runner's recovery paths at pso_small_resilient's width, each
+    bit-equal to its uninterrupted twin, none falling back to the CPU, in
+    a temporary directory: kill after generation 50 and resume with a new
+    runner; a torn newest checkpoint quarantined to ``*.corrupt``; NaN/Inf
+    rows inside the captured segments counted as eager steps count them;
+    an InjectedBackendError retried, and a watchdog trip from an injected
+    delay (host faults: eager generations on the card); a real SIGTERM
+    under preemption=True, whose emergency checkpoint the next run
+    resumes.  RECOVERY_GENS generations each, segments of 25; a run
+    through a FaultyProblem is held against the clean run's algorithm
+    state (the wrapper adds its own problem state)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.resilience import FaultyProblem, FaultyStore, Preempted, ResilientRunner, RetryPolicy
+    from evox_tpu_torch.utils import read_manifest
+    from evox_tpu_torch.workflows import EvalMonitor
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_recovery_"))
+    out = {"card": card_line()}
+    n = RECOVERY_GENS
+    every = RESILIENT_EVERY
+    try:
+        wf = small_resilient_workflow(device)
+        ref = ResilientRunner(wf, root / "ref", checkpoint_every=every).run(wf.init(0), n, fresh=True)
+
+        # Kill and resume: the first runner stops after generation 50 (its
+        # run's end), a new runner resumes on the same directory.
+        first = ResilientRunner(wf, root / "kill", checkpoint_every=every)
+        first.run(wf.init(0), 50, fresh=True)
+        second = ResilientRunner(small_resilient_workflow(device), root / "kill", checkpoint_every=every)
+        resumed = second.run(wf.init(0), n)
+        expect(second.stats.resumed_from_generation, 50, "kill and resume: resumed from")
+        out["kill_and_resume"] = {"leaves_equal": same_state(resumed, ref, "kill and resume vs uninterrupted"),
+                                  "stats": runner_stats(second)}
+
+        # A torn newest checkpoint (saves: 1, 26, 51(torn)).
+        torn = ResilientRunner(wf, root / "torn", checkpoint_every=every, store=FaultyStore(torn_saves=[2]))
+        torn.run(wf.init(0), 51, fresh=True)
+        again = ResilientRunner(wf, root / "torn", checkpoint_every=every)
+        healed = quiet_run(again, wf.init(0), n)
+        expect(runner_stats(again)["skips"], [("ckpt_00000051.npz", True)], "torn checkpoint: quarantined")
+        expect(again.stats.resumed_from_generation, 26, "torn checkpoint: resumed from")
+        if not (root / "torn" / "ckpt_00000051.npz.corrupt").exists():
+            raise AssertionError("torn checkpoint: no *.corrupt evidence")
+        out["torn_newest"] = {"leaves_equal": same_state(healed, ref, "resume past a torn checkpoint"),
+                              "stats": runner_stats(again)}
+
+        # Device faults inside the captured segments.
+        plan = dict(nan_generations=(5, 30, 31), nan_rows=7, inf_generations=(40,), inf_rows=3)
+        fwf = small_resilient_workflow(device, FaultyProblem(Ackley(), **plan), monitor=EvalMonitor())
+        if not fwf.problem.capturable:
+            raise AssertionError("device faults must be capturable")
+        faulted = ResilientRunner(fwf, root / "nan", checkpoint_every=every).run(fwf.init(0), n, fresh=True)
+        if torch.device(device).type == "cuda" and len(fwf._graphs) == 0:
+            raise AssertionError("the faulted run captured no graph")
+        ewf = small_resilient_workflow(device, FaultyProblem(Ackley(), **plan), monitor=EvalMonitor())
+        stepped = _steps(ewf, ewf.init_step(ewf.init(0)), n - 1)
+        same_state(faulted, stepped, "NaN/Inf rows: runner vs eager steps")
+        counted = int(faulted.monitor.num_nonfinite)
+        expect(counted, 3 * 7 + 3, "NaN/Inf rows: num_nonfinite")
+        out["nonfinite_rows"] = {"num_nonfinite": counted, "eager_num_nonfinite": int(stepped.monitor.num_nonfinite)}
+
+        # An injected backend error, retried (a host fault: eager on the card).
+        ewf = small_resilient_workflow(device, FaultyProblem(Ackley(), error_generations=(33,), error_times=2))
+        retried_runner = ResilientRunner(ewf, root / "err", checkpoint_every=every, retry=RetryPolicy(**FAST_RETRY))
+        retried = quiet_run(retried_runner, ewf.init(0), n, fresh=True)
+        if retried.algorithm.pop.device.type != torch.device(device).type or len(ewf._graphs) != 0:
+            raise AssertionError("the host-fault run left the card or captured a graph")
+        expect(retried_runner.stats.retries, 2, "injected error: retries")
+        out["backend_error_retried"] = {"leaves_equal": same_state(retried.algorithm, ref.algorithm, "retried error vs clean run"),
+                                        "stats": runner_stats(retried_runner)}
+
+        # A watchdog trip from an injected delay.
+        dwf = small_resilient_workflow(device, FaultyProblem(Ackley(), delay_generations=(28,), delay_seconds=1.5))
+        dog = ResilientRunner(dwf, root / "dog", checkpoint_every=every, watchdog_timeout=1.0,
+                              retry=RetryPolicy(**FAST_RETRY))
+        tripped = quiet_run(dog, dwf.init(0), n, fresh=True)
+        if dog.stats.watchdog_timeouts < 1:
+            raise AssertionError("the injected delay tripped no watchdog")
+        out["watchdog_trip"] = {"leaves_equal": same_state(tripped.algorithm, ref.algorithm, "watchdog retry vs clean run"),
+                                "stats": runner_stats(dog)}
+
+        # A real SIGTERM under preemption=True.
+        swf = small_resilient_workflow(device, FaultyProblem(Ackley(), sigterm_generations=(37,)))
+        pre = ResilientRunner(swf, root / "term", checkpoint_every=every, preemption=True)
+        try:
+            quiet_run(pre, swf.init(0), n, fresh=True)
+        except Preempted as e:
+            caught = e
+        else:
+            raise AssertionError("the SIGTERM preempted nothing")
+        manifest = read_manifest(caught.checkpoint)
+        if not manifest.get("preempted"):
+            raise AssertionError("the emergency checkpoint is not marked preempted")
+        post = ResilientRunner(swf, root / "term", checkpoint_every=every, preemption=True)
+        finished = quiet_run(post, swf.init(0), n)
+        if not post.stats.resumed_after_preemption:
+            raise AssertionError("the resumed run did not start from the emergency checkpoint")
+        out["sigterm"] = {"preempted_at": caught.generation, "reason": caught.reason,
+                          "leaves_equal": same_state(finished.algorithm, ref.algorithm, "SIGTERM resume vs uninterrupted"),
+                          "stats": runner_stats(post)}
+        for r in (second, again, retried_runner, dog, pre, post):
+            no_cpu_fallback(r, "recovery")
+        out["cpu_fallbacks"] = 0
+        del wf, fwf, ewf, dwf, swf
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_neuroevolution_resilient(device) -> dict:
+    """bench.py's neuroevolution_resilient (:1093): OpenES 2048 on cart-pole
+    T = 200, MLP 4-32-32-1, under ResilientRunner(checkpoint_every=10) for
+    30 generations, bit-equal to 30 eager steps; the rollouts' graphs are
+    taken inline into the segments' captures.  The counted run captures
+    the segments of 10 and 9 generations; a warm fresh run and the eager
+    steps are timed."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.resilience import ResilientRunner
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ne_runner_"))
+    counters = ne_counters()
+    try:
+        wf, _ = neuroevolution_workflow(device)
+        for c in counters.values():
+            c.launches = 0
+        runner = ResilientRunner(wf, root, checkpoint_every=NE_RESILIENT_EVERY)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.run(wf.init(0), NE_RESILIENT_GENS, fresh=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        no_cpu_fallback(runner, "neuroevolution_resilient")
+        # A warm run: the segments' graphs (with the rollouts inline) are
+        # captured.
+        s0 = wf.init(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = ResilientRunner(wf, root, checkpoint_every=NE_RESILIENT_EVERY)
+        again = warm.run(s0, NE_RESILIENT_GENS, fresh=True)
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+        same_state(again, final, "neuroevolution_resilient: warm vs cold runner")
+        ewf, _ = neuroevolution_workflow(device)
+        eager_ms, eager_host_ms, eager = timed(lambda: _steps(ewf, ewf.init_step(ewf.init(0)), NE_RESILIENT_GENS - 1),
+                                               NE_RESILIENT_GENS)
+        leaves = same_state(final, eager, "neuroevolution_resilient: runner vs 30 eager steps")
+        out = {"config": "OpenES(2048), cartpole T=200, MLP 4-32-32-1, ResilientRunner(checkpoint_every=10), "
+                         "30 generations",
+               "card": card_line(), "launches": launches, "leaves_equal": leaves, "cold_wall_s": wall,
+               "ms_per_gen": {"runner_cold_wall": wall * 1e3 / NE_RESILIENT_GENS,
+                              "runner_warm_wall": warm_wall * 1e3 / NE_RESILIENT_GENS,
+                              "eager_event": eager_ms, "eager_host": eager_host_ms},
+               "cold_run": runner_stats(runner), "warm_run": runner_stats(warm)}
+        for k, v in launches.items():
+            if v == 0:
+                raise AssertionError(f"neuroevolution_resilient: {k} never launched")
+        del wf, ewf, final, eager, again
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_resilient_quickstart(device) -> dict:
+    """README's runner quick start on the card: PSO(64, ±32 in dim 16),
+    Ackley, ResilientRunner(checkpoint_every=25), 100 generations, run
+    twice on the same directory: the second call resumes at generation 100
+    and runs no segment."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.resilience import ResilientRunner
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    pop, dim, gens, every = QUICKSTART_RUNNER
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_quickstart_runner_"))
+    try:
+        def two_lines():
+            workflow = StdWorkflow(PSO(pop, -32.0 * torch.ones(dim), 32.0 * torch.ones(dim), device=device), Ackley())
+            runner = ResilientRunner(workflow, root / "run1", checkpoint_every=every)
+            return runner, runner.run(workflow.init(0), n_steps=gens)
+
+        first, state = two_lines()
+        second, again = two_lines()
+        expect(second.stats.resumed_from_generation, gens, "quick start rerun: resumed from")
+        expect(second.stats.segments_run, 0, "quick start rerun: segments run")
+        leaves = same_state(again, state, "quick start rerun vs first run")
+        no_cpu_fallback(first, "quick start")
+        return {"card": card_line(), "first": runner_stats(first), "second": runner_stats(second),
+                "leaves_equal": leaves, "best_fitness": float(state.algorithm.global_best_fit)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -4990,7 +5394,11 @@ def philox_row(results) -> dict:
         + results["hpo_main_path"]["launches"]["philox_draws"]
         + results["hpo_quickstart"]["launches"]["philox_draws"]
         # The sharded runs' generations (NSGA-II's draws).
-        + results["distributed_main_path"]["launches"]["philox_draws"],
+        + results["distributed_main_path"]["launches"]["philox_draws"]
+        # The resilient runner's setups, and neuroevolution_resilient's
+        # OpenES draws.
+        + results["resilient_main_path"]["launches"]["philox_draws"]
+        + results["neuroevolution_resilient"]["launches"]["philox_draws"],
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -5025,7 +5433,9 @@ def batched_rows(results) -> list[dict]:
          # The HPO paths: OpenES's normals for all candidates (hpo_ladder),
          # the inner PSO's setups (the quick start).
          + results["hpo_main_path"]["launches"]["philox_draws_batched"]
-         + results["hpo_quickstart"]["launches"]["philox_draws_batched"],
+         + results["hpo_quickstart"]["launches"]["philox_draws_batched"]
+         # neuroevolution_resilient's rollout resets.
+         + results["neuroevolution_resilient"]["launches"]["philox_draws_batched"],
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, and the rollouts' recorded resets.
          "max_abs_err": max(t["philox_draws_batched"]["max_abs_err"],
@@ -5162,6 +5572,10 @@ def main() -> int:
         ("hpo_quickstart", phase_hpo_quickstart),
         ("distributed_main_path", phase_distributed_main_path),
         ("checkpoint_main_path", phase_checkpoint_main_path),
+        ("resilient_main_path", phase_resilient_main_path),
+        ("resilient_recovery", phase_resilient_recovery),
+        ("neuroevolution_resilient", phase_neuroevolution_resilient),
+        ("resilient_quickstart", phase_resilient_quickstart),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -5185,6 +5599,9 @@ def main() -> int:
     # (distributed_8dev, the headline through ShardedProblem).
     routes["float32"] += results["hpo_main_path"]["launches"]["fused_pso_move"]
     routes["float32"] += results["distributed_main_path"]["launches"]["fused_pso_move"]
+    # The resilient runner's counted runs (pso_small_resilient's cold run,
+    # the headline under the runner).
+    routes["float32"] += results["resilient_main_path"]["launches"]["fused_pso_move"]
     emit("kernels", [
         {
             "name": "fused_pso_move",

@@ -38,6 +38,7 @@ __all__ = [
     "core",
     "hpo",
     "metrics",
+    "obs",
     "operators",
     "ops",
     "parallel",
@@ -80,7 +81,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 # Subpackages of the JAX package that are not ported yet: reaching one from
 # here raises ImportError by name.
-NOT_PORTED = ("control", "obs", "service", "vis_tools")
+NOT_PORTED = ("control", "service", "vis_tools")
 
 # Every ported subpackage, as the JAX package imports all of its own.  None
 # builds a kernel when imported (kernels are built on their first launch).
@@ -89,6 +90,7 @@ from . import (  # noqa: E402
     core,
     hpo,
     metrics,
+    obs,
     operators,
     ops,
     parallel,

@@ -1,22 +1,44 @@
-"""Run-health state scan (counterpart of the state scan of
-``evox_tpu/resilience/health.py``: :func:`scan_state`, ``_best_fitness_expr``,
-``_is_prng`` and ``_subtree``).
+"""Run-health diagnostics (counterpart of ``evox_tpu/resilience/health.py``).
 
 :func:`scan_state` is a pure ``state -> {metric: 0-dim tensor}`` function:
 every branch is on the structure of the state, every metric stays on the
 state's device, so it reads nothing back to the host and runs inside a
 captured CUDA graph.  Metric names and leaf-path names are the JAX
 package's (``"algorithm/pop"``: the keys of the nested states, joined by
-``/``).  ``HealthProbe``/``HealthReport`` are not ported yet.
+``/``).
+
+:class:`HealthProbe` scans a workflow state **between** the supervisor's
+segments and renders a structured :class:`HealthReport`:
+
+* **non-finite state** — any NaN/±Inf in any floating leaf of the state
+  (algorithm, problem, and monitor sub-states alike; key and integer
+  leaves are skipped, and leaves whose path matches ``nonfinite_skip`` are
+  exempt for algorithms that use ``inf`` as an in-band sentinel);
+* **diversity collapse** — the largest per-dimension spread (std over the
+  population axis) of ``state.algorithm.pop`` fell under
+  ``diversity_floor``;
+* **step-size out of range** — an ES ``sigma`` leaf left
+  ``step_size_range``;
+* **stagnation** — the best fitness (monitor top-k when available, else
+  ``min(state.algorithm.fit)``) improved less than ``stagnation_tol`` over
+  the last ``stagnation_window`` probes.
+
+A probe is one :func:`scan_state` on the state's device and ONE copy of
+all its scalars to the host.  The stagnation window is host-side state:
+the :class:`~evox_tpu_torch.resilience.ResilientRunner` persists it in
+each checkpoint's manifest so resumed runs replay probe decisions
+bit-identically.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Any, Iterator, Mapping, Sequence
 
 import torch
 
-__all__ = ["scan_state"]
+__all__ = ["HealthProbe", "HealthReport", "scan_state"]
 
 
 def _is_prng(leaf: Any, name: str | None = None) -> bool:
@@ -159,3 +181,294 @@ def _best_fitness_expr(state: Any, algo: Any):
     if _floating(fit) and fit.ndim == 1 and fit.numel() > 0:
         return torch.amin(fit)
     return None
+
+
+def _to_host(raw: Mapping[str, Any]) -> dict[str, Any]:
+    """``raw`` (a :func:`scan_state` dict) with every tensor read back to
+    the host in ONE copy: 0-dim metrics become Python floats (counts
+    ints), per-shard metrics lists.  The values are converted to float64
+    on the device first, which every int32 count and float32/bfloat16
+    value survives exactly."""
+    flat: list[tuple[tuple[str, ...], torch.Tensor]] = []
+
+    def walk(node: Mapping[str, Any], path: tuple[str, ...]) -> None:
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+            else:
+                flat.append((path + (k,), v))
+
+    walk(raw, ())
+    if not flat:
+        return {}
+    device = flat[0][1].device
+    values = torch.cat([t.detach().reshape(-1).to(device=device, dtype=torch.float64) for _, t in flat]).tolist()
+    out: dict[str, Any] = {}
+    pos = 0
+    for path, t in flat:
+        n = t.numel()
+        chunk = values[pos : pos + n]
+        pos += n
+        if not t.is_floating_point():
+            chunk = [int(v) for v in chunk]
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = chunk if t.ndim else chunk[0]
+    return out
+
+
+@dataclass
+class HealthReport:
+    """Structured verdict of one :meth:`HealthProbe.check` call (the JAX
+    package's fields).
+
+    ``healthy`` is the conjunction of the individual detectors; ``reasons``
+    carries one human-readable line per tripped detector (empty when
+    healthy).  Metric fields are ``None`` when the corresponding detector
+    did not apply to this state (no ``pop`` leaf, no ``sigma`` leaf, window
+    not yet full, ...)."""
+
+    generation: int
+    healthy: bool
+    reasons: list[str] = field(default_factory=list)
+    nonfinite_leaves: dict[str, int] = field(default_factory=dict)
+    diversity: float | None = None
+    diversity_collapse: bool = False
+    step_size_min: float | None = None
+    step_size_max: float | None = None
+    step_size_out_of_range: bool = False
+    best_fitness: float | None = None
+    stagnation_improvement: float | None = None
+    stagnating: bool = False
+    # Per-shard aggregation (``HealthProbe(shards=N)``; ``None`` when the
+    # probe is shard-blind).
+    shard_nonfinite: list[int] | None = None
+    dead_shards: list[int] = field(default_factory=list)
+    shard_diversity: list[float] | None = None
+    collapsed_shards: list[int] = field(default_factory=list)
+    # True when the unhealthy verdict came from a trend analysis rather
+    # than the probe's threshold detectors — see :meth:`with_trend`.
+    trend: bool = False
+
+    def with_trend(self, reasons: Sequence[str]) -> "HealthReport":
+        """A copy of this report rendered unhealthy by a trend verdict:
+        ``healthy=False``, ``trend=True``, the trend reasons appended after
+        any probe reasons; the metric fields are untouched."""
+        return dataclasses.replace(self, healthy=False, trend=True, reasons=[*self.reasons, *reasons])
+
+
+class HealthProbe:
+    """Between-segment state scanner producing :class:`HealthReport`
+    verdicts (the JAX package's detectors, thresholds and messages).
+
+    Usage (standalone)::
+
+        probe = HealthProbe(diversity_floor=1e-6, stagnation_window=5)
+        report = probe.check(state, generation=120)
+        if not report.healthy:
+            print(report.reasons)
+
+    Usage (supervised — the intended path)::
+
+        runner = ResilientRunner(
+            wf, "ckpts/run",
+            health=HealthProbe(stagnation_window=5, stagnation_tol=1e-9),
+            restart=RollbackToCheckpoint(),
+        )
+
+    Each ``check`` is one :func:`scan_state` on the state's device and one
+    copy of its scalars to the host.  The JAX package's per-lane windows
+    (``check_lanes`` and friends) serve the multi-tenant service and come
+    with it (ROADMAP Queue 1, item 13.8).  Determinism: ``check`` is a pure
+    function of ``(state, the probe's stagnation window)``; the runner
+    checkpoints the window, so a resumed run reaches identical verdicts.
+
+    :param check_nonfinite: scan every floating leaf of the state for
+        NaN/±Inf (key and integer/bool leaves are skipped).
+    :param nonfinite_skip: path substrings (e.g. ``"archive_fit"``) whose
+        leaves are exempt from the non-finite scan.
+    :param diversity_floor: flag diversity collapse when the *largest*
+        per-dimension std of ``state.algorithm.pop`` drops below this;
+        ``None`` disables the detector.
+    :param step_size_range: ``(lo, hi)`` bounds on the ``sigma`` leaf of
+        the algorithm state; ``None`` disables.
+    :param stagnation_window: flag stagnation when the best fitness
+        improved by less than ``stagnation_tol`` over this many
+        consecutive probes; ``0`` disables, and ``>= 2`` is required
+        otherwise.  With a runner this counts segment boundaries.
+    :param stagnation_tol: minimum improvement (in the minimizing fitness
+        frame) the window must show to count as progress.
+    :param shards: shard count of the distributed run this probe watches:
+        adds per-shard non-finite counts and spreads, a **dead-shard**
+        verdict when an entire shard's fitness is non-finite and, with
+        ``diversity_floor``, a **collapsed-shard** verdict.  ``None``
+        (default) disables.
+    """
+
+    def __init__(
+        self,
+        *,
+        check_nonfinite: bool = True,
+        nonfinite_skip: Sequence[str] = (),
+        diversity_floor: float | None = None,
+        step_size_range: tuple[float, float] | None = (1e-12, 1e6),
+        stagnation_window: int = 0,
+        stagnation_tol: float = 0.0,
+        shards: int | None = None,
+    ):
+        if stagnation_window < 0 or stagnation_window == 1:
+            # A window of 1 compares a value against itself: improvement is
+            # identically 0 and every probe reads as stagnant.
+            raise ValueError(
+                f"stagnation_window must be 0 (disabled) or >= 2 (a window "
+                f"of 1 cannot measure improvement), got {stagnation_window}"
+            )
+        if step_size_range is not None and not (step_size_range[0] <= step_size_range[1]):
+            raise ValueError(f"step_size_range must be (lo, hi) with lo <= hi, got {step_size_range}")
+        if shards is not None and shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        self.check_nonfinite = check_nonfinite
+        self.nonfinite_skip = tuple(nonfinite_skip)
+        self.diversity_floor = diversity_floor
+        self.step_size_range = step_size_range
+        self.stagnation_window = int(stagnation_window)
+        self.stagnation_tol = float(stagnation_tol)
+        self.shards = None if shards is None else int(shards)
+        self._window: list[float] = []
+
+    # -- host-side window (persisted via checkpoint manifests) --------------
+    @property
+    def window(self) -> tuple[float, ...]:
+        """Best-fitness values of the most recent probes (newest last)."""
+        return tuple(self._window)
+
+    def reset(self) -> None:
+        """Clear the stagnation window (a fresh run's probe history)."""
+        self._window = []
+
+    def restore(self, window: Sequence[float]) -> None:
+        """Restore the stagnation window from a checkpoint manifest so a
+        resumed run replays probe decisions identically."""
+        self._window = [float(x) for x in window]
+        if self.stagnation_window:
+            del self._window[: -self.stagnation_window]
+
+    # -- the scan ------------------------------------------------------------
+    def _scan_impl(self, state: Any) -> dict[str, Any]:
+        return scan_state(
+            state,
+            check_nonfinite=self.check_nonfinite,
+            nonfinite_skip=self.nonfinite_skip,
+            diversity=self.diversity_floor is not None,
+            step_size=self.step_size_range is not None,
+            shards=self.shards,
+        )
+
+    def check(self, state: Any, generation: int = 0) -> HealthReport:
+        """Scan ``state`` and return a :class:`HealthReport`.
+
+        Appends to the stagnation window as a side effect — call exactly
+        once per segment boundary (the runner does)."""
+        return self._verdict(_to_host(self._scan_impl(state)), generation, self._window)
+
+    def _verdict(self, raw: Mapping[str, Any], generation: int, window: list[float]) -> HealthReport:
+        """Threshold one (host-side) metric dict into a report, advancing
+        the given stagnation window in place."""
+        reasons: list[str] = []
+
+        nonfinite = {name: int(n) for name, n in raw.get("nonfinite", {}).items() if int(n) > 0}
+        if nonfinite:
+            listed = ", ".join(f"{k} ({v})" for k, v in sorted(nonfinite.items()))
+            reasons.append(f"non-finite values in state leaves: {listed}")
+
+        diversity = raw.get("diversity")
+        diversity = None if diversity is None else float(diversity)
+        diversity_collapse = (
+            self.diversity_floor is not None and diversity is not None and diversity < self.diversity_floor
+        )
+        if diversity_collapse:
+            reasons.append(
+                f"population diversity collapsed: max per-dimension spread "
+                f"{diversity:.3e} < floor {self.diversity_floor:.3e}"
+            )
+
+        shard_nonfinite = raw.get("shard_nonfinite")
+        dead_shards: list[int] = []
+        if shard_nonfinite is not None:
+            shard_nonfinite = [int(n) for n in shard_nonfinite]
+            shard_rows = [int(r) for r in raw["shard_rows"]]
+            # A shard is dead when EVERY row it owns is non-finite; shards
+            # owning zero rows (ragged tails) have nothing to be dead about.
+            dead_shards = [
+                s for s, (n, rows) in enumerate(zip(shard_nonfinite, shard_rows)) if rows > 0 and n == rows
+            ]
+            if dead_shards:
+                reasons.append(f"dead shard(s) {dead_shards}: every fitness row of the shard is non-finite")
+        shard_diversity = raw.get("shard_diversity")
+        collapsed_shards: list[int] = []
+        if shard_diversity is not None:
+            shard_diversity = [float(d) for d in shard_diversity]
+            if self.diversity_floor is not None:
+                collapsed_shards = [s for s, d in enumerate(shard_diversity) if d < self.diversity_floor]
+            if collapsed_shards:
+                reasons.append(
+                    f"collapsed shard(s) {collapsed_shards}: per-shard "
+                    f"population spread under the "
+                    f"{self.diversity_floor:.3e} floor"
+                )
+
+        ss_min = raw.get("step_size_min")
+        ss_min = None if ss_min is None else float(ss_min)
+        ss_max = raw.get("step_size_max")
+        ss_max = None if ss_max is None else float(ss_max)
+        step_size_out_of_range = False
+        if self.step_size_range is not None and ss_min is not None:
+            lo, hi = self.step_size_range
+            # A NaN sigma is out of range too (comparisons are False, so
+            # test the healthy band and negate).
+            inside = (ss_min >= lo) and (ss_max <= hi)
+            step_size_out_of_range = not inside
+            if step_size_out_of_range:
+                reasons.append(
+                    f"step size out of range: sigma in [{ss_min:.3e}, "
+                    f"{ss_max:.3e}], allowed [{lo:.3e}, {hi:.3e}]"
+                )
+
+        best = raw.get("best_fitness")
+        best = None if best is None else float(best)
+        stagnating = False
+        improvement = None
+        if self.stagnation_window > 0 and best is not None:
+            window.append(best)
+            del window[: -self.stagnation_window]
+            if len(window) == self.stagnation_window:
+                improvement = window[0] - window[-1]
+                # NaN improvement compares False -> not flagged here; the
+                # non-finite detector owns that failure mode.
+                stagnating = improvement <= self.stagnation_tol
+                if stagnating:
+                    reasons.append(
+                        f"best fitness stagnating: improvement "
+                        f"{improvement:.3e} <= tol {self.stagnation_tol:.3e} "
+                        f"over the last {self.stagnation_window} probes"
+                    )
+
+        return HealthReport(
+            generation=int(generation),
+            healthy=not reasons,
+            reasons=reasons,
+            nonfinite_leaves=nonfinite,
+            diversity=diversity,
+            diversity_collapse=diversity_collapse,
+            step_size_min=ss_min,
+            step_size_max=ss_max,
+            step_size_out_of_range=step_size_out_of_range,
+            best_fitness=best,
+            stagnation_improvement=improvement,
+            stagnating=stagnating,
+            shard_nonfinite=shard_nonfinite,
+            dead_shards=dead_shards,
+            shard_diversity=shard_diversity,
+            collapsed_shards=collapsed_shards,
+        )

@@ -743,6 +743,7 @@ class AsyncCheckpointWriter:
         self._job: tuple | None = None
         self._busy = False
         self._closed = False
+        self._stopping = False
         self._thread: threading.Thread | None = None
         self._errors: list[tuple[Path, BaseException]] = []
         self._streams: dict[torch.device, Any] = {}
@@ -765,7 +766,7 @@ class AsyncCheckpointWriter:
         while True:
             with self._cv:
                 deadline = time.monotonic() + self._idle_timeout
-                while self._job is None and not self._closed:
+                while self._job is None and not self._closed and not self._stopping:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
                         self._thread = None
@@ -915,6 +916,24 @@ class AsyncCheckpointWriter:
                 "Seconds callers spent blocked on submit/barrier waits.",
                 amount=time.perf_counter() - t0,
             )
+
+    def stop(self, timeout: float | None = None) -> bool:
+        """Barrier, then end the worker thread and wait for it; unlike
+        :meth:`close` the writer stays usable (the next submit starts a new
+        thread) and keeps its pinned buffers.  ``False`` on timeout."""
+        ok = self.barrier(timeout)
+        with self._cv:
+            thread = self._thread
+            self._stopping = True
+            self._cv.notify_all()
+        try:
+            if thread is not None:
+                thread.join(timeout)
+                ok = ok and not thread.is_alive()
+        finally:
+            with self._cv:
+                self._stopping = False
+        return ok
 
     def pop_errors(self) -> list[tuple[Path, BaseException]]:
         """Drain and return the ``(path, exception)`` records of failed

@@ -37,7 +37,7 @@ import torch
 
 from ..core import State
 
-__all__ = ["Cache", "flatten", "unflatten", "structure", "replays", "run"]
+__all__ = ["Cache", "flatten", "unflatten", "structure", "replays", "prepare", "run"]
 
 # Captures a cache keeps (each holds its outputs, one state's worth, in the
 # shared pool); the least recently used one is dropped beyond it.
@@ -177,6 +177,62 @@ def _capture(program: Callable, inputs, spec, leaves, struct, n: int, pool) -> _
     return _Captured(graph, struct, carry_leaves, carry_spec, out_leaves, out_spec, static)
 
 
+def _captured(
+    cache: Cache, key: Any, program: Callable, carry: Any, n: int, before: Callable[[], None] | None = None
+) -> tuple[_Captured, list, list, bool]:
+    """The capture of ``program`` for ``key``, the carry's structure and
+    ``n`` (made now when the cache has none, after calling ``before``), its
+    static input buffers, the carry's leaves, and whether it was captured
+    by this call."""
+    leaves, spec = flatten(carry)
+    if not leaves:
+        raise ValueError("a fused segment needs a state with tensors")
+    device = leaves[0].device
+    for t in leaves:
+        if t.device != device or device.type != "cuda":
+            raise ValueError(
+                f"a fused segment on the card needs every state tensor on one CUDA device; "
+                f"found {t.device} beside {device}"
+            )
+    struct = structure(carry)
+    ident = (key, struct, n)
+    inputs = cache.inputs.get(struct)
+    if inputs is None:
+        inputs = cache.inputs[struct] = [t.clone() for t in leaves]
+    cap = cache.graphs.get(ident)
+    if cap is not None:
+        cache.graphs.move_to_end(ident)
+        return cap, inputs, leaves, False
+    if before is not None:
+        before()
+    if cache.pool is None:
+        cache.pool = torch.cuda.graph_pool_handle()
+    try:
+        cap = _capture(program, inputs, spec, leaves, struct, n, cache.pool)
+    except BaseException:
+        cache._prune()  # a failed capture keeps no static buffers
+        raise
+    cache._add(ident, cap)
+    return cap, inputs, leaves, True
+
+
+def prepare(
+    cache: Cache,
+    key: Any,
+    program: Callable[[Any, int], tuple[Any, Any, Any]],
+    carry: Any,
+    n: int,
+    before: Callable[[], None] | None = None,
+) -> bool:
+    """Capture the graph :func:`run` would replay for these arguments,
+    without replaying it; returns whether a capture was made (``False``
+    when the cache already holds it).  ``before`` is called just before a
+    capture (a caller quiets its other threads' CUDA work there: a capture
+    refuses some of it).  The capture's warm-up generation runs on a clone
+    of ``carry``, which is left as it is."""
+    return _captured(cache, key, program, carry, n, before)[3]
+
+
 def run(
     cache: Cache,
     key: Any,
@@ -197,34 +253,8 @@ def run(
     :param carry: the nest of CUDA tensors that the generations evolve.
     :returns: ``(carry, outs, static)`` with fresh tensors.
     """
-    leaves, spec = flatten(carry)
-    if not leaves:
-        raise ValueError("a fused segment needs a state with tensors")
+    cap, inputs, leaves, _ = _captured(cache, key, program, carry, n)
     device = leaves[0].device
-    for t in leaves:
-        if t.device != device or device.type != "cuda":
-            raise ValueError(
-                f"a fused segment on the card needs every state tensor on one CUDA device; "
-                f"found {t.device} beside {device}"
-            )
-    struct = structure(carry)
-    ident = (key, struct, n)
-    inputs = cache.inputs.get(struct)
-    if inputs is None:
-        inputs = cache.inputs[struct] = [t.clone() for t in leaves]
-    cap = cache.graphs.get(ident)
-    if cap is None:
-        if cache.pool is None:
-            cache.pool = torch.cuda.graph_pool_handle()
-        try:
-            cap = _capture(program, inputs, spec, leaves, struct, n, cache.pool)
-        except BaseException:
-            cache._prune()  # a failed capture keeps no static buffers
-            raise
-        cache._add(ident, cap)
-    else:
-        cache.graphs.move_to_end(ident)
-
     current = torch.cuda.current_stream(device)
     if cache.stream is not None and cache.stream != current:
         # The static buffers and the pool are shared by every call: order

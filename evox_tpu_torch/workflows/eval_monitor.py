@@ -299,6 +299,36 @@ class EvalMonitor(Monitor):
             num_shard_quarantines=state.num_shard_quarantines + shard_mask.sum(dtype=torch.int32)
         )
 
+    def record_restart(self, state: State) -> State:
+        """Count an automatic restart (fired by a supervising
+        ``ResilientRunner`` restart policy) into the cumulative
+        ``num_restarts`` counter.  Runs between segments; the counter lives
+        in the monitor state, so it is checkpointed and survives
+        kill-and-resume with the rest of the run."""
+        if "num_restarts" not in state:
+            return state
+        return state.replace(num_restarts=state.num_restarts + 1)
+
+    def record_preemption(self, state: State) -> State:
+        """Count a graceful preemption (a signal or maintenance event caught
+        by a supervising ``PreemptionGuard``) into ``num_preemptions``, at
+        the tripping boundary, just before the emergency checkpoint is
+        written — so the counter the resumed run restores includes it."""
+        if "num_preemptions" not in state:
+            return state
+        return state.replace(num_preemptions=state.num_preemptions + 1)
+
+    def truncate_history(self, generation: int) -> None:
+        """Drop history entries tagged PAST ``generation`` — rollback
+        support: a run restarted from an earlier checkpoint replays those
+        generations, and the stale entries would otherwise sit beside (and,
+        for the unordered accessors, collide with) the replay's.  Entries
+        at or before ``generation`` are the ones the restored state's
+        trajectory already produced, so they stay.  Reads each entry's
+        generation tag on the host."""
+        for data_type in list(self._history):
+            self._history[data_type] = [e for e in self._history[data_type] if int(e[0]) <= generation]
+
     # -- history accessors (host side) --------------------------------------
     def clear_history(self) -> None:
         """Drop this monitor's history (state-side top-k and latest buffers

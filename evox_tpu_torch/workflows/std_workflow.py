@@ -34,10 +34,15 @@ captured with the generations of a fused segment into its CUDA graph.
 ``quarantine_granularity="shard"`` condemns every row of a shard that
 produced a non-finite row.
 
+The flight recorder's signals (``segment_config(flight=True)``,
+``run_segment(flight=True)``): :func:`~evox_tpu_torch.obs.flight_signals`
+of every generation's state, stacked as ``telemetry["flight"]`` — tensor
+reductions captured with the generations, which the state they compute
+does not depend on.
+
 Not ported yet, and refused with :class:`NotImplementedError` rather than
-ignored: ``run``/``run_segment`` under ``torch.func.vmap``, and the segment
-options of the service and observability layers (``frozen=``/lane freeze,
-``flight=True``).
+ignored: ``run``/``run_segment`` under ``torch.func.vmap``, and the
+service layer's segment option (``frozen=``/lane freeze).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..core import Algorithm, Monitor, Problem, State, Workflow
+from ..obs.flight import flight_signals
 from ..parallel import ShardedProblem, find_sharded, iter_problem_chain, make_pop_mesh, shard_row_ids
 from ..resilience.health import _best_fitness_expr, _subtree, scan_state
 from ..utils import rng
@@ -69,9 +75,10 @@ class SegmentConfig(NamedTuple):
     unhealthy state is the segment's last that counts: every later one is
     computed and its result dropped by a per-leaf select (a graph cannot
     skip work), so the state stays frozen.  ``barrier`` is accepted and has
-    no effect (eager PyTorch fuses nothing it could pin).  ``lane_freeze``
-    and ``flight`` belong to layers not ported yet and must stay False.
-    Build one with :meth:`StdWorkflow.segment_config`."""
+    no effect (eager PyTorch fuses nothing it could pin).  ``flight``
+    stacks the flight recorder's signals of every generation.
+    ``lane_freeze`` belongs to the service layer, not ported yet, and must
+    stay False.  Build one with :meth:`StdWorkflow.segment_config`."""
 
     capture_history: bool = True
     metrics: bool = True
@@ -561,14 +568,14 @@ class StdWorkflow(Workflow):
             it the metric set mirrors :meth:`health_metrics` and the early
             stop watches non-finite state only.
         :param barrier: accepted for the JAX signature; no effect.
-        :param lane_freeze, flight: not yet ported (the service layer and
-            the flight recorder); ``True`` raises
-            :class:`NotImplementedError`.
+        :param flight: stack the flight recorder's per-generation signals
+            (:func:`~evox_tpu_torch.obs.flight_signals` of each stepped
+            state, raw form) as ``telemetry["flight"]``.
+        :param lane_freeze: not yet ported (the service layer); ``True``
+            raises :class:`NotImplementedError`.
         """
         if lane_freeze:
             raise NotImplementedError("segment lane freeze (frozen=, the service layer) is not yet ported")
-        if flight:
-            raise NotImplementedError("segment flight=True (the flight recorder) is not yet ported")
         if health is not None:
             step_range = getattr(health, "step_size_range", None)
             return SegmentConfig(
@@ -583,6 +590,7 @@ class StdWorkflow(Workflow):
                 step_size_range=None if step_range is None else tuple(step_range),
                 stop_on_unhealthy=bool(stop_on_unhealthy),
                 barrier=bool(barrier),
+                flight=bool(flight),
             )
         return SegmentConfig(
             capture_history=bool(capture_history),
@@ -593,6 +601,7 @@ class StdWorkflow(Workflow):
             shards=self._n_shards,
             stop_on_unhealthy=bool(stop_on_unhealthy),
             barrier=bool(barrier),
+            flight=bool(flight),
         )
 
     def _capture_step(self, state: State, meta_out: list, capture: bool, which: str = "step"):
@@ -680,6 +689,10 @@ class StdWorkflow(Workflow):
             best = _best_fitness_expr(new_st, algo if algo is not None else new_st)
             if best is not None:
                 out["best_fitness"] = best
+            if cfg.flight:
+                # Reductions of the stepped state, outputs only: the carry
+                # never reads them.
+                out["flight"] = flight_signals(new_st, raw=True)
             if not cfg.stop_on_unhealthy:
                 return (new_st,), out
             _, stopped, executed = carry
@@ -702,7 +715,10 @@ class StdWorkflow(Workflow):
 
         return program
 
-    def _run_segment(self, state: State, n_steps: int, cfg: SegmentConfig):
+    def _segment_plan(self, state: State, n_steps: int, cfg: SegmentConfig):
+        """``(device, carry, program, key)`` of a segment: ``key`` is the
+        graph cache's key on the card, ``None`` where the generations run
+        eagerly (the CPU, and ``capture_history=False``)."""
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         if torch._C._functorch.peek_interpreter_stack() is not None:
@@ -722,6 +738,7 @@ class StdWorkflow(Workflow):
                 torch.zeros((), dtype=torch.int32, device=device),
             )
         program = self._segment_program(cfg)
+        key = None
         if device.type == "cuda" and cfg.capture_history:
             if not self.problem.capturable:
                 raise NotImplementedError(
@@ -733,6 +750,33 @@ class StdWorkflow(Workflow):
             # only in the early stop's predicate, inside the graph).
             shards = cfg.shards if cfg.stop_on_unhealthy else None
             key = ("step", cfg._replace(metrics=False, diversity=False, step_size=False, shards=shards))
+        return device, carry, program, key
+
+    def prepare_segment(
+        self, state: State, n_steps: int, cfg: SegmentConfig, before: Callable[[], None] | None = None
+    ) -> bool:
+        """Capture, without replaying it, the CUDA graph that
+        :meth:`_run_segment` would replay for ``(state, n_steps, cfg)``;
+        returns whether a capture was made now (``False`` on the CPU, in
+        the eager debug mode, and when the graph is already captured).  The
+        capture's warm-up generation steps a clone of ``state``.  The
+        resilient runner calls this before a segment, so the capture (the
+        counterpart of the JAX package's ahead-of-time compile) is timed
+        apart from the replay.  ``before`` is called just before a capture
+        is made."""
+        _, carry, program, key = self._segment_plan(state, int(n_steps), cfg)
+        if key is None:
+            return False
+        return graph.prepare(self._graphs, key, program, carry, int(n_steps), before)
+
+    def reset_graphs(self) -> None:
+        """Drop every captured segment and its memory pool (a changed
+        algorithm must not replay a graph of the old one)."""
+        self._graphs = graph.Cache()
+
+    def _run_segment(self, state: State, n_steps: int, cfg: SegmentConfig):
+        device, carry, program, key = self._segment_plan(state, n_steps, cfg)
+        if key is not None:
             carry, outs, meta = graph.run(self._graphs, key, program, carry, n_steps)
         else:
             # The CPU, and the per-generation debug mode: the same
@@ -747,6 +791,8 @@ class StdWorkflow(Workflow):
         telemetry: dict[str, Any] = {"stopped": stopped, "executed": executed, "sinks": outs["sinks"]}
         if "best_fitness" in outs:
             telemetry["best_fitness"] = outs["best_fitness"]
+        if "flight" in outs:
+            telemetry["flight"] = outs["flight"]
         if cfg.metrics:
             telemetry["metrics"] = self._scan_metrics(final, cfg)
         # The sites' identities, fixed when the segment was captured (a CPU
@@ -795,12 +841,16 @@ class StdWorkflow(Workflow):
             best_fitness  (n,)    — per-generation best (minimizing
                                     frame), when the state exposes one
             metrics       dict    — scan_state() of the final state
+            flight        dict    — with ``flight=True``, the flight
+                                    recorder's raw signals, each (n,)
+                                    (:func:`evox_tpu_torch.obs.flight_signals`)
             sink_meta     (k, 2)  — int32 (history_type, slot) of each sink
                                     site (a CPU tensor)
 
         :param barrier: accepted for the JAX signature; no effect.
-        :param frozen, flight: not yet ported; any other value than the
-            default raises :class:`NotImplementedError`.
+        :param frozen: not yet ported (the service layer's lane freeze);
+            any other value than ``None`` raises
+            :class:`NotImplementedError`.
         """
         if frozen is not None:
             raise NotImplementedError("run_segment(frozen=...) (the service layer's lane freeze) is not yet ported")

@@ -1720,3 +1720,97 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     assert writer.close(timeout=120) and not writer.pop_errors()
     _same_state(load_state(tmp_path / "a.npz", wf.init(2)), s)
     assert s2.algorithm.pop.device.type == "cuda"
+
+
+def _runner_pso(cuda, problem=None, pop=1024, dim=100):
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    algo = PSO(pop, torch.full((dim,), -32.0), torch.full((dim,), 32.0), device=cuda)
+    return StdWorkflow(algo, problem if problem is not None else Ackley(), monitor=EvalMonitor())
+
+
+def test_resilient_runner_equals_run_on_the_card(cuda, tmp_path):
+    """pso_small_resilient's shape: the runner's fused segments (captured
+    graphs) end where run(n) and n eager steps end, bit for bit, with one
+    copy to the host a segment; a second call resumes and does nothing."""
+    from evox_tpu_torch.resilience import ResilientRunner
+
+    wf = _runner_pso(cuda)
+    runner = ResilientRunner(wf, tmp_path, checkpoint_every=25)
+    out = runner.run(wf.init(0), 60, fresh=True)
+    assert runner.stats.chunk_sizes == [25, 25, 9] and runner.stats.cpu_fallbacks == 0
+    assert [t.compile_seconds > 0 for t in runner.stats.segment_timings] == [False, True, False, True]
+    ref = _runner_pso(cuda)
+    _same_state(out, ref.run(ref.init(0), 60))
+    eager = ref.init_step(ref.init(0))
+    for _ in range(59):
+        eager = ref.step(eager)
+    _same_state(out, eager)
+    again = ResilientRunner(_runner_pso(cuda), tmp_path, checkpoint_every=25)
+    _same_state(again.run(_runner_pso(cuda).init(0), 60), out)
+    assert again.stats.segments_run == 0
+
+
+def test_host_faults_step_eagerly_on_the_card(cuda, tmp_path):
+    """A FaultyProblem with host faults is not capturable: the runner steps
+    its segments eagerly, on the card (never the CPU), and a retried error
+    ends where the clean run does; device faults stay in the graph."""
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.resilience import FaultyProblem, ResilientRunner, RetryPolicy
+
+    prob = FaultyProblem(Ackley(), error_generations=(7,), nan_generations=(3,), nan_rows=4)
+    assert not prob.capturable
+    wf = _runner_pso(cuda, prob, pop=64, dim=16)
+    runner = ResilientRunner(wf, tmp_path / "f", checkpoint_every=5, retry=RetryPolicy(backoff_base=0.001))
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = runner.run(wf.init(0), 16)
+    assert out.algorithm.pop.device.type == "cuda" and len(wf._graphs) == 0
+    assert runner.stats.retries == 1 and runner.stats.cpu_fallbacks == 0 and int(out.monitor.num_nonfinite) == 4
+    clean = _runner_pso(cuda, FaultyProblem(Ackley(), nan_generations=(3,), nan_rows=4), pop=64, dim=16)
+    assert clean.problem.capturable
+    ref = ResilientRunner(clean, tmp_path / "c", checkpoint_every=5).run(clean.init(0), 16)
+    assert len(clean._graphs) > 0
+    _same_state(out, ref)
+
+
+def test_retry_waits_for_an_abandoned_replay(cuda, tmp_path):
+    """A replay still running when the watchdog abandons it: the retry
+    waits for its event before it writes the graph's static buffers or
+    replays it, and the run ends where the clean run does."""
+    from evox_tpu_torch.resilience import ResilientRunner, RetryPolicy, WatchdogTimeout
+
+    wf = _runner_pso(cuda, pop=256, dim=32)
+    runner = ResilientRunner(wf, tmp_path / "w", checkpoint_every=5, watchdog_timeout=0.5,
+                             retry=RetryPolicy(backoff_base=0.001))
+    real = wf._run_segment
+    slowed = []
+
+    def slow_once(state, n, cfg):
+        if not slowed:
+            slowed.append(1)
+            torch.cuda._sleep(2_400_000_000)  # ~1.2 s of a ~2 GHz SM clock on the stream
+        return real(state, n, cfg)
+
+    wf._run_segment = slow_once
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = runner.run(wf.init(0), 16)
+    assert runner.stats.watchdog_timeouts >= 1 and runner._abandoned is None
+    ref = _runner_pso(cuda, pop=256, dim=32)
+    _same_state(out, ref.run(ref.init(0), 16))
+    assert issubclass(WatchdogTimeout, RuntimeError)
+
+
+def test_cpu_fallback_is_refused_on_the_card(cuda, tmp_path):
+    from evox_tpu_torch.resilience import ResilientRunner
+
+    wf = _runner_pso(cuda, pop=64, dim=16)
+    with pytest.raises(NotImplementedError, match="cpu_fallback"):
+        ResilientRunner(wf, tmp_path, cpu_fallback=True).run(wf.init(0), 5)

@@ -240,8 +240,12 @@ def test_segment_refusals_and_not_ported_options():
     with pytest.raises(ValueError, match="init_step"):
         wf.run_segment(s, 2)  # the monitor's top-k appears in the first generation
     s = wf.init_step(s)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        wf.run_segment(s, 2, flight=True)
+    # flight=True is ported (obs/flight.py): the signals ride as outputs and
+    # the state is the flight-off segment's bit for bit.
+    s_flight, tel = wf.run_segment(s, 2, flight=True)
+    s_plain, _ = wf.run_segment(s, 2)
+    _same_state(s_flight, s_plain)
+    assert tel.flight["best_fitness"].shape == (2,) and "_pop_sumsq" in tel.flight
     with pytest.raises(NotImplementedError, match="not yet ported"):
         wf.run_segment(s, 2, frozen=torch.tensor(False))
 
