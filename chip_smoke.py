@@ -64,8 +64,17 @@ health probe and rollback, 1.2 GB checkpoints; ``resilient_recovery``:
 kill and resume, a torn checkpoint, NaN/Inf rows in the captured
 segments, a retried backend error, a watchdog trip, a real SIGTERM, each
 bit-equal to the uninterrupted run; ``neuroevolution_resilient``;
-``resilient_quickstart``: the README's runner quick start run twice),
-checks that each path went through its kernels, and times them.  It prints one JSON line per
+``resilient_quickstart``: the README's runner quick start run twice), then
+the control plane (``hpo_runner_main_path``: hpo_ladder under
+``HPORunner(checkpoint_every=4)`` for 16 outer generations against run(16)
+and eager steps bit for bit, its per-candidate inner histories against the
+twin's telemetry, host syncs a segment, a SIGTERM and resume, with an
+``IntrospectionEndpoint`` scraped throughout; ``hpo_grow``: the growth
+ladder 1024 -> 2048 under a journaled ``Controller``, the memory around
+it, a resume across it; ``controller_cadence``: pso_small_resilient under
+self-tuning cadence, bit-equal to the controller-off run, and a journaled
+trend restart), checks that each path went through its kernels, and times
+them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -5302,6 +5311,577 @@ def phase_resilient_quickstart(device) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the control plane and the HPO runner (Controller, HPORunner, GrowthLadder) ---
+
+HPO_RUNNER_GENS, HPO_RUNNER_EVERY = 16, 4
+HPO_SIGTERM_AFTER = 5  # the SIGTERM follows the publish of this generation's checkpoint
+HPO_GROW_MAX = 2048
+# A tolerance at which the first consult grows: any finite slope projects
+# less improvement than this (the deciders' thresholds are held on the CPU).
+HPO_GROW_TOL = 1e30
+HPO_GROW_CUT = 9  # the cut run of the resume across a growth stops at this boundary
+CONTROL_GENS, CONTROL_EVERY = 100, 25
+CONTROL_TARGET_GENS = 6  # target_seconds: the measured execute time of this many generations
+TREND_GENS, TREND_EVERY = 41, 4
+SCRAPE_PATHS = ("/metrics", "/healthz", "/flightz/hpo_ladder")
+SCRAPE_PAUSE_S = 0.01  # between two rounds of the scraper (it shares the interpreter with the runner)
+
+
+def pool_bytes(pools) -> dict | None:
+    """Bytes of the card's memory segments in the private pools ``pools``
+    (a set of pool ids): in all, and in blocks still allocated
+    (``torch.cuda.memory_snapshot``, host-side allocator state); ``None``
+    when the snapshot names no pools."""
+    import torch
+
+    total = active = 0
+    for seg in torch.cuda.memory_snapshot():
+        if "segment_pool_id" not in seg:
+            return None
+        if tuple(seg["segment_pool_id"]) in pools:
+            total += int(seg["total_size"])
+            active += sum(int(b["size"]) for b in seg.get("blocks", ()) if b.get("state") != "inactive")
+    return {"total": total, "active": active}
+
+
+def graph_pool_bytes(cache) -> int | None:
+    """Bytes of the card's memory segments in a graph cache's private pool
+    (0 when it captured nothing); ``None`` when the snapshot names no
+    pools."""
+    if cache.pool is None:
+        return 0
+    got = pool_bytes({tuple(cache.pool)})
+    return None if got is None else got["total"]
+
+
+def gb(nbytes) -> float | None:
+    return None if nbytes is None else nbytes / 1e9
+
+
+def memory_now() -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {"allocated_gb": torch.cuda.memory_allocated() / 1e9, "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+
+@contextlib.contextmanager
+def scraping(url, paths):
+    """A thread that GETs ``paths`` of an introspection endpoint in turn
+    while the block runs; yields its tally (requests, failures by path,
+    the first errors)."""
+    import threading
+    import urllib.request
+
+    tally = {"requests": 0, "failed": 0, "by_path": {p: 0 for p in paths}, "errors": []}
+    stop = threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            for p in paths:
+                try:
+                    with urllib.request.urlopen(url + p, timeout=10) as resp:
+                        resp.read()
+                        ok = resp.status == 200
+                except Exception as e:  # noqa: BLE001 - tallied as a failed scrape
+                    ok = False
+                    if len(tally["errors"]) < 5:
+                        tally["errors"].append(f"{p}: {type(e).__name__}: {e}")
+                tally["requests"] += 1
+                tally["by_path"][p] += 1
+                tally["failed"] += 0 if ok else 1
+            stop.wait(SCRAPE_PAUSE_S)
+
+    thread = threading.Thread(target=loop, name="chip-smoke-scraper", daemon=True)
+    thread.start()
+    try:
+        yield tally
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("the scraper thread did not stop")
+
+
+def runner_endpoint(plane, holder, run_id):
+    """An IntrospectionEndpoint over a runner's obs plane: its registry
+    (the allocator gauges are values the runner thread sets at
+    boundaries), the runner's last HealthReport and the flight ring —
+    host-side values only, never the card."""
+    from evox_tpu_torch.obs import IntrospectionEndpoint
+
+    def healthz():
+        runner = holder.get("runner")
+        report = None if runner is None else runner.stats.last_report
+        if report is None:
+            return True, {"generation": None}
+        return report.healthy, {"generation": report.generation, "reasons": list(report.reasons)}
+
+    return IntrospectionEndpoint(
+        registry=plane.registry, instrument=plane.registry, healthz=healthz,
+        flight=lambda rid: plane.flight.rows() if rid == run_id else None,
+        statusz=lambda: {"completed_generations": holder["runner"].stats.completed_generations
+                         if holder.get("runner") else 0},
+    ).start()
+
+
+def boundary_series(wf, boundaries) -> dict:
+    """The twin's per-candidate series at each boundary: eager steps of
+    ``wf`` from ``init(0)``, ``candidate_series`` of the nest's telemetry
+    read at the generations the runner probes."""
+    from evox_tpu_torch.hpo import candidate_series
+
+    s = wf.init_step(wf.init(0))
+    out: dict = {}
+    gen = 1
+    for b in boundaries:
+        while gen < b:
+            s = wf.step(s)
+            gen += 1
+        for uid, series in candidate_series(s.problem).items():
+            out.setdefault(uid, []).append((b, [float(v) for v in series]))
+    return out, s
+
+
+def phase_hpo_runner_main_path(device) -> dict:
+    """bench.py's hpo_ladder (``hpo_ladder_workflow``) under
+    HPORunner(checkpoint_every=4, fused=True) for 16 outer generations, in a
+    temporary directory, with an IntrospectionEndpoint on the runner's
+    registry, health and flight ring for the whole phase and a scraper
+    thread GETting /metrics, /healthz and /flightz across the first
+    captures (every scrape answered, no capture error).  The counted
+    (cold) run captures the nest's evaluation (init_step) and the outer
+    segments of 4 and 3 generations (the nest inline); its final state
+    equals run(16) and 16 eager steps bit for bit, its candidate_history
+    the twin's telemetry at the boundaries, and
+    evox_hpo_inner_generations_total 16 x 64 x 32.  A warm fresh run is
+    timed against run(16) and one more counts the calling thread's host
+    syncs (a segment: the runner's one read, the nest's series and uids
+    folded in, and the health probe's; a run: one read of the key's stream
+    family).  Then a SIGTERM under preemption=True after the checkpoint of
+    generation 5 is published (the run stops at the next boundary, 9) and
+    a fresh runner resumes: bit-equal, candidate_history equal."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.hpo import HPORunner
+    from evox_tpu_torch.obs import FlightRecorder, MetricsRegistry, Observability, Tracer
+    from evox_tpu_torch.resilience import Preempted
+
+    c, n, every = HPO_LADDER, HPO_RUNNER_GENS, HPO_RUNNER_EVERY
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_hpo_runner_"))
+    out = {"card": card_line(), "directory_fs": file_system_of(root),
+           "config": f"PSO({c['candidates']}) over NestedProblem(OpenES({c['inner_pop']}, zeros({c['dim']}), lr 0.05, "
+                     f"sigma 0.1), Sphere, iterations={c['iterations']}), prng=uid, under "
+                     f"HPORunner(checkpoint_every={every}, fused=True), {n} outer generations"}
+    counters = hpo_counters()
+    holder: dict = {}
+    try:
+        wf = hpo_ladder_workflow(device)
+        plane = Observability(registry=MetricsRegistry(), flight=FlightRecorder(root / "flight", window=64),
+                              run_id="hpo_ladder")
+        endpoint = runner_endpoint(plane, holder, "hpo_ladder")
+        try:
+            with scraping(endpoint.url, SCRAPE_PATHS) as tally:
+                for k in counters.values():
+                    k.launches = 0
+                s0 = wf.init(0)
+                runner = holder["runner"] = HPORunner(wf, root / "cold", checkpoint_every=every, obs=plane)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cold = runner.run(s0, n, fresh=True)
+                torch.cuda.synchronize()
+                cold_wall = time.perf_counter() - t0
+                launches = counts(counters)
+                for k, v in launches.items():
+                    if k != "fused_pso_move_batched":
+                        expect(v > 0, True, f"hpo_runner_main_path: {k} launched")
+                no_cpu_fallback(runner, "hpo_runner_main_path")
+                cold_stats = runner_stats(runner)
+                expect([t["compile_seconds"] > 0 for t in cold_stats["segment_timings"]],
+                       [False, True, False, False, True], "hpo_runner_main_path: captured segments (4 and 3)")
+
+                ref = wf.run(wf.init(0), n)
+                leaves = same_state(cold, ref, "hpo_runner_main_path: runner vs run(16)")
+                boundaries = [1] + list(range(1 + every, n, every)) + [n]
+                twin, eager = boundary_series(wf, boundaries)
+                same_state(cold, eager, "hpo_runner_main_path: runner vs 16 eager steps")
+                expect(runner.candidate_history, twin, "hpo_runner_main_path: candidate_history vs the twin's telemetry")
+                inner = plane.registry.snapshot()["evox_hpo_inner_generations_total"]
+                expect(inner, float(n * c["candidates"] * c["iterations"]), "evox_hpo_inner_generations_total")
+                del ref, eager
+
+                # Warm runs: every graph is captured.
+                s0 = wf.init(0)
+                warm = holder["runner"] = HPORunner(wf, root / "warm", checkpoint_every=every, obs=plane)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                final = warm.run(s0, n, fresh=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if any(t.compile_seconds for t in warm.stats.segment_timings):
+                    raise AssertionError("hpo_runner_main_path: the warm runner captured a segment again")
+                same_state(final, cold, "hpo_runner_main_path: warm vs cold runner")
+                run_ms, run_host_ms, _ = timed(lambda: wf.run(wf.init(0), n), n)
+                archive = sorted((root / "warm").glob("ckpt_*.npz"))[-1]
+                snap = plane.registry.snapshot()
+                s0 = wf.init(0)
+                prof = holder["runner"] = HPORunner(wf, root / "prof", checkpoint_every=every, obs=plane)
+                _, syncs = thread_syncs(lambda: prof.run(s0, n, fresh=True))
+                segments = prof.stats.segments_run
+                per_segment = (syncs["calling_thread"] - 1) / segments
+                if per_segment > 2:
+                    raise AssertionError(f"hpo_runner_main_path: host syncs {syncs} of the calling thread over "
+                                         f"{segments} segments, more than 2 a segment and the key's one read")
+
+                # SIGTERM after the checkpoint of generation 5 is published.
+                def on_event(msg):
+                    if msg == f"checkpoint written at generation {HPO_SIGTERM_AFTER}":
+                        os.kill(os.getpid(), signal.SIGTERM)
+
+                term = holder["runner"] = HPORunner(wf, root / "term", checkpoint_every=every, obs=plane,
+                                                    preemption=True, on_event=on_event)
+                try:
+                    quiet_run(term, wf.init(0), n, fresh=True)
+                except Preempted as e:
+                    caught = e
+                else:
+                    raise AssertionError("hpo_runner_main_path: the SIGTERM preempted nothing")
+                post = holder["runner"] = HPORunner(wf, root / "term", checkpoint_every=every, obs=plane,
+                                                    preemption=True)
+                resumed = quiet_run(post, wf.init(0), n)
+                if not post.stats.resumed_after_preemption:
+                    raise AssertionError("hpo_runner_main_path: the resume did not start from the emergency checkpoint")
+                term_leaves = same_state(resumed, cold, "hpo_runner_main_path: SIGTERM resume vs uninterrupted")
+                expect(post.candidate_history, runner.candidate_history,
+                       "hpo_runner_main_path: candidate_history after the re-ingest")
+        finally:
+            endpoint.stop()
+        if tally["failed"] or tally["requests"] < len(SCRAPE_PATHS):
+            raise AssertionError(f"hpo_runner_main_path: scrapes {tally}")
+        # A warm run with no scraper and a tracer: the boundary's spans.
+        traced = Observability(registry=MetricsRegistry(), flight=FlightRecorder(root / "flight2", window=64),
+                               tracer=Tracer(), run_id="hpo_ladder")
+        s0 = wf.init(0)
+        quiet = HPORunner(wf, root / "quiet", checkpoint_every=every, obs=traced)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        same_state(quiet.run(s0, n, fresh=True), cold, "hpo_runner_main_path: traced run vs cold runner")
+        torch.cuda.synchronize()
+        quiet_wall = time.perf_counter() - t0
+        spans: dict = {}
+        for sp in traced.tracer.spans():
+            spans[sp.name] = spans.get(sp.name, 0.0) + sp.dur_us / 1e3
+        for r in (runner, warm, prof, term, post):
+            no_cpu_fallback(r, "hpo_runner_main_path")
+        out.update({
+            "launches": launches, "leaves_equal": leaves, "cold_wall_s": cold_wall, "cold_run": cold_stats,
+            "warm_run": runner_stats(warm),
+            "ms_per_outer_gen": {"runner_wall": wall * 1e3 / n, "runner_wall_no_scrapes": quiet_wall * 1e3 / n,
+                                 "run_event": run_ms, "run_host": run_host_ms},
+            "span_ms_no_scrapes": spans,
+            "writer_block_share": warm.stats.checkpoint_block_seconds / wall,
+            "checkpoint_mb": archive.stat().st_size / 1e6,
+            "checkpoint_write_s_mean": snap["evox_checkpoint_write_seconds_sum"]
+            / max(snap["evox_checkpoint_write_seconds_count"], 1.0),
+            "checkpoint_writes": snap["evox_checkpoint_write_seconds_count"],
+            "host_syncs": syncs, "segments": segments, "host_syncs_per_segment": per_segment,
+            "inner_generations_total": inner, "candidate_history_uids": len(runner.candidate_history),
+            "sigterm": {"preempted_at": caught.generation, "reason": caught.reason, "leaves_equal": term_leaves,
+                        "resumed_from": post.stats.resumed_from_generation},
+            "scrapes": tally, "nest_graph_pool_gb": gb(graph_pool_bytes(wf.problem._graphs)),
+            "segment_graph_pool_gb": gb(graph_pool_bytes(wf._graphs)),
+            "captures": wf._graphs.captures + wf.problem._graphs.captures,
+        })
+        del wf, cold, final, resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def hpo_grow_runner(device, directory, plane, journal=None):
+    """hpo_ladder under HPORunner with the growth ladder (OpenES regrown to
+    2048 at most, window 8, ``HPO_GROW_TOL``) and a Controller(grace=4)."""
+    import torch
+    from evox_tpu_torch.algorithms import OpenES
+    from evox_tpu_torch.control import Controller
+    from evox_tpu_torch.hpo import GrowthLadder, HPORunner
+
+    def inner_factory(pop):
+        return OpenES(pop, torch.zeros(HPO_LADDER["dim"]), learning_rate=0.05, noise_stdev=0.1, device=device)
+
+    wf = hpo_ladder_workflow(device)
+    ladder = GrowthLadder(inner_factory=inner_factory, stagnation_window=8, stagnation_tol=HPO_GROW_TOL,
+                          max_inner_pop=HPO_GROW_MAX)
+    runner = HPORunner(wf, directory, checkpoint_every=HPO_RUNNER_EVERY, grow=ladder,
+                       controller=Controller(journal=journal, grace=4), obs=plane)
+    return wf, runner
+
+
+def phase_hpo_grow(device) -> dict:
+    """hpo_ladder with grow=GrowthLadder(OpenES(pop, zeros(32), lr 0.05,
+    sigma 0.1), stagnation_window=8, max_inner_pop=2048) and
+    Controller(journal=RequestJournal(...), grace=4), 16 outer
+    generations.  The tolerance is one at which the first consult grows
+    (``HPO_GROW_TOL``; the decider's thresholds are held on the CPU by
+    tests/test_torch_control.py): the inner population goes 1024 -> 2048
+    at the first boundary, the outer algorithm's leaves untouched by the
+    growth, the journal replaying to the same decisions; the memory before
+    the growth (the 1024 ladder's graphs alive) and after the run (the
+    2048 ladder's), the graph caches the growth replaced gone (no block
+    of their pools allocated, no segment left after empty_cache), the
+    recapture's seconds, and ms per outer generation at 2048.  Then a run cut at boundary 9 and a fresh runner on a fresh
+    workflow resume across the growth, bit-equal to the uninterrupted
+    run."""
+    import gc
+    import shutil
+    import tempfile
+    import weakref
+
+    import torch
+    from evox_tpu_torch.control import Controller
+    from evox_tpu_torch.hpo import find_nested
+    from evox_tpu_torch.obs import MetricsRegistry, Observability
+    from evox_tpu_torch.service import RequestJournal
+
+    n = HPO_RUNNER_GENS
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_hpo_grow_"))
+    counters = hpo_counters()
+    out = {"card": card_line(), "directory_fs": file_system_of(root), "stagnation_tol": HPO_GROW_TOL}
+    try:
+        plane = Observability(registry=MetricsRegistry(), run_id="hpo_grow")
+        journal = RequestJournal(root / "decisions.jsonl", registry=plane.registry)
+        for k in counters.values():
+            k.launches = 0
+        wf, runner = hpo_grow_runner(device, root / "grow", plane, journal)
+        nest_1024 = wf.problem
+        policy = runner.restart
+        apply = policy.apply
+        growth: dict = {}
+
+        replaced: dict = {}  # the caches the growth replaces: weak references and pool ids only
+
+        def measured_apply(ctx):
+            growth["memory_before"] = {**memory_now(), "segment_pool_gb": gb(graph_pool_bytes(wf._graphs)),
+                                       "nest_pool_gb": gb(graph_pool_bytes(nest_1024._graphs))}
+            for name, cache in (("outer_segments", wf._graphs), ("nest", nest_1024._graphs)):
+                replaced[name] = (weakref.ref(cache), None if cache.pool is None else tuple(cache.pool))
+            result = apply(ctx)
+            growth["outer_leaves_untouched"] = same_state(result[0].algorithm, ctx.state.algorithm,
+                                                          "hpo_grow: the outer algorithm across the growth")
+            growth["generation"] = ctx.generation
+            return result
+
+        policy.apply = measured_apply
+        s0 = wf.init(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = quiet_run(runner, s0, n, fresh=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(counters)
+        for k, v in launches.items():
+            if k != "fused_pso_move_batched":
+                expect(v > 0, True, f"hpo_grow: {k} launched")
+        no_cpu_fallback(runner, "hpo_grow")
+        events = [e.to_manifest() for e in runner.stats.restarts]
+        expect([(e["policy"], e["detail"]["inner_pop"], e["detail"]["grown"]) for e in events],
+               [("hpo-grow", HPO_GROW_MAX, True)], "hpo_grow: the growths")
+        expect(find_nested(wf.problem).inner_pop, HPO_GROW_MAX, "hpo_grow: the inner population")
+        expect(tuple(final.problem.instances.algorithm.fit.shape), (HPO_LADDER["candidates"], HPO_GROW_MAX),
+               "hpo_grow: the grown instances' fitness")
+        decisions = [d.to_manifest() for d in runner.controller.decisions]
+        records, damage = journal.replay()
+        expect(damage, None, "hpo_grow: journal damage")
+        expect([d.to_manifest() for d in Controller.replay_decisions(records)], decisions, "hpo_grow: replayed decisions")
+        # The recapture: the first segment after the growth.
+        after = [t for t in runner.stats.segment_timings if t.generation > growth["generation"]]
+        recapture_s = after[0].compile_seconds
+        # The replaced caches (their graphs, output leaves and static input
+        # buffers) are gone once the cycle collector has run; their pools
+        # hold no allocated block then and no segment after empty_cache.
+        gc.collect()
+        alive = [name for name, (ref, _) in replaced.items() if ref() is not None]
+        expect(alive, [], "hpo_grow: graph caches that outlive the growth")
+        pools = {pool for _, pool in replaced.values() if pool is not None}
+        held = pool_bytes(pools)
+        growth["memory_after"] = {**memory_now(), "segment_pool_gb": gb(graph_pool_bytes(wf._graphs)),
+                                  "nest_pool_gb": gb(graph_pool_bytes(wf.problem._graphs)),
+                                  "replaced_pools": sorted(name for name, (_, p) in replaced.items() if p),
+                                  "replaced_pools_gb": None if held is None else gb(held["total"]),
+                                  "replaced_pools_allocated_gb": None if held is None else gb(held["active"])}
+        torch.cuda.empty_cache()
+        released = pool_bytes(pools)
+        growth["memory_after_empty_cache"] = {**memory_now(),
+                                              "replaced_pools_gb": None if released is None else gb(released["total"])}
+        if held is not None and (held["active"] or released["total"]):
+            raise AssertionError(f"hpo_grow: the replaced pools hold {held['active']} bytes allocated, "
+                                 f"{released['total']} bytes after empty_cache")
+        timed(lambda: wf.run(final, 8, init=False), 8)  # its capture
+        grown_ms, grown_host_ms, _ = timed(lambda: wf.run(final, 8, init=False), 8)
+        snap = plane.registry.snapshot()
+        append_s = snap.get("evox_journal_append_seconds_sum", 0.0) / max(snap.get("evox_journal_append_seconds_count", 0.0), 1.0)
+
+        # Resume across the growth: a cut run, then a fresh runner on a
+        # fresh workflow (the grown template rebuilt from the lineage).
+        _, cut = hpo_grow_runner(device, root / "cut", Observability(registry=MetricsRegistry(), run_id="cut"))
+        quiet_run(cut, cut.workflow.init(0), HPO_GROW_CUT, fresh=True)
+        wf2, fresh = hpo_grow_runner(device, root / "cut", Observability(registry=MetricsRegistry(), run_id="cut2"))
+        resumed = quiet_run(fresh, wf2.init(0), n)
+        expect(fresh.stats.resumed_from_generation, HPO_GROW_CUT, "hpo_grow: resumed from")
+        expect(find_nested(wf2.problem).inner_pop, HPO_GROW_MAX, "hpo_grow: the resumed inner population")
+        leaves = same_state(resumed, final, "hpo_grow: resume across the growth vs uninterrupted")
+        for r in (cut, fresh):
+            no_cpu_fallback(r, "hpo_grow")
+        out.update({
+            "launches": launches, "growth": growth, "restarts": events, "decisions": decisions,
+            "recapture_s": recapture_s, "wall_s": wall, "stats": runner_stats(runner),
+            "ms_per_outer_gen_at_2048": {"run_event": grown_ms, "run_host": grown_host_ms},
+            "journal_append_s_mean": append_s, "journal_appends": snap.get("evox_journal_append_seconds_count", 0.0),
+            "resume_across_growth": {"leaves_equal": leaves, "resumed_from": HPO_GROW_CUT},
+        })
+        del wf, wf2, final, resumed, nest_1024
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_controller_cadence(device) -> dict:
+    """pso_small_resilient (PSO 1024 x 100, Ackley, checkpoint_every=25, 100
+    generations) controller-off, then under Controller(target_seconds=the
+    measured execute time of CONTROL_TARGET_GENS generations,
+    overhead_cap=0.5, journal=...) on a fresh workflow: the chunk sequence,
+    the cadence decisions (journaled, replayed), the captures of the run
+    (at most its distinct segment lengths; the graph cache keeps them all),
+    the pool's bytes, and the final state bit-equal to the controller-off
+    run.  Then a trend restart at the same width: a plateau (fitness
+    clamped to 1e6, a NaN burst at generation 3) under
+    Controller(stagnation_window=16, journal=...), a probe whose own
+    stagnation window is longer, RollbackToCheckpoint and segments of 4:
+    a journaled trend restart fires and the run completes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.control import Controller
+    from evox_tpu_torch.obs import FlightRecorder, MetricsRegistry, Observability
+    from evox_tpu_torch.ops.philox import philox_draws
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.resilience import FaultyProblem, HealthProbe, ResilientRunner, RollbackToCheckpoint
+    from evox_tpu_torch.service import RequestJournal
+    from evox_tpu_torch.workflows import EvalMonitor
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cadence_"))
+    out = {"card": card_line(), "directory_fs": file_system_of(root)}
+    try:
+        off_wf = small_resilient_workflow(device)
+        off = ResilientRunner(off_wf, root / "off", checkpoint_every=CONTROL_EVERY)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = off.run(off_wf.init(0), CONTROL_GENS, fresh=True)
+        torch.cuda.synchronize()
+        off_wall = time.perf_counter() - t0
+        per_gen = min(t.execute_seconds / max(c, 1) for t, c in zip(off.stats.segment_timings[1:],
+                                                                      off.stats.chunk_sizes))
+        target = CONTROL_TARGET_GENS * per_gen
+        reg = MetricsRegistry()
+        journal = RequestJournal(root / "cadence.jsonl", registry=reg)
+        ctl = Controller(target_seconds=target, overhead_cap=0.5, journal=journal)
+        wf = small_resilient_workflow(device)
+        runner = ResilientRunner(wf, root / "on", checkpoint_every=CONTROL_EVERY, controller=ctl,
+                                 obs=Observability(registry=reg, run_id="cadence"))
+        reset_move_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.run(wf.init(0), CONTROL_GENS, fresh=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cadence_launches = {"fused_pso_move": fused_pso_move.launches, "philox_draws": philox_draws.launches}
+        leaves = same_state(final, ref, "controller_cadence: cadence run vs controller-off run")
+        chunks = runner.stats.chunk_sizes
+        lengths = sorted({c for c in chunks if c > 1})
+        captures = wf._graphs.captures
+        if captures > len(lengths):
+            raise AssertionError(f"controller_cadence: {captures} captures for the segment lengths {lengths}")
+        # A segment of one generation is the plain step (one move); a longer
+        # one moves at its capture only, a warm-up generation and the
+        # captured ones (init_step moves nothing; replays launch nothing).
+        expect(cadence_launches["fused_pso_move"], chunks.count(1) + sum(n + 1 for n in lengths),
+               f"controller_cadence: PSO moves of the cadence run (chunks {chunks})")
+        expect(cadence_launches["philox_draws"] > 0, True, "controller_cadence: the cadence run's setup draws")
+        expect(wf._graphs.max_graphs >= len(lengths), True, "controller_cadence: the graph cache holds every length")
+        cadence = [d.to_manifest() for d in ctl.decisions]
+        records, damage = journal.replay()
+        expect(damage, None, "controller_cadence: journal damage")
+        expect([d.to_manifest() for d in Controller.replay_decisions(records)], cadence,
+               "controller_cadence: replayed decisions")
+        snap = reg.snapshot()
+        append_s = snap.get("evox_journal_append_seconds_sum", 0.0) / max(snap.get("evox_journal_append_seconds_count", 0.0), 1.0)
+        segment_s = [t.execute_seconds for t in runner.stats.segment_timings[1:]]
+        no_cpu_fallback(runner, "controller_cadence")
+        out["cadence"] = {
+            "config": f"PSO(1024, ±32 in dim 100), Ackley, ResilientRunner(checkpoint_every={CONTROL_EVERY}, "
+                      f"controller=Controller(target_seconds={target:.6g}, overhead_cap=0.5)), {CONTROL_GENS} "
+                      "generations",
+            "per_gen_s_measured": per_gen, "target_seconds": target, "chunks": chunks, "decisions": cadence,
+            "captures": captures, "distinct_lengths": lengths, "graph_cache_max": wf._graphs.max_graphs,
+            "pool_gb": gb(graph_pool_bytes(wf._graphs)), "leaves_equal": leaves, "wall_s": wall,
+            "launches": cadence_launches,
+            "ms_per_gen_wall": wall * 1e3 / CONTROL_GENS, "off_ms_per_gen_wall": off_wall * 1e3 / CONTROL_GENS,
+            "off_stats": runner_stats(off), "stats": runner_stats(runner),
+            "journal_append_s_mean": append_s, "segment_execute_s_median": sorted(segment_s)[len(segment_s) // 2],
+        }
+        del off_wf, wf, ref, final
+
+        # A trend restart at the same width.
+        problem = FaultyProblem(Ackley(), plateau_from=0, plateau_floor=1e6, nan_generations=[3])
+        twf = small_resilient_workflow(device, problem, monitor=EvalMonitor())
+        plane = Observability(registry=MetricsRegistry(), flight=FlightRecorder(root / "pm", window=64), run_id="trend")
+        tjournal = RequestJournal(root / "trend.jsonl")
+        tctl = Controller(stagnation_window=16, journal=tjournal)
+        trunner = ResilientRunner(twf, root / "trend", checkpoint_every=TREND_EVERY, obs=plane, controller=tctl,
+                                  health=HealthProbe(stagnation_window=8, stagnation_tol=0.0),
+                                  restart=RollbackToCheckpoint(), max_restarts=1)
+        reset_move_counters()
+        quiet_run(trunner, twf.init(0), TREND_GENS, fresh=True)
+        torch.cuda.synchronize()
+        trend_launches = {"fused_pso_move": fused_pso_move.launches, "philox_draws": philox_draws.launches}
+        for k, v in trend_launches.items():
+            expect(v > 0, True, f"controller_cadence: {k} launched in the trend run")
+        expect(trunner.stats.completed_generations, TREND_GENS, "controller_cadence: the trend run's generations")
+        restarts = [e.to_manifest() for e in trunner.stats.restarts]
+        if len(restarts) != 1 or restarts[0]["detail"].get("trend") != "stagnation":
+            raise AssertionError(f"controller_cadence: no trend restart fired: {restarts}")
+        trecords, damage = tjournal.replay()
+        expect(damage, None, "controller_cadence: trend journal damage")
+        tdecisions = [d.to_manifest() for d in tctl.decisions]
+        expect([d.to_manifest() for d in Controller.replay_decisions(trecords)], tdecisions,
+               "controller_cadence: replayed trend decisions")
+        no_cpu_fallback(trunner, "controller_cadence trend")
+        out["trend_restart"] = {
+            "config": f"PSO(1024, ±32 in dim 100), FaultyProblem(Ackley, plateau 1e6 from 0, NaN at 3), "
+                      f"ResilientRunner(checkpoint_every={TREND_EVERY}, HealthProbe(stagnation_window=8), "
+                      f"RollbackToCheckpoint, controller=Controller(stagnation_window=16)), {TREND_GENS} generations",
+            "restarts": restarts, "decisions": [(d["kind"], d["action"], d["generation"]) for d in tdecisions],
+            "stats": runner_stats(trunner), "launches": trend_launches,
+        }
+        # The kernels line's: the cadence run's and the trend run's, each
+        # counted from 0 just before it (the controller-off reference run
+        # is not counted).
+        out["launches"] = {k: cadence_launches[k] + trend_launches[k] for k in cadence_launches}
+        del twf
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -5398,7 +5978,11 @@ def philox_row(results) -> dict:
         # The resilient runner's setups, and neuroevolution_resilient's
         # OpenES draws.
         + results["resilient_main_path"]["launches"]["philox_draws"]
-        + results["neuroevolution_resilient"]["launches"]["philox_draws"],
+        + results["neuroevolution_resilient"]["launches"]["philox_draws"]
+        # The control plane's runs: the outer PSO's setups (and the grown
+        # ladders' rebuilt instances), pso_small_resilient's setups.
+        + sum(results[p]["launches"]["philox_draws"]
+              for p in ("hpo_runner_main_path", "hpo_grow", "controller_cadence")),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -5435,7 +6019,11 @@ def batched_rows(results) -> list[dict]:
          + results["hpo_main_path"]["launches"]["philox_draws_batched"]
          + results["hpo_quickstart"]["launches"]["philox_draws_batched"]
          # neuroevolution_resilient's rollout resets.
-         + results["neuroevolution_resilient"]["launches"]["philox_draws_batched"],
+         + results["neuroevolution_resilient"]["launches"]["philox_draws_batched"]
+         # hpo_ladder's OpenES normals under the HPO runner and the growth
+         # ladder (captured nests: counted at their warm-ups and captures).
+         + results["hpo_runner_main_path"]["launches"]["philox_draws_batched"]
+         + results["hpo_grow"]["launches"]["philox_draws_batched"],
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, and the rollouts' recorded resets.
          "max_abs_err": max(t["philox_draws_batched"]["max_abs_err"],
@@ -5576,6 +6164,9 @@ def main() -> int:
         ("resilient_recovery", phase_resilient_recovery),
         ("neuroevolution_resilient", phase_neuroevolution_resilient),
         ("resilient_quickstart", phase_resilient_quickstart),
+        ("hpo_runner_main_path", phase_hpo_runner_main_path),
+        ("hpo_grow", phase_hpo_grow),
+        ("controller_cadence", phase_controller_cadence),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -5600,8 +6191,12 @@ def main() -> int:
     routes["float32"] += results["hpo_main_path"]["launches"]["fused_pso_move"]
     routes["float32"] += results["distributed_main_path"]["launches"]["fused_pso_move"]
     # The resilient runner's counted runs (pso_small_resilient's cold run,
-    # the headline under the runner).
+    # the headline under the runner), and the control plane's: hpo_ladder's
+    # outer PSO under the HPO runner and the growth ladder, and
+    # pso_small_resilient's cadence and trend runs.
     routes["float32"] += results["resilient_main_path"]["launches"]["fused_pso_move"]
+    routes["float32"] += sum(results[p]["launches"]["fused_pso_move"]
+                             for p in ("hpo_runner_main_path", "hpo_grow", "controller_cadence"))
     emit("kernels", [
         {
             "name": "fused_pso_move",

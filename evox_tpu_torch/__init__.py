@@ -35,6 +35,7 @@ __version__ = "0.1.0"
 __all__ = [
     "NOT_PORTED",
     "algorithms",
+    "control",
     "core",
     "hpo",
     "metrics",
@@ -45,6 +46,7 @@ __all__ = [
     "precision",
     "problems",
     "resilience",
+    "service",
     "utils",
     "workflows",
     "Algorithm",
@@ -81,12 +83,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 # Subpackages of the JAX package that are not ported yet: reaching one from
 # here raises ImportError by name.
-NOT_PORTED = ("control", "service", "vis_tools")
+NOT_PORTED = ("vis_tools",)
 
 # Every ported subpackage, as the JAX package imports all of its own.  None
 # builds a kernel when imported (kernels are built on their first launch).
 from . import (  # noqa: E402
     algorithms,
+    control,
     core,
     hpo,
     metrics,
@@ -97,6 +100,7 @@ from . import (  # noqa: E402
     precision,
     problems,
     resilience,
+    service,
     utils,
     workflows,
 )

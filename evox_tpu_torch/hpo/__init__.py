@@ -1,4 +1,4 @@
-"""Meta-optimization (counterpart of ``evox_tpu/hpo``): the nested core.
+"""Meta-optimization (counterpart of ``evox_tpu/hpo``).
 
 * :class:`NestedProblem` — an entire inner workflow batch evaluated as the
   outer problem: one ``torch.func.vmap`` of the inner workflow's segment
@@ -7,38 +7,34 @@
   replayed CUDA graph;
 * :class:`HPOMonitor` / :class:`HPOFitnessMonitor` — how an inner run
   reports its score, with the per-generation repeat aggregation;
+* :class:`HPORunner` — resumable nested state: whole-nest checkpoints, the
+  per-candidate inner histories (``candidate_history``, re-ingested on
+  resume) and the ``evox_hpo_*`` metrics;
+* :class:`GrowthLadder` / :class:`HPOGrowPolicy` /
+  :func:`grow_evidence` / :func:`validate_ladder_window` — elastic inner
+  populations: a controller's journaled ``hpo-grow`` decision regrows the
+  ladder at a boundary, and resume replays the growth;
 * :func:`candidate_series`, :func:`find_nested`.
 
 :mod:`evox_tpu_torch.problems.hpo_wrapper` is the back-compat shim over
 this package.
-
-Not ported yet: ``HPORunner`` (resumable nested state), ``GrowthLadder``,
-``HPOGrowPolicy``, ``grow_evidence`` and ``validate_ladder_window``
-(elastic inner populations).  They need ``resilience.restart``,
-``resilience.runner``, ``utils.checkpoint`` and ``obs.flight``, which come
-with the host planes (ROADMAP Queue 1 item 13); importing one of those
-names raises :class:`ImportError`.
 """
 
+from .elastic import GrowthLadder, HPOGrowPolicy, grow_evidence, validate_ladder_window
 from .monitor import HPO_REPEAT_AXIS, HPOFitnessMonitor, HPOMonitor
 from .nested import NestedProblem, candidate_series, find_nested
+from .runner import HPORunner
 
 __all__ = [
     "HPO_REPEAT_AXIS",
+    "GrowthLadder",
     "HPOFitnessMonitor",
+    "HPOGrowPolicy",
     "HPOMonitor",
+    "HPORunner",
     "NestedProblem",
     "candidate_series",
     "find_nested",
+    "grow_evidence",
+    "validate_ladder_window",
 ]
-
-_NOT_PORTED = ("HPORunner", "GrowthLadder", "HPOGrowPolicy", "grow_evidence", "validate_ladder_window")
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise ImportError(
-            f"evox_tpu_torch.hpo.{name} is not ported yet: it needs resilience.restart, resilience.runner, "
-            f"utils.checkpoint and obs.flight (ROADMAP Queue 1 item 13, the host planes)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -63,10 +63,15 @@ def candidate_series(problem_state: Any) -> dict[int, Any]:
     tel = problem_state["telemetry"]
     if "best_fitness" not in tel:
         return {}
-    series = tel["best_fitness"].detach().cpu().numpy()
-    if series.ndim == 3:  # (candidates, repeats, inner generations)
+    return series_by_uid(tel["best_fitness"].detach().cpu().numpy(), problem_state["uids"].detach().cpu().tolist())
+
+
+def series_by_uid(series: Any, uids: Any) -> dict[int, Any]:
+    """The telemetry's best-fitness series (a host array of shape
+    (candidates, [repeats,] inner generations)) keyed by candidate uid, the
+    repeat lanes averaged."""
+    if series.ndim == 3:
         series = series.mean(axis=1)
-    uids = problem_state["uids"].detach().cpu().tolist()
     return {int(u): series[i] for i, u in enumerate(uids)}
 
 
@@ -355,6 +360,11 @@ class NestedProblem(Problem):
         if self.telemetry and "telemetry" in state:
             state = state.replace(telemetry=tel)
         return fit, state
+
+    def reset_graphs(self) -> None:
+        """Drop the captured evaluations and their memory pool (a growth
+        replaces this nest: its graphs must not outlive it)."""
+        self._graphs = graph.Cache()
 
     # -- growth surface -------------------------------------------------------------
     def with_inner_workflow(self, workflow: Workflow) -> "NestedProblem":

@@ -19,6 +19,13 @@ needs).
   postmortem bundles.
 * **Program introspection** (:mod:`~evox_tpu_torch.obs.xla`) — the card's
   allocator gauges; a captured graph has no cost model.
+* **SLOs** (:mod:`~evox_tpu_torch.obs.slo`) — declarative objectives
+  (:class:`SLO`) scored over rolling windows by an :class:`SLOTracker`:
+  burn rates and error budgets, the control plane's ``slo=`` input.
+* **Live introspection** (:mod:`~evox_tpu_torch.obs.endpoint`) — a
+  read-only stdlib HTTP server (:class:`IntrospectionEndpoint`) over the
+  registry, a health verdict, a status document and the flight ring, on a
+  daemon thread; its providers serve host-side values only.
 
 The :class:`Observability` facade bundles them; the resilient runner takes
 it as one ``obs=`` parameter.  Every exported artifact carries
@@ -26,12 +33,13 @@ it as one ``obs=`` parameter.  Every exported artifact carries
 boundaries; the one in-segment feature, the flight signals, adds outputs
 to the segment and never changes the state it computes.
 
-Not ported yet: the fleet aggregator, the introspection endpoint and the
-SLO trackers (ROADMAP Queue 1, item 13.4); importing one of their names
-raises :class:`ImportError`.
+Not ported yet: the fleet aggregator (ROADMAP Queue 1, item 13.7, with the
+multi-host fleets it aggregates); importing its name raises
+:class:`ImportError`.
 """
 
 from . import xla
+from .endpoint import IntrospectionEndpoint
 from .events import CallbackSink, Event, EventBus, JsonlFileSink, RingBufferSink
 from .flight import FlightRecorder, finalize_row, flight_signals, last_n, window_ema, window_slope
 from .metrics import (
@@ -44,6 +52,7 @@ from .metrics import (
     reset_default_registry,
 )
 from .plane import Observability
+from .slo import SLO, SLOStatus, SLOTracker, default_slos
 from .trace import CounterSample, Span, Tracer
 from .version import OBS_SCHEMA_VERSION
 
@@ -65,6 +74,11 @@ __all__ = [
     "CounterSample",
     "Tracer",
     "Observability",
+    "IntrospectionEndpoint",
+    "SLO",
+    "SLOStatus",
+    "SLOTracker",
+    "default_slos",
     "FlightRecorder",
     "finalize_row",
     "flight_signals",
@@ -74,13 +88,13 @@ __all__ = [
     "xla",
 ]
 
-_NOT_PORTED = ("FleetAggregator", "IntrospectionEndpoint", "SLO", "SLOStatus", "SLOTracker", "default_slos")
+_NOT_PORTED = ("FleetAggregator",)
 
 
 def __getattr__(name: str):
     if name in _NOT_PORTED:
         raise ImportError(
-            f"evox_tpu_torch.obs.{name} is not ported yet: the fleet aggregator, the introspection endpoint and "
-            f"the SLO trackers come after the resilient runner (ROADMAP Queue 1, item 13.4)"
+            f"evox_tpu_torch.obs.{name} is not ported yet: the fleet aggregator comes with the multi-host fleets "
+            f"it aggregates (ROADMAP Queue 1, item 13.7)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,9 +20,10 @@ Ported:
 * the elastic topology of :mod:`.elastic` (:class:`MeshTopology`,
   :func:`check_topology`, :func:`remesh_state`, ...).
 
-Not ported yet: the fleet supervisor, the wire-side injector, the
-invariant registry and the chaos harness (ROADMAP Queue 1); importing one
-of their names raises :class:`ImportError`.
+Not ported yet: the fleet supervisor (ROADMAP Queue 1, item 13.7), and the
+wire-side injector, the invariant registry and the chaos harness (item
+13.8: they audit and drive the service, which comes with them); importing
+one of their names raises :class:`ImportError`.
 """
 
 from .elastic import (
@@ -130,8 +131,8 @@ def __getattr__(name: str):
         )
     if name in _CHAOS:
         raise ImportError(
-            f"evox_tpu_torch.resilience.{name} is not ported yet: the wire-side injector and the invariant "
-            f"registry (ROADMAP Queue 1, item 13.3: transport.py, invariants.py) and the chaos harness "
-            f"(item 13.8: chaos.py)"
+            f"evox_tpu_torch.resilience.{name} is not ported yet: the wire-side injector, the invariant "
+            f"registry and the chaos harness (transport.py, invariants.py, chaos.py) audit and drive the service's "
+            f"router, members and journals, and come with them (ROADMAP Queue 1, item 13.8)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -213,8 +213,8 @@ class RestartContext:
     report: "HealthReport"
     restart_index: int
     lineage: tuple[RestartEvent, ...] = ()
-    # The trend decision that fired this restart (the JAX package's
-    # control plane, not ported yet): always ``None`` here.
+    # The control-plane decision that fired this restart (a trend verdict,
+    # an hpo-grow), ``None`` for a threshold-probe verdict.
     decision: Any | None = None
 
 

@@ -68,13 +68,26 @@ validates against the template state wins.  ``SIGTERM``/``SIGINT`` is
 handled cooperatively via
 :class:`~evox_tpu_torch.resilience.PreemptionGuard`.
 
+**The control plane** (``controller=``, a
+:class:`~evox_tpu_torch.control.Controller`) consults at boundaries, on the
+host: a trend verdict from the flight window may fire the restart policy
+before the threshold probe would, and self-tuning cadence picks the next
+segment's length from ``stats.segment_timings``.  A segment's capture is
+booked as its ``compile_seconds``, as the JAX package books its compile, so
+the cadence sees the same evidence for the same timings.  Cadence lengths
+are powers of two up to ``checkpoint_every``, plus ``checkpoint_every``
+itself before the first decision and a run's ragged tail: with cadence
+armed the workflow's graph cache is sized to keep every one of them
+(``StdWorkflow.reserve_graphs``), so a length is captured once and a
+changed cadence never recaptures.  A controller that fires no decision
+leaves the run bit-identical to ``controller=None``.
+
 Not ported yet, and refused with :class:`NotImplementedError` when set:
-``exec_cache=`` (ROADMAP 13.2: a captured graph cannot be serialized),
-``primary=``/``heartbeat=`` (13.7, multi-host fleets) and ``controller=``
-(13.8, the control plane).  ``cpu_fallback=True`` runs on the CPU (it
-counts and resets the retry budget as the JAX package's does); on the card
-it is refused, since the port's modules are bound to their device when
-they are built.
+``exec_cache=`` (ROADMAP 13.2: a captured graph cannot be serialized) and
+``primary=``/``heartbeat=`` (13.7, multi-host fleets).
+``cpu_fallback=True`` runs on the CPU (it counts and resets the retry
+budget as the JAX package's does); on the card it is refused, since the
+port's modules are bound to their device when they are built.
 """
 
 from __future__ import annotations
@@ -88,6 +101,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, NamedTuple, Union
 
+import numpy as np
 import torch
 
 from ..core import State, Workflow
@@ -431,7 +445,6 @@ class ResilientRunner:
             ("exec_cache", exec_cache, "13.2 (the executable cache: a captured CUDA graph cannot be serialized)"),
             ("primary", primary, "13.7 (multi-host fleets and their single-writer role)"),
             ("heartbeat", heartbeat, "13.7 (multi-host fleets and their heartbeat plane)"),
-            ("controller", controller, "13.8 (the control plane)"),
         ):
             if value is not None:
                 raise NotImplementedError(
@@ -466,6 +479,13 @@ class ResilientRunner:
         self.remesh = bool(remesh)
         self.store = store if store is not None else CheckpointStore()
         self.obs = resolve_obs(obs, run_id=Path(checkpoint_dir).name)
+        # The closed-loop control plane: trend verdicts from the flight
+        # window and self-tuned cadence from measured timings, publishing
+        # its decisions through this runner's obs plane.
+        self.controller = controller
+        if controller is not None:
+            controller.bind(self.obs)
+        self._controller_chunk = self.checkpoint_every
         # Counters are monotone and (by default) process-shared: publish
         # per-run stats as deltas against this cursor, reset with stats.
         self._metric_cursor: dict[str, float] = {}
@@ -565,12 +585,19 @@ class ResilientRunner:
             state = self.workflow.step(state)
         return state
 
+    def _boundary_reads(self, state: State) -> dict[str, torch.Tensor]:
+        """Further tensors of a completed attempt's state that the boundary
+        reads on the host, folded into :meth:`_complete`'s one copy and
+        handed back as float64 numpy arrays of their shapes (a subclass's
+        hook: the HPO runner's nested telemetry)."""
+        return {}
+
     def _complete(self, result: Any, fused: bool, holder: dict) -> dict[str, Any]:
         """Wait for one attempt's work and read its scalars to the host in
         ONE copy: ``executed``/``stopped`` and the flight signals of a fused
-        segment, and the monitor's counters.  Under the watchdog the wait
-        polls a CUDA event (recorded into ``holder``, so an abandoned
-        attempt can be waited out later)."""
+        segment, the monitor's counters and :meth:`_boundary_reads`.  Under
+        the watchdog the wait polls a CUDA event (recorded into ``holder``,
+        so an abandoned attempt can be waited out later)."""
         state, tel = result if fused else (result, None)
         parts: list[tuple[Any, torch.Tensor]] = []
         if tel is not None:
@@ -583,6 +610,8 @@ class ResilientRunner:
             for key in _MONITOR_COUNTERS:
                 if key in mon and isinstance(mon[key], torch.Tensor):
                     parts.append((("monitor", key), mon[key]))
+        for name, t in self._boundary_reads(state).items():
+            parts.append((("reads", name), t))
         device = _state_device(state)
         if device.type == "cuda" and (self.watchdog_timeout is not None or not parts):
             event = torch.cuda.Event()
@@ -595,7 +624,7 @@ class ResilientRunner:
                 # Nothing to read: wait for the stream's work (the same as
                 # the event, on the one stream the attempt used).
                 torch.cuda.current_stream(device).synchronize()
-        host: dict[str, Any] = {"flight": {}, "monitor": {}}
+        host: dict[str, Any] = {"flight": {}, "monitor": {}, "reads": {}}
         if not parts:
             return host
         values = torch.cat([t.detach().reshape(-1).to(device=device, dtype=torch.float64) for _, t in parts]).tolist()
@@ -608,6 +637,8 @@ class ResilientRunner:
                 host["executed"] = int(chunk[0])
             elif label == "stopped":
                 host["stopped"] = bool(chunk[0])
+            elif label[0] == "reads":
+                host["reads"][label[1]] = np.asarray(chunk, dtype=np.float64).reshape(tuple(t.shape))
             else:
                 host[label[0]][label[1]] = chunk if t.ndim else chunk[0]
         return host
@@ -1191,20 +1222,61 @@ class ResilientRunner:
                 state = self._reload_for_retry(state, generation)
 
     # -- run-health probing and restarts -----------------------------------
+    def _controller_trend(self, done: int):
+        """Consult the controller's trend plane with the flight window.
+        Returns a fired :class:`~evox_tpu_torch.control.Decision` or
+        ``None``; never raises — a missing/detached flight recorder and any
+        controller failure degrade to the threshold probes (the controller
+        emits the structured warning and ``degrade`` decision; this wrapper
+        is the outer guard)."""
+        flight = self.obs.flight if self.obs is not None else None
+        rows = None
+        if flight is not None:
+            try:
+                rows = flight.rows()
+            except Exception:  # noqa: BLE001 - detached/broken recorder
+                rows = None
+        try:
+            return self.controller.trend_verdict(rows, generation=done)
+        except Exception as e:  # noqa: BLE001 - advisory plane only
+            self._event(
+                f"controller trend consult failed ({type(e).__name__}: {e}); continuing on threshold probes",
+                warn=True,
+                category="control",
+            )
+            return None
+
     def _health_boundary(self, state: State, done: int, n_steps: int) -> tuple[State, int]:
         """Probe the state at a segment boundary; apply the restart policy
         on an unhealthy verdict.  Called exactly once per boundary, so the
         probe's stagnation window advances identically in interrupted and
-        uninterrupted runs."""
-        if self.health is None:
+        uninterrupted runs.  Where the probe reads healthy, the controller's
+        trend plane reads the flight window and may fire the restart early
+        (an unhealthy probe verdict always wins)."""
+        if self.health is None and self.controller is None:
             return state, done
-        with self._span("health-probe", generation=done):
-            report = self.health.check(state, generation=done)
-        self.stats.health_checks += 1
-        self.stats.last_report = report
-        if report.healthy:
+        report: HealthReport | None = None
+        if self.health is not None:
+            with self._span("health-probe", generation=done):
+                report = self.health.check(state, generation=done)
+            self.stats.health_checks += 1
+            self.stats.last_report = report
+            if not report.healthy:
+                self.stats.unhealthy_probes += 1
+        trend_decision = None
+        if (
+            (report is None or report.healthy)
+            and self.controller is not None
+            and self.controller.trend_enabled
+            and done < n_steps
+        ):
+            trend_decision = self._controller_trend(done)
+            if trend_decision is not None:
+                base = report if report is not None else HealthReport(generation=done, healthy=True)
+                report = base.with_trend([f"controller trend verdict: {trend_decision.action}"])
+                self.stats.last_report = report
+        if report is None or report.healthy:
             return state, done
-        self.stats.unhealthy_probes += 1
         reasons = "; ".join(report.reasons)
         if self.restart is None or done >= n_steps:
             self._event(
@@ -1225,12 +1297,18 @@ class ResilientRunner:
                 reasons=list(report.reasons),
             )
             return state, done
-        return self._fire_restart(state, done, n_steps, report)
+        return self._fire_restart(state, done, n_steps, report, trend_decision)
 
-    def _fire_restart(self, state: State, done: int, n_steps: int, report: HealthReport) -> tuple[State, int]:
+    def _fire_restart(
+        self, state: State, done: int, n_steps: int, report: HealthReport, trend_decision: Any = None
+    ) -> tuple[State, int]:
         """Apply the restart policy to an unhealthy boundary verdict: policy
         apply, lineage event, post-restart checkpoint and stale-future
-        invalidation."""
+        invalidation.  A control-plane decision that fired the verdict
+        rides into ``RestartContext.decision`` and the lineage event's
+        ``trend``/``decision_seq``.  Subclasses (the HPO runner's growth
+        ladder) fire the same machinery with their own verdicts; callers
+        guarantee a restart policy and an unspent budget."""
         reasons = "; ".join(report.reasons)
         # Restart policies read checkpoints from disk: flush the boundary's
         # in-flight async write first.
@@ -1244,8 +1322,13 @@ class ResilientRunner:
             report=report,
             restart_index=idx,
             lineage=tuple(self.stats.restarts),
+            decision=trend_decision,
         )
         new_state, new_done, needs_init, detail = self.restart.apply(ctx)
+        if trend_decision is not None:
+            # Which plane fired: the journaled decision (seq) holds the
+            # full evidence.
+            detail = {**detail, "trend": trend_decision.action, "decision_seq": trend_decision.seq}
         event = RestartEvent(
             generation=done, policy=self.restart.name, restart_index=idx, reasons=list(report.reasons), detail=detail
         )
@@ -1329,9 +1412,34 @@ class ResilientRunner:
 
     # -- wall-clock checkpoint cadence ---------------------------------------
     def _next_chunk(self) -> int:
+        if self.controller is not None and self.controller.cadence_enabled:
+            chunk = None
+            try:
+                chunk = self.controller.next_chunk(
+                    self.stats.segment_timings,
+                    checkpoint_every=self.checkpoint_every,
+                    generation=self.stats.completed_generations,
+                    current=self._controller_chunk,
+                )
+            except Exception as e:  # noqa: BLE001 - advisory plane only
+                self._event(
+                    f"controller cadence consult failed ({type(e).__name__}: {e}); keeping the configured cadence",
+                    warn=True,
+                    category="control",
+                )
+            if chunk:
+                self._controller_chunk = int(chunk)
+                return self._controller_chunk
         if self.checkpoint_wall_interval is None:
             return self.checkpoint_every
         return self._adaptive_chunk
+
+    def _cadence_lengths(self) -> int:
+        """Distinct segment lengths a run can capture under this runner's
+        cadence: the powers of two from 2 to ``checkpoint_every``, the
+        configured ``checkpoint_every`` itself, and a run's ragged tail (a
+        one-generation segment is a plain step and captures nothing)."""
+        return self.checkpoint_every.bit_length() + 1
 
     def _adapt_chunk(self, chunk: int, seconds: float) -> None:
         """Steer the chunk length toward ``checkpoint_wall_interval``
@@ -1385,6 +1493,14 @@ class ResilientRunner:
         self._resumed_probed = False
         self._adaptive_chunk = 1
         self._per_gen_ema = None
+        # Controller cadence restarts from the configured chunk each run;
+        # the controller itself (decisions, latches, quiet windows)
+        # persists, as its journal does.
+        self._controller_chunk = self.checkpoint_every
+        if self.controller is not None and self.controller.cadence_enabled:
+            reserve = getattr(self.workflow, "reserve_graphs", None)
+            if reserve is not None:
+                reserve(self._cadence_lengths())
         if self.health is not None:
             self.health.reset()
         installed_guard = False
@@ -1413,7 +1529,8 @@ class ResilientRunner:
 
     def _boundary(self, state: State, done: int, host: dict, stepped: int) -> None:
         """The bookkeeping of a completed segment: checkpoint, timing,
-        metrics, introspection."""
+        metrics, introspection (a subclass's hook also takes the
+        segment's :meth:`_boundary_reads` from ``host["reads"]``)."""
         self.stats.segments_run += 1
         self.stats.completed_generations = done
         blocked0 = self.stats.checkpoint_block_seconds

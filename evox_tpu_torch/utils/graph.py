@@ -19,10 +19,14 @@ headline that copy costs most of a generation, while a graph of all ``n``
 generations copies the state in and out once a segment.
 
 A segment makes no host sync: the copies in, the replay and the copies out
-are all enqueued on the current stream.  The captures of one :class:`Cache`
+are all enqueued on the current stream.  Python's cycle collector is off
+while a capture is open (it could destroy a dead graph, which invalidates
+the capture).  The captures of one :class:`Cache`
 share one memory pool (a capture reuses the blocks its earlier generations
 freed, so its pool does not grow with ``n``), and the cache keeps the
-:data:`MAX_GRAPHS` captures used last.  Sharing the pool is safe because
+``max_graphs`` captures used last (:data:`MAX_GRAPHS` unless its owner
+reserves more: a runner under self-tuning cadence keeps every length its
+cadence can pick).  Sharing the pool is safe because
 the replays are ordered on one stream and each replay's outputs are copied
 out before the next replay.  A capture that CUDA refuses raises its error:
 there is no fallback to eager execution.
@@ -30,6 +34,7 @@ there is no fallback to eager execution.
 
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 from typing import Any, Callable, Mapping
 
@@ -39,8 +44,9 @@ from ..core import State
 
 __all__ = ["Cache", "flatten", "unflatten", "structure", "replays", "prepare", "run"]
 
-# Captures a cache keeps (each holds its outputs, one state's worth, in the
-# shared pool); the least recently used one is dropped beyond it.
+# Captures a cache keeps by default (each holds its outputs, one state's
+# worth, in the shared pool); the least recently used one is dropped beyond
+# it.
 MAX_GRAPHS = 4
 
 
@@ -132,23 +138,27 @@ class _Captured:
 
 
 class Cache:
-    """A workflow's captured segments: at most :data:`MAX_GRAPHS` graphs,
-    keyed by what the program depends on and the number of generations, in
-    one memory pool; and the static input buffers of each carry structure,
-    shared by the graphs captured for it."""
+    """A workflow's captured segments: at most ``max_graphs`` graphs, keyed
+    by what the program depends on and the number of generations, in one
+    memory pool; and the static input buffers of each carry structure,
+    shared by the graphs captured for it.  ``captures`` counts the graphs
+    this cache has captured."""
 
-    def __init__(self):
+    def __init__(self, max_graphs: int = MAX_GRAPHS):
         self.graphs: OrderedDict[tuple, _Captured] = OrderedDict()
         self.inputs: dict[tuple, list[torch.Tensor]] = {}
         self.pool = None
         self.stream = None
+        self.max_graphs = int(max_graphs)
+        self.captures = 0
 
     def __len__(self) -> int:
         return len(self.graphs)
 
     def _add(self, ident: tuple, cap: _Captured) -> None:
         self.graphs[ident] = cap
-        while len(self.graphs) > MAX_GRAPHS:
+        self.captures += 1
+        while len(self.graphs) > self.max_graphs:
             self.graphs.popitem(last=False)
         self._prune()
 
@@ -169,9 +179,20 @@ def _capture(program: Callable, inputs, spec, leaves, struct, n: int, pool) -> _
     current.wait_stream(side)
     torch.cuda.synchronize(device)
 
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        carry, outs, static = program(unflatten(spec, inputs), n)
+    # A CUDA graph destroyed while a capture is open invalidates the capture
+    # (its destructor calls the driver), and a dead graph held in a
+    # reference cycle (a finished runner and its workflow) is destroyed
+    # whenever the cycle collector runs: keep the collector from running
+    # until the capture ends.
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            carry, outs, static = program(unflatten(spec, inputs), n)
+    finally:
+        if collecting:
+            gc.enable()
     carry_leaves, carry_spec = flatten(carry)
     out_leaves, out_spec = flatten(outs)
     return _Captured(graph, struct, carry_leaves, carry_spec, out_leaves, out_spec, static)

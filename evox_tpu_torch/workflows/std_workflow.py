@@ -771,8 +771,15 @@ class StdWorkflow(Workflow):
 
     def reset_graphs(self) -> None:
         """Drop every captured segment and its memory pool (a changed
-        algorithm must not replay a graph of the old one)."""
-        self._graphs = graph.Cache()
+        algorithm must not replay a graph of the old one); the cache's
+        reserved capacity is kept."""
+        self._graphs = graph.Cache(self._graphs.max_graphs)
+
+    def reserve_graphs(self, n: int) -> None:
+        """Keep at least ``n`` captured segments before dropping the least
+        recently used one (a runner under self-tuning cadence reserves one
+        for every length its cadence can pick)."""
+        self._graphs.max_graphs = max(self._graphs.max_graphs, int(n))
 
     def _run_segment(self, state: State, n_steps: int, cfg: SegmentConfig):
         device, carry, program, key = self._segment_plan(state, n_steps, cfg)

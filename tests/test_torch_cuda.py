@@ -1814,3 +1814,114 @@ def test_cpu_fallback_is_refused_on_the_card(cuda, tmp_path):
     wf = _runner_pso(cuda, pop=64, dim=16)
     with pytest.raises(NotImplementedError, match="cpu_fallback"):
         ResilientRunner(wf, tmp_path, cpu_fallback=True).run(wf.init(0), 5)
+
+
+def test_a_dead_graph_in_a_cycle_does_not_break_a_capture(cuda):
+    """A workflow whose captured graph is reachable only from a reference
+    cycle (as a finished runner's workflow is) is destroyed when the cycle
+    collector runs, and a graph destroyed while a capture is open
+    invalidates the capture.  Here the cycle becomes garbage inside a
+    capture, with the collector at its most eager: the capture still
+    succeeds, and the dead graph goes afterwards."""
+    import gc
+
+    from evox_tpu_torch.utils import graph
+
+    dead = _runner_pso(cuda, pop=64, dim=16)
+    dead.run(dead.init(0), 5)
+    assert len(dead._graphs) == 1
+    holder = [dead]
+    del dead
+
+    def program(carry, n):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            cycle = [holder.pop()]
+            cycle.append(cycle)
+            del cycle
+            [[i] for i in range(1000)]  # allocations: the collector's chances to run
+        return (carry[0] * 2,), {}, None
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        x = torch.arange(4.0, device=cuda)
+        (y,), _, _ = graph.run(graph.Cache(), "double", program, (x,), 1)
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert not holder and torch.equal(y, x * 2)
+
+
+def test_scrapes_during_a_capture_never_touch_the_card(cuda, tmp_path):
+    """An IntrospectionEndpoint over a runner's registry, health and
+    flight ring, scraped in a loop by another thread across the runner's
+    first captures: every scrape answers 200, no capture fails, and the run
+    equals run(n) bit for bit."""
+    import threading
+    import urllib.request
+
+    from evox_tpu_torch.obs import FlightRecorder, IntrospectionEndpoint, MetricsRegistry, Observability
+    from evox_tpu_torch.resilience import HealthProbe, ResilientRunner
+
+    wf = _runner_pso(cuda, pop=256, dim=32)
+    plane = Observability(registry=MetricsRegistry(), flight=FlightRecorder(tmp_path / "pm", window=64), run_id="r")
+    runner = ResilientRunner(wf, tmp_path / "run", checkpoint_every=7, health=HealthProbe(), obs=plane)
+
+    def healthz():
+        report = runner.stats.last_report
+        return (True, {}) if report is None else (report.healthy, {"generation": report.generation})
+
+    ep = IntrospectionEndpoint(registry=plane.registry, healthz=healthz,
+                               flight=lambda rid: plane.flight.rows() if rid == "r" else None).start()
+    stop, statuses = threading.Event(), []
+
+    def scrape():
+        while not stop.is_set():
+            for path in ("/metrics", "/healthz", "/flightz/r"):
+                with urllib.request.urlopen(ep.url + path, timeout=10) as resp:
+                    statuses.append(resp.status)
+
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    try:
+        out = runner.run(wf.init(0), 31, fresh=True)
+    finally:
+        stop.set()
+        scraper.join(timeout=30)
+        ep.stop()
+    assert not scraper.is_alive() and statuses and set(statuses) == {200}
+    assert sum(t.compile_seconds > 0 for t in runner.stats.segment_timings) == 2  # the segments of 7 and 2
+    ref = _runner_pso(cuda, pop=256, dim=32)
+    _same_state(out, ref.run(ref.init(0), 31))
+
+
+def test_cadence_captures_each_segment_length_once(cuda, tmp_path):
+    """Under a self-tuning cadence (here a scripted one: 16, 2, 4, 8 in
+    turn, and a tail of 5 — more lengths than the default cache keeps) the
+    workflow's graph cache keeps every length the cadence can pick, so a
+    run captures each distinct segment length once and a second run
+    captures nothing; the state equals the controller-off run bit for
+    bit."""
+    import itertools
+
+    from evox_tpu_torch.control import Controller
+    from evox_tpu_torch.resilience import ResilientRunner
+    from evox_tpu_torch.utils import graph
+
+    def scripted():
+        ctl = Controller(target_seconds=1.0)
+        script = itertools.cycle([16, 2, 4, 8])
+        ctl.next_chunk = lambda timings, **kw: next(script)
+        return ctl
+
+    wf = _runner_pso(cuda, pop=256, dim=32)
+    runner = ResilientRunner(wf, tmp_path / "on", checkpoint_every=16, controller=scripted())
+    out = runner.run(wf.init(0), 66, fresh=True)
+    lengths = {c for c in runner.stats.chunk_sizes if c > 1}
+    assert runner.stats.chunk_sizes == [16, 2, 4, 8, 16, 2, 4, 8, 5] and len(lengths) > graph.MAX_GRAPHS
+    assert wf._graphs.captures == len(lengths) and wf._graphs.max_graphs == runner._cadence_lengths()
+    ResilientRunner(wf, tmp_path / "again", checkpoint_every=16, controller=scripted()).run(wf.init(0), 66, fresh=True)
+    assert wf._graphs.captures == len(lengths)
+    ref = _runner_pso(cuda, pop=256, dim=32)
+    _same_state(out, ResilientRunner(ref, tmp_path / "off", checkpoint_every=16).run(ref.init(0), 66))

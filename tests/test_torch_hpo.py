@@ -732,7 +732,7 @@ def test_hpo_modules_import_no_jax():
     root = Path(algorithms.__file__).resolve().parent.parent
     files = sorted((root / "hpo").glob("*.py")) + [root / "problems" / "hpo_wrapper.py",
                                                     root / "problems" / "__init__.py", root / "__init__.py"]
-    assert len(files) == 6
+    assert len(files) == 8  # hpo/: __init__, elastic, monitor, nested, runner
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []
@@ -757,12 +757,9 @@ def test_public_names_match_jax():
         assert hasattr(evox_tpu_torch.problems, name)
     assert evox_tpu_torch.hpo is evox_tpu_torch.hpo and "hpo" in evox_tpu_torch.__all__
     assert HPO_REPEAT_AXIS == JHPO_REPEAT_AXIS
-    ported = set(evox_tpu_torch.hpo.__all__)
-    missing = set(evox_tpu.hpo.__all__) - ported
-    assert missing == {"HPORunner", "GrowthLadder", "HPOGrowPolicy", "grow_evidence", "validate_ladder_window"}
-    for name in sorted(missing):
-        with pytest.raises(ImportError, match="ROADMAP Queue 1 item 13"):
-            exec(f"from evox_tpu_torch.hpo import {name}", {})
+    assert set(evox_tpu_torch.hpo.__all__) == set(evox_tpu.hpo.__all__)
+    for name in ("HPORunner", "GrowthLadder", "HPOGrowPolicy", "grow_evidence", "validate_ladder_window"):
+        assert getattr(evox_tpu_torch.hpo, name).__module__.startswith("evox_tpu_torch.hpo.")
 
 
 def test_find_nested_walks_wrapper_chains_and_candidate_series_reads_telemetry():

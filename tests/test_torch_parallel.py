@@ -77,8 +77,8 @@ def test_import_exposes_every_ported_subpackage_and_builds_nothing():
         "subprocess.Popen.__init__ = spy\n"
         "import evox_tpu_torch as e\n"
         "from evox_tpu_torch.ops import _build\n"
-        "for name in ('algorithms', 'core', 'hpo', 'metrics', 'obs', 'operators', 'ops', 'parallel', 'precision',\n"
-        "             'problems', 'resilience', 'utils', 'workflows'):\n"
+        "for name in ('algorithms', 'control', 'core', 'hpo', 'metrics', 'obs', 'operators', 'ops', 'parallel',\n"
+        "             'precision', 'problems', 'resilience', 'service', 'utils', 'workflows'):\n"
         "    assert name in e.__all__ and getattr(e, name).__name__ == 'evox_tpu_torch.' + name, name\n"
         "assert not _build._loaded, _build._loaded\n"
         "assert not calls, calls\n"
@@ -96,7 +96,7 @@ def test_import_exposes_every_ported_subpackage_and_builds_nothing():
     env["PYTHONPATH"] = str(ROOT)
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
-    assert set(evox_tpu_torch.NOT_PORTED) == {"control", "service", "vis_tools"}
+    assert set(evox_tpu_torch.NOT_PORTED) == {"vis_tools"}
 
 
 def _jax_exports():

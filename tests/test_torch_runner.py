@@ -639,8 +639,7 @@ def test_wall_interval_adapts_the_chunk(tmp_path):
 
 @pytest.mark.parametrize(
     "kw, item",
-    [(dict(exec_cache=object()), "13.2"), (dict(primary=True), "13.7"), (dict(heartbeat=object()), "13.7"),
-     (dict(controller=object()), "13.8")],
+    [(dict(exec_cache=object()), "13.2"), (dict(primary=True), "13.7"), (dict(heartbeat=object()), "13.7")],
 )
 def test_not_ported_runner_arguments_are_refused_by_name(tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=f"{next(iter(kw))}.*{item}"):
