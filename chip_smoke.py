@@ -73,8 +73,18 @@ twin's telemetry, host syncs a segment, a SIGTERM and resume, with an
 ladder 1024 -> 2048 under a journaled ``Controller``, the memory around
 it, a resume across it; ``controller_cadence``: pso_small_resilient under
 self-tuning cadence, bit-equal to the controller-off run, and a journaled
-trend restart), checks that each path went through its kernels, and times
-them.  It prints one JSON line per
+trend restart), then the service core (``service_pack``: bench.py's
+service_pack, 8 PSO(1024) tenants at dim 100 in one ``TenantPack`` whose
+segment of 25 is one captured CUDA graph of vmapped lane-freeze
+generations, every lane bit-equal to a width-1 pack and to eager steps,
+one host read a segment, one capture across freeze, thaw, release and
+admission; ``vmapped_instances_resilient``: the same tenants through
+``torch.func.vmap(wf.run_segment)``, equal to the pack; ``service_main_path``:
+``OptimizationService`` with a PSO bucket of 12 tenants under tenant-keyed
+chaos and an OpenES bucket of 4, an eviction, restarts, quarantines, a
+preemption resumed in a new service, each healthy tenant bit-equal to the
+same tenant alone, and the README's service quick start), checks that each
+path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -1091,7 +1101,7 @@ def radix_bytes(n, passes, capacity, crowding) -> int:
 # shows a device operation.
 PROFILE_ATTEMPTS = 3
 PROFILE_PAD_S = 0.005
-PROFILE_SPARE = 8
+PROFILE_SPARE = 32  # late in a long process a window lost its first 10 device operations
 
 
 def launches_per_call(fn, calls=5) -> dict:
@@ -5882,6 +5892,511 @@ def phase_controller_cadence(device) -> dict:
     return out
 
 
+# -- the service core (TenantPack, OptimizationService) ---------------------------
+
+SERVICE_LANES, SERVICE_SEGMENT, SERVICE_GENS = 8, 25, 200  # bench.py's service_pack: 8 lanes, segments of 25
+SERVICE_ES = dict(pop=1024, dim=100, center=8.0, lr=0.1, sigma=0.1)  # OpenES(1024, 8.0 in dim 100, adam) on Sphere
+SERVICE_PSO_TENANTS, SERVICE_ES_TENANTS = 12, 4
+SERVICE_BUDGET = 101  # init + 4 segments of 25
+# The tenant-keyed chaos of the main path: uid 1 a NaN burst, uid 2 a plateau.
+SERVICE_FAULTS = {1: {"nan_generations": tuple(range(3, 200)), "nan_rows": 1024},
+                  2: {"plateau_from": 2, "plateau_floor": 50.0}}
+SERVICE_QUICKSTART = (64, 8, 24, 8)  # README: PSO(64, ±32 in dim 8), Ackley, 24 generations, segments of 8
+
+
+def service_tenant(wf, uid, device):
+    """The service's fresh state of tenant ``uid`` (seed 0): ``setup`` from
+    ``fold_in(key(0), uid)``, the uid as instance id and fault lane."""
+    from evox_tpu_torch.service import assign_fault_lane
+    from evox_tpu_torch.utils import rng
+
+    return assign_fault_lane(wf.setup(rng.fold_in(rng.key(0, device), uid), instance_id=uid), uid)
+
+
+def eager_tenant(wf, uid, device, gens):
+    state = wf.init_step(service_tenant(wf, uid, device))
+    for _ in range(gens):
+        state = wf.step(state)
+    return state
+
+
+def filled_pack(wf, lanes, uids, device, early_stop=False):
+    from evox_tpu_torch.service import TenantPack
+
+    pack = TenantPack(wf, lanes, early_stop=early_stop)
+    for uid in uids:
+        state, _, _ = pack.init_tenant(service_tenant(wf, uid, device))
+        pack.admit(state, uid)
+    return pack
+
+
+def batched_exact_vs_plain(states) -> dict:
+    """The batched PSO move and the batched Philox draws on the pack's
+    states (8 x (1024, 100), 8 streams of 102,400) against their plain
+    versions, exact (``vmapped_instances`` times them at this shape)."""
+    import torch
+    from evox_tpu_torch.ops import philox, pso_step
+
+    a = states.algorithm
+    n, d = VMAP_PSO
+    scal = torch.stack([a.w, a.phi_p, a.phi_g], 1).float()
+    lb, ub = (torch.full((d,), v, device=a.pop.device) for v in (-32.0, 32.0))
+    args = (a.pop, a.velocity, a.local_best_location, a.fit, a.local_best_fit, a.global_best_location,
+            lb, ub, scal, a.key)
+    move = max(exact(g, w, "fused_pso_move_batched vs plain on the pack's states")
+               for g, w in zip(pso_step.fused_pso_move_batched(*args, index=0),
+                               pso_step.fused_pso_move_batched_plain(*args, 0)))
+    draws = max(exact(g, w, "philox_draws_batched vs plain on the pack's keys")
+                for g, w in zip(philox.philox_draws_batched(a.key, 0, n * d, [a.pop.dtype]),
+                                philox.philox_draws_batched_plain(a.key, 0, n * d, [a.pop.dtype])))
+    return {"fused_pso_move_batched": {"max_abs_err": move, "shape": list(a.pop.shape)},
+            "philox_draws_batched": {"max_abs_err": draws, "streams": int(a.key.shape[0]), "numel": n * d}}
+
+
+def phase_service_pack(device) -> dict:
+    """bench.py's service_pack (:1236-1278) at full width: 8 x PSO(1024, ±32
+    in dim 100) on Ackley, ``TenantPack(early_stop=False)``, segments of
+    25: the admissions (8 setups and the single-lane init program, captured
+    once), one warm segment (the capture) and 200 generations (8 replays).
+    Launches counted exactly over that run: the init program's warm-up and
+    capture, the segment's warm-up generation and its 25 captured ones (a
+    replay calls no wrapper).  Every lane equal to the same tenant in a
+    width-1 pack and to its 225 eager steps, bit for bit; per-tenant gen/s,
+    ms a segment, host syncs a segment, captures, device operations a
+    generation and the pool's bytes; a freeze, a thaw, a release and an
+    admission recapture nothing.  Then the batched kernels against their
+    plain versions at the pack's shape, and one setup's draws on the path."""
+    import torch
+
+    wf = vmapped_pso_workflow(device)
+    counters = vmap_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    pack = filled_pack(wf, SERVICE_LANES, range(SERVICE_LANES), device)
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    admitted = counts(counters)
+    t0 = time.perf_counter()
+    pack.run_segment(SERVICE_SEGMENT)  # the warm segment: its capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    segments = SERVICE_GENS // SERVICE_SEGMENT
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(segments + 1)]
+    t0 = time.perf_counter()
+    starts[0].record()
+    for i in range(segments):
+        pack.run_segment(SERVICE_SEGMENT)
+        starts[i + 1].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts(counters)
+    seg_ms = [starts[i].elapsed_time(starts[i + 1]) for i in range(segments)]
+    # The init program: PSO's init_step makes no move and no draw, so the
+    # 8 setups' draws (solo) and the segment's warm-up + captured moves.
+    per_setup = admitted["philox_draws"] // SERVICE_LANES
+    expect(admitted, {"fused_pso_move": 0, "fused_pso_move_batched": 0, "philox_draws": SERVICE_LANES * per_setup,
+                      "philox_draws_batched": 0}, "service_pack admissions' launches")
+    expect(launches["fused_pso_move_batched"], SERVICE_SEGMENT + 1, "service_pack batched moves")
+    expect({k: launches[k] - admitted[k] for k in ("fused_pso_move", "philox_draws", "philox_draws_batched")},
+           {"fused_pso_move": 0, "philox_draws": 0, "philox_draws_batched": 0}, "service_pack segments' other launches")
+    expect(pack.captures, {"init": 1, "segment": 1}, "service_pack captures")
+    total = SERVICE_SEGMENT + SERVICE_GENS
+    # Each lane against the same tenant in a width-1 pack and its eager steps.
+    leaves = 0
+    for uid in range(SERVICE_LANES):
+        solo = filled_pack(wf, 1, [uid], device)
+        for _ in range(total // SERVICE_SEGMENT):
+            solo.run_segment(SERVICE_SEGMENT)
+        got = pack.lane_state(uid)
+        leaves += same_state(got, solo.lane_state(0), f"service_pack: lane {uid} vs a width-1 pack")
+        leaves += same_state(got, eager_tenant(wf, uid, device, total), f"service_pack: lane {uid} vs eager steps")
+        del solo
+    _, syncs = thread_syncs(lambda: pack.run_segment(SERVICE_SEGMENT))
+    expect(syncs["calling_thread"], 1, "service_pack host syncs a segment")
+    per_segment = launches_per_call(lambda: pack.run_segment(SERVICE_SEGMENT), calls=1)
+    # Freeze, thaw, release and admit: still one capture.
+    frozen_lane, released = SERVICE_LANES // 2 - 1, SERVICE_LANES - 3
+    pack.set_frozen(frozen_lane, True)
+    tel = pack.run_segment(SERVICE_SEGMENT)
+    expect(tel.executed.tolist()[frozen_lane], 0, "service_pack frozen lane executed")
+    pack.set_frozen(frozen_lane, False)
+    pack.release(released)
+    state, _, _ = pack.init_tenant(service_tenant(wf, 99, device))
+    expect(pack.admit(state, 99), released, "service_pack readmitted lane")
+    tel = pack.run_segment(SERVICE_SEGMENT)
+    expect(tel.executed.tolist(), [SERVICE_SEGMENT] * SERVICE_LANES, "service_pack executed after admission")
+    expect(pack.captures, {"init": 1, "segment": 1}, "service_pack captures after freeze/thaw/release/admit")
+    pool = graph_pool_bytes(pack._graphs)
+    kernels = batched_exact_vs_plain(pack._states)
+    seen: list = []
+    with recording_draws(seen):
+        service_tenant(wf, 0, device)
+    draws = draws_on_path("service_pack setup", seen)
+    n, d = VMAP_PSO
+    row = {
+        "config": f"{SERVICE_LANES} x PSO pop={n} dim={d} Ackley f32, TenantPack(early_stop=False), "
+                  f"segments of {SERVICE_SEGMENT}, {SERVICE_GENS} generations after a warm segment",
+        "launches": launches, "setup_philox_per_tenant": per_setup,
+        "admission_s": admit_s, "capture_s": capture_s,
+        "gen_per_s_per_tenant": SERVICE_GENS / wall_s, "wall_ms_per_segment": wall_s * 1e3 / segments,
+        "event_ms_per_segment": seg_ms, "ms_per_gen": sum(seg_ms) / SERVICE_GENS,
+        "host_syncs_per_segment": syncs["calling_thread"], "captures": dict(pack.captures),
+        "device_ops_per_gen": per_segment["launches"] / SERVICE_SEGMENT,
+        "device_ms_per_gen": per_segment["device_ms"] / SERVICE_SEGMENT,
+        "idle_share": 1 - per_segment["device_ms"] / (sum(seg_ms) / segments),
+        "pool_bytes": pool, "lanes_equal_width1_and_eager": SERVICE_LANES, "leaves_checked": leaves,
+        "kernels": kernels, "philox_on_path_vs_plain": draws,
+        "max_abs_err": {k: v["max_abs_err"] for k, v in kernels.items()},
+    }
+    del pack, wf
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_vmapped_instances_resilient(device) -> dict:
+    """bench.py's vmapped_instances_resilient (:1184-1233): the same 8
+    tenants through ``torch.func.vmap(lambda s: wf.run_segment(s, 25))``
+    (generations eager under the transform), the batched telemetry read in
+    one copy and flushed, a warm segment and 200 generations: every
+    instance equal to the pack's captured program, bit for bit; eager
+    ms/gen against the pack's; 1 batched move a generation, counted from 0
+    over the run; the path's batched moves (one segment's 25, recorded)
+    against their plain version."""
+    import torch
+    from evox_tpu_torch.service import TenantPack
+    from evox_tpu_torch.service.pack import to_host
+    from evox_tpu_torch.utils import graph
+
+    wf = vmapped_pso_workflow(device)
+    states = [wf.init_step(service_tenant(wf, uid, device)) for uid in range(SERVICE_LANES)]
+    spec = graph.flatten(states[0])[1]
+    stacked = graph.unflatten(spec, [torch.stack(col) for col in zip(*[graph.flatten(s)[0] for s in states])])
+    segment = torch.func.vmap(lambda s: wf.run_segment(s, SERVICE_SEGMENT))
+    counters = vmap_counters()
+    for c in counters.values():
+        c.launches = 0
+    total = SERVICE_SEGMENT + SERVICE_GENS
+    t0 = time.perf_counter()
+    s = stacked
+    for _ in range(total // SERVICE_SEGMENT):
+        s, tel = segment(s)
+        wf.flush_telemetry(to_host(tel))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts(counters)
+    expect(launches, {"fused_pso_move": 0, "fused_pso_move_batched": total, "philox_draws": 0,
+                      "philox_draws_batched": 0}, "vmapped_instances_resilient launches")
+    expect(tel.executed.tolist(), [SERVICE_SEGMENT] * SERVICE_LANES, "vmapped segment executed")
+    pack = TenantPack(wf, SERVICE_LANES, early_stop=False)
+    for uid, st in enumerate(states):
+        pack.admit(st, uid)
+    for _ in range(total // SERVICE_SEGMENT):
+        pack.run_segment(SERVICE_SEGMENT)
+    leaves = 0
+    for uid in range(SERVICE_LANES):
+        leaves += same_state(instance(s, uid), pack.lane_state(uid),
+                             f"vmapped_instances_resilient: instance {uid} vs the pack's captured program")
+    eager_ms, eager_host_ms, _ = timed(lambda: segment(s), SERVICE_SEGMENT)
+    pack_ms, pack_host_ms, _ = timed(lambda: pack.run_segment(SERVICE_SEGMENT), SERVICE_SEGMENT)
+    seen: list = []
+    with recording_batched_moves(seen):
+        segment(s)
+    moves = batched_moves_vs_plain(seen, "vmapped_instances_resilient")
+    row = {
+        "config": f"{SERVICE_LANES} x PSO pop={VMAP_PSO[0]} dim={VMAP_PSO[1]} Ackley f32, torch.func.vmap over "
+                  f"StdWorkflow.run_segment({SERVICE_SEGMENT}), telemetry flushed",
+        "launches": launches, "wall_ms_per_gen": wall_s * 1e3 / total,
+        "eager_ms_per_gen": eager_ms, "eager_host_ms_per_gen": eager_host_ms,
+        "pack_ms_per_gen": pack_ms, "pack_host_ms_per_gen": pack_host_ms,
+        "instances_equal_pack": SERVICE_LANES, "leaves_checked": leaves, "batched_moves_vs_plain": moves,
+        "max_abs_err": moves["max_abs_err"],
+    }
+    del pack, wf, s, stacked, states
+    torch.cuda.empty_cache()
+    return row
+
+
+def service_specs(device, names):
+    """``TenantSpec``s of the main path: ``pso-<uid>`` on
+    ``FaultyProblem(Ackley(), lane_faults=SERVICE_FAULTS)``, ``es-<uid>``
+    OpenES on Sphere, budgets of ``SERVICE_BUDGET``."""
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.algorithms.so.es_variants import OpenES
+    from evox_tpu_torch.problems.numerical import Ackley, Sphere
+    from evox_tpu_torch.resilience import FaultyProblem
+    from evox_tpu_torch.service import TenantSpec
+
+    n, d = VMAP_PSO
+    out = []
+    for name in names:
+        kind, uid = name.split("-")
+        if kind == "pso":
+            algo = PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device)
+            prob = FaultyProblem(Ackley(), lane_faults=SERVICE_FAULTS)
+        else:
+            e = SERVICE_ES
+            algo = OpenES(e["pop"], torch.full((e["dim"],), e["center"]), e["lr"], e["sigma"], optimizer="adam",
+                          device=device)
+            prob = Sphere()
+        out.append(TenantSpec(name, algo, prob, n_steps=SERVICE_BUDGET, uid=int(uid)))
+    return out
+
+
+def make_service(root, **kw):
+    from evox_tpu_torch.resilience import HealthProbe
+    from evox_tpu_torch.service import OptimizationService
+
+    return OptimizationService(root, lanes_per_pack=SERVICE_LANES, segment_steps=SERVICE_SEGMENT,
+                               health=HealthProbe(stagnation_window=2), max_restarts=1, on_event=lambda msg: None,
+                               obs=False, **kw)
+
+
+@contextlib.contextmanager
+def boundary_timer(parts):
+    """While active, each call of the service's boundary parts appends its
+    seconds to ``parts[key]``: the pack segments (``segment <algorithm>``:
+    the replay, or the capture, and its one read), the lane scans
+    (``scan``) and the checkpoint writes (``checkpoint``)."""
+    from evox_tpu_torch.service import OptimizationService, TenantPack
+
+    real = {"segment": (TenantPack, "run_segment"), "scan": (TenantPack, "check_lanes"),
+            "checkpoint": (OptimizationService, "_checkpoint_tenant")}
+    saved = {k: getattr(cls, name) for k, (cls, name) in real.items()}
+
+    def timing(key, fn):
+        def wrapped(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                name = f"{key} {type(self.workflow.algorithm).__name__}" if key == "segment" else key
+                parts.setdefault(name, []).append(time.perf_counter() - t0)
+        return wrapped
+
+    for k, (cls, name) in real.items():
+        setattr(cls, name, timing(k, saved[k]))
+    try:
+        yield
+    finally:
+        for k, (cls, name) in real.items():
+            setattr(cls, name, saved[k])
+
+
+def tenant_digests(root, tenant_id):
+    from evox_tpu_torch.utils import read_manifest
+
+    ns = Path(root) / "tenants" / tenant_id
+    newest = sorted(p.name for p in ns.glob("ckpt_*.npz"))[-1]
+    return newest, read_manifest(ns / newest)["leaf_digests"]
+
+
+def phase_service_main_path(device) -> dict:
+    """``OptimizationService(lanes_per_pack=8, segment_steps=25,
+    HealthProbe(stagnation_window=2), max_restarts=1)`` with two buckets:
+    12 PSO tenants of the service_pack shape on Ackley with tenant-keyed
+    chaos (uid 1 a NaN burst, uid 2 a plateau: each restarted once, then
+    quarantined), 4 of them queued for lanes; 4 OpenES(1024, 8.0 in dim
+    100, lr 0.1, σ 0.1, adam) tenants on Sphere; one eviction and
+    readmission (uid 3).  Counted from 0 over the run: the batched move
+    (the PSO bucket's segment capture), the batched draws (OpenES's
+    normals in its bucket's capture) and the solo draws (every tenant
+    setup, and OpenES's init program's warm-up and capture), exactly.  One
+    segment capture a bucket across freezes, quarantines, admissions and
+    evictions.  Healthy tenant uid 0 and OpenES uid 12 equal the same
+    tenants alone (state, counters, history, checkpoint leaf digests), uid
+    3 after its eviction equals it alone, and a preempted service's
+    tenants resumed in a new service equal them too (the preemption
+    counter apart), bit for bit.  Wall ms a boundary split into segment,
+    scan and checkpoint.  Then the README quick start on the card."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.resilience import Preempted, PreemptionGuard
+    from evox_tpu_torch.service import OptimizationService, TenantStatus
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    es0 = f"es-{SERVICE_PSO_TENANTS}"  # the first OpenES tenant
+    pso_names = [f"pso-{u}" for u in range(SERVICE_PSO_TENANTS)]
+    es_names = [f"es-{u}" for u in range(SERVICE_PSO_TENANTS, SERVICE_PSO_TENANTS + SERVICE_ES_TENANTS)]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_service_"))
+    try:
+        counters = hpo_counters()
+        # What one setup and one OpenES init_step draw (solo route).
+        per_setup = {}
+        for spec in service_specs(device, ["pso-0", es0]):
+            kind = spec.tenant_id.split("-")[0]
+            w = StdWorkflow(spec.algorithm, spec.problem)
+            for c in counters.values():
+                c.launches = 0
+            s0 = w.setup(0)
+            per_setup[kind] = counters["philox_draws"].launches
+            counters["philox_draws"].launches = 0
+            w.init_step(s0)
+            per_setup[kind + "_init"] = counters["philox_draws"].launches
+        setups = {"pso": 0, "es": 0}
+        real_fresh = OptimizationService._fresh_state
+
+        def counting_fresh(self, bucket, record):
+            setups[record.spec.tenant_id.split("-")[0]] += 1
+            return real_fresh(self, bucket, record)
+
+        svc = make_service(root / "main")
+        parts: dict = {}
+        OptimizationService._fresh_state = counting_fresh
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with boundary_timer(parts):
+                for spec in service_specs(device, pso_names + es_names):
+                    svc.submit(spec)
+                rounds = 0
+                steps = []
+                for _ in range(2):
+                    t1 = time.perf_counter()
+                    svc.step()
+                    steps.append(time.perf_counter() - t1)
+                    rounds += 1
+                svc.evict("pso-3")
+                svc.step()
+                rounds += 1
+                svc.submit(service_specs(device, ["pso-3"])[0])
+                while True:
+                    t1 = time.perf_counter()
+                    progressed = svc.step()
+                    steps.append(time.perf_counter() - t1)
+                    rounds += 1
+                    if not progressed:
+                        break
+            torch.cuda.synchronize()
+        finally:
+            OptimizationService._fresh_state = real_fresh
+        wall_s = time.perf_counter() - t0
+        launches = counts(counters)
+        statuses = {name: svc.tenant(name).status.value for name in pso_names + es_names}
+        for name in ("pso-1", "pso-2"):
+            rec = svc.tenant(name)
+            expect((rec.status, rec.restarts), (TenantStatus.QUARANTINED, 1), f"service {name}: status, restarts")
+        for name in pso_names[3:] + es_names + ["pso-0"]:
+            expect(svc.tenant(name).status, TenantStatus.COMPLETED, f"service {name}")
+        expect((svc.stats.evictions, svc.stats.readmissions), (1, 1), "service evictions, readmissions")
+        buckets = list(svc._buckets.values())
+        expect(len(buckets), 2, "service buckets")
+        for b in buckets:
+            expect(b.pack.captures["segment"], 1, f"service bucket {b.key[0]}: segment captures")
+        expect(launches["fused_pso_move_batched"], SERVICE_SEGMENT + 1, "service batched moves")
+        expect(launches["philox_draws_batched"], SERVICE_SEGMENT + 1, "service batched draws (OpenES)")
+        expect(launches["fused_pso_move"], 0, "service solo moves")
+        # Each bucket's init program: a warm-up and a capture.
+        want_draws = (setups["pso"] * per_setup["pso"] + setups["es"] * per_setup["es"]
+                      + 2 * (per_setup["pso_init"] + per_setup["es_init"]))
+        expect(launches["philox_draws"], want_draws, f"service solo draws ({setups} setups, {per_setup})")
+
+        # The same tenants alone: uid 0 and OpenES uid 12 (each alone in its
+        # bucket), uid 3 alone.
+        ref = make_service(root / "alone")
+        for spec in service_specs(device, ["pso-0", es0]):
+            ref.submit(spec)
+        ref.run()
+        ref3 = make_service(root / "alone3")
+        ref3.submit(service_specs(device, ["pso-3"])[0])
+        ref3.run()
+        checked = {}
+        for name, other, other_root in (("pso-0", ref, root / "alone"), (es0, ref, root / "alone"),
+                                        ("pso-3", ref3, root / "alone3")):
+            leaves = same_state(svc.result(name), other.result(name), f"service {name} vs alone")
+            h_got, h_want = svc.tenant(name).monitor.fitness_history, other.tenant(name).monitor.fitness_history
+            expect(len(h_got), len(h_want), f"service {name}: history entries")
+            for g, w in zip(h_got, h_want):
+                exact(g, w, f"service {name}: history")
+            expect(tenant_digests(root / "main", name), tenant_digests(other_root, name),
+                   f"service {name}: newest checkpoint's leaf digests")
+            checked[name] = {"leaves": leaves, "history": len(h_got)}
+
+        # A preemption, and the resume in a new service over the same root.
+        guard = PreemptionGuard()
+        pre = make_service(root / "pre", preemption=guard)
+        for spec in service_specs(device, ["pso-0", es0]):
+            pre.submit(spec)
+        pre.step()
+        pre.step()
+        guard.trip("chip_smoke drill")
+        try:
+            pre.step()
+            raise AssertionError("the tripped guard did not preempt the service")
+        except Preempted:
+            pass
+        fresh = make_service(root / "pre")
+        for spec in service_specs(device, ["pso-0", es0]):
+            fresh.submit(spec)
+        fresh.run()
+        for name in ("pso-0", es0):
+            got, want = fresh.result(name), ref.result(name)
+            expect(int(got.monitor.num_preemptions), 1, f"preempted {name}: num_preemptions")
+            got = got.replace(monitor=got.monitor.replace(num_preemptions=want.monitor.num_preemptions))
+            checked[f"preempted {name}"] = {"leaves": same_state(got, want, f"preempted {name} vs uninterrupted")}
+
+        quick = service_quickstart(root / "quickstart", device)
+        segments = svc.stats.segments_run
+        row = {
+            "config": f"OptimizationService(lanes_per_pack={SERVICE_LANES}, segment_steps={SERVICE_SEGMENT}, "
+                      f"HealthProbe(stagnation_window=2), max_restarts=1): {SERVICE_PSO_TENANTS} x PSO "
+                      f"{VMAP_PSO[0]} x {VMAP_PSO[1]} Ackley (lane faults: uid 1 NaN, uid 2 plateau), "
+                      f"{SERVICE_ES_TENANTS} x OpenES {SERVICE_ES['pop']} x {SERVICE_ES['dim']} Sphere, "
+                      f"budgets {SERVICE_BUDGET}",
+            "launches": launches, "setups": setups, "philox_per_setup": per_setup,
+            "statuses": statuses, "stats": {k: v for k, v in vars(svc.stats).items() if k != "rejections"},
+            "rounds": rounds, "segments": segments, "wall_s": wall_s,
+            "wall_ms_per_round": [round(t * 1e3, 3) for t in steps],
+            # Each part's calls in ms: the segments' first call of a bucket
+            # is its capture; a boundary writes one checkpoint a tenant.
+            "boundary_ms": {k: {"calls": len(v), "total": sum(v) * 1e3, "median": sorted(v)[len(v) // 2] * 1e3,
+                                "first": v[0] * 1e3, "max": max(v) * 1e3} for k, v in parts.items()},
+            "checkpoint_ms_per_segment": sum(parts.get("checkpoint", [])) * 1e3 / segments,
+            "captures": {b.key[0]: dict(b.pack.captures) for b in buckets},
+            "pool_bytes": {b.key[0]: graph_pool_bytes(b.pack._graphs) for b in buckets},
+            "checked": checked, "quickstart": quick,
+        }
+        del svc, ref, ref3, pre, fresh, buckets
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def service_quickstart(root, device) -> dict:
+    """README's service quick start in the port's terms on the card:
+    ``OptimizationService(lanes_per_pack=8, segment_steps=8)`` with two
+    PSO(64, ±32 in dim 8) Ackley tenants of 24 generations."""
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.service import OptimizationService, TenantSpec, TenantStatus
+
+    pop, dim, gens, seg = SERVICE_QUICKSTART
+    lb, ub = -32.0 * torch.ones(dim), 32.0 * torch.ones(dim)
+    svc = OptimizationService(root, lanes_per_pack=8, segment_steps=seg)
+    # As the README writes it on the card (PSO's default device); a CPU
+    # rehearsal names its device.
+    kw = {} if device.type == "cuda" else {"device": device}
+    svc.submit(TenantSpec("alice-1", PSO(pop, lb, ub, **kw), Ackley(), n_steps=gens))
+    svc.submit(TenantSpec("bob-7", PSO(pop, lb, ub, **kw), Ackley(), n_steps=gens))
+    svc.run()
+    out = {}
+    for name in ("alice-1", "bob-7"):
+        rec = svc.tenant(name)
+        expect(rec.status, TenantStatus.COMPLETED, f"service quick start {name}")
+        state = svc.result(name)
+        if state.algorithm.pop.device.type != device.type:
+            raise AssertionError(f"service quick start {name}: the state is on {state.algorithm.pop.device}")
+        out[name] = {"generations": rec.generations, "history": len(rec.monitor.fitness_history),
+                     "best": float(state.algorithm.global_best_fit)}
+    return out
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -5982,7 +6497,9 @@ def philox_row(results) -> dict:
         # The control plane's runs: the outer PSO's setups (and the grown
         # ladders' rebuilt instances), pso_small_resilient's setups.
         + sum(results[p]["launches"]["philox_draws"]
-              for p in ("hpo_runner_main_path", "hpo_grow", "controller_cadence")),
+              for p in ("hpo_runner_main_path", "hpo_grow", "controller_cadence"))
+        # The service core: the tenants' setups (and OpenES's init program).
+        + sum(results[p]["launches"]["philox_draws"] for p in ("service_pack", "service_main_path")),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6001,11 +6518,18 @@ def batched_rows(results) -> list[dict]:
          "replaces": "evox_tpu/ops/pso_step.py:77",
          # With the README HPO quick start's inner PSO (a row of scalars a
          # candidate).
-         "launches": launches["fused_pso_move_batched"] + results["hpo_quickstart"]["launches"]["fused_pso_move_batched"],
+         "launches": launches["fused_pso_move_batched"] + results["hpo_quickstart"]["launches"]["fused_pso_move_batched"]
+         # The service core's paths: the packs' segment captures (a warm-up
+         # and the captured generations) and the eager vmapped segments.
+         + sum(results[p]["launches"]["fused_pso_move_batched"]
+               for p in ("service_pack", "vmapped_instances_resilient", "service_main_path")),
          **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS},
-         # The timed batch, and the HPO path's recorded moves.
+         # The timed batch, the HPO path's recorded moves, the pack's shape
+         # and the eager vmapped segments' recorded moves.
          "max_abs_err": max(t["fused_pso_move_batched"]["max_abs_err"],
-                            results["hpo_quickstart"]["batched_moves_vs_plain"]["max_abs_err"])},
+                            results["hpo_quickstart"]["batched_moves_vs_plain"]["max_abs_err"],
+                            results["service_pack"]["max_abs_err"]["fused_pso_move_batched"],
+                            results["vmapped_instances_resilient"]["max_abs_err"])},
         {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
          "replaces": "none (the port's own kernel, batched over vmapped instances)",
          # With the rollouts' resets (one launch for the episodes a
@@ -6023,10 +6547,14 @@ def batched_rows(results) -> list[dict]:
          # hpo_ladder's OpenES normals under the HPO runner and the growth
          # ladder (captured nests: counted at their warm-ups and captures).
          + results["hpo_runner_main_path"]["launches"]["philox_draws_batched"]
-         + results["hpo_grow"]["launches"]["philox_draws_batched"],
+         + results["hpo_grow"]["launches"]["philox_draws_batched"]
+         # OpenES's normals in the service's OpenES bucket (its capture).
+         + results["service_main_path"]["launches"]["philox_draws_batched"],
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
-         # The timed batch, and the rollouts' recorded resets.
+         # The timed batch, the pack's shape, and the rollouts' recorded
+         # resets.
          "max_abs_err": max(t["philox_draws_batched"]["max_abs_err"],
+                            results["service_pack"]["max_abs_err"]["philox_draws_batched"],
                             on_path_err(results, "philox_draws_batched"))},
     ]
 
@@ -6167,6 +6695,9 @@ def main() -> int:
         ("hpo_runner_main_path", phase_hpo_runner_main_path),
         ("hpo_grow", phase_hpo_grow),
         ("controller_cadence", phase_controller_cadence),
+        ("service_pack", phase_service_pack),
+        ("vmapped_instances_resilient", phase_vmapped_instances_resilient),
+        ("service_main_path", phase_service_main_path),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)

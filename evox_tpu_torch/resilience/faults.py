@@ -30,11 +30,20 @@ tests complete.  Counters live on the wrapper instance, not in the state:
 a retry that reloads the checkpoint rolls the evaluation index back but
 still sees the outage as "over".
 
+* **tenant-keyed lane faults** — ``lane_faults={uid: {...}}``: NaN rows,
+  ``+inf`` rows and plateaus that fire only where the state's
+  ``fault_lane`` leaf holds ``uid`` (the service stamps each tenant's uid
+  there; an unpacked run carries ``-1`` and matches nothing).  They are
+  tensor operations, so they run under a pack's ``torch.func.vmap`` inside
+  its captured graph; a lane delay is a host hook, called once a lane
+  through a host operator with a batching rule, and makes the wrapper not
+  capturable.
+
 The **whole fault plan is audited at construction** with the JAX
 package's checks and messages.  The fleet faults (``kill_process_at``,
-``partition_process_at``, ``slow_process_at``) and the tenant-keyed
-``lane_faults`` are not ported yet (ROADMAP Queue 1, items 13.7 and 13.8):
-setting one raises :class:`NotImplementedError`.
+``partition_process_at``, ``slow_process_at``) are not ported yet
+(ROADMAP Queue 1, item 13.7): setting one raises
+:class:`NotImplementedError`.
 
 :class:`FaultyStore` is the storage-side counterpart: a
 :class:`~evox_tpu_torch.utils.CheckpointStore` that injects torn
@@ -56,6 +65,7 @@ import torch
 
 from ..core import Problem, State
 from ..utils.checkpoint import CheckpointStore
+from ..utils.vmap_ops import host_op
 from .schedule import validate_schedule
 
 __all__ = [
@@ -91,11 +101,11 @@ class FaultyProblem(Problem):
 
     :attr:`capturable` is ``False`` whenever a host fault is scheduled
     (whatever its ``*_times``, so a ``*_times=0`` comparator steps the same
-    way), or when the wrapped problem is not capturable.
+    way; a lane delay included), or when the wrapped problem is not
+    capturable.
     """
 
     _FLEET_ITEM = "ROADMAP Queue 1, item 13.7 (multi-host fleets)"
-    _LANE_ITEM = "ROADMAP Queue 1, item 13.8 (the multi-tenant service)"
 
     def __init__(
         self,
@@ -147,11 +157,6 @@ class FaultyProblem(Problem):
                     f"FaultyProblem({name}=...) is not ported yet: the fleet faults need the multi-host "
                     f"supervisor ({self._FLEET_ITEM})"
                 )
-        if lane_faults:
-            raise NotImplementedError(
-                f"FaultyProblem(lane_faults=...) is not ported yet: tenant-keyed faults need the service's "
-                f"packs ({self._LANE_ITEM})"
-            )
         self.problem = problem
         self.nan_generations = tuple(int(g) for g in nan_generations)
         self.nan_rows = int(nan_rows)
@@ -187,8 +192,8 @@ class FaultyProblem(Problem):
             )
         self.eval_deadline = None if eval_deadline is None else float(eval_deadline)
         self.deadline_penalty = float(deadline_penalty)
-        # The fleet and lane schedules are refused above; the attributes
-        # keep the JAX package's shape for the audit.
+        # The fleet schedules are refused above; the attributes keep the
+        # JAX package's shape for the audit.
         self.kill_process_at: dict[int, frozenset] = {}
         self.kill_times = int(kill_times)
         self.partition_process_at: dict[int, frozenset] = {}
@@ -197,7 +202,7 @@ class FaultyProblem(Problem):
         self.slow_process_at: dict[int, frozenset] = {}
         self.slow_process_seconds = float(slow_process_seconds)
         self.slow_process_times = int(slow_process_times)
-        self.lane_faults: dict[int, dict[str, Any]] = {}
+        self.lane_faults = self._normalize_lane_faults(lane_faults or {})
         # Host-side count of eval-deadline expiries on this process.
         self.deadline_trips = 0
         # Set by StdWorkflow when this wrapper ends up in a sharded
@@ -212,16 +217,62 @@ class FaultyProblem(Problem):
             or self.sigterm_generations
             or self.straggler_shards
         )
+        # Lane-keyed delays have their own hook: it reads the lane's uid.
+        self._has_lane_host_faults = any(spec["delay_generations"] for spec in self.lane_faults.values())
         self._validate_schedules()
 
     @property
     def capturable(self) -> bool:
         """Whether an evaluation can run inside a captured CUDA graph: not
-        with a host fault scheduled (the attempt-counted corruption and
-        the eval deadline included), whose hook reads the evaluation index
-        on the host."""
-        host = self._has_host_faults or bool(self.corrupt_generations) or self.eval_deadline is not None
+        with a host fault scheduled (the attempt-counted corruption, the
+        eval deadline and a lane delay included), whose hook reads the
+        evaluation index on the host."""
+        host = (
+            self._has_host_faults
+            or self._has_lane_host_faults
+            or bool(self.corrupt_generations)
+            or self.eval_deadline is not None
+        )
         return not host and bool(getattr(self.problem, "capturable", True))
+
+    # -- the tenant-keyed plan ------------------------------------------------
+    _LANE_FAULT_FIELDS = {
+        "nan_generations": (),
+        "nan_rows": 1,
+        "inf_generations": (),
+        "inf_rows": 1,
+        "plateau_from": None,
+        "plateau_until": None,
+        "plateau_floor": 1.0,
+        "delay_generations": (),
+        "delay_seconds": 1.0,
+        "delay_times": 1,
+    }
+
+    def _normalize_lane_faults(self, lane_faults: Mapping[int, Mapping[str, Any]]) -> dict[int, dict[str, Any]]:
+        out: dict[int, dict[str, Any]] = {}
+        for lane, spec in sorted(lane_faults.items()):
+            unknown = sorted(set(spec) - set(self._LANE_FAULT_FIELDS))
+            if unknown:
+                raise ValueError(
+                    f"lane_faults[{lane}] has unknown fault field(s) "
+                    f"{unknown}; valid per-lane fields are "
+                    f"{sorted(self._LANE_FAULT_FIELDS)}"
+                )
+            full = {k: spec.get(k, default) for k, default in self._LANE_FAULT_FIELDS.items()}
+            out[int(lane)] = {
+                "nan_generations": tuple(int(g) for g in full["nan_generations"]),
+                "nan_rows": int(full["nan_rows"]),
+                "inf_generations": tuple(int(g) for g in full["inf_generations"]),
+                "inf_rows": int(full["inf_rows"]),
+                "plateau_from": None if full["plateau_from"] is None else int(full["plateau_from"]),
+                "plateau_until": None if full["plateau_until"] is None else int(full["plateau_until"]),
+                "plateau_floor": float(full["plateau_floor"]),
+                "delay_generations": frozenset(int(g) for g in full["delay_generations"]),
+                "delay_seconds": float(full["delay_seconds"]),
+                "delay_times": int(full["delay_times"]),
+            }
+        return out
 
     # -- construction-time schedule audit -----------------------------------
     def _validate_schedules(self) -> None:
@@ -375,6 +426,7 @@ class FaultyProblem(Problem):
     def __getstate__(self):
         state = self.__dict__.copy()
         del state["_lock"]
+        state.pop("_lane_op", None)
         state["_attempts"] = {}
         return state
 
@@ -433,6 +485,19 @@ class FaultyProblem(Problem):
                 if self._bump(f"straggler{shard}", g) <= self.straggler_times:
                     time.sleep(self.straggler_delay)
 
+    def _lane_host_hook(self, gen: torch.Tensor, lane: torch.Tensor) -> None:
+        """Host side of the lane-keyed delay faults: sleeps only when THIS
+        lane has a scheduled delay, attempt-counted per ``(lane, eval)``.
+        Under a vmapped pack it is called once a lane (the host operator's
+        batching rule), each call with its own lane's uid: a slow tenant
+        stalls the pack's step, and no value changes."""
+        g, l = int(gen), int(lane)
+        spec = self.lane_faults.get(l)
+        if spec is None or g not in spec["delay_generations"]:
+            return
+        if self._bump(f"lane_delay{l}", g) <= spec["delay_times"]:
+            time.sleep(spec["delay_seconds"])
+
     def _deadline_guarded(self, fn) -> bool:
         """Run ``fn()`` in an abandoned-on-timeout daemon worker; returns
         whether the eval deadline tripped.  A worker that finishes in time
@@ -474,8 +539,9 @@ class FaultyProblem(Problem):
             # (``corrupt_generations``), 0.0 otherwise; always present so
             # faulted runs and their comparators share one structure.
             corruption=scalar(0.0, torch.float32),
-            # Lane identity of the JAX package's tenant-keyed faults: the
-            # -1 sentinel matches no schedule (lane_faults is not ported).
+            # Stable lane/tenant identity of ``lane_faults``: the service
+            # stamps the tenant's uid here at admission; the -1 sentinel
+            # matches no schedule.
             fault_lane=scalar(-1, torch.int32),
         )
 
@@ -490,8 +556,12 @@ class FaultyProblem(Problem):
         return hit
 
     @classmethod
-    def _inject_rows(cls, fit: torch.Tensor, gen: torch.Tensor, schedule: tuple, rows: int, value: float) -> torch.Tensor:
+    def _inject_rows(
+        cls, fit: torch.Tensor, gen: torch.Tensor, schedule: tuple, rows: int, value: float, extra=None
+    ) -> torch.Tensor:
         scheduled = cls._scheduled(gen, schedule)
+        if extra is not None:
+            scheduled = scheduled & extra
         row_mask = torch.arange(fit.shape[0], device=fit.device) < rows
         mask = row_mask if fit.ndim == 1 else row_mask[:, None]
         return torch.where(scheduled & mask, torch.full((), value, dtype=fit.dtype, device=fit.device), fit)
@@ -511,11 +581,36 @@ class FaultyProblem(Problem):
                 # Deadline-guarded: a timeout instead of stalling forever;
                 # the fitness falls back to the penalty below.
                 timed_out = self._deadline_guarded(lambda: self._host_hook(host_index))
+        if self._has_lane_host_faults:
+            # One call a lane under a pack's vmap, each with its own uid.
+            lane_op = self.__dict__.get("_lane_op")
+            if lane_op is None:
+                lane_op = self._lane_op = host_op(self._lane_host_hook)
+            lane_op(gen, state.fault_lane)
         fit, inner = self.problem.evaluate(state.inner, pop)
         if self.nan_generations:
             fit = self._inject_rows(fit, gen, self.nan_generations, self.nan_rows, float("nan"))
         if self.inf_generations:
             fit = self._inject_rows(fit, gen, self.inf_generations, self.inf_rows, float("inf"))
+        # Tenant-keyed lane faults: every schedule is masked on the state's
+        # lane identity, so one program serves the whole pack and only the
+        # scheduled tenant's rows are touched.
+        for uid, spec in self.lane_faults.items():
+            is_lane = state.fault_lane == uid
+            if spec["nan_generations"]:
+                fit = self._inject_rows(
+                    fit, gen, spec["nan_generations"], spec["nan_rows"], float("nan"), extra=is_lane
+                )
+            if spec["inf_generations"]:
+                fit = self._inject_rows(
+                    fit, gen, spec["inf_generations"], spec["inf_rows"], float("inf"), extra=is_lane
+                )
+            if spec["plateau_from"] is not None:
+                in_plateau = (gen >= spec["plateau_from"]) & is_lane
+                if spec["plateau_until"] is not None:
+                    in_plateau = in_plateau & (gen < spec["plateau_until"])
+                floor = torch.full((), spec["plateau_floor"], dtype=fit.dtype, device=fit.device)
+                fit = torch.where(in_plateau, torch.maximum(fit, floor), fit)
         if self.dead_shards:
             # Mesh-position-keyed NaN rows: the scheduled shard's whole
             # contiguous row block dies (the parallel layer's row map).

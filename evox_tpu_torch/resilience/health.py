@@ -218,6 +218,41 @@ def _to_host(raw: Mapping[str, Any]) -> dict[str, Any]:
     return out
 
 
+def _lanes_to_host(raw: Mapping[str, Any], rows: Sequence[int]) -> list[dict[str, Any]]:
+    """A lane-batched :func:`scan_state` dict (every metric with a leading
+    lane axis) as one host dict per requested row, in :func:`_to_host`'s
+    form, read back in ONE copy of every lane's scalars (float64 on the
+    device first, which every int32 count and float32/bfloat16 value
+    survives exactly)."""
+    flat: list[tuple[tuple[str, ...], torch.Tensor]] = []
+
+    def walk(node: Mapping[str, Any], path: tuple[str, ...]) -> None:
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+            else:
+                flat.append((path + (k,), v))
+
+    walk(raw, ())
+    out: list[dict[str, Any]] = [{} for _ in rows]
+    if not flat or not rows:
+        return out
+    table = torch.cat([t.detach().reshape(t.shape[0], -1).to(torch.float64) for _, t in flat], dim=1).tolist()
+    for values, node_out in zip((table[r] for r in rows), out):
+        pos = 0
+        for path, t in flat:
+            n = t[0].numel()
+            chunk = values[pos : pos + n]
+            pos += n
+            if not t.is_floating_point():
+                chunk = [int(v) for v in chunk]
+            node = node_out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = chunk if t.ndim > 1 else chunk[0]
+    return out
+
+
 @dataclass
 class HealthReport:
     """Structured verdict of one :meth:`HealthProbe.check` call (the JAX
@@ -278,11 +313,12 @@ class HealthProbe:
         )
 
     Each ``check`` is one :func:`scan_state` on the state's device and one
-    copy of its scalars to the host.  The JAX package's per-lane windows
-    (``check_lanes`` and friends) serve the multi-tenant service and come
-    with it (ROADMAP Queue 1, item 13.8).  Determinism: ``check`` is a pure
-    function of ``(state, the probe's stagnation window)``; the runner
-    checkpoints the window, so a resumed run reaches identical verdicts.
+    copy of its scalars to the host.  :meth:`check_lanes` scans a pack's
+    stacked states under ``torch.func.vmap`` and copies every lane's
+    scalars in one read, with a stagnation window per stable lane id (the
+    service's tenant uids).  Determinism: ``check`` is a pure function of
+    ``(state, the probe's stagnation window)``; the runner checkpoints the
+    window, so a resumed run reaches identical verdicts.
 
     :param check_nonfinite: scan every floating leaf of the state for
         NaN/±Inf (key and integer/bool leaves are skipped).
@@ -336,6 +372,8 @@ class HealthProbe:
         self.stagnation_tol = float(stagnation_tol)
         self.shards = None if shards is None else int(shards)
         self._window: list[float] = []
+        # Per-lane windows of a tenant pack, keyed by stable lane ids.
+        self._lane_windows: dict[int, list[float]] = {}
 
     # -- host-side window (persisted via checkpoint manifests) --------------
     @property
@@ -354,6 +392,27 @@ class HealthProbe:
         if self.stagnation_window:
             del self._window[: -self.stagnation_window]
 
+    # -- per-lane windows (multi-tenant packs) ------------------------------
+    def lane_window(self, lane_id: int) -> tuple[float, ...]:
+        """Best-fitness window of one pack lane (see :meth:`check_lanes`);
+        empty for an unknown lane.  The service layer persists this in the
+        tenant's checkpoint manifest, exactly like the runner persists
+        :attr:`window`."""
+        return tuple(self._lane_windows.get(int(lane_id), ()))
+
+    def restore_lane(self, lane_id: int, window: Sequence[float]) -> None:
+        """Restore one lane's stagnation window (tenant readmission), so
+        the readmitted tenant replays probe decisions identically."""
+        win = [float(x) for x in window]
+        if self.stagnation_window:
+            del win[: -self.stagnation_window]
+        self._lane_windows[int(lane_id)] = win
+
+    def reset_lane(self, lane_id: int) -> None:
+        """Clear one lane's window (fresh tenant / post-restart grace —
+        the per-lane analogue of :meth:`reset`)."""
+        self._lane_windows.pop(int(lane_id), None)
+
     # -- the scan ------------------------------------------------------------
     def _scan_impl(self, state: Any) -> dict[str, Any]:
         return scan_state(
@@ -371,6 +430,42 @@ class HealthProbe:
         Appends to the stagnation window as a side effect — call exactly
         once per segment boundary (the runner does)."""
         return self._verdict(_to_host(self._scan_impl(state)), generation, self._window)
+
+    def check_lanes(
+        self,
+        states: Any,
+        generation: int = 0,
+        lane_ids: Sequence[Any] | None = None,
+    ) -> list[HealthReport]:
+        """Per-lane verdicts for a tenant pack: ``states`` carries a
+        leading lane axis (the stacked per-tenant states a ``TenantPack``
+        steps), and each lane is thresholded independently — one
+        :class:`HealthReport` per requested lane, in ``lane_ids`` order.
+
+        ``lane_ids`` maps the rows to *stable* identities (the service
+        passes tenant uids), so each lane's stagnation window follows its
+        tenant across lane moves and eviction/readmission; ``None`` uses
+        the row indices, and a sparse ``[(row, id), ...]`` probes only
+        those rows.  One scan under ``torch.func.vmap`` serves every lane,
+        and its scalars reach the host in ONE copy; appends to each
+        requested lane's window — call once per segment boundary per
+        lane."""
+        from ..utils import graph
+
+        raw = torch.func.vmap(self._scan_impl)(states)
+        if lane_ids is None:
+            n = graph.flatten(states)[0][0].shape[0]
+            pairs = [(row, row) for row in range(n)]
+        elif lane_ids and isinstance(lane_ids[0], tuple):
+            pairs = [(int(r), int(i)) for r, i in lane_ids]
+        else:
+            pairs = list(enumerate(int(i) for i in lane_ids))
+        rows = _lanes_to_host(raw, [row for row, _ in pairs])
+        reports = []
+        for lane_raw, (_, lane_id) in zip(rows, pairs):
+            window = self._lane_windows.setdefault(lane_id, [])
+            reports.append(self._verdict(lane_raw, generation, window))
+        return reports
 
     def _verdict(self, raw: Mapping[str, Any], generation: int, window: list[float]) -> HealthReport:
         """Threshold one (host-side) metric dict into a report, advancing

@@ -241,7 +241,7 @@ class EvalMonitor(Monitor):
         ``aux_keys``."""
         self._history[data_type].append((generation, instance, slot, data))
 
-    def ingest_sinks(self, meta, sinks, executed) -> None:
+    def ingest_sinks(self, meta, sinks, executed, lane: int | None = None) -> None:
         """Boundary flush of a fused segment's captured sink batches into
         the history (the batched counterpart of recording every
         generation).
@@ -249,18 +249,43 @@ class EvalMonitor(Monitor):
         :param meta: ``[(history_type, slot), ...]`` — one site descriptor
             per sink call of the step, in program order.
         :param sinks: ``[(data, generations, instances), ...]`` matching
-            ``meta``, each with a leading ``(n_generations,)`` axis.
+            ``meta``, each with a leading ``(n_generations,)`` axis — or
+            ``(n_instances, n_generations, ...)`` for a vmapped segment.
         :param executed: how many of the batched generations ran (a segment
             may stop early on an unhealthy state); rows past it are padding
-            and are dropped.
+            and are dropped.  A scalar, or ``(n_instances,)`` for a vmapped
+            segment.
+        :param lane: demux mode: ingest only this instance-axis row of a
+            vmapped pack's telemetry into this monitor, as if the lane had
+            run alone (``TenantPack`` routes each lane's rows to its
+            tenant's monitor this way).  The tags come from the lane's own
+            rows, so the history is entry for entry the tenant's solo one.
 
         Entries are appended per generation in site order, as stepping
-        records them, on the device the segment ran on.  Call once per
-        executed segment: ingesting the same telemetry twice duplicates
-        entries."""
-        for g in range(int(executed)):
-            for (data_type, slot), (data, gens, insts) in zip(meta, sinks):
-                self._append(int(data_type), int(slot), data[g], gens[g], insts[g])
+        records them, on the device the telemetry lies on (a pack's is on
+        the host).  Call once per executed segment: ingesting the same
+        telemetry twice duplicates entries."""
+        executed = torch.as_tensor(executed)
+        if lane is not None:
+            if executed.ndim == 0:
+                raise ValueError(
+                    "ingest_sinks(lane=...) demuxes a VMAPPED pack's "
+                    "telemetry (leading instance axis); this telemetry is "
+                    "unbatched — ingest it directly"
+                )
+            lane = int(lane)
+            executed = executed[lane]
+            sinks = [tuple(torch.as_tensor(x)[lane] for x in site) for site in sinks]
+        if executed.ndim == 0:
+            for g in range(int(executed)):
+                for (data_type, slot), (data, gens, insts) in zip(meta, sinks):
+                    self._append(int(data_type), int(slot), data[g], gens[g], insts[g])
+            return
+        # A vmapped segment: a leading instance axis on every batch.
+        for b, n in enumerate(executed.tolist()):
+            for g in range(int(n)):
+                for (data_type, slot), (data, gens, insts) in zip(meta, sinks):
+                    self._append(int(data_type), int(slot), data[b, g], gens[b, g], insts[b, g])
 
     def record_history(self, state: State) -> State:
         """Record the latest solution and fitness in the history by hand

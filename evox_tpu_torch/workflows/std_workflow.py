@@ -40,9 +40,17 @@ of every generation's state, stacked as ``telemetry["flight"]`` — tensor
 reductions captured with the generations, which the state they compute
 does not depend on.
 
-Not ported yet, and refused with :class:`NotImplementedError` rather than
-ignored: ``run``/``run_segment`` under ``torch.func.vmap``, and the
-service layer's segment option (``frozen=``/lane freeze).
+The service layer's lane freeze (``segment_config(lane_freeze=True)``,
+``run_segment(frozen=...)``): the segment takes a ``frozen`` flag in its
+carry (so a captured graph is never recaptured for it), every generation
+steps unconditionally and a select keeps the stepped or the frozen state.
+Under ``torch.func.vmap`` that is one flag a lane, the body of
+:class:`~evox_tpu_torch.service.TenantPack`'s captured program.
+
+``run_segment`` under ``torch.func.vmap`` runs its generations eagerly (a
+graph's static buffers cannot hold the transform's batched tensors) and
+returns the telemetry with a leading instance axis, as JAX's
+``jax.vmap(lambda s: wf.run_segment(s, n))`` does.
 """
 
 from __future__ import annotations
@@ -77,8 +85,11 @@ class SegmentConfig(NamedTuple):
     skip work), so the state stays frozen.  ``barrier`` is accepted and has
     no effect (eager PyTorch fuses nothing it could pin).  ``flight``
     stacks the flight recorder's signals of every generation.
-    ``lane_freeze`` belongs to the service layer, not ported yet, and must
-    stay False.  Build one with :meth:`StdWorkflow.segment_config`."""
+    ``lane_freeze`` makes the segment take a ``frozen`` flag as the
+    initial stop flag (the service's no-recapture eviction): the same
+    select body, with the health predicate only under
+    ``stop_on_unhealthy``.  Build one with
+    :meth:`StdWorkflow.segment_config`."""
 
     capture_history: bool = True
     metrics: bool = True
@@ -103,11 +114,12 @@ def _tree_where(pred: torch.Tensor, a: Any, b: Any) -> Any:
     return graph.unflatten(spec, [torch.where(pred, x, y) for x, y in zip(la, lb)])
 
 
-def _stack(outs: list) -> Any:
-    """Per-generation outputs stacked along a new leading axis."""
+def _stack(outs: list, dim: int = 0) -> Any:
+    """Per-generation outputs stacked along a new axis ``dim`` (the leading
+    one; 1 behind a lane axis)."""
     first, spec = graph.flatten(outs[0])
     columns = [graph.flatten(o)[0] for o in outs]
-    return graph.unflatten(spec, [torch.stack([c[i] for c in columns]) for i in range(len(first))])
+    return graph.unflatten(spec, [torch.stack([c[i] for c in columns], dim) for i in range(len(first))])
 
 
 def check_kernel_dtypes(algorithm: Algorithm, device: torch.device, dtype: torch.dtype | None) -> None:
@@ -496,7 +508,11 @@ class StdWorkflow(Workflow):
             n_steps -= 1
         if n_steps < 1:
             return state
-        cfg = self.segment_config(metrics=False)
+        # Under torch.func.vmap the monitor records every generation itself
+        # (through its host operators, one call an instance), as JAX's
+        # vmapped ``fori_loop`` fires its callbacks.
+        vmapped = torch._C._functorch.peek_interpreter_stack() is not None
+        cfg = self.segment_config(metrics=False, capture_history=not vmapped)
         state, telemetry = self._run_segment(state, n_steps, cfg)
         self.flush_telemetry(telemetry)
         return state
@@ -571,11 +587,12 @@ class StdWorkflow(Workflow):
         :param flight: stack the flight recorder's per-generation signals
             (:func:`~evox_tpu_torch.obs.flight_signals` of each stepped
             state, raw form) as ``telemetry["flight"]``.
-        :param lane_freeze: not yet ported (the service layer); ``True``
-            raises :class:`NotImplementedError`.
+        :param lane_freeze: the segment takes a ``frozen`` flag (the
+            service layer's eviction and quarantine: a frozen segment's
+            state and counters stay as they are, and changing the flag
+            never recaptures).  ``barrier`` is then False, as in JAX.
         """
-        if lane_freeze:
-            raise NotImplementedError("segment lane freeze (frozen=, the service layer) is not yet ported")
+        barrier = bool(barrier) and not lane_freeze
         if health is not None:
             step_range = getattr(health, "step_size_range", None)
             return SegmentConfig(
@@ -590,6 +607,7 @@ class StdWorkflow(Workflow):
                 step_size_range=None if step_range is None else tuple(step_range),
                 stop_on_unhealthy=bool(stop_on_unhealthy),
                 barrier=bool(barrier),
+                lane_freeze=bool(lane_freeze),
                 flight=bool(flight),
             )
         return SegmentConfig(
@@ -601,6 +619,7 @@ class StdWorkflow(Workflow):
             shards=self._n_shards,
             stop_on_unhealthy=bool(stop_on_unhealthy),
             barrier=bool(barrier),
+            lane_freeze=bool(lane_freeze),
             flight=bool(flight),
         )
 
@@ -668,13 +687,20 @@ class StdWorkflow(Workflow):
             shards=cfg.shards,
         )
 
-    def _segment_program(self, cfg: SegmentConfig, which: str = "step") -> Callable:
-        """The segment body: ``program(carry, L) -> (carry, outs, meta)``
-        runs ``L`` generations eagerly; ``carry`` is ``(state,)`` or, with
-        the early stop, ``(state, stopped, executed)``; ``outs`` holds each
-        generation's captured sinks and best fitness stacked along a
-        leading axis; ``meta`` the sink sites' identities.  On the card
-        :func:`graph.run` captures it, on the CPU it runs as it is."""
+    @staticmethod
+    def _selects(cfg: SegmentConfig) -> bool:
+        """Whether a segment of ``cfg`` carries ``(state, stopped,
+        executed)`` and selects each generation's result."""
+        return cfg.stop_on_unhealthy or cfg.lane_freeze
+
+    def _generation(self, cfg: SegmentConfig, which: str = "step") -> Callable:
+        """One generation of a segment: ``generation(carry, meta) ->
+        (carry, out)``; ``carry`` is ``(state,)`` or, with the early stop or
+        the lane freeze, ``(state, stopped, executed)``; ``out`` holds the
+        captured sinks, the best fitness and the flight signals; ``meta``
+        receives the sink sites' identities.  It runs under
+        ``torch.func.vmap`` as it is (one stop flag a lane: the service's
+        packs)."""
 
         def generation(carry: tuple, meta: list) -> tuple[tuple, dict]:
             st = carry[0]
@@ -693,17 +719,31 @@ class StdWorkflow(Workflow):
                 # Reductions of the stepped state, outputs only: the carry
                 # never reads them.
                 out["flight"] = flight_signals(new_st, raw=True)
-            if not cfg.stop_on_unhealthy:
+            if not self._selects(cfg):
                 return (new_st,), out
             _, stopped, executed = carry
-            # A stopped segment keeps its state and reports zeros, as JAX's
-            # cond-guarded body; the step still runs (a graph cannot skip it).
+            # A stopped (or frozen) segment keeps its state, keys included,
+            # and reports zeros, as JAX's cond-guarded body; the step still
+            # runs (a graph cannot skip it), and the select returns the kept
+            # operand exactly.
             kept = _tree_where(stopped, st, new_st)
             leaves, spec = graph.flatten(out)
             out = _tree_where(stopped, graph.unflatten(spec, [torch.zeros_like(t) for t in leaves]), out)
-            bad = self._unhealthy(kept, cfg)
+            # Under a pure lane freeze the stop flag enters only through
+            # ``frozen``: no health predicate runs in the segment.
+            bad = self._unhealthy(kept, cfg) if cfg.stop_on_unhealthy else None
             stopped_next = stopped if bad is None else stopped | bad
             return (kept, stopped_next, executed + (~stopped).to(torch.int32)), out
+
+        return generation
+
+    def _segment_program(self, cfg: SegmentConfig, which: str = "step") -> Callable:
+        """The segment body: ``program(carry, L) -> (carry, outs, meta)``
+        runs ``L`` generations (:meth:`_generation`) eagerly; ``outs``
+        holds each generation's outputs stacked along a leading axis;
+        ``meta`` the sink sites' identities.  On the card
+        :func:`graph.run` captures it, on the CPU it runs as it is."""
+        generation = self._generation(cfg, which)
 
         def program(carry: tuple, length: int):
             meta: list = []
@@ -715,31 +755,41 @@ class StdWorkflow(Workflow):
 
         return program
 
-    def _segment_plan(self, state: State, n_steps: int, cfg: SegmentConfig):
+    def _segment_plan(self, state: State, n_steps: int, cfg: SegmentConfig, frozen: Any = None):
         """``(device, carry, program, key)`` of a segment: ``key`` is the
         graph cache's key on the card, ``None`` where the generations run
-        eagerly (the CPU, and ``capture_history=False``)."""
+        eagerly (the CPU, ``capture_history=False``, and under
+        ``torch.func.vmap``, whose batched tensors a graph's static buffers
+        cannot hold)."""
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-        if torch._C._functorch.peek_interpreter_stack() is not None:
-            # A graph's static buffers would hold the transform's batched
-            # tensors, and the telemetry is read on the host.
-            raise NotImplementedError(
-                "StdWorkflow.run / run_segment under torch.func.vmap (JAX's vmapped segment) is not yet "
-                "ported: vmap the step, and capture the vmapped step in a CUDA graph"
+        if cfg.lane_freeze and frozen is None:
+            raise ValueError(
+                "SegmentConfig(lane_freeze=True) compiles the segment to "
+                "take the frozen flag as a traced input; pass frozen="
+            )
+        if frozen is not None and not cfg.lane_freeze:
+            raise ValueError(
+                "frozen= requires SegmentConfig(lane_freeze=True): the "
+                "cond-guarded program shape must be chosen at config time "
+                "so cached executables stay in sync with their inputs"
             )
         leaves, _ = graph.flatten(state)
         device = leaves[0].device if leaves else torch.device("cpu")
         carry: tuple = (state,)
-        if cfg.stop_on_unhealthy:
-            carry = (
-                state,
-                torch.zeros((), dtype=torch.bool, device=device),
-                torch.zeros((), dtype=torch.int32, device=device),
-            )
+        if self._selects(cfg):
+            if frozen is None:
+                stopped = torch.zeros((), dtype=torch.bool, device=device)
+            elif isinstance(frozen, torch.Tensor):
+                stopped = frozen.to(device=device, dtype=torch.bool)
+            else:
+                # A fill, not a copy from the host.
+                stopped = torch.full((), bool(frozen), dtype=torch.bool, device=device)
+            carry = (state, stopped, torch.zeros((), dtype=torch.int32, device=device))
         program = self._segment_program(cfg)
         key = None
-        if device.type == "cuda" and cfg.capture_history:
+        vmapped = torch._C._functorch.peek_interpreter_stack() is not None
+        if device.type == "cuda" and cfg.capture_history and not vmapped:
             if not self.problem.capturable:
                 raise NotImplementedError(
                     f"StdWorkflow.run / run_segment on the card with {type(self.problem).__name__}, "
@@ -781,16 +831,16 @@ class StdWorkflow(Workflow):
         for every length its cadence can pick)."""
         self._graphs.max_graphs = max(self._graphs.max_graphs, int(n))
 
-    def _run_segment(self, state: State, n_steps: int, cfg: SegmentConfig):
-        device, carry, program, key = self._segment_plan(state, n_steps, cfg)
+    def _run_segment(self, state: State, n_steps: int, cfg: SegmentConfig, frozen: Any = None):
+        device, carry, program, key = self._segment_plan(state, n_steps, cfg, frozen)
         if key is not None:
             carry, outs, meta = graph.run(self._graphs, key, program, carry, n_steps)
         else:
-            # The CPU, and the per-generation debug mode: the same
+            # The CPU, the per-generation debug mode and vmap: the same
             # generations, eagerly.
             carry, outs, meta = program(carry, n_steps)
         final = carry[0]
-        if cfg.stop_on_unhealthy:
+        if self._selects(cfg):
             stopped, executed = carry[1], carry[2]
         else:
             stopped = torch.zeros((), dtype=torch.bool, device=device)
@@ -854,22 +904,28 @@ class StdWorkflow(Workflow):
             sink_meta     (k, 2)  — int32 (history_type, slot) of each sink
                                     site (a CPU tensor)
 
+        Under ``torch.func.vmap`` the generations run eagerly, and every
+        telemetry entry gains the leading instance axis (``sink_meta``
+        becomes ``(B, k, 2)``).
+
         :param barrier: accepted for the JAX signature; no effect.
-        :param frozen: not yet ported (the service layer's lane freeze);
-            any other value than ``None`` raises
-            :class:`NotImplementedError`.
+        :param frozen: a bool (or a 0-dim bool tensor, one a lane under
+            vmap): the segment's initial stop flag.  A frozen segment keeps
+            its state and reports 0 generations executed; its generations
+            still run (a graph cannot skip them) and their results are
+            selected away.  Given, the segment is built with
+            ``lane_freeze=True``.
         """
-        if frozen is not None:
-            raise NotImplementedError("run_segment(frozen=...) (the service layer's lane freeze) is not yet ported")
         cfg = self.segment_config(
             capture_history=capture_history,
             metrics=metrics,
             stop_on_unhealthy=stop_on_unhealthy,
             health=health,
             barrier=barrier,
+            lane_freeze=frozen is not None,
             flight=flight,
         )
-        return self._run_segment(state, int(n_steps), cfg)
+        return self._run_segment(state, int(n_steps), cfg, frozen)
 
     def flush_telemetry(self, telemetry: Any) -> None:
         """Boundary flush: append a fused segment's captured history to the

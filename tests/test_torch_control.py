@@ -538,7 +538,7 @@ def test_control_modules_import_no_jax():
 
     root = Path(control.__file__).resolve().parent.parent
     files = sorted((root / "control").glob("*.py")) + sorted((root / "service").glob("*.py"))
-    assert len(files) == 5
+    assert len(files) == 8  # control: 3; service: journal, pack, service, tenant and __init__
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else (

@@ -1925,3 +1925,193 @@ def test_cadence_captures_each_segment_length_once(cuda, tmp_path):
     assert wf._graphs.captures == len(lengths)
     ref = _runner_pso(cuda, pop=256, dim=32)
     _same_state(out, ResilientRunner(ref, tmp_path / "off", checkpoint_every=16).run(ref.init(0), 66))
+
+
+# ---------------------------------------------------------------------------
+# the service core: TenantPack's captured program, the packed service
+# ---------------------------------------------------------------------------
+
+
+def _pack_workflow(cuda, problem=None, pop=256, dim=32):
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    return StdWorkflow(PSO(pop, torch.full((dim,), -32.0), torch.full((dim,), 32.0), device=cuda),
+                       problem if problem is not None else Ackley())
+
+
+def _tenant(wf, uid, cuda):
+    from evox_tpu_torch.service import assign_fault_lane
+    from evox_tpu_torch.utils import rng
+
+    return assign_fault_lane(wf.setup(rng.fold_in(rng.key(0, cuda), uid), instance_id=uid), uid)
+
+
+def _syncs(fn):
+    """``fn()`` and the synchronizing CUDA calls it made (the sync debug
+    mode's warnings)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message)[:120] for w in caught if "synchronizing CUDA operation" in str(w.message)]
+
+
+def test_pack_one_capture_across_freeze_thaw_admit_and_evict(cuda):
+    """One capture of the segment program (and one of the init program)
+    serves freezes, thaws, an admission and an eviction; a segment reads
+    the card once; every lane equals the same tenant's eager steps."""
+    from evox_tpu_torch.service import TenantPack
+
+    wf = _pack_workflow(cuda)
+    pack = TenantPack(wf, 4, early_stop=False)
+    for uid in (0, 1):
+        s, _, _ = pack.init_tenant(_tenant(wf, uid, cuda))
+        pack.admit(s, uid)
+    gens = {0: 0, 1: 0}
+    pack.run_segment(5)
+    gens[0] += 5
+    gens[1] += 5
+    pack.set_frozen(1, True)
+    tel, syncs = _syncs(lambda: pack.run_segment(5))
+    assert len(syncs) == 1, syncs
+    assert tel.executed.tolist() == [5, 0, 0, 0]
+    gens[0] += 5
+    pack.set_frozen(1, False)
+    s, _, _ = pack.init_tenant(_tenant(wf, 2, cuda))
+    assert pack.admit(s, 2) == 2
+    gens[2] = 0
+    pack.run_segment(5)
+    for uid in gens:
+        gens[uid] += 5
+    evicted = pack.lane_state(0)
+    pack.release(0)
+    pack.run_segment(5)
+    for uid in (1, 2):
+        gens[uid] += 5
+    assert pack.captures == {"init": 1, "segment": 1} and pack._graphs.captures == 2
+    for lane, uid in [(1, 1), (2, 2)]:
+        want = wf.init_step(_tenant(wf, uid, cuda))
+        for _ in range(gens[uid]):
+            want = wf.step(want)
+        _same_state(pack.lane_state(lane), want)
+    want = wf.init_step(_tenant(wf, 0, cuda))
+    for _ in range(gens[0]):
+        want = wf.step(want)
+    _same_state(evicted, want)
+
+
+def test_vmapped_run_segment_on_the_card_equals_the_pack_and_solo_segments(cuda):
+    from evox_tpu_torch.service import TenantPack
+
+    wf = _pack_workflow(cuda)
+    states = [wf.init_step(_tenant(wf, uid, cuda)) for uid in range(4)]
+    stacked = _stack_states(states)
+    got, tel = torch.func.vmap(lambda s: wf.run_segment(s, 6))(stacked)
+    pack = TenantPack(wf, 4, early_stop=False)
+    for uid, s in enumerate(states):
+        pack.admit(s, uid)
+    pack.run_segment(6)
+    assert tel.executed.tolist() == [6] * 4
+    for i, s in enumerate(states):
+        want = wf.run_segment(s, 6)[0]
+        _same_state(_lane_of(got, i), want)
+        _same_state(pack.lane_state(i), want)
+
+
+def _stack_states(states):
+    from evox_tpu_torch.utils import graph
+
+    cols = [graph.flatten(s)[0] for s in states]
+    return graph.unflatten(graph.flatten(states[0])[1], [torch.stack(c) for c in zip(*cols)])
+
+
+def _lane_of(state, i):
+    from evox_tpu_torch.utils import graph
+
+    leaves, spec = graph.flatten(state)
+    return graph.unflatten(spec, [x[i] for x in leaves])
+
+
+def test_packed_service_on_the_card_keeps_the_bulkhead(cuda, tmp_path):
+    """A tenant packed beside a NaN-bursting and a stagnating cotenant ends
+    on the bits, history and checkpoint digests of the same tenant alone,
+    on the card; a lane-delay bucket steps eagerly there and says so."""
+    import os
+    import warnings
+
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.resilience import FaultyProblem, HealthProbe
+    from evox_tpu_torch.service import OptimizationService, TenantSpec, TenantStatus
+    from evox_tpu_torch.utils import read_manifest
+
+    faults = {1: {"nan_generations": tuple(range(3, 40)), "nan_rows": 64}, 2: {"plateau_from": 2, "plateau_floor": 50.0}}
+
+    def spec(name, uid):
+        wf = _pack_workflow(cuda, pop=64, dim=8)
+        return TenantSpec(name, wf.algorithm, FaultyProblem(Ackley(), lane_faults=faults), n_steps=21, uid=uid)
+
+    def service(root):
+        return OptimizationService(root, lanes_per_pack=4, segment_steps=4,
+                                   health=HealthProbe(stagnation_window=2, stagnation_tol=0.0))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        solo = service(tmp_path / "solo")
+        solo.submit(spec("t", 0))
+        solo.run()
+        packed = service(tmp_path / "packed")
+        for name, uid in (("t", 0), ("nan", 1), ("stag", 2)):
+            packed.submit(spec(name, uid))
+        packed.run()
+    assert packed.tenant("nan").status is TenantStatus.QUARANTINED
+    assert solo.tenant("t").status is packed.tenant("t").status is TenantStatus.COMPLETED
+    _same_state(packed.result("t"), solo.result("t"))
+    for a, b in zip(packed.tenant("t").monitor.fitness_history, solo.tenant("t").monitor.fitness_history):
+        assert torch.equal(a, b)
+    digests = []
+    for root in ("solo", "packed"):
+        ns = tmp_path / root / "tenants" / "t"
+        digests.append(read_manifest(ns / sorted(os.listdir(ns))[-1])["leaf_digests"])
+    assert digests[0] == digests[1]
+    bucket = packed._buckets[packed.tenant("t").bucket]
+    assert bucket.pack.captures["segment"] == 1 and bucket.pack.captures["init"] == 1
+
+    delay = FaultyProblem(Ackley(), lane_faults={1: {"delay_generations": (2,), "delay_seconds": 0.001}})
+    svc = service(tmp_path / "delay")
+    svc.submit(TenantSpec("d", _pack_workflow(cuda, pop=64, dim=8).algorithm, delay, n_steps=9, uid=1))
+    with pytest.warns(UserWarning, match="eagerly on the card"):
+        svc.run()
+    pack = svc._buckets[svc.tenant("d").bucket].pack
+    assert pack.captures == {"init": 0, "segment": 0} and svc.result("d").algorithm.pop.is_cuda
+
+
+def test_prewarm_captures_the_pack_before_its_first_admission(cuda):
+    """``prewarm`` captures the init program and each segment length before
+    any tenant is admitted; the admissions and segments then replay them
+    (no further capture), and the lanes equal eager steps."""
+    from evox_tpu_torch.service import TenantPack
+
+    wf = _pack_workflow(cuda, pop=128, dim=16)
+    pack = TenantPack(wf, 2, early_stop=False)
+    labels = pack.prewarm(_tenant(wf, 7, cuda), [3, 6])
+    assert len(labels) == 3 and not any(labels.values())
+    assert pack.captures == {"init": 1, "segment": 2}
+    for uid in (0, 1):
+        s, _, _ = pack.init_tenant(_tenant(wf, uid, cuda))
+        pack.admit(s, uid)
+    pack.run_segment(3)
+    pack.run_segment(6)
+    assert pack.captures == {"init": 1, "segment": 2}
+    for uid in (0, 1):
+        want = wf.init_step(_tenant(wf, uid, cuda))
+        for _ in range(9):
+            want = wf.step(want)
+        _same_state(pack.lane_state(uid), want)

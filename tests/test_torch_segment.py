@@ -246,8 +246,14 @@ def test_segment_refusals_and_not_ported_options():
     s_plain, _ = wf.run_segment(s, 2)
     _same_state(s_flight, s_plain)
     assert tel.flight["best_fitness"].shape == (2,) and "_pop_sumsq" in tel.flight
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        wf.run_segment(s, 2, frozen=torch.tensor(False))
+    # frozen= is ported (the service's lane freeze): a frozen segment keeps
+    # its state and executes nothing; a thawed one equals the plain segment.
+    s_frozen, tel = wf.run_segment(s, 2, frozen=torch.tensor(True))
+    _same_state(s_frozen, s)
+    assert int(tel.executed) == 0 and bool(tel.stopped)
+    s_thawed, tel = wf.run_segment(s, 2, frozen=False)
+    _same_state(s_thawed, s_plain)
+    assert int(tel.executed) == 2 and not bool(tel.stopped)
 
     # The per-shard metrics are ported (parallel/): a probe's shards reach
     # the segment's metrics, and scan_state takes shards=.

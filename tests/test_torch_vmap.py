@@ -476,10 +476,19 @@ def test_ordered_monitor_refuses_vmap():
 
 @pytest.mark.parametrize("call", ["run", "run_segment"])
 def test_fused_segment_under_vmap_is_refused(call):
-    """JAX's vmapped segment is not ported: refused by name, never run with
-    batched tensors in a graph's buffers."""
+    """JAX's vmapped segment is ported: under vmap the generations run
+    eagerly (never with batched tensors in a graph's buffers), and each
+    instance equals its own segment bit for bit."""
     wf = StdWorkflow(algorithms.PSO(10, _LB, _UB, **_CPU), Sphere())
     keys = torch.stack([rng.key(k) for k in (1, 2)])
     states = vmap(wf.init_step)(vmap(wf.init)(keys))
-    with pytest.raises(NotImplementedError, match="vmap"):
-        vmap(lambda s: getattr(wf, call)(s, 2) if call == "run_segment" else wf.run(s, 2, init=False))(states)
+    if call == "run_segment":
+        got, tel = vmap(lambda s: wf.run_segment(s, 2))(states)
+        assert tel.executed.tolist() == [2, 2] and tuple(tel.best_fitness.shape) == (2, 2)
+    else:
+        got = vmap(lambda s: wf.run(s, 2, init=False))(states)
+    for i in range(2):
+        one = _instance(states, i)
+        want = wf.run_segment(one, 2)[0] if call == "run_segment" else wf.run(one, 2, init=False)
+        for a, b in zip(graph.flatten(_instance(got, i))[0], graph.flatten(want)[0]):
+            assert torch.equal(a, b)
