@@ -83,8 +83,14 @@ admission; ``vmapped_instances_resilient``: the same tenants through
 ``OptimizationService`` with a PSO bucket of 12 tenants under tenant-keyed
 chaos and an OpenES bucket of 4, an eviction, restarts, quarantines, a
 preemption resumed in a new service, each healthy tenant bit-equal to the
-same tenant alone, and the README's service quick start), checks that each
-path went through its kernels, and times them.  It prints one JSON line per
+same tenant alone, and the README's service quick start), then the fleet
+layer (``fleet_main_path``: a FleetSupervisor over 2 worker processes of
+distributed_8dev's PSO on the card, ``tests/test_torch_fleet_worker.py``,
+rank 1 SIGKILLed, the world relaunched on 1 and resumed bit-equal to an
+uninterrupted 1-process fleet and to the run in this process, the beats'
+metrics aggregated; ``fleet_straggler``: a slow rank quarantined through its
+beat's deadline trips), checks that each path went through its kernels, and
+times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -6397,6 +6403,524 @@ def service_quickstart(root, device) -> dict:
     return out
 
 
+# bench.py's distributed_8dev (PSO(8192 a process, ±10 in dim 256), Sphere)
+# as a fleet of 2 worker processes on the card (tests/test_torch_fleet_worker.py).
+FLEET_CFG = dict(pop=2 * DIST_8DEV[0], dim=DIST_8DEV[1], bound=10.0, problem="sphere", n_steps=40,
+                 checkpoint_every=10, seed=0, metrics=True)
+FLEET_KILL = {"0": {"kill": {"1": [25]}}}  # attempt 0: rank 1 SIGKILLed at evaluation 25
+# The kill fleet's workers hold their segment 1 (generations 2-11 on a
+# fresh start) in a profiler window: its copies between host and card.
+FLEET_PROFILE_SEGMENT = 1
+FLEET_SLOW = {"0": {"slow": {"1": [2, 3, 4, 5]}}}  # attempt 0: rank 1 slow at evaluations 2-5
+FLEET_SLOW_SECONDS = 2.0  # each abandoned at the worker's eval_deadline
+FLEET_EVAL_DEADLINE = 0.5
+FLEET_STALE_AFTER = 1.0  # the watcher's FleetHealth(dead_after=): a beat older is stale
+# The bit-for-bit comparisons skip the counter of the interruptions
+# themselves (the JAX tests' _assert_states_equal).
+FLEET_PREEMPT_KEY = "monitor/num_preemptions"
+
+
+# The fleets' workers share a bytecode cache (PYTHONPYCACHEPREFIX).  Where
+# the environment sets PYTHONDONTWRITEBYTECODE and site-packages hold no
+# bytecode, as on the card's machine, every worker would compile torch's
+# modules anew, ~10 s of its start-up (on an H100 machine: 19.8 s to a
+# worker's wf.init without the cache, 8.6-11.2 s with it).  A background
+# process fills the cache while the early phases run: it imports what a
+# worker imports and runs the worker's path for 2 generations on the CPU.
+FLEET_PYCACHE: dict = {}
+FLEET_WARM = """
+import os, sys, tempfile, time
+t0 = time.perf_counter()
+root, cache = sys.argv[1], sys.argv[2]
+sys.path[:0] = [root, os.path.join(root, "tests")]
+import torch.profiler
+import test_torch_fleet_worker as worker
+from evox_tpu_torch.obs import FleetAggregator, MetricsRegistry, Observability, Tracer
+from evox_tpu_torch.parallel import HostHeartbeat, bootstrap_fleet, make_pop_mesh
+from evox_tpu_torch.resilience import FleetSupervisor, ResilientRunner, RetryPolicy
+wf, _ = worker.build(dict(pop=8, dim=2, problem="sphere"), make_pop_mesh(device="cpu"))
+ResilientRunner(wf, tempfile.mkdtemp(dir=cache), checkpoint_every=1, retry=RetryPolicy(max_retries=0)).run(
+    wf.init(0), n_steps=2)
+print(time.perf_counter() - t0)
+"""
+
+
+def fleet_env() -> dict:
+    """The fleet workers' environment: the port on the path, the shared
+    bytecode cache, and bytecode writes allowed."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONDONTWRITEBYTECODE"}
+    env.update(PYTHONPATH=ROOT, PYTHONPYCACHEPREFIX=FLEET_PYCACHE["dir"])
+    return env
+
+
+def start_fleet_pycache() -> None:
+    import atexit
+    import tempfile
+
+    FLEET_PYCACHE["dir"] = tempfile.mkdtemp(prefix="evox_fleet_pycache_")
+    FLEET_PYCACHE["proc"] = subprocess.Popen(
+        [sys.executable, "-c", FLEET_WARM, ROOT, FLEET_PYCACHE["dir"]], env=fleet_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(stop_fleet_pycache)
+
+
+def wait_fleet_pycache() -> dict:
+    """Wait for the cache's warm-up (raises if it failed): the seconds the
+    warm-up took in its process and those the first wait blocked."""
+    proc = FLEET_PYCACHE["proc"]
+    if "warmup_s" not in FLEET_PYCACHE:
+        t0 = time.perf_counter()
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"the fleet's bytecode warm-up exited {proc.returncode}:\n{err[-3000:]}")
+        FLEET_PYCACHE["warmup_s"] = float(out.split()[-1])
+        FLEET_PYCACHE["waited_s"] = time.perf_counter() - t0
+    return {k: FLEET_PYCACHE[k] for k in ("warmup_s", "waited_s")}
+
+
+def stop_fleet_pycache() -> None:
+    import shutil
+
+    proc = FLEET_PYCACHE.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(FLEET_PYCACHE.get("dir", ""), ignore_errors=True)
+
+
+def fleet_worker_module():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_fleet_worker
+
+    return test_torch_fleet_worker
+
+
+class FleetClock:
+    """The supervisor's decisions and its workers' spawns and exits on one
+    wall clock: ``on_event`` timestamps each event line, ``spawn`` records
+    each worker's spawn and (a thread in ``os.waitid`` with ``WNOWAIT``,
+    which does not reap) the moment it exits."""
+
+    def __init__(self):
+        import threading
+
+        self.events, self.spawned, self.exited = [], {}, {}
+        self._lock = threading.Lock()
+
+    def on_event(self, line: str) -> None:
+        self.events.append((time.time(), line))
+
+    def spawn(self, argv, env, spec):
+        import threading
+
+        from evox_tpu_torch.resilience import fleet
+
+        handle = fleet._default_spawn(argv, env, spec)
+        key = (spec.attempt, spec.process_id)
+        self.spawned[key] = time.time()
+
+        def watch(pid=handle.pid):
+            try:
+                os.waitid(os.P_PID, pid, os.WEXITED | os.WNOWAIT)
+            except ChildProcessError:
+                pass
+            with self._lock:
+                self.exited.setdefault(key, time.time())
+
+        threading.Thread(target=watch, daemon=True).start()
+        return handle
+
+    def first(self, kind: str, attempt: int) -> float:
+        tag = f"[fleet attempt {attempt}] {kind}:"
+        return next(t for t, line in self.events if line.startswith(tag))
+
+
+class FleetWatcher:
+    """A FleetAggregator fed from the heartbeat plane every 0.1 s while a
+    fleet runs (its own registry; stale hosts from
+    FleetHealth(dead_after=FLEET_STALE_AFTER)).  After each update with
+    two fresh hosts every counter of the fleet view must equal the sum of
+    the two hosts' counters in the beats it folded (``sum_checks`` counts
+    them); ``stale`` records the last time a host that was up went stale,
+    with its ``evox_fleet_host_up`` and how many of its gauges carry
+    ``stale="true"``.  With two fresh hosts it also reads the supervisor's
+    ``/metrics`` and ``/healthz`` once (``scrapes``: their status codes)."""
+
+    def __init__(self, directory, world, sup=None):
+        import threading
+
+        from evox_tpu_torch.obs import FleetAggregator
+        from evox_tpu_torch.parallel import FleetHealth
+
+        self.agg = FleetAggregator()
+        self.health = FleetHealth(directory, world, dead_after=FLEET_STALE_AFTER, start_grace=1e9)
+        self.directory, self.sup = directory, sup
+        self.sum_checks, self.up_seen, self.stale, self.errors, self.scrapes = 0, set(), {}, [], {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._frozen: dict = {}
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+    def _loop(self):
+        import math
+
+        from evox_tpu_torch.parallel import read_heartbeats
+
+        while not self._stop.wait(0.1):
+            beats = read_heartbeats(self.directory)
+            report = self.health.check()
+            stale = set(report.dead_hosts) | (self.up_seen - set(beats))
+            self.agg.update(beats, stale_hosts=stale)
+            snap = self.agg.snapshot()
+            fresh = {h: b for h, b in beats.items() if h not in stale and isinstance(b.get("metrics"), dict)}
+            for h in fresh:
+                self.up_seen.add(h)
+                self._frozen[h] = dict(fresh[h]["metrics"]["counters"])
+            for h in self.up_seen:
+                if h not in stale:
+                    self.stale.pop(h, None)
+                elif h not in self.stale:
+                    up = snap.get(f'evox_fleet_host_up{{process_index="{h}"}}')
+                    marked = [k for k in snap if f'process_index="{h}",stale="true"' in k]
+                    self.stale[h] = {"at": time.time(), "host_up": up, "stale_series": len(marked)}
+            if len(fresh) == 2 and not self.scrapes and self.sup is not None and self.sup.endpoint.started:
+                import urllib.error
+                import urllib.request
+
+                for route in ("/metrics", "/healthz"):
+                    try:
+                        self.scrapes[route] = urllib.request.urlopen(self.sup.endpoint.url + route, timeout=5).status
+                    except urllib.error.HTTPError as e:
+                        self.scrapes[route] = e.code
+            if len(fresh) == 2:
+                want: dict = {}
+                for counters in self._frozen.values():
+                    for k, v in counters.items():
+                        want[k] = want.get(k, 0.0) + v
+                bad = {k: (snap.get(k), v) for k, v in want.items() if not math.isclose(snap.get(k, -1.0), v,
+                                                                                           rel_tol=1e-9)}
+                if bad:
+                    self.errors.append(bad)
+                self.sum_checks += 1
+
+
+def fleet_run(directory, name, world, cfg, clock=None, watch=False, **kw):
+    """One FleetSupervisor run of ``world`` workers of ``cfg`` on the
+    card; returns (stats, checkpoint dir, supervisor, watcher or None).
+    A FleetError fails the phase with the workers' logs."""
+    from evox_tpu_torch.resilience import FleetError, FleetSupervisor
+
+    worker = fleet_worker_module()
+    ckpt = Path(directory) / name
+    cfg_path = Path(directory) / f"{name}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    wait_fleet_pycache()
+    env = fleet_env()
+    clock = clock or FleetClock()
+    kw.setdefault("poll_interval", 0.1)
+    kw.setdefault("dead_after", 20.0)
+    kw.setdefault("grace_seconds", 10.0)
+    kw.setdefault("start_grace", 120.0)
+    kw.setdefault("attempt_timeout", 150.0)
+    sup = FleetSupervisor(
+        lambda spec: [sys.executable, worker.__file__, spec.checkpoint_dir, str(cfg_path)], world,
+        checkpoint_dir=ckpt, env=env, on_event=clock.on_event, spawn=clock.spawn, **kw)
+    watcher = FleetWatcher(sup.heartbeat_dir, world, sup if sup.endpoint is not None else None) if watch else None
+    try:
+        if watcher is not None:
+            with watcher:
+                stats = sup.run()
+        else:
+            stats = sup.run()
+    except FleetError as e:
+        logs = "\n".join(f"{p.name}:\n{p.read_text()[-3000:]}" for p in sorted(sup.heartbeat_dir.glob("*.log")))
+        raise AssertionError(f"fleet {name}: {e}\n{logs}")
+    return stats, ckpt, sup, watcher
+
+
+def fleet_workers(ckpt) -> dict:
+    """Every worker's record, keyed ``a<attempt>p<rank>`` (a killed
+    worker's is the one of its last boundary); each must have kept its
+    rows on the card, launched the move and the draws there, and held its
+    first boundary's move against the plain version with no bit off."""
+    out = {}
+    for path in sorted(Path(ckpt).glob("worker_a*_p*.json")):
+        rec = json.loads(path.read_text())
+        key = path.stem[len("worker_"):].replace("_", "")
+        if not rec.get("rows_device", "").startswith("cuda") or min(rec["launches"].values()) < 1:
+            raise AssertionError(f"worker {key}: rows on {rec.get('rows_device')}, launches {rec['launches']}")
+        move = rec.get("move_vs_plain")
+        if move is None or move["bits_differ"] or move["elements"] < 1:
+            raise AssertionError(f"worker {key}: the move against its plain version: {move}")
+        out[key] = rec
+    return out
+
+
+def fleet_transfers(workers, pop) -> dict:
+    """The profiled segment's copies between host and card of each
+    worker that has one, per generation; none may be larger than the
+    gathered fitness (``pop`` float32): the row blocks stay on the card.
+    A worker of a 2-rank world must show gloo's exchange (copies both
+    ways)."""
+    out = {}
+    for key, rec in workers.items():
+        tr = rec.get("transfers")
+        if tr is None:
+            continue
+        copies = tr["copies"]
+        for direction in ("DtoH", "HtoD"):
+            sizes = [int(b) for b in copies.get(direction, {})]
+            if sizes and max(sizes) > 4 * pop:
+                raise AssertionError(f"worker {key}: a {direction} copy of {max(sizes)} bytes: {copies}")
+            if rec["world"] > 1 and not sizes:
+                raise AssertionError(f"worker {key}: no {direction} copy in its profiled segment: {copies}")
+        out[key] = {"generations": tr["generations"], "copies": copies,
+                    "per_generation": {d: {"copies": sum(c.values()) / tr["generations"],
+                                           "bytes": sum(int(b) * n for b, n in c.items()) / tr["generations"]}
+                                       for d, c in copies.items()}}
+    return out
+
+
+def fleet_final(ckpt) -> dict:
+    import numpy as np
+
+    return dict(np.load(Path(ckpt) / "final_state.npz"))
+
+
+def fleet_equal(a, b, what) -> int:
+    """Leaves of two final payloads equal bit for bit (all but the
+    preemption counter); returns how many were compared."""
+    import numpy as np
+
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: leaves {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        if k != FLEET_PREEMPT_KEY and not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs")
+    return len(a) - 1
+
+
+def fleet_timeline(stats, clock, workers, first_beats) -> dict:
+    """Each attempt's wall seconds (launch to its last decision), spawn
+    to first progress beat of each worker, the supervisor's verdict after
+    a worker's death, and relaunch to the resumed worker's first beat."""
+    attempts = []
+    for a in range(stats.attempts):
+        t0 = clock.first("launch", a)
+        t1 = max(t for t, line in clock.events if line.startswith(f"[fleet attempt {a}]"))
+        attempts.append(t1 - t0)
+    out = {"attempt_seconds": attempts,
+           "spawn_to_first_beat_s": {f"a{a}p{p}": first_beats[(a, p)] - clock.spawned[(a, p)]
+                                     for (a, p) in sorted(first_beats) if (a, p) in clock.spawned}}
+    for a in range(stats.attempts - 1):
+        verdicts = [t for t, line in clock.events if line.startswith(f"[fleet attempt {a}] ")
+                    and any(k in line for k in ("host-death:", "straggler:", "wedged:", "fleet-stall:"))]
+        removed = [h for att, h, _ in stats.removed_hosts if att == a]
+        for h in removed:
+            if (a, h) in clock.exited and clock.exited[(a, h)] <= verdicts[0]:
+                out.setdefault("exit_to_verdict_s", {})[f"a{a}p{h}"] = verdicts[0] - clock.exited[(a, h)]
+        relaunch = clock.first("relaunch", a)
+        out.setdefault("relaunch_to_resume_beat_s", {})[f"a{a + 1}"] = first_beats[(a + 1, 0)] - relaunch
+    return out
+
+
+def first_beats(sup) -> dict:
+    out = {}
+    for path in Path(sup.heartbeat_dir).glob("first_beat_a*_p*.json"):
+        a, p = path.stem[len("first_beat_a"):].split("_p")
+        out[(int(a), int(p))] = json.loads(path.read_text())["time"]
+    return out
+
+
+def eager_ms_per_gen(rec) -> float | None:
+    """Wall ms a generation of a worker's segments past its first (whose
+    execute seconds include the generation-1 init or the resume), but its
+    profiled segment."""
+    segs = rec["segments"][1:]
+    chunks = rec["chunks"][-len(segs):] if segs else []
+    profiled = (rec.get("transfers") or {}).get("boundary_generation")
+    pairs = [(s, c) for (g, s), c in zip(segs, chunks) if g != profiled]
+    if not pairs:
+        return None
+    return 1e3 * sum(s for s, _ in pairs) / sum(c for _, c in pairs)
+
+
+def fleet_reference(device, directory) -> tuple[dict, dict]:
+    """The uninterrupted 1-process fleet of FLEET_CFG (one rank: a one-rank
+    NCCL group, captured segments) and the same run in this process
+    through the same runner with no fleet."""
+    import torch
+    import torch.distributed as dist
+    from evox_tpu_torch.parallel import make_pop_mesh
+    from evox_tpu_torch.resilience import ResilientRunner, RetryPolicy
+
+    cfg = dict(FLEET_CFG, device=device.type)
+    stats, ckpt, _, _ = fleet_run(directory, "ref1", 1, cfg)
+    if stats.world_sizes != [1] or not stats.completed:
+        raise AssertionError(f"reference fleet: {stats.world_sizes}")
+    ref = fleet_final(ckpt)
+    workers = fleet_workers(ckpt)
+    worker = fleet_worker_module()
+    wf, _ = worker.build(cfg, make_pop_mesh(device=device))
+    runner = ResilientRunner(wf, Path(directory) / "inproc", checkpoint_every=cfg["checkpoint_every"],
+                             retry=RetryPolicy(max_retries=0))
+    t0 = time.perf_counter()
+    final = runner.run(wf.init(cfg["seed"]), n_steps=cfg["n_steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    inproc = {k: v for k, v in worker.final_payload(final).items()}
+    dist.destroy_process_group()
+    leaves = fleet_equal(ref, inproc, "1-process fleet vs in-process run")
+    rec = {"segments": [[t.generation, t.execute_seconds] for t in runner.stats.segment_timings],
+           "chunks": list(runner.stats.chunk_sizes)}
+    del wf, runner, final
+    torch.cuda.empty_cache()
+    return ref, {"reference_workers": workers, "leaves_equal_inprocess": leaves, "inprocess_wall_s": wall,
+                 "inprocess_ms_per_gen": eager_ms_per_gen(rec), "reference_ms_per_gen": eager_ms_per_gen(
+                     workers["a00p00"])}
+
+
+def fleet_launches(*worker_sets) -> dict:
+    out = {"fused_pso_move": 0, "philox_draws": 0}
+    for workers in worker_sets:
+        for rec in workers.values():
+            for k in out:
+                out[k] += rec["launches"][k]
+    return out
+
+
+FLEET_REFERENCE: dict = {}
+
+
+def phase_fleet_main_path(device) -> dict:
+    """FleetSupervisor over 2 worker processes on the card
+    (distributed_8dev's width, PSO(16384, ±10 in dim 256) on Sphere through
+    ShardedProblem over the fleet's mesh: a gloo group whose ranks compute
+    on cuda:0), ResilientRunner(checkpoint_every=10, preemption=True,
+    RetryPolicy(max_retries=0), HostHeartbeat(interval=0.25, metrics=)),
+    40 generations; attempt 0 SIGKILLs rank 1 at evaluation 25.  Checks
+    world_sizes == [2, 1], one host death naming host 1, the resumed run's
+    40 generations, its final state bit for bit against the uninterrupted
+    1-process fleet and the in-process run, the aggregated counters against
+    the beats' sums and host 1 going stale after the kill; times the
+    attempts, the spawns, the verdict, the resume, the generations and the
+    exchange."""
+    import shutil
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="evox_fleet_")
+    try:
+        return fleet_main_path(device, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def fleet_main_path(device, directory) -> dict:
+    import torch
+
+    out = {"card": card_line(), "bytecode_warmup": wait_fleet_pycache()}
+    ref, out["reference"] = fleet_reference(device, directory)
+    FLEET_REFERENCE["final"] = ref
+    clock = FleetClock()
+    cfg = dict(FLEET_CFG, device=device.type, faults=FLEET_KILL, profile_segment=FLEET_PROFILE_SEGMENT)
+    stats, ckpt, sup, watcher = fleet_run(directory, "kill", 2, cfg, clock=clock, watch=True, endpoint=True)
+    if stats.world_sizes != [2, 1] or stats.host_deaths != 1 or [h for _, h, _ in stats.removed_hosts] != [1]:
+        raise AssertionError(f"fleet_main_path: world_sizes {stats.world_sizes}, deaths {stats.host_deaths}, "
+                             f"removed {stats.removed_hosts}")
+    summary = json.loads((ckpt / "final_summary.json").read_text())
+    if summary["completed_generations"] != FLEET_CFG["n_steps"]:
+        raise AssertionError(f"fleet_main_path: the resumed lineage completed {summary}")
+    out["leaves_equal_1_process_fleet"] = fleet_equal(fleet_final(ckpt), ref, "fleet vs 1-process fleet")
+    workers = fleet_workers(ckpt)
+    if watcher.scrapes != {"/metrics": 200, "/healthz": 200}:
+        raise AssertionError(f"the supervisor's endpoint with two live hosts: {watcher.scrapes}")
+    if watcher.errors or watcher.sum_checks < 1:
+        raise AssertionError(f"aggregated counters vs the beats' sums: {watcher.sum_checks} checks, "
+                             f"{watcher.errors[:2]}")
+    kill_exit = clock.exited.get((0, 1))
+    host1 = watcher.stale.get(1)
+    if host1 is None or host1["host_up"] != 0 or kill_exit is None or host1["at"] < kill_exit:
+        raise AssertionError(f"host 1 not marked stale after the kill: {host1}, exit at {kill_exit}")
+    survivor = workers["a00p00"]
+    if survivor["outcome"] != "peer-lost" or workers["a00p01"]["outcome"] != "running":
+        raise AssertionError(f"fleet_main_path: the survivor {survivor['outcome']}, "
+                             f"the killed rank {workers['a00p01']['outcome']}")
+    transfers = fleet_transfers(workers, FLEET_CFG["pop"])
+    if not {"a00p00", "a00p01"} <= set(transfers):
+        raise AssertionError(f"fleet_main_path: profiled segments of {sorted(transfers)}: "
+                             f"{ {k: r.get('transfers') for k, r in workers.items()} }")
+    ex = survivor["exchange"]
+    out.update({
+        "world_sizes": stats.world_sizes, "removed_hosts": stats.removed_hosts, "host_deaths": stats.host_deaths,
+        "exit_codes": stats.exit_codes, "resumed_from_generation": summary["resumed_from_generation"],
+        "timeline": fleet_timeline(stats, clock, workers, first_beats(sup)),
+        "aggregator": {"sum_checks": watcher.sum_checks, "endpoint": watcher.scrapes, "host1_stale_after_exit_s": host1["at"] - kill_exit,
+                       "host1_up": host1["host_up"], "host1_stale_series": host1["stale_series"]},
+        "group_backend": survivor["group_backend"], "mesh": survivor["mesh"],
+        "fleet_eager_ms_per_gen": eager_ms_per_gen(survivor),
+        "exchange_us_per_gen": 1e6 * ex["seconds"] / ex["calls"], "exchange_devices": ex["devices"],
+        "transfers": transfers, "stages": {k: r["stages"] for k, r in workers.items()},
+        "barrier_ms": {k: r.get("barrier_ms") for k, r in workers.items()},
+        "checkpoints_written": {k: r["checkpoints_written"] for k, r in workers.items()},
+        "launches_by_worker": {k: r["launches"] for k, r in workers.items()},
+        "move_vs_plain": {k: r["move_vs_plain"] for k, r in workers.items()},
+        "launches": fleet_launches(workers),
+    })
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_fleet_straggler(device) -> dict:
+    """2 workers, rank 1 slow at evaluations 2-5 (FLEET_SLOW_SECONDS a
+    sleep, each abandoned at the worker's eval_deadline of
+    FLEET_EVAL_DEADLINE and counted in its beat's deadline_trips): the
+    supervisor quarantines host 1 as a straggler, relaunches on 1, and
+    the final state equals the uninterrupted 1-process fleet's bit for
+    bit."""
+    import shutil
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="evox_straggler_")
+    try:
+        return fleet_straggler(device, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def fleet_straggler(device, directory) -> dict:
+    clock = FleetClock()
+    cfg = dict(FLEET_CFG, device=device.type, faults=FLEET_SLOW, slow_seconds=FLEET_SLOW_SECONDS,
+               eval_deadline=FLEET_EVAL_DEADLINE)
+    stats, ckpt, sup, _ = fleet_run(directory, "straggler", 2, cfg, clock=clock, eval_deadline=30.0)
+    kinds = [e.kind for e in stats.events]
+    if stats.world_sizes != [2, 1] or "straggler" not in kinds or stats.removed_hosts[0][1] != 1:
+        raise AssertionError(f"fleet_straggler: world_sizes {stats.world_sizes}, events {kinds}, "
+                             f"removed {stats.removed_hosts}")
+    summary = json.loads((ckpt / "final_summary.json").read_text())
+    if summary["completed_generations"] != FLEET_CFG["n_steps"]:
+        raise AssertionError(f"fleet_straggler: the resumed lineage completed {summary}")
+    workers = fleet_workers(ckpt)
+    leaves = fleet_equal(fleet_final(ckpt), FLEET_REFERENCE["final"], "straggler fleet vs 1-process fleet")
+    return {
+        "world_sizes": stats.world_sizes, "removed_hosts": stats.removed_hosts,
+        "hosts_quarantined": stats.hosts_quarantined, "exit_codes": stats.exit_codes, "events": kinds,
+        "resumed_from_generation": summary["resumed_from_generation"], "leaves_equal_1_process_fleet": leaves,
+        "timeline": fleet_timeline(stats, clock, workers, first_beats(sup)),
+        "deadline_trips": {k: r["deadline_trips"] for k, r in workers.items()},
+        "launches_by_worker": {k: r["launches"] for k, r in workers.items()},
+        "move_vs_plain": {k: r["move_vs_plain"] for k, r in workers.items()},
+        "stages": {k: r["stages"] for k, r in workers.items()},
+        "launches": fleet_launches(workers),
+    }
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -6499,7 +7023,10 @@ def philox_row(results) -> dict:
         + sum(results[p]["launches"]["philox_draws"]
               for p in ("hpo_runner_main_path", "hpo_grow", "controller_cadence"))
         # The service core: the tenants' setups (and OpenES's init program).
-        + sum(results[p]["launches"]["philox_draws"] for p in ("service_pack", "service_main_path")),
+        + sum(results[p]["launches"]["philox_draws"] for p in ("service_pack", "service_main_path"))
+        # The fleets' worker processes: their setups (and the in-kernel
+        # draws' seeds), counted by each worker that wrote its summary.
+        + sum(results[p]["launches"]["philox_draws"] for p in ("fleet_main_path", "fleet_straggler")),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6642,6 +7169,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     t_start = time.perf_counter()
+    start_fleet_pycache()
 
     t0 = time.perf_counter()
     libs = _build.build()
@@ -6698,6 +7226,8 @@ def main() -> int:
         ("service_pack", phase_service_pack),
         ("vmapped_instances_resilient", phase_vmapped_instances_resilient),
         ("service_main_path", phase_service_main_path),
+        ("fleet_main_path", phase_fleet_main_path),
+        ("fleet_straggler", phase_fleet_straggler),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -6728,6 +7258,9 @@ def main() -> int:
     routes["float32"] += results["resilient_main_path"]["launches"]["fused_pso_move"]
     routes["float32"] += sum(results[p]["launches"]["fused_pso_move"]
                              for p in ("hpo_runner_main_path", "hpo_grow", "controller_cadence"))
+    # The fleets' worker processes (distributed_8dev's width), each
+    # worker's count through its last boundary (a SIGKILLed worker's too).
+    routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in ("fleet_main_path", "fleet_straggler"))
     emit("kernels", [
         {
             "name": "fused_pso_move",
@@ -6743,7 +7276,10 @@ def main() -> int:
                                + [results[p]["move_vs_plain"]["max_abs_err"]
                                   for p in ("pso_policy_main_path", "pso_bf16_main_path")]
                                + [results["key_impl_twins"][t]["move_vs_plain"]["max_abs_err"] for t in TWINS]
-                               + [results["hpo_main_path"]["move_vs_plain"]["max_abs_err"]]),
+                               + [results["hpo_main_path"]["move_vs_plain"]["max_abs_err"]]
+                               # The fleet workers' moves (each also 0 bits differing).
+                               + [r["max_abs_err"] for p in ("fleet_main_path", "fleet_straggler")
+                                  for r in results[p]["move_vs_plain"].values()]),
             "ms": f32["ms"],
             "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"],

@@ -27,18 +27,22 @@ needs).
   registry, a health verdict, a status document and the flight ring, on a
   daemon thread; its providers serve host-side values only.
 
+* **Fleet aggregation** (:mod:`~evox_tpu_torch.obs.aggregate`) — a
+  :class:`FleetAggregator` merges the metric snapshots of a fleet's
+  heartbeats into one registry (counters summed across hosts and
+  relaunches, gauges per host, histograms bucket by bucket, dead hosts
+  marked stale).
+
 The :class:`Observability` facade bundles them; the resilient runner takes
 it as one ``obs=`` parameter.  Every exported artifact carries
 :data:`OBS_SCHEMA_VERSION`.  All instrumentation is host-side at segment
 boundaries; the one in-segment feature, the flight signals, adds outputs
 to the segment and never changes the state it computes.
 
-Not ported yet: the fleet aggregator (ROADMAP Queue 1, item 13.7, with the
-multi-host fleets it aggregates); importing its name raises
-:class:`ImportError`.
 """
 
 from . import xla
+from .aggregate import FleetAggregator
 from .endpoint import IntrospectionEndpoint
 from .events import CallbackSink, Event, EventBus, JsonlFileSink, RingBufferSink
 from .flight import FlightRecorder, finalize_row, flight_signals, last_n, window_ema, window_slope
@@ -75,6 +79,7 @@ __all__ = [
     "Tracer",
     "Observability",
     "IntrospectionEndpoint",
+    "FleetAggregator",
     "SLO",
     "SLOStatus",
     "SLOTracker",
@@ -87,14 +92,3 @@ __all__ = [
     "window_slope",
     "xla",
 ]
-
-_NOT_PORTED = ("FleetAggregator",)
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise ImportError(
-            f"evox_tpu_torch.obs.{name} is not ported yet: the fleet aggregator comes with the multi-host fleets "
-            f"it aggregates (ROADMAP Queue 1, item 13.7)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

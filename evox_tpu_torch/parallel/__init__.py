@@ -6,9 +6,14 @@ the same replicated algorithm state, evaluation is split by rows over a
 (:class:`ShardedProblem`; ``StdWorkflow(enable_distributed=True)`` wraps
 its problem in one).
 
-Not ported yet: the multi-host fleet layer of ``parallel/multihost.py``
-(``bootstrap_fleet``, heartbeats, ``FleetHealth`` and the rest, ROADMAP
-Queue 1); importing one of its names raises :class:`ImportError`.
+The multi-host fleet layer (:mod:`.multihost`): :func:`bootstrap_fleet`
+joins a worker to its fleet from the ``EVOX_TPU_FLEET_*`` environment a
+:class:`~evox_tpu_torch.resilience.FleetSupervisor` publishes;
+:class:`HostHeartbeat` beats and :class:`FleetHealth` verdicts are the
+supervisor's view of its hosts; :func:`is_primary` and
+:func:`fleet_barrier` are what the resilient runner needs of a fleet
+(:func:`gather_replicated`, the JAX package's boundary gather, is the
+identity here: a rank's tensors are its own).
 """
 
 from .mesh import (
@@ -25,44 +30,54 @@ from .mesh import (
     shard_row_ids,
     unpad_fitness,
 )
+from .multihost import (
+    FLEET_ENV_ATTEMPT,
+    FLEET_ENV_COORDINATOR,
+    FLEET_ENV_HEARTBEAT_DIR,
+    FLEET_ENV_NUM_PROCESSES,
+    FLEET_ENV_PROCESS_ID,
+    FleetHealth,
+    FleetReport,
+    FleetTopology,
+    HostHeartbeat,
+    HostVerdict,
+    bootstrap_fleet,
+    fleet_barrier,
+    gather_replicated,
+    is_primary,
+    read_heartbeats,
+)
 from .sharded_problem import ShardedProblem, find_sharded, iter_problem_chain
 
 __all__ = [
     "ALL_GATHER",
-    "PopMesh",
-    "ShardedProblem",
-    "all_gather_rows",
-    "find_sharded",
-    "init_multi_host",
-    "iter_problem_chain",
-    "make_pop_mesh",
-    "pad_population",
-    "padded_size",
-    "population_mask",
-    "replicate",
-    "shard_population",
-    "shard_row_ids",
-    "unpad_fitness",
-]
-
-_NOT_PORTED = (
+    "FLEET_ENV_ATTEMPT",
+    "FLEET_ENV_COORDINATOR",
+    "FLEET_ENV_HEARTBEAT_DIR",
+    "FLEET_ENV_NUM_PROCESSES",
+    "FLEET_ENV_PROCESS_ID",
     "FleetHealth",
     "FleetReport",
     "FleetTopology",
     "HostHeartbeat",
     "HostVerdict",
+    "PopMesh",
+    "ShardedProblem",
+    "all_gather_rows",
     "bootstrap_fleet",
+    "find_sharded",
     "fleet_barrier",
     "gather_replicated",
+    "init_multi_host",
     "is_primary",
+    "iter_problem_chain",
+    "make_pop_mesh",
+    "pad_population",
+    "padded_size",
+    "population_mask",
     "read_heartbeats",
-)
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise ImportError(
-            f"evox_tpu_torch.parallel.{name} is not ported yet: it belongs to the multi-host fleet layer "
-            f"(parallel/multihost.py, ROADMAP Queue 1), which needs the resilience runner"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    "replicate",
+    "shard_population",
+    "shard_row_ids",
+    "unpad_fitness",
+]

@@ -8,7 +8,8 @@ rows, and the gathered fitness is the same on every rank.  The port keeps
 that contract on ``torch.distributed``:
 
 * :func:`init_multi_host` — one call per process (``init_process_group``;
-  NCCL on the card, gloo when the caller asks for the CPU);
+  NCCL on the card, gloo when the caller asks for the CPU or when the
+  ranks of one host outnumber its cards);
 * :func:`make_pop_mesh` — a 1-D :class:`PopMesh` over the first ``n``
   ranks of the world, with the population axis as its only axis; with no
   process group it sets up a one-rank group itself, so a distributed
@@ -28,6 +29,7 @@ collective under its older name).
 
 from __future__ import annotations
 
+import datetime
 import os
 import tempfile
 from typing import Any
@@ -63,12 +65,19 @@ def _backend_for(device: torch.device) -> str:
     return "nccl" if device.type == "cuda" else "gloo"
 
 
+# The default group :func:`init_multi_host` made and the device it
+# returned: a gloo group's ranks compute there (their card when they share
+# one), and :func:`make_pop_mesh` puts its mesh there.
+_joined: tuple[Any, torch.device] | None = None
+
+
 def init_multi_host(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
     *,
     device: str | torch.device | None = None,
+    timeout: float | None = None,
 ) -> torch.device:
     """Join this process to the run's process group (the port's
     ``init_process_group``; call once per process before building a mesh).
@@ -84,9 +93,16 @@ def init_multi_host(
         ``"cpu"``.  On the card the rank's device is
         ``cuda:LOCAL_RANK`` (``LOCAL_RANK`` from the environment, else the
         rank modulo the visible cards); it is made current before the group
-        exists, and the NCCL communicator is created now (``device_id=``),
-        not at the first collective: a collective captured in a CUDA graph
-        cannot create one.  On the CPU the group is gloo.
+        exists.  The group is NCCL when every rank of the host
+        (``LOCAL_WORLD_SIZE``, else the world) has a card of its own, and
+        the NCCL communicator is created now (``device_id=``), not at the
+        first collective: a collective captured in a CUDA graph cannot
+        create one.  Ranks that share a card join a gloo group (NCCL
+        refuses two ranks of one communicator on one device) and still
+        compute on their card: :func:`make_pop_mesh` puts their mesh there.
+        On the CPU the group is gloo.
+    :param timeout: seconds the rendezvous and every later collective may
+        wait for a peer (torch's default when omitted: minutes).
     :returns: this rank's device.
     """
     dev = resolve_device(device)
@@ -99,12 +115,20 @@ def init_multi_host(
         kwargs["init_method"] = coordinator_address
     else:
         kwargs["init_method"] = f"tcp://{coordinator_address}"
+    if timeout is not None:
+        kwargs["timeout"] = datetime.timedelta(seconds=float(timeout))
     if dev.type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", rank % max(torch.cuda.device_count(), 1)))
+        cards = max(torch.cuda.device_count(), 1)
+        local = int(os.environ.get("LOCAL_RANK", rank % cards))
         dev = torch.device("cuda", local if dev.index is None else dev.index)
         torch.cuda.set_device(dev)
-        kwargs["device_id"] = dev
+        if int(os.environ.get("LOCAL_WORLD_SIZE", world)) > cards:
+            kwargs["backend"] = "gloo"
+        else:
+            kwargs["device_id"] = dev
     dist.init_process_group(**kwargs)
+    global _joined
+    _joined = (dist.group.WORLD, dev)
     return dev
 
 
@@ -129,9 +153,11 @@ class PopMesh:
     ``group`` (the process group of its ranks), ``ranks`` (their global
     ranks), ``shard_index`` (this rank's index on the axis, ``None`` for a
     rank outside the mesh) and ``device`` (where this rank's tensors
-    live).  PyTorch's ``DeviceMesh`` is not used: it is built over the
-    whole world, and a mesh over the first ``n`` ranks needs a group of its
-    own, which :func:`torch.distributed.new_group` makes directly."""
+    live: its card under NCCL; under gloo, the device
+    :func:`init_multi_host` returned, else the CPU).  PyTorch's
+    ``DeviceMesh`` is not used: it is built over the whole world, and a
+    mesh over the first ``n`` ranks needs a group of its own, which
+    :func:`torch.distributed.new_group` makes directly."""
 
     def __init__(self, group: Any, ranks: tuple[int, ...], axis_name: str, device: torch.device):
         self.group = group
@@ -162,10 +188,13 @@ class PopMesh:
 
 
 def _group_device() -> torch.device:
-    """This rank's device under the initialised default group: the current
-    card for NCCL, the CPU for gloo."""
+    """This rank's compute device under the initialised default group: the
+    current card for NCCL; for a gloo group that :func:`init_multi_host`
+    made, the device it returned; for any other gloo group, the CPU."""
     if dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
+    if _joined is not None and _joined[0] is dist.group.WORLD:
+        return _joined[1]
     return torch.device("cpu")
 
 
@@ -182,11 +211,13 @@ def make_pop_mesh(
     a temporary directory; NCCL on the card, gloo on the CPU), so
     ``StdWorkflow(..., enable_distributed=True)`` runs on one device, the
     collective included.  ``device`` chooses that group's backend
-    (default: the card); with a group already set up, the group's backend
-    decides the device.  A mesh of fewer ranks than the world is a new
-    process group: every rank of the world must call this function with the
-    same ``n_devices`` (the ranks outside get a mesh with
-    ``shard_index=None``)."""
+    (default: the card).  With a group already set up, the group decides
+    the device: NCCL's current card; for a gloo group of
+    :func:`init_multi_host`, the device it returned (the card of ranks
+    that share one); for any other gloo group, the CPU.  A mesh of fewer
+    ranks than the world is a new process group: every rank of the world
+    must call this function with the same ``n_devices`` (the ranks outside
+    get a mesh with ``shard_index=None``)."""
     if not dist.is_initialized():
         _init_one_rank(resolve_device(device))
     world = dist.get_world_size()
@@ -301,11 +332,13 @@ def unpad_fitness(fit: torch.Tensor, pop_size: int) -> torch.Tensor:
 def all_gather_rows(local: torch.Tensor, mesh: PopMesh) -> torch.Tensor:
     """The mesh's row blocks, in shard order, concatenated along the
     leading axis: one :data:`ALL_GATHER` over the mesh's group into a fresh
-    tensor.  Every rank of the mesh must call it with a block of the same
-    shape.  On the card the collective runs on the current stream's
-    order (NCCL), so it is captured with the generation into a CUDA graph;
-    the communicator must exist before the capture (a warm-up call, or
-    :func:`init_multi_host`'s ``device_id``)."""
+    tensor on ``local``'s device.  Every rank of the mesh must call it
+    with a block of the same shape.  On the card under NCCL the collective
+    runs on the current stream's order, so it is captured with the
+    generation into a CUDA graph; the communicator must exist before the
+    capture (a warm-up call, or :func:`init_multi_host`'s ``device_id``).
+    Gloo takes blocks on the card too (it copies them through the host
+    itself); it cannot be captured."""
     local = local.contiguous()
     out = torch.empty((mesh.size * local.shape[0],) + tuple(local.shape[1:]), dtype=local.dtype, device=local.device)
     ALL_GATHER(out, local, group=mesh.group)

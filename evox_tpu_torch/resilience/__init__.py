@@ -18,12 +18,17 @@ Ported:
   captured segment, host faults on an eager one) and :class:`FaultyStore`,
   with :func:`validate_schedule`;
 * the elastic topology of :mod:`.elastic` (:class:`MeshTopology`,
-  :func:`check_topology`, :func:`remesh_state`, ...).
+  :func:`check_topology`, :func:`remesh_state`, ...);
+* the fleet supervisor of :mod:`.fleet` (:class:`FleetSupervisor`): it
+  launches worker processes with the ``EVOX_TPU_FLEET_*`` bootstrap
+  contract, watches their exit codes and heartbeats, stops and relaunches
+  the survivors on a smaller world, which resume from the shared
+  checkpoints bit for bit.
 
-Not ported yet: the fleet supervisor (ROADMAP Queue 1, item 13.7), and the
-wire-side injector, the invariant registry and the chaos harness (item
-13.8: they audit and drive the service, which comes with them); importing
-one of their names raises :class:`ImportError`.
+Not ported yet: the wire-side injector, the invariant registry and the
+chaos harness (ROADMAP Queue 1, item 13.8: they audit and drive the
+service, which comes with them); importing one of their names raises
+:class:`ImportError`.
 """
 
 from .elastic import (
@@ -42,6 +47,7 @@ from .faults import (
     InjectedFatalError,
     InjectedStorageError,
 )
+from .fleet import EX_PREEMPTED, FleetError, FleetStats, FleetSupervisor, WorkerSpec, free_coordinator_port
 from .health import HealthProbe, HealthReport, scan_state
 from .preemption import Preempted, PreemptionGuard
 from .restart import (
@@ -105,9 +111,14 @@ __all__ = [
     "InjectedFatalError",
     "InjectedStorageError",
     "validate_schedule",
+    "FleetSupervisor",
+    "FleetError",
+    "FleetStats",
+    "WorkerSpec",
+    "EX_PREEMPTED",
+    "free_coordinator_port",
 ]
 
-_FLEET = ("FleetSupervisor", "FleetError", "FleetStats", "WorkerSpec", "EX_PREEMPTED", "free_coordinator_port")
 _CHAOS = (
     "FaultyTransport",
     "TransportError",
@@ -120,15 +131,10 @@ _CHAOS = (
     "ChaosReport",
     "build_audit_context",
 )
-_NOT_PORTED = _FLEET + _CHAOS
+_NOT_PORTED = _CHAOS
 
 
 def __getattr__(name: str):
-    if name in _FLEET:
-        raise ImportError(
-            f"evox_tpu_torch.resilience.{name} is not ported yet: the fleet supervisor needs multi-host "
-            f"fleets (ROADMAP Queue 1, item 13.7)"
-        )
     if name in _CHAOS:
         raise ImportError(
             f"evox_tpu_torch.resilience.{name} is not ported yet: the wire-side injector, the invariant "

@@ -22,6 +22,15 @@ run):
   eagerly, on the card all the same.  The injected exception reaches the
   caller as itself (the JAX package's arrives wrapped in an XLA runtime
   error; both retry predicates give the same verdict on both).
+* **process faults** for fleet runs, keyed on the ``torch.distributed``
+  rank: ``kill_process_at`` sends the scheduled rank a real ``SIGKILL``
+  (host death), ``partition_process_at`` freezes its progress for
+  ``partition_seconds`` while its heartbeat thread keeps beating (a wedged
+  host), and ``slow_process_at`` makes it sleep ``slow_process_seconds``
+  (the cross-host straggler; under ``eval_deadline`` the sleep is
+  abandoned at the deadline and counted in ``deadline_trips``, which the
+  worker's heartbeat reports, and no fitness changes).  They are host
+  faults too.
 
 Transient faults are **attempt-counted on the host side**: a fault fires
 for its first ``*_times`` attempts of a given evaluation index and then
@@ -40,10 +49,9 @@ still sees the outage as "over".
   capturable.
 
 The **whole fault plan is audited at construction** with the JAX
-package's checks and messages.  The fleet faults (``kill_process_at``,
-``partition_process_at``, ``slow_process_at``) are not ported yet
-(ROADMAP Queue 1, item 13.7): setting one raises
-:class:`NotImplementedError`.
+package's checks and messages (a process-fault key is named a
+``torch.distributed`` rank where the JAX package names
+``jax.process_index()``).
 
 :class:`FaultyStore` is the storage-side counterpart: a
 :class:`~evox_tpu_torch.utils.CheckpointStore` that injects torn
@@ -101,11 +109,9 @@ class FaultyProblem(Problem):
 
     :attr:`capturable` is ``False`` whenever a host fault is scheduled
     (whatever its ``*_times``, so a ``*_times=0`` comparator steps the same
-    way; a lane delay included), or when the wrapped problem is not
-    capturable.
+    way; a lane delay and a process fault included), or when the wrapped
+    problem is not capturable.
     """
-
-    _FLEET_ITEM = "ROADMAP Queue 1, item 13.7 (multi-host fleets)"
 
     def __init__(
         self,
@@ -147,16 +153,6 @@ class FaultyProblem(Problem):
         slow_process_times: int = 1,
         lane_faults: Mapping[int, Mapping[str, Any]] | None = None,
     ):
-        for name, value in (
-            ("kill_process_at", kill_process_at),
-            ("partition_process_at", partition_process_at),
-            ("slow_process_at", slow_process_at),
-        ):
-            if value:
-                raise NotImplementedError(
-                    f"FaultyProblem({name}=...) is not ported yet: the fleet faults need the multi-host "
-                    f"supervisor ({self._FLEET_ITEM})"
-                )
         self.problem = problem
         self.nan_generations = tuple(int(g) for g in nan_generations)
         self.nan_rows = int(nan_rows)
@@ -192,18 +188,19 @@ class FaultyProblem(Problem):
             )
         self.eval_deadline = None if eval_deadline is None else float(eval_deadline)
         self.deadline_penalty = float(deadline_penalty)
-        # The fleet schedules are refused above; the attributes keep the
-        # JAX package's shape for the audit.
-        self.kill_process_at: dict[int, frozenset] = {}
+        self.kill_process_at = {int(p): frozenset(int(g) for g in gens) for p, gens in (kill_process_at or {}).items()}
         self.kill_times = int(kill_times)
-        self.partition_process_at: dict[int, frozenset] = {}
+        self.partition_process_at = {
+            int(p): frozenset(int(g) for g in gens) for p, gens in (partition_process_at or {}).items()
+        }
         self.partition_seconds = float(partition_seconds)
         self.partition_times = int(partition_times)
-        self.slow_process_at: dict[int, frozenset] = {}
+        self.slow_process_at = {int(p): frozenset(int(g) for g in gens) for p, gens in (slow_process_at or {}).items()}
         self.slow_process_seconds = float(slow_process_seconds)
         self.slow_process_times = int(slow_process_times)
         self.lane_faults = self._normalize_lane_faults(lane_faults or {})
-        # Host-side count of eval-deadline expiries on this process.
+        # Host-side count of eval-deadline expiries on this process: the
+        # straggler self-report a fleet worker's heartbeat carries.
         self.deadline_trips = 0
         # Set by StdWorkflow when this wrapper ends up in a sharded
         # evaluation it cannot see from its own chain.
@@ -219,17 +216,21 @@ class FaultyProblem(Problem):
         )
         # Lane-keyed delays have their own hook: it reads the lane's uid.
         self._has_lane_host_faults = any(spec["delay_generations"] for spec in self.lane_faults.values())
+        # Keyed on the schedule, not the times: a ``*_times=0`` comparator
+        # steps the same way.
+        self._has_fleet_faults = bool(self.kill_process_at or self.partition_process_at or self.slow_process_at)
         self._validate_schedules()
 
     @property
     def capturable(self) -> bool:
         """Whether an evaluation can run inside a captured CUDA graph: not
         with a host fault scheduled (the attempt-counted corruption, the
-        eval deadline and a lane delay included), whose hook reads the
-        evaluation index on the host."""
+        eval deadline, a lane delay and a process fault included), whose
+        hook reads the evaluation index on the host."""
         host = (
             self._has_host_faults
             or self._has_lane_host_faults
+            or self._has_fleet_faults
             or bool(self.corrupt_generations)
             or self.eval_deadline is not None
         )
@@ -366,7 +367,7 @@ class FaultyProblem(Problem):
             for proc, proc_gens in proc_map.items():
                 if proc < 0:
                     raise ValueError(
-                        f"{name} keys are process index values; "
+                        f"{name} keys are torch.distributed rank values; "
                         f"got {proc}"
                     )
                 gens(f"{name}[{proc}]", proc_gens)
@@ -498,6 +499,33 @@ class FaultyProblem(Problem):
         if self._bump(f"lane_delay{l}", g) <= spec["delay_times"]:
             time.sleep(spec["delay_seconds"])
 
+    def _fleet_hook(self, g: int) -> None:
+        """Host side of the process-keyed fleet faults: every rank reaches
+        it once an evaluation, and only the scheduled ``torch.distributed``
+        rank acts (0 in a process without a group)."""
+        import torch.distributed as dist
+
+        proc = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        if g in self.kill_process_at.get(proc, ()):
+            if self._bump(f"kill{proc}", g) <= self.kill_times:
+                # A real SIGKILL: no handler runs, no checkpoint flushes —
+                # host death, what the fleet supervisor exists for.
+                os.kill(os.getpid(), signal.SIGKILL)
+        if g in self.partition_process_at.get(proc, ()):
+            if self._bump(f"partition{proc}", g) <= self.partition_times:
+                # Alive but unreachable: progress freezes while the
+                # heartbeat thread keeps beating (the wedged signature).
+                time.sleep(self.partition_seconds)
+        if g in self.slow_process_at.get(proc, ()):
+            if self._bump(f"slowproc{proc}", g) <= self.slow_process_times:
+                # One slow rank stalls every peer's collective; under the
+                # eval deadline the sleep is abandoned and counted in
+                # deadline_trips (no fitness changes).
+                if self.eval_deadline is not None:
+                    self._deadline_guarded(lambda: time.sleep(self.slow_process_seconds))
+                else:
+                    time.sleep(self.slow_process_seconds)
+
     def _deadline_guarded(self, fn) -> bool:
         """Run ``fn()`` in an abandoned-on-timeout daemon worker; returns
         whether the eval deadline tripped.  A worker that finishes in time
@@ -571,8 +599,10 @@ class FaultyProblem(Problem):
         # Host faults read the evaluation index on the host; this wrapper
         # is then not capturable, and the evaluation runs eagerly.
         host_index = None
-        if self._has_host_faults or self.corrupt_generations:
+        if self._has_host_faults or self._has_fleet_faults or self.corrupt_generations:
             host_index = int(gen)
+        if self._has_fleet_faults:
+            self._fleet_hook(host_index)
         timed_out = False
         if self._has_host_faults:
             if self.eval_deadline is None:

@@ -82,9 +82,21 @@ armed the workflow's graph cache is sized to keep every one of them
 changed cadence never recaptures.  A controller that fires no decision
 leaves the run bit-identical to ``controller=None``.
 
+**Fleets** (``primary=``, ``heartbeat=``): in a multi-process fleet every
+rank steps the same replicated state, and only the primary (rank 0,
+:func:`~evox_tpu_torch.parallel.is_primary`) mutates the checkpoint
+directory — it alone runs the async writer, publishes, collects old
+checkpoints, quarantines, invalidates after a restart and clears a fresh
+directory; the other ranks read through a
+:class:`~evox_tpu_torch.utils.ReadOnlyCheckpointStore`.  Restarts meet at
+a :func:`~evox_tpu_torch.parallel.fleet_barrier` (a ``fleet-barrier``
+span), and each boundary publishes a heartbeat beat (completed generation,
+segment seconds) for the :class:`~evox_tpu_torch.resilience.FleetSupervisor`.
+A gloo fleet's evaluation calls the host, so its segments step eagerly
+(``ShardedProblem.capturable`` is false).
+
 Not ported yet, and refused with :class:`NotImplementedError` when set:
-``exec_cache=`` (ROADMAP 13.2: a captured graph cannot be serialized) and
-``primary=``/``heartbeat=`` (13.7, multi-host fleets).
+``exec_cache=`` (ROADMAP 13.2: a captured graph cannot be serialized).
 ``cpu_fallback=True`` runs on the CPU (it counts and resets the retry
 budget as the JAX package's does); on the card it is refused, since the
 port's modules are bound to their device when they are built.
@@ -111,6 +123,7 @@ from ..utils.checkpoint import (
     CheckpointCorruptError,
     CheckpointError,
     CheckpointStore,
+    ReadOnlyCheckpointStore,
     load_state,
     read_manifest,
     save_state,
@@ -119,6 +132,7 @@ from ..utils.checkpoint import (
 from ..utils.checkpoint import quarantine_target as _quarantine_target
 from ..utils import graph
 from .elastic import (
+    _num_processes,
     check_topology,
     remesh_state,
     topology_differs,
@@ -183,7 +197,7 @@ NONRETRYABLE_MARKER = "NONRETRYABLE"
 # CUDA errors that leave the process's CUDA context unusable ("sticky"):
 # every later CUDA call of the process fails, so retrying in the process
 # only burns the budget.  The fleet supervisor's process restart is their
-# answer (ROADMAP 13.7).  ``CUBLAS_STATUS_INTERNAL_ERROR`` would otherwise
+# answer (resilience/fleet.py).  ``CUBLAS_STATUS_INTERNAL_ERROR`` would otherwise
 # match the ``INTERNAL`` signature.
 STICKY_CUDA_SIGNATURES = (
     "an illegal memory access was encountered",
@@ -441,15 +455,11 @@ class ResilientRunner:
         obs: Union[Observability, bool, None] = None,
         controller: Any | None = None,
     ):
-        for name, value, item in (
-            ("exec_cache", exec_cache, "13.2 (the executable cache: a captured CUDA graph cannot be serialized)"),
-            ("primary", primary, "13.7 (multi-host fleets and their single-writer role)"),
-            ("heartbeat", heartbeat, "13.7 (multi-host fleets and their heartbeat plane)"),
-        ):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ResilientRunner({name}=...) is not ported yet: ROADMAP Queue 1, item {item}"
-                )
+        if exec_cache is not None:
+            raise NotImplementedError(
+                "ResilientRunner(exec_cache=...) is not ported yet: ROADMAP Queue 1, item 13.2 (the executable "
+                "cache: a captured CUDA graph cannot be serialized)"
+            )
         if checkpoint_every < 1:
             raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
         if keep_checkpoints < 0:
@@ -477,7 +487,15 @@ class ResilientRunner:
         self.restart = restart
         self.max_restarts = int(max_restarts)
         self.remesh = bool(remesh)
-        self.store = store if store is not None else CheckpointStore()
+        if primary is None:
+            from ..parallel.multihost import is_primary
+
+            primary = is_primary()
+        self.primary = bool(primary)
+        # A non-primary process mutates nothing: even a path that slips
+        # past the primary gating below is refused at the store.
+        self.store = (store if store is not None else CheckpointStore()) if self.primary else ReadOnlyCheckpointStore()
+        self.heartbeat = heartbeat
         self.obs = resolve_obs(obs, run_id=Path(checkpoint_dir).name)
         # The closed-loop control plane: trend verdicts from the flight
         # window and self-tuned cadence from measured timings, publishing
@@ -504,7 +522,7 @@ class ResilientRunner:
                 on_error=self._note_write_failure,
                 registry=self.obs.registry if self.obs is not None else None,
             )
-            if async_checkpoints
+            if async_checkpoints and self.primary
             else None
         )
         self.fused = bool(fused) and hasattr(workflow, "_run_segment")
@@ -806,8 +824,8 @@ class ResilientRunner:
 
     def _gc_stale_checkpoints(self) -> None:
         """Delete all but the newest ``keep_checkpoints`` files — only after
-        a successful durable publish."""
-        if not self.keep_checkpoints:
+        a successful durable publish, and only on the fleet's primary."""
+        if not self.keep_checkpoints or not self.primary:
             return
         numbered = _numbered_checkpoints(self.checkpoint_dir)
         for _, stale in numbered[: -self.keep_checkpoints]:
@@ -821,6 +839,25 @@ class ResilientRunner:
         if self._writer is not None:
             with self._span("checkpoint-barrier"):
                 self._writer.barrier()
+
+    def _fleet_sync(self) -> None:
+        """Meet the other ranks where the single writer's disk state is about
+        to be read fleet-wide (a restart policy scanning the directory).
+        No-op for one process.  Every rank reaches the call sites under the
+        same control flow (boundary verdicts are functions of the
+        replicated state), so the barrier always matches up."""
+        if _num_processes() <= 1:
+            return
+        from ..parallel.multihost import fleet_barrier
+
+        with self._span("fleet-barrier"):
+            fleet_barrier("evox_tpu_runner_boundary")
+
+    def _beat(self, generation: int) -> None:
+        """Publish a heartbeat progress beat for this boundary (no-op
+        without a heartbeat)."""
+        if self.heartbeat is not None:
+            self.heartbeat.beat(generation=int(generation), segment_seconds=self._last_exec_seconds)
 
     def _write_checkpoint(
         self,
@@ -838,7 +875,11 @@ class ResilientRunner:
         (preemption) wait for the publish — through the pinned-buffer writer
         (a one-off writer when the runner writes synchronously), so the copy
         is ordered after the segment's work on the card by an event.
-        Returns whether a waited-for write succeeded."""
+        Returns whether a waited-for write succeeded.  A non-primary fleet
+        process returns ``True`` and touches nothing: the primary's write of
+        the same replicated state is this boundary's checkpoint."""
+        if not self.primary:
+            return True
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         path = self._ckpt_path(generation)
         metadata = self._manifest_extras(probed, state)
@@ -932,7 +973,8 @@ class ResilientRunner:
         candidates, rejected = scan_checkpoints(
             self.checkpoint_dir,
             verify=self.verify_resume,
-            quarantine=bool(self.verify_resume),
+            # Quarantine renames mutate the directory: the primary's alone.
+            quarantine=bool(self.verify_resume) and self.primary,
             store=self.store,
         )
         for path, reason, quarantined in rejected:
@@ -1311,8 +1353,10 @@ class ResilientRunner:
         guarantee a restart policy and an unspent budget."""
         reasons = "; ".join(report.reasons)
         # Restart policies read checkpoints from disk: flush the boundary's
-        # in-flight async write first.
+        # in-flight async write first, and in a fleet meet the other ranks
+        # on the primary's flush.
         self._barrier_writer()
+        self._fleet_sync()
         idx = len(self.stats.restarts)
         ctx = RestartContext(
             runner=self,
@@ -1360,12 +1404,15 @@ class ResilientRunner:
         # Publish the post-restart state and invalidate the stale future.
         self._write_checkpoint(new_state, new_done, probed=not needs_init)
         self._barrier_writer()
-        for gen, path in _numbered_checkpoints(self.checkpoint_dir):
-            if gen > new_done:
-                try:
-                    self.store.unlink(path)
-                except OSError:  # pragma: no cover - racing cleaners
-                    pass
+        if self.primary:
+            for gen, path in _numbered_checkpoints(self.checkpoint_dir):
+                if gen > new_done:
+                    try:
+                        self.store.unlink(path)
+                    except OSError:  # pragma: no cover - racing cleaners
+                        pass
+        # Fleet lockstep: no rank runs on while the writer invalidates.
+        self._fleet_sync()
         self.stats.completed_generations = new_done
         if needs_init:
             return self._health_boundary(new_state, new_done, n_steps)
@@ -1529,8 +1576,8 @@ class ResilientRunner:
 
     def _boundary(self, state: State, done: int, host: dict, stepped: int) -> None:
         """The bookkeeping of a completed segment: checkpoint, timing,
-        metrics, introspection (a subclass's hook also takes the
-        segment's :meth:`_boundary_reads` from ``host["reads"]``)."""
+        metrics, introspection, heartbeat (a subclass's hook also takes
+        the segment's :meth:`_boundary_reads` from ``host["reads"]``)."""
         self.stats.segments_run += 1
         self.stats.completed_generations = done
         blocked0 = self.stats.checkpoint_block_seconds
@@ -1538,12 +1585,14 @@ class ResilientRunner:
         self._record_segment_timing(done, blocked0)
         self._publish_metrics(host.get("monitor"))
         self._publish_introspection(_state_device(state), stepped)
+        self._beat(done)
 
     def _run_supervised(self, state: State, n_steps: int, fresh: bool) -> State:
         done = 0
         probed = False
-        if fresh and self.checkpoint_dir.is_dir():
-            # Clear the old lineage (quarantined files too).
+        if fresh and self.primary and self.checkpoint_dir.is_dir():
+            # Clear the old lineage (quarantined files too); the primary
+            # alone (a fresh run reads nothing, so no rank races it).
             self._barrier_writer()
             for _, path in _numbered_checkpoints(self.checkpoint_dir):
                 try:
@@ -1568,6 +1617,9 @@ class ResilientRunner:
                 self.stats.resumed_from_generation = done
                 self.stats.completed_generations = done
                 probed = self._resumed_probed
+                # A supervisor watching a relaunched worker sees it land on
+                # its resume point at once, not after a first segment.
+                self._beat(done)
         self._run_key_impl(state)
         if done == 0:
             profile_ctx = (

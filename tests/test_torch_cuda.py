@@ -2115,3 +2115,64 @@ def test_prewarm_captures_the_pack_before_its_first_admission(cuda):
         for _ in range(9):
             want = wf.step(want)
         _same_state(pack.lane_state(uid), want)
+
+
+def test_two_worker_fleet_on_one_card(cuda, tmp_path):
+    """A 2-worker FleetSupervisor run on ``cuda:0`` (a gloo group: NCCL
+    refuses two ranks on one card) through ``tests/test_torch_fleet_worker.py``:
+    each worker's rows and moves stay on the card (its launch counters
+    moved, its first boundary's move equals the plain version bit for
+    bit), no copy between host and card in a profiled segment is larger
+    than the gathered fitness (the row blocks never leave the card; gloo
+    copies the fitness through the host, and the generation reads a few
+    scalars), and the final state equals the same run in this process."""
+    import json
+    import os
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from evox_tpu_torch.parallel import make_pop_mesh
+    from evox_tpu_torch.resilience import FleetSupervisor, ResilientRunner, RetryPolicy
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_fleet_worker as worker
+
+    cfg = {"n_steps": 8, "pop": 1024, "dim": 32, "bound": 10.0, "checkpoint_every": 2, "seed": 0,
+           "problem": "sphere", "device": "cuda", "profile_segment": 1}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    sup = FleetSupervisor(
+        lambda spec: [sys.executable, worker.__file__, spec.checkpoint_dir, str(tmp_path / "cfg.json")], 2,
+        checkpoint_dir=tmp_path / "fleet", env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1])),
+        poll_interval=0.1, dead_after=30.0, start_grace=180.0, attempt_timeout=300.0, obs=False,
+    )
+    stats = sup.run()
+    assert stats.completed and stats.world_sizes == [2], [e.kind for e in stats.events]
+    for rank in (0, 1):
+        rec = json.loads((tmp_path / "fleet" / f"worker_a00_p{rank:02d}.json").read_text())
+        assert rec["group_backend"] == "gloo" and rec["rows_device"] == rec["final_rows_device"] == "cuda:0"
+        assert rec["launches"]["fused_pso_move"] == cfg["n_steps"] - 1 and rec["launches"]["philox_draws"] >= 1
+        assert rec["move_vs_plain"]["bits_differ"] == 0
+        ex = rec["exchange"]
+        assert ex["calls"] == cfg["n_steps"] and ex["devices"] == ["cuda:0"]
+        # Segment 1 is generations 2-3; its copies, read from the profiler's trace.
+        tr = rec["transfers"]
+        assert (tr["segment"], tr["generations"]) == (1, 2), tr
+        copies = tr["copies"]
+        assert copies.get("DtoH") and copies.get("HtoD"), copies
+        fitness_bytes = cfg["pop"] * 4
+        for direction in ("DtoH", "HtoD"):
+            assert max(int(b) for b in copies[direction]) <= fitness_bytes, copies
+    fleet = dict(np.load(tmp_path / "fleet" / "final_state.npz"))
+    wf, _ = worker.build(cfg, make_pop_mesh(device="cuda"))
+    try:
+        final = ResilientRunner(wf, tmp_path / "inproc", checkpoint_every=2, retry=RetryPolicy(max_retries=0)).run(
+            wf.init(0), n_steps=cfg["n_steps"])
+        mine = worker.final_payload(final)
+    finally:
+        dist.destroy_process_group()
+    assert mine.keys() == fleet.keys()
+    for k in mine:
+        assert np.array_equal(mine[k], fleet[k]), k

@@ -137,14 +137,25 @@ def test_store_audit_and_validate_schedule_equal_the_jax_packages(plan):
     ids=["kill", "partition", "slow", "lane"],
 )
 def test_fleet_and_lane_faults_are_refused_by_name(fleet):
+    """Once refused by name, now ported: each plan is normalised as the JAX
+    package normalises it, makes the problem not capturable (a process
+    fault is a host fault; a lane's NaN rows are device faults), and a
+    malformed plan is refused with the JAX package's message (the
+    torch.distributed rank where it names jax.process_index())."""
     name = next(iter(fleet))
     if name == "lane_faults":
-        # Ported with the service core: the plan is normalized, not refused.
         prob = FaultyProblem(FirstColumn(), **fleet)
         assert prob.lane_faults[3]["nan_generations"] == (1,) and prob.capturable
         return
-    with pytest.raises(NotImplementedError, match=name):
-        FaultyProblem(FirstColumn(), **fleet)
+    prob = FaultyProblem(FirstColumn(), **fleet)
+    assert getattr(prob, name) == getattr(JFaultyProblem(JFirstColumn(), **fleet), name)
+    assert not prob.capturable
+    for bad in ({name: {-1: [1]}}, {name: {0: [-3]}}):
+        with pytest.raises(ValueError) as mine:
+            FaultyProblem(FirstColumn(), **bad)
+        with pytest.raises(ValueError) as theirs:
+            JFaultyProblem(JFirstColumn(), **bad)
+        assert str(mine.value) == str(theirs.value).replace("jax.process_index()", "torch.distributed rank")
 
 
 # ---------------------------------------------------------------------------

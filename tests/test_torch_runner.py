@@ -642,8 +642,37 @@ def test_wall_interval_adapts_the_chunk(tmp_path):
     [(dict(exec_cache=object()), "13.2"), (dict(primary=True), "13.7"), (dict(heartbeat=object()), "13.7")],
 )
 def test_not_ported_runner_arguments_are_refused_by_name(tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match=f"{next(iter(kw))}.*{item}"):
-        ResilientRunner(_wf(), tmp_path, **kw)
+    """``exec_cache`` stays refused (13.2).  ``primary`` and ``heartbeat``
+    came with the fleet layer (13.7): what each does.  A non-primary
+    runner mutates nothing and computes the primary's bits; a heartbeat is
+    beaten at every boundary with the generation and segment seconds."""
+    name = next(iter(kw))
+    if name == "exec_cache":
+        with pytest.raises(NotImplementedError, match=f"{name}.*{item}"):
+            ResilientRunner(_wf(), tmp_path, **kw)
+        return
+    if name == "primary":
+        wf = _wf()
+        want = ResilientRunner(wf, tmp_path / "rw", checkpoint_every=CHUNK).run(wf.init(0), 9)
+        runner = ResilientRunner(_wf(), tmp_path / "ro", checkpoint_every=CHUNK, primary=False)
+        assert runner._writer is None and not runner.primary
+        got = runner.run(runner.workflow.init(0), 9)
+        assert not (tmp_path / "ro").exists() and runner.stats.checkpoints_written == 0
+        assert ResilientRunner(_wf(), tmp_path, **kw).primary
+        for a, b in zip(graph.flatten(got)[0], graph.flatten(want)[0]):
+            assert torch.equal(a, b)
+        return
+    beats = []
+
+    class Beats:
+        def beat(self, generation=None, segment_seconds=None, **fields):
+            beats.append((generation, segment_seconds))
+
+    wf = _wf()
+    runner = ResilientRunner(wf, tmp_path, checkpoint_every=CHUNK, heartbeat=Beats())
+    runner.run(wf.init(0), 9)
+    assert [g for g, _ in beats] == [1] + list(range(1 + CHUNK, 9, CHUNK)) + [9]
+    assert [s for _, s in beats] == [t.execute_seconds for t in runner.stats.segment_timings]
 
 
 def test_runner_validation_and_pickled_fault_plans(tmp_path):
