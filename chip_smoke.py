@@ -89,7 +89,15 @@ distributed_8dev's PSO on the card, ``tests/test_torch_fleet_worker.py``,
 rank 1 SIGKILLed, the world relaunched on 1 and resumed bit-equal to an
 uninterrupted 1-process fleet and to the run in this process, the beats'
 metrics aggregated; ``fleet_straggler``: a slow rank quarantined through its
-beat's deadline trips), checks that each path went through its kernels, and
+beat's deadline trips), then the serving daemon (``daemon_main_path``: a
+``ServiceDaemon`` of service_pack's 8 tenants with budgets of 200, run
+uninterrupted here, then in a cold process from a copy of the package with
+an empty build directory, killed by ``os._exit`` after segment 3, and a
+warm process that replays the journal, prewarms from the program cache with
+no ``nvcc`` and finishes every tenant bit-equal to the uninterrupted
+daemon; ``daemon_overload``: class budgets, structured sheds, a brown-out
+and its return without a capture, the admitted tenants' gen/s against an
+uncontended daemon's), checks that each path went through its kernels, and
 times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
@@ -6921,6 +6929,380 @@ def fleet_straggler(device, directory) -> dict:
     }
 
 
+# -- the serving daemon (ServiceDaemon, the persistent program cache) ------------
+
+# service_pack's tenants under the daemon: 8 x PSO(1024, ±32 in dim 100) on
+# Ackley, 8 lanes, segments of 25, budgets of 200 generations; the cold
+# process is killed after the boundary of segment DAEMON["kill_after"].
+DAEMON = dict(tenants=SERVICE_LANES, lanes=SERVICE_LANES, segment=SERVICE_SEGMENT, n_steps=SERVICE_GENS,
+              pop=VMAP_PSO[0], dim=VMAP_PSO[1], kill_after=3)
+OVERLOAD_QUEUE = 8  # the overload phase's class budget and service queue bound
+OVERLOAD_ROUNDS = 6  # timed rounds, uncontended and contended
+OVERLOAD_PRESSURE = 2  # submissions beyond capacity a contended round
+
+# One daemon process over a root: ``cold`` submits the tenants, steps and
+# dies by os._exit after DAEMON["kill_after"] boundaries (no shutdown path
+# runs); ``warm`` replays the journal, prewarms from the root's program
+# cache and runs every tenant to completion.  The package is imported from
+# ``tree`` (a copy whose build/ is empty).  Each writes a JSON summary.
+DAEMON_CHILD = """
+import json, os, sys, time
+t0, wall0 = time.perf_counter(), time.time()
+mode, root, tree, out, cfg = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4], json.loads(sys.argv[5])
+sys.path.insert(0, tree)
+import torch
+from evox_tpu_torch.algorithms import PSO
+from evox_tpu_torch.ops import _build, philox, pso_step
+from evox_tpu_torch.problems.numerical import Ackley
+from evox_tpu_torch.service import ServiceDaemon, TenantSpec
+marks = {"imported": time.perf_counter() - t0}
+device = torch.device(cfg["device"])
+sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+daemon = ServiceDaemon(root, lanes_per_pack=cfg["lanes"], segment_steps=cfg["segment"], on_event=lambda msg: None,
+                       device=device)
+restored = daemon.start()
+sync()
+marks["started"] = time.perf_counter() - t0
+n, d = cfg["pop"], cfg["dim"]
+if mode == "cold":
+    for uid in range(cfg["tenants"]):
+        algo = PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device)
+        daemon.submit(TenantSpec(f"t{uid}", algo, Ackley(), n_steps=cfg["n_steps"], uid=uid))
+    sync()
+    marks["submitted"] = time.perf_counter() - t0
+rounds = []
+counters = {"fused_pso_move": pso_step.fused_pso_move, "fused_pso_move_batched": pso_step.fused_pso_move_batched,
+            "philox_draws": philox.philox_draws, "philox_draws_batched": philox.philox_draws_batched}
+
+
+def summary(done):
+    c = daemon.exec_cache.stats
+    rec = {"mode": mode, "restored": restored, "marks": marks, "wall0": wall0, "rounds_s": rounds, "done": done,
+           "segments": daemon.service.stats.segments_run, "captures": daemon.stats.captures,
+           "kernel_builds": dict(_build.counts), "build_dir": str(_build.BUILD_DIR),
+           "cache": {"hits": c.hits, "misses": c.misses, "saves": c.saves, "quarantines": c.quarantines},
+           "prewarmed": daemon.stats.prewarmed, "launches": {k: v.launches for k, v in counters.items()},
+           "statuses": {t: r.status.value for t, r in daemon.service._tenants.items()},
+           "generations": {t: r.generations for t, r in daemon.service._tenants.items()},
+           "statusz_exec_cache": daemon._statusz()["exec_cache"]}
+    with open(out + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(out + ".tmp", out)
+
+
+while True:
+    t1 = time.perf_counter()
+    progressed = daemon.step()
+    sync()
+    rounds.append(time.perf_counter() - t1)
+    if len(rounds) == 1:
+        marks["first_segment"] = time.perf_counter() - t0
+        marks["first_segment_wall"] = time.time()
+    if mode == "cold" and len(rounds) == cfg["kill_after"]:
+        summary(False)
+        os._exit(9)
+    if not progressed:
+        break
+summary(True)
+"""
+
+
+def daemon_specs(device, uids, n_steps, prefix="t"):
+    """``TenantSpec``s of service_pack's shape: PSO(1024, ±32 in dim 100)
+    on Ackley, budgets ``n_steps``."""
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.service import TenantSpec
+
+    n, d = DAEMON["pop"], DAEMON["dim"]
+    return [TenantSpec(f"{prefix}{uid}", PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device),
+                       Ackley(), n_steps=n_steps, uid=uid) for uid in uids]
+
+
+def package_copy(directory) -> Path:
+    """A copy of the port's package under ``directory`` without its
+    ``build/`` (and bytecode): a process importing it builds or installs
+    every kernel library it launches."""
+    import shutil
+
+    shutil.copytree(Path(ROOT) / "evox_tpu_torch", Path(directory) / "evox_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    return Path(directory)
+
+
+def daemon_child(mode, root, tree, out_dir, device) -> dict:
+    """Run one daemon process (``DAEMON_CHILD``) and read its summary; the
+    seconds from its spawn to the end of its first segment are added."""
+    out = Path(out_dir) / f"daemon_{mode}.json"
+    env = {k: v for k, v in fleet_env().items() if k != "PYTHONPATH"}
+    spawned = time.time()
+    proc = subprocess.run([sys.executable, "-c", DAEMON_CHILD, mode, str(root), str(tree), str(out),
+                           json.dumps({**DAEMON, "device": str(device)})], env=env, capture_output=True, text=True,
+                          timeout=600)
+    want = 9 if mode == "cold" else 0
+    if proc.returncode != want:
+        raise AssertionError(f"the {mode} daemon process exited {proc.returncode}, expected {want}:\n"
+                             f"{proc.stderr[-3000:]}")
+    rec = json.loads(out.read_text())
+    rec["spawn_to_first_segment_s"] = rec["marks"]["first_segment_wall"] - spawned
+    if not rec["build_dir"].startswith(str(tree)):
+        raise AssertionError(f"the {mode} daemon built into {rec['build_dir']}, not its own copy {tree}")
+    return rec
+
+
+def daemon_rounds(daemon) -> list[float]:
+    """Step ``daemon`` until no lane makes progress; each round's seconds
+    (the card waited out)."""
+    import torch
+
+    rounds = []
+    while True:
+        t1 = time.perf_counter()
+        progressed = daemon.step()
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t1)
+        if not progressed:
+            return rounds
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_daemon_main_path(device) -> dict:
+    """``ServiceDaemon(root, lanes_per_pack=8, segment_steps=25)`` with 8
+    tenants of service_pack's shape, budgets of 200 (completed at 201).
+    The uninterrupted daemon runs here; launches counted from 0 over its
+    run (the prewarm's captures of both cadences, 25 and 50: a warm-up
+    generation and the captured ones each; the setups' draws) and over the
+    two processes below.  A cold process, importing a copy of the package
+    whose build/ is empty, submits, steps and dies by ``os._exit`` after
+    the boundary of segment 3 published its checkpoints; a warm process,
+    from a second such copy over the same root, replays the journal,
+    prewarms from the root's program cache (every program a hit, no
+    ``nvcc``: the libraries come out of the entries) and runs every tenant
+    to completion.  Every tenant's final state and newest checkpoint
+    digests then equal the uninterrupted daemon's, bit for bit.  The
+    batched move and draws on the daemon's final states, and a setup's
+    draws, against their plain versions."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.ops import _build
+    from evox_tpu_torch.resilience.testing import last_checkpoint_digests, verify_tenants_bit_identical
+    from evox_tpu_torch.service import OptimizationService, ServiceDaemon, TenantStatus
+    from evox_tpu_torch.service.tenant import TenantRecord
+
+    pycache = wait_fleet_pycache()  # the daemon processes share the fleet's bytecode cache
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_daemon_"))
+    tids = [f"t{u}" for u in range(DAEMON["tenants"])]
+    try:
+        counters = hpo_counters()
+        setups = [0]
+        real_fresh = OptimizationService._fresh_state
+
+        def counting_fresh(self, bucket, record):
+            setups[0] += 1
+            return real_fresh(self, bucket, record)
+
+        ref = ServiceDaemon(root / "ref", lanes_per_pack=DAEMON["lanes"], segment_steps=DAEMON["segment"],
+                            on_event=lambda msg: None, device=device)
+        OptimizationService._fresh_state = counting_fresh
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        try:
+            ref.start()
+            for spec in daemon_specs(device, range(DAEMON["tenants"]), DAEMON["n_steps"]):
+                ref.submit(spec)
+            torch.cuda.synchronize()
+            submit_s = time.perf_counter() - t0
+            rounds = daemon_rounds(ref)
+        finally:
+            OptimizationService._fresh_state = real_fresh
+        ref_launches = counts(counters)
+        for tid in tids:
+            expect(ref.tenant(tid).status, TenantStatus.COMPLETED, f"daemon_main_path {tid}")
+        bucket = next(iter(ref.service._buckets.values()))
+        pack = bucket.pack
+        seg, slow = DAEMON["segment"], DAEMON["segment"] * ref.brownout_factor
+        expect(pack.captures, {"init": 1, "segment": 2}, "daemon_main_path captures (both cadences prewarmed)")
+        expect(ref.stats.captures, pack.captures, "daemon_main_path DaemonStats.captures")
+        expect(ref_launches["fused_pso_move_batched"], (seg + 1) + (slow + 1), "daemon_main_path batched moves")
+        expect(ref_launches["fused_pso_move"], 0, "daemon_main_path solo moves")
+        seen: list = []
+        with recording_draws(seen):
+            real_fresh(ref.service, bucket, TenantRecord(spec=ref.tenant("t0").spec, uid=0))
+        draws = draws_on_path("daemon_main_path setup", seen)
+        per_setup = draws["calls"]
+        expect(ref_launches["philox_draws"], setups[0] * per_setup, f"daemon_main_path draws ({setups[0]} setups)")
+        kernels = batched_exact_vs_plain(pack._states)
+        expected = {tid: ref.result(tid) for tid in tids}
+        digests = {tid: last_checkpoint_digests(root / "ref", tid) for tid in tids}
+        pool = graph_pool_bytes(pack._graphs)
+
+        # The kill and the warm restart, each in a process of its own.
+        cold = daemon_child("cold", root / "killed", package_copy(root / "cold_tree"), root, device)
+        warm = daemon_child("warm", root / "killed", package_copy(root / "warm_tree"), root, device)
+        expect((cold["segments"], cold["done"]), (DAEMON["kill_after"], False), "the cold daemon's segments")
+        expect(cold["kernel_builds"]["builds"] >= 1, True, f"the cold daemon's kernel builds {cold['kernel_builds']}")
+        expect(warm["restored"], DAEMON["tenants"], "tenants the warm daemon replayed")
+        expect(warm["kernel_builds"]["builds"], 0, "nvcc builds in the warm daemon")
+        expect((warm["cache"]["misses"], warm["cache"]["quarantines"]), (0, 0), "the warm daemon's cache misses, "
+               "quarantines")
+        expect(warm["cache"]["hits"], len(warm["prewarmed"]), "the warm daemon's cache hits")
+        expect(all(warm["prewarmed"].values()), True, "every warm pack program from the cache")
+        expect(warm["captures"], {"init": 1, "segment": 2}, "the warm daemon's captures")
+        expect(set(warm["statuses"].values()), {"completed"}, "the warm daemon's tenants")
+        # The killed root's tenants against the uninterrupted daemon's.
+        check = ServiceDaemon(root / "killed", lanes_per_pack=DAEMON["lanes"], segment_steps=DAEMON["segment"],
+                              exec_cache=None, on_event=lambda msg: None, device=device)
+        check.start()
+        check.run()
+        verify_tenants_bit_identical(check, root / "killed", expected, digests, "daemon_main_path kill and restart")
+        launches = {k: ref_launches[k] + cold["launches"][k] + warm["launches"][k] for k in ref_launches}
+        steady = rounds[1:-1]
+        row = {
+            "config": f"ServiceDaemon(lanes_per_pack={DAEMON['lanes']}, segment_steps={seg}): {DAEMON['tenants']} x PSO "
+                      f"pop={DAEMON['pop']} dim={DAEMON['dim']} Ackley f32, budgets {DAEMON['n_steps']}; cold process "
+                      f"killed after segment {DAEMON['kill_after']}, warm process restarted over the same root",
+            "launches": launches, "launches_uninterrupted": ref_launches, "setups": setups[0],
+            "philox_per_setup": per_setup, "captures": dict(pack.captures),
+            "uninterrupted": {"submit_s": submit_s, "rounds_ms": [t * 1e3 for t in rounds],
+                              "ms_per_gen": median(steady) * 1e3 / seg,
+                              "gen_per_s_per_tenant": seg / median(steady)},
+            "time_to_first_segment_s": {"cold": cold["marks"]["first_segment"], "warm": warm["marks"]["first_segment"]},
+            "spawn_to_first_segment_s": {"cold": cold["spawn_to_first_segment_s"],
+                                         "warm": warm["spawn_to_first_segment_s"]},
+            "cold": {k: cold[k] for k in ("marks", "captures", "kernel_builds", "cache", "launches", "rounds_s")},
+            "warm": {k: warm[k] for k in ("marks", "captures", "kernel_builds", "cache", "launches", "rounds_s",
+                                          "statusz_exec_cache")},
+            "warm_ms_per_gen": median(warm["rounds_s"][1:-1]) * 1e3 / seg,
+            "bit_identical_tenants": len(tids), "pool_bytes": pool, "pycache": pycache,
+            "kernels": kernels, "philox_on_path_vs_plain": draws,
+            "max_abs_err": {k: v["max_abs_err"] for k, v in kernels.items()},
+        }
+        del ref, check, pack, bucket, expected
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_daemon_overload(device) -> dict:
+    """The daemon under overload (the shape of the JAX package's
+    ``tools/bench_daemon.py`` overload gate): 8 tenants of service_pack's
+    shape with unbounded budgets fill the 8 lanes of a daemon whose one
+    class has a queue budget of 8 (the service queue's bound too, so
+    brown-out enters at 6 queued); the queue is filled to its budget, and
+    every timed round submits 2 more, each of which must be shed with a
+    structured ``AdmissionError(reason="shed", retry_after_segments=...)``
+    while the queue never exceeds its budget.  Brown-out stretches the
+    cadence to 50 without a capture (both cadences prewarmed), and returns
+    it to 25 once parking queued tenants halves the pressure.  Printed,
+    with no gate: the admitted tenants' gen/s as a share of an uncontended
+    daemon's."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.service import AdmissionError, ServiceDaemon, TenantClass
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_overload_"))
+    unbounded = 10**9
+    try:
+        counters = hpo_counters()
+        for c in counters.values():
+            c.launches = 0
+
+        def build(tag, **kw):
+            return ServiceDaemon(root / tag, lanes_per_pack=DAEMON["lanes"], segment_steps=DAEMON["segment"],
+                                 checkpoint_every=10**6, on_event=lambda msg: None, device=device, **kw)
+
+        def timed(daemon, per_round=None):
+            gens, t0 = 0, time.perf_counter()
+            for _ in range(OVERLOAD_ROUNDS):
+                if per_round is not None:
+                    per_round()
+                daemon.step()
+                gens += daemon.service.segment_steps
+            torch.cuda.synchronize()
+            return gens / (time.perf_counter() - t0)
+
+        free = build("uncontended", max_queue=2 * OVERLOAD_QUEUE, brownout_threshold=None)
+        for spec in daemon_specs(device, range(DAEMON["lanes"]), unbounded, "u"):
+            free.submit(spec)
+        free.step()  # admissions and the first segment
+        rate_free = timed(free)
+        del free
+        torch.cuda.empty_cache()
+
+        daemon = build("contended", max_queue=OVERLOAD_QUEUE, classes=[TenantClass("standard", OVERLOAD_QUEUE)])
+        specs = daemon_specs(device, range(DAEMON["lanes"] + OVERLOAD_QUEUE), unbounded, "c")
+        half = DAEMON["lanes"] // 2
+        for part in (specs[:half], specs[half:DAEMON["lanes"]]):
+            # Half a pack at a time: the running cohort alone never browns out.
+            for spec in part:
+                daemon.submit(spec)
+            daemon.step()
+        pack = next(iter(daemon.service._buckets.values())).pack
+        prewarmed = dict(pack.captures)
+        expect(prewarmed, {"init": 1, "segment": 2}, "daemon_overload captures (both cadences prewarmed)")
+        expect(daemon.brownout, False, "brown-out before the queue filled")
+        for spec in specs[DAEMON["lanes"]:]:
+            daemon.submit(spec)
+        sheds, extra, queue_max = [], [len(specs)], []
+
+        def pressure():
+            for spec in daemon_specs(device, range(extra[0], extra[0] + OVERLOAD_PRESSURE), unbounded, "x"):
+                try:
+                    daemon.submit(spec)
+                    raise AssertionError(f"daemon_overload: {spec.tenant_id} was admitted beyond the budget")
+                except AdmissionError as e:
+                    sheds.append((e.reason, e.retry_after_segments))
+            extra[0] += OVERLOAD_PRESSURE
+            queue_max.append(len(daemon.service._queue))
+            if queue_max[-1] > OVERLOAD_QUEUE:
+                raise AssertionError(f"daemon_overload: the queue grew to {queue_max[-1]} > {OVERLOAD_QUEUE}")
+
+        rate_busy = timed(daemon, pressure)
+        expect((daemon.brownout, daemon.service.segment_steps, daemon.stats.brownout_entries),
+               (True, DAEMON["segment"] * daemon.brownout_factor, 1), "daemon_overload brown-out")
+        structured = [s for s in sheds if s[0] == "shed" and isinstance(s[1], int) and s[1] >= 1]
+        expect(len(structured), OVERLOAD_ROUNDS * OVERLOAD_PRESSURE, f"structured sheds of {sheds}")
+        expect(daemon.stats.sheds, len(sheds), "daemon_overload DaemonStats.sheds")
+        # Halve the pressure: park queued tenants, then one round.
+        exit_at = daemon.brownout_threshold / 2
+        parked = 0
+        while len(daemon.service._queue) / daemon.service.max_queue > exit_at:
+            daemon.park(daemon.service._queue[-1])
+            parked += 1
+        daemon.step()
+        expect((daemon.brownout, daemon.service.segment_steps, daemon.stats.brownout_exits),
+               (False, DAEMON["segment"], 1), "daemon_overload brown-out exit")
+        expect(pack.captures, prewarmed, "daemon_overload captures across the stretch and its return")
+        torch.cuda.synchronize()
+        launches = counts(counters)
+        row = {
+            "config": f"ServiceDaemon(lanes_per_pack={DAEMON['lanes']}, segment_steps={DAEMON['segment']}, "
+                      f"max_queue={OVERLOAD_QUEUE}, TenantClass('standard', {OVERLOAD_QUEUE}), brownout 0.75 x 2): "
+                      f"{DAEMON['lanes']} running + {OVERLOAD_QUEUE} queued PSO pop={DAEMON['pop']} "
+                      f"dim={DAEMON['dim']} Ackley, {OVERLOAD_PRESSURE} excess submissions a round",
+            "launches": launches, "per_tenant_gen_per_s": {"uncontended": rate_free, "contended": rate_busy},
+            "contended_share": rate_busy / rate_free, "sheds": len(sheds),
+            "retry_after_segments_seen": sorted({s[1] for s in structured}), "queue_max": max(queue_max),
+            "brownout": {"entries": daemon.stats.brownout_entries, "exits": daemon.stats.brownout_exits,
+                         "parked_to_exit": parked}, "captures": dict(pack.captures),
+        }
+        del daemon, pack
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -7026,7 +7408,10 @@ def philox_row(results) -> dict:
         + sum(results[p]["launches"]["philox_draws"] for p in ("service_pack", "service_main_path"))
         # The fleets' worker processes: their setups (and the in-kernel
         # draws' seeds), counted by each worker that wrote its summary.
-        + sum(results[p]["launches"]["philox_draws"] for p in ("fleet_main_path", "fleet_straggler")),
+        + sum(results[p]["launches"]["philox_draws"] for p in ("fleet_main_path", "fleet_straggler"))
+        # The daemon's tenants' setups, in this process and in the cold and
+        # warm daemon processes.
+        + sum(results[p]["launches"]["philox_draws"] for p in ("daemon_main_path", "daemon_overload")),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -7049,14 +7434,18 @@ def batched_rows(results) -> list[dict]:
          # The service core's paths: the packs' segment captures (a warm-up
          # and the captured generations) and the eager vmapped segments.
          + sum(results[p]["launches"]["fused_pso_move_batched"]
-               for p in ("service_pack", "vmapped_instances_resilient", "service_main_path")),
+               for p in ("service_pack", "vmapped_instances_resilient", "service_main_path"))
+         # The daemon's packs: its prewarmed captures of both cadences, in
+         # this process and in the cold and warm daemon processes.
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in ("daemon_main_path", "daemon_overload")),
          **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the HPO path's recorded moves, the pack's shape
          # and the eager vmapped segments' recorded moves.
          "max_abs_err": max(t["fused_pso_move_batched"]["max_abs_err"],
                             results["hpo_quickstart"]["batched_moves_vs_plain"]["max_abs_err"],
                             results["service_pack"]["max_abs_err"]["fused_pso_move_batched"],
-                            results["vmapped_instances_resilient"]["max_abs_err"])},
+                            results["vmapped_instances_resilient"]["max_abs_err"],
+                            results["daemon_main_path"]["max_abs_err"]["fused_pso_move_batched"])},
         {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
          "replaces": "none (the port's own kernel, batched over vmapped instances)",
          # With the rollouts' resets (one launch for the episodes a
@@ -7076,12 +7465,15 @@ def batched_rows(results) -> list[dict]:
          + results["hpo_runner_main_path"]["launches"]["philox_draws_batched"]
          + results["hpo_grow"]["launches"]["philox_draws_batched"]
          # OpenES's normals in the service's OpenES bucket (its capture).
-         + results["service_main_path"]["launches"]["philox_draws_batched"],
+         + results["service_main_path"]["launches"]["philox_draws_batched"]
+         # The daemon's paths (PSO draws in the move kernel: none here).
+         + sum(results[p]["launches"]["philox_draws_batched"] for p in ("daemon_main_path", "daemon_overload")),
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the pack's shape, and the rollouts' recorded
          # resets.
          "max_abs_err": max(t["philox_draws_batched"]["max_abs_err"],
                             results["service_pack"]["max_abs_err"]["philox_draws_batched"],
+                            results["daemon_main_path"]["max_abs_err"]["philox_draws_batched"],
                             on_path_err(results, "philox_draws_batched"))},
     ]
 
@@ -7228,6 +7620,8 @@ def main() -> int:
         ("service_main_path", phase_service_main_path),
         ("fleet_main_path", phase_fleet_main_path),
         ("fleet_straggler", phase_fleet_straggler),
+        ("daemon_main_path", phase_daemon_main_path),
+        ("daemon_overload", phase_daemon_overload),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)

@@ -17,8 +17,8 @@ registry) and the durable journal feed the *decide* half of the loop.  A
 and renders structured, journaled :class:`~evox_tpu_torch.control.Decision`\\ s
 that the :class:`~evox_tpu_torch.resilience.ResilientRunner` and the
 :class:`~evox_tpu_torch.hpo.HPORunner` *act* on (the service's consults —
-tenant, brown-out, shed, autoscale, compaction — are here too; their
-callers, the daemon and the router, are not ported yet):
+tenant, brown-out, shed, autoscale, compaction — are here too; the
+daemon calls them, the router is not ported yet):
 
 * **trend verdicts** — fitness-slope stagnation, diversity-collapse
   trajectory, and quarantine-storm prediction computed from the flight

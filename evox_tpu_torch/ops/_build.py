@@ -18,9 +18,13 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load", "entry", "launch", "workspace", "pointer", "sm_count"]
+__all__ = [
+    "SOURCES", "build", "load", "entry", "launch", "workspace", "pointer", "sm_count",
+    "counts", "library_names", "loaded", "install", "add_library_source",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -45,6 +49,14 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_loaded_paths: dict[str, Path] = {}
+
+#: Libraries this process compiled with ``nvcc`` (``builds``) and placed
+#: from a verified copy instead (``installs``).
+counts = {"builds": 0, "installs": 0}
+
+# Weak references to the callables asked for a missing library's bytes.
+_sources: list = []
 
 
 def _nvcc() -> str:
@@ -77,19 +89,86 @@ def _library_path(name: str, csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def library_names(names=SOURCES) -> dict[str, str]:
+    """The file name :func:`build` gives each source's library in this
+    checkout (its hash of the source, the headers and the flags)."""
+    return {name: _library_path(name).name for name in names}
+
+
+def loaded() -> dict[str, Path]:
+    """The libraries this process has loaded, by source name."""
+    with _lock:
+        return dict(_loaded_paths)
+
+
+def install(file_name: str, data: bytes, sha256: str) -> bool:
+    """Place a library's bytes under the name :func:`build` would give it,
+    instead of building it.  Refused with :class:`ValueError`, and nothing
+    written, unless ``file_name`` is the current library name of one of
+    :data:`SOURCES` and the bytes' SHA-256 is ``sha256``.  The write is
+    atomic (temp file, ``fsync``, ``os.replace``); returns ``False`` when
+    the library is there already."""
+    if file_name not in set(library_names().values()):
+        raise ValueError(f"{file_name!r} is no library of this checkout's kernel sources")
+    actual = hashlib.sha256(data).hexdigest()
+    if actual != sha256:
+        raise ValueError(f"library {file_name}: SHA-256 {actual[:12]}... is not the recorded {str(sha256)[:12]}...")
+    path = BUILD_DIR / file_name
+    if path.exists():
+        return False
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.install")
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    counts["installs"] += 1
+    return True
+
+
+def add_library_source(source) -> None:
+    """Register ``source(file_name) -> (bytes, sha256) | None``, asked for
+    a missing library before ``nvcc`` builds it.  Held by a weak reference
+    (a bound method's object may be collected)."""
+    ref = weakref.WeakMethod(source) if hasattr(source, "__self__") else weakref.ref(source)
+    _sources.append(ref)
+
+
+def _supplied(file_name: str) -> bool:
+    """Whether a registered source installed ``file_name``; a source whose
+    bytes fail :func:`install`'s checks is passed over."""
+    for ref in list(_sources):
+        source = ref()
+        if source is None:
+            _sources.remove(ref)
+            continue
+        got = source(file_name)
+        if got is None:
+            continue
+        try:
+            install(file_name, *got)
+        except ValueError:
+            continue
+        return True
+    return False
+
+
 def build(names=SOURCES) -> dict[str, Path]:
     """Compile every named source that has no up-to-date library, all
-    ``nvcc`` processes started together, and wait for them.  The compiler's
-    report (registers, spills) is kept beside each library as
+    ``nvcc`` processes started together, and wait for them.  A missing
+    library a registered source supplies is installed instead.  The
+    compiler's report (registers, spills) is kept beside each library as
     ``<library>.log``.  Raises :class:`RuntimeError` if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _library_path(name) for name in names}
-    todo = {name: p for name, p in paths.items() if not p.exists()}
+    todo = {name: p for name, p in paths.items() if not p.exists() and not _supplied(p.name)}
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         nvcc = _nvcc()
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *_link_flags(name, nvcc)]
+        counts["builds"] += 1
         procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -117,6 +196,7 @@ def load(name: str) -> ctypes.CDLL:
             path = build((name,))[name]
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
+            _loaded_paths[name] = path
         return lib
 
 

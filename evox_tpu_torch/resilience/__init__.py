@@ -26,9 +26,11 @@ Ported:
   checkpoints bit for bit.
 
 Not ported yet: the wire-side injector, the invariant registry and the
-chaos harness (ROADMAP Queue 1, item 13.8: they audit and drive the
-service, which comes with them); importing one of their names raises
-:class:`ImportError`.
+chaos harness (ROADMAP Queue 1, item 13.8d: they audit and drive the
+service's gateway and router, which come first); importing one of their
+names raises :class:`ImportError`.  The kill matrices and bit-identity
+comparators are ported in :mod:`.testing`, imported explicitly as in the
+JAX package.
 """
 
 from .elastic import (
@@ -139,6 +141,6 @@ def __getattr__(name: str):
         raise ImportError(
             f"evox_tpu_torch.resilience.{name} is not ported yet: the wire-side injector, the invariant "
             f"registry and the chaos harness (transport.py, invariants.py, chaos.py) audit and drive the service's "
-            f"router, members and journals, and come with them (ROADMAP Queue 1, item 13.8)"
+            f"router, members and journals, and come after them (ROADMAP Queue 1, item 13.8d)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -95,8 +95,14 @@ segment seconds) for the :class:`~evox_tpu_torch.resilience.FleetSupervisor`.
 A gloo fleet's evaluation calls the host, so its segments step eagerly
 (``ShardedProblem.capturable`` is false).
 
-Not ported yet, and refused with :class:`NotImplementedError` when set:
-``exec_cache=`` (ROADMAP 13.2: a captured graph cannot be serialized).
+**The persistent program cache** (``exec_cache=``, an
+:class:`~evox_tpu_torch.utils.ExecutableCache`): a captured graph cannot be
+serialized, so each fused segment program's *capture record* is persisted
+instead — the kernel libraries the capture needed, so a restarted process
+runs no ``nvcc``.  Labels are salted with the workflow's static signature,
+as the JAX package's, so two workflows of one shape never share an entry;
+a load is counted by ``evox_runner_exec_cache_loads_total``.  The capture
+itself still runs once a program.
 ``cpu_fallback=True`` runs on the CPU (it counts and resets the retry
 budget as the JAX package's does); on the card it is refused, since the
 port's modules are bound to their device when they are built.
@@ -455,11 +461,6 @@ class ResilientRunner:
         obs: Union[Observability, bool, None] = None,
         controller: Any | None = None,
     ):
-        if exec_cache is not None:
-            raise NotImplementedError(
-                "ResilientRunner(exec_cache=...) is not ported yet: ROADMAP Queue 1, item 13.2 (the executable "
-                "cache: a captured CUDA graph cannot be serialized)"
-            )
         if checkpoint_every < 1:
             raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
         if keep_checkpoints < 0:
@@ -525,6 +526,13 @@ class ResilientRunner:
             if async_checkpoints and self.primary
             else None
         )
+        self.exec_cache = exec_cache or None
+        # Programs looked up in the cache by this runner: (label,
+        # signature) -> whether the record came from the cache.
+        self._cached_programs: dict[tuple, bool] = {}
+        # The workflow's static-configuration digest salting the labels
+        # (recomputed after a restart swaps the algorithm).
+        self._exec_cache_identity: str | None = None
         self.fused = bool(fused) and hasattr(workflow, "_run_segment")
         self.fused_early_stop = bool(fused_early_stop)
         self._segment_cfg = None
@@ -555,6 +563,7 @@ class ResilientRunner:
         if reset is not None:
             reset()
         self._segment_cfg = None
+        self._exec_cache_identity = None
 
     # -- program shapes ----------------------------------------------------
     def _capturable(self) -> bool:
@@ -1125,10 +1134,18 @@ class ResilientRunner:
         (once per chunk length and state structure; the counterpart of the
         JAX package's AOT compile), under ``compile_timeout`` when set.
         The async writer is waited out first: a capture refuses some of
-        its CUDA work on the other thread."""
-        if not self._is_fused(which, chunk) or _state_device(state).type != "cuda":
+        its CUDA work on the other thread.  With ``exec_cache`` the
+        program's capture record is looked up before its first capture and
+        saved after it when missing."""
+        if not self._is_fused(which, chunk):
             return
-        cfg = self._fused_cfg(state)
+        on_card = _state_device(state).type == "cuda"
+        pkey = self._program_key(which, chunk, state) if self.exec_cache is not None else None
+        if pkey in self._cached_programs:
+            pkey = None  # looked up before: the capture alone, if any
+        if not on_card and pkey is None:
+            return
+        cfg = self._fused_cfg(state) if on_card else None
         waited = []
 
         def barrier() -> None:
@@ -1138,7 +1155,15 @@ class ResilientRunner:
             waited.append(time.perf_counter() - b0)
 
         def capture(holder: dict | None = None) -> bool:
-            return self.workflow.prepare_segment(state, chunk, cfg, before=barrier)
+            hit = pkey is not None and self.exec_cache.load(*pkey) is not None
+            captured = on_card and self.workflow.prepare_segment(state, chunk, cfg, before=barrier)
+            if pkey is not None:
+                if not hit:
+                    from ..utils.exec_cache import capture_record
+
+                    self.exec_cache.save(*pkey, capture_record())
+                self._cached_programs[pkey] = hit
+            return captured
 
         t0 = time.perf_counter()
         if self.compile_timeout is not None:
@@ -1149,6 +1174,12 @@ class ResilientRunner:
         self.stats.checkpoint_block_seconds += blocked
         t0 += blocked
         t1 = time.perf_counter()
+        loaded = pkey is not None and self._cached_programs[pkey]
+        if self.obs is not None and loaded:
+            self.obs.counter(
+                "evox_runner_exec_cache_loads_total",
+                "Segment programs whose capture record came from the persistent executable cache.",
+            ).inc()
         if not captured:
             return
         self._last_compile_seconds += t1 - t0
@@ -1158,11 +1189,27 @@ class ResilientRunner:
             label = f"{which}[{chunk}]"
             analysis = obs_xla.program_analysis(None)
             obs_xla.publish_program_gauges(self.obs.registry, label, analysis)
-            self.obs.record_span("aot-compile", t0, t1, which=which, chunk=chunk, cached=False, **analysis)
+            self.obs.record_span("aot-compile", t0, t1, which=which, chunk=chunk, cached=loaded, **analysis)
             self.obs.counter("evox_runner_compiles_total", "Cold AOT compiles paid by the runner.").inc()
             self.obs.histogram(
                 "evox_runner_segment_compile_seconds", "AOT compile seconds per compiled segment program."
             ).observe(t1 - t0)
+
+    def _program_key(self, which: str, chunk: int | None, state: State) -> tuple[str, tuple]:
+        """``(label, signature)`` of a segment program in the persistent
+        cache.  The abstract signature covers shapes and dtypes but not the
+        program: two workflows with identically-shaped states (another
+        problem) would collide, so the label is salted with the workflow's
+        static-configuration digest, as in the JAX package."""
+        from ..service.tenant import static_signature
+        from ..utils.exec_cache import abstract_signature
+
+        if self._exec_cache_identity is None:
+            self._exec_cache_identity = static_signature(self.workflow)[:16]
+        label = which if chunk is None else f"{which}[{chunk}]"
+        if self._forced_cpu:
+            label += "[cpu]"
+        return label + f"[{self._exec_cache_identity}]", abstract_signature(state)
 
     def _execute_once(self, which: str, state: State, chunk: int | None, retry_from: int | None = None):
         """One attempt: wait out an abandoned one, capture (first time),

@@ -13,15 +13,22 @@ Ported:
   :func:`assign_fault_lane`, :class:`AdmissionError`, :class:`Rejection`,
   :class:`ServiceStats` and :func:`retry_after_seconds`;
 * the crash-safe request journal (:mod:`.journal`), whose files are the
-  JAX package's, byte for byte in their format.
+  JAX package's, byte for byte in their format;
+* the durable serving daemon (:mod:`.daemon`): :class:`ServiceDaemon`
+  (journal replay and resubmission, pre-warm through the persistent
+  program cache, per-class admission budgets with structured sheds,
+  brown-out, steer/park/evict/forget, journal compaction, SLOs, the
+  introspection endpoint, :meth:`~ServiceDaemon.fleet_supervisor`),
+  :class:`TenantClass`, :class:`DaemonStats`, :data:`STEER_KNOBS`.
 
 Not ported yet: the service's HPO workload (``TenantSpec(workload="hpo")``
-raises :class:`NotImplementedError`, ROADMAP Queue 1, item 13.10), and the
-daemon, the gateway and its client, the tenant router and its members
-(ROADMAP Queue 1, item 13.8); importing one of their names raises
+raises :class:`NotImplementedError`, ROADMAP Queue 1, item 13.10), the
+gateway and its client with ``encode_spec`` (item 13.8b), and the tenant
+router and its members (item 13.8c); importing one of their names raises
 :class:`ImportError`.
 """
 
+from .daemon import STEER_KNOBS, DaemonStats, ServiceDaemon, TenantClass
 from .journal import (
     CompactionResult,
     JournalDamage,
@@ -37,6 +44,7 @@ from .tenant import TenantRecord, TenantSpec, TenantStatus, bucket_key, static_s
 __all__ = [
     "AdmissionError",
     "CompactionResult",
+    "DaemonStats",
     "JournalDamage",
     "JournalError",
     "JournalRecord",
@@ -44,7 +52,10 @@ __all__ = [
     "OptimizationService",
     "Rejection",
     "RequestJournal",
+    "STEER_KNOBS",
+    "ServiceDaemon",
     "ServiceStats",
+    "TenantClass",
     "TenantPack",
     "TenantRecord",
     "TenantSpec",
@@ -56,26 +67,22 @@ __all__ = [
     "validate_tenant_id",
 ]
 
-_NOT_PORTED = (
-    "DaemonStats",
-    "Gateway",
-    "GatewayClient",
-    "GatewayError",
-    "HttpTransport",
-    "MEMBER_API_PREFIX",
-    "STEER_KNOBS",
-    "ServiceDaemon",
-    "ServiceMember",
-    "TenantClass",
-    "TenantRouter",
-    "encode_spec",
-)
+# Not ported yet, with the ROADMAP Queue 1 item that ports each.
+_GATEWAY = "item 13.8b (the gateway and its client)"
+_ROUTER = "item 13.8c (the tenant router and its members)"
+_NOT_PORTED = {
+    "Gateway": _GATEWAY,
+    "GatewayClient": _GATEWAY,
+    "GatewayError": _GATEWAY,
+    "HttpTransport": _GATEWAY,
+    "encode_spec": _GATEWAY,
+    "MEMBER_API_PREFIX": _ROUTER,
+    "ServiceMember": _ROUTER,
+    "TenantRouter": _ROUTER,
+}
 
 
 def __getattr__(name: str):
     if name in _NOT_PORTED:
-        raise ImportError(
-            f"evox_tpu_torch.service.{name} is not ported yet: the service's daemon, gateway, client and "
-            f"router come with ROADMAP Queue 1, item 13.8 (the service core and the request journal are ported)"
-        )
+        raise ImportError(f"evox_tpu_torch.service.{name} is not ported yet: ROADMAP Queue 1, {_NOT_PORTED[name]}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,10 +1,10 @@
 """Crash-safe request journal — the service's durable source of truth
 (counterpart of ``evox_tpu/service/journal.py``, a copy: stdlib only and
 the same wire format, canonical body and sha256, so a journal written by
-either package replays in the other).  In the port its first consumer is
-the control plane's decision journal (``Controller(journal=)``); the
-service that the rest of this docstring speaks of is the JAX package's
-(ROADMAP 13.8 ports it).
+either package replays in the other).  Its consumers in the port are the
+control plane's decision journal (``Controller(journal=)``) and the
+serving daemon (:class:`~evox_tpu_torch.service.ServiceDaemon`), the
+daemon this docstring speaks of.
 
 An ``OptimizationService`` is in-memory: a daemon
 SIGKILLed between accepting a tenant and that tenant's first checkpoint

@@ -58,10 +58,6 @@ from ..workflows.std_workflow import _stack
 
 __all__ = ["TenantPack", "assign_fault_lane"]
 
-#: Where a persistent program cache is queued.
-EXEC_CACHE_ITEM = "ROADMAP Queue 1, item 13.2 (utils/exec_cache.py)"
-
-
 def assign_fault_lane(state: State, uid: int) -> State:
     """Stamp a tenant's stable uid into every ``fault_lane`` leaf of its
     state (the :class:`~evox_tpu_torch.resilience.FaultyProblem`
@@ -170,6 +166,10 @@ class TenantPack:
         self._graphs = graph.Cache()
         # Captures made, by program ("init", "segment").
         self.captures = {"init": 0, "segment": 0}
+        # Provenance of each prewarmed program ("init", or a segment
+        # length): True when its capture record came from the persistent
+        # cache.  A re-prewarm reports where a program ACTUALLY came from.
+        self._from_cache: dict[Any, bool] = {}
         self._warned_eager = False
         self._init_program = self._make_init_program()
         self._segment_program = self._make_segment_program()
@@ -246,28 +246,39 @@ class TenantPack:
         each length in ``n_steps`` over the init's result stacked to the
         pack's width.  The counterpart of JAX's ahead-of-time compile; on
         the CPU nothing is captured and only the init's sink sites are
-        recorded.  Returns ``{program_label: loaded_from_cache}`` (always
-        False: nothing is loaded).
+        recorded.  The pack's graph cache is sized to keep every program
+        prewarmed, so a change of cadence never captures mid-run.
 
-        :param cache: a persistent program cache: not ported yet (a
-            captured CUDA graph cannot be serialized), raises
-            :class:`NotImplementedError`.
+        :param cache: an :class:`~evox_tpu_torch.utils.ExecutableCache`.
+            A program whose capture record it holds is a hit (its kernel
+            libraries come from the cache, so no ``nvcc`` runs) and is
+            captured; a program it lacks is captured and its record saved.
+            The labels are salted with the segment config, as the JAX
+            package's.
+
+        Returns ``{program_label: loaded_from_cache}`` — on a rerun, where
+        each program came from when it was first prewarmed.
         """
-        if cache is not None:
-            raise NotImplementedError(
-                f"TenantPack.prewarm(cache=...) is not ported yet: a persistent program cache waits for "
-                f"{EXEC_CACHE_ITEM}"
-            )
+        from ..utils.exec_cache import abstract_signature
+
         lengths = [int(n_steps)] if isinstance(n_steps, int) else sorted({int(n) for n in n_steps})
         for n in lengths:
             if n < 1:
                 raise ValueError(f"n_steps must be >= 1, got {n}")
-        self._graphs.max_graphs = max(self._graphs.max_graphs, len(lengths) + 1)
+        prewarmed = {k for k in self._from_cache if k != "init"}
+        self._graphs.max_graphs = max(self._graphs.max_graphs, len(prewarmed | set(lengths)) + 1)
+        # The segment config changes the program (flight telemetry adds
+        # outputs) but not the input signature: part of the label.
         cfg_tag = hashlib.sha256(repr(self.cfg).encode()).hexdigest()[:8]
         init_label = f"pack_init[{label}][lanes={self.lanes}][cfg={cfg_tag}]"
         leaves, spec = graph.flatten(example_state)
-        post, _, _ = self.init_tenant(graph.unflatten(spec, [t.clone() for t in leaves]))
-        results = {init_label: False}
+        held: dict = {}
+
+        def init() -> None:
+            held["post"], _, _ = self.init_tenant(graph.unflatten(spec, [t.clone() for t in leaves]))
+
+        results = {init_label: self._prewarmed("init", cache, init_label, abstract_signature(example_state), init)}
+        post = held["post"]
         device = _device_of(post)
         post_leaves, post_spec = graph.flatten(post)
         stacked = graph.unflatten(post_spec, [torch.stack([t] * self.lanes) for t in post_leaves])
@@ -277,12 +288,34 @@ class TenantPack:
             torch.zeros((self.lanes,), dtype=torch.int32, device=device),
         )
         for n in lengths:
-            if self._replays(device):
-                before = self._graphs.captures
-                graph.prepare(self._graphs, ("pack_segment", self.cfg), self._segment_program, carry, n)
-                self.captures["segment"] += self._graphs.captures - before
-            results[f"pack_segment[{label}][lanes={self.lanes}][cfg={cfg_tag}][n={n}]"] = False
+
+            def segment(n=n) -> None:
+                if self._replays(device):
+                    before = self._graphs.captures
+                    graph.prepare(self._graphs, ("pack_segment", self.cfg), self._segment_program, carry, n)
+                    self.captures["segment"] += self._graphs.captures - before
+
+            seg_label = f"pack_segment[{label}][lanes={self.lanes}][cfg={cfg_tag}][n={n}]"
+            results[seg_label] = self._prewarmed(n, cache, seg_label, abstract_signature(carry), segment)
         return results
+
+    def _prewarmed(self, key: Any, cache: Any | None, label: str, signature: tuple, prepare) -> bool:
+        """Prewarm one program through the persistent cache: look its
+        capture record up, ``prepare()`` it (the capture, a no-op once
+        made), and save the record of a miss.  A program prewarmed before
+        keeps its first provenance and is not looked up again.  Returns
+        whether the record came from the cache."""
+        if key in self._from_cache:
+            prepare()
+            return self._from_cache[key]
+        hit = cache is not None and cache.load(label, signature) is not None
+        prepare()
+        if cache is not None and not hit:
+            from ..utils.exec_cache import capture_record
+
+            cache.save(label, signature, capture_record())
+        self._from_cache[key] = hit
+        return hit
 
     # -- occupancy ----------------------------------------------------------
     @property

@@ -2176,3 +2176,89 @@ def test_two_worker_fleet_on_one_card(cuda, tmp_path):
     assert mine.keys() == fleet.keys()
     for k in mine:
         assert np.array_equal(mine[k], fleet[k]), k
+
+
+def test_capture_record_carries_the_libraries_of_the_capture(cuda, tmp_path):
+    """A prewarmed pack's segment entry holds the bytes of the kernel
+    libraries loaded for its capture (the batched move's and the setup
+    draws'), each under its built name with its own SHA-256; a second pack
+    of the bucket loads every program from the cache and still captures."""
+    import hashlib
+
+    from evox_tpu_torch.ops import _build
+    from evox_tpu_torch.service import TenantPack
+    from evox_tpu_torch.utils import ExecutableCache, abstract_signature
+
+    cache = ExecutableCache(tmp_path / "exec")
+    wf = _pack_workflow(cuda, pop=128, dim=16)
+    pack = TenantPack(wf, 2, early_stop=False)
+    labels = pack.prewarm(_tenant(wf, 7, cuda), [3], cache=cache, label="b")
+    assert not any(labels.values()) and cache.stats.saves == 2
+    built = _build.loaded()
+    assert {"pso_move", "philox"} <= set(built)
+    other = TenantPack(wf, 2, early_stop=False)
+    assert all(other.prewarm(_tenant(wf, 7, cuda), [3], cache=cache, label="b").values())
+    assert other.captures == {"init": 1, "segment": 1}
+    seg = [k for k in labels if k.startswith("pack_segment")][0]
+    post = wf.init_step(_tenant(wf, 7, cuda))
+    carry = (_stack_states([post, post]), torch.ones(2, dtype=torch.bool, device=cuda),
+             torch.zeros(2, dtype=torch.int32, device=cuda))
+    record = cache.load(seg, abstract_signature(carry))
+    for name in ("pso_move", "philox"):
+        sha, data = record.libraries[built[name].name]
+        assert data == built[name].read_bytes() and sha == hashlib.sha256(data).hexdigest()
+
+
+def test_warm_process_with_an_empty_build_directory_builds_nothing(cuda, tmp_path):
+    """A process importing a copy of the package whose ``build/`` is empty
+    prewarms a pack from a cache another process filled: every program is
+    a hit, the libraries are installed from the entries (no ``nvcc``), the
+    capture runs, and its lanes step to the same bits as here."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from evox_tpu_torch.service import TenantPack
+    from evox_tpu_torch.utils import ExecutableCache
+
+    repo = Path(__file__).resolve().parents[1]
+    cache = ExecutableCache(tmp_path / "exec")
+    wf = _pack_workflow(cuda, pop=128, dim=16)
+    pack = TenantPack(wf, 2, early_stop=False)
+    pack.prewarm(_tenant(wf, 7, cuda), [3], cache=cache, label="b")
+    s, _, _ = pack.init_tenant(_tenant(wf, 0, cuda))
+    pack.admit(s, 0)
+    pack.run_segment(3)
+    want = float(pack.lane_state(0).algorithm.global_best_fit)
+    shutil.copytree(repo / "evox_tpu_torch", tmp_path / "copy" / "evox_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    code = f"""
+import json, sys, torch
+sys.path.insert(0, {str(tmp_path / 'copy')!r}); sys.path.insert(1, {str(repo / 'tests')!r})
+from test_torch_cuda import _pack_workflow, _tenant
+from evox_tpu_torch.ops import _build
+from evox_tpu_torch.service import TenantPack
+from evox_tpu_torch.utils import ExecutableCache
+cuda = torch.device("cuda")
+cache = ExecutableCache({str(tmp_path / 'exec')!r})
+wf = _pack_workflow(cuda, pop=128, dim=16)
+pack = TenantPack(wf, 2, early_stop=False)
+labels = pack.prewarm(_tenant(wf, 7, cuda), [3], cache=cache, label="b")
+s, _, _ = pack.init_tenant(_tenant(wf, 0, cuda))
+pack.admit(s, 0)
+pack.run_segment(3)
+print(json.dumps({{"labels": list(labels.values()), "counts": _build.counts, "misses": cache.stats.misses,
+                  "captures": pack.captures, "best": float(pack.lane_state(0).algorithm.global_best_fit),
+                  "build_dir": str(_build.BUILD_DIR)}}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["build_dir"].startswith(str(tmp_path / "copy"))
+    assert all(got["labels"]) and got["misses"] == 0
+    assert got["counts"]["builds"] == 0 and got["counts"]["installs"] >= 2, got
+    assert got["captures"] == {"init": 1, "segment": 1} and got["best"] == want

@@ -443,15 +443,21 @@ def test_freeze_is_a_noop_and_thaw_resumes_without_a_new_program():
     assert pack.free_lanes() == [1, 2, 3] and pack.frozen_mask[1]
 
 
-def test_pack_refusals():
+def test_pack_refusals(tmp_path):
+    from evox_tpu_torch.utils import ExecutableCache
+
     wf = pso_workflow()
     with pytest.raises(ValueError, match="lanes must be >= 1"):
         TenantPack(wf, 0)
     pack = TenantPack(wf, 1)
     with pytest.raises(RuntimeError, match="no admitted tenants"):
         pack.run_segment(2)
-    with pytest.raises(NotImplementedError, match="13.2"):
-        pack.prewarm(wf.init(0), SEG, cache=object())
+    with pytest.raises(ValueError, match="n_steps must be >= 1"):
+        pack.prewarm(tenant_state(wf, 0), [SEG, 0])
+    # A persistent cache (13.2) is taken: a new pack of the bucket loads.
+    cache = ExecutableCache(tmp_path / "exec")
+    assert not any(TenantPack(wf, 1).prewarm(tenant_state(wf, 0), SEG, cache=cache).values())
+    assert all(TenantPack(wf, 1).prewarm(tenant_state(wf, 0), SEG, cache=cache).values())
     labels = pack.prewarm(tenant_state(wf, 0), [SEG, 2 * SEG], label="b")
     assert all(v is False for v in labels.values()) and len(labels) == 3
     s, meta, sinks = pack.init_tenant(tenant_state(wf, 0))

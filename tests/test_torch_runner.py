@@ -639,17 +639,32 @@ def test_wall_interval_adapts_the_chunk(tmp_path):
 
 @pytest.mark.parametrize(
     "kw, item",
-    [(dict(exec_cache=object()), "13.2"), (dict(primary=True), "13.7"), (dict(heartbeat=object()), "13.7")],
+    [(dict(exec_cache=True), "13.2"), (dict(primary=True), "13.7"), (dict(heartbeat=object()), "13.7")],
 )
 def test_not_ported_runner_arguments_are_refused_by_name(tmp_path, kw, item):
-    """``exec_cache`` stays refused (13.2).  ``primary`` and ``heartbeat``
-    came with the fleet layer (13.7): what each does.  A non-primary
-    runner mutates nothing and computes the primary's bits; a heartbeat is
-    beaten at every boundary with the generation and segment seconds."""
+    """The arguments once refused by name, and what each does now that its
+    item is ported.  ``exec_cache`` came with the program cache (13.2): a
+    second runner's segment program is a load, and its bits are the
+    first's.  ``primary`` and ``heartbeat`` came with the fleet layer
+    (13.7).  A non-primary runner mutates nothing and computes the
+    primary's bits; a heartbeat is beaten at every boundary with the
+    generation and segment seconds."""
     name = next(iter(kw))
     if name == "exec_cache":
-        with pytest.raises(NotImplementedError, match=f"{name}.*{item}"):
-            ResilientRunner(_wf(), tmp_path, **kw)
+        from evox_tpu_torch.utils import ExecutableCache
+
+        cache = ExecutableCache(tmp_path / "exec")
+        wf = _wf()
+        want = ResilientRunner(wf, tmp_path / "a", checkpoint_every=CHUNK, exec_cache=cache).run(wf.init(0), 9)
+        programs = cache.stats.saves
+        assert programs >= 1 and (cache.stats.misses, cache.stats.hits) == (programs, 0)
+        wf = _wf()
+        runner = ResilientRunner(wf, tmp_path / "b", checkpoint_every=CHUNK, exec_cache=cache)
+        got = runner.run(wf.init(0), 9)
+        assert cache.stats.hits == programs and len(runner._cached_programs) == programs
+        assert all(runner._cached_programs.values())
+        for a, b in zip(graph.flatten(got)[0], graph.flatten(want)[0]):
+            assert torch.equal(a, b)
         return
     if name == "primary":
         wf = _wf()
