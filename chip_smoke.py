@@ -97,8 +97,16 @@ warm process that replays the journal, prewarms from the program cache with
 no ``nvcc`` and finishes every tenant bit-equal to the uninterrupted
 daemon; ``daemon_overload``: class budgets, structured sheds, a brown-out
 and its return without a capture, the admitted tenants' gen/s against an
-uncontended daemon's), checks that each path went through its kernels, and
-times them.  It prints one JSON line per
+uncontended daemon's), then the service's HPO workload
+(``service_hpo_main_path``: an ``OptimizationService`` with a bucket of 4
+hpo_ladder tenants and a bucket of 2 CMA-ES(64) over PSO(1024) at dim 32
+tenants, each pack segment one captured graph with the nests inline and one
+launch a call of each kernel for the whole pack, every tenant bit-equal to
+itself alone; ``service_hpo_grow``: a stagnating ladder regrown to 2048 and
+re-keyed into the grown bucket, its decisions replayed from the journal;
+``daemon_hpo_restart``: a daemon of two hpo_ladder tenants and a PSO tenant
+killed in a process of its own and restarted in another from the program
+cache), checks that each path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -1118,7 +1126,7 @@ PROFILE_PAD_S = 0.005
 PROFILE_SPARE = 32  # late in a long process a window lost its first 10 device operations
 
 
-def launches_per_call(fn, calls=5) -> dict:
+def launches_per_call(fn, calls=5, count_names=()) -> dict:
     """Device operations (kernels, memsets, copies), host syncs and device
     busy time per call of ``fn``, read from torch.profiler.  One call runs
     in the profiler's warm-up step, whose events are dropped; the recorded
@@ -1133,7 +1141,9 @@ def launches_per_call(fn, calls=5) -> dict:
     and the host's disagree by microseconds.  A window that keeps no
     marker (it may have lost a counted operation too) or shows no counted
     operation is taken again, and the phase fails if every window is:
-    each ``fn`` measured here launches at least one kernel."""
+    each ``fn`` measured here launches at least one kernel.  With
+    ``count_names``, ``named`` gives the device operations a call whose
+    name holds each of those substrings."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
@@ -1186,7 +1196,9 @@ def launches_per_call(fn, calls=5) -> dict:
     return {"launches": len(device) / calls,
             "host_syncs": (syncs_in(t0, t1) - syncs_in(b0, b1)) / calls,
             "device_ms": sum(e[3] - e[2] for e in device) / calls / 1e6,
-            "kernels": [n[:60] for n in sorted({e[0] for e in device})]}
+            "kernels": [n[:60] for n in sorted({e[0] for e in device})],
+            **({"named": {k: sum(1 for e in device if k in e[0]) / calls for k in count_names}}
+               if count_names else {})}
 
 
 def fronts_of(rank) -> int:
@@ -4304,20 +4316,14 @@ def hpo_quickstart_workflow(device, **kw):
                        solution_transform=quickstart_transform)
 
 
-@contextlib.contextmanager
 def uncaptured_nests():
     """While active, a nest's evaluation runs its batch eagerly instead of
     replaying its captured graph (the functorch host cost the graph
     removes, and every wrapper called, so launches are counted and
-    recorded)."""
+    recorded): the graph module's context of a capture's warm-up."""
     from evox_tpu_torch.utils import graph
 
-    real = graph.replays
-    graph.replays = lambda device: False
-    try:
-        yield
-    finally:
-        graph.replays = real
+    return graph._inline()
 
 
 @contextlib.contextmanager
@@ -6080,12 +6086,10 @@ def phase_vmapped_instances_resilient(device) -> dict:
     import torch
     from evox_tpu_torch.service import TenantPack
     from evox_tpu_torch.service.pack import to_host
-    from evox_tpu_torch.utils import graph
 
     wf = vmapped_pso_workflow(device)
     states = [wf.init_step(service_tenant(wf, uid, device)) for uid in range(SERVICE_LANES)]
-    spec = graph.flatten(states[0])[1]
-    stacked = graph.unflatten(spec, [torch.stack(col) for col in zip(*[graph.flatten(s)[0] for s in states])])
+    stacked = stack_states(states)
     segment = torch.func.vmap(lambda s: wf.run_segment(s, SERVICE_SEGMENT))
     counters = vmap_counters()
     for c in counters.values():
@@ -6950,24 +6954,48 @@ import json, os, sys, time
 t0, wall0 = time.perf_counter(), time.time()
 mode, root, tree, out, cfg = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4], json.loads(sys.argv[5])
 sys.path.insert(0, tree)
+# chip_smoke's own spec factories (an HPO spec's transform is pickled by name).
+sys.path.append(cfg["script_dir"])
 import torch
 from evox_tpu_torch.algorithms import PSO
 from evox_tpu_torch.ops import _build, philox, pso_step
 from evox_tpu_torch.problems.numerical import Ackley
+from evox_tpu_torch.resilience import HealthProbe
 from evox_tpu_torch.service import ServiceDaemon, TenantSpec
 marks = {"imported": time.perf_counter() - t0}
 device = torch.device(cfg["device"])
 sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+kw = {}
+if "nonfinite_skip" in cfg:
+    kw["health"] = HealthProbe(nonfinite_skip=tuple(cfg["nonfinite_skip"]))
+if "brownout_threshold" in cfg:
+    kw["brownout_threshold"] = cfg["brownout_threshold"]
 daemon = ServiceDaemon(root, lanes_per_pack=cfg["lanes"], segment_steps=cfg["segment"], on_event=lambda msg: None,
-                       device=device)
+                       device=device, **kw)
+# The libraries each capture record lists, by program label.
+saved, save = {}, daemon.exec_cache.save
+
+
+def saving(label, signature, program):
+    saved[label] = sorted(program.libraries)
+    return save(label, signature, program)
+
+
+daemon.exec_cache.save = saving
 restored = daemon.start()
 sync()
 marks["started"] = time.perf_counter() - t0
 n, d = cfg["pop"], cfg["dim"]
 if mode == "cold":
-    for uid in range(cfg["tenants"]):
-        algo = PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device)
-        daemon.submit(TenantSpec(f"t{uid}", algo, Ackley(), n_steps=cfg["n_steps"], uid=uid))
+    if cfg.get("hpo"):
+        import chip_smoke
+
+        specs = chip_smoke.daemon_hpo_specs(device, cfg)
+    else:
+        specs = [TenantSpec(f"t{uid}", PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device),
+                            Ackley(), n_steps=cfg["n_steps"], uid=uid) for uid in range(cfg["tenants"])]
+    for spec in specs:
+        daemon.submit(spec)
     sync()
     marks["submitted"] = time.perf_counter() - t0
 rounds = []
@@ -6984,7 +7012,7 @@ def summary(done):
            "prewarmed": daemon.stats.prewarmed, "launches": {k: v.launches for k, v in counters.items()},
            "statuses": {t: r.status.value for t, r in daemon.service._tenants.items()},
            "generations": {t: r.generations for t, r in daemon.service._tenants.items()},
-           "statusz_exec_cache": daemon._statusz()["exec_cache"]}
+           "statusz_exec_cache": daemon._statusz()["exec_cache"], "records": saved}
     with open(out + ".tmp", "w") as f:
         json.dump(rec, f)
     os.replace(out + ".tmp", out)
@@ -7031,15 +7059,16 @@ def package_copy(directory) -> Path:
     return Path(directory)
 
 
-def daemon_child(mode, root, tree, out_dir, device) -> dict:
-    """Run one daemon process (``DAEMON_CHILD``) and read its summary; the
-    seconds from its spawn to the end of its first segment are added."""
-    out = Path(out_dir) / f"daemon_{mode}.json"
+def daemon_child(mode, root, tree, out_dir, device, cfg=None, name="daemon") -> dict:
+    """Run one daemon process (``DAEMON_CHILD`` with ``cfg``, DAEMON's by
+    default) and read its summary; the seconds from its spawn to the end of
+    its first segment are added."""
+    out = Path(out_dir) / f"{name}_{mode}.json"
     env = {k: v for k, v in fleet_env().items() if k != "PYTHONPATH"}
     spawned = time.time()
+    cfg = {**(cfg or DAEMON), "device": str(device), "script_dir": ROOT}
     proc = subprocess.run([sys.executable, "-c", DAEMON_CHILD, mode, str(root), str(tree), str(out),
-                           json.dumps({**DAEMON, "device": str(device)})], env=env, capture_output=True, text=True,
-                          timeout=600)
+                           json.dumps(cfg)], env=env, capture_output=True, text=True, timeout=600)
     want = 9 if mode == "cold" else 0
     if proc.returncode != want:
         raise AssertionError(f"the {mode} daemon process exited {proc.returncode}, expected {want}:\n"
@@ -7303,6 +7332,568 @@ def phase_daemon_overload(device) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the service's HPO workload (TenantSpec(workload="hpo")) ------------------------
+
+# Bucket (A): hpo_ladder (HPO_LADDER: PSO(64, 1e-3..0.5 in dim 2) over 64 x
+# OpenES(1024, zeros(32), lr 0.05, sigma 0.1) on Sphere, 32 inner
+# generations); bucket (B): CMA-ES(pop 64, mean [0.6, 2.0], sigma 0.3) over 64
+# x PSO(1024, ±5 in dim 32) on Sphere, 32 inner generations (the JAX HPO
+# tests' second nest at hpo_ladder's width).  Segments of 5 outer
+# generations, budgets of 10.
+SERVICE_HPO = dict(lanes=4, segment=5, n_steps=10, es_tenants=4, cma_tenants=2, timed_segments=3, inner_bound=5.0)
+# service_hpo_grow: one bucket-(A) tenant on a constant-fitness inner
+# problem, the ladder regrowing OpenES to 2048 (window 8).
+SERVICE_HPO_GROW = dict(window=8, max_pop=2048, n_steps=10)
+# daemon_hpo_restart: two bucket-(A) tenants and one PSO tenant of
+# daemon_main_path's shape, budgets of 20; the cold process is killed after
+# round 2.
+DAEMON_HPO = dict(DAEMON, tenants=3, hpo_tenants=2, lanes=SERVICE_HPO["lanes"], segment=SERVICE_HPO["segment"],
+                  n_steps=20, kill_after=2, hpo=True, hpo_ladder=HPO_LADDER, nonfinite_skip=["instances"],
+                  brownout_threshold=None)
+def cma_transform(x):
+    """Bucket (B)'s solution transform (the JAX HPO tests' ``pso_transform``):
+    the inner PSO's w and phi_p."""
+    return {"algorithm.w": x[:, 0].clamp(0.1, 1.0), "algorithm.phi_p": x[:, 1].clamp(0.5, 3.0)}
+
+
+def service_hpo_spec(name, device, n_steps, problem=None, grow=None, ladder=None):
+    """The ``TenantSpec`` of tenant ``es-<uid>`` (bucket A) or ``cma-<uid>``
+    (bucket B) at ``ladder``'s sizes (``HPO_LADDER``'s by default);
+    ``problem`` replaces the inner Sphere."""
+    import torch
+    from evox_tpu_torch.algorithms import CMAES, PSO, OpenES
+    from evox_tpu_torch.hpo import HPOFitnessMonitor, NestedProblem
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.service import TenantSpec
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    c = ladder or HPO_LADDER
+    kind, uid = name.split("-")
+    inner_problem = problem if problem is not None else Sphere()
+    if kind == "es":
+        es = OpenES(c["inner_pop"], torch.zeros(c["dim"]), learning_rate=0.05, noise_stdev=0.1, device=device)
+        inner = StdWorkflow(es, inner_problem, monitor=HPOFitnessMonitor())
+        algo = PSO(c["candidates"], lb=1e-3 * torch.ones(2), ub=0.5 * torch.ones(2), device=device)
+        transform = ladder_transform
+    else:
+        b = SERVICE_HPO["inner_bound"]
+        inner = StdWorkflow(PSO(c["inner_pop"], -b * torch.ones(c["dim"]), b * torch.ones(c["dim"]), device=device),
+                            inner_problem, monitor=HPOFitnessMonitor())
+        algo = CMAES(torch.tensor([0.6, 2.0]), 0.3, pop_size=c["candidates"], device=device)
+        transform = cma_transform
+    nested = NestedProblem(inner, iterations=c["iterations"], num_candidates=c["candidates"])
+    return TenantSpec(name, algo, nested, n_steps=n_steps, uid=int(uid), workload="hpo", grow=grow,
+                      solution_transform=transform)
+
+
+def daemon_hpo_specs(device, cfg=None):
+    """daemon_hpo_restart's tenants (``cfg``, DAEMON_HPO by default):
+    ``es-0``, ``es-1`` of bucket (A) and ``t2``, a PSO tenant of
+    daemon_main_path's shape."""
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.service import TenantSpec
+
+    cfg = cfg or DAEMON_HPO
+    n, k, d = cfg["n_steps"], cfg["hpo_tenants"], cfg["dim"]
+    specs = [service_hpo_spec(f"es-{u}", device, n, ladder=cfg["hpo_ladder"]) for u in range(k)]
+    pso = PSO(cfg["pop"], torch.full((d,), -32.0), torch.full((d,), 32.0), device=device)
+    return specs + [TenantSpec(f"t{k}", pso, Ackley(), n_steps=n, uid=k)]
+
+
+def hpo_service(root, **kw):
+    from evox_tpu_torch.obs import MetricsRegistry, Observability
+    from evox_tpu_torch.resilience import HealthProbe
+    from evox_tpu_torch.service import OptimizationService
+
+    return OptimizationService(root, lanes_per_pack=SERVICE_HPO["lanes"], segment_steps=SERVICE_HPO["segment"],
+                               health=HealthProbe(nonfinite_skip=("instances",)), on_event=lambda msg: None,
+                               obs=Observability(registry=MetricsRegistry(), run_id=Path(root).name), **kw)
+
+
+def bucket_name(pack) -> str:
+    """``<outer algorithm>/<inner population>`` of a pack of nests."""
+    from evox_tpu_torch.hpo import find_nested
+
+    return f"{type(pack.workflow.algorithm).__name__}/{find_nested(pack.workflow.problem).inner_pop}"
+
+
+@contextlib.contextmanager
+def pack_calls(calls):
+    """While active, each call of a pack's ``init_tenant`` and
+    ``run_segment`` appends ``(method, bucket_name, the launch counters'
+    change, seconds)`` to ``calls``."""
+    from evox_tpu_torch.service import TenantPack
+
+    counters = hpo_counters()
+    saved = {name: getattr(TenantPack, name) for name in ("init_tenant", "run_segment")}
+
+    def wrap(name, fn):
+        def wrapped(self, *a, **kw):
+            before, t0 = counts(counters), time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                calls.append((name, bucket_name(self), {k: v - before[k] for k, v in counts(counters).items()},
+                              time.perf_counter() - t0))
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(TenantPack, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(TenantPack, name, fn)
+
+
+def per_generation_launches(outer) -> dict:
+    """What the code launches an outer generation of a bucket's segment:
+    bucket (A) draws OpenES's normals at each of its 32 inner generations
+    (one batched Philox launch over lanes x candidates) and moves the outer
+    PSO once (one batched move over the lanes); bucket (B) moves the inner
+    PSO at each inner generation but the first (one batched move over lanes
+    x candidates) and draws CMA-ES's normals once (one batched launch over
+    the lanes)."""
+    it = HPO_LADDER["iterations"]
+    if outer == "PSO":
+        return {"fused_pso_move": 0, "fused_pso_move_batched": 1, "philox_draws": 0, "philox_draws_batched": it}
+    return {"fused_pso_move": 0, "fused_pso_move_batched": it - 1, "philox_draws": 0, "philox_draws_batched": 1}
+
+
+def stack_states(states):
+    """States of one structure stacked along a new leading axis."""
+    import torch
+    from evox_tpu_torch.utils import graph
+
+    spec = graph.flatten(states[0])[1]
+    return graph.unflatten(spec, [torch.stack(col) for col in zip(*[graph.flatten(s)[0] for s in states])])
+
+
+def pack_generation_recorded(pack):
+    """One generation of ``pack``'s own segment program, run eagerly
+    (uncaptured) on a copy of its carry: every lane, the frozen ones
+    included, as its captured segment launches them.  Returns the batched
+    moves (``recording_batched_moves``) and the draws
+    (``recording_draws``) it launched; the pack's state is left as it
+    was."""
+    import torch
+    from evox_tpu_torch.utils import graph
+
+    leaves, spec = graph.flatten(pack._states)
+    carry = (graph.unflatten(spec, [t.clone() for t in leaves]), pack._frozen_dev.clone(),
+             torch.zeros((pack.lanes,), dtype=torch.int32, device=pack.device))
+    moves, drawn = [], []
+    with recording_batched_moves(moves), recording_draws(drawn):
+        pack._segment_program(carry, 1)
+    torch.cuda.synchronize()
+    return moves, drawn
+
+
+def phase_service_hpo_main_path(device) -> dict:
+    """``OptimizationService(lanes_per_pack=4, segment_steps=5,
+    HealthProbe(nonfinite_skip=("instances",)))`` with two buckets of HPO
+    tenants (``SERVICE_HPO``): (A) 4 x hpo_ladder, (B) 2 x CMA-ES(64) over
+    PSO(1024, ±5 in dim 32), budgets of 10 outer generations.  Counted from
+    0 over the run, by bucket: each segment's capture (its warm-up and 5
+    captured generations) against ``per_generation_launches``, exactly, and
+    no launch in a replay; the init programs' (warm-up and capture, the
+    nests inline).  One init and one segment capture a bucket, no nest graph
+    of its own, one host sync a segment, and a replay's kernels from the
+    profiler (move and Philox launches a segment against the code's count).
+    Every tenant equal to itself alone (a service of the same width that
+    holds one tenant at a time): state, history, newest checkpoint digests,
+    ``evox_hpo_inner_generations_total``.  ms an outer generation of each
+    pack (the lanes that held its tenants stepping, the padding lanes
+    frozen) and of one tenant alone in a width-1 pack, the tenants' inner
+    generations/s and the pack's with its padding lanes counted.  Then one
+    generation of each pack's own segment program, run eagerly and
+    recorded, every lane included: (B)'s inner moves at 4 x 64 instances of
+    (1024, 32) and CMA-ES's draws over the 4 lanes, (A)'s outer move at
+    (4, 64, 2) and OpenES's draws over 4 x 64 streams, each against its
+    plain version: 0 bits off (OpenES draws the half of its population
+    that its mirrored samples negate: 512 x 32 normals a candidate)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.hpo import candidate_series, find_nested
+    from evox_tpu_torch.service import TenantStatus
+
+    c, lad = SERVICE_HPO, HPO_LADDER
+    seg = c["segment"]
+    es = [f"es-{u}" for u in range(c["es_tenants"])]
+    cma = [f"cma-{u}" for u in range(c["es_tenants"], c["es_tenants"] + c["cma_tenants"])]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_service_hpo_"))
+    try:
+        counters = hpo_counters()
+        calls: list = []
+        svc = hpo_service(root / "packed")
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with pack_calls(calls):
+            for name in es + cma:
+                svc.submit(service_hpo_spec(name, device, c["n_steps"]))
+            svc.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = counts(counters)
+        for name in es + cma:
+            expect(svc.tenant(name).status, TenantStatus.COMPLETED, f"service_hpo {name}")
+        buckets = {bucket_name(b.pack): b for b in svc._buckets.values()}
+        names = {"PSO": f"PSO/{lad['inner_pop']}", "CMAES": f"CMAES/{lad['inner_pop']}"}
+        expect(sorted(buckets), sorted(names.values()), "service_hpo buckets")
+        per_bucket = {}
+        for outer, bname in names.items():
+            pack = buckets[bname].pack
+            expect(pack.captures, {"init": 1, "segment": 1}, f"service_hpo {bname} captures")
+            expect(len(find_nested(pack.workflow.problem)._graphs), 0, f"service_hpo {bname}: nest graphs of its own")
+            segs = [d for m, b, d, _ in calls if m == "run_segment" and b == bname]
+            inits = [d for m, b, d, _ in calls if m == "init_tenant" and b == bname]
+            per_gen = per_generation_launches(outer)
+            expect(segs[0], {k: (seg + 1) * v for k, v in per_gen.items()}, f"service_hpo {bname}: the segment's capture")
+            for d in segs[1:] + inits[1:]:
+                expect(d, dict.fromkeys(d, 0), f"service_hpo {bname}: a replay's wrapper calls")
+            per_bucket[bname] = {"segment_capture": segs[0], "init_capture": inits[0], "segments": len(segs),
+                                 "init_calls": len(inits),
+                                 "capture_s": {m: next(t for mm, b, _, t in calls if mm == m and b == bname)
+                                               for m in ("init_tenant", "run_segment")}}
+        # The setups' draws: the rest of the run's launches.
+        setups = {k: launches[k] - sum(p["segment_capture"][k] + p["init_capture"][k] for p in per_bucket.values())
+                  for k in launches}
+        inner_total = {name: svc.obs.registry.snapshot()[f'evox_hpo_inner_generations_total{{tenant_id="{name}"}}']
+                       for name in es + cma}
+        for name, v in inner_total.items():
+            expect(v, (svc.tenant(name).generations - 1) * lad["candidates"] * lad["iterations"],
+                   f"service_hpo {name}: evox_hpo_inner_generations_total")
+
+        # Each tenant alone: a service of the same width holding only it.
+        alone = hpo_service(root / "alone")
+        checked = {}
+        for name in es + cma:
+            alone.submit(service_hpo_spec(name, device, c["n_steps"]))
+            alone.run()
+            leaves = same_state(svc.result(name), alone.result(name), f"service_hpo {name} vs alone")
+            h_got, h_want = svc.tenant(name).monitor.fitness_history, alone.tenant(name).monitor.fitness_history
+            expect(len(h_got), len(h_want), f"service_hpo {name}: history entries")
+            for g, w in zip(h_got, h_want):
+                exact(g, w, f"service_hpo {name}: history")
+            expect(tenant_digests(root / "packed", name), tenant_digests(root / "alone", name),
+                   f"service_hpo {name}: newest checkpoint's leaf digests")
+            series = candidate_series(svc.result(name).problem)
+            checked[name] = {"leaves": leaves, "history": len(h_got), "candidates_with_series": len(series),
+                             "best_outer": float(svc.result(name).algorithm.fit.min())}
+
+        # The packs: one host sync and the kernels of a replay, then ms an
+        # outer generation with the lanes that held the bucket's tenants
+        # stepping (the padding lanes frozen: their generations launch all
+        # the same, and are selected away).
+        held = {bname: sorted({int(lane) for n in (es if outer == "PSO" else cma)
+                               for e in svc.tenant(n).events if e.startswith("admitted to lane ")
+                               for lane in e.split()[3:4]})
+                for outer, bname in names.items()}
+        packs = {}
+        for outer, bname in names.items():
+            pack = buckets[bname].pack
+            for lane in range(pack.lanes):
+                pack.set_frozen(lane, lane not in held[bname])
+            _, syncs = thread_syncs(lambda: pack.run_segment(seg))
+            expect(syncs["calling_thread"], 1, f"service_hpo {bname}: host syncs a segment")
+            prof = launches_per_call(lambda: pack.run_segment(seg), calls=1, count_names=("pso_move", "philox_draw"))
+            per_gen = per_generation_launches(outer)
+            want = {"pso_move": seg * per_gen["fused_pso_move_batched"],
+                    "philox_draw": seg * per_gen["philox_draws_batched"]}
+            expect(prof["named"], want, f"service_hpo {bname}: the move's and Philox's launches in a replay")
+            executed = []
+            ms, host_ms, _ = timed(lambda: [executed.append(int(pack.run_segment(seg).executed.sum()))
+                                            for _ in range(c["timed_segments"])], c["timed_segments"] * seg)
+            tenants = len(es) if outer == "PSO" else len(cma)
+            expect(len(held[bname]), tenants, f"service_hpo {bname}: lanes that held a tenant")
+            expect(sum(executed), c["timed_segments"] * seg * tenants, f"service_hpo {bname}: generations executed")
+            inner = sum(executed) * lad["candidates"] * lad["iterations"]
+            timed_s = ms * c["timed_segments"] * seg / 1e3
+            packs[bname] = {
+                "host_syncs_per_segment": syncs["calling_thread"], "replay_launches": prof["named"],
+                "device_ops_per_segment": prof["launches"], "device_ms_per_segment": prof["device_ms"],
+                "ms_per_outer_gen": ms, "host_ms_per_outer_gen": host_ms, "tenants": tenants,
+                "ms_per_outer_gen_per_tenant": ms / tenants,
+                "tenant_lanes": held[bname],
+                # The tenants' inner generations, and the pack's launched
+                # work with its padding lanes' counted too.
+                "inner_gens_per_s": inner / timed_s,
+                "inner_gens_per_s_all_lanes": pack.lanes * c["timed_segments"] * seg * lad["candidates"]
+                * lad["iterations"] / timed_s,
+                "idle_share": 1 - prof["device_ms"] / (ms * seg),
+                "pool_bytes": graph_pool_bytes(pack._graphs), **per_bucket[bname],
+            }
+            # One tenant alone in a width-1 pack of the same bucket.
+            solo = filled_pack(pack.workflow, 1, [0 if outer == "PSO" else len(es)], device)
+            solo.run_segment(seg)
+            solo_ms, _, _ = timed(lambda: [solo.run_segment(seg) for _ in range(c["timed_segments"])],
+                                  c["timed_segments"] * seg)
+            packs[bname]["alone_width1_ms_per_outer_gen"] = solo_ms
+            del solo
+
+        # The kernels at the shapes the packs launch them: one generation of
+        # each pack's own segment program, run eagerly and recorded, every
+        # lane included.
+        lanes, cand = c["lanes"], lad["candidates"]
+        b_moves, b_drawn = pack_generation_recorded(buckets[names["CMAES"]].pack)
+        expect([tuple(a[0].shape) for a, _ in b_moves], [(lanes * cand, lad["inner_pop"], lad["dim"])]
+               * (lad["iterations"] - 1), "service_hpo (B): the inner PSO's merged moves of one generation")
+        expect([(e[0].shape[0], e[5]) for e in b_drawn], [(lanes, 0)],
+               "service_hpo (B): CMA-ES's merged draws of one generation (streams, solo)")
+        moves_b = batched_moves_vs_plain(b_moves, "service_hpo (B)")
+        if moves_b["distinct_scalar_rows"] < 2:
+            raise AssertionError("service_hpo (B): every candidate moved with the same scalars")
+        del b_moves
+        a_moves, a_drawn = pack_generation_recorded(buckets[names["PSO"]].pack)
+        expect([tuple(a[0].shape) for a, _ in a_moves], [(lanes, cand, 2)],
+               "service_hpo (A): the outer PSO's merged move of one generation")
+        moves_a = batched_moves_vs_plain(a_moves, "service_hpo (A)")
+        del a_moves
+        expect([(e[0].shape[0], e[3], e[5]) for e in a_drawn],
+               [(lanes * cand, lad["inner_pop"] // 2 * lad["dim"], 0)] * lad["iterations"],
+               "service_hpo (A): OpenES's merged draws of one generation (streams, normals, solo)")
+        # (A)'s first and last draws and (B)'s against the plain version
+        # (each of (A)'s 256 streams a plain evaluation of its own).
+        draws = draws_on_path("service_hpo", a_drawn[:1] + a_drawn[-1:] + b_drawn)
+        draws["recorded"] = {"A": len(a_drawn), "B": len(b_drawn)}
+        moves = {"A": moves_a, "B": moves_b}
+        del a_drawn, b_drawn
+        row = {
+            "config": f"OptimizationService(lanes_per_pack={c['lanes']}, segment_steps={seg}): "
+                      f"(A) {len(es)} x PSO({lad['candidates']}) over NestedProblem(OpenES({lad['inner_pop']}, "
+                      f"zeros({lad['dim']})), Sphere, iterations={lad['iterations']}); (B) {len(cma)} x "
+                      f"CMAES(pop {lad['candidates']}, [0.6, 2.0], 0.3) over NestedProblem(PSO({lad['inner_pop']}, "
+                      f"±{c['inner_bound']} in dim {lad['dim']}), Sphere, iterations={lad['iterations']}); "
+                      f"budgets {c['n_steps']}",
+            "launches": launches, "setup_launches": setups, "wall_s": wall_s,
+            "segments_run": svc.stats.segments_run, "packs": packs, "checked": checked,
+            "inner_generations_total": inner_total,
+            "batched_moves_vs_plain": moves, "philox_on_path_vs_plain": draws,
+            "max_abs_err": {"fused_pso_move_batched": max(moves_a["max_abs_err"], moves_b["max_abs_err"]),
+                            "philox_draws_batched": draws["max_abs_err"]},
+        }
+        del svc, alone, buckets
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def service_hpo_grow_run(root, device):
+    """One run of service_hpo_grow's service: ``es-0`` on a constant-fitness
+    inner problem with the growth ladder under a journaled Controller."""
+    import torch
+    from evox_tpu_torch.algorithms import OpenES
+    from evox_tpu_torch.control import Controller
+    from evox_tpu_torch.core import Problem
+    from evox_tpu_torch.hpo import GrowthLadder
+    from evox_tpu_torch.service import RequestJournal
+
+    class Flat(Problem):
+        def evaluate(self, state, pop):
+            return torch.ones(pop.shape[0], device=pop.device), state
+
+    def inner_es(pop):
+        return OpenES(pop, torch.zeros(HPO_LADDER["dim"]), learning_rate=0.05, noise_stdev=0.1, device=device)
+
+    g = SERVICE_HPO_GROW
+    journal = RequestJournal(Path(root) / "journal.jsonl")
+    controller = Controller(journal=journal, grace=2)
+    svc = hpo_service(Path(root) / "svc", controller=controller, max_restarts=2)
+    ladder = GrowthLadder(inner_factory=inner_es, stagnation_window=g["window"], stagnation_tol=0.0,
+                          max_inner_pop=g["max_pop"])
+    svc.submit(service_hpo_spec("es-0", device, g["n_steps"], problem=Flat(), grow=ladder))
+    calls: list = []
+    t0 = time.perf_counter()
+    with pack_calls(calls):
+        svc.run()
+    torch.cuda.synchronize()
+    return svc, controller, journal, calls, time.perf_counter() - t0
+
+
+def phase_service_hpo_grow(device) -> dict:
+    """Bucket (A)'s tenant on a constant-fitness inner problem with
+    ``GrowthLadder(inner_factory=OpenES, stagnation_window=8,
+    stagnation_tol=0, max_inner_pop=2048)`` and a journaled
+    ``Controller(grace=2)``: the first boundary's consult fires, the tenant
+    re-keys into a bucket of inner population 2048 (its state moved there,
+    the outer state kept, the instances rebuilt) and completes; the grown
+    bucket captures its segment once, and the nests no graph of their own.
+    The journal replays the decisions, and a second run of the service
+    gives the grown tenant's state bit for bit.  Launches counted from 0
+    over the first run: the grown bucket's segment capture against
+    ``per_generation_launches``."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.control import Controller
+    from evox_tpu_torch.hpo import find_nested
+    from evox_tpu_torch.service import TenantStatus
+
+    g, lad, seg = SERVICE_HPO_GROW, HPO_LADDER, SERVICE_HPO["segment"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_service_hpo_grow_"))
+    try:
+        counters = hpo_counters()
+        for k in counters.values():
+            k.launches = 0
+        svc, controller, journal, calls, wall_s = service_hpo_grow_run(root / "a", device)
+        launches = counts(counters)
+        rec = svc.tenant("es-0")
+        expect((rec.status, rec.grows, rec.uid), (TenantStatus.COMPLETED, 1, 0), "service_hpo_grow status, grows, uid")
+        expect(find_nested(rec.spec.problem).inner_pop, g["max_pop"], "service_hpo_grow grown inner population")
+        buckets = {bucket_name(b.pack): b for b in svc._buckets.values()}
+        grown, first = f"PSO/{g['max_pop']}", f"PSO/{lad['inner_pop']}"
+        expect(sorted(buckets), sorted([first, grown]), "service_hpo_grow buckets")
+        expect(rec.bucket, buckets[grown].key, "service_hpo_grow: the tenant's bucket")
+        expect(buckets[first].pack.captures, {"init": 1, "segment": 1}, "service_hpo_grow first bucket's captures")
+        expect(buckets[grown].pack.captures["segment"], 1, "service_hpo_grow grown bucket's segment captures")
+        if buckets[grown].pack.captures["init"] > 1:
+            raise AssertionError(f"service_hpo_grow: grown bucket captures {buckets[grown].pack.captures}")
+        for b in buckets.values():
+            expect(len(find_nested(b.workflow.problem)._graphs), 0, "service_hpo_grow: nest graphs of their own")
+        grown_segs = [d for m, b, d, _ in calls if m == "run_segment" and b == grown]
+        expect(grown_segs[0], {k: (seg + 1) * v for k, v in per_generation_launches("PSO").items()},
+               "service_hpo_grow: the grown bucket's segment capture")
+        fired = [d.to_manifest() for d in controller.decisions if d.kind == "hpo-grow"]
+        expect([(d["action"], d["tenant_id"]) for d in fired], [(str(g["max_pop"]), "es-0")],
+               "service_hpo_grow decisions")
+        records, damage = journal.replay()
+        expect(damage, None, "service_hpo_grow journal damage")
+        expect([d.to_manifest() for d in Controller.replay_decisions(records)],
+               [d.to_manifest() for d in controller.decisions], "service_hpo_grow: the journal's replayed decisions")
+        final = svc.result("es-0")
+        expect(tuple(final.problem.instances.algorithm.center.shape), (lad["candidates"], lad["dim"]),
+               "service_hpo_grow: the grown instances' centers")
+        counters_seen = {k: v for k, v in svc.obs.registry.snapshot().items() if k.startswith("evox_hpo_")}
+        expect(counters_seen['evox_hpo_grows_total{tenant_id="es-0"}'], 1.0, "evox_hpo_grows_total")
+        again, _, _, _, again_s = service_hpo_grow_run(root / "b", device)
+        leaves = same_state(again.result("es-0"), final, "service_hpo_grow: two runs of the service")
+        events = [e for e in rec.events if "hpo-grow" in e]
+        row = {
+            "config": f"service_hpo's bucket (A) tenant on a constant-fitness inner problem, "
+                      f"GrowthLadder(OpenES, stagnation_window={g['window']}, stagnation_tol=0, "
+                      f"max_inner_pop={g['max_pop']}), Controller(grace=2) journaled, budget {g['n_steps']}",
+            "launches": launches, "wall_s": wall_s, "second_run_s": again_s, "decisions": fired,
+            "events": events, "captures": {k: dict(b.pack.captures) for k, b in buckets.items()},
+            "segment_capture_s": {b: next(t for m, bb, _, t in calls if m == "run_segment" and bb == b)
+                                  for b in buckets},
+            "pool_bytes": {k: graph_pool_bytes(b.pack._graphs) for k, b in buckets.items()},
+            "counters": counters_seen, "leaves_equal_across_runs": leaves,
+        }
+        del svc, again, buckets, final
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def hpo_daemon(root, device, **kw):
+    from evox_tpu_torch.resilience import HealthProbe
+    from evox_tpu_torch.service import ServiceDaemon
+
+    return ServiceDaemon(root, lanes_per_pack=DAEMON_HPO["lanes"], segment_steps=DAEMON_HPO["segment"],
+                         health=HealthProbe(nonfinite_skip=tuple(DAEMON_HPO["nonfinite_skip"])),
+                         brownout_threshold=DAEMON_HPO["brownout_threshold"], on_event=lambda msg: None,
+                         device=device, **kw)
+
+
+def phase_daemon_hpo_restart(device) -> dict:
+    """``ServiceDaemon(lanes_per_pack=4, segment_steps=5)`` with two
+    bucket-(A) HPO tenants and one PSO tenant of daemon_main_path's shape
+    (``DAEMON_HPO``, budgets of 20), through daemon_main_path's process
+    machinery: uninterrupted here, then a cold process (a copy of the
+    package with an empty build/) that submits, steps and dies by
+    ``os._exit`` after round 2, and a warm process over the same root that
+    replays the journal (the HPO specs decoded with their nests and
+    transforms), prewarms both buckets from the program cache (every
+    program a hit, no ``nvcc``) and finishes every tenant.  The HPO bucket's
+    segment record lists the move's and Philox's libraries.  Every tenant
+    then equals the uninterrupted daemon's, state and newest checkpoint
+    digests, bit for bit.  Launches counted from 0 over the three
+    processes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.resilience.testing import last_checkpoint_digests, verify_tenants_bit_identical
+    from evox_tpu_torch.service import TenantStatus
+
+    pycache = wait_fleet_pycache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_daemon_hpo_"))
+    tids = [s.tenant_id for s in daemon_hpo_specs(device)]
+    try:
+        counters = hpo_counters()
+        for k in counters.values():
+            k.launches = 0
+        ref = hpo_daemon(root / "ref", device)
+        t0 = time.perf_counter()
+        ref.start()
+        for spec in daemon_hpo_specs(device):
+            ref.submit(spec)
+        rounds = daemon_rounds(ref)
+        ref_s = time.perf_counter() - t0
+        ref_launches = counts(counters)
+        for tid in tids:
+            expect(ref.tenant(tid).status, TenantStatus.COMPLETED, f"daemon_hpo_restart {tid}")
+        expect(ref.stats.captures, {"init": 2, "segment": 2}, "daemon_hpo_restart captures (two buckets)")
+        expected = {tid: ref.result(tid) for tid in tids}
+        digests = {tid: last_checkpoint_digests(root / "ref", tid) for tid in tids}
+
+        cold = daemon_child("cold", root / "killed", package_copy(root / "cold_tree"), root, device, DAEMON_HPO,
+                            "daemon_hpo")
+        warm = daemon_child("warm", root / "killed", package_copy(root / "warm_tree"), root, device, DAEMON_HPO,
+                            "daemon_hpo")
+        expect((cold["segments"], cold["done"]), (2 * DAEMON_HPO["kill_after"], False), "the cold daemon's segments")
+        expect(cold["kernel_builds"]["builds"] >= 1, True, f"the cold daemon's kernel builds {cold['kernel_builds']}")
+        hpo_segment = [k for k in cold["records"]
+                       if k.startswith(f"pack_segment[PSO[{DAEMON_HPO['hpo_ladder']['candidates']}x2]")]
+        expect(len(hpo_segment), 1, f"the cold daemon's HPO segment record among {sorted(cold['records'])}")
+        libs = cold["records"][hpo_segment[0]]
+        # (A CPU rehearsal loads no library.)
+        if device.type == "cuda" and not (any("pso_move" in n for n in libs) and any("philox" in n for n in libs)):
+            raise AssertionError(f"the HPO bucket's segment record lists {libs}")
+        expect(warm["restored"], len(tids), "tenants the warm daemon replayed")
+        expect(warm["kernel_builds"]["builds"], 0, "nvcc builds in the warm daemon")
+        expect((warm["cache"]["misses"], warm["cache"]["quarantines"]), (0, 0), "the warm daemon's cache misses, "
+               "quarantines")
+        expect(warm["cache"]["hits"], len(warm["prewarmed"]), "the warm daemon's cache hits")
+        expect(all(warm["prewarmed"].values()), True, "every warm pack program from the cache")
+        expect(warm["captures"], {"init": 2, "segment": 2}, "the warm daemon's captures")
+        expect(set(warm["statuses"].values()), {"completed"}, "the warm daemon's tenants")
+        check = hpo_daemon(root / "killed", device, exec_cache=None)
+        check.start()
+        check.run()
+        verify_tenants_bit_identical(check, root / "killed", expected, digests, "daemon_hpo_restart kill and restart")
+        launches = {k: ref_launches[k] + cold["launches"][k] + warm["launches"][k] for k in ref_launches}
+        row = {
+            "config": f"ServiceDaemon(lanes_per_pack={DAEMON_HPO['lanes']}, segment_steps={DAEMON_HPO['segment']}): "
+                      f"{DAEMON_HPO['hpo_tenants']} x hpo_ladder and 1 x PSO pop={DAEMON['pop']} dim={DAEMON['dim']} "
+                      f"Ackley, budgets {DAEMON_HPO['n_steps']}; cold process killed after round "
+                      f"{DAEMON_HPO['kill_after']}, warm process restarted over the same root",
+            "launches": launches, "launches_uninterrupted": ref_launches,
+            "uninterrupted": {"seconds": ref_s, "rounds_ms": [t * 1e3 for t in rounds]},
+            "time_to_first_segment_s": {"cold": cold["marks"]["first_segment"], "warm": warm["marks"]["first_segment"]},
+            "spawn_to_first_segment_s": {"cold": cold["spawn_to_first_segment_s"],
+                                         "warm": warm["spawn_to_first_segment_s"]},
+            "cold": {k: cold[k] for k in ("marks", "captures", "kernel_builds", "cache", "launches", "rounds_s",
+                                          "records")},
+            "warm": {k: warm[k] for k in ("marks", "captures", "kernel_builds", "cache", "launches", "rounds_s",
+                                          "statusz_exec_cache")},
+            "bit_identical_tenants": len(tids), "pycache": pycache,
+        }
+        del ref, check, expected
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -7411,7 +8002,9 @@ def philox_row(results) -> dict:
         + sum(results[p]["launches"]["philox_draws"] for p in ("fleet_main_path", "fleet_straggler"))
         # The daemon's tenants' setups, in this process and in the cold and
         # warm daemon processes.
-        + sum(results[p]["launches"]["philox_draws"] for p in ("daemon_main_path", "daemon_overload")),
+        + sum(results[p]["launches"]["philox_draws"] for p in ("daemon_main_path", "daemon_overload"))
+        # The HPO tenants' setups (the outer algorithms' draws).
+        + sum(results[p]["launches"]["philox_draws"] for p in HPO_WORKLOAD_PHASES),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -7437,7 +8030,11 @@ def batched_rows(results) -> list[dict]:
                for p in ("service_pack", "vmapped_instances_resilient", "service_main_path"))
          # The daemon's packs: its prewarmed captures of both cadences, in
          # this process and in the cold and warm daemon processes.
-         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in ("daemon_main_path", "daemon_overload")),
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in ("daemon_main_path", "daemon_overload"))
+         # The service's HPO workload: the packs' segment and init captures
+         # (the outer PSO over the lanes, the inner PSO over lanes x
+         # candidates), in this process and the HPO daemon's two.
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in HPO_WORKLOAD_PHASES),
          **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the HPO path's recorded moves, the pack's shape
          # and the eager vmapped segments' recorded moves.
@@ -7445,7 +8042,11 @@ def batched_rows(results) -> list[dict]:
                             results["hpo_quickstart"]["batched_moves_vs_plain"]["max_abs_err"],
                             results["service_pack"]["max_abs_err"]["fused_pso_move_batched"],
                             results["vmapped_instances_resilient"]["max_abs_err"],
-                            results["daemon_main_path"]["max_abs_err"]["fused_pso_move_batched"])},
+                            results["daemon_main_path"]["max_abs_err"]["fused_pso_move_batched"],
+                            # The packs of nests' own moves: (A)'s outer one at
+                            # (4, 64, 2), (B)'s inner ones at 4 x 64 instances
+                            # of (1024, 32).
+                            results["service_hpo_main_path"]["max_abs_err"]["fused_pso_move_batched"])},
         {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
          "replaces": "none (the port's own kernel, batched over vmapped instances)",
          # With the rollouts' resets (one launch for the episodes a
@@ -7467,7 +8068,10 @@ def batched_rows(results) -> list[dict]:
          # OpenES's normals in the service's OpenES bucket (its capture).
          + results["service_main_path"]["launches"]["philox_draws_batched"]
          # The daemon's paths (PSO draws in the move kernel: none here).
-         + sum(results[p]["launches"]["philox_draws_batched"] for p in ("daemon_main_path", "daemon_overload")),
+         + sum(results[p]["launches"]["philox_draws_batched"] for p in ("daemon_main_path", "daemon_overload"))
+         # The service's HPO workload: OpenES's normals over lanes x
+         # candidates and CMA-ES's over the lanes in the packs' captures.
+         + sum(results[p]["launches"]["philox_draws_batched"] for p in HPO_WORKLOAD_PHASES),
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the pack's shape, and the rollouts' recorded
          # resets.
@@ -7478,6 +8082,7 @@ def batched_rows(results) -> list[dict]:
     ]
 
 
+HPO_WORKLOAD_PHASES = ("service_hpo_main_path", "service_hpo_grow", "daemon_hpo_restart")
 KERNEL_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -7622,6 +8227,9 @@ def main() -> int:
         ("fleet_straggler", phase_fleet_straggler),
         ("daemon_main_path", phase_daemon_main_path),
         ("daemon_overload", phase_daemon_overload),
+        ("service_hpo_main_path", phase_service_hpo_main_path),
+        ("service_hpo_grow", phase_service_hpo_grow),
+        ("daemon_hpo_restart", phase_daemon_hpo_restart),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -7655,6 +8263,7 @@ def main() -> int:
     # The fleets' worker processes (distributed_8dev's width), each
     # worker's count through its last boundary (a SIGKILLed worker's too).
     routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in ("fleet_main_path", "fleet_straggler"))
+    routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in HPO_WORKLOAD_PHASES)
     emit("kernels", [
         {
             "name": "fused_pso_move",

@@ -21,8 +21,10 @@ restart machinery: fired growths are
 :class:`~evox_tpu_torch.resilience.RestartEvent` lineage (policy
 ``"hpo-grow"``), persisted in every checkpoint manifest, and replayed by
 resume via :meth:`HPOGrowPolicy.rebuild_template` — a run killed after a
-growth resumes bit-identically at the grown shape.  (The JAX package's
-second consumer, the packed service, is not ported yet.)
+growth resumes bit-identically at the grown shape.  The packed service
+is the second consumer: a growth there re-keys the tenant to the grown
+bucket (:meth:`OptimizationService._grow_hpo
+<evox_tpu_torch.service.OptimizationService._grow_hpo>`).
 
 Decisions are replayable bit-for-bit: the action is the pure
 :func:`~evox_tpu_torch.control.controller.decide_hpo_grow` over the

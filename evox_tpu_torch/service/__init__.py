@@ -21,11 +21,15 @@ Ported:
   introspection endpoint, :meth:`~ServiceDaemon.fleet_supervisor`),
   :class:`TenantClass`, :class:`DaemonStats`, :data:`STEER_KNOBS`.
 
-Not ported yet: the service's HPO workload (``TenantSpec(workload="hpo")``
-raises :class:`NotImplementedError`, ROADMAP Queue 1, item 13.10), the
-gateway and its client with ``encode_spec`` (item 13.8b), and the tenant
-router and its members (item 13.8c); importing one of their names raises
-:class:`ImportError`.
+* the HPO workload: ``TenantSpec(workload="hpo", grow=...)`` packs
+  :class:`~evox_tpu_torch.hpo.NestedProblem` tenants (the nest inline in
+  the pack's captured graph), counts ``evox_hpo_*`` per tenant, and grows
+  a stagnating ladder by a journaled ``hpo-grow`` decision that re-keys
+  the tenant to the grown bucket.
+
+Not ported yet: the gateway and its client with ``encode_spec`` (item
+13.8b), and the tenant router and its members (item 13.8c); importing one
+of their names raises :class:`ImportError`.
 """
 
 from .daemon import STEER_KNOBS, DaemonStats, ServiceDaemon, TenantClass

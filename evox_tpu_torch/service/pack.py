@@ -33,6 +33,14 @@ one mechanism:
 A frozen lane's generations still launch (a graph cannot skip work): their
 values, keys included, are selected away.
 
+**Packs of nests.**  An HPO tenant's problem is a
+:class:`~evox_tpu_torch.hpo.NestedProblem`, whose evaluation is itself one
+or two levels of ``torch.func.vmap`` over inner runs.  In a pack it runs
+inline at every level (no nest captures a graph of its own: the segment's
+generations run under the lane vmap, and a capture's warm-up runs its
+nests inline), and the kernels' batching rules merge the lanes' and the
+candidates' instances into one launch a call.
+
 Admission and eviction are **indexed writes at segment boundaries**: a
 tenant's state is written into / read out of its lane, with the one
 single-lane ``init_step`` program (captured once per bucket) covering fresh

@@ -41,12 +41,20 @@ generation budgets are quantized up to whole segments, identically for
 every tenant, so a tenant's trajectory is a pure function of (spec, uid,
 service configuration) — never of its cotenants.
 
-Not ported yet: the HPO workload (``TenantSpec(workload="hpo")``, ROADMAP
-Queue 1, item 13.10).
+**The HPO workload.**  A ``TenantSpec(workload="hpo")`` tenant's problem is
+(or wraps) a :class:`~evox_tpu_torch.hpo.NestedProblem`: its evaluation, one
+or two levels of ``torch.func.vmap`` over inner runs, runs inline inside
+the pack's lane vmap and its captured graph, and the kernels' batching
+rules merge every level into one launch for the whole pack.  The boundary
+counts ``evox_hpo_inner_generations_total`` per tenant, and with ``grow=``
+and a controller a stagnating inner ladder fires a journaled ``hpo-grow``
+decision that regrows the tenant's inner population and re-keys it to the
+grown bucket (:meth:`OptimizationService._grow_hpo`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import warnings
 from dataclasses import dataclass, field
@@ -368,6 +376,14 @@ class OptimizationService:
             if existing.lane is not None:
                 self._buckets[existing.bucket].pack.release(existing.lane)
                 existing.lane = None
+            if existing.grows and existing.spec.workload == "hpo":
+                # Applied growths outlive parking: the record's problem is
+                # the GROWN nest, while a resubmitted spec carries the
+                # original one (the grown instance is the service's own).
+                # Keeping it lets readmission resume the grown-shape
+                # checkpoints instead of skipping them at template
+                # validation.
+                spec = dataclasses.replace(spec, problem=existing.spec.problem)
             existing.spec = spec
             existing.status = TenantStatus.QUEUED
             record = existing
@@ -780,6 +796,8 @@ class OptimizationService:
             self._handle_preemption()
         self._admit_pending()
         stepped_any = False
+        # A snapshot: boundary work can create buckets (the hpo-grow re-key
+        # admits the grown tenant into a new one), which step next round.
         for bucket in list(self._buckets.values()):
             if not bucket.pack.active_lanes():
                 continue
@@ -844,6 +862,20 @@ class OptimizationService:
                 )
             if sinks and record.monitor is not None:
                 record.monitor.ingest_sinks(meta_pairs, sinks, telemetry["executed"], lane=lane)
+            if record.spec.workload == "hpo" and executed[lane]:
+                from ..hpo.nested import find_nested
+
+                nested = find_nested(record.spec.problem)
+                if nested is not None:
+                    # One outer generation of an HPO tenant executes a whole
+                    # inner ladder: candidates x repeats x iterations.
+                    self._inc(
+                        "evox_hpo_inner_generations_total",
+                        "Inner generations executed by packed HPO tenants (candidates x repeats x iterations "
+                        "per outer generation).",
+                        n=int(executed[lane]) * nested.inner_generations_per_eval(),
+                        tenant_id=record.spec.tenant_id,
+                    )
             if record.flight is not None and "flight" in telemetry and executed[lane]:
                 # Before the verdicts: a restart/quarantine dump must hold
                 # this segment's rows.
@@ -874,6 +906,17 @@ class OptimizationService:
             if record.generations >= record.spec.n_steps:
                 self._complete(bucket, record)
                 continue
+            if (
+                report.healthy
+                and record.spec.workload == "hpo"
+                and record.spec.grow is not None
+                and self.controller is not None
+            ):
+                # The elastic inner-population ladder: a fired growth is
+                # this boundary's verdict for the tenant; otherwise the
+                # trend and checkpoint handling below go on.
+                if self._maybe_grow_hpo(bucket, record):
+                    continue
             if report.healthy and self.controller is not None and self.controller.trend_enabled:
                 # Trend overlay on a threshold-healthy lane; an unhealthy
                 # threshold verdict below always wins unchanged.
@@ -891,6 +934,103 @@ class OptimizationService:
                     self._checkpoint_tenant(record, bucket.pack.lane_state(lane))
                 continue
             self._unhealthy(bucket, record, report)
+
+    # -- elastic HPO growth ---------------------------------------------------
+    def _maybe_grow_hpo(self, bucket: _Bucket, record: TenantRecord) -> bool:
+        """Consult the controller's ``hpo-grow`` plane for one healthy HPO
+        tenant and apply a fired growth (:meth:`_grow_hpo`).  Returns
+        whether the tenant was regrown.  Never raises: a failed consult
+        leaves the tenant running ungrown, with a warning."""
+        from ..hpo.elastic import grow_evidence
+        from ..hpo.nested import candidate_series, find_nested
+
+        nested = find_nested(record.spec.problem)
+        if nested is None:
+            return False
+        # Growths share the restart budget: a ladder at its budget
+        # quarantines like any other degenerating tenant instead of growing
+        # without bound.
+        if record.restarts + record.grows >= self._tenant_max_restarts(record):
+            return False
+        try:
+            state = bucket.pack.lane_state(record.lane)
+            series = candidate_series(state["problem"] if "problem" in state else None)
+            if not series:
+                return False
+            evidence = grow_evidence(record.spec.grow, series, nested.inner_pop)
+            if evidence is None:
+                return False
+            decision = self.controller.hpo_grow(
+                evidence=evidence, generation=record.generations, tenant_id=record.spec.tenant_id
+            )
+        except Exception as e:  # noqa: BLE001 - never crash the boundary
+            self._note(record, f"hpo-grow consult failed ({type(e).__name__}: {e}); tenant continues ungrown",
+                       warn=True)
+            return False
+        if decision is None or decision.action in ("", "hold"):
+            return False
+        return self._grow_hpo(bucket, record, decision, state)
+
+    def _grow_hpo(self, bucket: _Bucket, record: TenantRecord, decision: Any, state: State) -> bool:
+        """Apply one journaled ``hpo-grow`` decision: regrow the tenant's
+        nest to the decision's inner population, re-key its bucket (a
+        changed inner population is another program, whose pack captures
+        its own init and segment programs once) and move the tenant's
+        state there: the outer state kept, the inner instances rebuilt at
+        the grown size from the tenant's key and ``salt + grows``."""
+        from ..hpo.nested import find_nested
+
+        nested = find_nested(record.spec.problem)
+        if record.spec.problem is not nested:
+            # Re-keying would have to rebuild the wrapper chain around the
+            # grown nest; refuse rather than guess at wrapper state.
+            self._note(
+                record,
+                "hpo-grow decision not applied: the spec's problem wraps the NestedProblem (growth needs the "
+                "nested problem as the spec problem itself)",
+                warn=True,
+            )
+            return False
+        new_pop = int(decision.action)
+        old_pop = nested.inner_pop
+        grown = nested.with_inner_pop(new_pop, record.spec.grow.inner_factory)
+        record.grows += 1
+        new_state = state.replace(problem=grown.regrow_state(state["problem"], record.spec.grow.salt + record.grows))
+        # Lane surgery: out of the old bucket's pack ...
+        bucket.pack.release(record.lane)
+        record.lane = None
+        self._templates.pop((record.bucket, record.uid), None)
+        record.spec = dataclasses.replace(record.spec, problem=grown)
+        # ... into the grown bucket's (created on first use).
+        new_bucket = self._bucket_for(record.spec)
+        record.bucket = new_bucket.key
+        self.health.reset_lane(record.uid)
+        self._inc(
+            "evox_hpo_grows_total",
+            "Elastic inner-population growths applied to HPO tenants.",
+            tenant_id=record.spec.tenant_id,
+        )
+        if new_bucket.pack.free_lanes():
+            record.lane = new_bucket.pack.admit(new_state, record.uid)
+            # The grown state is the tenant's first resume point at the new
+            # shape (older archives fail template validation on a resume).
+            self._checkpoint_tenant(record, new_state)
+            self._note(
+                record,
+                f"hpo-grow #{record.grows}: inner population {old_pop} -> {new_pop} (decision #{decision.seq}; "
+                f"bucket re-keyed, lane {record.lane})",
+                warn=True,
+            )
+        else:
+            self._checkpoint_tenant(record, new_state)
+            record.status = TenantStatus.EVICTED
+            self._note(
+                record,
+                f"hpo-grow #{record.grows}: inner population {old_pop} -> {new_pop}, but the grown bucket has no "
+                f"free lane — parked on the grown checkpoint (resubmit to resume)",
+                warn=True,
+            )
+        return True
 
     # -- per-tenant steering overrides ---------------------------------------
     def _tenant_max_restarts(self, record: TenantRecord) -> int:

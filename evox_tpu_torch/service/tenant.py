@@ -55,9 +55,6 @@ __all__ = [
 #: and principal prefixes.
 MAX_TENANT_ID_LEN = 128
 
-#: Where the service's HPO workload is queued.
-HPO_WORKLOAD_ITEM = "ROADMAP Queue 1, item 13.10 (the service's HPO workload)"
-
 
 def validate_tenant_id(tenant_id: Any) -> str:
     """Validate one externally-supplied tenant id as a **safe path
@@ -131,11 +128,19 @@ class TenantSpec:
         every tenant, solo or packed).
     :param uid: optional explicit stable identity (see the module
         docstring); auto-assigned by submission order when ``None``.
-    :param workload: ``"standard"``.  ``"hpo"`` (a meta-optimization run
-        over a nested problem) is not ported yet and raises
-        :class:`NotImplementedError`.
-    :param grow: the elastic inner-population ladder of an HPO tenant;
-        refused (``ValueError``) for a standard one, as in JAX.
+    :param workload: ``"standard"`` or ``"hpo"`` (a meta-optimization run:
+        ``problem`` must be — or wrap — an
+        :class:`~evox_tpu_torch.hpo.NestedProblem`, whose nested evaluate
+        runs inside the pack's vmapped segment; the service keeps
+        per-tenant ``evox_hpo_*`` metrics and, with ``grow=``, the
+        elastic inner-population ladder).
+    :param grow: optional :class:`~evox_tpu_torch.hpo.GrowthLadder` of an
+        ``"hpo"`` tenant: when the service carries a
+        :class:`~evox_tpu_torch.control.Controller`, stagnating inner runs
+        fire journaled ``hpo-grow`` decisions that regrow this tenant's
+        inner population and re-key it to the grown bucket.  Refused
+        (``ValueError``) for a standard tenant, and for a window the
+        nest's telemetry can never span.
     :param solution_transform: optional solution transform for the
         tenant's workflow; part of the bucket key (by code and closure).
     :param precision: optional
@@ -165,11 +170,23 @@ class TenantSpec:
         if self.workload not in ("standard", "hpo"):
             raise ValueError(f"workload must be 'standard' or 'hpo', got {self.workload!r}")
         if self.workload == "hpo":
-            raise NotImplementedError(
-                f"TenantSpec(workload='hpo') is not ported yet: a pack of HPO nests is a vmap over the "
-                f"nest's own vmap ({HPO_WORKLOAD_ITEM})"
-            )
-        if self.grow is not None:
+            # Duck-typed (the marker is NestedProblem's class attribute), so
+            # wrapper chains, fault injection around the nest, stay
+            # admissible.
+            from ..hpo.nested import find_nested
+
+            nested = find_nested(self.problem)
+            if nested is None:
+                raise ValueError(
+                    "workload='hpo' needs a problem whose chain contains "
+                    "an evox_tpu.hpo.NestedProblem (the fused nested "
+                    "evaluate is what the HPO workload packs)"
+                )
+            if self.grow is not None:
+                from ..hpo.elastic import validate_ladder_window
+
+                validate_ladder_window(self.grow, nested)
+        elif self.grow is not None:
             raise ValueError("grow= (the elastic inner-population ladder) only applies to workload='hpo' tenants")
         if self.key_impl is not None:
             from ..precision import resolve_key_impl
@@ -191,8 +208,9 @@ class TenantRecord:
     lane: int | None = None
     generations: int = 0
     restarts: int = 0
-    # Elastic inner-population growths of an HPO tenant (the JAX package's
-    # field; the HPO workload is not ported, so it stays 0).
+    # Elastic inner-population growths applied to an HPO tenant (the
+    # deterministic-regrow salt index; bounded by the service's
+    # max_restarts budget alongside restarts).
     grows: int = 0
     segments_since_checkpoint: int = 0
     # Human-readable lifecycle trail: admissions, verdicts, restarts,

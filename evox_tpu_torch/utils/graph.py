@@ -34,6 +34,8 @@ there is no fallback to eager execution.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import gc
 from collections import OrderedDict
 from typing import Any, Callable, Mapping
@@ -110,14 +112,30 @@ def structure(tree: Any) -> tuple:
 # -- captured segments ---------------------------------------------------------
 
 
+_INLINE = contextvars.ContextVar("evox_graph_inline", default=False)
+
+
+@contextlib.contextmanager
+def _inline():
+    """While active, :func:`replays` is ``False``: a capture's eager
+    warm-up runs the work that keeps a graph of its own inline, as the
+    capture that follows does."""
+    token = _INLINE.set(True)
+    try:
+        yield
+    finally:
+        _INLINE.reset(token)
+
+
 def replays(device: torch.device) -> bool:
     """Whether work on ``device`` that keeps a graph of its own (a rollout's
     loop, an HPO nest's batch) replays it: on the card, outside a capture
-    (where the enclosing capture takes the work inline) and outside
-    functorch transforms (whose batched tensors a graph's static buffers
-    cannot hold; the work runs eagerly there)."""
+    (where the enclosing capture takes the work inline), outside functorch
+    transforms (whose batched tensors a graph's static buffers cannot hold;
+    the work runs eagerly there) and outside a capture's warm-up."""
     return (
         device.type == "cuda"
+        and not _INLINE.get()
         and not torch.cuda.is_current_stream_capturing()
         and torch._C._functorch.peek_interpreter_stack() is None
     )
@@ -174,7 +192,7 @@ def _capture(program: Callable, inputs, spec, leaves, struct, n: int, pool) -> _
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(current)
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), _inline():
         program(unflatten(spec, [t.clone() for t in leaves]), 1)
     current.wait_stream(side)
     torch.cuda.synchronize(device)

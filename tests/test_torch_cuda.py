@@ -2262,3 +2262,178 @@ print(json.dumps({{"labels": list(labels.values()), "counts": _build.counts, "mi
     assert all(got["labels"]) and got["misses"] == 0
     assert got["counts"]["builds"] == 0 and got["counts"]["installs"] >= 2, got
     assert got["captures"] == {"init": 1, "segment": 1} and got["best"] == want
+
+
+# -- the service's HPO workload: packs of nests ---------------------------------------
+
+
+def _nest_workflow(cuda, kind="es", inner_pop=64, candidates=8, iterations=6, dim=8):
+    """A small HPO tenant's workflow: PSO(candidates) over OpenES(inner_pop)
+    (``kind="es"``) or CMA-ES(candidates) over PSO(inner_pop), on Sphere."""
+    from evox_tpu_torch.algorithms import CMAES, PSO, OpenES
+    from evox_tpu_torch.hpo import HPOFitnessMonitor, NestedProblem
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    if kind == "es":
+        inner = OpenES(inner_pop, torch.zeros(dim), learning_rate=0.05, noise_stdev=0.1, device=cuda)
+        outer = PSO(candidates, lb=1e-3 * torch.ones(2), ub=0.5 * torch.ones(2), device=cuda)
+    else:
+        inner = PSO(inner_pop, -5.0 * torch.ones(dim), 5.0 * torch.ones(dim), device=cuda)
+        outer = CMAES(torch.tensor([0.6, 2.0]), 0.3, pop_size=candidates, device=cuda)
+    nested = NestedProblem(StdWorkflow(inner, Sphere(), monitor=HPOFitnessMonitor()), iterations=iterations,
+                           num_candidates=candidates)
+    return StdWorkflow(outer, nested, solution_transform=_es_transform if kind == "es" else _cma_transform)
+
+
+# Module level: a daemon's journal pickles a spec's transform by name.
+def _es_transform(x):
+    return {"algorithm.lr": x[:, 0], "algorithm.noise_stdev": x[:, 1]}
+
+
+def _cma_transform(x):
+    return {"algorithm.w": x[:, 0].clamp(0.1, 1.0), "algorithm.phi_p": x[:, 1].clamp(0.5, 3.0)}
+
+
+def _counts():
+    from evox_tpu_torch.ops import philox, pso_step
+
+    return {"move": pso_step.fused_pso_move_batched.launches, "draws": philox.philox_draws_batched.launches,
+            "solo_move": pso_step.fused_pso_move.launches}
+
+
+@pytest.mark.parametrize("kind", ["es", "cma"])
+def test_pack_of_nests_is_one_graph_with_merged_launches(cuda, kind):
+    """A pack of HPO tenants: one init and one segment capture, the nests
+    inline (no graph of their own), a replay reads the card once and calls
+    no wrapper, the capture calls each kernel once an inner generation for
+    the whole pack (a warm-up generation and the captured ones), and every
+    lane equals its tenant alone in a pack of the same width, bit for bit,
+    and (PSO over OpenES) its eager steps outside any pack.  A vmapped
+    CMA-ES step differs from a solo one in the last bits (its batched
+    products and eigensolver; ``chip_smoke.py``'s ``vmapped_family``
+    holds it at a tolerance), so CMA-ES's lanes are held against the same
+    width only."""
+    from evox_tpu_torch.service import TenantPack
+
+    wf = _nest_workflow(cuda, kind)
+    pack = TenantPack(wf, 4, early_stop=False)
+    for uid in (0, 1):
+        s, _, _ = pack.init_tenant(_tenant(wf, uid, cuda))
+        pack.admit(s, uid)
+    before = _counts()
+    pack.run_segment(3)
+    got = {k: v - before[k] for k, v in _counts().items()}
+    it = wf.problem.iterations
+    want = {"move": 4, "draws": 4 * it, "solo_move": 0} if kind == "es" else \
+        {"move": 4 * (it - 1), "draws": 4, "solo_move": 0}
+    assert got == want
+    before = _counts()
+    _, syncs = _syncs(lambda: pack.run_segment(3))
+    assert len(syncs) == 1, syncs
+    assert _counts() == before
+    assert pack.captures == {"init": 1, "segment": 1} and len(wf.problem._graphs) == 0
+    for uid in (0, 1):
+        alone = TenantPack(wf, 4, early_stop=False)
+        s, _, _ = alone.init_tenant(_tenant(wf, uid, cuda))
+        alone.admit(s, uid)
+        alone.run_segment(3)
+        alone.run_segment(3)
+        _same_state(pack.lane_state(uid), alone.lane_state(0))
+        if kind == "es":
+            state = wf.init_step(_tenant(wf, uid, cuda))
+            for _ in range(6):
+                state = wf.step(state)
+            _same_state(pack.lane_state(uid), state)
+
+
+def test_pack_of_nests_kernels_at_the_merged_shapes(cuda):
+    """One generation of a pack's own segment program (4 lanes, 3 tenants
+    and a padding lane), run eagerly on a copy of its carry: CMA-ES over PSO
+    moves the inner PSO over lanes x candidates instances and draws its
+    normals over the lanes; PSO over OpenES moves the outer PSO over the
+    lanes and draws OpenES's normals over lanes x candidates streams.  Each
+    launch against its plain version, 0 bits off; each tenant's candidate
+    with its own scalars and key (the padding lane repeats lane 0)."""
+    from evox_tpu_torch.ops import philox, pso_step
+    from evox_tpu_torch.service import TenantPack
+
+    moves, draws = [], []
+    launch_move, launch_draws = pso_step._launch, philox._launch
+
+    def rec_move(*a):
+        out = launch_move(*a)
+        moves.append(([x.clone() if hasattr(x, "clone") else x for x in a], [o.clone() for o in out]))
+        return out
+
+    def rec_draws(keys, index, derive, numel, codes, lows, spans, solo):
+        out = launch_draws(keys, index, derive, numel, codes, lows, spans, solo)
+        draws.append((keys.clone(), index, derive, numel, philox._kinds(codes, lows, spans), [o.clone() for o in out]))
+        return out
+
+    recorded = {}
+    for kind in ("cma", "es"):
+        wf = _nest_workflow(cuda, kind)
+        pack = TenantPack(wf, 4, early_stop=False)
+        for uid in (0, 1, 2):
+            s, _, _ = pack.init_tenant(_tenant(wf, uid, cuda))
+            pack.admit(s, uid)
+        leaves, spec = graph.flatten(pack._states)
+        carry = (graph.unflatten(spec, [t.clone() for t in leaves]), pack._frozen_dev.clone(),
+                 torch.zeros((4,), dtype=torch.int32, device=cuda))
+        moves.clear(), draws.clear()
+        pso_step._launch, philox._launch = rec_move, rec_draws
+        try:
+            pack._segment_program(carry, 1)
+        finally:
+            pso_step._launch, philox._launch = launch_move, launch_draws
+        recorded[kind] = (list(moves), list(draws))
+    cma_moves, cma_draws = recorded["cma"]
+    assert [tuple(a[0].shape) for a, _ in cma_moves] == [(32, 64, 8)] * 5
+    assert [d[0].shape[0] for d in cma_draws] == [4]
+    es_moves, es_draws = recorded["es"]
+    assert [tuple(a[0].shape) for a, _ in es_moves] == [(4, 8, 2)]
+    assert [(d[0].shape[0], d[3]) for d in es_draws] == [(32, 32 * 8)] * 6
+    for args, out in cma_moves + es_moves:
+        _same_bits(out, pso_step.fused_pso_move_batched_plain(*args[:12]))
+    for args, _ in cma_moves:
+        assert len({tuple(r) for r in args[8].tolist()}) == 24
+    for keys, index, derive, numel, kinds, out in cma_draws + es_draws:
+        for g, w in zip(out, philox.philox_draws_batched_plain(keys, index, numel, kinds, derive)):
+            assert torch.equal(g, w)
+    for keys, *_ in es_draws:
+        assert len({tuple(k) for k in keys.tolist()}) == 24
+
+
+def test_hpo_bucket_prewarm_records_the_move_and_philox(cuda, tmp_path):
+    """A daemon prewarming an HPO bucket captures its programs with the nest
+    inline, and the segment's record lists the move's and Philox's
+    libraries; the tenant then runs to completion with no further
+    capture."""
+    from evox_tpu_torch.hpo import find_nested
+    from evox_tpu_torch.resilience import HealthProbe
+    from evox_tpu_torch.service import ServiceDaemon, TenantSpec, TenantStatus
+
+    wf = _nest_workflow(cuda)
+    d = ServiceDaemon(tmp_path / "d", lanes_per_pack=2, segment_steps=3, preemption=False, brownout_threshold=None,
+                      health=HealthProbe(nonfinite_skip=("instances",)), device=cuda)
+    d.start()
+    saved = {}
+    save = d.exec_cache.save
+
+    def saving(label, signature, program):
+        saved[label] = sorted(program.libraries)
+        return save(label, signature, program)
+
+    d.exec_cache.save = saving
+    d.submit(TenantSpec("meta", wf.algorithm, wf.problem, n_steps=7, uid=3, workload="hpo",
+                        solution_transform=wf.solution_transform))
+    seg = [k for k in saved if k.startswith("pack_segment")]
+    assert len(seg) == 1 and any("pso_move" in n for n in saved[seg[0]]) and any("philox" in n for n in saved[seg[0]])
+    assert d.stats.captures == {"init": 1, "segment": 1}
+    d.run()
+    assert d.tenant("meta").status is TenantStatus.COMPLETED
+    assert d.stats.captures == {"init": 1, "segment": 1}
+    bucket = next(iter(d.service._buckets.values()))
+    assert len(find_nested(bucket.workflow.problem)._graphs) == 0
+    d.close()

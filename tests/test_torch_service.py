@@ -170,11 +170,6 @@ def test_tenant_spec_errors_equal_jax(case):
     assert outcomes[0] == outcomes[1]
 
 
-def test_hpo_workload_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="13.10"):
-        TenantSpec("h", pso(), Ackley(), n_steps=4, workload="hpo")
-
-
 def test_bucket_key_partition_equals_jax():
     """test_bucket_key_splits_on_static_config's pairs, and more: the two
     packages split buckets at the same places."""
