@@ -106,7 +106,18 @@ itself alone; ``service_hpo_grow``: a stagnating ladder regrown to 2048 and
 re-keyed into the grown bucket, its decisions replayed from the journal;
 ``daemon_hpo_restart``: a daemon of two hpo_ladder tenants and a PSO tenant
 killed in a process of its own and restarted in another from the program
-cache), checks that each path went through its kernels, and times them.  It prints one JSON line per
+cache), then the network front door (``gateway_main_path``: that daemon of
+8 tenants behind a ``Gateway`` with two principals, submitted over HTTP by
+four ``GatewayClient`` threads over ``FaultyTransport`` (a dropped request,
+a dropped reply, a torn reply, a duplicate), CPU-built, card-built and
+catalog specs, a second bucket captured mid-run while other submits are
+decoded, a steer, results, checkpoint archives and a flight long-poll over
+HTTP, every tenant bit-equal to the Python API's run; ``gateway_kill_restart``:
+the daemon and gateway in a process of their own, SIGKILLed between the
+journal append of a submit and its reply, the client's retry of that key
+answered by a warm process on the same port as an idempotent replay;
+``gateway_overhead``: per-tenant gen/s with and without a 1 Hz operator
+process), checks that each path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -116,6 +127,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -5952,13 +5964,14 @@ def filled_pack(wf, lanes, uids, device, early_stop=False):
 
 def batched_exact_vs_plain(states) -> dict:
     """The batched PSO move and the batched Philox draws on the pack's
-    states (8 x (1024, 100), 8 streams of 102,400) against their plain
-    versions, exact (``vmapped_instances`` times them at this shape)."""
+    states (PSO(n, ±32 in dim d) over the lanes: 8 x (1024, 100), 8 streams
+    of 102,400, on service_pack's packs) against their plain versions,
+    exact (``vmapped_instances`` times them at that shape)."""
     import torch
     from evox_tpu_torch.ops import philox, pso_step
 
     a = states.algorithm
-    n, d = VMAP_PSO
+    n, d = a.pop.shape[-2:]
     scal = torch.stack([a.w, a.phi_p, a.phi_g], 1).float()
     lb, ub = (torch.full((d,), v, device=a.pop.device) for v in (-32.0, 32.0))
     args = (a.pop, a.velocity, a.local_best_location, a.fit, a.local_best_fit, a.global_best_location,
@@ -7035,15 +7048,16 @@ summary(True)
 """
 
 
-def daemon_specs(device, uids, n_steps, prefix="t"):
-    """``TenantSpec``s of service_pack's shape: PSO(1024, ±32 in dim 100)
-    on Ackley, budgets ``n_steps``."""
+def daemon_specs(device, uids, n_steps, prefix="t", dim=None):
+    """``TenantSpec``s of service_pack's shape: PSO(1024, ±32 in dim 100,
+    or in dim ``dim``) on Ackley, budgets ``n_steps``, tenant
+    ``<prefix><uid>`` built on ``device``."""
     import torch
     from evox_tpu_torch.algorithms import PSO
     from evox_tpu_torch.problems.numerical import Ackley
     from evox_tpu_torch.service import TenantSpec
 
-    n, d = DAEMON["pop"], DAEMON["dim"]
+    n, d = DAEMON["pop"], dim or DAEMON["dim"]
     return [TenantSpec(f"{prefix}{uid}", PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device),
                        Ackley(), n_steps=n_steps, uid=uid) for uid in uids]
 
@@ -7894,6 +7908,732 @@ def phase_daemon_hpo_restart(device) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the network front door (Gateway, GatewayClient, FaultyTransport) -----------------
+
+# daemon_main_path's daemon (8 lanes, segments of 25) behind a Gateway with two
+# principals; bucket 1 is daemon_main_path's 8 tenants (PSO(1024, ±32 in dim
+# 100) on Ackley, budgets 200), bucket 2 two PSO(1024, ±32 in dim 50) tenants
+# submitted while bucket 1 serves; a ninth, queued bucket-1 tenant is steered
+# over HTTP to ``steer_n_steps`` (bench_gateway's sacrificial tenant).
+GATEWAY = dict(DAEMON, second_dim=50, second_tenants=2, steer_n_steps=50)
+GATEWAY_TOKENS = {"tok-alice": "alice", "tok-bob": "bob"}
+# One FaultyTransport a client thread: each fault once, on its first request.
+GATEWAY_FAULTS = [dict(drop_requests=[0]), dict(drop_replies=[0]), dict(torn_replies=[0]),
+                  dict(duplicate_requests=[0])]
+# gateway_overhead: best of ``repeats`` batches a side, each of 8 measured
+# tenants (budgets sized from a warm batch so that a batch runs at least
+# ``min_batch_s``) and one queued sacrificial tenant; the operator process
+# steers it, reads its status and scrapes /statusz at ``client_hz``.
+GATEWAY_OVERHEAD = dict(repeats=3, min_batch_s=5.0, client_hz=1.0, floor=0.98, calibrate_steps=200)
+GATEWAY_REFERENCE: dict = {}
+
+# The 1 Hz operator of gateway_overhead, a process of its own that imports no
+# torch (and makes no CUDA context): a steer of the queued sacrificial
+# tenant, a status read and a /statusz scrape a tick; it prints its counts
+# after every tick.  A 5xx or a failed request is a failure; a 404/409 (the
+# sacrificial tenant finished or was retired between batches) is benign.
+GATEWAY_OPERATOR = """
+import json, sys, time, urllib.error, urllib.request
+base, token, target, hz = sys.argv[1], sys.argv[2], sys.argv[3], float(sys.argv[4])
+counts = {"mutations": 0, "reads": 0, "benign": 0, "failures": 0, "statuses": {}}
+def call(method, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Authorization": "Bearer " + token, "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            resp.read()
+            code = resp.status
+    except urllib.error.HTTPError as e:
+        e.read()
+        code = e.code
+    counts["statuses"][str(code)] = counts["statuses"].get(str(code), 0) + 1
+    return code
+tick = 0
+while True:
+    time.sleep(1.0 / hz)
+    tick += 1
+    for method, path, body, kind in (
+            ("POST", "/api/v1/tenants/%s/steer" % target, {"checkpoint_every": 4 if tick % 2 else 8}, "mutations"),
+            ("GET", "/api/v1/tenants/" + target, None, "reads"), ("GET", "/statusz", None, "reads")):
+        try:
+            code = call(method, path, body)
+        except Exception:
+            counts["failures"] += 1
+            continue
+        if code < 300:
+            counts[kind] += 1
+        elif code in (404, 409):
+            counts["benign"] += 1
+        else:
+            counts["failures"] += 1
+    print(json.dumps(counts), flush=True)
+"""
+
+# One daemon and gateway process over a root, on a fixed port: ``cold``
+# serves until the journal append of its ``cfg["tenants"]``-th submit, then
+# SIGKILLs itself before the reply leaves (the post-append-pre-reply kill
+# point: the hook is this script's, the package knows nothing of it);
+# ``warm`` replays the journal, prewarms from the root's program cache and
+# serves until the parent creates ``<out>.stop``.  The package is imported
+# from ``tree`` (a copy whose build/ is empty).  Each writes a JSON summary
+# (the cold one just before its SIGKILL) and ``<out>.ready`` once serving.
+GATEWAY_CHILD = """
+import json, os, signal, sys, time
+t0, wall0 = time.perf_counter(), time.time()
+mode, root, tree, out, cfg = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4], json.loads(sys.argv[5])
+sys.path.insert(0, tree)
+import torch
+from evox_tpu_torch.ops import _build, philox, pso_step
+from evox_tpu_torch.service import Gateway, ServiceDaemon
+marks = {"imported": time.perf_counter() - t0}
+device = torch.device(cfg["device"])
+daemon = ServiceDaemon(root, lanes_per_pack=cfg["lanes"], segment_steps=cfg["segment"], on_event=lambda msg: None,
+                       device=device)
+gateway = Gateway(daemon, tokens=cfg["tokens"], port=cfg["port"])
+counters = {"fused_pso_move": pso_step.fused_pso_move, "fused_pso_move_batched": pso_step.fused_pso_move_batched,
+            "philox_draws": philox.philox_draws, "philox_draws_batched": philox.philox_draws_batched}
+submits = []
+
+
+def summary(done):
+    c = daemon.exec_cache.stats
+    rec = {"mode": mode, "marks": marks, "wall0": wall0, "done": done, "submits": len(submits),
+           "restored": daemon.stats.replayed_tenants, "segments": daemon.service.stats.segments_run,
+           "captures": daemon.stats.captures, "kernel_builds": dict(_build.counts), "build_dir": str(_build.BUILD_DIR),
+           "cache": {"hits": c.hits, "misses": c.misses, "saves": c.saves, "quarantines": c.quarantines},
+           "prewarmed": daemon.stats.prewarmed, "launches": {k: v.launches for k, v in counters.items()},
+           "statuses": {t: r.status.value for t, r in daemon.service._tenants.items()},
+           "gateway": gateway.statusz_payload()}
+    with open(out + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(out + ".tmp", out)
+
+
+if mode == "cold":
+    submit = daemon.submit
+
+    def submit_then_die(spec, **kw):
+        record = submit(spec, **kw)
+        submits.append(time.time())
+        if len(submits) == cfg["tenants"]:
+            summary(False)
+            os.kill(os.getpid(), signal.SIGKILL)
+        return record
+
+    daemon.submit = submit_then_die
+gateway.start()
+marks["serving"] = time.perf_counter() - t0
+marks["serving_wall"] = time.time()
+with open(out + ".ready", "w") as f:
+    json.dump({"pid": os.getpid(), "port": daemon.endpoint.port}, f)
+gateway.serve(stop=lambda: os.path.exists(out + ".stop"), idle_sleep=0.02)
+summary(True)
+"""
+
+
+def gateway_catalog(spec) -> dict:
+    """The JSON catalog form of a ``gateway_specs`` spec."""
+    a = spec.algorithm
+    return {"tenant_id": spec.tenant_id, "uid": spec.uid, "n_steps": spec.n_steps,
+            "algorithm": {"kind": "PSO", "pop_size": a.pop_size, "dim": int(a.lb.numel()), "lb": float(a.lb[0]),
+                          "ub": float(a.ub[0])},
+            "problem": {"kind": "Ackley"}}
+
+
+def gateway_daemon(root, device, **kw):
+    from evox_tpu_torch.service import ServiceDaemon
+
+    return ServiceDaemon(root, lanes_per_pack=GATEWAY["lanes"], segment_steps=GATEWAY["segment"],
+                         on_event=lambda msg: None, device=device, **kw)
+
+
+def gateway_reference(device, root) -> dict:
+    """The Python API's run of every compared tenant (card-built specs, the
+    qualified ids and uids the gateway phases mint; ids name namespaces
+    only): uid -> (final state, newest checkpoint digests, monitor
+    history), computed once."""
+    from evox_tpu_torch.resilience.testing import last_checkpoint_digests, npify
+
+    if str(device) not in GATEWAY_REFERENCE:
+        ref = gateway_daemon(root, device)
+        ref.start()
+        specs = daemon_specs(device, range(GATEWAY["tenants"]), GATEWAY["n_steps"], prefix="ref--t")
+        specs += daemon_specs(device, range(GATEWAY["tenants"], GATEWAY["tenants"] + GATEWAY["second_tenants"]),
+                               GATEWAY["n_steps"], dim=GATEWAY["second_dim"], prefix="ref--w")
+        for spec in specs:
+            ref.submit(spec)
+        ref.run()
+        GATEWAY_REFERENCE[str(device)] = {
+            s.uid: (ref.result(s.tenant_id), last_checkpoint_digests(root, s.tenant_id),
+                    [npify(r) for r in ref.tenant(s.tenant_id).monitor.fitness_history]) for s in specs}
+        del ref
+    return GATEWAY_REFERENCE[str(device)]
+
+
+def gateway_vs_reference(daemon, root, ids_by_uid, reference, what) -> int:
+    """Each tenant's final state, newest checkpoint digests and monitor
+    history on ``daemon`` against the reference of its uid, bit for bit."""
+    import numpy as np
+
+    from evox_tpu_torch.resilience.testing import assert_states_equal, last_checkpoint_digests, npify
+    from evox_tpu_torch.service import TenantStatus
+
+    for uid, tid in ids_by_uid.items():
+        state, digests, history = reference[uid]
+        record = daemon.tenant(tid)
+        expect(record.status, TenantStatus.COMPLETED, f"{what}: {tid}")
+        assert_states_equal(state, daemon.result(tid), f"{what}: {tid}")
+        expect(last_checkpoint_digests(root, tid), digests, f"{what}: {tid} newest checkpoint digests")
+        got = [npify(r) for r in record.monitor.fitness_history]
+        expect(len(got), len(history), f"{what}: {tid} monitor history rows")
+        if not all(np.array_equal(g, w) for g, w in zip(got, history)):
+            raise AssertionError(f"{what}: {tid} monitor history differs")
+    return len(ids_by_uid)
+
+
+def gateway_client(base_url, token, transport=None, **kw):
+    from evox_tpu_torch.service import GatewayClient
+
+    kw.setdefault("backoff", 0.02)
+    kw.setdefault("timeout", 120.0)
+    return GatewayClient(base_url, token, transport=transport, **kw)
+
+
+def await_results(client, tenant_ids, timeout_s=300) -> dict:
+    """``result?wait=`` for each tenant until it is completed: the result
+    documents."""
+    deadline, docs = time.monotonic() + timeout_s, {}
+    for tid in tenant_ids:
+        while True:
+            doc = client.result(tid, wait=30)
+            if doc["status"] == "completed":
+                docs[tid] = doc
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tid} is {doc['status']} after {timeout_s} s")
+    return docs
+
+
+def npz_vs_disk(client, tid, namespace, doc) -> dict:
+    """``result?format=npz`` against the newest checkpoint file on disk, byte
+    for byte, and against the result document's name."""
+    name, blob = client.result_npz(tid)
+    expect(name, doc["checkpoint"], f"{tid}: the npz's name")
+    expect(blob == (Path(namespace) / name).read_bytes(), True, f"{tid}: the npz's bytes against {name} on disk")
+    return {"name": name, "bytes": len(blob)}
+
+
+def journal_submits(root) -> dict:
+    """The journaled submits of a daemon root, by ``principal:idem``."""
+    from evox_tpu_torch.service import RequestJournal, ServiceDaemon
+
+    records, damage = RequestJournal(Path(root) / ServiceDaemon.JOURNAL_NAME).replay(quarantine=False)
+    out: dict = {}
+    for r in records:
+        if r.kind == "submit":
+            key = f"{r.data.get('principal')}:{r.data.get('idem')}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def phase_gateway_main_path(device) -> dict:
+    """daemon_main_path's daemon (``ServiceDaemon(lanes_per_pack=8,
+    segment_steps=25)``, an ``Observability`` with a flight recorder and a
+    registry, bucket 1 prewarmed) behind ``Gateway(tokens=)`` with two
+    principals, ``gateway.serve(stop=)`` on this thread.  Four client
+    threads, two a principal, each a ``GatewayClient`` over
+    ``FaultyTransport(HttpTransport)`` (one dropped request, one dropped
+    reply, one torn reply, one duplicated request), submit bucket 1's 8
+    tenants: 4 built on the CPU (one of them sent in the catalog form) and
+    4 on the card.  While bucket 1 serves, two threads submit bucket 2's
+    tenants and a third the queued ninth tenant: the second bucket's
+    programs are captured under the lock while the other handler threads
+    decode on the host.  The ninth tenant's budget is steered over HTTP.
+    Then ``result?wait=`` for every tenant, ``result?format=npz`` against
+    the newest checkpoint file, one flight long-poll.  Every tenant
+    completes; the journal holds one submit a key; every compared tenant's
+    state, newest checkpoint digests and history equal the Python API's
+    run of the same card-built spec (so the CPU-built and catalog specs
+    equal their card-built twins).  The batched move and draws on both
+    buckets' final states, and a setup's draws, against their plain
+    versions; launches counted from 0 over the served run."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from evox_tpu_torch.obs import FlightRecorder, MetricsRegistry, Observability
+    from evox_tpu_torch.resilience import FaultyTransport
+    from evox_tpu_torch.service import Gateway, HttpTransport, OptimizationService
+    from evox_tpu_torch.service.tenant import TenantRecord
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_gateway_"))
+    n1, n2, n_steps = GATEWAY["tenants"], GATEWAY["second_tenants"], GATEWAY["n_steps"]
+    try:
+        counters = hpo_counters()
+        setups = [0]
+        real_fresh = OptimizationService._fresh_state
+
+        def counting_fresh(self, bucket, record):
+            setups[0] += 1
+            return real_fresh(self, bucket, record)
+
+        # Bucket 1: t0..t7 (uids 0-7), alice t0-t3, bob t4-t7; CPU-built
+        # t0, t2 (catalog), t4, t6; bucket 2: w8 (alice), w9 (bob); the ninth
+        # bucket-1 tenant q10 (alice).
+        principal = {u: "alice" if u < n1 // 2 else "bob" for u in range(n1)}
+        principal.update({n1: "alice", n1 + 1: "bob", n1 + n2: "alice"})
+        token = {p: t for t, p in GATEWAY_TOKENS.items()}
+        card = {s.uid: s for s in daemon_specs(device, range(n1), n_steps)}
+        host = {s.uid: s for s in daemon_specs("cpu", range(0, n1, 2), n_steps)}
+        catalog_uid = n1 - 2
+        second = daemon_specs("cpu", range(n1, n1 + n2), n_steps, dim=GATEWAY["second_dim"], prefix="w")
+        ninth = daemon_specs("cpu", [n1 + n2], n_steps, prefix="q")[0]
+        qualified = {u: f"{principal[u]}--{s.tenant_id}" for u, s in {**card, n1: second[0], n1 + 1: second[1],
+                                                                      n1 + n2: ninth}.items()}
+        keys = {u: f"main-{u}" for u in qualified}
+
+        obs = Observability(registry=MetricsRegistry(), flight=FlightRecorder(root / "flight", window=64))
+        daemon = gateway_daemon(root / "svc", device, obs=obs, prewarm=[card[0]])
+        gateway = Gateway(daemon, tokens=GATEWAY_TOKENS)
+        OptimizationService._fresh_state = counting_fresh
+        for c in counters.values():
+            c.launches = 0
+        t_start = time.perf_counter()
+        gateway.start()
+        prewarm_s = time.perf_counter() - t_start
+        stop, errors, acks, latencies, transports = threading.Event(), [], {}, {}, []
+
+        def client_thread(slot, uids):
+            try:
+                p = "alice" if slot < 2 else "bob"
+                transport = FaultyTransport(HttpTransport("127.0.0.1", daemon.endpoint.port), **GATEWAY_FAULTS[slot])
+                transports.append(transport)
+                client = gateway_client(gateway.url, token[p], transport)
+                for u in uids:
+                    t0 = time.perf_counter()
+                    if u == catalog_uid:
+                        acks[u] = client.submit(catalog=gateway_catalog(host[u]), idem_key=keys[u])
+                    else:
+                        acks[u] = client.submit(host.get(u, card[u]), idem_key=keys[u])
+                    latencies[u] = time.perf_counter() - t0
+                acks[f"retries{slot}"] = client.retries
+            except BaseException as e:  # noqa: BLE001 - raised after the serving loop
+                errors.append(e)
+
+        def plain_submit(u, spec):
+            try:
+                t0 = time.perf_counter()
+                acks[u] = gateway_client(gateway.url, token[principal[u]]).submit(spec, idem_key=keys[u])
+                latencies[u] = time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+
+        reads = {}
+
+        def orchestrate():
+            try:
+                slots = [[0, 1], [2, 3], [4, 5], [6, 7]]
+                threads = [threading.Thread(target=client_thread, args=(i, u)) for i, u in enumerate(slots)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                if errors:
+                    return
+                alice = gateway_client(gateway.url, token["alice"])
+                t0 = time.perf_counter()
+                reads["first_flight_rows"] = len(alice.flight("t0", after=-1, wait=30))
+                reads["first_flight_s"] = time.perf_counter() - t0
+                # The second bucket, and the ninth tenant, while bucket 1 serves.
+                threads = [threading.Thread(target=plain_submit, args=(s.uid, s)) for s in second + [ninth]]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                if errors:
+                    return
+                reads["steer"] = alice.steer("q10", n_steps=GATEWAY["steer_n_steps"], idem_key="steer-q10")
+                docs = {}
+                for u, q in qualified.items():
+                    client = gateway_client(gateway.url, token[principal[u]])
+                    tid = q.split("--", 1)[1]
+                    docs[u] = await_results(client, [tid])[tid]
+                    if u != n1 + n2:
+                        reads.setdefault("npz", {})[u] = npz_vs_disk(client, tid, daemon.service.namespace(q), docs[u])
+                reads["docs"] = docs
+                reads["flight_rows"] = len(alice.flight("t0", after=-1, wait=0))
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+            finally:
+                stop.set()
+
+        conductor = threading.Thread(target=orchestrate)
+        conductor.start()
+        gateway.serve(stop=stop.is_set, idle_sleep=0.01)
+        conductor.join()
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t_start
+        OptimizationService._fresh_state = real_fresh
+        launches = counts(counters)
+        if errors:
+            raise errors[0]
+
+        # Exactly once, idempotent replays, the faults as scheduled.
+        events = sorted(kind for t in transports for _i, kind in t.events)
+        expect(events, ["drop-reply", "drop-request", "duplicate-request", "torn-reply"], "gateway_main_path faults")
+        statusz = gateway.statusz_payload()
+        expect(statusz["idem_replays"] >= 3, True, f"idempotent replays {statusz['idem_replays']} (lost replies 2, "
+               f"duplicates 1)")
+        submits = journal_submits(root / "svc")
+        expect(sorted(submits), sorted(f"{principal[u]}:{k}" for u, k in keys.items()), "journaled submit keys")
+        expect(set(submits.values()), {1}, "journaled submits a key")
+        expect(sorted(a["uid"] for u, a in acks.items() if isinstance(u, int)), sorted(qualified), "acked uids")
+        expect(reads["steer"]["knobs"], {"n_steps": GATEWAY["steer_n_steps"]}, "the steer's knobs")
+        ninth_rec = daemon.tenant(qualified[n1 + n2])
+        expect((ninth_rec.status.value, ninth_rec.spec.n_steps), ("completed", GATEWAY["steer_n_steps"]),
+               "the steered ninth tenant")
+        docs = reads["docs"]
+        for u, doc in docs.items():
+            expect(len(doc["fitness_history"]), doc["generations"], f"{qualified[u]}: JSON history rows")
+            rec = daemon.tenant(qualified[u])
+            expect(doc["leaf_digests"] is not None, True, f"{qualified[u]}: leaf digests in the result")
+            want = [r.tolist() for r in rec.monitor.fitness_history]
+            expect(doc["fitness_history"] == want, True, f"{qualified[u]}: the JSON history against the monitor's")
+        on_card = {q: daemon.tenant(q).spec.algorithm.lb.device.type for q in qualified.values()}
+        expect(set(on_card.values()), {device.type}, f"the tenants' devices {on_card}")
+
+        # The kernels on both buckets' final states, one setup's draws.
+        buckets = list(daemon.service._buckets.values())
+        expect(len(buckets), 2, "gateway_main_path buckets")
+        for b in buckets:
+            expect(b.pack.captures, {"init": 1, "segment": 2}, "gateway_main_path captures a bucket")
+        seg, slow = GATEWAY["segment"], GATEWAY["segment"] * daemon.brownout_factor
+        expect(launches["fused_pso_move_batched"], 2 * ((seg + 1) + (slow + 1)), "gateway_main_path batched moves")
+        expect(launches["fused_pso_move"], 0, "gateway_main_path solo moves")
+        seen: list = []
+        with recording_draws(seen):
+            real_fresh(daemon.service, buckets[0], TenantRecord(spec=daemon.tenant(qualified[0]).spec, uid=0))
+        draws = draws_on_path("gateway_main_path setup", seen)
+        expect(launches["philox_draws"], setups[0] * draws["calls"], f"gateway_main_path draws ({setups[0]} setups)")
+        kernels = {f"bucket{i + 1}": batched_exact_vs_plain(b.pack._states) for i, b in enumerate(buckets)}
+
+        # Bit for bit against the Python API's run of card-built specs.
+        reference = gateway_reference(device, root / "ref")
+        compared = {u: q for u, q in qualified.items() if u != n1 + n2}
+        n_equal = gateway_vs_reference(daemon, root / "svc", compared, reference, "gateway_main_path")
+        gateway.close()
+        row = {
+            "config": f"Gateway(tokens={{2 principals}}) over ServiceDaemon(lanes_per_pack={GATEWAY['lanes']}, "
+                      f"segment_steps={seg}): {n1} x PSO pop={GATEWAY['pop']} dim={GATEWAY['dim']} Ackley f32 "
+                      f"(4 CPU-built, one as the catalog form, 4 card-built) by 4 client threads over "
+                      f"FaultyTransport, {n2} x dim {GATEWAY['second_dim']} mid-run, a steered ninth; budgets "
+                      f"{n_steps}",
+            "launches": launches, "setups": setups[0], "philox_per_setup": draws["calls"],
+            "prewarm_s": prewarm_s, "served_s": served_s,
+            "submit_to_ack_s": {str(u): latencies[u] for u in sorted(latencies)},
+            "submit_to_ack_s_median": median(list(latencies.values())),
+            "first_flight_long_poll_s": reads["first_flight_s"], "flight_rows": reads["flight_rows"],
+            "client_retries": {k: v for k, v in acks.items() if not isinstance(k, int)},
+            "events": events, "statusz": {k: statusz[k] for k in ("requests", "errors", "idem_replays", "idem_keys",
+                                                                 "principals", "retry_after_sent")},
+            "npz": {str(u): v for u, v in reads["npz"].items()}, "bit_identical_tenants": n_equal,
+            "segments": daemon.service.stats.segments_run, "round_seconds": daemon._last_segment_seconds,
+            "kernels": kernels, "philox_on_path_vs_plain": draws,
+            "max_abs_err": {k: max(v[k]["max_abs_err"] for v in kernels.values())
+                            for k in ("fused_pso_move_batched", "philox_draws_batched")},
+        }
+        del daemon, gateway, buckets
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        OptimizationService._fresh_state = real_fresh
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def gateway_child(mode, root, tree, out_dir, device, port) -> tuple:
+    """Start one ``GATEWAY_CHILD`` process; its ``Popen``, the paths of its
+    summary, and its spawn time."""
+    env = {k: v for k, v in fleet_env().items() if k != "PYTHONPATH"}
+    out = Path(out_dir) / f"gateway_{mode}.json"
+    cfg = {**GATEWAY, "tokens": GATEWAY_TOKENS, "port": port, "device": str(device)}
+    spawned = time.time()
+    proc = subprocess.Popen([sys.executable, "-c", GATEWAY_CHILD, mode, str(root), str(tree), str(out),
+                             json.dumps(cfg)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out, spawned
+
+
+def await_ready(proc, out, timeout_s=300) -> dict:
+    deadline = time.monotonic() + timeout_s
+    ready = Path(str(out) + ".ready")
+    while not ready.exists():
+        if proc.poll() is not None:
+            raise AssertionError(f"the gateway process exited {proc.returncode} before serving:\n"
+                                 f"{proc.stderr.read()[-3000:]}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the gateway process did not serve within {timeout_s} s")
+        time.sleep(0.05)
+    return json.loads(ready.read_text())
+
+
+def phase_gateway_kill_restart(device) -> dict:
+    """daemon_child's scheme behind the gateway: a cold process (a copy of
+    the package with an empty build/) runs the daemon and gateway on the
+    card on a fixed port (``free_coordinator_port``); this process's client
+    submits daemon_main_path's 8 tenants (card-built, budgets 200).  The
+    cold process SIGKILLs itself after the journal append of the last
+    submit, before its reply (its script's hook).  The client keeps
+    retrying that key while a warm process (a second such copy) starts over
+    the same root and port: its retry comes back ``200`` with
+    ``"idempotent_replay": true`` and the original uid, from a process that
+    built nothing (every pack program a cache hit).  The journal holds one
+    submit a key; ``result?format=npz`` from the warm process equals the
+    files on disk; every tenant equals the Python API's run, state and
+    newest checkpoint digests, bit for bit."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from evox_tpu_torch.resilience import free_coordinator_port
+    from evox_tpu_torch.resilience.testing import verify_tenants_bit_identical
+
+    pycache = wait_fleet_pycache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_gateway_kill_"))
+    killed = root / "killed"
+    n1 = GATEWAY["tenants"]
+    procs = []
+    try:
+        reference = gateway_reference(device, root / "ref")
+        port = free_coordinator_port()
+        base = f"http://127.0.0.1:{port}"
+        specs = daemon_specs(device, range(n1), GATEWAY["n_steps"])
+        keys = [f"kill-{u}" for u in range(n1)]
+        cold, cold_out, cold_spawned = gateway_child("cold", killed, package_copy(root / "cold_tree"), root, device,
+                                                     port)
+        procs.append(cold)
+        await_ready(cold, cold_out)
+        client = gateway_client(base, "tok-alice", max_retries=400, backoff_cap=0.25)
+        acks, acked_at = [], []
+        for spec, key in zip(specs[:-1], keys[:-1]):
+            acks.append(client.submit(spec, idem_key=key))
+            acked_at.append(time.time())
+        last: dict = {}
+
+        def retry_last():
+            try:
+                last["ack"] = client.submit(specs[-1], idem_key=keys[-1])
+                last["at"] = time.time()
+            except BaseException as e:  # noqa: BLE001 - raised below
+                last["error"] = e
+
+        retry = threading.Thread(target=retry_last)
+        retry.start()
+        cold.wait(timeout=300)
+        killed_at = time.time()
+        expect(cold.returncode, -9, "the cold gateway process's exit (SIGKILL)")
+        cold_rec = json.loads(cold_out.read_text())
+        warm, warm_out, warm_spawned = gateway_child("warm", killed, package_copy(root / "warm_tree"), root, device,
+                                                     port)
+        procs.append(warm)
+        await_ready(warm, warm_out)
+        retry.join(timeout=300)
+        if "error" in last:
+            raise last["error"]
+        ack = last["ack"]
+        expect((ack.get("idempotent_replay"), ack.get("route"), ack.get("uid")), (True, "submit", n1 - 1),
+               "the retried submit's ack across the SIGKILL")
+        docs = await_results(client, [s.tenant_id for s in specs])
+        npz = {s.tenant_id: npz_vs_disk(client, s.tenant_id, killed / "tenants" / f"alice--{s.tenant_id}",
+                                        docs[s.tenant_id]) for s in specs}
+        Path(str(warm_out) + ".stop").write_text("")
+        warm.wait(timeout=120)
+        expect(warm.returncode, 0, f"the warm gateway process's exit:\n{warm.stderr.read()[-3000:]}")
+        warm_rec = json.loads(warm_out.read_text())
+        for rec, tree in ((cold_rec, root / "cold_tree"), (warm_rec, root / "warm_tree")):
+            if not rec["build_dir"].startswith(str(tree)):
+                raise AssertionError(f"the {rec['mode']} gateway process built into {rec['build_dir']}, not {tree}")
+        expect(cold_rec["submits"], n1, "submits journaled by the cold process")
+        expect(cold_rec["kernel_builds"]["builds"] >= 1, True, f"the cold process's builds {cold_rec['kernel_builds']}")
+        expect(warm_rec["restored"], n1, "tenants the warm process replayed")
+        expect(warm_rec["kernel_builds"]["builds"], 0, "nvcc builds in the warm process")
+        expect((warm_rec["cache"]["misses"], warm_rec["cache"]["quarantines"]), (0, 0),
+               "the warm process's cache misses, quarantines")
+        expect(warm_rec["cache"]["hits"], len(warm_rec["prewarmed"]), "the warm process's cache hits")
+        expect(all(warm_rec["prewarmed"].values()), True, "every warm pack program from the cache")
+        expect(set(warm_rec["statuses"].values()), {"completed"}, "the warm process's tenants")
+        expect(warm_rec["gateway"]["idem_replays"] >= 1, True, "the warm gateway's idempotent replays")
+        submits = journal_submits(killed)
+        expect(submits, {f"alice:{k}": 1 for k in keys}, "journaled submits a key across the SIGKILL")
+        check = gateway_daemon(killed, device, exec_cache=None)
+        check.start()
+        check.run()
+        ids = {u: f"alice--t{u}" for u in range(n1)}
+        verify_tenants_bit_identical(check, killed, {ids[u]: reference[u][0] for u in ids},
+                                     {ids[u]: reference[u][1] for u in ids}, "gateway_kill_restart")
+        launches = {k: cold_rec["launches"][k] + warm_rec["launches"][k] for k in cold_rec["launches"]}
+        row = {
+            "config": f"Gateway over ServiceDaemon(lanes_per_pack={GATEWAY['lanes']}, segment_steps="
+                      f"{GATEWAY['segment']}) in a process of its own on a fixed port: {n1} x PSO pop={GATEWAY['pop']} "
+                      f"dim={GATEWAY['dim']} Ackley, budgets {GATEWAY['n_steps']}; SIGKILL after the last submit's "
+                      f"journal append, warm process over the same root and port",
+            "launches": launches,
+            "cold_spawn_to_serving_s": cold_rec["marks"]["serving_wall"] - cold_spawned,
+            "cold_spawn_to_first_ack_s": acked_at[0] - cold_spawned,
+            "warm_spawn_to_serving_s": warm_rec["marks"]["serving_wall"] - warm_spawned,
+            "warm_spawn_to_retried_ack_s": last["at"] - warm_spawned,
+            "kill_to_retried_ack_s": last["at"] - killed_at,
+            "client_retries": client.retries, "retried_ack": ack,
+            "cold": {k: cold_rec[k] for k in ("marks", "captures", "kernel_builds", "cache", "launches", "submits")},
+            "warm": {k: warm_rec[k] for k in ("marks", "captures", "kernel_builds", "cache", "launches", "restored",
+                                              "gateway")},
+            "npz": npz, "bit_identical_tenants": len(ids), "pycache": pycache,
+        }
+        del check
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_gateway_overhead(device) -> dict:
+    """The contract of the JAX package's ``tools/bench_gateway.py`` on the
+    card, at daemon_main_path's width: one daemon (flight recorder armed)
+    behind a gateway; batches of 8 measured tenants and 1 queued
+    sacrificial tenant, submitted over HTTP and served by ``gateway.pump()``
+    (the budgets sized from a warm batch so that a batch runs at least
+    ``min_batch_s``), then retired; *quiet* batches against *loaded* ones,
+    where a separate process that imports no torch steers the sacrificial
+    tenant, reads its status and scrapes ``/statusz`` at 1 Hz; best of 3 a
+    side.  The per-tenant generations/s of each side and their ratio are
+    printed beside the JAX package's 98 % floor, not gated; the
+    submit-to-first-flight latency is printed.  Fails if the operator's
+    mutations never landed or any reply was a 5xx."""
+    import math
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from evox_tpu_torch.obs import FlightRecorder, MetricsRegistry, Observability
+    from evox_tpu_torch.service import Gateway, OptimizationService
+
+    cfg = GATEWAY_OVERHEAD
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_gateway_overhead_"))
+    token, principal = next(iter(GATEWAY_TOKENS.items()))
+    try:
+        counters = hpo_counters()
+        setups = [0]
+        real_fresh = OptimizationService._fresh_state
+
+        def counting_fresh(self, bucket, record):
+            setups[0] += 1
+            return real_fresh(self, bucket, record)
+
+        obs = Observability(registry=MetricsRegistry(), flight=FlightRecorder(root / "flight", window=64))
+        daemon = gateway_daemon(root / "svc", device, obs=obs, preemption=False)
+        gateway = Gateway(daemon, tokens=GATEWAY_TOKENS)
+        OptimizationService._fresh_state = counting_fresh
+        for c in counters.values():
+            c.launches = 0
+        gateway.start()
+        client = gateway_client(gateway.url, token)
+        seg = GATEWAY["segment"]
+
+        def batch(tag, n_steps):
+            # uids from the service (retired tenants free theirs).
+            specs = daemon_specs(device, range(GATEWAY["tenants"]), n_steps, prefix=f"{tag}-t")
+            specs.append(dataclasses.replace(daemon_specs(device, [0], seg)[0], tenant_id=f"{tag}-parked"))
+            for spec in specs:
+                client.submit(dataclasses.replace(spec, uid=None))
+            t0 = time.perf_counter()
+            gateway.pump()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            for spec in specs:
+                daemon.forget(f"{principal}--{spec.tenant_id}")
+            return seconds
+
+        # The budget: a first guess from a warm batch, then scaled by the
+        # time of a batch at that guess (a batch's fixed part does not
+        # scale, so a shortened budget errs long), with a third in hand for
+        # the spread between batches.
+        warm_s = batch("warm", cfg["calibrate_steps"])
+        guess = seg * math.ceil(cfg["min_batch_s"] * 1.6 * cfg["calibrate_steps"] / warm_s / seg)
+        guess_s = batch("calibrate", guess)
+        n_steps = seg * math.ceil(guess * 1.35 * cfg["min_batch_s"] / guess_s / seg)
+
+        # Submit to the first flight row visible over HTTP.
+        probe = dataclasses.replace(daemon_specs(device, [0], 2 * seg, prefix="probe")[0], uid=None)
+        client.submit(probe)
+        acked = time.perf_counter()
+        pump = threading.Thread(target=gateway.pump)
+        pump.start()
+        rows = client.flight("probe0", after=-1, wait=60)
+        first_flight_s = time.perf_counter() - acked
+        pump.join(timeout=120)
+        expect(bool(rows), True, "a flight row over HTTP")
+        daemon.forget(f"{principal}--probe0")
+
+        seconds = {"quiet": [], "loaded": []}
+        operator = {"mutations": 0, "reads": 0, "benign": 0, "failures": 0, "statuses": {}}
+        for r in range(cfg["repeats"]):
+            seconds["quiet"].append(batch(f"r{2 * r}", n_steps))
+            proc = subprocess.Popen([sys.executable, "-c", GATEWAY_OPERATOR, daemon.endpoint.url, token,
+                                     f"r{2 * r + 1}-parked", str(cfg["client_hz"])],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            try:
+                seconds["loaded"].append(batch(f"r{2 * r + 1}", n_steps))
+            finally:
+                proc.terminate()
+                out, err = proc.communicate(timeout=30)
+            lines = [ln for ln in out.splitlines() if ln.strip()]
+            if lines:
+                last = json.loads(lines[-1])
+                for k in ("mutations", "reads", "benign", "failures"):
+                    operator[k] += last[k]
+                for code, n in last["statuses"].items():
+                    operator["statuses"][code] = operator["statuses"].get(code, 0) + n
+        torch.cuda.synchronize()
+        OptimizationService._fresh_state = real_fresh
+        launches = counts(counters)
+        statusz = gateway.statusz_payload()
+        gateway.close()
+        expect(min(seconds["quiet"] + seconds["loaded"]) >= cfg["min_batch_s"], True,
+               f"every batch at least {cfg['min_batch_s']} s ({seconds})")
+        expect(operator["mutations"] > 0, True, f"the operator's mutations landed ({operator})")
+        expect(operator["failures"], 0, f"the operator's failures, 5xx replies included ({operator})")
+        fives = {k: v for k, v in statusz["requests"].items() if int(k.rsplit(":", 1)[1]) >= 500}
+        expect(fives, {}, "5xx replies of the gateway")
+        per_tenant = {side: n_steps / min(t) for side, t in seconds.items()}
+        row = {
+            "config": f"Gateway over ServiceDaemon(lanes_per_pack={GATEWAY['lanes']}, segment_steps={seg}, flight "
+                      f"recorder): batches of {GATEWAY['tenants']} x PSO pop={GATEWAY['pop']} dim={GATEWAY['dim']} "
+                      f"Ackley, budgets {n_steps}, + 1 queued sacrificial; operator process at {cfg['client_hz']} Hz "
+                      f"(steer, status, /statusz); best of {cfg['repeats']} a side",
+            "launches": launches, "setups": setups[0], "n_steps": n_steps, "warm_batch_s": warm_s,
+            "calibration": {"n_steps": guess, "seconds": guess_s},
+            "seconds": seconds, "per_tenant_gen_per_s": per_tenant,
+            "throughput_ratio": per_tenant["loaded"] / per_tenant["quiet"], "jax_floor_ratio": cfg["floor"],
+            "submit_to_first_flight_s": first_flight_s, "operator": operator,
+            "gateway_requests": statusz["requests"],
+        }
+        del daemon, gateway
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        OptimizationService._fresh_state = real_fresh
+        shutil.rmtree(root, ignore_errors=True)
+
+
+GATEWAY_PHASES = ("gateway_main_path", "gateway_kill_restart", "gateway_overhead")
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -8004,7 +8744,10 @@ def philox_row(results) -> dict:
         # warm daemon processes.
         + sum(results[p]["launches"]["philox_draws"] for p in ("daemon_main_path", "daemon_overload"))
         # The HPO tenants' setups (the outer algorithms' draws).
-        + sum(results[p]["launches"]["philox_draws"] for p in HPO_WORKLOAD_PHASES),
+        + sum(results[p]["launches"]["philox_draws"] for p in HPO_WORKLOAD_PHASES)
+        # The gateway's tenants' setups, in this process and in the cold and
+        # warm gateway processes.
+        + sum(results[p]["launches"]["philox_draws"] for p in GATEWAY_PHASES),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -8034,7 +8777,11 @@ def batched_rows(results) -> list[dict]:
          # The service's HPO workload: the packs' segment and init captures
          # (the outer PSO over the lanes, the inner PSO over lanes x
          # candidates), in this process and the HPO daemon's two.
-         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in HPO_WORKLOAD_PHASES),
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in HPO_WORKLOAD_PHASES)
+         # The gateway's daemons: their prewarmed captures of both cadences
+         # (two buckets in gateway_main_path), in this process and in the
+         # cold and warm gateway processes.
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in GATEWAY_PHASES),
          **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the HPO path's recorded moves, the pack's shape
          # and the eager vmapped segments' recorded moves.
@@ -8046,7 +8793,9 @@ def batched_rows(results) -> list[dict]:
                             # The packs of nests' own moves: (A)'s outer one at
                             # (4, 64, 2), (B)'s inner ones at 4 x 64 instances
                             # of (1024, 32).
-                            results["service_hpo_main_path"]["max_abs_err"]["fused_pso_move_batched"])},
+                            results["service_hpo_main_path"]["max_abs_err"]["fused_pso_move_batched"],
+                            # The gateway's daemon's two buckets' final states.
+                            results["gateway_main_path"]["max_abs_err"]["fused_pso_move_batched"])},
         {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
          "replaces": "none (the port's own kernel, batched over vmapped instances)",
          # With the rollouts' resets (one launch for the episodes a
@@ -8071,13 +8820,16 @@ def batched_rows(results) -> list[dict]:
          + sum(results[p]["launches"]["philox_draws_batched"] for p in ("daemon_main_path", "daemon_overload"))
          # The service's HPO workload: OpenES's normals over lanes x
          # candidates and CMA-ES's over the lanes in the packs' captures.
-         + sum(results[p]["launches"]["philox_draws_batched"] for p in HPO_WORKLOAD_PHASES),
+         + sum(results[p]["launches"]["philox_draws_batched"] for p in HPO_WORKLOAD_PHASES)
+         # The gateway's paths (PSO draws in the move kernel: none).
+         + sum(results[p]["launches"]["philox_draws_batched"] for p in GATEWAY_PHASES),
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the pack's shape, and the rollouts' recorded
          # resets.
          "max_abs_err": max(t["philox_draws_batched"]["max_abs_err"],
                             results["service_pack"]["max_abs_err"]["philox_draws_batched"],
                             results["daemon_main_path"]["max_abs_err"]["philox_draws_batched"],
+                            results["gateway_main_path"]["max_abs_err"]["philox_draws_batched"],
                             on_path_err(results, "philox_draws_batched"))},
     ]
 
@@ -8230,6 +8982,9 @@ def main() -> int:
         ("service_hpo_main_path", phase_service_hpo_main_path),
         ("service_hpo_grow", phase_service_hpo_grow),
         ("daemon_hpo_restart", phase_daemon_hpo_restart),
+        ("gateway_main_path", phase_gateway_main_path),
+        ("gateway_kill_restart", phase_gateway_kill_restart),
+        ("gateway_overhead", phase_gateway_overhead),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -8263,7 +9018,7 @@ def main() -> int:
     # The fleets' worker processes (distributed_8dev's width), each
     # worker's count through its last boundary (a SIGKILLed worker's too).
     routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in ("fleet_main_path", "fleet_straggler"))
-    routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in HPO_WORKLOAD_PHASES)
+    routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in HPO_WORKLOAD_PHASES + GATEWAY_PHASES)
     emit("kernels", [
         {
             "name": "fused_pso_move",

@@ -28,7 +28,7 @@ Routes (all ``GET``, all read-only):
 One optional **write** surface rides the same port: every request under
 ``/api/`` (any method — the gateway uses POST/DELETE/GET) is delegated
 verbatim to the ``api=`` callable when one is wired
-(:class:`evox_tpu.service.Gateway` is the only in-repo owner).  The
+(:class:`evox_tpu_torch.service.Gateway` is the only in-package owner).  The
 endpoint stays transport only: it reads the bounded request body, hands
 ``(method, raw_path, headers, body)`` over, and writes back whatever
 ``(status, content_type, body, extra_headers)`` comes out — routing,

@@ -58,7 +58,7 @@ SIGNAL_TENANT_GENS = "tenant_gens_per_sec"
 SIGNAL_ADMISSION = "admission"
 # Gateway request availability: pre-judged events (good = the request
 # was served without a 5xx; 4xx client mistakes are good events — the
-# service answered correctly).  Fed by evox_tpu.service.Gateway.
+# service answered correctly).  Fed by evox_tpu_torch.service.Gateway.
 SIGNAL_GATEWAY = "gateway_availability"
 # Cold-start recovery time: wall seconds of journal replay + fold +
 # tenant resubmission, observed once per daemon/router start.  Fed by

@@ -23,12 +23,16 @@ Ported:
   launches worker processes with the ``EVOX_TPU_FLEET_*`` bootstrap
   contract, watches their exit codes and heartbeats, stops and relaunches
   the survivors on a smaller world, which resume from the shared
-  checkpoints bit for bit.
+  checkpoints bit for bit;
+* the wire-side injector of :mod:`.transport` (:class:`FaultyTransport`,
+  :class:`TransportError`): dropped, torn, duplicated and delayed
+  requests and replies between the gateway client and its socket
+  (ROADMAP item 13.8b, with the gateway).
 
-Not ported yet: the wire-side injector, the invariant registry and the
-chaos harness (ROADMAP Queue 1, item 13.8d: they audit and drive the
-service's gateway and router, which come first); importing one of their
-names raises :class:`ImportError`.  The kill matrices and bit-identity
+Not ported yet: the invariant registry and the chaos harness (ROADMAP
+Queue 1, item 13.8d: they audit and drive the service's router and
+members, which come first); importing one of their names raises
+:class:`ImportError`.  The kill matrices and bit-identity
 comparators are ported in :mod:`.testing`, imported explicitly as in the
 JAX package.
 """
@@ -75,6 +79,7 @@ from .runner import (
     scan_checkpoints,
 )
 from .schedule import validate_schedule
+from .transport import FaultyTransport, TransportError
 
 __all__ = [
     "MeshTopology",
@@ -113,6 +118,8 @@ __all__ = [
     "InjectedFatalError",
     "InjectedStorageError",
     "validate_schedule",
+    "FaultyTransport",
+    "TransportError",
     "FleetSupervisor",
     "FleetError",
     "FleetStats",
@@ -122,8 +129,6 @@ __all__ = [
 ]
 
 _CHAOS = (
-    "FaultyTransport",
-    "TransportError",
     "AuditContext",
     "InvariantViolation",
     "INVARIANTS",
@@ -139,8 +144,8 @@ _NOT_PORTED = _CHAOS
 def __getattr__(name: str):
     if name in _CHAOS:
         raise ImportError(
-            f"evox_tpu_torch.resilience.{name} is not ported yet: the wire-side injector, the invariant "
-            f"registry and the chaos harness (transport.py, invariants.py, chaos.py) audit and drive the service's "
-            f"router, members and journals, and come after them (ROADMAP Queue 1, item 13.8d)"
+            f"evox_tpu_torch.resilience.{name} is not ported yet: the invariant registry and the chaos harness "
+            f"(invariants.py, chaos.py) audit and drive the service's router, members and journals, and come "
+            f"after them (ROADMAP Queue 1, item 13.8d)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -21,18 +21,27 @@ Ported:
   introspection endpoint, :meth:`~ServiceDaemon.fleet_supervisor`),
   :class:`TenantClass`, :class:`DaemonStats`, :data:`STEER_KNOBS`.
 
+* the network front door (:mod:`.gateway`, :mod:`.client`):
+  :class:`Gateway` (bearer-token principals, ``<principal>--<id>``
+  namespaces, idempotency keys riding the journal for exactly-once
+  admission across a SIGKILL, overload as 429/503 with a measured
+  ``Retry-After``), :data:`PRINCIPAL_SEP`, and the stdlib client
+  :class:`GatewayClient` with :class:`HttpTransport`,
+  :class:`GatewayError` and :func:`encode_spec`;
+
 * the HPO workload: ``TenantSpec(workload="hpo", grow=...)`` packs
   :class:`~evox_tpu_torch.hpo.NestedProblem` tenants (the nest inline in
   the pack's captured graph), counts ``evox_hpo_*`` per tenant, and grows
   a stagnating ladder by a journaled ``hpo-grow`` decision that re-keys
   the tenant to the grown bucket.
 
-Not ported yet: the gateway and its client with ``encode_spec`` (item
-13.8b), and the tenant router and its members (item 13.8c); importing one
-of their names raises :class:`ImportError`.
+Not ported yet: the tenant router and its members (item 13.8c);
+importing one of their names raises :class:`ImportError`.
 """
 
+from .client import GatewayClient, GatewayError, HttpTransport, encode_spec
 from .daemon import STEER_KNOBS, DaemonStats, ServiceDaemon, TenantClass
+from .gateway import PRINCIPAL_SEP, Gateway
 from .journal import (
     CompactionResult,
     JournalDamage,
@@ -49,11 +58,16 @@ __all__ = [
     "AdmissionError",
     "CompactionResult",
     "DaemonStats",
+    "Gateway",
+    "GatewayClient",
+    "GatewayError",
+    "HttpTransport",
     "JournalDamage",
     "JournalError",
     "JournalRecord",
     "JournalSnapshot",
     "OptimizationService",
+    "PRINCIPAL_SEP",
     "Rejection",
     "RequestJournal",
     "STEER_KNOBS",
@@ -66,20 +80,15 @@ __all__ = [
     "TenantStatus",
     "assign_fault_lane",
     "bucket_key",
+    "encode_spec",
     "retry_after_seconds",
     "static_signature",
     "validate_tenant_id",
 ]
 
 # Not ported yet, with the ROADMAP Queue 1 item that ports each.
-_GATEWAY = "item 13.8b (the gateway and its client)"
 _ROUTER = "item 13.8c (the tenant router and its members)"
 _NOT_PORTED = {
-    "Gateway": _GATEWAY,
-    "GatewayClient": _GATEWAY,
-    "GatewayError": _GATEWAY,
-    "HttpTransport": _GATEWAY,
-    "encode_spec": _GATEWAY,
     "MEMBER_API_PREFIX": _ROUTER,
     "ServiceMember": _ROUTER,
     "TenantRouter": _ROUTER,

@@ -538,7 +538,8 @@ def test_control_modules_import_no_jax():
 
     root = Path(control.__file__).resolve().parent.parent
     files = sorted((root / "control").glob("*.py")) + sorted((root / "service").glob("*.py"))
-    assert len(files) == 9  # control: 3; service: daemon, journal, pack, service, tenant and __init__
+    # control: 3; service: client, daemon, gateway, journal, pack, service, tenant and __init__
+    assert len(files) == 11
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else (

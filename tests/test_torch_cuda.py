@@ -2437,3 +2437,121 @@ def test_hpo_bucket_prewarm_records_the_move_and_philox(cuda, tmp_path):
     bucket = next(iter(d.service._buckets.values()))
     assert len(find_nested(bucket.workflow.problem)._graphs) == 0
     d.close()
+
+
+def _gateway(cuda, root, **kw):
+    from evox_tpu_torch.service import Gateway, ServiceDaemon
+
+    daemon = ServiceDaemon(root, lanes_per_pack=2, segment_steps=4, preemption=False, brownout_threshold=None,
+                           device=cuda, **kw)
+    return daemon, Gateway(daemon, tokens={"tok": "alice"}).start()
+
+
+def _pso_spec(name, uid, device, dim=8, n_steps=12):
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.service import TenantSpec
+
+    algo = PSO(64, torch.full((dim,), -32.0), torch.full((dim,), 32.0), device=device)
+    return TenantSpec(name, algo, Ackley(), n_steps=n_steps, uid=uid)
+
+
+def test_gateway_result_of_a_card_tenant_returns_its_history(cuda, tmp_path):
+    """``GET .../result`` of a tenant on the card: its monitor's history
+    rows leave the card under the gateway's lock and come back as JSON,
+    equal to the history the daemon holds."""
+    from evox_tpu_torch.service import GatewayClient
+
+    daemon, gateway = _gateway(cuda, tmp_path / "svc")
+    try:
+        client = GatewayClient(gateway.url, "tok")
+        client.submit(_pso_spec("t0", 0, cuda))
+        gateway.pump()
+        doc = client.result("t0", wait=30)
+        assert doc["status"] == "completed"
+        history = daemon.tenant("alice--t0").monitor.fitness_history
+        assert len(doc["fitness_history"]) == doc["generations"] == len(history)
+        for row, want in zip(doc["fitness_history"], history):
+            assert torch.equal(torch.tensor(row, dtype=want.dtype), want.cpu())
+        assert daemon.result("alice--t0").algorithm.pop.device.type == "cuda"
+    finally:
+        gateway.close()
+
+
+def test_gateway_submit_decoded_during_a_capture_keeps_it_intact(cuda, tmp_path):
+    """A new bucket's programs are captured under the gateway's lock (its
+    first submit prewarms them) while another handler thread decodes a
+    submit: the second decode is held to happen inside the open capture.
+    The capture stays intact, both tenants complete, and each equals the
+    same spec submitted through the Python API, bit for bit."""
+    import threading
+
+    from evox_tpu_torch.resilience.testing import assert_states_equal
+    from evox_tpu_torch.service import Gateway, GatewayClient, ServiceDaemon
+
+    daemon, gateway = _gateway(cuda, tmp_path / "svc")
+    capturing, decoded = threading.Event(), threading.Event()
+    begin = torch.cuda.CUDAGraph.capture_begin
+    decode = Gateway._decode_submit_spec
+
+    def held_capture(self, *a, **k):
+        begin(self, *a, **k)
+        if not capturing.is_set():
+            capturing.set()
+            assert decoded.wait(60), "no submit was decoded during the capture"
+
+    def watched_decode(self, payload, device):
+        spec = decode(self, payload, device)
+        if capturing.is_set() and device.type == "cpu":
+            decoded.set()
+        return spec
+
+    try:
+        client = GatewayClient(gateway.url, "tok")
+        client.submit(_pso_spec("a0", 0, "cpu"))  # bucket A: captured here, before the hold
+        torch.cuda.CUDAGraph.capture_begin = held_capture
+        Gateway._decode_submit_spec = watched_decode
+        acks = {}
+        new_bucket = threading.Thread(target=lambda: acks.update(b0=client.submit(_pso_spec("b0", 1, "cpu", dim=4))))
+        new_bucket.start()
+        assert capturing.wait(60)
+        acks["a1"] = client.submit(_pso_spec("a1", 2, "cpu"))
+        new_bucket.join(120)
+        assert decoded.is_set() and set(acks) == {"b0", "a1"}
+        gateway.pump()
+        ref = ServiceDaemon(tmp_path / "ref", lanes_per_pack=2, segment_steps=4, preemption=False,
+                            brownout_threshold=None, device=cuda)
+        for name, uid, dim in (("a0", 0, 8), ("b0", 1, 4), ("a1", 2, 8)):
+            ref.submit(_pso_spec(f"alice--{name}", uid, cuda, dim=dim))
+        ref.run()
+        for name in ("a0", "b0", "a1"):
+            assert daemon.tenant(f"alice--{name}").status.value == "completed"
+            assert_states_equal(ref.result(f"alice--{name}"), daemon.result(f"alice--{name}"), name)
+        assert daemon.stats.captures == {"init": 2, "segment": 2}
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+        Gateway._decode_submit_spec = decode
+        gateway.close()
+
+
+def test_gateway_cpu_built_spec_runs_on_the_card_like_a_card_built_one(cuda, tmp_path):
+    """The same tenant built on the CPU and on the card, each submitted
+    over HTTP to a daemon on the card: both run there (the CPU-built
+    algorithm's device mapped to the daemon's), bit-equal in final state."""
+    from evox_tpu_torch.resilience.testing import assert_states_equal
+    from evox_tpu_torch.service import GatewayClient
+
+    results = []
+    for tag, device in (("cpu_built", "cpu"), ("card_built", cuda)):
+        daemon, gateway = _gateway(cuda, tmp_path / tag)
+        try:
+            GatewayClient(gateway.url, "tok").submit(_pso_spec("t0", 0, device))
+            gateway.pump()
+            record = daemon.tenant("alice--t0")
+            assert record.spec.algorithm.device.type == "cuda"
+            assert record.spec.algorithm.lb.device.type == "cuda"
+            results.append(daemon.result("alice--t0"))
+        finally:
+            gateway.close()
+    assert results[0].algorithm.pop.device.type == "cuda"
+    assert_states_equal(results[0], results[1], "CPU-built against card-built")
