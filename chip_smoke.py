@@ -117,7 +117,15 @@ the daemon and gateway in a process of their own, SIGKILLed between the
 journal append of a submit and its reply, the client's retry of that key
 answered by a warm process on the same port as an idempotent replay;
 ``gateway_overhead``: per-tenant gen/s with and without a 1 Hz operator
-process), checks that each path went through its kernels, and times them.  It prints one JSON line per
+process), then the tenant router (``router_main_path``: those 8 tenants
+placed by a ``TenantRouter`` over two ``ServiceMember``s of 4 lanes, bucket
+affinity, journal before each forward, a steer on both planes, member 1
+declared dead from frozen beats and its tenants migrated, every tenant
+bit-equal to the single daemon's run; ``router_kill_restart``: the router
+and its members in a process of their own, SIGKILLed between the journaled
+placement of the last submit and its forward, restarted warm with no
+kernel build; ``router_overhead``: per-tenant gen/s routed against
+direct), checks that each path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -8634,6 +8642,619 @@ def phase_gateway_overhead(device) -> dict:
 GATEWAY_PHASES = ("gateway_main_path", "gateway_kill_restart", "gateway_overhead")
 
 
+# -- the tenant router and its members (TenantRouter, ServiceMember) -----------
+
+# daemon_main_path's width, none cut: 8 x PSO(1024, ±32 in dim 100) on Ackley,
+# budgets 200, segments of 25, over two members of 4 lanes.  The main path
+# submits ``first_wave`` tenants, runs a round, submits the rest (bucket
+# affinity), runs ``freeze_after`` more rounds, then freezes member 1's beat:
+# the staleness threshold is ``dead_rounds`` times the longest round measured
+# so far, held for ``freeze_factor`` times that threshold.  The kill process
+# runs ``kill_after`` rounds before the last submit.
+ROUTER = dict(GATEWAY, members=2, member_lanes=GATEWAY["lanes"] // 2, first_wave=2, freeze_after=2, dead_rounds=2.0,
+              freeze_factor=1.5, kill_after=2)
+# router_overhead: the contract of the JAX package's tools/bench_router.py
+# (direct: one daemon of all the lanes; routed: the lanes split over two
+# members, its _SLOS armed on every daemon; alternating batches, best of
+# ``repeats`` a side; JAX's FLOOR reported, not gated) at this width, each
+# batch sized to at least ``min_batch_s`` on the direct side.
+ROUTER_OVERHEAD = dict(repeats=3, min_batch_s=5.0, calibrate_steps=200, floor=0.90,
+                       slos=dict(segment_seconds=60.0, gens_per_sec=0.001, window_seconds=300.0))
+
+# One router process over two member roots: ``cold`` submits all tenants but
+# the last, runs ``cfg["kill_after"]`` rounds, submits the last and SIGKILLs
+# itself at that submit's forward, after the router journaled its placement
+# (the post-journal-pre-forward kill point: the hook wraps this script's
+# ``router.links``, the package knows nothing of it); ``warm`` replays the
+# router journal (``start()`` reconciles the unforwarded placement), retries
+# the last submit as the client would, and runs every tenant to completion.
+# The package is imported from ``tree`` (a copy whose build/ is empty).  Each
+# writes a JSON summary (the cold one just before its SIGKILL).
+ROUTER_CHILD = """
+import json, os, signal, sys, time
+t0, wall0 = time.perf_counter(), time.time()
+mode, root, tree, out, cfg = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4], json.loads(sys.argv[5])
+sys.path.insert(0, tree)
+import torch
+from evox_tpu_torch.algorithms import PSO
+from evox_tpu_torch.ops import _build, philox, pso_step
+from evox_tpu_torch.problems.numerical import Ackley
+from evox_tpu_torch.service import RequestJournal, ServiceMember, TenantRouter, TenantSpec
+marks = {"imported": time.perf_counter() - t0}
+device = torch.device(cfg["device"])
+sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+members = [ServiceMember(i, os.path.join(root, "m%d" % i), heartbeat_dir=os.path.join(root, "beats"),
+                         lanes_per_pack=cfg["member_lanes"], segment_steps=cfg["segment"], on_event=lambda msg: None,
+                         device=device) for i in range(cfg["members"])]
+router = TenantRouter(os.path.join(root, "router"), members, fleet_dead_after=3600.0, fleet_start_grace=3600.0,
+                      on_event=lambda msg: None)
+n, d = cfg["pop"], cfg["dim"]
+specs = [TenantSpec("t%d" % u, PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device=device), Ackley(),
+                    n_steps=cfg["n_steps"], uid=u) for u in range(cfg["tenants"])]
+counters = {"fused_pso_move": pso_step.fused_pso_move, "fused_pso_move_batched": pso_step.fused_pso_move_batched,
+            "philox_draws": philox.philox_draws, "philox_draws_batched": philox.philox_draws_batched}
+forwards, rounds = [], []
+
+
+def journal_counts():
+    out = {"placement": {}, "migration": {}, "submit": {}}
+    paths = [os.path.join(root, "router", TenantRouter.JOURNAL_NAME)]
+    paths += [os.path.join(root, "m%d" % i, "journal.jsonl") for i in range(cfg["members"])]
+    for path in paths:
+        for r in RequestJournal(path).replay(quarantine=False)[0]:
+            if r.kind in out:
+                tid = r.data.get("tenant_id")
+                out[r.kind][tid] = out[r.kind].get(tid, 0) + 1
+    return out
+
+
+def summary(done, **extra):
+    rec = {"mode": mode, "marks": marks, "wall0": wall0, "done": done, "rounds_s": rounds, "forwards": len(forwards),
+           "kernel_builds": dict(_build.counts), "build_dir": str(_build.BUILD_DIR),
+           "caches": [{k: getattr(m.daemon.exec_cache.stats, k) for k in ("hits", "misses", "saves", "quarantines")}
+                      for m in members],
+           "captures": [m.daemon.stats.captures for m in members],
+           "prewarmed": [m.daemon.stats.prewarmed for m in members],
+           "launches": {k: v.launches for k, v in counters.items()},
+           "placements": {t: p["member"] for t, p in router._placements.items()},
+           "statuses": {t: router.tenant(t).status.value for t in router._placements if router._tenant_record(t)},
+           "journal": journal_counts(), **extra}
+    with open(out + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(out + ".tmp", out)
+
+
+class Link:
+    def __init__(self, inner):
+        self.inner = inner
+
+    def request(self, method, path, headers, body):
+        if path.endswith("/submit"):
+            forwards.append(time.time())
+            if mode == "cold" and len(forwards) == cfg["tenants"]:
+                summary(False)
+                os.kill(os.getpid(), signal.SIGKILL)
+        return self.inner.request(method, path, headers, body)
+
+
+for i in list(router.links):
+    router.links[i] = Link(router.links[i])
+restored = router.start()
+sync()
+marks["started"] = time.perf_counter() - t0
+
+
+def one_round():
+    t1 = time.perf_counter()
+    busy = router.step()
+    sync()
+    rounds.append(time.perf_counter() - t1)
+    if len(rounds) == 1:
+        marks["first_round"] = time.perf_counter() - t0
+        marks["first_round_wall"] = time.time()
+    return busy
+
+
+if mode == "cold":
+    for spec in specs[:-1]:
+        router.submit(spec)
+    sync()
+    marks["submitted"] = time.perf_counter() - t0
+    for _ in range(cfg["kill_after"]):
+        one_round()
+    router.submit(specs[-1])
+    raise SystemExit("the last submit's forward did not end the process")
+t1 = time.perf_counter()
+ack = router.submit(specs[-1])
+retried = {"uid": int(ack.uid), "status": ack.status.value, "seconds": time.perf_counter() - t1}
+while one_round():
+    pass
+summary(True, restored=restored, retried=retried)
+"""
+
+
+def router_fleet(root, device, slos=None, router_kw=None, **member_kw):
+    """Two ``ServiceMember``s of ``member_lanes`` lanes (roots ``root/m0``,
+    ``root/m1``, one heartbeat directory ``root/beats``, seed 0, on
+    ``device``) behind a ``TenantRouter`` at ``root/router``; its events
+    are collected."""
+    from evox_tpu_torch.obs import default_slos
+    from evox_tpu_torch.service import ServiceMember, TenantRouter
+
+    root = Path(root)
+    members = [ServiceMember(i, root / f"m{i}", heartbeat_dir=root / "beats", lanes_per_pack=ROUTER["member_lanes"],
+                             segment_steps=ROUTER["segment"], on_event=lambda msg: None, device=device,
+                             **({"slos": default_slos(**slos)} if slos else {}), **member_kw)
+               for i in range(ROUTER["members"])]
+    events: list = []
+    kw = {"fleet_dead_after": 300.0, "fleet_start_grace": 0.0, **(router_kw or {})}
+    router = TenantRouter(root / "router", members, on_event=events.append, **kw)
+    return router, members, events
+
+
+def journal_tally(path, kinds) -> dict:
+    """Records of ``kinds`` in a journal, by kind and tenant."""
+    from evox_tpu_torch.service import RequestJournal
+
+    out: dict = {k: {} for k in kinds}
+    for r in RequestJournal(path).replay(quarantine=False)[0]:
+        if r.kind in out:
+            tid = r.data.get("tenant_id")
+            out[r.kind][tid] = out[r.kind].get(tid, 0) + 1
+    return out
+
+
+def router_vs_reference(router, root, ids_by_uid, reference, what, resumed=()) -> int:
+    """Each tenant's final state, newest checkpoint digests (in its final
+    owner's root) and monitor history against the reference of its uid,
+    bit for bit.  A tenant ``resumed`` on another member holds the history
+    from its resume point on, which must equal the reference's tail."""
+    import numpy as np
+
+    from evox_tpu_torch.resilience.testing import assert_states_equal, last_checkpoint_digests, npify
+    from evox_tpu_torch.service import TenantStatus
+
+    for uid, tid in ids_by_uid.items():
+        state, digests, history = reference[uid]
+        record = router.tenant(tid)
+        expect(record.status, TenantStatus.COMPLETED, f"{what}: {tid}")
+        assert_states_equal(state, router.result(tid), f"{what}: {tid}")
+        owner = router._placements[tid]["member"]
+        expect(last_checkpoint_digests(Path(root) / f"m{owner}", tid), digests,
+               f"{what}: {tid} newest checkpoint digests")
+        got = [npify(r) for r in record.monitor.fitness_history]
+        if tid in resumed:
+            expect(0 < len(got) < len(history), True, f"{what}: {tid} history rows {len(got)} after its resume")
+            history = history[-len(got):]
+        expect(len(got), len(history), f"{what}: {tid} monitor history rows")
+        if not all(np.array_equal(g, w) for g, w in zip(got, history)):
+            raise AssertionError(f"{what}: {tid} monitor history differs")
+    return len(ids_by_uid)
+
+
+def phase_router_main_path(device) -> dict:
+    """daemon_main_path's 8 tenants (card-built, budgets 200) through a
+    ``TenantRouter`` over two ``ServiceMember``s of 4 lanes each (seed 0,
+    segments of 25, distinct roots, one heartbeat directory).  Two tenants
+    are submitted, a round runs, then the other six land by bucket
+    affinity, 4 / 4; every tenant's ``placement`` record is in the router's
+    journal before its forward, and its owner's journal holds one submit.
+    A steer is forwarded and journaled on both planes.  After two more
+    rounds member 1's beat freezes while member 0 keeps beating, and the
+    staleness threshold is tightened to twice the longest round measured:
+    the next round declares member 1 dead, journals a ``migration`` for
+    each of its tenants, copies their namespaces (equal to the originals)
+    and resubmits them on member 0 under their pinned uids; ``/statusz``
+    shows member 1 dead, ``/healthz`` is unhealthy with ``dead_members ==
+    [1]``.  Every tenant, migrated or not, ends bit-equal to
+    gateway_reference's single-daemon run (final state, newest checkpoint
+    digests, monitor history).  Launches counted from 0 over the routed
+    run; the batched move and draws on both members' final states, and a
+    setup's draws, against their plain versions."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.resilience.testing import last_checkpoint_digests
+    from evox_tpu_torch.service import OptimizationService, RequestJournal, TenantRouter
+    from evox_tpu_torch.service.tenant import TenantRecord
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_router_"))
+    n, n_steps, seg = ROUTER["tenants"], ROUTER["n_steps"], ROUTER["segment"]
+    real_fresh = OptimizationService._fresh_state
+    try:
+        reference = gateway_reference(device, root / "ref")
+        counters = hpo_counters()
+        setups = [0]
+
+        def counting_fresh(self, bucket, record):
+            setups[0] += 1
+            return real_fresh(self, bucket, record)
+
+        router, members, events = router_fleet(root, device)
+        journal_path = router.root / TenantRouter.JOURNAL_NAME
+        # Each member's segment: its daemon's step, the card waited out.
+        member_s: list = []
+        for m in members:
+            def timed_step(real=m.daemon.step, index=m.index):
+                t0 = time.perf_counter()
+                busy = real()
+                torch.cuda.synchronize()
+                member_s.append((index, time.perf_counter() - t0))
+                return busy
+
+            m.daemon.step = timed_step
+        # Journal before forward: every forward finds its decision durable.
+        journaled_first, forwarded_at = {}, {}
+        real_forward = router._forward_submit
+
+        def checked_forward(placement, *, allow_collision):
+            tid = placement["tenant_id"]
+            recs = RequestJournal(journal_path).replay(quarantine=False)[0]
+            journaled_first[tid] = any(r.kind in ("placement", "migration") and r.data.get("tenant_id") == tid
+                                       and r.data.get("member") == placement["member"] for r in recs)
+            record = real_forward(placement, allow_collision=allow_collision)
+            forwarded_at[tid] = time.perf_counter()
+            return record
+
+        router._forward_submit = checked_forward
+        verdict: dict = {}
+        real_migrate = router._migrate_member
+
+        def timed_migrate(index):
+            verdict["index"], verdict["at"] = index, time.perf_counter()
+            real_migrate(index)
+            verdict["done"] = time.perf_counter()
+            # Before the survivor steps: each copied namespace's newest
+            # checkpoint equals the dead member's.
+            verdict["copies"] = {t: last_checkpoint_digests(root / "m0", t) == last_checkpoint_digests(root / "m1", t)
+                                 for t, p in router._placements.items() if p["auto"]}
+
+        router._migrate_member = timed_migrate
+
+        OptimizationService._fresh_state = counting_fresh
+        for c in counters.values():
+            c.launches = 0
+        t_start = time.perf_counter()
+        router.start()
+        specs = daemon_specs(device, range(n), n_steps)
+        ack_s, rounds = {}, []
+
+        def submit(spec):
+            t0 = time.perf_counter()
+            record = router.submit(spec)
+            torch.cuda.synchronize()
+            ack_s[spec.tenant_id] = time.perf_counter() - t0
+            expect(int(record.uid), spec.uid, f"router_main_path: {spec.tenant_id}'s acked uid")
+
+        def one_round():
+            k = len(member_s)
+            t0 = time.perf_counter()
+            busy = router.step()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            mem = [s for _, s in member_s[k:]]
+            rounds.append({"s": total, "members_s": mem, "router_ms": (total - sum(mem)) * 1e3})
+            return busy
+
+        for spec in specs[:ROUTER["first_wave"]]:
+            submit(spec)
+        one_round()
+        affinity = {str(m.index): m.capacity()["free_lanes"] for m in members}
+        for spec in specs[ROUTER["first_wave"]:]:
+            submit(spec)
+        placed = {tid: p["member"] for tid, p in router._placements.items()}
+        expect(placed, {f"t{u}": u % 2 for u in range(n)}, "router_main_path placements (4 / 4 by affinity)")
+        expect(set(journaled_first.values()), {True}, "router_main_path: a placement journaled before each forward")
+        knobs = router.steer("t0", n_steps=n_steps, journal_extra={"idem": "steer-t0", "principal": "chip"})
+        expect(knobs, {"n_steps": n_steps}, "router_main_path: the steer's knobs")
+        for _ in range(ROUTER["freeze_after"]):
+            one_round()
+
+        # Member 1 stops beating; member 0 beats on.  The threshold: twice
+        # the longest round so far (a member beats once a round).
+        longest = max(r["s"] for r in rounds)
+        dead_after = ROUTER["dead_rounds"] * longest
+        freeze_s = ROUTER["freeze_factor"] * dead_after
+        deadline = time.monotonic() + freeze_s
+        while time.monotonic() < deadline:
+            members[0].beat()
+            time.sleep(0.05)
+        router.fleet_dead_after = dead_after
+        victims = [f"t{u}" for u in range(1, n, 2)]
+        one_round()
+        expect(sorted(router._dead), [1], "router_main_path: dead members after the freeze")
+        expect({t: router._placements[t]["member"] for t in victims}, {t: 0 for t in victims},
+               "router_main_path: the migrated tenants' owner")
+        copies = verdict["copies"]
+        expect(sorted(copies), victims, "router_main_path: the copied namespaces")
+        expect(set(copies.values()), {True}, f"router_main_path: copied namespaces equal their originals {copies}")
+        status = router._statusz()
+        expect(status["router"]["members"]["1"]["state"], "dead", "router_main_path: member 1's /statusz state")
+        expect(len(status["router"]["migrations"]), len(victims), "router_main_path: /statusz migrations")
+        healthy, payload = router._healthz()
+        expect((healthy, payload["dead_members"]), (False, [1]), "router_main_path: /healthz after the verdict")
+        while one_round():
+            pass
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t_start
+        OptimizationService._fresh_state = real_fresh
+        launches = counts(counters)
+        expect(sorted(router._dead), [1], "router_main_path: member 0 stayed alive")
+
+        # Exactly once on both planes.
+        tally = journal_tally(journal_path, ("placement", "migration", "steer"))
+        expect(tally["placement"], {f"t{u}": 1 for u in range(n)}, "router_main_path: placements a tenant")
+        expect(tally["migration"], {t: 1 for t in victims}, "router_main_path: migrations a tenant")
+        expect(tally["steer"], {"t0": 1}, "router_main_path: router steer records")
+        owned = [journal_tally(root / f"m{i}" / "journal.jsonl", ("submit", "steer")) for i in range(2)]
+        expect(owned[0]["submit"], {f"t{u}": 1 for u in range(n)}, "router_main_path: member 0's submits")
+        expect(owned[1]["submit"], {t: 1 for t in victims}, "router_main_path: member 1's submits")
+        expect(owned[0]["steer"], {"t0": 1}, "router_main_path: member 0's steer records")
+        captures = [dict(m.daemon.stats.captures) for m in members]
+        expect(captures, [{"init": 1, "segment": 2}] * 2, "router_main_path: captures a member (none on migration)")
+
+        # The kernels on both members' final states, one setup's draws.
+        seg_slow = seg * members[0].daemon.brownout_factor
+        expect(launches["fused_pso_move_batched"], 2 * ((seg + 1) + (seg_slow + 1)), "router_main_path batched moves")
+        expect(launches["fused_pso_move"], 0, "router_main_path solo moves")
+        packs = [next(iter(m.daemon.service._buckets.values())) for m in members]
+        seen: list = []
+        with recording_draws(seen):
+            real_fresh(members[0].daemon.service, packs[0], TenantRecord(spec=router.tenant("t0").spec, uid=0))
+        draws = draws_on_path("router_main_path setup", seen)
+        expect(launches["philox_draws"], setups[0] * draws["calls"], f"router_main_path draws ({setups[0]} setups)")
+        kernels = {f"member{i}": batched_exact_vs_plain(b.pack._states) for i, b in enumerate(packs)}
+        n_equal = router_vs_reference(router, root, {u: f"t{u}" for u in range(n)}, reference, "router_main_path",
+                                      resumed=victims)
+        both = rounds[1:1 + ROUTER["freeze_after"]]
+        after = rounds[1 + ROUTER["freeze_after"] + 1:-1]
+        row = {
+            "config": f"TenantRouter over {ROUTER['members']} x ServiceMember(lanes_per_pack={ROUTER['member_lanes']}, "
+                      f"segment_steps={seg}, seed 0): {n} x PSO pop={ROUTER['pop']} dim={ROUTER['dim']} Ackley f32, "
+                      f"budgets {n_steps}, card-built; member 1's beat frozen after "
+                      f"{1 + ROUTER['freeze_after']} rounds",
+            "launches": launches, "setups": setups[0], "philox_per_setup": draws["calls"],
+            "placements": placed, "free_lanes_before_wave_2": affinity,
+            "submit_to_ack_s": ack_s, "submit_to_ack_s_median": median(list(ack_s.values())),
+            "submit_to_ack_s_median_prewarmed": median([ack_s[f"t{u}"] for u in range(ROUTER["first_wave"], n)]),
+            "rounds": rounds,
+            "router_ms_per_round_median": median([r["router_ms"] for r in rounds]),
+            "router_ms_per_round_two_members": [r["router_ms"] for r in both],
+            "router_ms_per_round_survivor": median([r["router_ms"] for r in after]) if after else None,
+            "member_segment_ms_median": median([s for r in rounds for s in r["members_s"]]) * 1e3,
+            "longest_round_before_freeze_s": longest, "fleet_dead_after_s": dead_after, "freeze_s": freeze_s,
+            "verdict_to_resubmit_s": verdict["done"] - verdict["at"],
+            "verdict_to_each_resubmit_s": {t: forwarded_at[t] - verdict["at"] for t in victims},
+            "events": [e for e in events if "dead" in e or "migrated" in e],
+            "captures": captures, "served_s": served_s, "bit_identical_tenants": n_equal,
+            "segments": [m.daemon.service.stats.segments_run for m in members],
+            "kernels": kernels, "philox_on_path_vs_plain": draws,
+            "max_abs_err": {k: max(v[k]["max_abs_err"] for v in kernels.values())
+                            for k in ("fused_pso_move_batched", "philox_draws_batched")},
+        }
+        router.close()
+        del router, members, packs
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        OptimizationService._fresh_state = real_fresh
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def router_child(mode, root, tree, out_dir, device) -> dict:
+    """Run one ``ROUTER_CHILD`` process and read its summary; the seconds
+    from its spawn to the end of its first round are added."""
+    out = Path(out_dir) / f"router_{mode}.json"
+    env = {k: v for k, v in fleet_env().items() if k != "PYTHONPATH"}
+    cfg = {**ROUTER, "device": str(device)}
+    spawned = time.time()
+    proc = subprocess.run([sys.executable, "-c", ROUTER_CHILD, mode, str(root), str(tree), str(out), json.dumps(cfg)],
+                          env=env, capture_output=True, text=True, timeout=600)
+    want = -9 if mode == "cold" else 0
+    if proc.returncode != want:
+        raise AssertionError(f"the {mode} router process exited {proc.returncode}, expected {want}:\n"
+                             f"{proc.stderr[-3000:]}")
+    rec = json.loads(out.read_text())
+    rec["spawn_to_first_round_s"] = rec["marks"]["first_round_wall"] - spawned
+    if not rec["build_dir"].startswith(str(tree)):
+        raise AssertionError(f"the {mode} router process built into {rec['build_dir']}, not its own copy {tree}")
+    return rec
+
+
+def phase_router_kill_restart(device) -> dict:
+    """The router and both members in a process of their own, importing a
+    copy of the package whose build/ is empty (``ROUTER_CHILD``): the cold
+    process submits 7 of the 8 tenants (card-built, budgets 200), runs two
+    rounds, submits the eighth and SIGKILLs itself at its forward, after
+    the placement was journaled.  A warm process (a second such copy) over
+    the same roots calls ``start()``, which restores the placement map and
+    forwards the journaled placement; the client's retry of the last submit
+    is an idempotent ack with its pinned uid.  That tenant has exactly one
+    ``placement`` and one member ``submit``; the warm process makes 0
+    ``nvcc`` builds and counts hits on both members' program caches; every
+    tenant is bit-equal to gateway_reference's single-daemon run, held by a
+    daemon over each member's root."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.resilience.testing import verify_tenants_bit_identical
+    from evox_tpu_torch.service import ServiceDaemon
+
+    pycache = wait_fleet_pycache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_router_kill_"))
+    killed = root / "killed"
+    n = ROUTER["tenants"]
+    last = f"t{n - 1}"
+    try:
+        reference = gateway_reference(device, root / "ref")
+        cold = router_child("cold", killed, package_copy(root / "cold_tree"), root, device)
+        warm = router_child("warm", killed, package_copy(root / "warm_tree"), root, device)
+        expect((len(cold["rounds_s"]), cold["forwards"], cold["done"]), (ROUTER["kill_after"], n, False),
+               "the cold router process's rounds and forwards at its SIGKILL")
+        expect((cold["journal"]["placement"].get(last), cold["journal"]["submit"].get(last)), (1, None),
+               f"{last} at the SIGKILL: placement journaled, never forwarded")
+        expect(cold["kernel_builds"]["builds"] >= 1, True, f"the cold process's builds {cold['kernel_builds']}")
+        expect(warm["restored"], n, "placements the warm router restored")
+        expect(warm["retried"]["uid"], n - 1, "the retried submit's ack (its pinned uid)")
+        expect(warm["journal"]["placement"], {f"t{u}": 1 for u in range(n)}, "router placements a tenant")
+        expect(warm["journal"]["submit"], {f"t{u}": 1 for u in range(n)}, "member submits a tenant")
+        expect(warm["journal"]["migration"], {}, "migrations")
+        expect(warm["placements"], {f"t{u}": u % 2 for u in range(n)}, "the warm router's placement map")
+        expect(warm["kernel_builds"]["builds"], 0, "nvcc builds in the warm router process")
+        expect([(c["misses"], c["quarantines"], c["hits"] >= 1) for c in warm["caches"]], [(0, 0, True)] * 2,
+               "the warm members' cache misses, quarantines and hits")
+        expect([all(p.values()) for p in warm["prewarmed"]], [True, True], "every warm pack program from its cache")
+        expect(set(warm["statuses"].values()), {"completed"}, "the warm router's tenants")
+        n_equal = 0
+        for i in range(ROUTER["members"]):
+            check = ServiceDaemon(killed / f"m{i}", lanes_per_pack=ROUTER["member_lanes"],
+                                  segment_steps=ROUTER["segment"], exec_cache=None, on_event=lambda msg: None,
+                                  device=device)
+            check.start()
+            check.run()
+            ids = {u: f"t{u}" for u in range(i, n, 2)}
+            verify_tenants_bit_identical(check, killed / f"m{i}", {t: reference[u][0] for u, t in ids.items()},
+                                         {t: reference[u][1] for u, t in ids.items()},
+                                         f"router_kill_restart member {i}")
+            n_equal += len(ids)
+            del check
+        launches = {k: cold["launches"][k] + warm["launches"][k] for k in cold["launches"]}
+        row = {
+            "config": f"TenantRouter over {ROUTER['members']} x ServiceMember(lanes_per_pack={ROUTER['member_lanes']}, "
+                      f"segment_steps={ROUTER['segment']}) in a process of its own: {n} x PSO pop={ROUTER['pop']} "
+                      f"dim={ROUTER['dim']} Ackley, budgets {ROUTER['n_steps']}; SIGKILL at the last submit's forward "
+                      f"after {ROUTER['kill_after']} rounds, warm process over the same roots",
+            "launches": launches,
+            "spawn_to_first_round_s": {"cold": cold["spawn_to_first_round_s"], "warm": warm["spawn_to_first_round_s"]},
+            "retried": warm["retried"], "restored": warm["restored"],
+            "cold": {k: cold[k] for k in ("marks", "captures", "kernel_builds", "caches", "launches", "rounds_s",
+                                          "forwards")},
+            "warm": {k: warm[k] for k in ("marks", "captures", "kernel_builds", "caches", "launches", "prewarmed")},
+            "warm_round_ms_median": median(warm["rounds_s"][1:-1]) * 1e3,
+            "bit_identical_tenants": n_equal, "pycache": pycache,
+        }
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_router_overhead(device) -> dict:
+    """The contract of the JAX package's ``tools/bench_router.py`` on the
+    card, at daemon_main_path's width: *direct*, one daemon of 8 lanes;
+    *routed*, the same 8 lanes as two members of 4 behind a
+    ``TenantRouter`` (every submit placed and journaled); ``_SLOS`` armed
+    on every daemon.  Batches of 8 tenants (budgets sized from a warm
+    direct batch so that a direct batch runs at least ``min_batch_s``),
+    drained, then forgotten, alternating direct and routed, 3 a side.  The
+    per-tenant gen/s of each side (best batch), their ratio beside JAX's
+    ``FLOOR`` of 0.90 (reported, not gated), every batch's value and their
+    spread, and the routed members' SLO burn report."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.obs import default_slos
+    from evox_tpu_torch.service import OptimizationService, ServiceDaemon, TenantRouter
+
+    cfg = ROUTER_OVERHEAD
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_router_overhead_"))
+    n, seg = ROUTER["tenants"], ROUTER["segment"]
+    real_fresh = OptimizationService._fresh_state
+    try:
+        counters = hpo_counters()
+        setups = [0]
+
+        def counting_fresh(self, bucket, record):
+            setups[0] += 1
+            return real_fresh(self, bucket, record)
+
+        direct = ServiceDaemon(root / "direct", lanes_per_pack=ROUTER["lanes"], segment_steps=seg, preemption=False,
+                               slos=default_slos(**cfg["slos"]), on_event=lambda msg: None, device=device)
+        router, members, events = router_fleet(root / "fleet", device, slos=cfg["slos"], preemption=False,
+                                               router_kw={"fleet_dead_after": 3600.0, "fleet_start_grace": 3600.0})
+        OptimizationService._fresh_state = counting_fresh
+        for c in counters.values():
+            c.launches = 0
+        direct.start()
+        router.start()
+        batches = [0]
+
+        def batch(side, n_steps):
+            base = batches[0] * n
+            batches[0] += 1
+            specs = daemon_specs(device, range(base, base + n), n_steps, prefix=f"b{base // n}-t")
+            target = direct if side == "direct" else router
+            for spec in specs:
+                target.submit(spec)
+            t0 = time.perf_counter()
+            while target.step():
+                pass
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            for spec in specs:
+                if side == "direct":
+                    direct.forget(spec.tenant_id)
+                else:
+                    placement = router._placements.pop(spec.tenant_id)
+                    router.members[placement["member"]].daemon.forget(spec.tenant_id)
+            return seconds
+
+        warm = {side: batch(side, cfg["calibrate_steps"]) for side in ("direct", "routed")}
+        guess = seg * math.ceil(cfg["min_batch_s"] * 1.6 * cfg["calibrate_steps"] / warm["direct"] / seg)
+        guess_s = batch("direct", guess)
+        n_steps = seg * math.ceil(guess * 1.35 * cfg["min_batch_s"] / guess_s / seg)
+        seconds = {"direct": [], "routed": []}
+        for _ in range(cfg["repeats"]):
+            for side in ("direct", "routed"):
+                seconds[side].append(batch(side, n_steps))
+        torch.cuda.synchronize()
+        OptimizationService._fresh_state = real_fresh
+        launches = counts(counters)
+        expect(min(seconds["direct"]) >= cfg["min_batch_s"], True,
+               f"every direct batch at least {cfg['min_batch_s']} s ({seconds})")
+        slow = seg * direct.brownout_factor
+        expect(launches["fused_pso_move_batched"], 3 * ((seg + 1) + (slow + 1)),
+               "router_overhead batched moves (three packs' prewarms of both cadences)")
+        per_batch = {side: [n_steps / s for s in t] for side, t in seconds.items()}
+        per_tenant = {side: max(v) for side, v in per_batch.items()}
+        spread = {side: (max(v) - min(v)) / min(v) for side, v in per_batch.items()}
+        ratio = per_tenant["routed"] / per_tenant["direct"]
+        kinds = {k: sum(v.values()) for k, v in
+                 journal_tally(router.root / TenantRouter.JOURNAL_NAME, ("placement", "migration", "steer")).items()}
+        row = {
+            "config": f"direct ServiceDaemon(lanes_per_pack={ROUTER['lanes']}) against TenantRouter over "
+                      f"{ROUTER['members']} x ServiceMember(lanes_per_pack={ROUTER['member_lanes']}), segments of "
+                      f"{seg}, SLOs {cfg['slos']} on every daemon: batches of {n} x PSO pop={ROUTER['pop']} "
+                      f"dim={ROUTER['dim']} Ackley, budgets {n_steps}, alternating, best of {cfg['repeats']} a side",
+            "launches": launches, "setups": setups[0], "n_steps": n_steps, "warm_batch_s": warm,
+            "calibration": {"n_steps": guess, "seconds": guess_s},
+            # "seconds" is the phase's own (main() adds it).
+            "batch_seconds": seconds, "per_batch_gen_per_s": per_batch, "per_tenant_gen_per_s": per_tenant,
+            "per_tenant_gen_per_s_median": {side: median(v) for side, v in per_batch.items()},
+            "spread": spread, "throughput_ratio": ratio, "jax_floor_ratio": cfg["floor"],
+            "ratio_resolved": abs(ratio - 1.0) > max(spread.values()),
+            "router_journal_records": kinds,
+            "slo_burn_report": {str(m.index): m.daemon.slo.describe() for m in members},
+            "rounds": {"direct": direct.service.stats.segments_run,
+                       "routed": [m.daemon.service.stats.segments_run for m in members]},
+        }
+        router.close()
+        direct.close()
+        del router, members, direct
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        OptimizationService._fresh_state = real_fresh
+        shutil.rmtree(root, ignore_errors=True)
+
+
+ROUTER_PHASES = ("router_main_path", "router_kill_restart", "router_overhead")
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -8747,7 +9368,10 @@ def philox_row(results) -> dict:
         + sum(results[p]["launches"]["philox_draws"] for p in HPO_WORKLOAD_PHASES)
         # The gateway's tenants' setups, in this process and in the cold and
         # warm gateway processes.
-        + sum(results[p]["launches"]["philox_draws"] for p in GATEWAY_PHASES),
+        + sum(results[p]["launches"]["philox_draws"] for p in GATEWAY_PHASES)
+        # The routed tenants' setups (the migrated ones' resume templates
+        # too), in this process and in the cold and warm router processes.
+        + sum(results[p]["launches"]["philox_draws"] for p in ROUTER_PHASES),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -8781,7 +9405,11 @@ def batched_rows(results) -> list[dict]:
          # The gateway's daemons: their prewarmed captures of both cadences
          # (two buckets in gateway_main_path), in this process and in the
          # cold and warm gateway processes.
-         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in GATEWAY_PHASES),
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in GATEWAY_PHASES)
+         # The router's members (and router_overhead's direct daemon): each
+         # pack's prewarmed captures of both cadences, in this process and
+         # in the cold and warm router processes.
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in ROUTER_PHASES),
          **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the HPO path's recorded moves, the pack's shape
          # and the eager vmapped segments' recorded moves.
@@ -8795,7 +9423,9 @@ def batched_rows(results) -> list[dict]:
                             # of (1024, 32).
                             results["service_hpo_main_path"]["max_abs_err"]["fused_pso_move_batched"],
                             # The gateway's daemon's two buckets' final states.
-                            results["gateway_main_path"]["max_abs_err"]["fused_pso_move_batched"])},
+                            results["gateway_main_path"]["max_abs_err"]["fused_pso_move_batched"],
+                            # Both members' final states behind the router.
+                            results["router_main_path"]["max_abs_err"]["fused_pso_move_batched"])},
         {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
          "replaces": "none (the port's own kernel, batched over vmapped instances)",
          # With the rollouts' resets (one launch for the episodes a
@@ -8821,8 +9451,9 @@ def batched_rows(results) -> list[dict]:
          # The service's HPO workload: OpenES's normals over lanes x
          # candidates and CMA-ES's over the lanes in the packs' captures.
          + sum(results[p]["launches"]["philox_draws_batched"] for p in HPO_WORKLOAD_PHASES)
-         # The gateway's paths (PSO draws in the move kernel: none).
-         + sum(results[p]["launches"]["philox_draws_batched"] for p in GATEWAY_PHASES),
+         # The gateway's and the router's paths (PSO draws in the move
+         # kernel: none).
+         + sum(results[p]["launches"]["philox_draws_batched"] for p in GATEWAY_PHASES + ROUTER_PHASES),
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the pack's shape, and the rollouts' recorded
          # resets.
@@ -8830,6 +9461,7 @@ def batched_rows(results) -> list[dict]:
                             results["service_pack"]["max_abs_err"]["philox_draws_batched"],
                             results["daemon_main_path"]["max_abs_err"]["philox_draws_batched"],
                             results["gateway_main_path"]["max_abs_err"]["philox_draws_batched"],
+                            results["router_main_path"]["max_abs_err"]["philox_draws_batched"],
                             on_path_err(results, "philox_draws_batched"))},
     ]
 
@@ -8985,6 +9617,9 @@ def main() -> int:
         ("gateway_main_path", phase_gateway_main_path),
         ("gateway_kill_restart", phase_gateway_kill_restart),
         ("gateway_overhead", phase_gateway_overhead),
+        ("router_main_path", phase_router_main_path),
+        ("router_kill_restart", phase_router_kill_restart),
+        ("router_overhead", phase_router_overhead),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -9018,7 +9653,8 @@ def main() -> int:
     # The fleets' worker processes (distributed_8dev's width), each
     # worker's count through its last boundary (a SIGKILLed worker's too).
     routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in ("fleet_main_path", "fleet_straggler"))
-    routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in HPO_WORKLOAD_PHASES + GATEWAY_PHASES)
+    routes["float32"] += sum(results[p]["launches"]["fused_pso_move"]
+                             for p in HPO_WORKLOAD_PHASES + GATEWAY_PHASES + ROUTER_PHASES)
     emit("kernels", [
         {
             "name": "fused_pso_move",

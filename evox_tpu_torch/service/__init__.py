@@ -1,6 +1,4 @@
-"""The multi-tenant service (counterpart of ``evox_tpu/service``), in part.
-
-Ported:
+"""The multi-tenant service (counterpart of ``evox_tpu/service``).
 
 * the service core: :class:`OptimizationService` (bounded admission with
   structured rejections, program buckets, per-tenant streams, monitors,
@@ -35,8 +33,14 @@ Ported:
   a stagnating ladder by a journaled ``hpo-grow`` decision that re-keys
   the tenant to the grown bucket.
 
-Not ported yet: the tenant router and its members (item 13.8c);
-importing one of their names raises :class:`ImportError`.
+* the fleet scheduler (:mod:`.router`, :mod:`.member`):
+  :class:`TenantRouter` (capacity-aware placement with bucket affinity,
+  ``placement`` records journaled before the ack, member-link forwards
+  reconciled by uid, dead-member migration by namespace copy and pinned
+  uid, journaled autoscale and compaction) over :class:`ServiceMember`\\ s
+  (a daemon plus its capacity beat and the ``MEMBER_API_PREFIX`` forward
+  link).  Members share one device; the link carries device-free spec
+  blobs.
 """
 
 from .client import GatewayClient, GatewayError, HttpTransport, encode_spec
@@ -50,7 +54,9 @@ from .journal import (
     JournalSnapshot,
     RequestJournal,
 )
+from .member import MEMBER_API_PREFIX, ServiceMember
 from .pack import TenantPack, assign_fault_lane
+from .router import TenantRouter
 from .service import AdmissionError, OptimizationService, Rejection, ServiceStats, retry_after_seconds
 from .tenant import TenantRecord, TenantSpec, TenantStatus, bucket_key, static_signature, validate_tenant_id
 
@@ -66,16 +72,19 @@ __all__ = [
     "JournalError",
     "JournalRecord",
     "JournalSnapshot",
+    "MEMBER_API_PREFIX",
     "OptimizationService",
     "PRINCIPAL_SEP",
     "Rejection",
     "RequestJournal",
     "STEER_KNOBS",
     "ServiceDaemon",
+    "ServiceMember",
     "ServiceStats",
     "TenantClass",
     "TenantPack",
     "TenantRecord",
+    "TenantRouter",
     "TenantSpec",
     "TenantStatus",
     "assign_fault_lane",
@@ -85,17 +94,3 @@ __all__ = [
     "static_signature",
     "validate_tenant_id",
 ]
-
-# Not ported yet, with the ROADMAP Queue 1 item that ports each.
-_ROUTER = "item 13.8c (the tenant router and its members)"
-_NOT_PORTED = {
-    "MEMBER_API_PREFIX": _ROUTER,
-    "ServiceMember": _ROUTER,
-    "TenantRouter": _ROUTER,
-}
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise ImportError(f"evox_tpu_torch.service.{name} is not ported yet: ROADMAP Queue 1, {_NOT_PORTED[name]}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -58,11 +58,17 @@ form (``{"algorithm": {"kind": "PSO", ...}, "problem": {"kind":
 gated behind authentication by design — a bearer token is operator-level
 trust here.
 
+The gateway fronts either one daemon or a whole fleet: a
+:class:`~evox_tpu_torch.service.TenantRouter` answers the same surface
+(``Gateway(router, tokens=...)``), and its ``placement`` records carry
+the idempotency keys the dedup map is rebuilt from.
+
 **The device.**  The gateway serves whatever device its daemon runs on
 (the card by default).  A pickled spec may have been built on the CPU or
 on the card; either way it runs on ``daemon.device``, bit-equal to the
 same spec built there (the daemon's decoder maps every storage and every
-recorded ``torch.device``).
+recorded ``torch.device``).  A router's ``device`` is the host: a spec
+stays there until the member that owns it decodes it onto the card.
 
 Threading: endpoint handler threads call :meth:`handle` concurrently
 with the serving loop.  One :class:`threading.RLock` (``gateway.lock``)

@@ -2555,3 +2555,100 @@ def test_gateway_cpu_built_spec_runs_on_the_card_like_a_card_built_one(cuda, tmp
             gateway.close()
     assert results[0].algorithm.pop.device.type == "cuda"
     assert_states_equal(results[0], results[1], "CPU-built against card-built")
+
+
+def _router(cuda, root):
+    from evox_tpu_torch.service import ServiceMember, TenantRouter
+
+    members = [ServiceMember(i, root / f"m{i}", heartbeat_dir=root / "beats", lanes_per_pack=2, segment_steps=4,
+                             preemption=False, brownout_threshold=None, device=cuda) for i in range(2)]
+    router = TenantRouter(root / "router", members, fleet_dead_after=300.0, fleet_start_grace=0.0,
+                          on_event=lambda msg: None)
+    return router, members
+
+
+def test_router_providers_during_a_capture_keep_it_intact(cuda, tmp_path):
+    """``capacity()`` and the router's ``/statusz``, ``/healthz`` and
+    ``/metrics`` providers, called from another thread while the serving
+    thread holds a capture open (member 1's first bucket, prewarmed by a
+    submit), leave the capture valid: they read host state only.  Both
+    tenants complete, bit-equal to a daemon's run of the same specs."""
+    import threading
+
+    from evox_tpu_torch.resilience.testing import assert_states_equal
+    from evox_tpu_torch.service import ServiceDaemon
+
+    router, members = _router(cuda, tmp_path / "fleet")
+    begin = torch.cuda.CUDAGraph.capture_begin
+    read = {}
+
+    def provide():
+        read["capacity"] = [m.capacity() for m in members]
+        read["load"] = [m.load() for m in members]
+        read["statusz"] = router._statusz()
+        read["healthz"] = router._healthz()
+        read["metrics"] = router._metrics_text()
+
+    def held_capture(self, *a, **k):
+        begin(self, *a, **k)
+        if "statusz" not in read:
+            reader = threading.Thread(target=provide)
+            reader.start()
+            reader.join(60)
+            assert not reader.is_alive()
+
+    try:
+        router.start()
+        router.submit(_pso_spec("a0", 0, cuda))  # member 0's bucket, captured before the hold
+        router.step()
+        torch.cuda.CUDAGraph.capture_begin = held_capture
+        router.submit(_pso_spec("b0", 1, cuda, dim=4))  # another bucket: member 1 prewarms it
+        torch.cuda.CUDAGraph.capture_begin = begin
+        assert router._placements["b0"]["member"] == 1
+        assert set(read) == {"capacity", "load", "statusz", "healthz", "metrics"}
+        assert read["statusz"]["router"]["placements"] == 2
+        router.run()
+        ref = ServiceDaemon(tmp_path / "ref", lanes_per_pack=2, segment_steps=4, preemption=False,
+                            brownout_threshold=None, device=cuda)
+        for name, uid, dim in (("a0", 0, 8), ("b0", 1, 4)):
+            ref.submit(_pso_spec(name, uid, cuda, dim=dim))
+        ref.run()
+        for name in ("a0", "b0"):
+            assert router.tenant(name).status.value == "completed"
+            assert_states_equal(ref.result(name), router.result(name), name)
+        assert members[1].daemon.stats.captures == {"init": 1, "segment": 1}
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+        router.close()
+
+
+def test_router_card_built_and_host_built_specs_share_one_link_blob(cuda, tmp_path):
+    """The placement record's spec blob is device-free: the same tenant
+    built on the card and on the host gives the same bytes, so a retry
+    built on the other side of the host/card line is an idempotent ack
+    (one placement, one member submit), either way round; the tenants run
+    on the card."""
+    from evox_tpu_torch.service import RequestJournal, TenantRouter
+    from evox_tpu_torch.service.router import _link_blob
+
+    assert _link_blob(_pso_spec("t0", 0, cuda)) == _link_blob(_pso_spec("t0", 0, "cpu"))
+    router, members = _router(cuda, tmp_path)
+    try:
+        for tid, uid, first, retry in (("t0", 0, cuda, "cpu"), ("t1", 1, "cpu", cuda)):
+            acked = router.submit(_pso_spec(tid, uid, first))
+            again = router.submit(_pso_spec(tid, uid, retry))
+            assert int(acked.uid) == int(again.uid) == uid
+        records, _ = RequestJournal(router.root / TenantRouter.JOURNAL_NAME).replay()
+        assert [r.data["tenant_id"] for r in records if r.kind == "placement"] == ["t0", "t1"]
+        for tid in ("t0", "t1"):
+            owner = members[router._placements[tid]["member"]]
+            submits = [r for r in RequestJournal(owner.root / "journal.jsonl").replay()[0]
+                       if r.kind == "submit" and r.data["tenant_id"] == tid]
+            assert len(submits) == 1
+        router.run()
+        for tid in ("t0", "t1"):
+            record = router.tenant(tid)
+            assert record.status.value == "completed"
+            assert record.spec.algorithm.lb.device.type == "cuda"
+    finally:
+        router.close()
