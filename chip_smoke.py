@@ -125,7 +125,14 @@ bit-equal to the single daemon's run; ``router_kill_restart``: the router
 and its members in a process of their own, SIGKILLed between the journaled
 placement of the last submit and its forward, restarted warm with no
 kernel build; ``router_overhead``: per-tenant gen/s routed against
-direct), checks that each path went through its kernels, and times them.  It prints one JSON line per
+direct), then the chaos plane (``chaos_main_path``: the JAX chaos suite's
+acceptance plan of kills, wire, disk and lane faults and a partition over
+three ``ServiceMember``s of daemon_main_path's tenants under a
+``ChaosConductor``, zero invariant violations, its event journal equal to a
+second run's and to a CPU run's, every tenant bit-equal to the same spec in
+a fault-free daemon; ``chaos_soak``: ``tools/soak_torch.py``'s 1000-tenant
+rung with a member kill, O(wave) disk and card memory, no capture a wave),
+checks that each path went through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -9255,6 +9262,409 @@ def phase_router_overhead(device) -> dict:
 ROUTER_PHASES = ("router_main_path", "router_kill_restart", "router_overhead")
 
 
+# -- the chaos conductor and the invariant registry (ChaosConductor) -----------
+
+# The JAX chaos suite's acceptance plan (member and router kills, wire, disk
+# and lane faults, a partition window) over three members of the plan's 4
+# lanes and segments of 4, budgets of the plan's 8 generations, with
+# daemon_main_path's tenant: PSO(1024, ±32 in dim 100) on Ackley, f32.
+CHAOS = dict(seed=11, members=3, tenants=8, rounds=7, kills=2, wire=3, disk=2, lanes=1, partitions=1)
+# The JAX package's tier-1 soak rung (tools/soak.py's tenant shape, POP=8,
+# DIM=4); each wave's allocated card memory is held to the first wave's
+# plus CHAOS_SOAK_SLACK.
+CHAOS_SOAK = dict(tenants=1000, members=3, wave=250, chaos=True, seed=7)
+CHAOS_SOAK_SLACK = 0.10
+
+
+def chaos_plan():
+    from evox_tpu_torch.resilience import ChaosPlan
+
+    return ChaosPlan.from_seed(CHAOS["seed"], **{k: v for k, v in CHAOS.items() if k != "seed"})
+
+
+def chaos_conductor(root, device):
+    """A ``ChaosConductor`` of the acceptance plan on ``device`` whose
+    tenants are daemon_main_path's, built on the host (the member link
+    carries device-free specs), events collected, not printed."""
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.resilience import ChaosConductor
+    from evox_tpu_torch.service import TenantSpec
+
+    plan = chaos_plan()
+    n, d = DAEMON["pop"], DAEMON["dim"]
+    conductor = ChaosConductor(root, plan, device=device, member_kwargs={"on_event": lambda msg: None},
+                               router_kwargs={"on_event": lambda msg: None})
+    conductor.spec_factory = lambda index, uid: TenantSpec(
+        conductor.tenant_id(index), PSO(n, torch.full((d,), -32.0), torch.full((d,), 32.0), device="cpu"),
+        Ackley(), n_steps=plan.n_steps, uid=uid)
+    return conductor
+
+
+@contextlib.contextmanager
+def chaos_clocks(conductor, sync):
+    """While active: each round's wall seconds, each ``router.step`` and
+    each member daemon's ``step`` (with the daemon, its segments before and
+    after), each audit and each ``build_audit_context`` (the journals read
+    from disk), and each member kill (the abandoned and rebuilt members,
+    the card's reserved memory before it) are recorded in the dict it
+    yields.  The card is waited out around each."""
+    from evox_tpu_torch.resilience import chaos
+    from evox_tpu_torch.service import ServiceDaemon, TenantRouter
+
+    rec = {"rounds": [], "router_steps": [], "daemon_steps": [], "audits": [], "contexts": [], "kills": []}
+    real = {"round": conductor._round, "audit": conductor._audit, "kill": conductor._kill_member,
+            "context": chaos.build_audit_context, "router_step": TenantRouter.step,
+            "daemon_step": ServiceDaemon.step}
+
+    def timed(key, fn, *args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        rec[key].append((t0, time.perf_counter()))
+        return out
+
+    def daemon_step(self):
+        before = self.service.stats.segments_run
+        sync()
+        t0 = time.perf_counter()
+        busy = real["daemon_step"](self)
+        sync()
+        rec["daemon_steps"].append((t0, time.perf_counter(), self, before, self.service.stats.segments_run))
+        return busy
+
+    def kill(index):
+        import torch
+
+        old = conductor.members[index]
+        sync()
+        reserved = torch.cuda.memory_reserved() if old.daemon.device.type == "cuda" else None
+        t0 = time.perf_counter()
+        real["kill"](index)
+        sync()
+        new = conductor.members[index]
+        rec["kills"].append({"index": index, "at": t0, "rebuilt_s": time.perf_counter() - t0, "round": conductor.round,
+                             "old": old, "old_segments": old.daemon.service.stats.segments_run, "new": new,
+                             "restored": len(new.daemon.service._tenants),
+                             "completed_at_kill": sum(r.status.value == "completed"
+                                                      for r in old.daemon.service._tenants.values()),
+                             "reserved_before": reserved})
+
+    conductor._round = lambda r, new: timed("rounds", real["round"], r, new)
+    conductor._audit = lambda: timed("audits", real["audit"])
+    conductor._kill_member = kill
+    chaos.build_audit_context = lambda *a, **kw: timed("contexts", real["context"], *a, **kw)
+    TenantRouter.step = lambda self: timed("router_steps", real["router_step"], self)
+    ServiceDaemon.step = daemon_step
+    try:
+        yield rec
+    finally:
+        for name in ("_round", "_audit", "_kill_member"):
+            conductor.__dict__.pop(name, None)
+        chaos.build_audit_context = real["context"]
+        TenantRouter.step = real["router_step"]
+        ServiceDaemon.step = real["daemon_step"]
+
+
+def chaos_timings(rec) -> dict:
+    """A round's wall seconds, the router's own ms a round (its step less
+    its members' steps), the audit's and its journal reads' ms, and for
+    each kill: the seconds of the rebuild (a member over the same root, its
+    journal replayed, its programs prewarmed), to the end of the rebuilt
+    member's first step and of its first segment (``None`` when every
+    tenant it restored had completed before the kill: each resumes from its
+    checkpoint at its budget and completes with no segment), the tenants it
+    restored and those the abandoned member had completed."""
+    def ms(spans):
+        return [(b - a) * 1e3 for a, b in spans]
+
+    router_ms = []
+    for a, b in rec["router_steps"]:
+        inner = sum(d1 - d0 for d0, d1, *_ in rec["daemon_steps"] if a <= d0 and d1 <= b)
+        router_ms.append((b - a - inner) * 1e3)
+    kills = {}
+    for k in rec["kills"]:
+        steps = [(d1, after > before) for d0, d1, daemon, before, after in rec["daemon_steps"]
+                 if daemon is k["new"].daemon]
+        segment = next((d1 for d1, ran in steps if ran), None)
+        kills[str(k["index"])] = {"round": k["round"], "rebuild_s": k["rebuilt_s"],
+                                  "to_first_step_s": steps[0][0] - k["at"] if steps else None,
+                                  "to_first_segment_s": None if segment is None else segment - k["at"],
+                                  "restored": k["restored"], "completed_at_kill": k["completed_at_kill"]}
+    rounds_s = [b - a for a, b in rec["rounds"]]
+    return {"round_s": rounds_s, "round_s_median": median(rounds_s), "router_ms": router_ms,
+            "router_ms_median": median(router_ms), "audit_ms": ms(rec["audits"]),
+            "audit_ms_median": median(ms(rec["audits"])), "audit_context_ms": ms(rec["contexts"]),
+            "audit_context_ms_median": median(ms(rec["contexts"])), "kills": kills}
+
+
+def chaos_report_checks(report, what) -> None:
+    expect((len(report.violations), report.completed, report.tenants, report.pending, report.acks),
+           (0, CHAOS["tenants"], CHAOS["tenants"], 0, CHAOS["tenants"]),
+           f"{what}: violations, completed, tenants, pending, acks")
+
+
+def phase_chaos_main_path(device) -> dict:
+    """The JAX chaos suite's acceptance plan (``ChaosPlan.from_seed(11,
+    members=3, tenants=8, rounds=7, kills=2, wire=3, disk=2, lanes=1,
+    partitions=1)``: the router journal's and member 2's stores fail a
+    save each, member 0's link drops a request and member 2's duplicates
+    one, member 2 is partitioned over rounds 3-4, member 1 is killed at
+    round 4 and member 0 at round 5, tenant 7's lane plateaus) conducted
+    over three ``ServiceMember``s of 4 lanes on the card, with
+    daemon_main_path's tenant.  Launches counted from 0 over that run (A).
+    It must end with 0 violations, 8 completed, 0 pending and 8 acks; a
+    second run over a fresh root (B) and a run on the CPU must write the
+    same ``chaos_events.jsonl``, byte for byte; each tenant's final state
+    must equal the same spec (its lane-fault wrapper included) in one
+    fault-free ``ServiceDaemon`` on the card, bit for bit.  The abandoned
+    members never step again, no member is declared dead, no kernel is
+    built after the first member's, tenant 7's faulted bucket is captured.
+    The batched move and draws on every live member's packs, and a setup's
+    draws, against their plain versions."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.ops import _build
+    from evox_tpu_torch.resilience.testing import assert_states_equal
+    from evox_tpu_torch.service import OptimizationService, ServiceDaemon, TenantStatus
+    from evox_tpu_torch.service.daemon import _decode_spec
+    from evox_tpu_torch.service.router import _link_blob
+    from evox_tpu_torch.service.tenant import TenantRecord
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_chaos_"))
+    real_fresh = OptimizationService._fresh_state
+    try:
+        counters = hpo_counters()
+        setups = [0]
+
+        def counting_fresh(self, bucket, record):
+            setups[0] += 1
+            return real_fresh(self, bucket, record)
+
+        conductor = chaos_conductor(root / "a", device)
+        builds_before = dict(_build.counts)
+        OptimizationService._fresh_state = counting_fresh
+        for c in counters.values():
+            c.launches = 0
+        with chaos_clocks(conductor, torch.cuda.synchronize) as rec:
+            report = conductor.run()
+        torch.cuda.synchronize()
+        OptimizationService._fresh_state = real_fresh
+        launches = counts(counters)
+        reserved_after = torch.cuda.memory_reserved()
+        chaos_report_checks(report, "chaos_main_path A")
+        builds_after = dict(_build.counts)
+        kills = rec["kills"]
+        expect([(k["round"], k["index"]) for k in kills], [(4, 1), (5, 0)], "chaos_main_path: the kills")
+        # Every kernel was built before the phase: no member, first or
+        # rebuilt, builds one (the rebuilt ones' programs come from the cache).
+        expect(builds_after["builds"], builds_before["builds"], "chaos_main_path: nvcc builds during the run")
+        # The abandoned members never stepped again; every member alive.
+        expect([k["old"].daemon.service.stats.segments_run for k in kills], [k["old_segments"] for k in kills],
+               "chaos_main_path: the abandoned members' segments after their kill")
+        expect(any(d is k["old"].daemon for k in kills for _, t1, d, *_ in rec["daemon_steps"] if t1 > k["at"]),
+               False, "chaos_main_path: an abandoned daemon stepped after its kill")
+        router = conductor.router
+        expect((sorted(router._dead), len(router._migrations)), ([], 0), "chaos_main_path: dead members, migrations")
+        expect({m.daemon.device.type for m in conductor.members.values()}, {device.type}, "chaos_main_path: devices")
+        # Tenant 7's plateau runs inside its member's captured segment.
+        faulted = conductor.tenant_id(int(next(iter(conductor.plan.lane_faults))))
+        owner = conductor.members[router._placements[faulted]["member"]]
+        bucket = owner.daemon.service._buckets[owner.daemon.tenant(faulted).bucket]
+        expect((bucket.pack.capturable, bucket.pack.captures["segment"] >= 1), (True, True),
+               f"chaos_main_path: {faulted}'s faulted bucket captured")
+        faulted_bucket = {"tenant": faulted, "member": owner.index, "captures": dict(bucket.pack.captures)}
+        captures = {str(i): dict(m.daemon.stats.captures) for i, m in sorted(conductor.members.items())}
+        abandoned_captures = {str(k["index"]): dict(k["old"].daemon.stats.captures) for k in kills}
+        cache = conductor.exec_cache.stats
+        seen: list = []
+        first = next(iter(conductor.members[0].daemon.service._buckets.values()))
+        with recording_draws(seen):
+            real_fresh(conductor.members[0].daemon.service, first,
+                       TenantRecord(spec=router.tenant(conductor.tenant_id(0)).spec, uid=0))
+        draws = draws_on_path("chaos_main_path setup", seen)
+        expect(launches["philox_draws"], setups[0] * draws["calls"], f"chaos_main_path draws ({setups[0]} setups)")
+        expect(launches["fused_pso_move_batched"] > 0, True, f"chaos_main_path batched moves {launches}")
+        # A rebuilt member whose tenants had all completed replays them
+        # from its journal without filling a pack: its packs hold no state,
+        # and the abandoned member's packs hold its lanes' last states.
+        kernels = {f"{tag}{i}/bucket{n}": batched_exact_vs_plain(b.pack._states)
+                   for tag, fleet in (("member", sorted(conductor.members.items())),
+                                      ("abandoned", [(k["index"], k["old"]) for k in kills]))
+                   for i, m in fleet
+                   for n, b in enumerate(m.daemon.service._buckets.values()) if b.pack._states is not None}
+        expect(len(kernels) >= 1, True, "chaos_main_path: packs with states")
+        timings = chaos_timings(rec)
+        # Read as the first kill began and once the run (both kills) ended.
+        reserved = {"before_first_kill": kills[0]["reserved_before"], "after_both_kills": reserved_after}
+
+        # B: the same plan over a fresh root; then the plan on the CPU.
+        conductor_b = chaos_conductor(root / "b", device)
+        report_b = conductor_b.run()
+        conductor_b.close()
+        chaos_report_checks(report_b, "chaos_main_path B")
+        expect(report_b.event_log_sha256, report.event_log_sha256, "chaos_main_path: B's event log")
+        t0 = time.perf_counter()
+        conductor_cpu = chaos_conductor(root / "cpu", torch.device("cpu"))
+        report_cpu = conductor_cpu.run()
+        cpu_s = time.perf_counter() - t0
+        conductor_cpu.close()
+        chaos_report_checks(report_cpu, "chaos_main_path on the CPU")
+        log = Path(report.event_log).read_bytes()
+        expect(Path(report_cpu.event_log).read_bytes(), log, "chaos_main_path: the CPU run's event log bytes")
+
+        # Each tenant against the same spec in one fault-free daemon.
+        ref = ServiceDaemon(root / "ref", lanes_per_pack=conductor.plan.lanes_per_pack,
+                            segment_steps=conductor.plan.segment_steps, seed=0, exec_cache=None,
+                            brownout_threshold=None, preemption=False, on_event=lambda msg: None, device=device)
+        for index in range(conductor.plan.tenants):
+            ref.submit(_decode_spec(_link_blob(conductor._spec(index)), device))
+        ref.run()
+        tids = [conductor.tenant_id(i) for i in range(conductor.plan.tenants)]
+        for tid in tids:
+            expect(ref.tenant(tid).status, TenantStatus.COMPLETED, f"chaos_main_path reference {tid}")
+            assert_states_equal(ref.result(tid), router.result(tid), f"chaos_main_path {tid} against alone")
+        row = {
+            "config": f"ChaosConductor: ChaosPlan.from_seed({CHAOS['seed']}, members={CHAOS['members']}, tenants="
+                      f"{CHAOS['tenants']}, rounds={CHAOS['rounds']}, kills={CHAOS['kills']}, wire={CHAOS['wire']}, "
+                      f"disk={CHAOS['disk']}, lanes={CHAOS['lanes']}, partitions={CHAOS['partitions']}) over "
+                      f"ServiceMember(lanes_per_pack={conductor.plan.lanes_per_pack}, segment_steps="
+                      f"{conductor.plan.segment_steps}) x {CHAOS['members']}: PSO pop={DAEMON['pop']} dim="
+                      f"{DAEMON['dim']} Ackley f32, budgets {conductor.plan.n_steps}",
+            "launches": launches, "setups": setups[0], "philox_per_setup": draws["calls"],
+            "report": {k: getattr(report, k) for k in ("rounds_run", "completed", "acks", "pending",
+                                                       "injected_events", "plan_digest", "event_log_sha256",
+                                                       "counters", "elapsed_seconds")},
+            "events": [json.loads(line) for line in log.decode().splitlines()],
+            "b_elapsed_seconds": report_b.elapsed_seconds, "cpu_run_s": cpu_s,
+            "worst_burn_rate": report.slo_burn_report["worst_burn_rate"],
+            **timings, "memory_reserved": reserved,
+            "memory_reserved_gb": {k: gb(v) for k, v in reserved.items()},
+            "captures": captures, "abandoned_captures": abandoned_captures, "faulted_bucket": faulted_bucket,
+            "exec_cache": {"hits": cache.hits, "misses": cache.misses, "saves": cache.saves},
+            "kernel_builds": {"before": builds_before, "after": builds_after},
+            "bit_identical_tenants": len(tids),
+            "kernels": kernels, "philox_on_path_vs_plain": draws,
+            "max_abs_err": {k: max(v[k]["max_abs_err"] for v in kernels.values())
+                            for k in ("fused_pso_move_batched", "philox_draws_batched")},
+        }
+        conductor.close()
+        del conductor, conductor_b, conductor_cpu, ref, router, rec, kills, first, bucket, owner
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        OptimizationService._fresh_state = real_fresh
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_chaos_soak(device) -> dict:
+    """``tools/soak_torch.py``'s ``run_soak`` on the card at the JAX
+    package's tier-1 rung: 1000 tenants of PSO(8, ±32 in dim 4) on Ackley
+    through three members of 16 lanes, in waves of 250, with the seeded
+    member kill; the checks of the JAX suite's ``_assert_soak_green``,
+    4 waves and injected events, then the card's: no member build captures
+    again after its first wave (none a wave or a tenant), and each wave's
+    allocated card memory (after a cycle collection, less what was
+    allocated before the run) within the first wave's plus 10 %.  Launches
+    counted from 0 over the run; the batched move and draws on the members'
+    packs after the last wave against their plain versions."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, str(Path(ROOT) / "tools"))
+    import soak_torch
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_soak_"))
+    counters = hpo_counters()
+    waves: list = []
+    builds: dict = {}
+    kernels: dict = {}
+
+    def on_wave(w, fleet, router):
+        torch.cuda.synchronize()
+        gc.collect()
+        waves.append({"wave": w, "at": time.perf_counter(), "allocated": torch.cuda.memory_allocated(),
+                      "reserved": torch.cuda.memory_reserved(), "placed": len(router._placements)})
+        if w == -(-CHAOS_SOAK["tenants"] // CHAOS_SOAK["wave"]) - 1:
+            # The comparisons' launches are not the path's.
+            on_path = counts(counters)
+            kernels.update({f"member{i}/bucket{n}": batched_exact_vs_plain(b.pack._states)
+                            for i, m in sorted(fleet.items())
+                            for n, b in enumerate(m.daemon.service._buckets.values())})
+            for k, c in counters.items():
+                c.launches = on_path[k]
+        for i, m in sorted(fleet.items()):
+            b = builds.setdefault(id(m.daemon), {"member": i, "first_wave": w, "captures": []})
+            b["captures"].append(dict(m.daemon.stats.captures))
+            expect(m.daemon.device.type, device.type, f"chaos_soak member {i}'s device")
+
+    try:
+        torch.cuda.synchronize()
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        report = soak_torch.run_soak(root, device=device, on_wave=on_wave, **CHAOS_SOAK)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts(counters)
+        tenants, wave = CHAOS_SOAK["tenants"], CHAOS_SOAK["wave"]
+        expect((report["violations"], report["completed"], report["tenants"]), ([], tenants, tenants),
+               "chaos_soak: violations, completed, tenants")
+        expect(report["peak_resident_namespaces"] <= wave, True,
+               f"chaos_soak: peak resident namespaces {report['peak_resident_namespaces']}")
+        expect(report["final_resident_namespaces"], 0, "chaos_soak: final resident namespaces")
+        expect({"metric", "value", "platform", "slo_burn_report"} <= set(report), True, "chaos_soak: report keys")
+        expect((report["value"] > 0, report["platform"]), (True, device.type), "chaos_soak: value, platform")
+        json.loads(json.dumps(report))
+        expect((report["waves"], report["injected_events"] > 0), (4, True), "chaos_soak: waves, injected events")
+        for b in builds.values():
+            expect(all(c == b["captures"][0] for c in b["captures"]), True,
+                   f"chaos_soak: member {b['member']}'s captures by wave from wave {b['first_wave']}: {b['captures']}")
+        held = [w["allocated"] - base for w in waves]
+        expect(all(h <= held[0] * (1 + CHAOS_SOAK_SLACK) for h in held), True,
+               f"chaos_soak: allocated card memory by wave less {base} before the run: {held}")
+        # Each member build prewarms both cadences of its one bucket: a
+        # warm-up generation and the captured ones, segments of 4 and the
+        # brown-out's 8.
+        expect((launches["fused_pso_move_batched"], launches["fused_pso_move"]), (((4 + 1) + (8 + 1)) * len(builds), 0),
+               f"chaos_soak launches {launches}")
+        starts = [t0] + [w["at"] for w in waves[:-1]]
+        row = {
+            "config": f"tools/soak_torch.py run_soak(tenants={tenants}, members={CHAOS_SOAK['members']}, wave={wave}, "
+                      f"chaos=True, seed={CHAOS_SOAK['seed']}): PSO pop={soak_torch.POP} dim={soak_torch.DIM} "
+                      f"Ackley f32, 16 lanes, segments of 4, budgets 4",
+            "launches": launches, "run_s": run_s,
+            "report": {k: v for k, v in report.items() if k != "slo_burn_report"},
+            "tenants_per_s": report["value"], "worst_burn_rate": report["slo_burn_report"]["worst_burn_rate"],
+            "wave_s": [w["at"] - s for w, s in zip(waves, starts)],
+            "allocated_before": base, "allocated_by_wave": [w["allocated"] for w in waves], "held_by_wave": held,
+            "reserved_by_wave": [w["reserved"] for w in waves],
+            "captures_by_build": [{"member": b["member"], "first_wave": b["first_wave"], "captures": b["captures"][-1]}
+                                  for b in builds.values()],
+            "kernels": kernels,
+            "max_abs_err": {k: max(v[k]["max_abs_err"] for v in kernels.values())
+                            for k in ("fused_pso_move_batched", "philox_draws_batched")},
+        }
+        del waves[:], builds
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        sys.path.remove(str(Path(ROOT) / "tools"))
+        shutil.rmtree(root, ignore_errors=True)
+
+
+CHAOS_PHASES = ("chaos_main_path", "chaos_soak")
+
+
 def _steps(wf, s, n):
     for _ in range(n):
         s = wf.step(s)
@@ -9371,7 +9781,10 @@ def philox_row(results) -> dict:
         + sum(results[p]["launches"]["philox_draws"] for p in GATEWAY_PHASES)
         # The routed tenants' setups (the migrated ones' resume templates
         # too), in this process and in the cold and warm router processes.
-        + sum(results[p]["launches"]["philox_draws"] for p in ROUTER_PHASES),
+        + sum(results[p]["launches"]["philox_draws"] for p in ROUTER_PHASES)
+        # The conducted members' tenants' setups (the rebuilt members'
+        # resumed ones too) and the soak's churned tenants' setups.
+        + sum(results[p]["launches"]["philox_draws"] for p in CHAOS_PHASES),
         # The philox phase's sizes, and every recorded draw of the paths.
         "max_abs_err": max(results["philox"]["max_abs_err"], on_path_err(results, "philox_draws")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -9409,7 +9822,10 @@ def batched_rows(results) -> list[dict]:
          # The router's members (and router_overhead's direct daemon): each
          # pack's prewarmed captures of both cadences, in this process and
          # in the cold and warm router processes.
-         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in ROUTER_PHASES),
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in ROUTER_PHASES)
+         # The conducted members' packs (the rebuilt members' captures too)
+         # and the soak's members' 16-lane packs.
+         + sum(results[p]["launches"]["fused_pso_move_batched"] for p in CHAOS_PHASES),
          **{k: t["fused_pso_move_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the HPO path's recorded moves, the pack's shape
          # and the eager vmapped segments' recorded moves.
@@ -9425,7 +9841,9 @@ def batched_rows(results) -> list[dict]:
                             # The gateway's daemon's two buckets' final states.
                             results["gateway_main_path"]["max_abs_err"]["fused_pso_move_batched"],
                             # Both members' final states behind the router.
-                            results["router_main_path"]["max_abs_err"]["fused_pso_move_batched"])},
+                            results["router_main_path"]["max_abs_err"]["fused_pso_move_batched"],
+                            # The conducted members' and the soak members' packs.
+                            *(results[p]["max_abs_err"]["fused_pso_move_batched"] for p in CHAOS_PHASES))},
         {"name": "philox_draws_batched", "route": "cuda", "source": "evox_tpu_torch/csrc/philox.cu",
          "replaces": "none (the port's own kernel, batched over vmapped instances)",
          # With the rollouts' resets (one launch for the episodes a
@@ -9453,7 +9871,7 @@ def batched_rows(results) -> list[dict]:
          + sum(results[p]["launches"]["philox_draws_batched"] for p in HPO_WORKLOAD_PHASES)
          # The gateway's and the router's paths (PSO draws in the move
          # kernel: none).
-         + sum(results[p]["launches"]["philox_draws_batched"] for p in GATEWAY_PHASES + ROUTER_PHASES),
+         + sum(results[p]["launches"]["philox_draws_batched"] for p in GATEWAY_PHASES + ROUTER_PHASES + CHAOS_PHASES),
          **{k: t["philox_draws_batched"][k] for k in KERNEL_KEYS},
          # The timed batch, the pack's shape, and the rollouts' recorded
          # resets.
@@ -9462,6 +9880,7 @@ def batched_rows(results) -> list[dict]:
                             results["daemon_main_path"]["max_abs_err"]["philox_draws_batched"],
                             results["gateway_main_path"]["max_abs_err"]["philox_draws_batched"],
                             results["router_main_path"]["max_abs_err"]["philox_draws_batched"],
+                            *(results[p]["max_abs_err"]["philox_draws_batched"] for p in CHAOS_PHASES),
                             on_path_err(results, "philox_draws_batched"))},
     ]
 
@@ -9620,6 +10039,8 @@ def main() -> int:
         ("router_main_path", phase_router_main_path),
         ("router_kill_restart", phase_router_kill_restart),
         ("router_overhead", phase_router_overhead),
+        ("chaos_main_path", phase_chaos_main_path),
+        ("chaos_soak", phase_chaos_soak),
     ):
         t0 = time.perf_counter()
         results[name] = phase(device)
@@ -9654,7 +10075,7 @@ def main() -> int:
     # worker's count through its last boundary (a SIGKILLed worker's too).
     routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in ("fleet_main_path", "fleet_straggler"))
     routes["float32"] += sum(results[p]["launches"]["fused_pso_move"]
-                             for p in HPO_WORKLOAD_PHASES + GATEWAY_PHASES + ROUTER_PHASES)
+                             for p in HPO_WORKLOAD_PHASES + GATEWAY_PHASES + ROUTER_PHASES + CHAOS_PHASES)
     emit("kernels", [
         {
             "name": "fused_pso_move",

@@ -29,12 +29,17 @@ Ported:
   requests and replies between the gateway client and its socket
   (ROADMAP item 13.8b, with the gateway).
 
-Not ported yet: the invariant registry and the chaos harness (ROADMAP
-Queue 1, item 13.8d: they audit and drive the service's router and
-members, which come first); importing one of their names raises
-:class:`ImportError`.  The kill matrices and bit-identity
-comparators are ported in :mod:`.testing`, imported explicitly as in the
-JAX package.
+* the invariant registry of :mod:`.invariants` (:data:`INVARIANTS`,
+  :func:`audit_invariants` over an :class:`AuditContext`, each broken
+  promise an :class:`InvariantViolation`) and the chaos conductor of
+  :mod:`.chaos` (:class:`ChaosPlan`, :class:`ChaosConductor`,
+  :class:`ChaosReport`, :func:`build_audit_context`): one seeded timeline
+  of member and router kills, wire, disk and lane faults and partition
+  windows over a routed fleet, audited between rounds (ROADMAP item
+  13.8d).
+
+The kill matrices and bit-identity comparators are ported in
+:mod:`.testing`, imported explicitly as in the JAX package.
 """
 
 from .elastic import (
@@ -55,6 +60,7 @@ from .faults import (
 )
 from .fleet import EX_PREEMPTED, FleetError, FleetStats, FleetSupervisor, WorkerSpec, free_coordinator_port
 from .health import HealthProbe, HealthReport, scan_state
+from .invariants import INVARIANTS, AuditContext, InvariantViolation, audit_invariants
 from .preemption import Preempted, PreemptionGuard
 from .restart import (
     PerturbAroundBest,
@@ -126,9 +132,6 @@ __all__ = [
     "WorkerSpec",
     "EX_PREEMPTED",
     "free_coordinator_port",
-]
-
-_CHAOS = (
     "AuditContext",
     "InvariantViolation",
     "INVARIANTS",
@@ -137,15 +140,10 @@ _CHAOS = (
     "ChaosConductor",
     "ChaosReport",
     "build_audit_context",
-)
-_NOT_PORTED = _CHAOS
+]
 
+# The conductor drives the routed serving fleet, so ``chaos.py`` imports
+# ``evox_tpu_torch.service``, whose modules import this package's: it comes
+# last, once every name they take from here is bound.
+from .chaos import ChaosConductor, ChaosPlan, ChaosReport, build_audit_context  # noqa: E402
 
-def __getattr__(name: str):
-    if name in _CHAOS:
-        raise ImportError(
-            f"evox_tpu_torch.resilience.{name} is not ported yet: the invariant registry and the chaos harness "
-            f"(invariants.py, chaos.py) audit and drive the service's router, members and journals, and come "
-            f"after them (ROADMAP Queue 1, item 13.8d)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

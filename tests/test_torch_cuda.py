@@ -2652,3 +2652,131 @@ def test_router_card_built_and_host_built_specs_share_one_link_blob(cuda, tmp_pa
             assert record.spec.algorithm.lb.device.type == "cuda"
     finally:
         router.close()
+
+
+from pathlib import Path  # noqa: E402
+
+
+def _chaos_plan():
+    from evox_tpu_torch.resilience import ChaosPlan
+
+    return ChaosPlan.from_seed(11, members=3, tenants=8, rounds=7, kills=2, wire=3, disk=2, lanes=1, partitions=1)
+
+
+def _chaos_conductor(root, device):
+    from evox_tpu_torch.resilience import ChaosConductor
+
+    return ChaosConductor(root, _chaos_plan(), device=device, member_kwargs={"on_event": lambda msg: None},
+                          router_kwargs={"on_event": lambda msg: None})
+
+
+def _chaos_cpu_log(root):
+    conductor = _chaos_conductor(root, "cpu")
+    try:
+        report = conductor.run()
+    finally:
+        conductor.close()
+    assert report.violations == [] and report.completed == 8
+    return Path(report.event_log).read_bytes()
+
+
+def test_chaos_acceptance_plan_on_the_card_equals_the_cpu_run(cuda, tmp_path):
+    """The JAX chaos suite's acceptance plan with the built-in workload,
+    conducted over three members on the card: every tenant completes with
+    zero violations, and the event journal equals a CPU run's byte for
+    byte."""
+    conductor = _chaos_conductor(tmp_path / "card", cuda)
+    try:
+        report = conductor.run()
+        assert {m.daemon.device.type for m in conductor.members.values()} == {"cuda"}
+        assert conductor.router.result("c00000").algorithm.pop.device.type == "cuda"
+    finally:
+        conductor.close()
+    assert report.violations == []
+    assert (report.completed, report.pending, report.acks) == (8, 0, 8)
+    assert Path(report.event_log).read_bytes() == _chaos_cpu_log(tmp_path / "cpu")
+
+
+def test_chaos_abandoned_members_never_replay_nor_kill_the_rebuilt_ones(cuda, tmp_path):
+    """A killed member is abandoned over the same root: none of its
+    captured graphs is replayed after the kill, it never steps again, and
+    its beat (published after the rebuild) does not make the router declare
+    the rebuilt member dead."""
+    conductor = _chaos_conductor(tmp_path, cuda)
+    replayed, abandoned = [], []
+    replay = torch.cuda.CUDAGraph.replay
+    kill = conductor._kill_member
+
+    def recording_replay(self):
+        replayed.append(id(self))
+        return replay(self)
+
+    def abandoning(index):
+        old = conductor.members[index]
+        graphs = {id(c.graph) for b in old.daemon.service._buckets.values() for c in b.pack._graphs.graphs.values()}
+        abandoned.append((old, graphs, len(replayed), old.daemon.service.stats.segments_run))
+        kill(index)
+        assert conductor.members[index] is not old
+        old.beat()
+
+    conductor._kill_member = abandoning
+    torch.cuda.CUDAGraph.replay = recording_replay
+    try:
+        report = conductor.run()
+        torch.cuda.CUDAGraph.replay = replay
+        assert report.violations == [] and report.completed == 8
+        assert len(abandoned) == 2 and all(graphs for _, graphs, _, _ in abandoned)
+        for old, graphs, at, segments in abandoned:
+            assert not graphs & set(replayed[at:])
+            assert old.daemon.service.stats.segments_run == segments
+            assert old.heartbeat is None or old.heartbeat._thread is None
+            old.beat()
+        conductor.router.poll_fleet()
+        assert conductor.router._dead == set() and conductor.router._migrations == []
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+        conductor.close()
+
+
+def test_chaos_statusz_during_a_capture_keeps_it_intact(cuda, tmp_path):
+    """The ``chaos`` section of the router's, a member daemon's and a
+    gateway's ``/statusz``, read from another thread while the serving
+    thread holds the run's first capture open, leaves the capture valid:
+    the run completes with zero violations and the CPU run's event
+    journal."""
+    import threading
+
+    from evox_tpu_torch.service import Gateway
+
+    conductor = _chaos_conductor(tmp_path / "card", cuda)
+    begin = torch.cuda.CUDAGraph.capture_begin
+    read = {}
+
+    def provide(gateway):
+        read["router"] = conductor.router._statusz()["chaos"]
+        read["daemon"] = conductor.members[0].daemon._statusz()["chaos"]
+        read["gateway"] = gateway.statusz_payload()["chaos"]
+        read["conductor"] = conductor.statusz_payload()
+
+    def held_capture(self, *a, **k):
+        if "router" in read:
+            return begin(self, *a, **k)
+        gateway = Gateway(conductor.members[0].daemon, tokens={"tok": "alice"})
+        gateway.chaos = conductor
+        begin(self, *a, **k)
+        reader = threading.Thread(target=provide, args=(gateway,))
+        reader.start()
+        reader.join(60)
+        assert not reader.is_alive()
+
+    torch.cuda.CUDAGraph.capture_begin = held_capture
+    try:
+        report = conductor.run()
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+        conductor.close()
+    assert set(read) == {"router", "daemon", "gateway", "conductor"}
+    for payload in read.values():
+        assert payload["plan"] == conductor.plan.name and "error" not in payload
+    assert report.violations == [] and report.completed == 8
+    assert Path(report.event_log).read_bytes() == _chaos_cpu_log(tmp_path / "cpu")
