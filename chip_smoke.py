@@ -132,7 +132,14 @@ three ``ServiceMember``s of daemon_main_path's tenants under a
 second run's and to a CPU run's, every tenant bit-equal to the same spec in
 a fault-free daemon; ``chaos_soak``: ``tools/soak_torch.py``'s 1000-tenant
 rung with a member kill, O(wave) disk and card memory, no capture a wave),
-checks that each path went through its kernels, and times them.  It prints one JSON line per
+and, run after the multi-objective example, the visualization tools
+(``vis_main_path``: the README quick start to its end, 100 eager steps and
+``monitor.plot()`` without plotly and under a recording stand-in for
+``plotly.graph_objects``; the NSGA-II headline's run(20) with every
+history, plotted with DTLZ2's front and streamed to an ``.exv`` file read
+back byte for byte; an ``evox_tpu_torch_ext`` plugin grafted at import in
+a fresh process and stepped on the card), checks that each path went
+through its kernels, and times them.  It prints one JSON line per
 phase, a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that last line.  It needs one card and
@@ -9671,6 +9678,328 @@ def _steps(wf, s, n):
     return s
 
 
+# ---------------------------------------------------------------------------
+# Slice 25: vis_tools, EvalMonitor.plot and the extension autoloader.
+# ---------------------------------------------------------------------------
+
+VIS_QUICKSTART_GENS = 100  # README quick start: 100 eager steps, then monitor.plot()
+VIS_NSGA2_GENS = 20  # the NSGA-II headline as run(20)
+VIS_TURNS = 3  # timed replays of run(20), with and without the full histories in turns
+EXT_ALGORITHM = '''
+from evox_tpu_torch.algorithms import PSO
+
+
+class HalfInertiaPSO(PSO):
+    """PSO with an inertia weight of 0.3."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, w=0.3, **kwargs)
+'''
+EXT_CHILD = r'''
+import json, sys
+import torch
+import evox_tpu_torch
+from evox_tpu_torch.ops.pso_step import fused_pso_move
+from evox_tpu_torch.problems.numerical import Ackley
+from evox_tpu_torch.workflows import StdWorkflow
+
+Algo = evox_tpu_torch.algorithms.HalfInertiaPSO
+assert issubclass(Algo, evox_tpu_torch.Algorithm) and "HalfInertiaPSO" in evox_tpu_torch.algorithms.__all__
+wf = StdWorkflow(Algo(1024, -32 * torch.ones(100), 32 * torch.ones(100)), Ackley())
+state = wf.init_step(wf.init(0))
+fused_pso_move.launches = 0
+state = wf.step(state)
+torch.cuda.synchronize()
+algo = state.algorithm
+print(json.dumps({
+    "class": f"{Algo.__module__}.{Algo.__qualname__}", "device": str(algo.pop.device),
+    "w": float(algo.w), "launches": fused_pso_move.launches, "shape": list(algo.pop.shape),
+    "finite": bool(torch.isfinite(algo.pop).all()) and bool(torch.isfinite(algo.fit).all()),
+    "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "evox_tpu", "evox_tpu_ext")),
+}))
+'''
+
+
+@contextlib.contextmanager
+def plotly_as(module):
+    """``import plotly.graph_objects`` gives ``module`` inside the block;
+    with ``None``, it raises ImportError (no plotly importable)."""
+    saved = {k: sys.modules.get(k) for k in ("plotly", "plotly.graph_objects")}
+    parent = None
+    if module is not None:
+        import types
+
+        parent = types.ModuleType("plotly")
+        parent.graph_objects = module
+    sys.modules["plotly"], sys.modules["plotly.graph_objects"] = parent, module
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def recording_plotly():
+    """A stand-in for ``plotly.graph_objects`` whose traces, frames and
+    layouts are dicts of their arguments and whose figures keep ``data``,
+    ``frames`` and ``layout`` (the card machine has no plotly)."""
+    import types
+
+    class _Trace(dict):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+
+    class Figure:
+        def __init__(self, data=None, frames=None, layout=None):
+            self.data, self.frames, self.layout = data, frames, layout
+
+    go = types.ModuleType("plotly.graph_objects")
+    for name in ("Scatter", "Scatter3d", "Histogram", "Frame", "Layout"):
+        setattr(go, name, type(name, (_Trace,), {}))
+    go.Figure = Figure
+    return go
+
+
+def real_plotly_version():
+    try:
+        import plotly
+    except ImportError:
+        return None
+    return getattr(plotly, "__version__", "unknown")
+
+
+def same_array(got, want, what) -> None:
+    """Raise unless ``got`` (from a figure) equals ``want`` in dtype,
+    shape and every value."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want, equal_nan=True):
+        raise AssertionError(f"{what}: {got.dtype}{list(got.shape)} differs from {want.dtype}{list(want.shape)}")
+
+
+def vis_quickstart(device) -> dict:
+    """README quick start №1 to its end on the card: PSO(100, ±32, dim 10)
+    on Ackley with an EvalMonitor, 100 eager steps, then ``monitor.plot()``:
+    without plotly a warning and ``None`` (and ``vis_tools.plot`` raises
+    ImportError), under the stand-in a figure whose traces are the
+    history's."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.ops.philox import philox_draws
+    from evox_tpu_torch.ops.pso_step import fused_pso_move
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.vis_tools import plot
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    fused_pso_move.launches = philox_draws.launches = 0
+    monitor = EvalMonitor()
+    workflow = StdWorkflow(PSO(pop_size=100, lb=-32 * torch.ones(10), ub=32 * torch.ones(10), device=device),
+                           Ackley(), monitor=monitor)
+    state = workflow.init_step(workflow.init(42))
+    best0 = float(monitor.get_best_fitness(state.monitor))
+    for _ in range(VIS_QUICKSTART_GENS):
+        state = workflow.step(state)
+    best = float(monitor.get_best_fitness(state.monitor))
+    launches = {"fused_pso_move": fused_pso_move.launches, "philox_draws": philox_draws.launches}
+    expect(launches["fused_pso_move"], VIS_QUICKSTART_GENS, "vis quick start: fused_pso_move launches")
+    expect(state.algorithm.pop.device.type, torch.device(device).type, "vis quick start: the population's device")
+    if not best < best0:
+        raise AssertionError(f"vis quick start: the best fitness did not fall: {best0} -> {best}")
+
+    with plotly_as(None), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fig = monitor.plot()
+        try:
+            plot.plot_obj_space_1d([torch.zeros(4)])
+        except ImportError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("vis_tools.plot.plot_obj_space_1d ran without plotly")
+    warned = [str(w.message) for w in caught]
+    expect(fig, None, "vis quick start: monitor.plot() without plotly")
+    expect(len(warned) == 1 and warned[0].startswith("No visualization tool available"), True,
+           f"vis quick start: the warning without plotly: {warned}")
+
+    with plotly_as(recording_plotly()):
+        anim, static = monitor.plot(), monitor.plot(animation=False)
+    hist = [f.numpy() for f in monitor.get_fitness_history()]
+    expect(len(hist), VIS_QUICKSTART_GENS + 1, "vis quick start: generations recorded")
+    expect(len(anim.frames), len(hist), "vis quick start: animated frames")
+    for g, (frame, f) in enumerate(zip(anim.frames, hist)):
+        same_array(frame["data"][0]["x"], f, f"vis quick start: frame {g}'s histogram")
+    expect(static.frames, None, "vis quick start: a static figure's frames")
+    expect([t["name"] for t in static.data], ["min", "mean", "max"], "vis quick start: static traces")
+    for trace, reduce in zip(static.data, (np.min, np.mean, np.max)):
+        same_array(trace["y"], np.asarray([reduce(f) for f in hist]), f"vis quick start: the {trace['name']} trace")
+    # The same curves from torch's reductions on the card's history.
+    torch_mean = np.asarray([float(f.double().mean()) for f in monitor.get_fitness_history()])
+    mean_rel = float(np.max(np.abs(static.data[1]["y"] - torch_mean) / np.abs(torch_mean)))
+    if mean_rel > 1e-6:
+        raise AssertionError(f"vis quick start: the mean trace is {mean_rel} from float64 means")
+    expect(float(static.data[0]["y"][-1]) >= best, True, "vis quick start: the last min against the best")
+    return {"config": "README quick start: PSO(100, ±32, dim 10) Ackley, EvalMonitor, 100 eager steps, plot()",
+            "launches": launches, "best_after_init": best0, "best_final": best,
+            "without_plotly": {"returned": None, "warning": warned[0], "plot_obj_space_1d": refused},
+            "frames": len(anim.frames), "mean_trace_vs_float64_rel": mean_rel}
+
+
+def vis_nsga2(device, root) -> dict:
+    """The NSGA-II headline as run(20) with every history kept: the animated
+    and static plots with DTLZ2's front, the history streamed to an .exv
+    file and read back byte for byte, and run(20)'s ms/gen with and without
+    the full histories."""
+    import numpy as np
+    import torch
+    from evox_tpu_torch.vis_tools import EvoXVisionAdapter, new_exv_metadata, read_exv
+    from evox_tpu_torch.workflows import EvalMonitor
+
+    counters = mo_counters()
+    for c in counters.values():
+        c.launches = 0
+    monitor = EvalMonitor(multi_obj=True, full_fit_history=True, full_sol_history=True)
+    wf, problem, _ = mo_workflow("NSGA2", NSGA2_POP, device, monitor=monitor)
+    t0 = time.perf_counter()
+    state = wf.run(wf.init(0), VIS_NSGA2_GENS)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    expect(min(launches[k] for k in ("dominance_packed", "peel_fronts", "lex_rank", "crowding_neighbors")) >= 1,
+           True, f"vis NSGA-II: a ranking kernel never launched: {launches}")
+    pf = problem.pf()
+    expect(pf.device.type, torch.device(device).type, "vis NSGA-II: the front's device")
+    fits, sols = monitor.get_fitness_history(), monitor.get_solution_history()
+    expect((len(fits), len(sols)), (VIS_NSGA2_GENS, VIS_NSGA2_GENS), "vis NSGA-II: generations recorded")
+    expect((tuple(fits[-1].shape), tuple(sols[-1].shape)), ((NSGA2_POP, NSGA2_OBJ), (NSGA2_POP, NSGA2_DIM)),
+           "vis NSGA-II: a generation's history")
+    expect(all(bool(torch.isfinite(f).all()) for f in fits), True, "vis NSGA-II: finite fitness history")
+
+    pf_host = pf.cpu().numpy()
+    with plotly_as(recording_plotly()):
+        static = monitor.plot(problem_pf=pf, animation=False)
+        anim = monitor.plot(problem_pf=pf)
+    expect(static.frames, None, "vis NSGA-II: a static figure's frames")
+    expect(len(anim.frames), VIS_NSGA2_GENS, "vis NSGA-II: animated frames")
+    for fig_name, pf_trace in [("static", static.data[0])] + [(f"frame {g}", fr["data"][0])
+                                                             for g, fr in enumerate(anim.frames)]:
+        for i, ax in enumerate("xyz"):
+            same_array(pf_trace[ax], pf_host[:, i], f"vis NSGA-II: {fig_name}'s front {ax}")
+    for g, (frame, f) in enumerate(zip(anim.frames, fits)):
+        for i, ax in enumerate("xyz"):
+            same_array(frame["data"][1][ax], f.numpy()[:, i], f"vis NSGA-II: frame {g}'s population {ax}")
+    pooled = torch.cat(fits).numpy()
+    overlay = static.data[1]
+    for i, ax in enumerate("xyz"):
+        same_array(overlay[ax], pooled[:, i], f"vis NSGA-II: the static overlay's {ax}")
+    same_array(overlay["marker"]["color"], np.repeat(np.arange(VIS_NSGA2_GENS), NSGA2_POP),
+               "vis NSGA-II: the overlay's generation colours")
+
+    path = root / "nsga2_headline.exv"
+    t0 = time.perf_counter()
+    adapter = EvoXVisionAdapter(path)
+    adapter.set_metadata(new_exv_metadata(sols[0], sols[1], fits[0], fits[1]))
+    adapter.write_header()
+    for s, f in zip(sols, fits):
+        adapter.write(s, f)
+    adapter.close()
+    write_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    meta, chunks = read_exv(path)
+    expect((meta["n_objs"], len(chunks)), (NSGA2_OBJ, VIS_NSGA2_GENS), "vis NSGA-II: the .exv's chunks")
+    for g, (chunk, s, f) in enumerate(zip(chunks, sols, fits)):
+        expect(chunk["population"].tobytes() == s.numpy().tobytes(), True, f"vis NSGA-II: chunk {g}'s population")
+        expect(chunk["fitness"].tobytes() == f.numpy().tobytes(), True, f"vis NSGA-II: chunk {g}'s fitness")
+
+    def timed_run(w):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        s = w.run(w.init(0), VIS_NSGA2_GENS)
+        end.record()
+        torch.cuda.synchronize()
+        return s, {"ms_per_gen": start.elapsed_time(end) / VIS_NSGA2_GENS,
+                   "host_ms_per_gen": (time.perf_counter() - t0) * 1e3 / VIS_NSGA2_GENS}
+
+    # Replays of the same capture from the same seed, in turns with a twin
+    # that keeps no history: each replay's history equals the first run's
+    # bit for bit, and both twins end on the same state.
+    bare, _, _ = mo_workflow("NSGA2", NSGA2_POP, device,
+                             monitor=EvalMonitor(multi_obj=True, full_fit_history=False))
+    bare.run(bare.init(0), VIS_NSGA2_GENS)  # the capture
+    with_hist, without_hist = [], []
+    for _ in range(VIS_TURNS):
+        monitor.clear_history()
+        replayed, t = timed_run(wf)
+        with_hist.append(t)
+        expect(len(monitor.get_fitness_history()), VIS_NSGA2_GENS, "vis NSGA-II: the replay's generations")
+        for g, (a, b) in enumerate(zip(monitor.get_solution_history(), sols)):
+            exact(a, b, f"vis NSGA-II: replayed generation {g}'s solutions")
+        exact(replayed.algorithm.fit, state.algorithm.fit, "vis NSGA-II: the replayed run's fitness")
+        bare_state, t = timed_run(bare)
+        without_hist.append(t)
+        exact(bare_state.algorithm.fit, state.algorithm.fit, "vis NSGA-II: the run without histories")
+    return {"config": f"NSGA2 pop={NSGA2_POP} d={NSGA2_DIM} m={NSGA2_OBJ} DTLZ2 f32, "
+                      "EvalMonitor(multi_obj, full_fit_history, full_sol_history), run(20)",
+            "launches": launches, "first_run_s": first_s, "frames": len(anim.frames),
+            "front_points": int(pf.shape[0]),
+            "exv": {"mb": size / 1e6, "write_s": write_s, "mb_per_s": size / 1e6 / write_s,
+                    "chunks": len(chunks)},
+            # Each run(20) from init(0): init_step eagerly, then the replay.
+            "run20_with_full_histories": with_hist, "run20_without_full_histories": without_hist,
+            "median_ms_per_gen": {"with": median([t["ms_per_gen"] for t in with_hist]),
+                                  "without": median([t["ms_per_gen"] for t in without_hist])}}
+
+
+def vis_extension(root) -> dict:
+    """An ``evox_tpu_torch_ext.algorithms`` plugin grafted at import in a
+    fresh process, its algorithm stepping once on the card."""
+    pkg = root / "distro" / "evox_tpu_torch_ext" / "algorithms"
+    pkg.mkdir(parents=True)
+    (pkg / "__init__.py").write_text(EXT_ALGORITHM)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([ROOT, str(root / "distro")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run([sys.executable, "-c", EXT_CHILD], cwd=root, env=env, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"vis extension child failed:\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    expect(out["class"], "evox_tpu_torch_ext.algorithms.HalfInertiaPSO", "vis extension: the grafted class")
+    expect((out["device"].split(":")[0], out["launches"], out["finite"], out["jax_modules"]),
+           ("cuda", 1, True, []), f"vis extension: the step {out}")
+    expect(abs(out["w"] - 0.3) < 1e-7, True, "vis extension: the subclass's inertia")
+    return out
+
+
+def phase_vis_main_path(device) -> dict:
+    """vis_tools, EvalMonitor.plot and the autoloader on the card: (a) the
+    README quick start to its end, (b) the NSGA-II headline's run(20)
+    plotted and streamed through .exv, (c) a plugin grafted at import."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_vis_"))
+    try:
+        quick = vis_quickstart(device)
+        nsga2 = vis_nsga2(device, root)
+        ext = vis_extension(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"card": card_line(), "plotly": "stand-in", "real_plotly": real_plotly_version(),
+            "quickstart": quick, "nsga2": nsga2, "extension": ext,
+            # The kernels' launches: the quick start's moves and draws, the
+            # NSGA-II runs' ranking kernels and draws, the plugin's move.
+            "launches": {**{k: v for k, v in nsga2["launches"].items()},
+                         "fused_pso_move": quick["launches"]["fused_pso_move"] + ext["launches"],
+                         "philox_draws": quick["launches"]["philox_draws"] + nsga2["launches"]["philox_draws"]}}
+
+
 MO_KERNELS = [
     ("dominance_packed", "evox_tpu_torch/csrc/dominance.cu", "evox_tpu/ops/dominance.py:37",
      "dominance_packed_20k"),
@@ -9695,7 +10024,9 @@ def kernel_row(name, source, replaces, results, timing_key) -> dict:
         + results["vmapped_family"]["launches"].get(name, 0)
         + results["nsga2_policy_main_path"]["launches"].get(name, 0)
         # The NSGA-II headline with enable_distributed=True.
-        + results["distributed_main_path"]["launches"].get(name, 0),
+        + results["distributed_main_path"]["launches"].get(name, 0)
+        # The NSGA-II headline's run(20) with every history, plotted.
+        + results["vis_main_path"]["launches"].get(name, 0),
         # compare_mo's sizes, the timing rows held on the path's inputs and
         # the ranking on NSGA-III's, RVEAa's and HypE's paths.
         "max_abs_err": max([results["compare_mo"]["max_abs_err"][name],
@@ -9746,6 +10077,8 @@ def philox_row(results) -> dict:
         + results["pso_variants"]["launches"]["philox_draws"]
         + results["neuroevolution_main_path"]["launches"]["philox_draws"]
         + results["neuroevolution_family"]["launches"]["philox_draws"]
+        # vis_main_path's quick start setup and NSGA-II runs.
+        + results["vis_main_path"]["launches"]["philox_draws"]
         # The precision plane's paths: their setups, NSGA-II's generations
         # and the key-impl twins' setups.
         + sum(results[p]["setup"]["philox_draws"]
@@ -9991,6 +10324,7 @@ def main() -> int:
         ("compare_mo", phase_compare_mo),
         ("nsga2_main_path", phase_nsga2_main_path),
         ("mo_example", phase_mo_example),
+        ("vis_main_path", phase_vis_main_path),
         ("timing_mo", phase_timing_mo),
         ("philox", phase_philox),
         ("segment", phase_segment),
@@ -10076,6 +10410,8 @@ def main() -> int:
     routes["float32"] += sum(results[p]["launches"]["fused_pso_move"] for p in ("fleet_main_path", "fleet_straggler"))
     routes["float32"] += sum(results[p]["launches"]["fused_pso_move"]
                              for p in HPO_WORKLOAD_PHASES + GATEWAY_PHASES + ROUTER_PHASES + CHAOS_PHASES)
+    # vis_main_path's quick start (100 eager steps) and its plugin's step.
+    routes["float32"] += results["vis_main_path"]["launches"]["fused_pso_move"]
     emit("kernels", [
         {
             "name": "fused_pso_move",

@@ -5,9 +5,11 @@ module layout and names so each module's counterpart is easy to find.  It
 imports ``torch`` and never ``jax`` or ``evox_tpu``.
 
 Entry points run on the CUDA card unless the caller asks for the CPU with
-``device="cpu"`` (:func:`resolve_device`).  Importing the package loads no
-extension and builds no kernel: kernels are built on their first launch
-(:mod:`evox_tpu_torch.ops`).
+``device="cpu"`` (:func:`resolve_device`).  Importing the package builds no
+kernel: kernels are built on their first launch (:mod:`evox_tpu_torch.ops`).
+It grafts installed plugins, the namespace packages
+``evox_tpu_torch_ext.<category>``, into ``evox_tpu_torch.<category>``
+(:mod:`evox_tpu_torch.autoload_ext`).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ __all__ = [
     "resilience",
     "service",
     "utils",
+    "vis_tools",
     "workflows",
     "Algorithm",
     "Monitor",
@@ -82,11 +85,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 # Subpackages of the JAX package that are not ported yet: reaching one from
-# here raises ImportError by name.
-NOT_PORTED = ("vis_tools",)
+# here raises ImportError by name.  Every subpackage is ported; the name
+# stays, as the refusal's contract.
+NOT_PORTED = ()
 
-# Every ported subpackage, as the JAX package imports all of its own.  None
-# builds a kernel when imported (kernels are built on their first launch).
+# Every subpackage, as the JAX package imports all of its own.  None builds
+# a kernel when imported (kernels are built on their first launch).
 from . import (  # noqa: E402
     algorithms,
     control,
@@ -102,6 +106,7 @@ from . import (  # noqa: E402
     resilience,
     service,
     utils,
+    vis_tools,
     workflows,
 )
 
@@ -112,3 +117,13 @@ def __getattr__(name: str):
             f"evox_tpu_torch.{name} is not ported yet (the JAX package's evox_tpu.{name}; ROADMAP Queue 1)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+# Plugin autoload: the port's own plugins (``evox_tpu_torch_ext``), never
+# the JAX package's.
+try:
+    from .autoload_ext import auto_load_extensions
+
+    auto_load_extensions()
+except ImportError:
+    pass

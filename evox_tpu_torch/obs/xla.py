@@ -13,8 +13,11 @@ segment boundaries (counterpart of the runner-side half of
   ``cost_analysis``), so the analysis is empty: what the JAX package itself
   returns on a backend without a cost model, and the gauges are skipped.
 
-The bench-side half of the JAX module (``write_cost_analysis``, the
-roofline helpers) is not ported yet.
+The bench-side half of the JAX module (the peak constants,
+``program_costs``, ``program_memory``, ``write_cost_analysis`` and the
+roofline helpers) is not ported yet: it comes with the port's benchmark
+(ROADMAP item 14), at the H100's peaks.  Reaching one of its names raises
+ImportError by name (``_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,27 @@ __all__ = [
     "publish_device_memory_gauges",
     "publish_program_gauges",
 ]
+
+# The JAX module's bench-side names, not ported yet.
+_NOT_PORTED = (
+    "DEFAULT_HBM_PEAK_GBPS",
+    "DEFAULT_FLOP_PEAK_TFLOPS",
+    "program_costs",
+    "program_memory",
+    "write_cost_analysis",
+    "roofline",
+    "roofline_from_cost",
+    "publish_roofline_gauges",
+)
+
+
+def __getattr__(name: str):
+    if name in _NOT_PORTED:
+        raise ImportError(
+            f"evox_tpu_torch.obs.xla.{name} is not ported yet (the bench half of evox_tpu/obs/xla.py; "
+            "ROADMAP item 14, the port's benchmark)"
+        )
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def device_memory_stats(device: Any = None) -> dict[str, float] | None:

@@ -31,6 +31,19 @@ __all__ = [
     "order_key",
 ]
 
+# Names of the JAX module that have another form here: reaching one raises
+# ImportError naming the port's stand-in.
+_STAND_INS = {
+    "crowding_distance_pallas": "the crowding_neighbors kernel's distance is crowding_distance_kernel",
+}
+
+
+def __getattr__(name: str):
+    if name in _STAND_INS:
+        raise ImportError(f"evox_tpu_torch.ops.crowding has no {name}: {_STAND_INS[name]}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 _P = ctypes.c_void_p
 _ARGS = (_P, _P, ctypes.c_int, ctypes.c_int) + (_P,) * 6
 _LIMIT = 2**31 - 256  # as lex_rank's (csrc/radix_sort.cuh)

@@ -27,6 +27,20 @@ from . import _build
 
 __all__ = ["run_capability_probe", "scale_by_two", "scale_by_two_plain"]
 
+# Names of the JAX module that have another form here: reaching one raises
+# ImportError naming the port's stand-in.
+_STAND_INS = {
+    "pallas_enabled": "the port opens no gate; on a CUDA tensor every wrapper launches its kernel or raises",
+    "PROBE_RECORD_PATH": "run_capability_probe keeps no verdict file",
+}
+
+
+def __getattr__(name: str):
+    if name in _STAND_INS:
+        raise ImportError(f"evox_tpu_torch.ops.probe has no {name}: {_STAND_INS[name]}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p)
 
 

@@ -45,6 +45,21 @@ from .philox import philox_draws_batched_plain, seed_operands
 
 __all__ = ["fused_pso_move", "fused_pso_move_plain", "fused_pso_move_batched", "fused_pso_move_batched_plain"]
 
+# Names of the JAX module that have another form here: reaching one raises
+# ImportError naming the port's stand-in.
+_STAND_INS = {
+    name: "the TPU kernel's 128-lane padding has no counterpart; the CUDA kernel takes any (n, d) "
+    "(its launch plan is _launch_plan)"
+    for name in ("pad_dim", "supports_shape")
+}
+
+
+def __getattr__(name: str):
+    if name in _STAND_INS:
+        raise ImportError(f"evox_tpu_torch.ops.pso_step has no {name}: {_STAND_INS[name]}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     (ctypes.c_int,)

@@ -30,6 +30,19 @@ __all__ = [
     "radix_capacity",
 ]
 
+# Names of the JAX module that have another form here: reaching one raises
+# ImportError naming the port's stand-in.
+_STAND_INS = {
+    "masked_top_k_xla": "the stable-argsort top-k is the plain version, masked_top_k_plain",
+}
+
+
+def __getattr__(name: str):
+    if name in _STAND_INS:
+        raise ImportError(f"evox_tpu_torch.ops.topk has no {name}: {_STAND_INS[name]}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 _DTYPES = {torch.float32: 0, torch.int32: 1}
 _P = ctypes.c_void_p
 _ARGS = (ctypes.c_int, _P, ctypes.c_int, _P, _P, _P)

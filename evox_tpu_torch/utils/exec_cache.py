@@ -68,6 +68,7 @@ __all__ = [
     "ExecCacheStats",
     "abstract_signature",
     "capture_record",
+    "compile_uncached",
     "enable_xla_compilation_cache",
 ]
 
@@ -440,6 +441,17 @@ def _library_version() -> str:
     from .. import __version__
 
     return __version__
+
+
+def compile_uncached(compile_fn: Callable[[], Any]) -> Any:
+    """Run one compile with the persistent program cache bypassed: here,
+    ``compile_fn()`` called once and its result returned.  The JAX package
+    turns off XLA's disk cache around the call, because an executable
+    served from that cache serializes to an incomplete payload.  The port
+    has no such cache to bypass: a capture is never served from disk (a
+    CUDA graph holds the addresses of the process that captured it), so
+    every capture is already made for real."""
+    return compile_fn()
 
 
 def enable_xla_compilation_cache(directory: Union[str, Path]) -> bool:

@@ -31,7 +31,8 @@ each payload to the workflow, which batches them per generation, and
 :meth:`EvalMonitor.ingest_sinks` appends them at the segment boundary, in
 the order stepping would have.
 
-Not ported yet: ``plot``.
+:meth:`EvalMonitor.plot` draws the history with
+:mod:`evox_tpu_torch.vis_tools.plot` (plotly, optional).
 """
 
 from __future__ import annotations
@@ -427,6 +428,48 @@ class EvalMonitor(Monitor):
     def get_solution_history(self) -> list[torch.Tensor]:
         """``solution_history`` (CPU tensors)."""
         return self.solution_history
+
+    # -- plotting -------------------------------------------------------------
+    def plot(self, problem_pf=None, source: str = "eval", **kwargs):
+        """Plot the fitness history with :mod:`evox_tpu_torch.vis_tools.plot`
+        (1/2/3-objective dispatch); ``None`` with a warning when nothing was
+        recorded, when plotly is missing, or for more than 3 objectives.
+
+        :param problem_pf: the true Pareto front overlaid on a 2- or
+            3-objective plot (a tensor on any device, or a numpy array).
+        :param source: ``"eval"`` plots the evaluated fitness (the original
+            sign restored); ``"pop"`` the algorithm's own record
+            ``aux_history["fit"]``.
+        :param kwargs: passed on to the plot function (``animation=False``
+            for a static figure, plotly layout options)."""
+        if not self.fitness_history and not self.aux_history:
+            warnings.warn("No fitness history recorded, return None")
+            return None
+        from ..vis_tools import plot
+
+        if source == "pop":
+            fitness_history = self.aux_history["fit"]
+        elif source == "eval":
+            fitness_history = self.get_fitness_history()
+        else:
+            raise ValueError(f"Invalid source argument: {source}, expect 'eval' or 'pop'.")
+        if not fitness_history:
+            warnings.warn(f"No data recorded for source={source!r}, return None")
+            return None
+        n_objs = 1 if fitness_history[0].ndim == 1 else fitness_history[0].shape[1]
+        try:
+            if n_objs == 1:
+                return plot.plot_obj_space_1d(fitness_history, **kwargs)
+            if n_objs == 2:
+                return plot.plot_obj_space_2d(fitness_history, problem_pf, **kwargs)
+            if n_objs == 3:
+                return plot.plot_obj_space_3d(fitness_history, problem_pf, **kwargs)
+        except ImportError as e:
+            # plotly is optional.
+            warnings.warn(f"No visualization tool available ({e}), return None")
+            return None
+        warnings.warn("Not supported yet.")
+        return None
 
     # -- result accessors ----------------------------------------------------
     def get_latest_fitness(self, state: State) -> torch.Tensor:

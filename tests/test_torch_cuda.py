@@ -2780,3 +2780,84 @@ def test_chaos_statusz_during_a_capture_keeps_it_intact(cuda, tmp_path):
         assert payload["plan"] == conductor.plan.name and "error" not in payload
     assert report.violations == [] and report.completed == 8
     assert Path(report.event_log).read_bytes() == _chaos_cpu_log(tmp_path / "cpu")
+
+
+def test_exv_writes_card_tensors_and_their_views_as_their_host_bytes(cuda, tmp_path):
+    """Card tensors, a transposed view and a strided slice among them,
+    written through exv: the file equals the one written from their host
+    copies, and reads back byte for byte."""
+    from evox_tpu_torch.vis_tools import EvoXVisionAdapter, new_exv_metadata, read_exv
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pops = [torch.rand(5, 7, generator=g, device=cuda).T for _ in range(4)]  # (7, 5) views
+    fits = [torch.rand(7, 6, generator=g, device=cuda)[:, ::2] for _ in range(4)]  # (7, 3) views
+    assert not pops[0].is_contiguous() and not fits[0].is_contiguous()
+
+    def write(path, ps, fs):
+        a = EvoXVisionAdapter(path)
+        a.set_metadata(new_exv_metadata(ps[0], ps[1], fs[0], fs[1]))
+        a.write_header()
+        for p, f in zip(ps, fs):
+            a.write(p, f)
+        a.close()
+        return path.read_bytes()
+
+    card = write(tmp_path / "card.exv", pops, fits)
+    host = write(tmp_path / "host.exv", [p.cpu().contiguous().numpy() for p in pops],
+                 [f.cpu().contiguous().numpy() for f in fits])
+    assert card == host
+    _, chunks = read_exv(tmp_path / "card.exv")
+    for c, p, f in zip(chunks, pops, fits):
+        assert c["population"].tobytes() == p.cpu().contiguous().numpy().tobytes()
+        assert c["fitness"].tobytes() == f.cpu().contiguous().numpy().tobytes()
+    with pytest.raises(ValueError, match="Unsupported dtype: bfloat16"):
+        new_exv_metadata(pops[0].bfloat16(), pops[1].bfloat16(), fits[0], fits[1])
+
+
+def test_monitor_plot_of_a_card_run_with_a_card_pareto_front(cuda, monkeypatch):
+    """EvalMonitor.plot of an NSGA-II run(n) on the card, with DTLZ2's front
+    on the card: the figure's traces are the history's and the front's host
+    values (a stand-in for plotly.graph_objects records them)."""
+    import sys
+    import types
+
+    import numpy as np
+
+    from evox_tpu_torch.algorithms import NSGA2
+    from evox_tpu_torch.problems.numerical import DTLZ2
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    class _Trace(dict):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+
+    class Figure:
+        def __init__(self, data=None, frames=None, layout=None):
+            self.data, self.frames, self.layout = data, frames, layout
+
+    go = types.ModuleType("plotly.graph_objects")
+    for name in ("Scatter", "Scatter3d", "Histogram", "Frame", "Layout"):
+        setattr(go, name, type(name, (_Trace,), {}))
+    go.Figure = Figure
+    plotly = types.ModuleType("plotly")
+    plotly.graph_objects = go
+    monkeypatch.setitem(sys.modules, "plotly", plotly)
+    monkeypatch.setitem(sys.modules, "plotly.graph_objects", go)
+
+    mon = EvalMonitor(multi_obj=True, full_fit_history=True)
+    problem = DTLZ2(d=12, m=3, device=cuda)
+    wf = StdWorkflow(NSGA2(64, 3, torch.zeros(12, device=cuda), torch.ones(12, device=cuda), device=cuda),
+                     problem, monitor=mon)
+    wf.run(wf.init(0), 4)
+    pf = problem.pf()
+    assert pf.device.type == "cuda"
+    hist = mon.get_fitness_history()
+    fig = mon.plot(problem_pf=pf)
+    assert len(fig.frames) == len(hist) == 4
+    for frame, f in zip(fig.frames, hist):
+        pf_trace, pop_trace = frame["data"]
+        np.testing.assert_array_equal(pf_trace["z"], pf[:, 2].cpu().numpy())
+        np.testing.assert_array_equal(pop_trace["x"], f[:, 0].numpy())
+    static = mon.plot(problem_pf=pf, animation=False)
+    assert static.frames is None
+    np.testing.assert_array_equal(static.data[-1]["y"], torch.cat(hist)[:, 1].numpy())
