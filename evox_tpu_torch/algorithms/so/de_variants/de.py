@@ -47,8 +47,8 @@ def improve(state: State, new_pop, new_fit, strict: bool = True, **extra) -> Sta
 class DE(Algorithm):
     """Classic DE/rand-or-best/k/bin."""
 
-    # The population-sized buffers (the JAX package's precision map; the
-    # precision plane itself is not ported yet).
+    # The population-sized buffers (the JAX package's precision map, read
+    # by the precision plane, evox_tpu_torch/precision/).
     storage_leaves = ("pop", "fit")
 
     def __init__(

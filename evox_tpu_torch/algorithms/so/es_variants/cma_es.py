@@ -32,8 +32,8 @@ __all__ = ["CMAES"]
 
 
 class CMAES(ESAlgorithm):
-    # The population-sized buffer (the JAX package's precision map; the
-    # precision plane itself is not ported yet).
+    # The population-sized buffer (the JAX package's precision map, read
+    # by the precision plane, evox_tpu_torch/precision/).
     storage_leaves = ("fit",)
 
     def __init__(

@@ -18,7 +18,7 @@ and renders structured, journaled :class:`~evox_tpu_torch.control.Decision`\\ s
 that the :class:`~evox_tpu_torch.resilience.ResilientRunner` and the
 :class:`~evox_tpu_torch.hpo.HPORunner` *act* on (the service's consults —
 tenant, brown-out, shed, autoscale, compaction — are here too; the
-daemon calls them, the router is not ported yet):
+daemon and the tenant router call them):
 
 * **trend verdicts** — fitness-slope stagnation, diversity-collapse
   trajectory, and quarantine-storm prediction computed from the flight

@@ -174,8 +174,8 @@ def finalize_row(row: dict[str, float]) -> dict[str, float]:
 
 
 # -- trend queries -----------------------------------------------------------
-# ONE definition of the window math, shared by the control plane (the JAX
-# package's evox_tpu/control/, not ported yet) and ad-hoc
+# ONE definition of the window math, shared by the control plane
+# (evox_tpu_torch/control/) and ad-hoc
 # postmortem analysis (a dumped bundle's ``flight.jsonl`` rows feed the
 # same functions verbatim).  All three are NaN-robust: non-finite samples
 # are *skipped*, never propagated — a NaN burst in a signal must degrade

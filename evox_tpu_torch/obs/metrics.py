@@ -19,7 +19,9 @@ checkpoint writer's publish/failure/block-seconds.  Two export shapes:
 
 :meth:`MetricsRegistry.heartbeat_payload` and
 :meth:`MetricsRegistry.fleet_payload` are the payload shapes the JAX
-package's multi-host heartbeats carry (the fleet plane is not ported yet).
+package's multi-host heartbeats carry; the fleet plane's
+:class:`~evox_tpu_torch.obs.FleetAggregator` (``obs/aggregate.py``) merges
+them.
 
 Everything is thread-safe (one registry lock): the async checkpoint
 writer publishes from its worker thread.
@@ -400,7 +402,7 @@ class MetricsRegistry:
     def fleet_payload(self) -> dict[str, Any]:
         """The typed snapshot that rides a
         ``HostHeartbeat`` (the JAX package's multi-host plane) beat for fleet-level
-        aggregation (``FleetAggregator``, not ported yet): counters
+        aggregation (:class:`~evox_tpu_torch.obs.FleetAggregator`): counters
         and gauges as flat ``{series: value}`` sections, histograms with
         their full bucket arrays (``bounds``/``counts``/``sum``/``count``)
         — the flat :meth:`heartbeat_payload` cannot be merged bucket-wise.

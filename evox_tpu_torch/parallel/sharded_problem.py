@@ -19,6 +19,20 @@ sees one-row populations (under ``torch.func.vmap``); a keyed problem whose
 fitness depends on the whole batch opts out with
 ``per_individual_keys=False`` and gets whole-shard batches under
 ``fold_in(key, shard_index)``, whose streams depend on the mesh size.
+
+**HPO instances over a mesh.**  Over a nested problem
+(:class:`~evox_tpu_torch.hpo.NestedProblem` or
+:class:`~evox_tpu_torch.problems.hpo_wrapper.HPOProblemWrapper`) the split
+is the candidates axis, the natural unit of HPO parallelism: each rank takes
+its contiguous block of the hyper-parameters and of the state's
+``instances`` and ``uids``, runs the block through the nest's vmap, and one
+all-gather returns the ``(num_candidates,)`` fitness on every rank.  The
+state that comes back is the whole nest's on every rank: the instances as
+the nest leaves them, the uids, and the latest evaluation's telemetry,
+gathered row block by row block.  A candidate's inner streams were fixed
+at setup (``fold_in(key, uid)`` or the wrapper's split schedule), so no
+split changes a candidate's run: any mesh, one rank included, gives the
+unsharded nest's fitness bit for bit.
 """
 
 from __future__ import annotations
@@ -105,15 +119,15 @@ class ShardedProblem(Problem):
     def setup(self, key: torch.Tensor) -> State:
         return self.problem.setup(key)
 
-    def evaluate(self, state: State, pop) -> tuple[torch.Tensor, State]:
-        if torch._C._functorch.peek_interpreter_stack() is not None:
-            raise NotImplementedError(
-                "ShardedProblem.evaluate under torch.func.vmap (HPO instances over a mesh) is not yet ported: "
-                "the all-gather takes unbatched tensors"
-            )
+    def _block(self, rows):
+        """This rank's contiguous block of ``rows`` (a tensor or a nest of
+        tensors with a leading population axis), padded first when
+        ``pad`` is set and the size does not divide: ``(block, lo, size)``,
+        ``lo`` the block's first row in the whole population and ``size``
+        the unpadded size."""
         mesh, axis = self.mesh, self.axis_name
         n_shards = mesh.shape[axis]
-        leaves, _ = graph.flatten(pop)
+        leaves, _ = graph.flatten(rows)
         pop_size = leaves[0].shape[0]
         if pop_size % n_shards != 0:
             if not self.pad:
@@ -124,14 +138,37 @@ class ShardedProblem(Problem):
                     f"population or choose a pop_size that is a multiple of "
                     f"{n_shards}"
                 )
-            pop, _ = pad_population(pop, n_shards)
+            rows, _ = pad_population(rows, n_shards)
         index = mesh.shard_index
         if index is None:
             raise ValueError(f"this rank is outside the {n_shards}-way '{axis}' mesh: it evaluates nothing")
-        padded, spec = graph.flatten(pop)
+        padded, spec = graph.flatten(rows)
         local_n = padded[0].shape[0] // n_shards
         lo = index * local_n
-        block = graph.unflatten(spec, [t[lo:lo + local_n] for t in padded])
+        return graph.unflatten(spec, [t[lo:lo + local_n] for t in padded]), lo, pop_size
+
+    def _gather(self, block: torch.Tensor, size: int) -> torch.Tensor:
+        """The mesh's row blocks of ``block``'s kind, whole and unpadded
+        (a bool block travels as bytes)."""
+        if block.dtype == torch.bool:
+            return self._gather(block.view(torch.uint8), size).view(torch.bool)
+        return unpad_fitness(all_gather_rows(block, self.mesh), size)
+
+    def evaluate(self, state: State, pop) -> tuple[torch.Tensor, State]:
+        if torch._C._functorch.peek_interpreter_stack() is not None:
+            raise NotImplementedError(
+                "ShardedProblem.evaluate under torch.func.vmap is refused: the all-gather takes unbatched "
+                "tensors.  To split HPO instances over a mesh, shard the nest itself: "
+                "ShardedProblem(NestedProblem(...) or HPOProblemWrapper(...), mesh) splits its candidates"
+            )
+        from ..hpo.nested import NestedProblem
+
+        if isinstance(self.problem, NestedProblem):
+            return self._evaluate_nest(state, pop)
+        block, lo, pop_size = self._block(pop)
+        leaves, spec = graph.flatten(block)
+        local_n = leaves[0].shape[0]
+        index = self.mesh.shard_index
         keyed = "key" in state
         if keyed and self.per_individual_keys:
             slots = torch.arange(lo, lo + local_n, dtype=torch.int64, device=state.key.device)
@@ -147,8 +184,24 @@ class ShardedProblem(Problem):
             fit, _ = self.problem.evaluate(state.replace(key=rng.fold_in(state.key, shard)), block)
         else:
             fit, _ = self.problem.evaluate(state, block)
-        fit = unpad_fitness(all_gather_rows(fit, mesh), pop_size)
+        fit = self._gather(fit, pop_size)
         if keyed:
             word = torch.full((), _ADVANCE, dtype=torch.int64, device=state.key.device)
             state = state.replace(key=rng.fold_in(state.key, word))
+        return fit, state
+
+    def _evaluate_nest(self, state: State, hyper_parameters) -> tuple[torch.Tensor, State]:
+        """A nested problem's evaluation split over its candidates (see the
+        module docstring): this rank's rows of the hyper-parameters, the
+        instances, the uids and the telemetry go through the nest, and the
+        fitness and the new telemetry are gathered whole."""
+        telemetry = "telemetry" in state
+        rows = (dict(hyper_parameters), state.instances, state.uids, state.telemetry if telemetry else None)
+        (hp, instances, uids, tel), _, size = self._block(rows)
+        sub = state.replace(instances=instances, uids=uids, **({"telemetry": tel} if telemetry else {}))
+        fit, sub = self.problem.evaluate(sub, hp)
+        fit = self._gather(fit, size)
+        if telemetry:
+            leaves, spec = graph.flatten(sub.telemetry)
+            state = state.replace(telemetry=graph.unflatten(spec, [self._gather(t, size) for t in leaves]))
         return fit, state

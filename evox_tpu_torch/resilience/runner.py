@@ -45,7 +45,8 @@ still running the old replay.
 ``problem.capturable`` is False, e.g. a
 :class:`~evox_tpu_torch.resilience.FaultyProblem` with host faults
 scheduled) run the segment's generations eagerly on the card — the
-workflow's per-generation route — never on the CPU.
+workflow's per-generation route.  Nothing moves to the CPU unless the
+caller asked for the CPU fallback.
 
 **Retry predicate.**  :func:`default_retryable` keeps the JAX package's
 contract (a :class:`WatchdogTimeout` always retries, the ``NONRETRYABLE``
@@ -103,9 +104,24 @@ runs no ``nvcc``.  Labels are salted with the workflow's static signature,
 as the JAX package's, so two workflows of one shape never share an entry;
 a load is counted by ``evox_runner_exec_cache_loads_total``.  The capture
 itself still runs once a program.
-``cpu_fallback=True`` runs on the CPU (it counts and resets the retry
-budget as the JAX package's does); on the card it is refused, since the
-port's modules are bound to their device when they are built.
+**The CPU fallback** (``cpu_fallback=True``): a segment that still fails
+after its retries runs again on the CPU with a fresh retry budget, and so
+does every later segment of the run, as in the JAX package (one fallback
+a run, counted in ``stats.cpu_fallbacks`` and
+``evox_runner_cpu_fallbacks_total``, and warned).  JAX moves the state
+with ``jax.device_put`` and lowers the programs for the CPU; the port's
+components are bound to their device when they are built, so the runner
+runs the rest of the run on a *CPU twin* of the workflow
+(:func:`~evox_tpu_torch.utils.relocate.relocate`): the same configuration
+with every tensor and ``device`` of its components on the CPU and no
+captured graph, sharing the host-side state of the original (the
+monitor and its history, a fault injector's attempt counts).  The
+segment's input checkpoint is reloaded into a CPU template, the kernels'
+wrappers take their plain versions on the CPU tensors, and the state
+``run`` returns is on the CPU.  The next ``run()`` starts on the card
+workflow again.  A sharded evaluation on the card cannot join a CPU twin
+(its process group and the other ranks stay on the card): ``run()``
+refuses ``cpu_fallback=True`` with it by name.
 """
 
 from __future__ import annotations
@@ -137,6 +153,7 @@ from ..utils.checkpoint import (
 )
 from ..utils.checkpoint import quarantine_target as _quarantine_target
 from ..utils import graph
+from ..utils.relocate import relocate
 from .elastic import (
     _num_processes,
     check_topology,
@@ -303,8 +320,8 @@ class SegmentTiming(NamedTuple):
 @dataclass
 class RunStats:
     """Observable record of what the supervisor did during :meth:`run` (the
-    JAX package's fields).  ``cpu_fallbacks`` stays 0 on the card, where
-    the fallback is refused."""
+    JAX package's fields).  ``cpu_fallbacks`` counts the runs that fell back
+    to the CPU (at most one a run)."""
 
     resumed_from_generation: int | None = None
     completed_generations: int = 0
@@ -548,6 +565,9 @@ class ResilientRunner:
         self._key_impl: str | None = None
         self.stats = RunStats()
         self._forced_cpu = False
+        # The workflow a CPU fallback swapped out for its CPU twin; put
+        # back when the next run() starts.
+        self._card_workflow: Workflow | None = None
         # Restart policies may swap ``workflow.algorithm``; every run()
         # starts from the base configuration.
         self._base_algorithm = getattr(workflow, "algorithm", None)
@@ -757,7 +777,9 @@ class ResilientRunner:
         """Segment-boundary device introspection (host-side): the card's
         allocator statistics as ``evox_device_*`` gauges and a Chrome-trace
         counter track, and the segment's generations/sec.  A captured graph
-        has no cost model, so no roofline gauge is published."""
+        has no cost model (``obs.xla.program_analysis`` of it is empty), so
+        no roofline gauge is published: the JAX package's contract for a
+        backend without one."""
         if self.obs is None:
             return
         from ..obs import xla as obs_xla
@@ -1216,7 +1238,14 @@ class ResilientRunner:
         then dispatch and wait under the watchdog.  Returns ``(result,
         host)``: the attempt's result and its scalars on the host."""
         self._last_compile_seconds = 0.0
-        self._drain_abandoned()
+        if self._forced_cpu:
+            # As JAX's device_put of every attempt's state: a restart policy
+            # may have handed back card tensors or a card-built component.
+            self._to_cpu_twin()
+            state = relocate(state, "cpu")
+        else:
+            # The CPU twin never touches an abandoned attempt's graph.
+            self._drain_abandoned()
         if retry_from is not None:
             # History an earlier, failed attempt recorded eagerly belongs
             # to generations the retry runs again.
@@ -1279,26 +1308,30 @@ class ResilientRunner:
         backoff, then (optionally, on the CPU) a fallback with a fresh
         budget.  Returns ``(result, host)``."""
         failures = 0
+        failed = False
         while True:
             try:
-                return self._execute_once(which, state, chunk, retry_from=generation if failures else None)
+                # A retry, and the fallback's first attempt, run again
+                # generations a failed attempt may have recorded.
+                return self._execute_once(which, state, chunk, retry_from=generation if failed else None)
             except Exception as e:  # noqa: BLE001 - predicate filters below
                 if not self.retry.retryable(e):
                     raise
+                failed = True
                 failures += 1
                 if isinstance(e, WatchdogTimeout):
                     self.stats.watchdog_timeouts += 1
                 self.stats.failures.append(f"{desc}: {type(e).__name__}: {e}")
                 if failures > self.retry.max_retries:
                     if self.cpu_fallback and not self._forced_cpu:
-                        # On the CPU (the card refuses cpu_fallback at run()
-                        # start) the state is already there: the fallback
-                        # counts and renews the budget.
+                        # The rest of the run runs on the CPU twin, from the
+                        # segment's input checkpoint loaded into a CPU
+                        # template, with a fresh budget.
                         self._forced_cpu = True
                         self.stats.cpu_fallbacks += 1
                         failures = 0
                         self._event(f"{desc}: retry budget exhausted; falling back to the CPU backend", warn=True)
-                        state = self._reload_for_retry(state, generation)
+                        state = self._reload_for_retry(relocate(state, "cpu"), generation)
                         continue
                     raise ResilienceError(
                         f"{desc} failed after {self.retry.max_retries} retries"
@@ -1309,6 +1342,30 @@ class ResilientRunner:
                 self._event(f"{desc}: attempt {failures} failed ({type(e).__name__}); retrying in {delay:.2f}s", warn=True)
                 time.sleep(delay)
                 state = self._reload_for_retry(state, generation)
+
+    def _to_cpu_twin(self) -> None:
+        """Run on the CPU twin of the workflow from here on (see the module
+        docstring), keeping the card workflow for the next ``run()``.  The
+        monitor is shared whole: its history stays one history.  A no-op
+        once the workflow is on the CPU."""
+        twin = relocate(self.workflow, "cpu", share=[getattr(self.workflow, "monitor", None)])
+        if twin is self.workflow:
+            return
+        if self._card_workflow is None:
+            self._card_workflow = self.workflow
+        self.workflow = twin
+        # The twin's segment configuration, program-cache identity and
+        # programs are its own.
+        self._segment_cfg = None
+        self._exec_cache_identity = None
+
+    def _restore_card_workflow(self) -> None:
+        """Put back the workflow a CPU fallback swapped out."""
+        if self._card_workflow is not None:
+            self.workflow = self._card_workflow
+            self._card_workflow = None
+            self._segment_cfg = None
+            self._exec_cache_identity = None
 
     # -- run-health probing and restarts -----------------------------------
     def _controller_trend(self, done: int):
@@ -1567,18 +1624,23 @@ class ResilientRunner:
             barriered before control returns.
         :raises Preempted: the :class:`PreemptionGuard` tripped; the
             emergency checkpoint is published and rerunning resumes it.
-        :raises NotImplementedError: ``cpu_fallback=True`` with a state on
-            the card.
+        :raises NotImplementedError: ``cpu_fallback=True`` with a sharded
+            evaluation on the card.
         """
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        self._restore_card_workflow()
         if self.cpu_fallback and _state_device(state).type == "cuda":
-            raise NotImplementedError(
-                "ResilientRunner(cpu_fallback=True) with a state on the card is not ported yet: the port's "
-                "modules are bound to their device when they are built, so a fallback would have to rebuild the "
-                "workflow on the CPU (ROADMAP Queue 1, item 13.5's follow-up); build the workflow with "
-                "device='cpu' to run on the CPU"
-            )
+            from ..parallel import find_sharded
+
+            sharded = find_sharded(getattr(self.workflow, "problem", None))
+            if sharded is not None:
+                raise NotImplementedError(
+                    "ResilientRunner(cpu_fallback=True) with a ShardedProblem on the card is refused: a CPU twin "
+                    "cannot join the mesh's process group while its other ranks stay on their cards; run without "
+                    "cpu_fallback (the fleet supervisor restarts a failed rank) or build the workflow with "
+                    "device='cpu'"
+                )
         self.stats = RunStats()
         self._metric_cursor = {}
         self._forced_cpu = False

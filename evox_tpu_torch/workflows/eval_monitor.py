@@ -486,8 +486,8 @@ class EvalMonitor(Monitor):
         return state.num_nonfinite
 
     def get_num_shard_quarantines(self, state: State) -> torch.Tensor:
-        """Cumulative count of shard-quarantine events (0: shard-granular
-        quarantine is not ported yet)."""
+        """Cumulative count of shard-quarantine events (whole mesh shards
+        penalized by the workflow's shard-granular quarantine)."""
         return state.num_shard_quarantines
 
     def get_num_restarts(self, state: State) -> torch.Tensor:

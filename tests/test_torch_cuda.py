@@ -1808,12 +1808,89 @@ def test_retry_waits_for_an_abandoned_replay(cuda, tmp_path):
     assert issubclass(WatchdogTimeout, RuntimeError)
 
 
-def test_cpu_fallback_is_refused_on_the_card(cuda, tmp_path):
-    from evox_tpu_torch.resilience import ResilientRunner
+def test_cpu_fallback_from_the_card(cuda, tmp_path):
+    """ResilientRunner(cpu_fallback=True) with a state on the card: a host
+    fault at evaluation 12 (generation 13, segment 12..16) fails twice,
+    the run falls back once and ends on the CPU twin.  The final state is
+    on the CPU and equals a CPU-built workflow resumed from generation 11's
+    checkpoint, bit for bit; that checkpoint equals a fault-free card run;
+    the shared monitor holds all 20 generations; the next run(fresh=True)
+    stays on the card workflow with no fallback."""
+    import warnings
 
-    wf = _runner_pso(cuda, pop=64, dim=16)
-    with pytest.raises(NotImplementedError, match="cpu_fallback"):
-        ResilientRunner(wf, tmp_path, cpu_fallback=True).run(wf.init(0), 5)
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+    from evox_tpu_torch.resilience import FaultyProblem, ResilientRunner, RetryPolicy
+    from evox_tpu_torch.utils import graph, load_state
+    from evox_tpu_torch.workflows import EvalMonitor, StdWorkflow
+
+    def faulty(times):
+        return FaultyProblem(Ackley(), error_generations=(12,), error_times=times)
+
+    wf = _runner_pso(cuda, faulty(2), pop=64, dim=16)
+    runner = ResilientRunner(wf, tmp_path / "f", checkpoint_every=5, cpu_fallback=True, keep_checkpoints=0,
+                             retry=RetryPolicy(max_retries=1, backoff_base=0.001))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = runner.run(wf.init(0), 20)
+    fell = [str(w.message) for w in caught if "falling back to the CPU backend" in str(w.message)]
+    assert fell == ["segment (generations 12..16): retry budget exhausted; falling back to the CPU backend"]
+    assert runner.stats.cpu_fallbacks == 1 and runner.stats.completed_generations == 20
+    assert {t.device.type for t in graph.flatten(out)[0]} == {"cpu"}
+    assert runner.workflow is not wf and runner.workflow.algorithm.lb.device.type == "cpu"
+    assert wf.algorithm.lb.device.type == "cuda" and len(wf.monitor.get_fitness_history()) == 20
+    cpu_wf = StdWorkflow(PSO(64, torch.full((16,), -32.0), torch.full((16,), 32.0), device="cpu"), faulty(0),
+                         monitor=EvalMonitor())
+    resumed = load_state(tmp_path / "f" / "ckpt_00000011.npz", cpu_wf.init(1))
+    for _ in range(9):
+        resumed = cpu_wf.step(resumed)
+    _same_state(out, resumed)
+    clean = _runner_pso(cuda, faulty(0), pop=64, dim=16)
+    before = clean.init_step(clean.init(0))
+    for _ in range(10):
+        before = clean.step(before)
+    _same_state(load_state(tmp_path / "f" / "ckpt_00000011.npz", clean.init(1)), before)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        again = runner.run(wf.init(0), 20, fresh=True)
+    assert runner.stats.cpu_fallbacks == 0 and runner.workflow is wf
+    assert {t.device.type for t in graph.flatten(again)[0]} == {"cuda"}
+
+
+def _ladder_transform(x):
+    return {"algorithm.lr": x[:, 0].clamp(1e-3, 0.5), "algorithm.noise_stdev": x[:, 1].clamp(1e-3, 0.5)}
+
+
+def test_hpo_nest_split_over_a_one_rank_nccl_mesh(cuda):
+    """An outer PSO over a nest (OpenES(64, zeros(8)) on Sphere, 8
+    candidates, 6 inner generations) with enable_distributed=True on a
+    one-rank NCCL mesh: the nest's candidates go through ShardedProblem's
+    split; eager steps, run(3) (the all-gathers of the fitness and the
+    telemetry captured inline with the nest) and run_segment(3) equal the
+    unsharded nest's, bit for bit, with whole uids and telemetry."""
+    from evox_tpu_torch.algorithms import PSO, OpenES
+    from evox_tpu_torch.hpo import HPOFitnessMonitor, NestedProblem
+    from evox_tpu_torch.parallel import ShardedProblem
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    def build(**kw):
+        inner = StdWorkflow(OpenES(64, torch.zeros(8), learning_rate=0.05, noise_stdev=0.1, device=cuda), Sphere(),
+                            monitor=HPOFitnessMonitor())
+        nest = NestedProblem(inner, iterations=6, num_candidates=8)
+        return StdWorkflow(PSO(8, lb=1e-3 * torch.ones(2), ub=0.5 * torch.ones(2), device=cuda), nest,
+                           solution_transform=_ladder_transform, **kw)
+
+    wf, ref = build(enable_distributed=True), build()
+    assert isinstance(wf.problem, ShardedProblem) and wf.problem.capturable and wf.mesh.device.type == "cuda"
+    s, r = wf.init_step(wf.init(0)), ref.init_step(ref.init(0))
+    for _ in range(2):
+        s, r = wf.step(s), ref.step(r)
+    _same_state(s, r)
+    assert s.problem.uids.shape == (8,) and s.problem.telemetry.best_fitness.shape[0] == 8
+    _same_state(wf.run(s, 3, init=False), ref.run(r, 3, init=False))
+    seg, _ = wf.run_segment(s, 3)
+    _same_state(seg, ref.run(r, 3, init=False))
 
 
 def test_a_dead_graph_in_a_cycle_does_not_break_a_capture(cuda):

@@ -17,6 +17,11 @@ Scenarios:
   scenario on the 4-rank mesh.
 * ``elastic`` — a 4-rank run checkpointed after 4 evaluations and carried
   on to 10; the checkpoint resumed on the 2-rank mesh to 10.
+* ``hpo_mesh`` — HPO instances split over each mesh: a ``NestedProblem``
+  (telemetry on) and an ``HPOProblemWrapper`` evaluated through
+  ``ShardedProblem``, 6 candidates padded over 4 ranks, and an outer PSO
+  run over the nest on the 4-rank mesh, each beside the unsharded nest's
+  evaluation in the same process.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ POP, DIM = 16, 4
 DEAD_SHARD, DEAD_EVALS = 2, (3, 4, 5)
 STEPS = 10
 SAVE_AT = 4
+HPO_CANDIDATES, HPO_PADDED, HPO_ITERATIONS, HPO_OUTER_STEPS, HPO_SEED = 8, 6, 4, 3, 21
 
 
 def run_world(scenario: str, outdir: Path, world: int = 4, timeout: float = 120.0) -> list[dict]:
@@ -141,6 +147,52 @@ def flat(state) -> list:
     return [t.numpy() for t in graph.flatten(state)[0]]
 
 
+def hpo_nest(kind: str, candidates: int = HPO_CANDIDATES):
+    """A small nest: PSO(8, ±10 in dim 4) on Sphere, 4 inner generations,
+    as a ``NestedProblem`` (uid streams, telemetry) or an
+    ``HPOProblemWrapper`` (the split schedule, no telemetry)."""
+    import torch
+
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.hpo import HPOFitnessMonitor, NestedProblem
+    from evox_tpu_torch.problems.hpo_wrapper import HPOProblemWrapper
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    inner = StdWorkflow(PSO(8, -10.0 * torch.ones(DIM), 10.0 * torch.ones(DIM), device="cpu"), Sphere(),
+                        monitor=HPOFitnessMonitor())
+    if kind == "wrapper":
+        return HPOProblemWrapper(iterations=HPO_ITERATIONS, num_instances=candidates, workflow=inner)
+    return NestedProblem(inner, iterations=HPO_ITERATIONS, num_candidates=candidates)
+
+
+def hpo_transform(x):
+    """The outer PSO's rows as the inner PSO's inertia and social weights."""
+    return {"algorithm.w": x[:, 0], "algorithm.phi_g": x[:, 1]}
+
+
+def hpo_outer(nest, mesh=None):
+    import torch
+
+    from evox_tpu_torch.algorithms import PSO
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    algo = PSO(HPO_CANDIDATES, torch.tensor([0.1, 0.5]), torch.tensor([0.9, 2.5]), device="cpu")
+    return StdWorkflow(algo, nest, solution_transform=hpo_transform, enable_distributed=mesh is not None, mesh=mesh)
+
+
+def hpo_evaluations(make, mesh, key, pad=False) -> tuple:
+    """``(unsharded, sharded)``: the nest's evaluation of its initial
+    hyper-parameters, alone and through ``ShardedProblem`` on ``mesh``,
+    each ``(fitness, state)``."""
+    from evox_tpu_torch.parallel import ShardedProblem
+
+    nest = make()
+    state = nest.setup(key)
+    hp = nest.get_init_params(state)
+    return nest.evaluate(state, hp), ShardedProblem(make(), mesh, pad=pad).evaluate(state, hp)
+
+
 # -- scenarios ---------------------------------------------------------------------
 
 
@@ -225,6 +277,34 @@ def scenario_elastic(meshes: dict, out: dict, outdir: Path) -> None:
         out[f"resumed2_{i}"] = leaf
 
 
+def scenario_hpo_mesh(meshes: dict, out: dict) -> None:
+    from evox_tpu_torch.utils import rng
+
+    key = rng.key(HPO_SEED, device="cpu")
+    for n, mesh in meshes.items():
+        if mesh.shard_index is None:
+            continue
+        for kind in ("nest", "wrapper"):
+            (ref_fit, ref_state), (fit, state) = hpo_evaluations(lambda: hpo_nest(kind), mesh, key)
+            out[f"{kind}_ref_fit_m{n}"] = ref_fit.numpy()
+            out[f"{kind}_fit_m{n}"] = fit.numpy()
+            for tag, st in (("ref", ref_state), ("sharded", state)):
+                for i, leaf in enumerate(flat(st)):
+                    out[f"{kind}_{tag}_state_m{n}_{i}"] = leaf
+    (ref_fit, ref_state), (fit, state) = hpo_evaluations(lambda: hpo_nest("nest", HPO_PADDED), meshes[4], key, pad=True)
+    out["pad_ref_fit"], out["pad_fit"] = ref_fit.numpy(), fit.numpy()
+    for tag, st in (("ref", ref_state), ("sharded", state)):
+        for i, leaf in enumerate(flat(st)):
+            out[f"pad_{tag}_state_{i}"] = leaf
+    for tag, mesh in (("ref", None), ("sharded", meshes[4])):
+        wf = hpo_outer(hpo_nest("nest"), mesh)
+        s = wf.init_step(wf.init(HPO_SEED))
+        for _ in range(HPO_OUTER_STEPS - 1):
+            s = wf.step(s)
+        for i, leaf in enumerate(flat(s)):
+            out[f"run_{tag}_{i}"] = leaf
+
+
 def main(argv: list[str]) -> int:
     scenario, url, rank, world, outdir = argv[1], argv[2], int(argv[3]), int(argv[4]), Path(argv[5])
     sys.path.insert(0, str(ROOT))
@@ -242,6 +322,8 @@ def main(argv: list[str]) -> int:
         scenario_parallel(meshes, out)
     elif scenario == "elastic":
         scenario_elastic(meshes, out, outdir)
+    elif scenario == "hpo_mesh":
+        scenario_hpo_mesh(meshes, out)
     else:
         raise SystemExit(f"unknown scenario {scenario!r}")
     np.savez(outdir / f"rank{rank}.npz", **out)

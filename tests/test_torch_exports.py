@@ -5,7 +5,9 @@
   exported by the port's module of the same path too, unless it is one of
   the named stand-ins below (a deliberate other form, each with its
   reason) or on the port module's ``_NOT_PORTED`` list; reaching either
-  raises ``ImportError`` naming it.
+  raises ``ImportError`` naming it.  No module of the port keeps a
+  ``_NOT_PORTED`` name any more (the last, ``obs/xla.py``'s bench half,
+  is exported).
 * Each class of the JAX package has every public method of its same-named
   counterpart in the port, less the JAX pytree protocol of ``State``.
 * The port and ``chip_smoke.py`` import nothing of ``jax``, ``evox_tpu``
@@ -117,6 +119,17 @@ def test_module_exports_match_the_jax_package(jax_path, names):
             assert name in vars(mod), f"{port_path}: {name} is not defined"
     # Every refusal of the port names a name the JAX module exports.
     assert not_ported <= set(names) and stand_ins <= set(names)
+
+
+def test_no_port_module_refuses_a_jax_name_as_not_ported():
+    """Every JAX export is ported or a named stand-in: ``obs/xla.py``'s
+    eight bench names among them, now defined and exported."""
+    left = {p: getattr(_import(_port_path(p)), "_NOT_PORTED", ()) for p, _ in JAX_MODULES}
+    assert not {p: names for p, names in left.items() if names}
+    xla = _import("evox_tpu_torch/obs/xla.py")
+    for name in ("DEFAULT_HBM_PEAK_GBPS", "DEFAULT_FLOP_PEAK_TFLOPS", "program_costs", "program_memory",
+                 "write_cost_analysis", "roofline", "roofline_from_cost", "publish_roofline_gauges"):
+        assert name in xla.__all__ and name in vars(xla)
 
 
 def _classes(path: Path) -> dict[str, set[str]]:

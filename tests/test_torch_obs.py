@@ -8,6 +8,7 @@ Tolerances: exact everywhere, except the flight recorder's means and
 moment sums, which each framework adds in its own order (``SUM_RTOL``)."""
 
 import json
+import os
 import math
 
 import numpy as np
@@ -307,3 +308,118 @@ def test_not_ported_obs_names_raise_by_name():
     assert not getattr(obs, "_NOT_PORTED", ())
     for name in ("IntrospectionEndpoint", "SLO", "SLOStatus", "SLOTracker", "default_slos"):
         assert name in obs.__all__ and getattr(obs, name).__module__.startswith("evox_tpu_torch.obs.")
+
+
+# ---------------------------------------------------------------------------
+# obs/xla.py's bench half: the roofline math, the cost readers and writer
+# ---------------------------------------------------------------------------
+
+ROOFLINE_GRID = [
+    # (flops_per_gen, bytes_per_gen, gen_per_sec, hbm_gbps, peak_tflops)
+    (0.0, 0.0, 1.0, 3350.0, 67.0),
+    (1.6e9, 1.2e9, 530.7, 3350.0, 67.0),
+    (2.0e12, 1.0e6, 12.5, 3350.0, 67.0),
+    (3.3e8, 4.0e9, 0.25, 819.0, 197.0),
+    (1.0, 3.0, 1e6, 1.5, 0.001),
+    (7.7e10, 7.7e10, 33.3333, 2039.0, 19.5),
+]
+
+
+@pytest.mark.parametrize("flops,nbytes,gps,hbm,tflops", ROOFLINE_GRID)
+def test_roofline_equals_jax(flops, nbytes, gps, hbm, tflops):
+    from evox_tpu.obs import xla as jxla
+
+    kw = dict(flops_per_gen=flops, bytes_per_gen=nbytes, gen_per_sec=gps, hbm_gbps=hbm, peak_tflops=tflops)
+    assert obs.xla.roofline(**kw) == jxla.roofline(**kw)
+
+
+@pytest.mark.parametrize("cost", [
+    {"flops": 4.0e9, "bytes accessed": 2.0e9, "n_steps": 50},
+    {"flops": 4.0e9, "bytes accessed": 2.0e9},
+    {"flops": 1.0, "bytes accessed": 0.0, "n_steps": 0},
+    {"bytes accessed": 8.0e8, "transcendentals": 3.0},
+])
+@pytest.mark.parametrize("gps", [1.0, 77.7])
+def test_roofline_from_cost_equals_jax(cost, gps):
+    from evox_tpu.obs import xla as jxla
+
+    peaks = dict(hbm_gbps=3350.0, peak_tflops=67.0)
+    assert obs.xla.roofline_from_cost(cost, gps, **peaks) == jxla.roofline_from_cost(cost, gps, **peaks)
+
+
+def test_publish_roofline_gauges_equals_jax():
+    from evox_tpu.obs import xla as jxla
+
+    mine, theirs = obs.MetricsRegistry(), jobs.MetricsRegistry()
+    for flops, nbytes, gps, hbm, tflops in ROOFLINE_GRID[1:3]:
+        kw = dict(flops_per_gen=flops, bytes_per_gen=nbytes, gen_per_sec=gps, hbm_gbps=hbm, peak_tflops=tflops)
+        obs.xla.publish_roofline_gauges(mine, f"segment[{gps}]", obs.xla.roofline(**kw))
+        jxla.publish_roofline_gauges(theirs, f"segment[{gps}]", jxla.roofline(**kw))
+    obs.xla.publish_roofline_gauges(mine, "partial", {"achieved_GBps": 1.0, "pct_of_flop_peak": None})
+    jxla.publish_roofline_gauges(theirs, "partial", {"achieved_GBps": 1.0, "pct_of_flop_peak": None})
+    assert mine.snapshot() == theirs.snapshot() and len(mine.snapshot()) == 9
+
+
+class _Compiled:
+    """An object offering JAX's AOT-compiled introspection methods."""
+
+    class _Memory:
+        argument_size_in_bytes = 4096
+        output_size_in_bytes = 1024
+        temp_size_in_bytes = 512
+        generated_code_size_in_bytes = 256
+        alias_size_in_bytes = 1024
+
+    def cost_analysis(self):
+        return [{"flops": 20.0, "bytes accessed": 16.0, "transcendentals": 2.0, "utilization0{}": 1.0}]
+
+    def memory_analysis(self):
+        return self._Memory()
+
+
+def test_cost_readers_equal_jax_and_a_captured_graph_has_none(tmp_path):
+    """On an object with JAX's methods the readers and the writer give the
+    JAX package's results and files, byte for byte; a captured graph's
+    container and ``object()`` have no cost model: ``None``, an empty
+    analysis, no file, no error."""
+    from evox_tpu.obs import xla as jxla
+
+    from evox_tpu_torch.utils import graph
+
+    compiled = _Compiled()
+    assert obs.xla.program_costs(compiled) == jxla.program_costs(compiled)
+    assert obs.xla.program_memory(compiled) == jxla.program_memory(compiled)
+    assert obs.xla.program_analysis(compiled) == jxla.program_analysis(compiled)
+    extra = {"n_steps": 7}
+    mine = obs.xla.write_cost_analysis(compiled, str(tmp_path / "port"), extra=extra)
+    theirs = jxla.write_cost_analysis(compiled, str(tmp_path / "jax"), extra=extra)
+    assert mine == theirs
+    for name in ("cost_analysis.json", "memory_analysis.json"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    for nothing in (graph.Cache(), object()):
+        assert obs.xla.program_costs(nothing) is None and obs.xla.program_memory(nothing) is None
+        assert obs.xla.program_analysis(nothing) == {}
+        assert obs.xla.write_cost_analysis(nothing, str(tmp_path / "none")) is None
+    assert not (tmp_path / "none").exists()
+    # A profile directory that cannot be made: swallowed, as in JAX.
+    (tmp_path / "file").write_text("")
+    assert obs.xla.write_cost_analysis(compiled, str(tmp_path / "file"), extra=extra) == theirs
+
+
+def test_peaks_are_the_h100s_and_the_environment_overrides_them(monkeypatch):
+    import importlib
+
+    assert "EVOX_TPU_HBM_PEAK_GBPS" not in os.environ and "EVOX_TPU_FLOP_PEAK_TFLOPS" not in os.environ
+    assert (obs.xla.DEFAULT_HBM_PEAK_GBPS, obs.xla.DEFAULT_FLOP_PEAK_TFLOPS) == (3350.0, 67.0)
+    got = obs.xla.roofline(flops_per_gen=6.7e10, bytes_per_gen=3.35e9, gen_per_sec=100.0)
+    assert (got["pct_of_hbm_peak"], got["pct_of_flop_peak"]) == (10.0, 10.0)
+    monkeypatch.setenv("EVOX_TPU_HBM_PEAK_GBPS", "819")
+    monkeypatch.setenv("EVOX_TPU_FLOP_PEAK_TFLOPS", "197")
+    try:
+        importlib.reload(obs.xla)
+        assert (obs.xla.DEFAULT_HBM_PEAK_GBPS, obs.xla.DEFAULT_FLOP_PEAK_TFLOPS) == (819.0, 197.0)
+    finally:
+        monkeypatch.delenv("EVOX_TPU_HBM_PEAK_GBPS")
+        monkeypatch.delenv("EVOX_TPU_FLOP_PEAK_TFLOPS")
+        importlib.reload(obs.xla)
+    assert obs.xla.DEFAULT_HBM_PEAK_GBPS == 3350.0

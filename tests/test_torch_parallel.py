@@ -1,6 +1,7 @@
 """The port's parallel layer (``evox_tpu_torch/parallel``), shard-granular
-quarantine, the per-shard health metrics and the package namespace, held
-against the JAX package on the same numpy inputs.
+quarantine, the per-shard health metrics, HPO instances split over a mesh
+and the package namespace, held against the JAX package on the same numpy
+inputs.
 
 In this process the port's meshes are one-rank gloo groups (the JAX side
 runs on the 8 virtual CPU devices ``conftest.py`` forces); the multi-rank
@@ -511,3 +512,184 @@ def test_padded_evaluation_on_four_ranks(world):
     want, _ = Sphere().evaluate(State(), pop)
     for out in world:
         np.testing.assert_array_equal(out["padded_m4"], want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# HPO instances over a mesh: ShardedProblem over a nested problem
+# ---------------------------------------------------------------------------
+
+
+def _same_leaves(got, want, what=""):
+    got, want = graph.flatten(got)[0], graph.flatten(want)[0]
+    assert len(got) == len(want), what
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b), f"{what} leaf {i}"
+
+
+@pytest.mark.parametrize("kind", ["nest", "wrapper"])
+def test_sharded_nest_on_one_rank_equals_unsharded(kind):
+    """A nest's candidates split over a one-rank gloo mesh: the
+    ``(num_candidates,)`` fitness and the whole state (instances, uids,
+    telemetry) equal the unsharded nest's, bit for bit."""
+    (ref_fit, ref_state), (fit, state) = worker.hpo_evaluations(
+        lambda: worker.hpo_nest(kind), _mesh(), rng.key(worker.HPO_SEED, device="cpu"))
+    assert fit.shape == (worker.HPO_CANDIDATES,) and torch.equal(fit, ref_fit)
+    _same_leaves(state, ref_state, kind)
+    assert ("telemetry" in state) == (kind == "nest")
+
+
+def test_sharded_nest_refusals_name_the_route():
+    """Under ``torch.func.vmap`` the refusal points to sharding the nest
+    itself; a nest whose candidates do not divide over the mesh raises the
+    divisibility error of any sharded population unless ``pad`` is set."""
+    sp = ShardedProblem(Sphere(), _mesh())
+    with pytest.raises(NotImplementedError, match="ShardedProblem\\(NestedProblem"):
+        torch.func.vmap(lambda x: sp.evaluate(State(), x)[0])(torch.rand(2, 4, 3))
+
+    class Four:
+        shape = {"pop": 4}
+        axis_names = ("pop",)
+        shard_index = 0
+
+    nest = worker.hpo_nest("nest", worker.HPO_PADDED)
+    state = nest.setup(rng.key(0, device="cpu"))
+    with pytest.raises(ValueError, match="population size 6 must divide over the 4-way 'pop' mesh axis"):
+        ShardedProblem(nest, Four()).evaluate(state, nest.get_init_params(state))
+
+
+class TablePSO(PSO):
+    """PSO whose move takes its draws from a table in its state
+    (``draws_rp``/``draws_rg``, one slice a move, ``draw_step`` counting the
+    moves): JAX's draws fed into a nested evaluation, where every candidate
+    reads its own table under the nest's vmap."""
+
+    def _draws(self, state):
+        i = state.draw_step.reshape(1)
+        draws = tuple(torch.index_select(t, 0, i)[0] for t in (state.draws_rp, state.draws_rg))
+        return state.replace(draw_step=state.draw_step + 1), draws
+
+
+def test_hpo_wrapper_instances_over_a_mesh_match_jax():
+    """The JAX package's own scenario (``tests/test_parallel_and_checkpoint.py``,
+    ``test_hpo_wrapper_instances_sharded_over_mesh``): ``HPOProblemWrapper``
+    over PSO(8, ±10 in dim 8) on Sphere, ``iterations=4``,
+    ``num_instances=8``, its instances axis sharded over the 8-device mesh.
+    The port's wrapper evaluates JAX's initial instances with JAX's draws
+    (three moves an instance) through ``ShardedProblem`` on a one-rank mesh:
+    the fitness is within rtol 1e-6 of JAX's sharded fitness, the JAX
+    test's tolerance, and equals the port's unsharded one bit for bit."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from evox_tpu.core import State as JState
+    from evox_tpu.core import get_params as jget_params
+    from evox_tpu.problems.hpo_wrapper import HPOFitnessMonitor as JHPOFitnessMonitor
+    from evox_tpu.problems.hpo_wrapper import HPOProblemWrapper as JHPOProblemWrapper
+    from evox_tpu_torch.problems.hpo_wrapper import HPOFitnessMonitor, HPOProblemWrapper
+    from evox_tpu_torch.utils.convert import state_from_numpy
+
+    n, dim, iterations = 8, 8, 4
+    jmesh = jpar.make_pop_mesh()
+    jinner = JWorkflow(JPSO(8, -10.0 * jnp.ones(dim), 10.0 * jnp.ones(dim)), JSphere(), monitor=JHPOFitnessMonitor())
+    jhpo = JHPOProblemWrapper(iterations=iterations, num_instances=n, workflow=jinner)
+    jstate = jhpo.setup(jax.random.key(42))
+    jparams = jhpo.get_init_params(jstate)
+
+    def put(x):
+        return jax.device_put(x, NamedSharding(jmesh, P("pop", *([None] * (x.ndim - 1)))))
+
+    jfit, _ = jax.jit(jhpo.evaluate)(JState(instances=jax.tree.map(put, jstate.instances)),
+                                     {k: put(v) for k, v in jparams.items()})
+    assert jfit.sharding.spec == P("pop")
+
+    # JAX's draws: each of the iterations - 1 moves (init_step moves
+    # nothing) splits the instance's key into (key, rp_key, rg_key).
+    keys, rp, rg = jstate.instances.algorithm.key, [], []
+    for _ in range(iterations - 1):
+        split = jax.vmap(lambda k: jax.random.split(k, 3))(keys)
+        keys = split[:, 0]
+        rp.append(jax.vmap(lambda k: jax.random.uniform(k, (8, dim)))(split[:, 1]))
+        rg.append(jax.vmap(lambda k: jax.random.uniform(k, (8, dim)))(split[:, 2]))
+    numpy_instances = _jax_state_to_numpy(jstate.instances)
+    numpy_instances["algorithm"].update(
+        draws_rp=np.stack([np.asarray(d) for d in rp], axis=1), draws_rg=np.stack([np.asarray(d) for d in rg], axis=1),
+        draw_step=np.zeros(n, np.int64))
+    state = state_from_numpy({"instances": numpy_instances, "uids": np.arange(n)}, device="cpu",
+                             params=["instances." + k for k in jget_params(jstate.instances)])
+    hp = {k: torch.from_numpy(np.array(v)) for k, v in jparams.items()}
+
+    def wrapper():
+        inner = StdWorkflow(TablePSO(8, -10.0 * torch.ones(dim), 10.0 * torch.ones(dim), device="cpu"), Sphere(),
+                            monitor=HPOFitnessMonitor())
+        return HPOProblemWrapper(iterations=iterations, num_instances=n, workflow=inner)
+
+    fit, _ = ShardedProblem(wrapper(), _mesh()).evaluate(state, hp)
+    ref, _ = wrapper().evaluate(state, hp)
+    assert torch.equal(fit, ref)
+    np.testing.assert_allclose(fit.numpy(), np.asarray(jfit), rtol=1e-6)
+
+
+def _jax_state_to_numpy(state):
+    """A JAX ``State`` as nested dicts of numpy arrays, key data for keys."""
+    from evox_tpu.core import State as JState
+
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, JState):
+            out[k] = _jax_state_to_numpy(v)
+        elif jax.dtypes.issubdtype(v.dtype, jax.dtypes.prng_key):
+            out[k] = np.asarray(jax.random.key_data(v))
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+@pytest.fixture(scope="module")
+def hpo_world(tmp_path_factory):
+    return worker.run_world("hpo_mesh", tmp_path_factory.mktemp("hpo_mesh_world"))
+
+
+@pytest.mark.parametrize("kind", ["nest", "wrapper"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_nest_split_over_gloo_ranks_equals_unsharded(hpo_world, kind, n):
+    """The nest's candidates split over 1, 2 and 4 gloo ranks: every rank of
+    the mesh gathers the unsharded nest's fitness and keeps its whole state
+    (the instances, the 8 uids and the telemetry's 8 rows), bit for bit."""
+    members = [out for out in hpo_world if f"{kind}_fit_m{n}" in out]
+    assert len(members) == n
+    for rank, out in enumerate(members):
+        np.testing.assert_array_equal(out[f"{kind}_fit_m{n}"], out[f"{kind}_ref_fit_m{n}"], err_msg=f"rank {rank}")
+        leaves = sorted(k for k in out if k.startswith(f"{kind}_sharded_state_m{n}_"))
+        assert leaves
+        for k in leaves:
+            want = out[k.replace("_sharded_", "_ref_")]
+            np.testing.assert_array_equal(out[k], want, err_msg=f"rank {rank} {k}")
+        for k in leaves:  # instances, uids and telemetry: candidates lead
+            assert out[k].shape[:1] == (worker.HPO_CANDIDATES,) or out[k].ndim == 0, k
+    np.testing.assert_array_equal(members[0][f"{kind}_fit_m{n}"], hpo_world[0][f"{kind}_ref_fit_m{n}"])
+
+
+def test_nest_padded_six_candidates_over_four_ranks(hpo_world):
+    """``pad=True``: 6 candidates padded to 8 (the last candidate's rows
+    repeated), 2 a rank, gathered and cut back to 6; the fitness and the
+    telemetry equal the unsharded nest's on every rank."""
+    for rank, out in enumerate(hpo_world):
+        assert out["pad_fit"].shape == (worker.HPO_PADDED,)
+        np.testing.assert_array_equal(out["pad_fit"], out["pad_ref_fit"], err_msg=f"rank {rank}")
+        for k in (k for k in out if k.startswith("pad_sharded_state_")):
+            np.testing.assert_array_equal(out[k], out[k.replace("_sharded_", "_ref_")], err_msg=f"rank {rank} {k}")
+
+
+def test_outer_pso_over_a_nest_split_four_ways_equals_unsharded(hpo_world):
+    """An outer PSO over the nest with ``enable_distributed=True`` on the
+    4-rank mesh, three generations: every rank's whole state equals the
+    unsharded run's (in the rank and in this process), bit for bit."""
+    wf = worker.hpo_outer(worker.hpo_nest("nest"))
+    s = wf.init_step(wf.init(worker.HPO_SEED))
+    for _ in range(worker.HPO_OUTER_STEPS - 1):
+        s = wf.step(s)
+    here = [t.numpy() for t in graph.flatten(s)[0]]
+    for rank, out in enumerate(hpo_world):
+        for i, want in enumerate(here):
+            np.testing.assert_array_equal(out[f"run_sharded_{i}"], want, err_msg=f"rank {rank} leaf {i}")
+            np.testing.assert_array_equal(out[f"run_ref_{i}"], want, err_msg=f"rank {rank} leaf {i}")
