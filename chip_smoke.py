@@ -22,7 +22,12 @@ same width, eager and fused; then CMA-ES at pop=64 and OpenES at
 pop=8192 on CEC2022 f1, dim=20, the covariance's decomposition on the card
 against float64 on the CPU, the other ten ES algorithms, OpenES's
 auxiliary history through a segment, and CMA-ES at dim=1000 with its
-decomposition cadence; then CSO, CLPSO, SL-PSO (GS, US), FS-PSO and
+decomposition cadence, eager and fused, through the port's Jacobi
+eigensolver (a device predicate skips the sweeps of the generations that
+keep the cached factors); then CMA-ES at dim=64 and ASEBO at dim=100
+fused, 4 vmapped CMA-ES(64) instances, CMA-ES(100) under the resilient
+runner, and the eigensolver against its plain version and float64 on
+the CPU (``cmaes_large_main_path``); then CSO, CLPSO, SL-PSO (GS, US), FS-PSO and
 DMS-PSO-EL at the PSO headline's width, eager and fused; then 8 vmapped
 instances of PSO at pop=1024, dim=100 on Ackley through the batched PSO
 move and Philox launches, eager and as a replayed CUDA graph, each instance
@@ -2913,62 +2918,272 @@ def phase_es_family(device) -> dict:
     return out
 
 
+# The Jacobi eigensolver (csrc/eigh_jacobi.cu) against a float64 CPU eigh,
+# relative to |C|_2: eigenvalues, the residual |V diag(w) V^T - C|_2 and
+# the orthogonality max |V^T V - I|, and its eigenvalues against the plain
+# version's.  float32: 1e-4 at n = 1000, 2e-5 at n <= 100 (the first chip
+# runs measured at most 2.8e-5 at n = 1000, a spectrum of condition 1e3,
+# and 2.6e-6 at n <= 100); float64: 1e-11 (measured at most 1.7e-12).
+EIGH_TOL = {"float32": (2e-5, 1e-4), "float64": (1e-11, 1e-11)}
+# NVIDIA's H100 SXM data sheet: float64 on the tensor cores, the card's
+# fastest float64 rate (34 TFLOP/s outside them), so the least time.
+PEAK_F64_FLOPS = 67e12
+# The kernel's cases at n <= 100 (cmaes_large_main_path): spectra of
+# condition 1e3 and norm 1 and the identity at each n, and at n = 100 three
+# values (0.2, 0.5, 1.0) of multiplicity n/3.
+EIGH_SIZES = (33, 64, 100)
+
+
+def eigh_flops(n, sweeps) -> float:
+    """The rotations of ``sweeps`` cyclic Jacobi sweeps over a symmetric
+    n x n matrix and its eigenvectors: n(n-1)/2 rotations a sweep, each
+    updating one side of A (two rows, 2n entries: the other side is their
+    transpose) and two columns of V (2n), three operations an entry (two
+    products and a sum), so 12n a rotation."""
+    return sweeps * n * (n - 1) / 2 * 12 * n
+
+
+def eigh_bound(n, sweeps, dtype) -> dict:
+    """The least time for the decomposition the kernel computed: C read
+    once, the eigenvalues and eigenvectors written once, against the
+    rotations' operations in the sweeps it took at the card's peak of
+    ``dtype``.  Beside it, ``dense_ms``: the same at the 9 n^3 operations
+    of the symmetric QR algorithm with eigenvectors (Golub and Van Loan,
+    Matrix Computations, section 8.3), a count no sweep number enters."""
+    size = 8 if dtype == "float64" else 4
+    peak = PEAK_F64_FLOPS if dtype == "float64" else PEAK_F32_FLOPS
+    nbytes = (2 * n * n + n) * size
+    ops = eigh_flops(n, sweeps)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "dense_ms": max(bytes_ms, 9 * n ** 3 / peak * 1e3)}
+
+
+def spectrum_matrix(n, kind, dtype, device, seed=0):
+    """A symmetric test matrix of norm 1 from a seed: ``spread`` (eigenvalues
+    geometric from 1e-3 to 1), ``repeated`` (0.2, 0.5 and 1.0, each n/3
+    times) or ``identity``."""
+    import torch
+
+    if kind == "identity":
+        return torch.eye(n, dtype=dtype, device=device)
+    g = torch.Generator().manual_seed(seed * 1000 + n)
+    q, _ = torch.linalg.qr(torch.randn(n, n, generator=g, dtype=torch.float64))
+    if kind == "spread":
+        w = torch.logspace(-3, 0, n, dtype=torch.float64)
+    else:
+        w = torch.tensor([0.2, 0.5, 1.0], dtype=torch.float64).repeat_interleave(-(-n // 3))[:n]
+    return ((q * w) @ q.T).to(dtype).to(device)
+
+
+def eigh_case(C, what, plain=True, timing=False) -> dict:
+    """The Jacobi kernel on the symmetric ``C`` against a float64 CPU eigh
+    (eigenvalues, residual, orthogonality relative to |C|_2) and, with
+    ``plain``, against ``eigh_jacobi_plain`` on the card (eigenvalues,
+    absolute and relative; its seconds); raises beyond ``EIGH_TOL``.  The
+    identity must take no sweep and come back exact.  With ``timing``, the
+    kernel's ms, torch.linalg.eigh's on the same matrix, and the bound."""
+    import torch
+    from evox_tpu_torch.ops import linalg
+
+    n, dt = C.shape[-1], str(C.dtype).removeprefix("torch.")
+    w, V, sweeps, off = linalg.eigh_jacobi(C[None])
+    torch.cuda.synchronize()
+    C64 = C.double().cpu()
+    norm = float(torch.linalg.matrix_norm(C64, 2))
+    w64 = torch.linalg.eigvalsh(C64)
+    Vd, wd = V[0].double().cpu(), w[0].double().cpu()
+    row = {"n": n, "dtype": dt, "sweeps": int(sweeps[0]), "off_rel_fro": float(off[0]) / float(torch.linalg.norm(C64)),
+           "eigval_err": float((wd - w64).abs().max()) / norm,
+           "residual": float(torch.linalg.matrix_norm((Vd * wd) @ Vd.T - C64, 2)) / norm,
+           "orthogonality": float((Vd.T @ Vd - torch.eye(n, dtype=torch.float64)).abs().max())}
+    if plain:
+        t0 = time.perf_counter()
+        wp, _, sp, _ = linalg.eigh_jacobi_plain(C[None])
+        torch.cuda.synchronize()
+        row.update({"plain_s": time.perf_counter() - t0, "plain_sweeps": int(sp[0]),
+                    "vs_plain_abs": float((w[0] - wp[0]).abs().max())})
+        row["vs_plain"] = row["vs_plain_abs"] / norm
+    tol = EIGH_TOL[dt][n >= 1000]
+    row["tol"] = tol
+    errs = [row[k] for k in ("eigval_err", "residual", "orthogonality", "vs_plain") if k in row]
+    if not all(e <= tol for e in errs):
+        raise AssertionError(f"{what}: the Jacobi kernel at n={n} {dt} beyond {tol}: {row}")
+    if bool((C == torch.eye(n, dtype=C.dtype, device=C.device)).all()):
+        if row["sweeps"] != 0 or not (torch.equal(V[0], C) and bool((w[0] == 1).all())):
+            raise AssertionError(f"{what}: the identity took {row['sweeps']} sweeps or came back inexact")
+    if timing:
+        iters = 3 if n >= 1000 else 10
+        row["ms"] = time_ms(lambda: linalg.eigh_jacobi(C[None]), iters, warmup=1)
+        row["torch_linalg_eigh_ms"] = time_ms(lambda: torch.linalg.eigh(C), iters, warmup=1)
+        row.update(eigh_bound(n, row["sweeps"], dt))
+    return row
+
+
+def jacobi_counters():
+    from evox_tpu_torch.ops import linalg
+    from evox_tpu_torch.ops.philox import philox_draws
+
+    return {"eigh": linalg.eigh, "eigh_batched": linalg.eigh_batched, "eigh_jacobi": linalg.eigh_jacobi,
+            "philox_draws": philox_draws}
+
+
+SOLVER_KERNELS = ("solve_kernel", "apply_kernel", "norms_kernel")
+
+
 def phase_cmaes_cadence(device) -> dict:
-    """CMAES(zeros(1000), 1.0) (pop 24, decomp_per_iter 8) on Sphere: the
-    decomposition cadence as a torch.where, 16 eager steps, then run(16),
-    which raises NotImplementedError (no eigensolver that a CUDA graph can
-    hold covers n = 1000 on this card: ``ops.linalg``).  The (1000, 1000)
-    eigh's own time, the host syncs of an eager generation, and what the
-    where cadence costs a generation (eager ms/gen against the same steps
-    with the decomposition skipped)."""
+    """CMAES(zeros(1000), 1.0) (pop 24, decomp_per_iter 8) on Sphere: 16
+    eager steps against run(16) (captured, then replayed) and
+    run_segment(16) bit for bit, with no host sync in a segment
+    (``fused_vs_eager``).  The decomposition goes through the Jacobi
+    kernel, which reads ``iteration % 8 == 0`` on the card and does no
+    sweep on the other generations: the device operations, host syncs and
+    device time of a due and of a not-due eager generation, and of a
+    not-due eigh alone (its solver launches return on the predicate).
+    Then the path's (1000, 1000) C through the kernel in float32 (against
+    the plain version and a float64 CPU eigh) and in float64 (against the
+    CPU eigh), each with its ms, sweeps, bound and torch.linalg.eigh's ms,
+    and the float32 call's device time by kernel."""
     import torch
     from evox_tpu_torch.algorithms import CMAES
     from evox_tpu_torch.ops import linalg
     from evox_tpu_torch.problems.numerical import Sphere
     from evox_tpu_torch.workflows import StdWorkflow
 
+    counters = jacobi_counters()
+    for c in counters.values():
+        c.launches = 0
     algo = CMAES(torch.zeros(CADENCE_DIM), 1.0, device=device)
     if algo.decomp_per_iter != 8 or algo.pop_size != 24:
         raise AssertionError(f"CMAES(zeros(1000)): pop {algo.pop_size}, decomp_per_iter {algo.decomp_per_iter}")
     wf = StdWorkflow(algo, Sphere())
     state = wf.init_step(wf.init(0))
     for _ in range(2):
-        state = wf.step(state)
-
-    def eager(s=state):
-        for _ in range(CADENCE_GENS):
-            s = wf.step(s)
-        return s
-
-    ms, host_ms, ref = timed(eager, CADENCE_GENS)
-    prof = launches_per_call(lambda: wf.step(state), calls=2)
-    # Timing only: the same steps with the decomposition skipped (an
-    # instance attribute over the static method; the where keeps the
-    # cached factors at every generation but the due ones).
-    algo.decompose = lambda C: (C, C)
-    try:
-        skipped_ms, _, _ = timed(eager, CADENCE_GENS)
-    finally:
-        del algo.decompose
+        state = wf.step(state)  # iteration 3: its next step is not due
+    s_due = state
+    for _ in range(4):
+        s_due = wf.step(s_due)  # iteration 7: its next step is due
+    setup = {k: c.launches for k, c in counters.items()}
+    fused, ref = fused_vs_eager(wf, state, CADENCE_GENS, counters, "cmaes_cadence", profile_gens=8)
+    eager_launches = fused.pop("launches_in_eager_steps")
+    expect(eager_launches, {"eigh": CADENCE_GENS, "eigh_batched": 0, "eigh_jacobi": CADENCE_GENS,
+                            "philox_draws": CADENCE_GENS}, "cmaes_cadence: launches in the eager steps")
+    per_gen = {}
+    for name, s in (("due", s_due), ("not_due", state)):
+        due = int(s.algorithm.iteration) + 1
+        if (due % algo.decomp_per_iter == 0) != (name == "due"):
+            raise AssertionError(f"cmaes_cadence: the {name} generation is iteration {due}")
+        per_gen[name] = launches_per_call(lambda s=s: wf.step(s), calls=1, count_names=SOLVER_KERNELS)
+        if per_gen[name]["host_syncs"] != 0:
+            raise AssertionError(f"cmaes_cadence: an eager {name} generation made host syncs: {per_gen[name]}")
+    launches = {k: c.launches for k, c in counters.items()}
+    # The probes and comparisons below launch the kernel outside the path:
+    # not counted.
     C = ((ref.algorithm.C + ref.algorithm.C.T) / 2).contiguous()
-    eigh_ms = time_ms(lambda: linalg.eigh(C), 5)
-    try:
-        wf.run(state, CADENCE_GENS, init=False)
-        fused = "captured"
-    except NotImplementedError as e:
-        fused = f"NotImplementedError: {str(e)[:160]}"
-    else:
-        raise AssertionError("CMAES d=1000: run() captured an eigh that the card cannot capture")
+    no = torch.zeros((), dtype=torch.bool, device=device)
+    not_due_eigh = launches_per_call(lambda: linalg.eigh(C, due=no), calls=1, count_names=SOLVER_KERNELS)
     if not (bool(torch.isfinite(ref.algorithm.A).all()) and bool(torch.isfinite(ref.algorithm.sigma))):
         raise AssertionError("CMAES d=1000: a value that is not finite")
+    f32 = eigh_case(C, "cmaes_cadence C float32", plain=True, timing=True)
+    f32["profile"] = launches_per_call(lambda: linalg.eigh_jacobi(C[None]), calls=1, count_names=SOLVER_KERNELS)
+    f64 = eigh_case(C.double(), "cmaes_cadence C float64", plain=False, timing=True)
     return {
         "config": f"CMAES(zeros({CADENCE_DIM}), 1.0) pop {algo.pop_size} decomp_per_iter {algo.decomp_per_iter}, "
-                  f"Sphere, f32", "eager_ms_per_gen": ms, "eager_host_ms_per_gen": host_ms,
-        "eager_ms_per_gen_without_eigh": skipped_ms, "where_cadence_cost_ms_per_gen": ms - skipped_ms,
-        "eigh_ms_1000": eigh_ms, "decompositions_per_gen": 1, "decompositions_needed_per_gen": 1 / 8,
-        "eager_device_ops_per_gen": prof["launches"], "eager_host_syncs_per_gen": prof["host_syncs"],
-        "run": fused,
+                  f"Sphere, f32", "fused": fused, "setup_launches": setup, "launches": launches,
+        "eager_ms_per_gen": fused["eager_ms_per_gen"], "captured_ms_per_gen": fused["run_ms_per_gen"],
+        "per_gen": per_gen, "not_due_eigh": not_due_eigh,
+        "decompositions_per_gen": 1 / algo.decomp_per_iter, "eigh_1000": {"float32": f32, "float64": f64},
+        "best_final": float(ref.algorithm.fit.min()),
     }
+
+
+def phase_cmaes_large_main_path(device) -> dict:
+    """CMA-ES and ASEBO above d = 32, fused on the card: bench.py's smoke
+    lane CMAES(zeros(64), 1.0, pop_size=32) and ASEBO(32, zeros(100)) on
+    Sphere, each run(20) against 20 eager steps bit for bit
+    (``fused_vs_eager``); 4 vmapped CMAES(64) through eigh_batched, one
+    launch sequence of the Jacobi kernel a generation (``family_case``);
+    a ResilientRunner(checkpoint_every=10) run of CMAES(zeros(100), 1.0)
+    for 20 generations on the card against run(20).  Then the kernel
+    against its plain version and a float64 CPU eigh at n = 33, 64, 100
+    in float32 and float64: spectra of condition 1e3, the identity (no
+    sweep, exact) and three eigenvalues of multiplicity n/3, with the
+    kernel's ms and torch.linalg.eigh's (``eigh_case``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from evox_tpu_torch.algorithms import ASEBO, CMAES
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.resilience import ResilientRunner
+    from evox_tpu_torch.utils import graph
+    from evox_tpu_torch.workflows import StdWorkflow
+
+    counters = jacobi_counters()
+    out = {}
+    total = {k: 0 for k in counters}
+    for name, make in (("CMAES_64", lambda: CMAES(torch.zeros(64), 1.0, pop_size=32, device=device)),
+                       ("ASEBO_100", lambda: ASEBO(32, torch.zeros(100), device=device))):
+        for c in counters.values():
+            c.launches = 0
+        wf = StdWorkflow(make(), Sphere())
+        s0 = wf.step(wf.init_step(wf.init(0)))
+        fused, ref = fused_vs_eager(wf, s0, SEGMENT_GENS, counters, name)
+        eager = fused.pop("launches_in_eager_steps")
+        expect(eager, {"eigh": SEGMENT_GENS, "eigh_batched": 0, "eigh_jacobi": SEGMENT_GENS,
+                       "philox_draws": SEGMENT_GENS}, f"{name}: launches in the eager steps")
+        leaves, _ = graph.flatten(ref.algorithm)
+        if not all(bool(torch.isfinite(x).all()) for x in leaves if x.is_floating_point()):
+            raise AssertionError(f"{name}: a state value that is not finite")
+        out[name] = {"fused": fused, "launches": {k: c.launches for k, c in counters.items()},
+                     "best_final": float(ref.algorithm.fit.min())}
+        for k, c in counters.items():
+            total[k] += c.launches
+        del wf, s0, ref
+    for c in counters.values():
+        c.launches = 0
+    out["vmapped_CMAES_64"] = family_case(
+        "CMAES_64", lambda: StdWorkflow(CMAES(torch.zeros(64), 1.0, pop_size=32, device=device), Sphere()),
+        counters, {"eigh": 0, "eigh_batched": 1, "eigh_jacobi": 1, "philox_draws": 0}, FAMILY_BATCHED_RTOL,
+        device, gram=("A",))
+    for k, c in counters.items():
+        total[k] += c.launches
+    out["vmapped_CMAES_64"]["launches"] = {k: c.launches for k, c in counters.items()}
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cmaes_runner_"))
+    try:
+        for c in counters.values():
+            c.launches = 0
+        wf = StdWorkflow(CMAES(torch.zeros(100), 1.0, device=device), Sphere())
+        runner = ResilientRunner(wf, root, checkpoint_every=10)
+        final = quiet_run(runner, wf.init(0), SEGMENT_GENS, fresh=True)
+        torch.cuda.synchronize()
+        no_cpu_fallback(runner, "CMAES(100) under the runner")
+        runner_launches = {k: c.launches for k, c in counters.items()}
+        ref = wf.run(wf.init(0), SEGMENT_GENS)
+        same_state(final, ref, "CMAES(100): ResilientRunner vs run(20)")
+        out["resilient_CMAES_100"] = {"stats": runner_stats(runner), "launches": runner_launches,
+                                      "decomp_per_iter": wf.algorithm.decomp_per_iter}
+        for k, v in runner_launches.items():
+            total[k] += v
+        del wf, runner, final, ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = total
+
+    cases = []
+    for n in EIGH_SIZES:
+        for dt in (torch.float32, torch.float64):
+            for kind in ("spread", "identity") + (("repeated",) if n == EIGH_SIZES[-1] else ()):
+                C = spectrum_matrix(n, kind, dt, device)
+                row = eigh_case(C, f"cmaes_large kernel case {kind}", timing=kind == "spread" and n > 33)
+                cases.append({"kind": kind, **row})
+    out["kernel_cases"] = cases
+    out["max_abs_err"] = max(r["vs_plain_abs"] for r in cases)
+    torch.cuda.empty_cache()
+    return out
 
 
 # The slice-2 kernels in the kernels line: wrapper, source, the TPU
@@ -3526,8 +3741,8 @@ def rolled_eigh():
 
     real = linalg._op
 
-    def rolled(C, solo):
-        w, V = real(C, solo)
+    def rolled(C, due, solo):
+        w, V = real(C, due, solo)
         return (w, V) if solo else (w.roll(1, 0), V.roll(1, 0))
 
     linalg._op = rolled
@@ -10481,6 +10696,27 @@ def philox_row(results) -> dict:
     }
 
 
+def eigh_row(results) -> dict:
+    """The Jacobi eigensolver: its launch sequences on the paths above
+    d = 32 (cmaes_cadence's and cmaes_large_main_path's runs, each call one
+    sequence, due or not), its time on cmaes_cadence's (1000, 1000) C in
+    float32 with the plain version's and torch.linalg.eigh's on the same
+    matrix, and the largest difference of its eigenvalues from the plain
+    version's over every case (matrices of norm about 1)."""
+    c = results["cmaes_cadence"]["eigh_1000"]["float32"]
+    return {
+        "name": "eigh_jacobi", "route": "cuda", "source": "evox_tpu_torch/csrc/eigh_jacobi.cu",
+        "replaces": "none (XLA's eigh: jnp.linalg.eigh at evox_tpu/algorithms/so/es_variants/cma_es.py:142, "
+                    "jnp.linalg.svd at evox_tpu/algorithms/so/es_variants/asebo.py:75)",
+        "launches": results["cmaes_cadence"]["launches"]["eigh_jacobi"]
+        + results["cmaes_large_main_path"]["launches"]["eigh_jacobi"],
+        "max_abs_err": max(c["vs_plain_abs"], results["cmaes_large_main_path"]["max_abs_err"]),
+        "ms": c["ms"], "plain_ms": c["plain_s"] * 1e3, "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": c["torch_linalg_eigh_ms"], "device_ms": c["profile"]["device_ms"], "sweeps": c["sweeps"],
+        "dense_bound_ms": c["dense_ms"],
+    }
+
+
 def batched_rows(results) -> list[dict]:
     """The batched routes of the PSO move and the Philox draws (one launch
     over a vmapped batch of instances), timed in ``vmapped_instances``."""
@@ -10697,6 +10933,7 @@ def main() -> int:
         ("openes_main_path", phase_openes_main_path),
         ("es_family", phase_es_family),
         ("cmaes_cadence", phase_cmaes_cadence),
+        ("cmaes_large_main_path", phase_cmaes_large_main_path),
         ("pso_variants", phase_pso_variants),
         ("vmapped_instances", phase_vmapped_instances),
         ("vmapped_family", phase_vmapped_family),
@@ -10805,7 +11042,7 @@ def main() -> int:
     ] + [
         kernel_row(name, source, replaces, results, timing_key)
         for name, source, replaces, timing_key in MO_KERNELS
-    ] + [philox_row(results)] + batched_rows(results))
+    ] + [philox_row(results)] + batched_rows(results) + [eigh_row(results)])
     print(f"total seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,17 @@ transform ``A = B diag(sqrt(eigvals))`` and ``C^{-1/2}``.  The JAX package
 branches with ``lax.cond`` on the device counter ``iteration``.  Here
 ``decomp_per_iter`` is a Python int: when it is 1 (the ``cmaes_cec``
 configuration) the step decomposes unconditionally; when it is larger the
-step computes the decomposition and keeps it or the cached one with
-``torch.where`` on the counter, so no host reads the counter and a captured
-CUDA graph replays either side.  That spends one decomposition every
-generation (a CUDA-graph conditional node could skip it; not done yet).
+step hands the device predicate ``iteration % decomp_per_iter == 0`` to
+:func:`evox_tpu_torch.ops.linalg.eigh` as ``due`` and keeps the new factors
+or the cached ones with ``torch.where`` on it, so no host reads the
+counter and a captured CUDA graph replays either side.  On the card above
+d = 32 the Jacobi kernel reads ``due`` itself and skips its sweeps on the
+other generations, as ``lax.cond`` does; the CPU and the n <= 32 route
+compute every generation and the ``where`` discards the result.
 
-The decomposition goes through :func:`evox_tpu_torch.ops.linalg.eigh`,
-which makes no host sync on the card, so eager steps and a replayed graph
-use the same routine and give the same bits.
+:func:`~evox_tpu_torch.ops.linalg.eigh` makes no host sync on the card at
+any d, so eager steps and a replayed graph use the same routine and give
+the same bits.
 """
 
 from __future__ import annotations
@@ -104,12 +107,14 @@ class CMAES(ESAlgorithm):
         )
 
     @staticmethod
-    def decompose(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def decompose(C: torch.Tensor, due: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """``(A, C^{-1/2})`` of the symmetrised ``C``: ``A = B
         diag(sqrt(eigvals))`` with the eigenvalues clipped at 1e-8, as the
-        JAX package computes them."""
+        JAX package computes them.  ``due``: :func:`linalg.eigh`'s
+        predicate; where it is false the result is not the decomposition
+        and the caller discards it."""
         C = (C + C.T) / 2
-        eigvals, B = linalg.eigh(C)
+        eigvals, B = linalg.eigh(C, due=due)
         eigvals = torch.clamp(eigvals, min=1e-8)
         inv_sqrt = (B * (1.0 / torch.sqrt(eigvals))) @ B.T
         A = B * torch.sqrt(eigvals)
@@ -151,12 +156,15 @@ class CMAES(ESAlgorithm):
             state.c_sigma / state.d_sigma * (torch.linalg.vector_norm(p_sigma) / self.chi_n - 1)
         )
 
-        A, C_invsqrt = self.decompose(C)
         if self.decomp_per_iter > 1:
-            # Both sides computed, one kept: no host reads the counter.
+            # One side kept by the device predicate: no host reads the
+            # counter, and the Jacobi kernel skips its sweeps when not due.
             due = iteration % self.decomp_per_iter == 0
+            A, C_invsqrt = self.decompose(C, due)
             A = torch.where(due, A, state.A)
             C_invsqrt = torch.where(due, C_invsqrt, state.C_invsqrt)
+        else:
+            A, C_invsqrt = self.decompose(C)
 
         return state.replace(
             key=key,

@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 # Every kernel source of the port, by library name.
-SOURCES = ("pso_move", "philox", "dominance", "topk", "crowding", "probe", "linalg")
+SOURCES = ("pso_move", "philox", "dominance", "topk", "crowding", "probe", "linalg", "eigh_jacobi")
 
 # Libraries a source links beyond the CUDA runtime (``linalg.cu`` binds
 # cuSOLVER), found at run time through the toolkit's ``lib64``.

@@ -9,13 +9,17 @@ graph cannot hold a host sync.  On the H100 (torch 2.11, CUDA 12.8):
   on the host after cuSOLVER, and cuSOLVER's ``syevd``, ``Xsyevd`` and
   unbatched ``syevj`` invalidate a capture, at n = 20 as at n = 1000;
   cuSOLVER's batched Jacobi solver ``syevjBatched`` (n <= 32) captures and
-  replays with the eager bits.  :func:`eigh` takes it on the card
-  (``csrc/linalg.cu``) for n <= :data:`BATCHED_MAX_N`; above that it runs
-  ``torch.linalg.eigh`` eagerly and raises :class:`NotImplementedError`
-  under a capture.
+  replays with the eager bits.  So :func:`eigh` on the card takes
+  ``syevjBatched`` (``csrc/linalg.cu``) for n <= :data:`BATCHED_MAX_N` and
+  the port's own blocked Jacobi kernel (``csrc/eigh_jacobi.cu``,
+  :func:`eigh_jacobi`) above it, eagerly and under a capture alike; no
+  card path reaches ``torch.linalg.eigh``.  The Jacobi route takes an
+  optional device predicate ``due``: where it is false every launch
+  returns at once, so a decomposition that a step computes and then
+  discards (CMA-ES between its ``decomp_per_iter`` generations) costs no
+  sweep.  :func:`eigh_jacobi_plain` is the same algorithm in PyTorch.
 * :func:`svd_vh` on the card takes the eigenvectors of the Gram matrix
-  ``X^T X`` from :func:`eigh` (same limit); on the CPU it is
-  ``torch.linalg.svd``.
+  ``X^T X`` from :func:`eigh`; on the CPU it is ``torch.linalg.svd``.
 * ``torch.linalg.qr``, ``cholesky_ex(check_errors=False)`` and
   ``solve_ex(check_errors=False)`` make no host sync and capture: they are
   used as they are.
@@ -28,36 +32,46 @@ On the CPU every function is the plain PyTorch call.  :func:`eigh` and
 :func:`eigh_batched` call one operator (:mod:`evox_tpu_torch.utils.
 vmap_ops`) on a stack of matrices (one, for :func:`eigh`) whose batching
 rule merges the instances' matrices of a ``torch.func.vmap`` into one
-``syevjBatched`` call.
+call of the card's route (one ``syevjBatched`` call, or one launch
+sequence of the Jacobi kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Optional
 
 import torch
 
 from ..utils.vmap_ops import register_vmap_op
 from . import _build
 
-__all__ = ["BATCHED_MAX_N", "eigh", "eigh_batched", "svd_vh", "qr", "cholesky", "solve", "expm"]
+__all__ = [
+    "BATCHED_MAX_N", "MAX_SWEEPS", "eigh", "eigh_batched", "eigh_jacobi", "eigh_jacobi_plain", "svd_vh", "qr",
+    "cholesky", "solve", "expm",
+]
 
-# The largest n of cuSOLVER's batched Jacobi eigensolver.
+# The largest n of cuSOLVER's batched Jacobi eigensolver; above it the card
+# takes the port's Jacobi kernel.
 BATCHED_MAX_N = 32
 
+# The Jacobi kernel's sweeps, by storage type (csrc/eigh_jacobi.cu says why).
+MAX_SWEEPS = {torch.float32: 20, torch.float64: 32}
+# Its column block width b; matrices are padded to a multiple of 2b.
+_BW = 32
+_TILE = 2 * _BW
+# The rotation's floor, relative to eps |A|_F.
+_FLOOR_REL = 1.0 / 16.0
+
 _P = ctypes.c_void_p
-_EIGH_ARGTYPES = (_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int)
+# The C entry points' arguments, the stream last (as a pointer: an
+# undeclared argument would go as a C int and lose the pointer's high bits).
+_EIGH_ARGTYPES = (_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
 _WORKSPACE_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P)
-
-
-def _refuse_capture(what: str, n: int) -> None:
-    if torch.cuda.is_current_stream_capturing():
-        raise NotImplementedError(
-            f"{what} of a {n} x {n} matrix cannot run inside a CUDA graph: torch.linalg reads cuSOLVER's "
-            f"info on the host and cuSOLVER's syevd/Xsyevd/syevj invalidate a capture; the batched Jacobi "
-            f"route covers n <= {BATCHED_MAX_N}.  Step eagerly at this size."
-        )
+_JACOBI_ARGTYPES = (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_double, ctypes.c_double, _P)
 
 
 @functools.cache
@@ -92,27 +106,27 @@ def _nan_unless_finite(fn, X: torch.Tensor):
     return tuple(torch.where(finite, o, torch.nan) for o in out)
 
 
-def eigh(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def eigh(C: torch.Tensor, due: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(eigenvalues, eigenvectors)`` of the symmetric matrix ``C`` (its
-    lower triangle is read), eigenvalues ascending, eigenvector ``j`` in
-    column ``j``, as ``torch.linalg.eigh``; all NaN when ``C`` holds a
-    value that is not finite.  On the card, n <= 32 is one call of
-    cuSOLVER's ``syevjBatched`` with no host sync (``info`` stays on the
-    card, unread); larger n runs ``torch.linalg.eigh`` (which reads
-    ``info`` on the host) and refuses a capture."""
-    n = _check_square(C, "eigh")
-    device = C.device
-    if device.type == "cpu":
-        return _nan_unless_finite(_solo, C)
-    if device.type != "cuda":
-        raise ValueError(f"eigh: no route for device {device}")
-    if n > BATCHED_MAX_N:
-        _refuse_capture("eigh", n)
-        return _nan_unless_finite(torch.linalg.eigh, C)
-    return _nan_unless_finite(_solo, C)
+    lower triangle is read by cuSOLVER and the CPU; the Jacobi kernel reads
+    both), eigenvalues ascending, eigenvector ``j`` in column ``j``, as
+    ``torch.linalg.eigh``; all NaN when ``C`` holds a value that is not
+    finite.  On the card, n <= 32 is one call of cuSOLVER's
+    ``syevjBatched`` and larger n one launch sequence of the Jacobi kernel
+    (:func:`eigh_jacobi`), neither with a host sync.
+
+    :param due: an optional 0-dim bool tensor.  Where it is false the
+        Jacobi kernel does no sweep and the result is ``C``'s diagonal,
+        sorted, with the matching columns of the identity: a caller that
+        passes ``due`` keeps the result only where it is true (CMA-ES's
+        decomposition cadence).  The other routes compute regardless."""
+    _check_square(C, "eigh")
+    if C.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"eigh: no route for device {C.device}")
+    return _nan_unless_finite(lambda X: _solo(X, due), C)
 
 
-def _jacobi(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _syevj(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One cuSOLVER ``syevjBatched`` call on the card over the (B, n, n)
     stack ``C`` (n <= 32): ``(eigenvalues (B, n), eigenvectors (B, n, n))``."""
     batch, n = C.shape[0], C.shape[-1]
@@ -130,71 +144,284 @@ def _jacobi(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return w, A.mT
 
 
-def _merge_rule(info, in_dims, C, solo):
+def _merge_rule(info, in_dims, C, due, solo):
     # The level's V stacks of B matrices become one (V * B, n, n) stack for
-    # cuSOLVER (B is 1 for a vmap of the solo entry point).
+    # the card's route (B is 1 for a vmap of the solo entry point), with
+    # their predicates beside them.
+    v = info.batch_size
     C = C.movedim(in_dims[0], 0)
-    v, b, n = C.shape[:3]
-    w, V = _op(C.reshape(v * b, n, n), 0)
+    b, n = C.shape[1], C.shape[-1]
+    if due is not None:
+        due = due.movedim(in_dims[1], 0) if in_dims[1] is not None else due.expand(v, *due.shape)
+        due = due.reshape(v * b)
+    w, V = _op(C.reshape(v * b, n, n), due, 0)
     return (w.reshape(v, b, n), V.reshape(v, b, n, n)), (0, 0)
 
 
 @register_vmap_op(vmap_fn=_merge_rule, name="eigh")
-def _op(C: torch.Tensor, solo: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _op(C: torch.Tensor, due: Optional[torch.Tensor], solo: int) -> tuple[torch.Tensor, torch.Tensor]:
     if C.device.type == "cpu":
         return torch.linalg.eigh(C)
-    w, V = _jacobi(C)
+    if C.shape[-1] > BATCHED_MAX_N:
+        w, V, _, _ = eigh_jacobi(C, due)
+    else:
+        w, V = _syevj(C)
     # A solo call is a batch of one matrix; a vmap merges into a batch.
     (eigh if solo else eigh_batched).launches += 1
     return w, V
 
 
-def _solo(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    w, V = _op(C[None], 1)
+def _solo(C: torch.Tensor, due: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    w, V = _op(C[None], None if due is None else due.reshape(1), 1)
     return w[0], V[0]
 
 
 def eigh_batched(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`eigh` of each matrix of the (B, n, n) stack ``C``, n <= 32 on
-    the card, in one cuSOLVER ``syevjBatched`` call (the route of
-    :func:`eigh` under ``torch.func.vmap``); the plain
-    ``torch.linalg.eigh`` of the stack on the CPU.  No non-finite check:
-    :func:`eigh` makes it per matrix before the batch is formed."""
-    if C.ndim != 3 or C.shape[1] != C.shape[2] or C.shape[1] > BATCHED_MAX_N:
-        raise ValueError(f"eigh_batched: a (B, n, n) stack with n <= {BATCHED_MAX_N}, got {tuple(C.shape)}")
-    return _op(C, 0)
+    """:func:`eigh` of each matrix of the (B, n, n) stack ``C`` (the route
+    of :func:`eigh` under ``torch.func.vmap``): on the card one cuSOLVER
+    ``syevjBatched`` call for n <= 32, else one launch sequence of the
+    Jacobi kernel; the plain ``torch.linalg.eigh`` of the stack on the
+    CPU.  No non-finite check: :func:`eigh` makes it per matrix before the
+    batch is formed."""
+    if C.ndim != 3 or C.shape[1] != C.shape[2]:
+        raise ValueError(f"eigh_batched: a (B, n, n) stack, got {tuple(C.shape)}")
+    return _op(C, None, 0)
 
 
-# Calls of the cuSOLVER route by each entry (never bumped on the CPU or
-# above BATCHED_MAX_N); reset them to 0 to count the decompositions of one
-# run.
+# -- the blocked Jacobi route (csrc/eigh_jacobi.cu) and its plain version -----
+
+
+def _padded(n: int) -> int:
+    return max(_TILE, -(-n // _TILE) * _TILE)
+
+
+def _tol(dtype: torch.dtype, N: int) -> float:
+    """off(A) <= tol |A|_F ends the sweeps."""
+    return torch.finfo(dtype).eps * math.sqrt(N)
+
+
+def _check_stack(C: torch.Tensor, due, what: str) -> None:
+    if C.ndim != 3 or C.shape[1] != C.shape[2] or C.shape[0] == 0:
+        raise ValueError(f"{what}: a (B, n, n) stack, got {tuple(C.shape)}")
+    if C.dtype not in MAX_SWEEPS:
+        raise TypeError(f"{what}: float32 or float64 only, got {C.dtype}")
+    if due is not None and due.numel() != C.shape[0]:
+        raise ValueError(f"{what}: one predicate a matrix, got {tuple(due.shape)} for {C.shape[0]}")
+
+
+def _start(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sweeps' starting point: ``C`` padded with zeros to a multiple of
+    64, and the identity."""
+    B, n = C.shape[0], C.shape[-1]
+    N = _padded(n)
+    W = C.new_zeros((B, N, N))
+    W[:, :n, :n] = C
+    return W, torch.eye(N, dtype=C.dtype, device=C.device).expand(B, N, N).contiguous()
+
+
+def _sorted(W: torch.Tensor, V: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The diagonal's first ``n`` entries ascending, and ``V``'s columns to
+    match (a stable sort on the device)."""
+    w, order = torch.sort(W.diagonal(dim1=-2, dim2=-1)[:, :n], dim=-1, stable=True)
+    return w, V[:, :n, :n].gather(-1, order[:, None, :].expand(-1, n, -1))
+
+
+def eigh_jacobi(C: torch.Tensor, due: Optional[torch.Tensor] = None):
+    """The blocked Jacobi eigensolver (``csrc/eigh_jacobi.cu``) over the
+    symmetric (B, n, n) stack ``C``, float32 or float64, any n:
+    ``(eigenvalues (B, n) ascending, eigenvectors (B, n, n) in columns,
+    sweeps (B,) int32, off (B,) float64)``, where ``sweeps`` counts the
+    sweeps each matrix took and ``off`` is the Frobenius norm of its
+    off-diagonal part at the end, both left on the device.  ``due`` (B,)
+    bool, optional: a matrix whose predicate is false takes no sweep (its
+    result is its sorted diagonal and identity columns, 0 sweeps, off 0).
+    One launch sequence on a CUDA tensor, with no host sync and nothing
+    that invalidates a capture; :func:`eigh_jacobi_plain` on a CPU tensor.
+    No non-finite check (:func:`eigh` makes it)."""
+    _check_stack(C, due, "eigh_jacobi")
+    if C.device.type == "cpu":
+        return eigh_jacobi_plain(C, due)
+    if C.device.type != "cuda":
+        raise ValueError(f"eigh_jacobi: no route for device {C.device}")
+    B, n = C.shape[0], C.shape[-1]
+    W, V = _start(C)
+    N = W.shape[-1]
+    J = torch.empty((B, N // _TILE, _TILE, _TILE), dtype=C.dtype, device=C.device)
+    flags = torch.zeros((B, 4), dtype=torch.int32, device=C.device)  # done, sweeps, rotated, unused
+    norms = torch.zeros((B, 2), dtype=torch.float64, device=C.device)  # |A|_F, off(A)
+    due = None if due is None else due.to(device=C.device, dtype=torch.bool).reshape(B).contiguous()
+    fn = _build.entry("eigh_jacobi", "eigh_jacobi", _JACOBI_ARGTYPES)
+    _build.launch("eigh_jacobi", fn, C.device, W.data_ptr(), V.data_ptr(), J.data_ptr(), flags.data_ptr(),
+                  norms.data_ptr(), _build.pointer(due), N, B, int(C.dtype == torch.float64), MAX_SWEEPS[C.dtype],
+                  torch.finfo(C.dtype).eps, _tol(C.dtype, N))
+    eigh_jacobi.launches += 1
+    w, V = _sorted(W, V, n)
+    return w, V, flags[:, 1], norms[:, 1]
+
+
+def _pairs(m: int, r: int) -> list[tuple[int, int]]:
+    """Round ``r`` of the circle method over ``m`` (even) players: the pairs
+    (lo, hi), the one at position ``i`` first to last (the kernel's
+    ``pair_of``)."""
+    k = m - 1
+    order = [0] + [1 + (j + r) % k for j in range(k)]
+    return [(min(order[i], order[m - 1 - i]), max(order[i], order[m - 1 - i])) for i in range(m // 2)]
+
+
+@functools.cache
+def _inner_orders(device: torch.device) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """For each of the 63 rounds over a 64 x 64 sub-matrix, the gather that
+    takes the previous round's order of the indices (the natural one before
+    the first) to the order that puts this round's 32 pairs (p, q) side by
+    side; and the gather back to the natural order after the last."""
+    orders = [[i for pq in _pairs(_TILE, r) for i in pq] for r in range(_TILE - 1)]
+    steps, where = [], list(range(_TILE))  # where[i]: the position of index i
+    for order in orders:
+        steps.append(torch.tensor([where[i] for i in order], device=device))
+        where = [0] * _TILE
+        for pos, i in enumerate(order):
+            where[i] = pos
+    return steps, torch.tensor(where, device=device)
+
+
+def _rotation(app, aqq, apq, eps: float, floor: float):
+    """The kernel's rotation of each pair: ``(rotates, t, c, s)``; ``t = s =
+    0`` and ``c = 1`` where ``|a_pq| <= max(eps sqrt|a_pp| sqrt|a_qq|,
+    floor)``."""
+    thr = torch.clamp(eps * torch.sqrt(app.abs()) * torch.sqrt(aqq.abs()), min=floor)
+    rot = apq.abs() > thr
+    theta = (aqq - app) / (2.0 * torch.where(rot, apq, 1.0))
+    t = torch.copysign(1.0 / (theta.abs() + torch.hypot(torch.ones_like(theta), theta)), theta)
+    t = torch.where(rot, t, 0.0)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    return rot, t, c, t * c
+
+
+def _inner_plain(S: torch.Tensor, eps: float, floor: float) -> tuple[torch.Tensor, bool]:
+    """The kernel's ``solve``: one sweep of parallel cyclic Jacobi (63
+    rounds of 32 disjoint rotations) over the (P, 64, 64) float64
+    sub-matrices ``S``, with the kernel's elementwise formulas; ``(J,
+    rotated)``.  Each round works in the order of the indices that puts its
+    pairs side by side."""
+    P = S.shape[0]
+    steps, back = _inner_orders(S.device)
+    J = torch.eye(_TILE, dtype=S.dtype, device=S.device).repeat(P, 1, 1)
+    any_rot = torch.zeros((), dtype=torch.bool, device=S.device)
+    for step in steps:
+        S = S.index_select(1, step).index_select(2, step)
+        J = J.index_select(2, step)
+        L = S.view(P, _BW, 2, _BW, 2)  # L[:, m, a, n, b]: pairs m and n, a and b = 0 for p, 1 for q
+        D = L.diagonal(dim1=1, dim2=3)  # (P, 2, 2, 32): each pair's 2 x 2 block
+        app, aqq, apq = D[:, 0, 0], D[:, 1, 1], D[:, 0, 1]
+        rot, t, c, s = _rotation(app, aqq, apq, eps, floor)
+        pp, qq, off = app - t * apq, aqq + t * apq, torch.where(rot, 0.0, apq)
+        # Rows p and q (S <- R^T S), then columns (S <- S R, J <- J R).
+        cr, sr = c[:, :, None, None], s[:, :, None, None]
+        sp, sq = L[:, :, 0], L[:, :, 1]
+        L = torch.stack([cr * sp - sr * sq, sr * sp + cr * sq], dim=2)
+        cc, sc = c[:, None, None, :], s[:, None, None, :]
+        sp, sq = L[..., 0], L[..., 1]
+        L = torch.stack([cc * sp - sc * sq, sc * sp + cc * sq], dim=-1)
+        # The pair's own block takes its exact values (a_pq = 0).
+        E = L.diagonal(dim1=1, dim2=3)
+        E[:, 0, 0], E[:, 1, 1], E[:, 0, 1], E[:, 1, 0] = pp, qq, off, off
+        S = L.view(P, _TILE, _TILE)
+        Jv = J.view(P, _TILE, _BW, 2)
+        jp, jq = Jv[..., 0], Jv[..., 1]
+        cj, sj = c[:, None, :], s[:, None, :]
+        J = torch.stack([cj * jp - sj * jq, sj * jp + cj * jq], dim=-1).view(P, _TILE, _TILE)
+        any_rot |= rot.any()
+    return J.index_select(2, back), bool(any_rot)
+
+
+def _off(W: torch.Tensor) -> float:
+    """The Frobenius norm of ``W``'s off-diagonal part, summed in float64
+    without the diagonal (no cancellation)."""
+    O = W.double() ** 2
+    O.diagonal().zero_()
+    return float(torch.sqrt(O.sum()))
+
+
+def _sweeps_plain(W: torch.Tensor, V: torch.Tensor) -> tuple[int, float]:
+    """The kernel's sweeps over one padded matrix ``W`` and ``V``, in place;
+    ``(sweeps, off)``."""
+    N = W.shape[-1]
+    nb = N // _BW
+    eps = torch.finfo(W.dtype).eps
+    tol = _tol(W.dtype, N)
+    fro = float(torch.linalg.vector_norm(W.double()))
+    off = _off(W)
+    if off <= tol * fro:
+        return 0, off
+    floor = eps * fro * _FLOOR_REL
+    for sweep in range(1, MAX_SWEEPS[W.dtype] + 1):
+        rotated = False
+        for r in range(nb - 1):
+            idx = torch.tensor([[*range(lo * _BW, lo * _BW + _BW), *range(hi * _BW, hi * _BW + _BW)]
+                                for lo, hi in _pairs(nb, r)], device=W.device)
+            P = idx.shape[0]
+            J, rot = _inner_plain(W[idx[:, :, None], idx[:, None, :]].double(), eps, floor)
+            rotated |= rot
+            J = J.to(W.dtype)
+            perm = idx.reshape(-1)
+            # A[Pi, Pj] <- Ji^T A[Pi, Pj] Jj; V[:, Pj] <- V[:, Pj] Jj.
+            X = torch.einsum("iajb,jbc->iajc", W[perm[:, None], perm].view(P, _TILE, P, _TILE), J)
+            W[perm[:, None], perm] = torch.einsum("iak,iajc->ikjc", J, X).reshape(N, N)
+            V[:, perm] = torch.einsum("rjb,jbc->rjc", V[:, perm].view(N, P, _TILE), J).reshape(N, N)
+        off = _off(W)
+        if off <= tol * fro or not rotated:
+            return sweep, off
+    return MAX_SWEEPS[W.dtype], off
+
+
+def eigh_jacobi_plain(C: torch.Tensor, due: Optional[torch.Tensor] = None):
+    """:func:`eigh_jacobi`'s algorithm in PyTorch, on any device: the same
+    padding, round-robin pairing, float64 inner solves with the same
+    rotations, thresholds and caps, the same stopping rule and sweep cap,
+    and the same result; the products are PyTorch's (another summation
+    order), so the two agree to rounding, not bit for bit.  It reads the
+    host every sweep; nothing on the main path calls it when a card is
+    present."""
+    _check_stack(C, due, "eigh_jacobi_plain")
+    B, n = C.shape[0], C.shape[-1]
+    W, V = _start(C)
+    sweeps = torch.zeros((B,), dtype=torch.int32)
+    off = torch.zeros((B,), dtype=torch.float64)
+    for b in range(B):
+        if due is None or bool(due.reshape(B)[b]):
+            sweeps[b], off[b] = _sweeps_plain(W[b], V[b])
+    w, V = _sorted(W, V, n)
+    return w, V, sweeps.to(C.device), off.to(C.device)
+
+
+# Decompositions on the card by each entry, on either route (never bumped on
+# the CPU), and launch sequences of the Jacobi kernel; reset them to 0 to
+# count the decompositions of one run.
 eigh.launches = 0
 eigh_batched.launches = 0
+eigh_jacobi.launches = 0
 
 
 def svd_vh(X: torch.Tensor) -> torch.Tensor:
     """``Vh`` of the reduced SVD of the (m, n) matrix ``X``: its (min(m, n),
     n) right singular vectors as rows, by descending singular value.  On
-    the CPU ``torch.linalg.svd``; on the card, for n <= 32, the
-    eigenvectors of ``X^T X`` (:func:`eigh`) in descending order, with no
-    host sync.  Rows of equal (for instance zero) singular values span the
-    same space either way but are not unique; the ES family consumes only
-    projectors ``Vh^T Vh``.  All NaN when ``X`` holds a value that is not
-    finite."""
+    the CPU ``torch.linalg.svd``; on the card, at any n, the eigenvectors of
+    ``X^T X`` (:func:`eigh`) in descending order, with no host sync.  Rows
+    of equal (for instance zero) singular values span the same space either
+    way but are not unique; the ES family consumes only projectors ``Vh^T
+    Vh``.  All NaN when ``X`` holds a value that is not finite."""
     if X.ndim != 2:
         raise ValueError(f"svd_vh: expected a matrix, got {tuple(X.shape)}")
-    m, n = X.shape
-
-    def vh(x):
-        return (torch.linalg.svd(x, full_matrices=False).Vh,)
-
     if X.device.type == "cpu":
-        return _nan_unless_finite(vh, X)[0]
-    if n > BATCHED_MAX_N:
-        _refuse_capture("svd", n)
-        return _nan_unless_finite(vh, X)[0]
+        return _nan_unless_finite(lambda x: (torch.linalg.svd(x, full_matrices=False).Vh,), X)[0]
+    return _gram_vh(X)
+
+
+def _gram_vh(X: torch.Tensor) -> torch.Tensor:
+    """:func:`svd_vh`'s route on the card: the eigenvectors of ``X^T X``,
+    by descending eigenvalue, as rows."""
     _, V = eigh(X.T @ X)
-    return V.flip(-1).mT[: min(m, n)]
+    return V.flip(-1).mT[: min(X.shape)]
 
 
 def qr(X: torch.Tensor) -> torch.Tensor:

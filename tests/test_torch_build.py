@@ -45,3 +45,24 @@ def test_source_edit_changes_only_its_library(csrc):
     src.write_text(src.read_text() + "\n// edited\n")
     assert _build._library_path("topk", csrc) != before["topk"]
     assert _build._library_path("crowding", csrc) == before["crowding"]
+
+
+def test_every_quoted_include_is_in_the_package_data():
+    """An installed copy builds every kernel: each ``#include "..."`` of a
+    source or header under ``csrc/`` names a file there that
+    ``pyproject.toml``'s package data for the port matches."""
+    import fnmatch
+    import re
+    import tomllib
+
+    pyproject = tomllib.loads((_build._PKG.parent / "pyproject.toml").read_text())
+    patterns = pyproject["tool"]["setuptools"]["package-data"]["evox_tpu_torch"]
+    files = sorted([*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh"), *_build.CSRC.glob("*.h")])
+    included = set()
+    for f in files:
+        assert any(fnmatch.fnmatch(f"csrc/{f.name}", p) for p in patterns), f.name
+        included |= set(re.findall(r'^\s*#include\s+"([^"]+)"', f.read_text(), re.M))
+    assert {"radix_sort.cuh", "philox.cuh"} <= included
+    for name in included:
+        assert (_build.CSRC / name).is_file(), name
+        assert any(fnmatch.fnmatch(f"csrc/{name}", p) for p in patterns), name

@@ -844,28 +844,75 @@ def test_card_eigh_captures_without_a_host_sync_and_replays_its_bits(cuda):
     assert bool(torch.isnan(linalg.eigh(nan)[1]).all())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("n", [33, 1000])
-def test_card_eigh_beyond_the_batched_route_is_eager_only(cuda, n):
+def test_card_eigh_beyond_the_batched_route_captures_and_matches_the_plain(cuda, n, dtype):
+    """Above n = 32 the Jacobi kernel: no host sync, a capture replays the
+    eager bits, and the result agrees with the plain version and with a
+    float64 CPU eigh (relative to |C|_2: float32 1e-4 at n = 1000, 2e-5
+    below; float64 1e-11)."""
     from evox_tpu_torch.ops import linalg
 
-    C = _spd64(n, n).float().to(cuda)
-    w, _ = linalg.eigh(C)
-    assert float((w.cpu().double() - torch.linalg.eigvalsh(C.cpu().double())).abs().max()) <= 1e-5 * 1e3
+    dt = getattr(torch, dtype)
+    C = _spd64(n, n).to(dt).to(cuda)
+    before = (linalg.eigh.launches, linalg.eigh_jacobi.launches)
+    w, v = linalg.eigh(C)
+    assert (linalg.eigh.launches - before[0], linalg.eigh_jacobi.launches - before[1]) == (1, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w2, v2 = linalg.eigh(C)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     g = torch.cuda.CUDAGraph()
-    with pytest.raises(NotImplementedError, match="cannot run inside a CUDA graph"):
-        with torch.cuda.graph(g):
-            linalg.eigh(C)
+    with torch.cuda.graph(g):
+        wg, vg = linalg.eigh(C)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in ((w, w2), (v, v2), (w, wg), (v, vg)):
+        assert torch.equal(a, b)
+    tol = 1e-11 if dtype == "float64" else (1e-4 if n == 1000 else 2e-5)
+    C64 = C.cpu().double()
+    norm = float(torch.linalg.matrix_norm(C64, 2))
+    V = v.cpu().double()
+    assert float((w.cpu().double() - torch.linalg.eigvalsh(C64)).abs().max()) / norm <= tol
+    assert float(torch.linalg.matrix_norm((V * w.cpu().double()) @ V.T - C64, 2)) / norm <= tol
+    assert float((V.T @ V - torch.eye(n, dtype=torch.float64)).abs().max()) <= tol
+    if n <= 100:
+        wp, _, _, _ = linalg.eigh_jacobi_plain(C[None])
+        assert float((w - wp[0]).abs().max()) / norm <= tol
 
 
-def test_cmaes_run_beyond_the_batched_route_raises(cuda):
+def test_card_eigh_not_due_takes_no_sweep(cuda):
+    from evox_tpu_torch.ops import linalg
+
+    C = _spd64(100, 4).float().to(cuda)
+    w, v, sweeps, off = linalg.eigh_jacobi(C[None], torch.tensor([False], device=cuda))
+    d, order = torch.sort(C.diagonal(), stable=True)
+    assert torch.equal(w[0], d) and torch.equal(v[0], torch.eye(100, device=cuda)[:, order])
+    assert int(sweeps[0]) == 0 and float(off[0]) == 0.0
+    w, v, sweeps, _ = linalg.eigh_jacobi(torch.eye(100, device=cuda)[None])
+    assert int(sweeps[0]) == 0 and torch.equal(v[0], torch.eye(100, device=cuda))
+
+
+def test_cmaes_run_beyond_the_batched_route_captures(cuda):
+    """CMA-ES at d = 40 (the Jacobi route, decomp_per_iter 1) and d = 1000
+    (decomp_per_iter 8, the kernel skipping its sweeps on the generations
+    that are not due): run(n) captures and equals eager steps bit for
+    bit."""
     from evox_tpu_torch.algorithms import CMAES
     from evox_tpu_torch.problems.numerical import Sphere
     from evox_tpu_torch.workflows import StdWorkflow
 
-    wf = StdWorkflow(CMAES(torch.zeros(40), 1.0, device=cuda), Sphere())
-    s = wf.step(wf.init_step(wf.init(0)))
-    with pytest.raises(NotImplementedError):
-        wf.run(s, 4, init=False)
+    for dim, gens in ((40, 4), (1000, 9)):
+        wf = StdWorkflow(CMAES(torch.zeros(dim), 1.0, device=cuda), Sphere())
+        s = wf.step(wf.init_step(wf.init(0)))
+        ref = s
+        for _ in range(gens):
+            ref = wf.step(ref)
+        out = wf.run(s, gens, init=False)
+        for k in ref.algorithm:
+            assert torch.equal(out.algorithm[k], ref.algorithm[k]), (dim, k)
 
 
 @pytest.mark.parametrize("m,n,k", [(20, 20, 5), (8, 20, 3), (20, 8, 8)])
@@ -1006,6 +1053,25 @@ def test_vmapped_eigh_is_one_cusolver_call(cuda):
         V = v[i].cpu().double()
         rec = (V * w[i].cpu().double()) @ V.T - C[i].cpu().double()
         assert float(rec.norm() / C[i].cpu().double().norm()) <= 1e-5
+
+
+def test_vmapped_eigh_beyond_the_batched_route_is_one_jacobi_launch(cuda):
+    """4 vmapped matrices of n = 64, with their predicates: one launch
+    sequence of the Jacobi kernel over the stack, each matrix as solo."""
+    from evox_tpu_torch.ops import linalg
+
+    C = torch.stack([_spd64(64, s) for s in range(4)]).float().to(cuda)
+    due = torch.tensor([True, True, False, True], device=cuda)
+    before = (linalg.eigh.launches, linalg.eigh_batched.launches, linalg.eigh_jacobi.launches)
+    w, v = torch.func.vmap(linalg.eigh)(C, due)
+    after = (linalg.eigh.launches, linalg.eigh_batched.launches, linalg.eigh_jacobi.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 1, 1)
+    assert torch.equal(w[2], torch.sort(C[2].diagonal(), stable=True).values)
+    for i in (0, 1, 3):
+        ws, _ = linalg.eigh(C[i])
+        w64 = torch.linalg.eigvalsh(C[i].cpu().double())
+        assert float((w[i].cpu().double() - w64).abs().max() / w64.abs().max()) <= 2e-5
+        assert float((w[i] - ws).abs().max() / ws.abs().max()) <= 2e-5
 
 
 def test_batched_pso_move_refuses_operands_of_other_instance_counts(cuda):

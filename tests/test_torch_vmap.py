@@ -319,8 +319,12 @@ def test_batched_eigh_rule_equals_solo_calls():
         torch.testing.assert_close(w[i], ws, rtol=0, atol=0, equal_nan=True)
         torch.testing.assert_close(v[i], vs, rtol=0, atol=0, equal_nan=True)
     assert bool(torch.isnan(w[2]).all()) and not bool(torch.isnan(w[1]).any())
+    # Any n: above 32 the card takes the Jacobi kernel.  A stack that is
+    # not square is refused.
+    w, v = linalg.eigh_batched(torch.zeros(2, 40, 40))
+    assert w.shape == (2, 40) and v.shape == (2, 40, 40)
     with pytest.raises(ValueError):
-        linalg.eigh_batched(torch.zeros(2, 40, 40))
+        linalg.eigh_batched(torch.zeros(2, 40, 41))
 
 
 # ---------------------------------------------------------------------------
