@@ -3001,11 +3001,14 @@ def eigh_case(C, what, plain=True, timing=False) -> dict:
            "orthogonality": float((Vd.T @ Vd - torch.eye(n, dtype=torch.float64)).abs().max())}
     if plain:
         t0 = time.perf_counter()
-        wp, _, sp, _ = linalg.eigh_jacobi_plain(C[None])
+        wp, Vp, sp, op = linalg.eigh_jacobi_plain(C[None])
         torch.cuda.synchronize()
         row.update({"plain_s": time.perf_counter() - t0, "plain_sweeps": int(sp[0]),
-                    "vs_plain_abs": float((w[0] - wp[0]).abs().max())})
+                    "vs_plain_abs": float((w[0] - wp[0]).abs().max()),
+                    "bits_equal_plain": bool(torch.equal(w, wp) and torch.equal(V, Vp) and torch.equal(off, op))})
         row["vs_plain"] = row["vs_plain_abs"] / norm
+        if row["plain_sweeps"] != row["sweeps"]:
+            raise AssertionError(f"{what}: the kernel took {row['sweeps']} sweeps, its plain version {row['plain_sweeps']}")
     tol = EIGH_TOL[dt][n >= 1000]
     row["tol"] = tol
     errs = [row[k] for k in ("eigval_err", "residual", "orthogonality", "vs_plain") if k in row]
@@ -3030,7 +3033,8 @@ def jacobi_counters():
             "philox_draws": philox_draws}
 
 
-SOLVER_KERNELS = ("solve_kernel", "apply_kernel", "norms_kernel")
+# The Jacobi eigensolver's one kernel (one cooperative launch a call).
+SOLVER_KERNELS = ("eigh_jacobi_kernel",)
 
 
 def phase_cmaes_cadence(device) -> dict:
@@ -3041,7 +3045,8 @@ def phase_cmaes_cadence(device) -> dict:
     kernel, which reads ``iteration % 8 == 0`` on the card and does no
     sweep on the other generations: the device operations, host syncs and
     device time of a due and of a not-due eager generation, and of a
-    not-due eigh alone (its solver launches return on the predicate).
+    not-due eigh alone (its one solver launch returns on the predicate):
+    each makes exactly one launch of the solver's kernel.
     Then the path's (1000, 1000) C through the kernel in float32 (against
     the plain version and a float64 CPU eigh) and in float64 (against the
     CPU eigh), each with its ms, sweeps, bound and torch.linalg.eigh's ms,
@@ -3078,12 +3083,16 @@ def phase_cmaes_cadence(device) -> dict:
         per_gen[name] = launches_per_call(lambda s=s: wf.step(s), calls=1, count_names=SOLVER_KERNELS)
         if per_gen[name]["host_syncs"] != 0:
             raise AssertionError(f"cmaes_cadence: an eager {name} generation made host syncs: {per_gen[name]}")
+        if per_gen[name]["named"] != {k: 1 for k in SOLVER_KERNELS}:
+            raise AssertionError(f"cmaes_cadence: a {name} generation launched the solver {per_gen[name]['named']}")
     launches = {k: c.launches for k, c in counters.items()}
     # The probes and comparisons below launch the kernel outside the path:
     # not counted.
     C = ((ref.algorithm.C + ref.algorithm.C.T) / 2).contiguous()
     no = torch.zeros((), dtype=torch.bool, device=device)
     not_due_eigh = launches_per_call(lambda: linalg.eigh(C, due=no), calls=1, count_names=SOLVER_KERNELS)
+    if not_due_eigh["named"] != {k: 1 for k in SOLVER_KERNELS}:
+        raise AssertionError(f"cmaes_cadence: a not-due eigh launched the solver {not_due_eigh['named']}")
     if not (bool(torch.isfinite(ref.algorithm.A).all()) and bool(torch.isfinite(ref.algorithm.sigma))):
         raise AssertionError("CMAES d=1000: a value that is not finite")
     f32 = eigh_case(C, "cmaes_cadence C float32", plain=True, timing=True)
@@ -3104,7 +3113,7 @@ def phase_cmaes_large_main_path(device) -> dict:
     lane CMAES(zeros(64), 1.0, pop_size=32) and ASEBO(32, zeros(100)) on
     Sphere, each run(20) against 20 eager steps bit for bit
     (``fused_vs_eager``); 4 vmapped CMAES(64) through eigh_batched, one
-    launch sequence of the Jacobi kernel a generation (``family_case``);
+    launch of the Jacobi kernel a generation (``family_case``);
     a ResilientRunner(checkpoint_every=10) run of CMAES(zeros(100), 1.0)
     for 20 generations on the card against run(20).  Then the kernel
     against its plain version and a float64 CPU eigh at n = 33, 64, 100
@@ -10697,12 +10706,12 @@ def philox_row(results) -> dict:
 
 
 def eigh_row(results) -> dict:
-    """The Jacobi eigensolver: its launch sequences on the paths above
-    d = 32 (cmaes_cadence's and cmaes_large_main_path's runs, each call one
-    sequence, due or not), its time on cmaes_cadence's (1000, 1000) C in
-    float32 with the plain version's and torch.linalg.eigh's on the same
-    matrix, and the largest difference of its eigenvalues from the plain
-    version's over every case (matrices of norm about 1)."""
+    """The Jacobi eigensolver: its launches on the paths above d = 32
+    (cmaes_cadence's and cmaes_large_main_path's runs, each call one
+    cooperative launch, due or not), its time on cmaes_cadence's (1000,
+    1000) C in float32 with the plain version's and torch.linalg.eigh's on
+    the same matrix, and the largest difference of its eigenvalues from the
+    plain version's over every case (matrices of norm about 1)."""
     c = results["cmaes_cadence"]["eigh_1000"]["float32"]
     return {
         "name": "eigh_jacobi", "route": "cuda", "source": "evox_tpu_torch/csrc/eigh_jacobi.cu",
@@ -10713,7 +10722,8 @@ def eigh_row(results) -> dict:
         "max_abs_err": max(c["vs_plain_abs"], results["cmaes_large_main_path"]["max_abs_err"]),
         "ms": c["ms"], "plain_ms": c["plain_s"] * 1e3, "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["torch_linalg_eigh_ms"], "device_ms": c["profile"]["device_ms"], "sweeps": c["sweeps"],
-        "dense_bound_ms": c["dense_ms"],
+        "dense_bound_ms": c["dense_ms"], "launches_per_call": c["profile"]["named"],
+        "phase_split": "one kernel: the profiler cannot split it (tools/eigh_phase_probe.py does)",
     }
 
 

@@ -14,7 +14,7 @@ graph cannot hold a host sync.  On the H100 (torch 2.11, CUDA 12.8):
   the port's own blocked Jacobi kernel (``csrc/eigh_jacobi.cu``,
   :func:`eigh_jacobi`) above it, eagerly and under a capture alike; no
   card path reaches ``torch.linalg.eigh``.  The Jacobi route takes an
-  optional device predicate ``due``: where it is false every launch
+  optional device predicate ``due``: where it is false the launch
   returns at once, so a decomposition that a step computes and then
   discards (CMA-ES between its ``decomp_per_iter`` generations) costs no
   sweep.  :func:`eigh_jacobi_plain` is the same algorithm in PyTorch.
@@ -32,8 +32,8 @@ On the CPU every function is the plain PyTorch call.  :func:`eigh` and
 :func:`eigh_batched` call one operator (:mod:`evox_tpu_torch.utils.
 vmap_ops`) on a stack of matrices (one, for :func:`eigh`) whose batching
 rule merges the instances' matrices of a ``torch.func.vmap`` into one
-call of the card's route (one ``syevjBatched`` call, or one launch
-sequence of the Jacobi kernel).
+call of the card's route (one ``syevjBatched`` call, or one cooperative
+launch of the Jacobi kernel).
 """
 
 from __future__ import annotations
@@ -64,6 +64,8 @@ _BW = 32
 _TILE = 2 * _BW
 # The rotation's floor, relative to eps |A|_F.
 _FLOOR_REL = 1.0 / 16.0
+# The kernel's threads a block, which fix the order of its sums of squares.
+_THREADS = 512
 
 _P = ctypes.c_void_p
 # The C entry points' arguments, the stream last (as a pointer: an
@@ -71,7 +73,7 @@ _P = ctypes.c_void_p
 _EIGH_ARGTYPES = (_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
 _WORKSPACE_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P)
 _JACOBI_ARGTYPES = (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_double, ctypes.c_double, _P)
+                    ctypes.c_double, ctypes.c_double, ctypes.c_int, _P)
 
 
 @functools.cache
@@ -107,13 +109,12 @@ def _nan_unless_finite(fn, X: torch.Tensor):
 
 
 def eigh(C: torch.Tensor, due: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(eigenvalues, eigenvectors)`` of the symmetric matrix ``C`` (its
-    lower triangle is read by cuSOLVER and the CPU; the Jacobi kernel reads
-    both), eigenvalues ascending, eigenvector ``j`` in column ``j``, as
-    ``torch.linalg.eigh``; all NaN when ``C`` holds a value that is not
-    finite.  On the card, n <= 32 is one call of cuSOLVER's
-    ``syevjBatched`` and larger n one launch sequence of the Jacobi kernel
-    (:func:`eigh_jacobi`), neither with a host sync.
+    """``(eigenvalues, eigenvectors)`` of the symmetric matrix ``C`` (every
+    route reads its lower triangle), eigenvalues ascending, eigenvector
+    ``j`` in column ``j``, as ``torch.linalg.eigh``; all NaN when ``C``
+    holds a value that is not finite.  On the card, n <= 32 is one call of cuSOLVER's
+    ``syevjBatched`` and larger n one cooperative launch of the Jacobi
+    kernel (:func:`eigh_jacobi`), neither with a host sync.
 
     :param due: an optional 0-dim bool tensor.  Where it is false the
         Jacobi kernel does no sweep and the result is ``C``'s diagonal,
@@ -179,7 +180,7 @@ def _solo(C: torch.Tensor, due: Optional[torch.Tensor] = None) -> tuple[torch.Te
 def eigh_batched(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`eigh` of each matrix of the (B, n, n) stack ``C`` (the route
     of :func:`eigh` under ``torch.func.vmap``): on the card one cuSOLVER
-    ``syevjBatched`` call for n <= 32, else one launch sequence of the
+    ``syevjBatched`` call for n <= 32, else one cooperative launch of the
     Jacobi kernel; the plain ``torch.linalg.eigh`` of the stack on the
     CPU.  No non-finite check: :func:`eigh` makes it per matrix before the
     batch is formed."""
@@ -210,12 +211,13 @@ def _check_stack(C: torch.Tensor, due, what: str) -> None:
 
 
 def _start(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The sweeps' starting point: ``C`` padded with zeros to a multiple of
-    64, and the identity."""
+    """The sweeps' starting point: the symmetric matrix of ``C``'s lower
+    triangle, padded with zeros to a multiple of 64, and the identity."""
     B, n = C.shape[0], C.shape[-1]
     N = _padded(n)
     W = C.new_zeros((B, N, N))
-    W[:, :n, :n] = C
+    L = C.tril()
+    W[:, :n, :n] = L + L.tril(-1).mT
     return W, torch.eye(N, dtype=C.dtype, device=C.device).expand(B, N, N).contiguous()
 
 
@@ -226,18 +228,41 @@ def _sorted(W: torch.Tensor, V: torch.Tensor, n: int) -> tuple[torch.Tensor, tor
     return w, V[:, :n, :n].gather(-1, order[:, None, :].expand(-1, n, -1))
 
 
+@functools.cache
+def _blocks_per_sm(f64: bool, index: int) -> int:
+    """Blocks of the kernel that one SM of card ``index`` holds at once
+    (asked once a type and card); raises when the card refuses the query
+    or no block fits."""
+    fn = _build.entry("eigh_jacobi", "eigh_jacobi_blocks_per_sm", (ctypes.c_int,))
+    with torch.cuda.device(index):
+        per_sm = fn(int(f64))
+    if per_sm < 0:
+        raise RuntimeError("eigh_jacobi: the card refused the occupancy query")
+    if per_sm == 0:
+        raise RuntimeError("eigh_jacobi: no block of the kernel fits on an SM")
+    return per_sm
+
+
+def _grid(batch: int, N: int, per_sm: int, sms: int) -> int:
+    """The cooperative launch's blocks: every one resident (``per_sm`` on
+    each of ``sms``), and no more than the largest phase's work items (a V
+    tile and a tile's sums of squares of each of the (N/64)^2 tiles of
+    each matrix)."""
+    return min(per_sm * sms, 2 * batch * (N // _TILE) ** 2)
+
+
 def eigh_jacobi(C: torch.Tensor, due: Optional[torch.Tensor] = None):
     """The blocked Jacobi eigensolver (``csrc/eigh_jacobi.cu``) over the
-    symmetric (B, n, n) stack ``C``, float32 or float64, any n:
-    ``(eigenvalues (B, n) ascending, eigenvectors (B, n, n) in columns,
-    sweeps (B,) int32, off (B,) float64)``, where ``sweeps`` counts the
-    sweeps each matrix took and ``off`` is the Frobenius norm of its
-    off-diagonal part at the end, both left on the device.  ``due`` (B,)
-    bool, optional: a matrix whose predicate is false takes no sweep (its
-    result is its sorted diagonal and identity columns, 0 sweeps, off 0).
-    One launch sequence on a CUDA tensor, with no host sync and nothing
-    that invalidates a capture; :func:`eigh_jacobi_plain` on a CPU tensor.
-    No non-finite check (:func:`eigh` makes it)."""
+    symmetric (B, n, n) stack ``C`` (its lower triangles), float32 or
+    float64, any n: ``(eigenvalues (B, n) ascending, eigenvectors (B, n, n)
+    in columns, sweeps (B,) int32, off (B,) float64)``, where ``sweeps``
+    counts the sweeps each matrix took and ``off`` is the Frobenius norm of
+    its off-diagonal part at the end, both left on the device.  ``due``
+    (B,) bool, optional: a matrix whose predicate is false takes no sweep
+    (its result is its sorted diagonal and identity columns, 0 sweeps, off
+    0).  One cooperative kernel launch on a CUDA tensor, with no host sync
+    and nothing that invalidates a capture; :func:`eigh_jacobi_plain` on a
+    CPU tensor.  No non-finite check (:func:`eigh` makes it)."""
     _check_stack(C, due, "eigh_jacobi")
     if C.device.type == "cpu":
         return eigh_jacobi_plain(C, due)
@@ -246,14 +271,17 @@ def eigh_jacobi(C: torch.Tensor, due: Optional[torch.Tensor] = None):
     B, n = C.shape[0], C.shape[-1]
     W, V = _start(C)
     N = W.shape[-1]
-    J = torch.empty((B, N // _TILE, _TILE, _TILE), dtype=C.dtype, device=C.device)
+    f64 = C.dtype == torch.float64
+    index = C.device.index if C.device.index is not None else torch.cuda.current_device()
+    blocks = _grid(B, N, _blocks_per_sm(f64, index), _build.sm_count(index))
+    work = _build.workspace("eigh_jacobi", "eigh_jacobi_workspace", C.device, N, B, int(f64))
     flags = torch.zeros((B, 4), dtype=torch.int32, device=C.device)  # done, sweeps, rotated, unused
     norms = torch.zeros((B, 2), dtype=torch.float64, device=C.device)  # |A|_F, off(A)
     due = None if due is None else due.to(device=C.device, dtype=torch.bool).reshape(B).contiguous()
     fn = _build.entry("eigh_jacobi", "eigh_jacobi", _JACOBI_ARGTYPES)
-    _build.launch("eigh_jacobi", fn, C.device, W.data_ptr(), V.data_ptr(), J.data_ptr(), flags.data_ptr(),
-                  norms.data_ptr(), _build.pointer(due), N, B, int(C.dtype == torch.float64), MAX_SWEEPS[C.dtype],
-                  torch.finfo(C.dtype).eps, _tol(C.dtype, N))
+    _build.launch("eigh_jacobi", fn, C.device, W.data_ptr(), V.data_ptr(), work.data_ptr(), flags.data_ptr(),
+                  norms.data_ptr(), _build.pointer(due), N, B, int(f64), MAX_SWEEPS[C.dtype],
+                  torch.finfo(C.dtype).eps, _tol(C.dtype, N), blocks)
     eigh_jacobi.launches += 1
     w, V = _sorted(W, V, n)
     return w, V, flags[:, 1], norms[:, 1]
@@ -291,22 +319,42 @@ def _rotation(app, aqq, apq, eps: float, floor: float):
     thr = torch.clamp(eps * torch.sqrt(app.abs()) * torch.sqrt(aqq.abs()), min=floor)
     rot = apq.abs() > thr
     theta = (aqq - app) / (2.0 * torch.where(rot, apq, 1.0))
-    t = torch.copysign(1.0 / (theta.abs() + torch.hypot(torch.ones_like(theta), theta)), theta)
+    t = torch.copysign(1.0 / (theta.abs() + torch.sqrt(1.0 + theta * theta)), theta)
     t = torch.where(rot, t, 0.0)
     c = 1.0 / torch.sqrt(1.0 + t * t)
     return rot, t, c, t * c
 
 
-def _inner_plain(S: torch.Tensor, eps: float, floor: float) -> tuple[torch.Tensor, bool]:
+def _above(S: torch.Tensor, eps: float, floor: float) -> torch.Tensor:
+    """Whether any entry above the diagonal of each (64, 64) sub-matrix of
+    ``S`` passes the rotation test (the kernel's test before a pair's
+    solve): where none does, none of its 63 rounds rotates."""
+    sd = torch.sqrt(S.diagonal(dim1=-2, dim2=-1).abs())
+    thr = torch.clamp(eps * sd[:, :, None] * sd[:, None, :], min=floor)
+    return (S.abs() > thr).triu(1).flatten(1).any(1)
+
+
+def _inner_plain(S: torch.Tensor, eps: float, floor: float, skip: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's ``solve``: one sweep of parallel cyclic Jacobi (63
     rounds of 32 disjoint rotations) over the (P, 64, 64) float64
     sub-matrices ``S``, with the kernel's elementwise formulas; ``(J,
-    rotated)``.  Each round works in the order of the indices that puts its
-    pairs side by side."""
+    rotated (P,) bool)``.  Each round works in the order of the indices
+    that puts its pairs side by side.  With ``skip``, as the kernel, a
+    sub-matrix with no entry above the test keeps J = I without the rounds
+    (the same values)."""
     P = S.shape[0]
-    steps, back = _inner_orders(S.device)
     J = torch.eye(_TILE, dtype=S.dtype, device=S.device).repeat(P, 1, 1)
-    any_rot = torch.zeros((), dtype=torch.bool, device=S.device)
+    rotated = torch.zeros((P,), dtype=torch.bool, device=S.device)
+    active = _above(S, eps, floor) if skip else torch.ones_like(rotated)
+    if not bool(active.any()):
+        return J, rotated
+    if not bool(active.all()):
+        Ja, ra = _inner_plain(S[active], eps, floor, skip=False)
+        J[active], rotated[active] = Ja, ra
+        return J, rotated
+    steps, back = _inner_orders(S.device)
+    lower = torch.arange(_BW, device=S.device)
+    lower = (lower[:, None] > lower[None, :])[None, :, None, :, None]  # blocks (m, n), m > n
     for step in steps:
         S = S.index_select(1, step).index_select(2, step)
         J = J.index_select(2, step)
@@ -322,66 +370,126 @@ def _inner_plain(S: torch.Tensor, eps: float, floor: float) -> tuple[torch.Tenso
         cc, sc = c[:, None, None, :], s[:, None, None, :]
         sp, sq = L[..., 0], L[..., 1]
         L = torch.stack([cc * sp - sc * sq, sc * sp + cc * sq], dim=-1)
-        # The pair's own block takes its exact values (a_pq = 0).
+        # The kernel computes the blocks above the diagonal and mirrors
+        # them; a pair's own block takes its exact values (a_pq = 0).
+        L = torch.where(lower, L.permute(0, 3, 4, 1, 2), L)
         E = L.diagonal(dim1=1, dim2=3)
         E[:, 0, 0], E[:, 1, 1], E[:, 0, 1], E[:, 1, 0] = pp, qq, off, off
-        S = L.view(P, _TILE, _TILE)
+        S = L.reshape(P, _TILE, _TILE)
         Jv = J.view(P, _TILE, _BW, 2)
         jp, jq = Jv[..., 0], Jv[..., 1]
         cj, sj = c[:, None, :], s[:, None, :]
         J = torch.stack([cj * jp - sj * jq, sj * jp + cj * jq], dim=-1).view(P, _TILE, _TILE)
-        any_rot |= rot.any()
-    return J.index_select(2, back), bool(any_rot)
+        rotated |= rot.any(1)
+    return J.index_select(2, back), rotated
 
 
-def _off(W: torch.Tensor) -> float:
-    """The Frobenius norm of ``W``'s off-diagonal part, summed in float64
-    without the diagonal (no cancellation)."""
-    O = W.double() ** 2
-    O.diagonal().zero_()
-    return float(torch.sqrt(O.sum()))
+def _products(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """``X @ Y`` over the last two dimensions (broadcast over the others)
+    in the kernel's order: each output summed over k = 0, 1, ... from 0
+    in the storage type, one rounding a product and one a sum."""
+    shape = torch.broadcast_shapes(X.shape[:-2], Y.shape[:-2]) + (X.shape[-2], Y.shape[-1])
+    acc = torch.zeros(shape, dtype=X.dtype, device=X.device)
+    for k in range(X.shape[-1]):
+        acc = acc + X[..., :, k:k + 1] * Y[..., k:k + 1, :]
+    return acc
 
 
-def _sweeps_plain(W: torch.Tensor, V: torch.Tensor) -> tuple[int, float]:
-    """The kernel's sweeps over one padded matrix ``W`` and ``V``, in place;
-    ``(sweeps, off)``."""
+def _norms(W: torch.Tensor) -> tuple[float, float]:
+    """``(|W|_F, off(W))`` of one padded matrix in float64, in the kernel's
+    order: each 64 x 64 tile (row-major) summed by ``_THREADS`` threads,
+    thread t its entries t, t + _THREADS, ... from 0, then a tree over the
+    threads; the tiles' sums added in row-major order on the host (Python's
+    float64)."""
     N = W.shape[-1]
-    nb = N // _BW
+    P = N // _TILE
+    X = W.double().view(P, _TILE, P, _TILE).transpose(1, 2).reshape(P * P, _TILE * _TILE)
+    sq = X * X
+    t = torch.arange(P * P, device=W.device)
+    e = torch.arange(_TILE * _TILE, device=W.device)
+    diagonal = ((t // P) == (t % P))[:, None] & ((e // _TILE) == (e % _TILE))[None, :]
+    sums = []
+    for x in (sq, torch.where(diagonal, 0.0, sq)):
+        x = x.view(P * P, -1, _THREADS)
+        acc = torch.zeros((P * P, _THREADS), dtype=torch.float64, device=W.device)
+        for k in range(x.shape[1]):
+            acc = acc + x[:, k]
+        s = _THREADS // 2
+        while s:
+            acc = acc[:, :s] + acc[:, s:2 * s]
+            s //= 2
+        total = 0.0
+        for v in acc[:, 0].tolist():
+            total += v
+        sums.append(math.sqrt(total))
+    return sums[0], sums[1]
+
+
+def _sweeps_plain(W: torch.Tensor, V: torch.Tensor, skip: bool = True) -> tuple[int, float]:
+    """The kernel's sweeps over one padded matrix ``W`` and ``V``, in place;
+    ``(sweeps, off)``.  With ``skip`` (the kernel's rule), pairs with no
+    entry above the rotation test skip their solve and products with a J
+    that is I are skipped; without it every pair and product is computed
+    (the same values)."""
+    N = W.shape[-1]
+    nb, P = N // _BW, N // _TILE
     eps = torch.finfo(W.dtype).eps
     tol = _tol(W.dtype, N)
-    fro = float(torch.linalg.vector_norm(W.double()))
-    off = _off(W)
+    fro, off = _norms(W)
     if off <= tol * fro:
         return 0, off
     floor = eps * fro * _FLOOR_REL
+    tiles = torch.arange(P, device=W.device)
+    e = torch.arange(_TILE, device=W.device)
+    # The kernel's apply computes tiles (i, j), i <= j, and writes their
+    # transposes into (j, i); of a tile (i, i), the entries on and above its
+    # diagonal into those below.
+    mirror = ((tiles[:, None] > tiles[None, :])[:, :, None, None]
+              | ((tiles[:, None] == tiles[None, :])[:, :, None, None] & (e[:, None] > e[None, :])))
     for sweep in range(1, MAX_SWEEPS[W.dtype] + 1):
         rotated = False
         for r in range(nb - 1):
             idx = torch.tensor([[*range(lo * _BW, lo * _BW + _BW), *range(hi * _BW, hi * _BW + _BW)]
                                 for lo, hi in _pairs(nb, r)], device=W.device)
-            P = idx.shape[0]
-            J, rot = _inner_plain(W[idx[:, :, None], idx[:, None, :]].double(), eps, floor)
-            rotated |= rot
+            J, rot = _inner_plain(W[idx[:, :, None], idx[:, None, :]].double(), eps, floor, skip)
+            rotated |= bool(rot.any())
             J = J.to(W.dtype)
             perm = idx.reshape(-1)
-            # A[Pi, Pj] <- Ji^T A[Pi, Pj] Jj; V[:, Pj] <- V[:, Pj] Jj.
-            X = torch.einsum("iajb,jbc->iajc", W[perm[:, None], perm].view(P, _TILE, P, _TILE), J)
-            W[perm[:, None], perm] = torch.einsum("iak,iajc->ikjc", J, X).reshape(N, N)
-            V[:, perm] = torch.einsum("rjb,jbc->rjc", V[:, perm].view(N, P, _TILE), J).reshape(N, N)
-        off = _off(W)
+            # A[Pi, Pj] <- Ji^T (A[Pi, Pj] Jj) over the tiles (i, j, rows,
+            # columns); with the skip, a product with J = I is its other
+            # factor (the same values).
+            X = W[perm[:, None], perm].view(P, _TILE, P, _TILE).transpose(1, 2)
+            T = _products(X, J[None])
+            if skip:
+                T = torch.where(~rot[None, :, None, None], X, T)
+            out = _products(J.mT[:, None], T)
+            if skip:
+                out = torch.where(~rot[:, None, None, None], T, out)
+            out = torch.where(mirror, out.transpose(0, 1).transpose(2, 3), out)
+            # V[:, Pj] <- V[:, Pj] Jj over the pairs (j, rows, columns).
+            Y = V[:, perm].view(N, P, _TILE).transpose(0, 1)
+            outv = _products(Y, J)
+            if skip:
+                outv = torch.where(~rot[:, None, None], Y, outv)
+            W[perm[:, None], perm] = out.transpose(1, 2).reshape(N, N)
+            V[:, perm] = outv.transpose(0, 1).reshape(N, N)
+        _, off = _norms(W)
         if off <= tol * fro or not rotated:
             return sweep, off
     return MAX_SWEEPS[W.dtype], off
 
 
 def eigh_jacobi_plain(C: torch.Tensor, due: Optional[torch.Tensor] = None):
-    """:func:`eigh_jacobi`'s algorithm in PyTorch, on any device: the same
-    padding, round-robin pairing, float64 inner solves with the same
-    rotations, thresholds and caps, the same stopping rule and sweep cap,
-    and the same result; the products are PyTorch's (another summation
-    order), so the two agree to rounding, not bit for bit.  It reads the
-    host every sweep; nothing on the main path calls it when a card is
-    present."""
+    """:func:`eigh_jacobi`'s algorithm in PyTorch, on any device, operation
+    for operation: the same padding and mirrored lower triangle,
+    round-robin pairing, float64 inner solves with the same rotations,
+    thresholds and skips, products summed in the kernel's order, the same
+    sums of squares, stopping rule and sweep cap.  On the card (IEEE
+    rounding of every multiply, add, divide and square root) it gives the
+    kernel's bits; on the CPU PyTorch's vectorised float64 square root is
+    not correctly rounded, so the two agree to rounding.  It reads the host
+    every sweep; nothing on the main path calls it when a
+    card is present."""
     _check_stack(C, due, "eigh_jacobi_plain")
     B, n = C.shape[0], C.shape[-1]
     W, V = _start(C)
@@ -395,7 +503,7 @@ def eigh_jacobi_plain(C: torch.Tensor, due: Optional[torch.Tensor] = None):
 
 
 # Decompositions on the card by each entry, on either route (never bumped on
-# the CPU), and launch sequences of the Jacobi kernel; reset them to 0 to
+# the CPU), and launches of the Jacobi kernel; reset them to 0 to
 # count the decompositions of one run.
 eigh.launches = 0
 eigh_batched.launches = 0

@@ -895,6 +895,83 @@ def test_card_eigh_not_due_takes_no_sweep(cuda):
     assert int(sweeps[0]) == 0 and torch.equal(v[0], torch.eye(100, device=cuda))
 
 
+def _jacobi_launches(fn):
+    """Kernel launches of the Jacobi solver's kernel in one call of
+    ``fn``, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if "eigh_jacobi_kernel" in e.name)
+
+
+@pytest.mark.parametrize("due", [None, True, False])
+def test_card_eigh_jacobi_is_one_cooperative_launch_eager_and_in_a_graph(cuda, due):
+    """One launch of the solver's kernel a call, due, not due or without a
+    predicate, eagerly and in a replayed graph (n = 1000: 7 sweeps of 31
+    rounds, the phases inside the one kernel)."""
+    from evox_tpu_torch.ops import linalg
+
+    C = _spd64(1000, 6).float().to(cuda)
+    pred = None if due is None else torch.tensor([due], device=cuda)
+    assert _jacobi_launches(lambda: linalg.eigh_jacobi(C[None], pred)) == 1
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = linalg.eigh_jacobi(C[None], pred)
+    assert _jacobi_launches(g.replay) == 1
+    ref = linalg.eigh_jacobi(C[None], pred)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [33, 64, 100])
+def test_card_eigh_jacobi_is_its_plain_version_bit_for_bit(cuda, n, dtype):
+    """The kernel and its plain version run on the card (every multiply,
+    add, divide and square root IEEE-rounded on both): the same eigenvalues,
+    eigenvectors, sweeps and off(A), bit for bit."""
+    from evox_tpu_torch.ops import linalg
+
+    C = _spd64(n, n + 7).to(getattr(torch, dtype)).to(cuda)
+    got = linalg.eigh_jacobi(C[None])
+    want = linalg.eigh_jacobi_plain(C[None])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[2][0]) > 0
+
+
+def test_card_eigh_jacobi_batch_mixes_due_not_due_and_converged(cuda):
+    """A batch of a due matrix, a not-due one, a converged one (the
+    identity: 0 sweeps) and a slow one (three repeated eigenvalues) shares
+    the grid; each matrix equals its solo call bit for bit."""
+    from evox_tpu_torch.ops import linalg
+
+    q, _ = torch.linalg.qr(torch.randn(100, 100, generator=torch.Generator().manual_seed(9), dtype=torch.float64))
+    slow = (q * torch.tensor([0.2, 0.5, 1.0], dtype=torch.float64).repeat_interleave(34)[:100]) @ q.T
+    Cs = torch.stack([_spd64(100, 1), _spd64(100, 2), torch.eye(100, dtype=torch.float64), slow]).float().to(cuda)
+    due = torch.tensor([True, False, True, True], device=cuda)
+    w, V, sweeps, off = linalg.eigh_jacobi(Cs, due)
+    assert sweeps[1] == 0 and sweeps[2] == 0 and sweeps[0] > 0 and sweeps[3] > 0
+    for i in range(4):
+        wi, Vi, si, oi = linalg.eigh_jacobi(Cs[i:i + 1], due[i:i + 1])
+        assert torch.equal(w[i], wi[0]) and torch.equal(V[i], Vi[0])
+        assert torch.equal(sweeps[i], si[0]) and torch.equal(off[i], oi[0])
+
+
+def test_card_eigh_jacobi_not_due_at_n_1000_leaves_the_starting_point(cuda):
+    from evox_tpu_torch.ops import linalg
+
+    C = _spd64(1000, 5).float().to(cuda)
+    w, v, sweeps, off = linalg.eigh_jacobi(C[None], torch.tensor([False], device=cuda))
+    d, order = torch.sort(C.diagonal(), stable=True)
+    assert torch.equal(w[0], d) and torch.equal(v[0], torch.eye(1000, device=cuda)[:, order])
+    assert int(sweeps[0]) == 0 and float(off[0]) == 0.0
+
+
 def test_cmaes_run_beyond_the_batched_route_captures(cuda):
     """CMA-ES at d = 40 (the Jacobi route, decomp_per_iter 1) and d = 1000
     (decomp_per_iter 8, the kernel skipping its sweeps on the generations

@@ -192,7 +192,10 @@ def test_vmap_rule_merges_matrices_and_predicates(monkeypatch):
 
 def test_kernel_constants_are_the_plain_versions():
     """The algorithm's constants in the CUDA source and in the plain version
-    agree (the block width and the rotation floor)."""
+    agree (the block width, the rotation floor, and the threads a block,
+    which fix the order of the sums of squares), as do the kernel's phases
+    that the plain version mirrors: the apply's tiles on the two halves of a
+    block, each pair's solver and J block."""
     src = CSRC.read_text()
 
     def const(name):
@@ -200,6 +203,8 @@ def test_kernel_constants_are_the_plain_versions():
 
     assert int(const("kBw")) == linalg._BW and const("kTile") == "2 * kBw"
     assert eval(const("kFloorRel")) == linalg._FLOOR_REL
+    assert int(const("kThreads")) == linalg._THREADS and const("kHalf") == "kThreads / 2"
+    assert const("kRounds") == "kTile - 1" and const("kUpper") == "kPairs * (kPairs - 1) / 2"
     # The pairings: the kernel's pair_of is the plain version's _pairs.
     for m in (2, 4, 32, 64):
         for r in range(m - 1):
@@ -207,6 +212,128 @@ def test_kernel_constants_are_the_plain_versions():
             assert sorted(i for pq in pairs for i in pq) == list(range(m))
         every = {pq for r in range(m - 1) for pq in linalg._pairs(m, r)}
         assert len(every) == m * (m - 1) // 2
+
+
+@pytest.mark.parametrize("batch,N,per_sm,sms,want", [
+    (1, 1024, 1, 132, 132),  # n = 1000: every SM, fewer than the 2 x 256 tiles
+    (1, 64, 1, 132, 2),      # n = 64: the pair's solver and its J block
+    (4, 64, 1, 132, 8),      # 4 vmapped CMAES(64)
+    (1, 128, 1, 132, 8),     # n = 100: 2 pairs, 4 tiles
+    (3, 2048, 2, 132, 264),
+])
+def test_launch_plan_keeps_every_block_resident(batch, N, per_sm, sms, want):
+    """The cooperative launch's grid: no more blocks than the card holds at
+    once (``per_sm`` a multiprocessor), nor than the largest phase's items
+    (each tile's V product and sums of squares)."""
+    assert linalg._grid(batch, N, per_sm, sms) == want
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def test_a_pair_below_the_threshold_keeps_the_identity():
+    """A 64 x 64 sub-matrix with no entry above the rotation test keeps J = I
+    exactly and does not rotate, with or without the skip (the kernel skips
+    its 63 rounds); beside it in the same round a pair that rotates gets the
+    same J either way, bit for bit."""
+    eps, fro = torch.finfo(torch.float32).eps, 1.0
+    floor = eps * fro * linalg._FLOOR_REL
+    r = np.random.default_rng(7)
+    quiet = np.diag(r.uniform(1, 2, 64)) + np.triu(r.uniform(-1, 1, (64, 64)) * floor / 2, 1)
+    quiet = quiet + np.triu(quiet, 1).T
+    loud = _sym(64, 8, np.float64)
+    S = t(np.stack([quiet, loud, quiet]))
+    assert bool(linalg._above(S, eps, floor).tolist() == [False, True, False])
+    J, rot = linalg._inner_plain(S, eps, floor, skip=True)
+    J0, rot0 = linalg._inner_plain(S, eps, floor, skip=False)
+    assert rot.tolist() == rot0.tolist() == [False, True, False]
+    eye = torch.eye(64, dtype=torch.float64)
+    assert torch.equal(_bits(J[0]), _bits(eye)) and torch.equal(_bits(J[2]), _bits(eye))
+    assert torch.equal(_bits(J), _bits(J0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_a_sweep_is_bit_identical_with_and_without_the_skip(dtype):
+    """A matrix of two coupled 32-column blocks among four decoupled ones
+    (n = 192: pairs that never rotate, tiles whose J are all I): the sweeps
+    with the kernel's skips (solves, A and V tiles) give the bits of the
+    sweeps without them."""
+    n = 192
+    C = np.diag(np.linspace(1.0, 3.0, n))
+    C[:64, :64] = _sym(64, 11, np.float64) + 2 * np.eye(64)
+    C = C.astype(dtype)
+    runs = []
+    for skip in (True, False):
+        W, V = linalg._start(t(C)[None])
+        sweeps, off = linalg._sweeps_plain(W[0], V[0], skip)
+        runs.append((W, V, sweeps, off))
+    (W1, V1, s1, o1), (W0, V0, s0, o0) = runs
+    assert 0 < s1 == s0 and o1 == o0
+    assert torch.equal(_bits(W1), _bits(W0)) and torch.equal(_bits(V1), _bits(V0))
+
+
+def _norms_reference(W, threads):
+    """|W|_F and off(W) of the padded float64 matrix W in the kernel's
+    order, written as loops: each 64 x 64 tile (row-major) by ``threads``
+    threads, thread t its entries t, t + threads, ... from 0, then the tree
+    t += t + s, s = threads/2 ... 1; the tiles' sums in row-major order."""
+    W = np.asarray(W, np.float64)
+    P = W.shape[0] // 64
+    sums = [0.0, 0.0]
+    for ti in range(P):
+        for tj in range(P):
+            tile = W[64 * ti:64 * ti + 64, 64 * tj:64 * tj + 64].reshape(-1)
+            acc = np.zeros((2, threads))
+            for t_ in range(threads):
+                for e in range(t_, 4096, threads):
+                    v2 = tile[e] * tile[e]
+                    acc[0, t_] += v2
+                    if ti != tj or e // 64 != e % 64:
+                        acc[1, t_] += v2
+            s_ = threads // 2
+            while s_:
+                acc[:, :s_] = acc[:, :s_] + acc[:, s_:2 * s_]
+                s_ //= 2
+            sums[0] += float(acc[0, 0])
+            sums[1] += float(acc[1, 0])
+    return float(np.sqrt(sums[0])), float(np.sqrt(sums[1]))
+
+
+def test_off_is_summed_in_the_kernel_order():
+    """The plain version's |A|_F and off(A) are the kernel's sums of squares
+    (tiles, threads, tree, tiles' sums), bit for bit against the order
+    written as loops, for one matrix and for each matrix of a batch: the
+    matrices here are done before a sweep (off(A) <= eps sqrt(N) |A|_F), so
+    ``off`` is the starting point's."""
+    r = np.random.default_rng(3)
+    mats = []
+    for n in (40, 100, 128):
+        d = np.diag(r.uniform(0.5, 2.0, n))
+        noise = np.triu(r.standard_normal((n, n)), 1) * 1e-18
+        mats.append(d + noise + noise.T)
+    for C in mats:
+        W, _ = linalg._start(t(C)[None])
+        assert linalg._norms(W[0]) == _norms_reference(W[0].numpy(), linalg._THREADS)
+        assert np.isclose(linalg._norms(W[0])[1], np.linalg.norm(C - np.diag(np.diag(C))), rtol=1e-14)
+    # One matrix, then a batch of two of the same size.
+    for stack in ([mats[0]], [mats[1], mats[1] * 0.5]):
+        Cs = t(np.stack(stack))
+        _, _, sweeps, off = linalg.eigh_jacobi_plain(Cs)
+        for i, C in enumerate(stack):
+            W, _ = linalg._start(t(C)[None])
+            assert int(sweeps[i]) == 0 and float(off[i]) == _norms_reference(W[0].numpy(), linalg._THREADS)[1]
+
+
+def test_the_lower_triangle_is_read():
+    """The Jacobi route reads the lower triangle, as cuSOLVER and the CPU's
+    eigh do: an upper triangle of noise changes nothing."""
+    C = _sym(48, 5, np.float32)
+    noisy = C + np.triu(np.random.default_rng(1).standard_normal((48, 48)).astype(np.float32), 1)
+    a = linalg.eigh_jacobi_plain(t(C)[None])
+    b = linalg.eigh_jacobi_plain(t(noisy)[None])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def _jax_decompose(C):
